@@ -1,0 +1,1 @@
+"""Counterpart of ``spark_rapids_tpu/plan/``."""
