@@ -2,7 +2,7 @@
 
 Run from the root of a checkout:
 
-    python3 chip_smoke.py [--sf 1.0] [--reps 5] [--profile]
+    python3 chip_smoke.py [--sf 1.0] [--reps 3] [--profile]
 
 It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
 
@@ -16,17 +16,29 @@ It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
    onehot_sum_f32 exactly on 0/1 values and within 1e-5 of each bucket's
    sum of magnitudes on other float32 values (atomics add in a changing
    order), at q1's batch shape and at the largest dense domain;
-4. runs TPC-H q1 at scale factor ``--sf`` (data generated from the fixed
-   seed into build/) through ``TorchSession()`` on the card: one run with
-   the launch counts reset just before and read just after (every kernel of
-   the path must have launched, bitunpack128 as often as the scan has pages
-   for it), then ``--reps`` timed runs; every result is held against the
-   NumPy oracle. One more run records the inputs the aggregate hands to
-   onehot_sum_f32, and the kernel is held against its plain version on them;
+   murmur3_words bit for bit at n = 20,000 and 2^20, W = 1..8, lengths
+   0..4W of multi-byte UTF-8 rows cut anywhere, scalar and row-varying
+   seeds; radix_ranks exactly (ranks and counts) at 2, 5, 9, 129 and 4,096
+   lanes, cap 8, 2^19 and 2^20, with ids outside the domain, and
+   radix_partition_permutation equal to torch's stable argsort;
+4. runs three TPC-H q1 paths at scale factor ``--sf`` (data generated from
+   the fixed seed into build/) through ``TorchSession()`` on the card:
+   q1 (the table directory as one partition: scan, COMPLETE aggregate,
+   sort), q1-files (one partition per file: PARTIAL aggregate, hash
+   exchange on the keys, AQE reader, FINAL aggregate) and q1-repartition
+   (``repartition(8, "l_returnflag", "l_linestatus")`` of the whole scan,
+   then q1 as in q1-files). Each path has one run with the launch counts
+   reset just before and read just after (every kernel of the path must
+   have launched: bitunpack128 as often as the scan has pages for it,
+   murmur3_words twice and radix_ranks once per batch an exchange
+   partitioned), then ``--reps`` timed runs; every result is held against
+   the NumPy oracle. One more run of each path records the inputs it hands
+   to the kernels, and each kernel is held against its plain version on
+   them;
 5. times each kernel, its plain version and, where one exists, the PyTorch
-   call that computes the same function, on the main path's inputs, beside
-   the least time the card could take (bytes over 3.35 TB/s, operations
-   over the float32 peak);
+   call that computes the same function, on the paths' inputs, beside the
+   least time the card could take (bytes over 3.35 TB/s, operations over
+   the float32 peak), and prints each exchange's map-stage host seconds;
 6. prints one JSON line describing every ported kernel, the card's name and
    power limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -184,14 +196,133 @@ def check_q1(got, exp):
                 raise AssertionError(f"q1 row {g} != oracle {e}")
 
 
+def murmur3_bound_ms(words, lengths) -> tuple:
+    """(bytes ms, operations ms) of one murmur3_words call: read the (n, W)
+    words, the lengths and the seeds once and write n hashes; per row 11
+    integer operations a mixed word, 15 a tail byte and 8 for fmix, counted
+    at the float32 rate (the data sheet gives no int32 rate)."""
+    n, W = words.shape
+    lens = lengths.long()
+    whole = torch.clamp(torch.div(lens, 4, rounding_mode="floor"), 0, W)
+    ops = int((11 * whole + 15 * (lens % 4) + 8).sum())
+    return ((4 * W + 12) * n / HBM_BYTES_PER_S * 1e3,
+            ops / F32_OPS_PER_S * 1e3)
+
+
+def radix_bound_ms(cap: int, num_lanes: int) -> tuple:
+    """(bytes ms, operations ms) of one radix_ranks call: read cap ids and
+    write cap ranks and num_lanes counts once; about 4 operations a row
+    (the range check, the count, the peer match, the rank's add)."""
+    return ((8 * cap + 4 * num_lanes) / HBM_BYTES_PER_S * 1e3,
+            4 * cap / F32_OPS_PER_S * 1e3)
+
+
+def utf8_rows(rng, n: int, W: int, dev):
+    """(words, lengths) of n random rows of 0..4W bytes drawn from the UTF-8
+    of ASCII, "é" and "日本", so that rows end mid-character too."""
+    pool = np.frombuffer(("aé日本z" * 8).encode("utf-8"), np.uint8)
+    raw = pool[rng.integers(0, len(pool), (n, 4 * W))]
+    lens = rng.integers(0, 4 * W + 1, n).astype(np.int32)
+    raw = np.where(np.arange(4 * W)[None, :] < lens[:, None], raw, 0)
+    words = np.ascontiguousarray(raw.astype(np.uint8)).view("<i4")
+    return (torch.from_numpy(words.astype(np.int32)).to(dev),
+            torch.from_numpy(lens).to(dev))
+
+
+def murmur3_check(words, lengths, seed) -> int:
+    """murmur3_words against its plain version, bit for bit; raises on a
+    difference, else returns 0 (the largest difference)."""
+    from spark_rapids_tpu_torch.ops import cuda_kernels as CK
+    got = CK.murmur3_words(words, lengths, seed)
+    want = CK.murmur3_words_plain(words, lengths, seed)
+    if not torch.equal(got, want):
+        raise AssertionError(f"murmur3_words != plain at n={words.shape[0]} "
+                             f"W={words.shape[1]}")
+    return 0
+
+
+def radix_check(ids, num_lanes: int, in_domain: bool) -> int:
+    """radix_ranks (ranks and counts) against its plain version exactly,
+    and, for ids all inside the domain, radix_partition_permutation against
+    torch's stable argsort; raises on a difference, else returns 0."""
+    from spark_rapids_tpu_torch.ops import cuda_kernels as CK
+    ranks, counts = CK.radix_ranks(ids, num_lanes)
+    want_r, want_c = CK.radix_ranks_plain(ids, num_lanes)
+    if not (torch.equal(ranks, want_r) and torch.equal(counts, want_c)):
+        raise AssertionError(f"radix_ranks != plain at cap={ids.numel()} "
+                             f"lanes={num_lanes}")
+    if in_domain:
+        perm = CK.radix_partition_permutation(ids, num_lanes)
+        if not torch.equal(perm, torch.argsort(ids, stable=True)):
+            raise AssertionError(
+                f"radix_partition_permutation != stable argsort at "
+                f"cap={ids.numel()} lanes={num_lanes}")
+    return 0
+
+
+def exchanges(plan) -> list:
+    """The shuffle exchanges of an exec tree, top down."""
+    from spark_rapids_tpu_torch.exec.exchange import ShuffleExchangeExec
+    out = [plan] if isinstance(plan, ShuffleExchangeExec) else []
+    for c in plan.children:
+        out += exchanges(c)
+    return out
+
+
+def profile_run(label: str, run, repo: str) -> None:
+    """Trace one run with torch.profiler (device busy time, the largest
+    device items) and profile it once more on the host with cProfile."""
+    import collections
+    import cProfile
+    import io
+    import pstats
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_kernel = collections.Counter()
+    launched = collections.Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_kernel[e.name] += e.time_range.elapsed_us()
+            launched[e.name] += 1
+    dev_s = sum(by_kernel.values()) / 1e6
+    print(f"profile {label}: wall {wall:.4f} s, device kernel time "
+          f"{dev_s:.4f} s, device idle share {1 - dev_s / wall:.4f}, "
+          f"{sum(launched.values())} kernel launches")
+    for kname, us in by_kernel.most_common(12):
+        print(f"  {us / 1e3:10.3f} ms {launched[kname]:6d}x {kname[:90]}")
+    prof_host = cProfile.Profile()
+    prof_host.enable()
+    run()
+    torch.cuda.synchronize()
+    prof_host.disable()
+    buf = io.StringIO()
+    pstats.Stats(prof_host, stream=buf).sort_stats("cumulative") \
+        .print_stats("spark_rapids_tpu_torch", 18)
+    print(f"host profile {label} (cProfile, cumulative s, port functions):")
+    for ln in buf.getvalue().splitlines():
+        if "spark_rapids_tpu_torch" in ln or "ncalls" in ln:
+            print("  " + ln.replace(repo + os.sep, ""))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=1.0,
                     help="TPC-H scale factor of the q1 run (default 1.0)")
-    ap.add_argument("--reps", type=int, default=5,
-                    help="timed q1 runs after the first (default 5)")
+    ap.add_argument("--reps", type=int, default=3,
+                    help="timed runs of each q1 path after the first "
+                         "(default 3)")
+    ap.add_argument("--map-threads", type=int, default=None,
+                    help="spark.rapids.tpu.sql.localScheduler.numThreads "
+                         "of the session (default: the conf's default)")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one q1 run with torch.profiler")
+                    help="also trace one run of each q1 path with "
+                         "torch.profiler and cProfile")
     args = ap.parse_args()
     # progress must survive a kill at a time limit, so flush every line
     sys.stdout.reconfigure(line_buffering=True)
@@ -270,6 +401,53 @@ def main() -> int:
                      onehot_check(vals, codes, dom, False))
     print(f"onehot_sum_f32 random inputs: max |kernel - plain| {oh_err}")
 
+    # murmur3_words bit for bit: a page-sized and a batch-sized n, W 1..8,
+    # lengths 0..4W of multi-byte UTF-8 cut anywhere, scalar and per-row
+    # seeds; device times at W = 1, 2, 8
+    mm_err = 0
+    mm_rows = []
+    for n in (20_000, 1 << 20):
+        for W in range(1, 9):
+            words, lens = utf8_rows(rng, n, W, dev)
+            seeds = torch.from_numpy(rng.integers(
+                -2**31, 2**31, n).astype(np.int32)).to(dev)
+            mm_err = max(mm_err, murmur3_check(words, lens, 42),
+                         murmur3_check(words, lens, seeds))
+            if W in (1, 2, 8):
+                mm_rows.append((n, W, device_ms(
+                    lambda: CK.murmur3_words(words, lens, seeds), 20,
+                    "murmur3_words_kernel"), device_ms(
+                    lambda: CK.murmur3_words_plain(words, lens, seeds), 3),
+                    murmur3_bound_ms(words, lens)[0]))
+    torch.cuda.synchronize()
+    print("murmur3_words n W kernel_device_ms plain_device_ms bound_ms")
+    for n, W, k, p_, b in mm_rows:
+        print(f"  {n} {W} {k:.6f} {p_:.6f} {b:.6f}")
+
+    # radix_ranks exactly, with ids outside the domain (-1 and past it);
+    # the permutation against torch's stable argsort on ids inside it
+    rx_err = 0
+    rx_rows = []
+    for lanes in (2, 5, 9, 129, 4096):
+        for cap in (8, 1 << 19, 1 << 20):
+            ids = torch.from_numpy(rng.integers(
+                -1, lanes + 2, cap).astype(np.int32)).to(dev)
+            inside = torch.from_numpy(rng.integers(
+                0, lanes, cap).astype(np.int32)).to(dev)
+            rx_err = max(rx_err, radix_check(ids, lanes, False),
+                         radix_check(inside, lanes, True))
+            if cap == 1 << 20:
+                rx_rows.append((cap, lanes, device_ms(
+                    lambda: CK.radix_ranks(inside, lanes), 20, "radix_"),
+                    device_ms(lambda: CK.radix_ranks_plain(inside, lanes), 3),
+                    device_ms(lambda: torch.argsort(inside, stable=True), 5),
+                    radix_bound_ms(cap, lanes)[0]))
+    torch.cuda.synchronize()
+    print("radix_ranks cap lanes kernel_device_ms plain_device_ms "
+          "argsort_device_ms bound_ms")
+    for cap, lanes, k, p_, a_, b in rx_rows:
+        print(f"  {cap} {lanes} {k:.6f} {p_:.6f} {a_:.6f} {b:.6f}")
+
     # -- 3. q1 data and its page census --------------------------------------
     from spark_rapids_tpu_torch.benchmarks import tpch
     from spark_rapids_tpu_torch.session import TorchSession
@@ -312,146 +490,224 @@ def main() -> int:
           f"bound {page_bound_ms:.6f} ms per q1 scan")
     del dev_pages
 
-    # -- 4. the main path: q1 through the session on the card ----------------
-    spark = TorchSession()
-    dfs = tpch.load(spark, paths)
+    # -- 4. the three q1 paths through the session on the card -------------
+    spark = TorchSession(
+        {} if args.map_threads is None else
+        {"spark.rapids.tpu.sql.localScheduler.numThreads": args.map_threads})
     exp = tpch.np_q1(tpch.load_np({"lineitem": paths["lineitem"]}))
-    torch.cuda.reset_peak_memory_stats(dev)
-    CK.reset_launches()
-    t0 = time.perf_counter()
-    res = tpch.q1(dfs).collect()
-    first_s = time.perf_counter() - t0
-    counts = dict(CK.launches)
-    peak = torch.cuda.max_memory_allocated(dev)
-    check_q1(res.to_pylist(), exp)
-    for k, v in counts.items():
-        if v <= 0:
-            raise AssertionError(f"kernel {k} never launched on the q1 path")
-    if counts["bitunpack128"] != len(census):
-        raise AssertionError(
-            f"bitunpack128 launched {counts['bitunpack128']} times, the scan "
-            f"has {len(census)} bit-packed pages")
-    print(f"q1 first run: {first_s:.3f} s; launches {counts}; "
-          f"{dict_pages} dictionary pages decoded; peak device memory "
-          f"{peak} B")
-    times = []
-    for _ in range(args.reps):
+    li_dir = paths["lineitem"]
+    li_files = sorted(os.path.join(li_dir, f) for f in os.listdir(li_dir)
+                      if f.endswith(".parquet"))
+    q1_paths = {
+        # the table directory: one partition, a COMPLETE aggregate
+        "q1": lambda: tpch.q1(tpch.load(spark, paths)),
+        # one partition per file: PARTIAL -> hash exchange -> FINAL
+        "q1-files": lambda: tpch.q1(
+            {"lineitem": spark.read_parquet(li_files)}),
+        # the whole scan through a hash exchange on q1's keys, then q1
+        "q1-repartition": lambda: tpch.q1({"lineitem": spark.read_parquet(
+            li_dir).repartition(8, "l_returnflag", "l_linestatus")}),
+    }
+    path_kernels = {"q1": ("bitunpack128", "onehot_sum_f32")}
+    counts_by_path = {}
+    for label, make_df in q1_paths.items():
+        plan = make_df().physical_plan()
+        torch.cuda.reset_peak_memory_stats(dev)
+        CK.reset_launches()
         t0 = time.perf_counter()
-        res = tpch.q1(dfs).collect()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+        res = plan.execute_collect()
+        first_s = time.perf_counter() - t0
+        counts = dict(CK.launches)
+        peak = torch.cuda.max_memory_allocated(dev)
         check_q1(res.to_pylist(), exp)
-    print(f"q1 sf={args.sf:g} on {name}: median {statistics.median(times):.4f}"
-          f" s, min {min(times):.4f} s, max {max(times):.4f} s over "
-          f"{len(times)} runs: {[round(t, 4) for t in times]}")
+        kernels_here = path_kernels.get(label, tuple(counts))
+        for k in kernels_here:
+            if counts[k] <= 0:
+                raise AssertionError(
+                    f"kernel {k} never launched on the {label} path")
+        if counts["bitunpack128"] != len(census):
+            raise AssertionError(
+                f"{label}: bitunpack128 launched {counts['bitunpack128']} "
+                f"times, the scan has {len(census)} bit-packed pages")
+        exs = exchanges(plan)
+        batches = sum(e.map_batches for e in exs)
+        if (counts["murmur3_words"] != 2 * batches
+                or counts["radix_ranks"] != batches):
+            raise AssertionError(
+                f"{label}: {batches} partitioned batches (two string keys "
+                f"each) but murmur3_words launched "
+                f"{counts['murmur3_words']} and radix_ranks "
+                f"{counts['radix_ranks']} times")
+        counts_by_path[label] = counts
+        print(f"{label} first run: {first_s:.3f} s; launches {counts}; "
+              f"peak device memory {peak} B")
+        for e in exs:
+            print(f"{label} exchange {e.args_string()} over "
+                  f"{e.child.num_partitions} map partitions: "
+                  f"{e.map_batches} batches partitioned in "
+                  f"{e.partition_seconds:.4f} s host (partition + write); "
+                  f"map stage {e.map_seconds:.4f} s host wall, child "
+                  f"included")
 
-    # the inputs the aggregate hands to onehot_sum_f32 in one q1 run
-    recorded = []
-    launch_onehot = CK.onehot_sum_f32
+    # timed runs, the paths taken in turns (forward, then backward) so that
+    # the shared host's drift falls on all of them alike
+    times = {label: [] for label in q1_paths}
+    order = list(q1_paths)
+    for rep in range(args.reps):
+        for label in (order if rep % 2 == 0 else order[::-1]):
+            t0 = time.perf_counter()
+            res = q1_paths[label]().collect()
+            torch.cuda.synchronize()
+            times[label].append(time.perf_counter() - t0)
+            check_q1(res.to_pylist(), exp)
+    for label, ts in times.items():
+        print(f"{label} sf={args.sf:g} on {name}: median "
+              f"{statistics.median(ts):.4f} s, min {min(ts):.4f} s, "
+              f"max {max(ts):.4f} s over {len(ts)} runs: "
+              f"{[round(t, 4) for t in ts]}")
 
-    def recorder(vals, codes, n_domain):
-        recorded.append((vals.clone(), codes.clone(), n_domain))
-        return launch_onehot(vals, codes, n_domain)
-    CK.onehot_sum_f32 = recorder
-    try:
-        tpch.q1(dfs).collect()
-    finally:
-        CK.onehot_sum_f32 = launch_onehot
-    if len(recorded) != counts["onehot_sum_f32"]:
-        raise AssertionError(
-            f"recorded {len(recorded)} onehot_sum_f32 calls, the counted "
-            f"run launched {counts['onehot_sum_f32']}")
-    for vals, codes, dom in recorded:
+    # the inputs the paths hand to the kernels: onehot_sum_f32 in one q1
+    # run; murmur3_words and radix_ranks in one run of each exchange path
+    recorded = {"onehot_sum_f32": [], "murmur3_words": [], "radix_ranks": []}
+    launchers = {k: getattr(CK, k) for k in recorded}
+
+    def recorder(kname):
+        def record(*args_):
+            recorded[kname].append(tuple(
+                a.clone() if isinstance(a, torch.Tensor) else a
+                for a in args_))
+            return launchers[kname](*args_)
+        return record
+    for label, knames in (("q1", ["onehot_sum_f32"]),
+                          ("q1-files", ["murmur3_words", "radix_ranks"]),
+                          ("q1-repartition", ["murmur3_words",
+                                              "radix_ranks"])):
+        before = {k: len(recorded[k]) for k in knames}
+        for k in knames:
+            setattr(CK, k, recorder(k))
+        try:
+            check_q1(q1_paths[label]().collect().to_pylist(), exp)
+        finally:
+            for k in knames:
+                setattr(CK, k, launchers[k])
+        for k in knames:
+            got = len(recorded[k]) - before[k]
+            if got != counts_by_path[label][k]:
+                raise AssertionError(
+                    f"recorded {got} {k} calls on {label}, the counted run "
+                    f"launched {counts_by_path[label][k]}")
+
+    for vals, codes, dom in recorded["onehot_sum_f32"]:
         oh_err = max(oh_err, onehot_check(vals, codes, dom, True))
+    mm_err = max([murmur3_check(*a) for a in recorded["murmur3_words"]],
+                 default=mm_err)
+    rx_err = max([radix_check(ids, lanes, True)
+                  for ids, lanes in recorded["radix_ranks"]], default=rx_err)
+    torch.cuda.synchronize()
 
-    def all_sums(fn):
+    def each_call(fn, calls):
         def run():
-            for vals, codes, dom in recorded:
-                fn(vals, codes, dom)
+            for a in calls:
+                fn(*a)
         return run
+
+    oh_calls = recorded["onehot_sum_f32"]
 
     def bincount(vals, codes, dom):
         # codes of dropped rows are dom (the pad bucket), never negative
         return torch.bincount(codes, weights=vals, minlength=dom)[:dom]
-    oh_ms = device_ms(all_sums(CK.onehot_sum_f32), 5)
-    oh_plain_ms = device_ms(all_sums(CK.onehot_sum_f32_plain), 5)
-    oh_lib_ms = device_ms(all_sums(bincount), 5)
-    oh_call_ms = call_ms(all_sums(CK.onehot_sum_f32), 5, 1)
+    oh_ms = device_ms(each_call(CK.onehot_sum_f32, oh_calls), 5)
+    oh_plain_ms = device_ms(each_call(CK.onehot_sum_f32_plain, oh_calls), 5)
+    oh_lib_ms = device_ms(each_call(bincount, oh_calls), 5)
+    oh_call_ms = call_ms(each_call(CK.onehot_sum_f32, oh_calls), 5, 1)
     oh_bytes_ms, oh_ops_ms = (sum(x) for x in zip(*(
-        onehot_bound_ms(v.numel(), dom) for v, _c, dom in recorded)))
+        onehot_bound_ms(v.numel(), dom) for v, _c, dom in oh_calls)))
     oh_bound_ms = max(oh_bytes_ms, oh_ops_ms)
     oh_bound_by = "bytes" if oh_bytes_ms >= oh_ops_ms else "operations"
-    shapes = sorted({(v.numel(), dom) for v, _c, dom in recorded})
-    print(f"q1 onehot_sum_f32: {len(recorded)} launches at (n, D) {shapes}; "
+    shapes = sorted({(v.numel(), dom) for v, _c, dom in oh_calls})
+    print(f"q1 onehot_sum_f32: {len(oh_calls)} launches at (n, D) {shapes}; "
           f"kernel {oh_ms:.4f} ms device ({oh_call_ms:.4f} ms enqueued back "
           f"to back), plain {oh_plain_ms:.4f} ms, torch.bincount "
           f"{oh_lib_ms:.4f} ms, bound {oh_bound_ms:.6f} ms per q1 run")
-    del recorded
+
+    # murmur3_words and radix_ranks: one run of q1-files plus one of
+    # q1-repartition, every call as the paths made it
+    mm_calls = recorded["murmur3_words"]
+    mm_ms = device_ms(each_call(CK.murmur3_words, mm_calls), 5,
+                      "murmur3_words_kernel")
+    mm_plain_ms = device_ms(each_call(CK.murmur3_words_plain, mm_calls), 3)
+    mm_call_ms = call_ms(each_call(CK.murmur3_words, mm_calls), 5, 1)
+    mm_bytes_ms, mm_ops_ms = (sum(x) for x in zip(*(
+        murmur3_bound_ms(w, ln) for w, ln, _s in mm_calls)))
+    mm_bound_ms = max(mm_bytes_ms, mm_ops_ms)
+    mm_bound_by = "bytes" if mm_bytes_ms >= mm_ops_ms else "operations"
+    shapes = sorted({tuple(w.shape) for w, _l, _s in mm_calls})
+    print(f"exchange paths murmur3_words: {len(mm_calls)} launches at "
+          f"(n, W) {shapes}; kernel {mm_ms:.4f} ms device ({mm_call_ms:.4f} "
+          f"ms enqueued back to back), plain {mm_plain_ms:.4f} ms, bound "
+          f"{mm_bound_ms:.6f} ms ({mm_bound_by}; bytes {mm_bytes_ms:.6f}, "
+          f"operations {mm_ops_ms:.6f}); no PyTorch call hashes strings")
+
+    rx_calls = recorded["radix_ranks"]
+
+    def argsort(ids, lanes):
+        return torch.argsort(ids, stable=True)
+
+    def counts_of(ids, lanes):
+        return torch.bincount(ids, minlength=lanes)
+    rx_ms = device_ms(each_call(CK.radix_ranks, rx_calls), 5, "radix_")
+    rx_plain_ms = device_ms(each_call(CK.radix_ranks_plain, rx_calls), 3)
+    rx_lib_ms = device_ms(each_call(argsort, rx_calls), 5)
+    rx_bincount_ms = device_ms(each_call(counts_of, rx_calls), 5)
+    rx_perm_ms = device_ms(each_call(CK.radix_partition_permutation,
+                                     rx_calls), 5)
+    rx_call_ms = call_ms(each_call(CK.radix_ranks, rx_calls), 5, 1)
+    rx_bytes_ms, rx_ops_ms = (sum(x) for x in zip(*(
+        radix_bound_ms(ids.numel(), lanes) for ids, lanes in rx_calls)))
+    rx_bound_ms = max(rx_bytes_ms, rx_ops_ms)
+    rx_bound_by = "bytes" if rx_bytes_ms >= rx_ops_ms else "operations"
+    shapes = sorted({(ids.numel(), lanes) for ids, lanes in rx_calls})
+    print(f"exchange paths radix_ranks: {len(rx_calls)} launches at "
+          f"(cap, lanes) {shapes}; kernel {rx_ms:.4f} ms device "
+          f"({rx_call_ms:.4f} ms enqueued back to back), plain "
+          f"{rx_plain_ms:.4f} ms, torch.argsort(stable=True) "
+          f"{rx_lib_ms:.4f} ms, torch.bincount {rx_bincount_ms:.4f} ms, "
+          f"the whole radix_partition_permutation {rx_perm_ms:.4f} ms, "
+          f"bound {rx_bound_ms:.6f} ms ({rx_bound_by})")
+    del recorded, oh_calls, mm_calls, rx_calls
 
     if args.profile:
-        import collections
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            tpch.q1(dfs).collect()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        by_kernel = collections.Counter()
-        launched = collections.Counter()
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                by_kernel[e.name] += e.time_range.elapsed_us()
-                launched[e.name] += 1
-        dev_s = sum(by_kernel.values()) / 1e6
-        print(f"profile: wall {wall:.4f} s, device kernel time {dev_s:.4f} s,"
-              f" device idle share {1 - dev_s / wall:.4f}, "
-              f"{sum(launched.values())} kernel launches")
-        for kname, us in by_kernel.most_common(12):
-            print(f"  {us / 1e3:10.3f} ms {launched[kname]:6d}x {kname[:90]}")
-        import cProfile
-        import io
-        import pstats
-        prof_host = cProfile.Profile()
-        prof_host.enable()
-        tpch.q1(dfs).collect()
-        torch.cuda.synchronize()
-        prof_host.disable()
-        buf = io.StringIO()
-        pstats.Stats(prof_host, stream=buf).sort_stats("cumulative") \
-            .print_stats("spark_rapids_tpu_torch", 18)
-        print("host profile (cProfile, cumulative s, port functions):")
-        for ln in buf.getvalue().splitlines():
-            if "spark_rapids_tpu_torch" in ln or "ncalls" in ln:
-                print("  " + ln.replace(repo + os.sep, ""))
+        for label, make_df in q1_paths.items():
+            profile_run(label, lambda: make_df().collect(), repo)
 
     # -- 5. the kernels line, the card, the verdict --------------------------
-    kernels = [{
-        "name": "bitunpack128",
-        "route": "cuda",
-        "source": "spark_rapids_tpu_torch/csrc/bitunpack.cu",
-        "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:221",
-        "launches": counts["bitunpack128"],
-        "max_abs_err": max_err,
-        "ms": page_ms,
-        "plain_ms": page_plain_ms,
-        "bound_ms": page_bound_ms,
-        "bound_by": "bytes",
-        "library_ms": None,
-    }, {
-        "name": "onehot_sum_f32",
-        "route": "cuda",
-        "source": "spark_rapids_tpu_torch/csrc/onehot.cu",
-        "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:289",
-        "launches": counts["onehot_sum_f32"],
-        "max_abs_err": oh_err,
-        "ms": oh_ms,
-        "plain_ms": oh_plain_ms,
-        "bound_ms": oh_bound_ms,
-        "bound_by": oh_bound_by,
-        "library_ms": oh_lib_ms,
-    }]
+    # "launches" counts the runs whose inputs the times cover: the q1 path's
+    # for bitunpack128 and onehot_sum_f32, q1-files plus q1-repartition for
+    # murmur3_words and radix_ranks; launches_by_path has every path's
+    exchange_paths = ("q1-files", "q1-repartition")
+
+    def entry(kname, source, line, launch_paths, err, ms, plain_ms, bound,
+              bound_by, library_ms):
+        return {
+            "name": kname, "route": "cuda",
+            "source": f"spark_rapids_tpu_torch/csrc/{source}",
+            "replaces": f"spark_rapids_tpu/ops/pallas_kernels.py:{line}",
+            "launches": sum(counts_by_path[p][kname] for p in launch_paths),
+            "launches_by_path": {p: c[kname]
+                                 for p, c in counts_by_path.items()},
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": library_ms}
+    kernels = [
+        entry("bitunpack128", "bitunpack.cu", 221, ("q1",), max_err, page_ms,
+              page_plain_ms, page_bound_ms, "bytes", None),
+        entry("onehot_sum_f32", "onehot.cu", 289, ("q1",), oh_err, oh_ms,
+              oh_plain_ms, oh_bound_ms, oh_bound_by, oh_lib_ms),
+        entry("murmur3_words", "murmur3.cu", 169, exchange_paths, mm_err,
+              mm_ms, mm_plain_ms, mm_bound_ms, mm_bound_by, None),
+        entry("radix_ranks", "radix.cu", 359, exchange_paths, rx_err, rx_ms,
+              rx_plain_ms, rx_bound_ms, rx_bound_by, rx_lib_ms),
+    ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

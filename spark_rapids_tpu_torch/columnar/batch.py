@@ -39,6 +39,9 @@ class ColumnarBatch:
     def column(self, i: int) -> TorchColumnVector:
         return self.columns[i]
 
+    def device_memory_size(self) -> int:
+        return sum(c.device_memory_size() for c in self.columns)
+
     def to_arrow(self) -> pa.Table:
         n = self.num_rows
         names = (self.schema.names if self.schema is not None

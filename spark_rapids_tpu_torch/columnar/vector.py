@@ -8,7 +8,9 @@ A column is:
   slots hold the type's canonical default value so padding never perturbs
   sums, sorts or group codes.
 - strings: ``data`` holds int32 codes into a host-side sorted pyarrow
-  dictionary, so code order is string order.
+  dictionary, so code order is string order. ``dictionary_words()`` packs
+  that dictionary's UTF-8 bytes onto the device once, for byte-level
+  kernels such as the murmur3 string hash.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ def bucket_capacity(n: int) -> int:
 class TorchColumnVector:
     """One device column (values, validity, optional sorted dictionary)."""
 
-    __slots__ = ("dtype", "data", "validity", "dictionary")
+    __slots__ = ("dtype", "data", "validity", "dictionary", "_dict_device")
 
     def __init__(self, dtype: T.DataType, data: torch.Tensor,
                  validity: torch.Tensor, dictionary: pa.Array | None = None):
@@ -42,6 +44,7 @@ class TorchColumnVector:
         self.data = data
         self.validity = validity
         self.dictionary = dictionary
+        self._dict_device = None
 
     @staticmethod
     def from_numpy(dtype: T.DataType, values: np.ndarray,
@@ -68,6 +71,33 @@ class TorchColumnVector:
     @property
     def is_string(self) -> bool:
         return isinstance(self.dtype, T.StringType)
+
+    def device_memory_size(self) -> int:
+        sz = (self.data.numel() * self.data.element_size()
+              + self.validity.numel() * self.validity.element_size())
+        if self._dict_device is not None:
+            sz += sum(t.numel() * t.element_size() for t in self._dict_device)
+        return sz
+
+    def dictionary_words(self):
+        """The dictionary's UTF-8 bytes on the column's device as (words
+        (D, W) int32 little-endian, lengths (D,) int32), packed once per
+        vector. Rows reach them by gathering with their codes; an empty
+        dictionary packs as one empty string, so code 0 stays a legal
+        index."""
+        if self._dict_device is None:
+            from spark_rapids_tpu_torch.ops.hashing import pack_utf8_words
+            if self.dictionary is None:
+                raise ValueError("dictionary_words: the column has no "
+                                 "dictionary")
+            words, lens = pack_utf8_words(self.dictionary.to_pylist())
+            if words.shape[0] == 0:
+                words = np.zeros((1, 1), dtype=np.int32)
+                lens = np.zeros(1, dtype=np.int32)
+            dev = self.data.device
+            self._dict_device = (torch.from_numpy(words).to(dev),
+                                 torch.from_numpy(lens).to(dev))
+        return self._dict_device
 
     def to_host(self, num_rows: int):
         """Copy the first num_rows to host numpy (values, validity)."""

@@ -106,6 +106,33 @@ PARQUET_ENCODED_UPLOAD = conf(
     "kernel. Not ported yet: setting it to true raises "
     "NotImplementedError").boolean_conf(False)
 
+BATCH_SIZE_BYTES = conf("spark.rapids.tpu.sql.batchSizeBytes").doc(
+    "Target size of output batches from coalescing, such as the batches a "
+    "shuffle reader assembles (reference spark.rapids.sql.batchSizeBytes)"
+).bytes_conf("512m")
+
+SHUFFLE_MANAGER_ENABLED = conf("spark.rapids.tpu.shuffle.enabled").doc(
+    "Keep shuffle blocks on the device in the in-process block store. The "
+    "serializing fallback is not ported yet: planning an exchange with this "
+    "set to false raises NotImplementedError").boolean_conf(True)
+
+NUM_LOCAL_TASKS = conf("spark.rapids.tpu.sql.localScheduler.numThreads").doc(
+    "Threads that run an exchange's map tasks, one input partition each "
+    "(stands in for Spark executor task slots)").integer_conf(4)
+
+# the default is the reference's default shim's (AQE on since Spark 3.2)
+ADAPTIVE_COALESCE_ENABLED = conf(
+    "spark.rapids.tpu.sql.adaptive.coalescePartitions.enabled").doc(
+    "After a shuffle map stage materializes, merge contiguous small reduce "
+    "partitions into advisory-sized reader partitions (AQE; reference "
+    "GpuCustomShuffleReaderExec + Spark CoalesceShufflePartitions)"
+).boolean_conf(True)
+
+ADVISORY_PARTITION_BYTES = conf(
+    "spark.rapids.tpu.sql.adaptive.advisoryPartitionSizeInBytes").doc(
+    "Target size of a coalesced post-shuffle partition "
+    "(Spark spark.sql.adaptive.advisoryPartitionSizeInBytes)").bytes_conf("64m")
+
 
 class RapidsConf:
     """Resolved view over user settings."""

@@ -1,16 +1,19 @@
 """Hash aggregate exec — counterpart of ``spark_rapids_tpu/exec/aggregate.py``.
 
-Ported: COMPLETE mode with the planner-hoisted prefilter/preproject (the
-whole-stage hoist of a child Filter/Project into the aggregation), over the
-dense small-domain path (``_agg_dense``): keys with statically known domains
-(dictionary strings, booleans) and Sum/Count/Average reduce straight into D
-per-group buckets (``ops/grouping.py``), the count-like ones through the
-``onehot_sum_f32`` kernel as on a TPU.
-Batches aggregate incrementally: update per batch, then concat the partials
-and merge (the reference's update → concat → merge loop).
+Ported: Spark's three modes — COMPLETE (update and finalize in one exec),
+PARTIAL (emits keys + state columns ahead of the exchange) and FINAL (its
+input is PARTIAL's layout; merges the states and finalizes) — with the
+planner-hoisted prefilter/preproject (the whole-stage hoist of a child
+Filter/Project into the aggregation), over the dense small-domain path
+(``_agg_dense``): keys with statically known domains (dictionary strings,
+booleans) and Sum/Count/Average reduce straight into D per-group buckets
+(``ops/grouping.py``), the count-like ones through the ``onehot_sum_f32``
+kernel as on a TPU. Batches aggregate incrementally: update (FINAL: merge)
+per batch, then concat the partials and merge (the reference's update →
+concat → merge loop); only COMPLETE and FINAL finalize.
 
-Not ported yet: PARTIAL/FINAL modes (they need the exchange), the sort-based
-segment group-by, HAVING fusion and the chained update step.
+Not ported yet: the sort-based segment group-by, keyless aggregation, HAVING
+fusion and the chained update step.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ from spark_rapids_tpu_torch.ops.concat import concat_batches
 from spark_rapids_tpu_torch.ops.filtering import compact_cols, selection_mask
 from spark_rapids_tpu_torch.plan.nodes import agg_fn
 
+PARTIAL = "partial"
+FINAL = "final"
 COMPLETE = "complete"
 
 # off-TPU domain bound of the dense path (JAX package: max_dom = 4096)
@@ -37,13 +42,15 @@ _MAX_DENSE_DOMAIN = 4096
 class HashAggregateExec(TorchExec):
     """group_exprs: grouping expressions; agg_exprs: Alias(AggregateFunction).
     With ``preproject`` set, group/agg exprs arrive bound against the hoisted
-    project's output; ``prefilter`` masks rows inside the aggregation."""
+    project's output; ``prefilter`` masks rows inside the aggregation. In
+    FINAL mode the keys are the child's first columns and the aggregates'
+    states follow them; the aggregates are not evaluated, only merged."""
 
     def __init__(self, group_exprs: list, agg_exprs: list, child: TorchExec,
                  mode: str = COMPLETE, conf=None, prefilter=None,
                  preproject=None, prefilter_on_projected: bool = False):
-        if mode != COMPLETE:
-            raise NotImplementedError(f"{mode} aggregation is not ported yet")
+        if mode not in (PARTIAL, FINAL, COMPLETE):
+            raise ValueError(f"unknown aggregation mode {mode}")
         if not group_exprs:
             raise NotImplementedError(
                 "aggregation without grouping keys is not ported yet")
@@ -51,7 +58,11 @@ class HashAggregateExec(TorchExec):
         self.mode = mode
         self.preproject = list(preproject) if preproject is not None else None
         self.prefilter_on_projected = prefilter_on_projected
-        if self.preproject is not None:
+        if mode == FINAL:
+            self.group_exprs = [bind_references(e, child.output)
+                                for e in group_exprs]
+            self.agg_exprs = list(agg_exprs)
+        elif self.preproject is not None:
             self.group_exprs = list(group_exprs)
             self.agg_exprs = list(agg_exprs)
         else:
@@ -69,6 +80,8 @@ class HashAggregateExec(TorchExec):
 
     @property
     def output(self):
+        if self.mode == PARTIAL:
+            return self._partial_schema()
         fields = [T.StructField(e.name, e.dtype, True)
                   for e in self.group_exprs]
         for e, f in zip(self.agg_exprs, self.fns):
@@ -244,9 +257,10 @@ class HashAggregateExec(TorchExec):
                              self.output)
 
     def execute_partition(self, split):
+        merge_input = self.mode == FINAL
         acc = None
         for batch in self.child.execute_partition(split):
-            partial = self._aggregate_batch(batch, merge=False)
+            partial = self._aggregate_batch(batch, merge=merge_input)
             if acc is None:
                 acc = partial
             else:
@@ -254,7 +268,7 @@ class HashAggregateExec(TorchExec):
                 acc = self._aggregate_batch(both, merge=True)
         if acc is None:
             return  # grouped aggregation over empty input → no rows (Spark)
-        yield self._finalize(acc)
+        yield acc if self.mode == PARTIAL else self._finalize(acc)
 
     def args_string(self):
         return (f"keys={self.group_exprs} aggs={self.agg_exprs} "

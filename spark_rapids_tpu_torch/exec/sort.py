@@ -1,6 +1,7 @@
-"""Sort exec — counterpart of ``spark_rapids_tpu/exec/sort.py`` (``SortExec``).
-The batches of a partition are concatenated, then sorted with one
-permutation and one gather per column (``ops/sorting.py``)."""
+"""Sort exec — counterpart of ``spark_rapids_tpu/exec/sort.py`` (``SortExec``
+and ``_GatherAllExec``). A global sort over several partitions first gathers
+them into one; the batches of a partition are concatenated, then sorted with
+one permutation and one gather per column (``ops/sorting.py``)."""
 
 from __future__ import annotations
 
@@ -18,11 +19,10 @@ class SortExec(TorchExec):
     def __init__(self, sort_exprs: list, orders: list, child: TorchExec,
                  conf=None):
         """A global sort. sort_exprs: expressions producing sort keys;
-        orders: SortOrders. Sorting several partitions needs the gather
-        exchange, which is not ported yet."""
+        orders: SortOrders. Several input partitions are gathered into one
+        first (a total order)."""
         if child.num_partitions > 1:
-            raise NotImplementedError(
-                "a global sort over several partitions is not ported yet")
+            child = _GatherAllExec(child, conf=conf)
         super().__init__(child, conf=conf)
         self.sort_exprs = [bind_references(e, child.output)
                            for e in sort_exprs]
@@ -50,3 +50,19 @@ class SortExec(TorchExec):
 
     def args_string(self):
         return str(list(zip(self.sort_exprs, self.orders)))
+
+
+class _GatherAllExec(TorchExec):
+    """Pulls every child partition, in order, into one partition."""
+
+    @property
+    def output(self):
+        return self.child.output
+
+    @property
+    def num_partitions(self):
+        return 1
+
+    def execute_partition(self, split):
+        for p in range(self.child.num_partitions):
+            yield from self.child.execute_partition(p)

@@ -21,6 +21,15 @@ Kernels ported so far (see PERF.md for the table of all TPU kernels):
 * ``onehot_sum_f32`` — ``csrc/onehot.cu``, replaces
   ``pallas_kernels.onehot_sum_f32`` (the dense group-by's count-like bucket
   sums).
+* ``murmur3_words`` — ``csrc/murmur3.cu``, replaces
+  ``pallas_kernels.murmur3_words`` (Spark's string hash, for every string
+  key of a hash exchange).
+* ``radix_ranks`` — ``csrc/radix.cu``, replaces ``pallas_kernels.radix_ranks``
+  (stable counting ranks behind every exchange's partition step, through
+  ``radix_partition_permutation``).
+
+Map tasks of an exchange run on a thread pool, so the launch counts and the
+first build are taken under a lock.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 import numpy as np
@@ -40,18 +50,27 @@ _CSRC = os.path.join(_PKG, "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "cuda")
 
 # kernel library name -> CUDA source under csrc/
-SOURCES = {"bitunpack": "bitunpack.cu", "onehot": "onehot.cu"}
+SOURCES = {"bitunpack": "bitunpack.cu", "onehot": "onehot.cu",
+           "murmur3": "murmur3.cu", "radix": "radix.cu"}
 
 #: launches of each kernel since the last reset_launches()
-launches = {"bitunpack128": 0, "onehot_sum_f32": 0}
+launches = {"bitunpack128": 0, "onehot_sum_f32": 0, "murmur3_words": 0,
+            "radix_ranks": 0}
 
 _LIBS: dict = {}
 _FNS: dict = {}
+_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    with _LOCK:
+        for k in launches:
+            launches[k] = 0
+
+
+def _count(name: str) -> None:
+    with _LOCK:
+        launches[name] += 1
 
 
 def _nvcc() -> str:
@@ -112,13 +131,14 @@ def _launcher(lib: str, symbol: str, argtypes: list):
     loaded at first use; it returns a CUDA error code."""
     fn = _FNS.get(symbol)
     if fn is None:
-        if lib not in _LIBS:
-            build_all([lib])
-            _LIBS[lib] = ctypes.CDLL(_so_path(lib))
-        fn = getattr(_LIBS[lib], symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _FNS[symbol] = fn
+        with _LOCK:
+            if lib not in _LIBS:
+                build_all([lib])
+                _LIBS[lib] = ctypes.CDLL(_so_path(lib))
+            fn = getattr(_LIBS[lib], symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _FNS[symbol] = fn
     return fn
 
 
@@ -161,7 +181,7 @@ def bitunpack128(words_u32: torch.Tensor, bit_width: int, n: int,
         bit_width, n, capacity, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"bitunpack128 launch failed: CUDA error {err}")
-    launches["bitunpack128"] += 1
+    _count("bitunpack128")
     return out
 
 
@@ -245,7 +265,7 @@ def onehot_sum_f32(vals: torch.Tensor, codes: torch.Tensor,
                  vals.numel(), n_domain, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"onehot_sum_f32 launch failed: CUDA error {err}")
-    launches["onehot_sum_f32"] += 1
+    _count("onehot_sum_f32")
     return out
 
 
@@ -260,3 +280,187 @@ def onehot_sum_f32_plain(vals: torch.Tensor, codes: torch.Tensor,
                       device=vals.device)
     out.index_add_(0, idx, vals)
     return out[:n_domain]
+
+
+# ---------------------------------------------------------------------------
+# Spark murmur3 string hash
+# ---------------------------------------------------------------------------
+
+def murmur3_words(words: torch.Tensor, lengths: torch.Tensor,
+                  seed) -> torch.Tensor:
+    """Spark ``Murmur3_x86_32.hashUnsafeBytes`` per row → ``(n,)`` int32.
+
+    words: ``(n, W)`` int32, each row's UTF-8 bytes packed little-endian and
+    zero-padded; lengths: ``(n,)`` int32 byte lengths; seed: an int, or an
+    ``(n,)`` int32 running hash (the partitioner chains column hashes).
+    Whole words mix first, then each of the ``length % 4`` tail bytes as a
+    signed Java byte, then fmix with the length.
+    """
+    if words.dtype != torch.int32 or words.dim() != 2:
+        raise TypeError("murmur3_words takes (n, W) int32 words, got "
+                        f"{words.dtype} of shape {tuple(words.shape)}")
+    n, W = words.shape
+    if W < 1:
+        raise ValueError("murmur3_words needs at least one word per row")
+    if lengths.dtype != torch.int32 or lengths.shape != (n,):
+        raise TypeError("murmur3_words takes (n,) int32 lengths, got "
+                        f"{lengths.dtype} {tuple(lengths.shape)}")
+    per_row = isinstance(seed, torch.Tensor)
+    if per_row and (seed.dtype != torch.int32 or seed.shape != (n,)):
+        raise TypeError("murmur3_words takes an int seed or (n,) int32 "
+                        f"seeds, got {seed.dtype} {tuple(seed.shape)}")
+    tensors = [words, lengths] + ([seed] if per_row else [])
+    if any(t.device != words.device for t in tensors):
+        raise ValueError("murmur3_words: inputs on different devices")
+    if words.device.type == "cpu":
+        return murmur3_words_plain(words, lengths, seed)
+    if words.device.type != "cuda":
+        raise TypeError(f"murmur3_words: no kernel for {words.device}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("murmur3_words takes contiguous tensors")
+    out = torch.empty((n,), dtype=torch.int32, device=words.device)
+    if n == 0:
+        return out
+    launch = _launcher("murmur3", "murmur3_words_launch", [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p])
+    seed_scalar = 0 if per_row else ((int(seed) + (1 << 31)) % (1 << 32)
+                                     - (1 << 31))
+    stream = torch.cuda.current_stream(words.device).cuda_stream
+    err = launch(words.device.index, words.data_ptr(), lengths.data_ptr(),
+                 seed.data_ptr() if per_row else None, seed_scalar, n, W,
+                 out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"murmur3_words launch failed: CUDA error {err}")
+    _count("murmur3_words")
+    return out
+
+
+def murmur3_words_plain(words: torch.Tensor, lengths: torch.Tensor,
+                        seed) -> torch.Tensor:
+    """Plain PyTorch version of ``murmur3_words`` on any device, in int64
+    holding 32 unsigned bits (``ops/hashing.py``'s arithmetic). As in the
+    Pallas kernel, a row mixes ``min(length // 4, W)`` whole words and takes
+    its tail bytes from word ``length // 4``, read as 0 past the row."""
+    from spark_rapids_tpu_torch.ops import hashing as H
+    n, W = words.shape
+    lens = lengths.to(torch.int64)
+    n_words = torch.div(lens, 4, rounding_mode="floor")
+    n_tail = lens - 4 * n_words
+    h1 = H._seed_u32(seed, lengths)
+    w64 = words.to(torch.int64) & H._MASK
+    for i in range(W):
+        h1 = torch.where(i < n_words, H._mix_h1(h1, H._mix_k1(w64[:, i])), h1)
+    inside = (n_words >= 0) & (n_words < W)
+    idx = n_words.clamp(0, W - 1).unsqueeze(1)
+    tail_word = torch.where(inside, w64.gather(1, idx).squeeze(1),
+                            torch.zeros_like(lens))
+    for t in range(3):
+        byte = (tail_word >> (8 * t)) & 0xFF
+        sbyte = torch.where(byte >= 128, byte - 256, byte) & H._MASK
+        h1 = torch.where(t < n_tail, H._mix_h1(h1, H._mix_k1(sbyte)), h1)
+    return H._to_i32(H._fmix(h1, lens))
+
+
+# ---------------------------------------------------------------------------
+# radix partition: stable counting ranks over a small id domain
+# ---------------------------------------------------------------------------
+
+#: lane cap, as the TPU kernel's (hash-join buckets top out here); the
+#: per-block histogram of 4,096 int32 is 16 KB of shared memory
+RADIX_MAX_PARTS = 4096
+
+
+def _radix_tile(num_lanes: int) -> int:
+    """Rows per block: 1,024, or more for wide domains, so that the
+    (blocks, num_lanes) scratch of per-block counts stays a few MB."""
+    tile = 1024
+    while tile < 2 * num_lanes:
+        tile <<= 1
+    return tile
+
+
+def radix_ranks(ids: torch.Tensor, num_lanes: int):
+    """Stable radix ranks of int32 ``ids`` over ``[0, num_lanes)``.
+
+    Returns ``(ranks (cap,) int32, counts (num_lanes,) int32)`` with
+    ``ranks[i] = #{j < i : ids[j] == ids[i]}`` and ``counts[l] = #{ids ==
+    l}``. Ids outside ``[0, num_lanes)`` get rank 0 and are not counted.
+    """
+    if not 0 <= num_lanes <= RADIX_MAX_PARTS:
+        raise ValueError(f"radix domain {num_lanes} outside "
+                         f"[0, {RADIX_MAX_PARTS}]")
+    if ids.dtype != torch.int32 or ids.dim() != 1:
+        raise TypeError("radix_ranks takes 1-D int32 ids, got "
+                        f"{ids.dtype} of shape {tuple(ids.shape)}")
+    if ids.device.type == "cpu":
+        return radix_ranks_plain(ids, num_lanes)
+    if ids.device.type != "cuda":
+        raise TypeError(f"radix_ranks: no kernel for {ids.device}")
+    if not ids.is_contiguous():
+        raise ValueError("radix_ranks takes a contiguous id tensor")
+    cap = ids.shape[0]
+    if cap == 0 or num_lanes == 0:
+        return (torch.zeros((cap,), dtype=torch.int32, device=ids.device),
+                torch.zeros((num_lanes,), dtype=torch.int32,
+                            device=ids.device))
+    tile = _radix_tile(num_lanes)
+    nblocks = -(-cap // tile)
+    ranks = torch.empty((cap,), dtype=torch.int32, device=ids.device)
+    counts = torch.empty((num_lanes,), dtype=torch.int32, device=ids.device)
+    scratch = torch.empty((nblocks, num_lanes), dtype=torch.int32,
+                          device=ids.device)
+    launch = _launcher("radix", "radix_ranks_launch", [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p])
+    stream = torch.cuda.current_stream(ids.device).cuda_stream
+    err = launch(ids.device.index, ids.data_ptr(), cap, num_lanes, tile,
+                 scratch.data_ptr(), ranks.data_ptr(), counts.data_ptr(),
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"radix_ranks launch failed: CUDA error {err}")
+    _count("radix_ranks")
+    return ranks, counts
+
+
+def radix_ranks_plain(ids: torch.Tensor, num_lanes: int):
+    """Plain PyTorch version of ``radix_ranks`` on any device: a stable
+    argsort groups equal ids, and a row's rank is its position in the
+    sorted order less its id's first position."""
+    cap = ids.shape[0]
+    dev = ids.device
+    inside = (ids >= 0) & (ids < num_lanes)
+    key = torch.where(inside, ids.to(torch.int64),
+                      torch.full((cap,), num_lanes, dtype=torch.int64,
+                                 device=dev))
+    order = torch.argsort(key, stable=True)
+    all_counts = torch.bincount(key, minlength=num_lanes + 1)
+    starts = torch.cumsum(all_counts, 0) - all_counts
+    sorted_rank = (torch.arange(cap, dtype=torch.int64, device=dev)
+                   - starts[key[order]])
+    ranks = torch.empty((cap,), dtype=torch.int64, device=dev)
+    ranks[order] = sorted_rank
+    ranks = torch.where(inside, ranks, torch.zeros_like(ranks))
+    return ranks.to(torch.int32), all_counts[:num_lanes].to(torch.int32)
+
+
+def radix_partition_permutation(ids: torch.Tensor,
+                                num_lanes: int) -> torch.Tensor:
+    """Stable permutation (int64) grouping rows by id, equal to
+    ``argsort(ids, stable=True)`` for ids in ``[0, num_lanes)``: the
+    ``radix_ranks`` kernel, an exclusive scan of its counts, and one 1:1
+    scatter in plain torch, as the reference does around its Pallas call
+    (``pallas_kernels.py:389-399``). An id outside the domain would collide
+    with the first row of the last lane, so callers keep every id inside
+    it (the partition step's padding sentinel has its own lane)."""
+    cap = ids.shape[0]
+    ranks, counts = radix_ranks(ids, num_lanes)
+    counts = counts.to(torch.int64)
+    offsets = torch.cumsum(counts, 0) - counts
+    dest = offsets[ids.clamp(0, num_lanes - 1).long()] + ranks
+    perm = torch.zeros((cap,), dtype=torch.int64, device=ids.device)
+    perm.scatter_(0, dest, torch.arange(cap, dtype=torch.int64,
+                                        device=ids.device))
+    return perm

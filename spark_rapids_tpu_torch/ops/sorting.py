@@ -1,6 +1,6 @@
 """Multi-key sort with Spark ordering semantics — counterpart of
 ``spark_rapids_tpu/ops/sorting.py`` (``sort_permutation`` over
-``_key_arrays``).
+``_key_arrays``, and the exchange's ``partition_permutation``).
 
 Spark ordering rules: per-key ASC/DESC with NULLS FIRST/LAST; floats: NaN is
 greater than every value and equal to itself, -0.0 == 0.0; strings sort by
@@ -74,3 +74,23 @@ def sort_permutation(key_cols, orders, num_rows: int, capacity: int):
         step = torch.sort(op[perm], stable=True).indices
         perm = perm[step]
     return perm
+
+
+def partition_permutation(part_ids, num_partitions: int, num_rows: int,
+                          capacity: int):
+    """Stable permutation (int64) grouping live rows by partition id, with
+    padding sunk to the end: the exchange's partition step. Padding rows
+    take the sentinel id ``num_partitions``, which has a lane of its own.
+    The ids are a tiny dense domain, so the ``radix_ranks`` kernel ranks
+    them (``cuda_kernels.radix_partition_permutation``) whenever the domain
+    with its sentinel fits the kernel's lanes; a wider one takes the stable
+    argsort, as in the reference."""
+    from spark_rapids_tpu_torch.ops import cuda_kernels as CK
+    dev = part_ids.device
+    live = torch.arange(capacity, device=dev) < num_rows
+    ids = torch.where(live, part_ids.to(torch.int32),
+                      torch.full((capacity,), num_partitions,
+                                 dtype=torch.int32, device=dev))
+    if num_partitions + 1 <= CK.RADIX_MAX_PARTS:
+        return CK.radix_partition_permutation(ids, num_partitions + 1)
+    return torch.argsort(ids, stable=True)

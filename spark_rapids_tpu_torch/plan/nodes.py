@@ -81,6 +81,28 @@ class AggregateNode(PlanNode):
         return 1
 
 
+class ExchangeNode(PlanNode):
+    """Repartition rows across ``num_out`` partitions: "hash" on ``keys``,
+    "roundrobin", "single" or "range" (the ShuffleExchangeExec analog)."""
+
+    def __init__(self, child: PlanNode, partitioning: str, num_out: int,
+                 keys: list | None = None):
+        super().__init__(child)
+        if partitioning not in ("hash", "single", "roundrobin", "range"):
+            raise ValueError(f"unknown partitioning {partitioning}")
+        self.partitioning = partitioning
+        self.num_out = num_out
+        self.keys = [E.bind_references(e, child.output) for e in (keys or [])]
+
+    @property
+    def output(self):
+        return self.child.output
+
+    @property
+    def num_partitions(self):
+        return self.num_out
+
+
 class SortNode(PlanNode):
     """A global sort (the per-partition sortWithinPartitions is not ported)."""
 

@@ -1,11 +1,14 @@
 """Override rules: logical plan → device execs.
 
 Counterpart of the rules of ``spark_rapids_tpu/plan/overrides.py`` that the
-ported slice needs: scan, filter, project, aggregate (``:710-770``, with the
-legacy depth-2 hoist of a child Filter/Project into the aggregation) and sort
-(``:881-899``). Every node, expression or shape outside the slice raises
+ported slices need: scan, filter, project, aggregate (``:710-770``, with the
+legacy depth-2 hoist of a child Filter/Project into the aggregation; several
+input partitions plan PARTIAL → hash exchange → FINAL), the hash exchange
+(``_hash_exchange``, ``:635-659``), the exchange node (``:901-917``) and sort
+(``:881-899``). Every node, expression or shape outside the slices raises
 ``NotImplementedError`` here, while the plan is built, so nothing runs
-wrongly. There is no partial CPU fallback: the whole plan runs on the device.
+wrongly: the mesh exchange and range partitioning among them. There is no
+partial CPU fallback: the whole plan runs on the device.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from spark_rapids_tpu_torch import config as CFG
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.exec import aggregate as XA
 from spark_rapids_tpu_torch.exec import basic as XB
+from spark_rapids_tpu_torch.exec import exchange as XE
 from spark_rapids_tpu_torch.exec.sort import SortExec
 from spark_rapids_tpu_torch.expr import core as E
 from spark_rapids_tpu_torch.expr.aggregates import AggregateFunction
@@ -23,6 +27,7 @@ from spark_rapids_tpu_torch.expr.predicates import And, LessThanOrEqual
 from spark_rapids_tpu_torch.io.filescan import FileScanNode, FileSourceScanExec
 from spark_rapids_tpu_torch.ops.sorting import SortOrder
 from spark_rapids_tpu_torch.plan import nodes as NN
+from spark_rapids_tpu_torch.shuffle import partitioning as SP
 
 _PORTED_EXPRS = (E.BoundReference, E.Literal, E.Alias, BinaryArithmetic,
                  LessThanOrEqual, And, Cast, AggregateFunction)
@@ -52,6 +57,7 @@ class TorchOverrides:
         conv = {FileScanNode: self._scan, NN.FilterNode: self._filter,
                 NN.ProjectNode: self._project,
                 NN.AggregateNode: self._aggregate,
+                NN.ExchangeNode: self._exchange,
                 NN.SortNode: self._sort}.get(type(plan))
         if conv is None:
             raise NotImplementedError(
@@ -104,14 +110,47 @@ class TorchOverrides:
             if isinstance(child, XB.FilterExec):
                 prefilter = child.condition       # Agg(Project(Filter(x)))
                 child = child.children[0]
-        if child.num_partitions != 1:
-            raise NotImplementedError(
-                "aggregating several partitions needs the exchange, which "
-                "is not ported yet")
-        return XA.HashAggregateExec(
-            n.group_exprs, n.agg_exprs, child, mode=XA.COMPLETE,
-            conf=self.conf, prefilter=prefilter, preproject=preproject,
-            prefilter_on_projected=pre_on_proj)
+        fused = dict(prefilter=prefilter, preproject=preproject,
+                     prefilter_on_projected=pre_on_proj)
+        if child.num_partitions == 1:
+            return XA.HashAggregateExec(n.group_exprs, n.agg_exprs, child,
+                                        mode=XA.COMPLETE, conf=self.conf,
+                                        **fused)
+        # Spark's two-phase aggregation: partial states per input
+        # partition, a hash exchange on the keys, then merge and finalize
+        partial = XA.HashAggregateExec(n.group_exprs, n.agg_exprs, child,
+                                       mode=XA.PARTIAL, conf=self.conf,
+                                       **fused)
+        key_names = [f.name for f in partial.output][:len(n.group_exprs)]
+        keys = [E.col(k) for k in key_names]
+        exchange = self._hash_exchange(keys, partial, adaptive=True)
+        return XA.HashAggregateExec(keys, n.agg_exprs, exchange,
+                                    mode=XA.FINAL, conf=self.conf)
+
+    def _hash_exchange(self, keys, child, adaptive: bool = False):
+        """A hash exchange into as many partitions as ``child`` has;
+        ``adaptive`` adds the AQE coalescing reader, valid only above an
+        exchange with one consumer (an aggregate)."""
+        ex = XE.ShuffleExchangeExec(
+            SP.HashPartitioner(keys, child.num_partitions), child,
+            conf=self.conf)
+        if adaptive and self.conf.get(CFG.ADAPTIVE_COALESCE_ENABLED):
+            return XE.AdaptiveShuffleReaderExec(ex, conf=self.conf)
+        return ex
+
+    def _exchange(self, n, kids):
+        for e in n.keys:
+            check_expression(e)
+        if n.partitioning == "hash":
+            p = SP.HashPartitioner(n.keys, n.num_out)
+        elif n.partitioning == "single":
+            p = SP.SinglePartitioner()
+        elif n.partitioning == "roundrobin":
+            p = SP.RoundRobinPartitioner(n.num_out)
+        else:
+            p = SP.RangePartitioner(n.keys, [SortOrder() for _ in n.keys],
+                                    n.num_out)
+        return XE.ShuffleExchangeExec(p, kids[0], conf=self.conf)
 
     def _sort(self, n, kids):
         for e, _, _ in n.sort_exprs:

@@ -57,6 +57,16 @@ class DataFrame:
                       for c, a in zip(cols, ascs)]
         return DataFrame(NN.SortNode(sort_exprs, self._plan), self.session)
 
+    def repartition(self, n: int, *keys) -> "DataFrame":
+        """``n`` partitions: hashed on ``keys`` (Spark's
+        ``repartition(n, cols)``), or dealt round-robin without keys."""
+        if keys:
+            return DataFrame(NN.ExchangeNode(
+                self._plan, "hash", n, keys=[_to_expr(k) for k in keys]),
+                self.session)
+        return DataFrame(NN.ExchangeNode(self._plan, "roundrobin", n),
+                         self.session)
+
     def physical_plan(self):
         """The device exec tree ``collect()`` runs (raises on anything not
         ported)."""

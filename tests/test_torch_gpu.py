@@ -8,7 +8,9 @@ the port only, so it also runs where jax is not installed:
 Tolerance: bitunpack128 exact (integer bit patterns); onehot_sum_f32 exact
 for 0/1 values (counts below 2^24 are exact in f32), and for other float32
 values 1e-5 of the bucket's sum of magnitudes, because atomics add in an
-order that changes from run to run.
+order that changes from run to run; murmur3_words and radix_ranks exact
+(integer hashes and ranks), radix_ranks also against torch's stable
+argsort.
 """
 
 import numpy as np
@@ -91,3 +93,61 @@ def test_onehot_sum_f32_rejects_non_contiguous(cuda_device):
     codes = torch.zeros(32, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError):
         CK.onehot_sum_f32(vals, codes, 4)
+
+
+def _utf8_rows(n: int, W: int, seed: int):
+    """(words, lengths) of n random byte rows, lengths 0..4W, with bytes
+    >= 0x80 (UTF-8 of "é" and "日本", cut anywhere)."""
+    rng = np.random.default_rng(seed)
+    pool = np.frombuffer(("aé日本z" * 8).encode("utf-8"), np.uint8)
+    raw = pool[rng.integers(0, len(pool), (n, 4 * W))]
+    lens = rng.integers(0, 4 * W + 1, n).astype(np.int32)
+    raw = np.where(np.arange(4 * W)[None, :] < lens[:, None], raw, 0)
+    words = np.ascontiguousarray(raw.astype(np.uint8)).view("<i4")
+    return words.astype(np.int32), lens
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [1, 2, 3, 8])
+def test_murmur3_words_kernel_matches_plain(cuda_device, W):
+    for n in (1, 257, 20_000):
+        words, lens = _utf8_rows(n, W, n * 10 + W)
+        w = torch.from_numpy(words).to(cuda_device)
+        ln = torch.from_numpy(lens).to(cuda_device)
+        seeds = torch.from_numpy(np.random.default_rng(n).integers(
+            -2**31, 2**31, n).astype(np.int32)).to(cuda_device)
+        for seed in (42, seeds):
+            before = CK.launches["murmur3_words"]
+            got = CK.murmur3_words(w, ln, seed)
+            want = CK.murmur3_words_plain(w, ln, seed)
+            torch.cuda.synchronize()
+            assert CK.launches["murmur3_words"] == before + 1
+            assert torch.equal(got, want), (n, W)
+
+
+@pytest.mark.gpu
+def test_murmur3_words_rejects_non_contiguous(cuda_device):
+    words = torch.zeros((8, 2), dtype=torch.int32, device=cuda_device)
+    lens = torch.zeros(16, dtype=torch.int32, device=cuda_device)[::2]
+    with pytest.raises(ValueError):
+        CK.murmur3_words(words, lens, 42)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [1, 2, 5, 9, 129, 4096])
+def test_radix_ranks_kernel_matches_plain(cuda_device, lanes):
+    for cap in (8, 1000, 1 << 19):
+        rng = np.random.default_rng(cap + lanes)
+        # -1 and ids >= lanes are outside the domain
+        ids = torch.from_numpy(rng.integers(-1, lanes + 2, cap)
+                               .astype(np.int32)).to(cuda_device)
+        before = CK.launches["radix_ranks"]
+        ranks, counts = CK.radix_ranks(ids, lanes)
+        want_r, want_c = CK.radix_ranks_plain(ids, lanes)
+        torch.cuda.synchronize()
+        assert CK.launches["radix_ranks"] == before + 1
+        assert torch.equal(ranks, want_r) and torch.equal(counts, want_c)
+        inside = torch.from_numpy(rng.integers(0, lanes, cap)
+                                  .astype(np.int32)).to(cuda_device)
+        perm = CK.radix_partition_permutation(inside, lanes)
+        assert torch.equal(perm, torch.argsort(inside, stable=True))

@@ -94,10 +94,25 @@ def test_unported_plans_raise_at_planning(table_path):
     # a cast pair outside the slice
     with pytest.raises(NotImplementedError):
         df.select(F.cast(F.col("x"), T.INT)).physical_plan()
-    # several files in several partitions need the exchange
-    two = TorchSession(device="cpu").read_parquet([table_path, table_path])
+    # several partitions plan an exchange; its serializing fallback and
+    # range partitioning are not ported
+    no_shuffle = TorchSession({"spark.rapids.tpu.shuffle.enabled": "false"},
+                              device="cpu")
+    two = no_shuffle.read_parquet([table_path, table_path])
     with pytest.raises(NotImplementedError):
         two.group_by(F.col("k")).agg(F.sum(F.col("x"))).physical_plan()
+    with pytest.raises(NotImplementedError):
+        no_shuffle.read_parquet(table_path).repartition(2, "k").physical_plan()
+    from spark_rapids_tpu_torch.plan import nodes as NN
+    from spark_rapids_tpu_torch.session import DataFrame
+    ranged = DataFrame(NN.ExchangeNode(df._plan, "range", 2,
+                                       keys=[F.col("k")]), df.session)
+    with pytest.raises(NotImplementedError):
+        ranged.physical_plan()
+    # a keyless aggregate over several partitions
+    many = TorchSession(device="cpu").read_parquet([table_path, table_path])
+    with pytest.raises(NotImplementedError):
+        many.group_by().agg(F.sum(F.col("x"))).physical_plan()
     # the arrow reader path is not ported
     off = TorchSession({"spark.rapids.tpu.sql.parquet.deviceDecode.enabled":
                         "false"}, device="cpu").read_parquet(table_path)

@@ -8,6 +8,13 @@ Inputs come from a numpy seed and cross between the packages as numpy arrays.
   exact for 0/1 values (counts below 2^24 are exact in f32) and integer
   sums; for other float32 values 1e-5 of the bucket's sum of magnitudes,
   and for f64 sums 1e-12 relative, because the two add in different orders.
+- murmur3_words, also against both packages' host hash
+  (``murmur3_bytes_host``) and the JAX package's jnp string hash; and the
+  port's scalar column hashes against the JAX package's. Tolerance: exact
+  (integer hashes).
+- radix_ranks and radix_partition_permutation, also against a numpy stable
+  argsort, and the exchange's partition_permutation against the JAX
+  package's with its radix kernel forced on. Tolerance: exact.
 
 The CUDA kernels themselves run only on the card: tests/test_torch_gpu.py
 holds them against their plain versions there.
@@ -19,10 +26,12 @@ import pytest
 import torch
 
 from spark_rapids_tpu.ops import grouping as G
+from spark_rapids_tpu.ops import hashing as JH
 from spark_rapids_tpu.ops import pallas_kernels as PK
 from spark_rapids_tpu.ops import parquet_decode as PD
 from spark_rapids_tpu_torch.ops import cuda_kernels as CK
 from spark_rapids_tpu_torch.ops import grouping as TG
+from spark_rapids_tpu_torch.ops import hashing as TH
 from spark_rapids_tpu_torch.ops import parquet_decode as TPD
 
 BIT_WIDTHS = [1, 2, 3, 5, 7, 8, 11, 13, 16, 20, 24, 31, 32]  # test_pallas.py:51
@@ -216,3 +225,198 @@ def test_onehot_cpu_tensor_takes_plain_version_without_counting():
     assert torch.equal(CK.onehot_sum_f32(v, c, 12),
                        CK.onehot_sum_f32_plain(v, c, 12))
     assert CK.launches["onehot_sum_f32"] == 0
+
+
+# -- murmur3 string hash -----------------------------------------------------
+
+MURMUR_STRINGS = ["", "a", "ab", "abc", "abcd", "hello world", "ünïcødé",
+                  "é", "日本", "日本語", "x" * 37, "tail3_", "padded to sixteen"]
+
+
+def _byte_rows(n: int, W: int, seed: int):
+    """n random byte rows of lengths 0..4W (both ends included), drawn from
+    the UTF-8 of ASCII, "é" and "日本", so rows end mid-character too."""
+    rng = np.random.default_rng(seed)
+    pool = np.frombuffer(("aé日本z" * 8).encode("utf-8"), np.uint8)
+    raw = pool[rng.integers(0, len(pool), (n, 4 * W))]
+    lens = rng.integers(0, 4 * W + 1, n).astype(np.int32)
+    lens[:2] = [0, 4 * W][:n]
+    raw = np.where(np.arange(4 * W)[None, :] < lens[:, None], raw, 0)
+    words = np.ascontiguousarray(raw.astype(np.uint8)).view("<i4")
+    return words.astype(np.int32), lens
+
+
+@pytest.mark.parametrize("W", [1, 2, 3, 5, 8])
+def test_murmur3_words_matches_jax_and_host(W):
+    words, lens = _byte_rows(400, W, seed=W)
+    seeds = np.random.default_rng(W + 100).integers(
+        -2**31, 2**31, 400).astype(np.int32)
+    for seed in (42, seeds):
+        jseed = jnp.asarray(seed) if isinstance(seed, np.ndarray) else seed
+        tseed = (torch.from_numpy(seed) if isinstance(seed, np.ndarray)
+                 else seed)
+        want = np.asarray(PK.murmur3_words(jnp.asarray(words),
+                                           jnp.asarray(lens), jseed))
+        got = CK.murmur3_words(torch.from_numpy(words),
+                               torch.from_numpy(lens), tseed).numpy()
+        assert got.dtype == np.int32 and got.shape == (400,)
+        np.testing.assert_array_equal(got, want)
+        jnp_ref = np.asarray(JH.hash_string_words(
+            jnp.asarray(words), jnp.asarray(lens),
+            jnp.asarray(seed, jnp.int32)))
+        np.testing.assert_array_equal(got, jnp_ref)
+        raw = words.view(np.uint8)
+        host = [TH.murmur3_bytes_host(bytes(raw[i, :lens[i]]),
+                                      int(seed if np.isscalar(seed)
+                                          else seed[i]))
+                for i in range(400)]
+        np.testing.assert_array_equal(got, host)
+
+
+def test_murmur3_words_on_packed_dictionary():
+    """Both packages pack a dictionary alike, and its hashes equal Spark's
+    host hash of each string (test_pallas.py:17's cases)."""
+    words, lens = TH.pack_utf8_words(MURMUR_STRINGS)
+    jwords, jlens = JH.pack_utf8_words(MURMUR_STRINGS)
+    np.testing.assert_array_equal(words, jwords)
+    np.testing.assert_array_equal(lens, jlens)
+    got = TH.hash_string_words(torch.from_numpy(words),
+                               torch.from_numpy(lens), 42).tolist()
+    assert got == [JH.murmur3_bytes_host(s.encode("utf-8"), 42)
+                   for s in MURMUR_STRINGS]
+    assert got == [TH.murmur3_bytes_host(s.encode("utf-8"), 42)
+                   for s in MURMUR_STRINGS]
+
+
+def test_murmur3_words_rejects_bad_input():
+    w = torch.zeros((4, 2), dtype=torch.int32)
+    n = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        CK.murmur3_words(w.to(torch.int64), n, 42)
+    with pytest.raises(TypeError):
+        CK.murmur3_words(w.reshape(8), n, 42)
+    with pytest.raises(TypeError):
+        CK.murmur3_words(w, n[:3], 42)
+    with pytest.raises(TypeError):
+        CK.murmur3_words(w, n, torch.zeros(4, dtype=torch.int64))
+    with pytest.raises(ValueError):
+        CK.murmur3_words(torch.zeros((4, 0), dtype=torch.int32), n, 42)
+    CK.reset_launches()
+    CK.murmur3_words(w, n, 42)
+    assert CK.launches["murmur3_words"] == 0   # CPU: the plain version
+
+
+@pytest.mark.parametrize("name", ["hash_int", "hash_long", "hash_double",
+                                  "hash_float"])
+def test_column_hashes_match_jax(name):
+    rng = np.random.default_rng(len(name))
+    special = [0.0, -0.0, np.nan, np.inf, -np.inf, 5e-324, -5e-324, 1e-310,
+               2.2250738585072014e-308, 1.1754944e-38, 1e-45, -1e-40]
+    values = {
+        "hash_int": rng.integers(-2**31, 2**31, 300).astype(np.int32),
+        "hash_long": rng.integers(-2**63, 2**63, 300, dtype=np.int64),
+        "hash_double": np.concatenate([rng.normal(0, 1e6, 288), special]),
+        "hash_float": np.concatenate([rng.normal(0, 1e3, 288),
+                                      special]).astype(np.float32),
+    }[name]
+    seed = rng.integers(-2**31, 2**31, 300).astype(np.int32)
+    want = np.asarray(getattr(JH, name)(jnp.asarray(values),
+                                        jnp.asarray(seed)))
+    got = getattr(TH, name)(torch.from_numpy(values),
+                            torch.from_numpy(seed)).numpy()
+    np.testing.assert_array_equal(got, want)
+    want42 = np.asarray(getattr(JH, name)(jnp.asarray(values), jnp.int32(42)))
+    np.testing.assert_array_equal(
+        getattr(TH, name)(torch.from_numpy(values), 42).numpy(), want42)
+
+
+def test_pmod_matches_jax():
+    h = np.random.default_rng(9).integers(-2**31, 2**31, 500).astype(np.int32)
+    for n in (1, 4, 7, 200):
+        np.testing.assert_array_equal(
+            TH.pmod(torch.from_numpy(h), n).numpy(),
+            np.asarray(JH.pmod(jnp.asarray(h), n)))
+
+
+# -- radix ranks -------------------------------------------------------------
+
+def _np_stable_ranks(ids, lanes):
+    """tests/test_pallas.py's oracle: rank = earlier rows with the same id;
+    out-of-range ids rank 0 and are not counted."""
+    ranks = np.zeros(len(ids), np.int32)
+    seen = {}
+    for i, v in enumerate(ids):
+        if 0 <= v < lanes:
+            ranks[i] = seen.get(int(v), 0)
+            seen[int(v)] = ranks[i] + 1
+    counts = np.array([seen.get(lane, 0) for lane in range(lanes)], np.int32)
+    return ranks, counts
+
+
+@pytest.mark.parametrize("shape", ["uniform", "skewed", "single", "empty",
+                                   "out_of_range"])
+@pytest.mark.parametrize("lanes", [2, 9, 129])
+def test_radix_ranks_matches_jax_and_numpy(shape, lanes):
+    rng = np.random.default_rng(lanes)
+    if shape == "uniform":
+        ids = rng.integers(0, lanes, 700).astype(np.int32)
+    elif shape == "skewed":        # one partition takes almost everything
+        ids = np.where(rng.random(700) < 0.95, 1,
+                       rng.integers(0, lanes, 700)).astype(np.int32)
+    elif shape == "single":
+        ids = np.full(300, lanes - 1, np.int32)
+    elif shape == "empty":         # every row out of range (all padding)
+        ids = np.full(128, lanes, np.int32)
+    else:
+        ids = rng.integers(-3, lanes + 3, 700).astype(np.int32)
+    want_r, want_c = PK.radix_ranks(jnp.asarray(ids), lanes)
+    got_r, got_c = CK.radix_ranks(torch.from_numpy(ids), lanes)
+    np.testing.assert_array_equal(got_r.numpy(), np.asarray(want_r))
+    np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c))
+    np_r, np_c = _np_stable_ranks(ids, lanes)
+    np.testing.assert_array_equal(got_r.numpy(), np_r)
+    np.testing.assert_array_equal(got_c.numpy(), np_c)
+
+
+@pytest.mark.parametrize("nparts", [1, 2, 5, 64, 300])
+def test_radix_partition_permutation_is_stable_argsort(nparts):
+    rng = np.random.default_rng(nparts)
+    ids = rng.integers(0, nparts, 1000).astype(np.int32)
+    got = CK.radix_partition_permutation(torch.from_numpy(ids), nparts)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.argsort(ids, kind="stable"))
+    want = PK.radix_partition_permutation(jnp.asarray(ids), nparts)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("nparts", [3, 4095, 5000])
+def test_partition_permutation_matches_jax(nparts):
+    """The exchange's partition step, padding sunk to the end: the radix
+    kernel up to 4,095 partitions (4,096 lanes with the sentinel), a stable
+    argsort beyond, in both packages."""
+    from spark_rapids_tpu.ops.sorting import partition_permutation as jpp
+    from spark_rapids_tpu_torch.ops.sorting import partition_permutation
+    rng = np.random.default_rng(nparts)
+    cap, n = 512, 389
+    ids = rng.integers(0, nparts, cap).astype(np.int32)
+    PK.set_mode(True)
+    try:
+        want = np.asarray(jpp(jnp.asarray(ids), nparts, n, cap))
+    finally:
+        PK.set_mode(None)
+    CK.reset_launches()
+    got = partition_permutation(torch.from_numpy(ids), nparts, n, cap)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert CK.launches["radix_ranks"] == 0   # CPU: the plain version
+
+
+def test_radix_ranks_rejects_bad_input():
+    ids = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        CK.radix_ranks(ids, CK.RADIX_MAX_PARTS + 1)
+    with pytest.raises(ValueError):
+        CK.radix_ranks(ids, -1)
+    with pytest.raises(TypeError):
+        CK.radix_ranks(ids.to(torch.int64), 4)
+    with pytest.raises(TypeError):
+        CK.radix_ranks(ids.reshape(2, 4), 4)
