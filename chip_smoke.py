@@ -21,24 +21,38 @@ It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
    seeds; radix_ranks exactly (ranks and counts) at 2, 5, 9, 129 and 4,096
    lanes, cap 8, 2^19 and 2^20, with ids outside the domain, and
    radix_partition_permutation equal to torch's stable argsort;
-4. runs three TPC-H q1 paths at scale factor ``--sf`` (data generated from
-   the fixed seed into build/) through ``TorchSession()`` on the card:
+   hash_join_probe bit for bit (rows and flags) at n = 2^20 against 10,000
+   build keys (4,096 buckets) and 200 (128 buckets), about half of the
+   stream keys hits, with null rows' zeros and the empty-slot key;
+4. runs five TPC-H paths at scale factor ``--sf`` (data generated from the
+   fixed seed into build/) through ``TorchSession()`` on the card:
    q1 (the table directory as one partition: scan, COMPLETE aggregate,
    sort), q1-files (one partition per file: PARTIAL aggregate, hash
-   exchange on the keys, AQE reader, FINAL aggregate) and q1-repartition
+   exchange on the keys, AQE reader, FINAL aggregate), q1-repartition
    (``repartition(8, "l_returnflag", "l_linestatus")`` of the whole scan,
-   then q1 as in q1-files). Each path has one run with the launch counts
-   reset just before and read just after (every kernel of the path must
-   have launched: bitunpack128 as often as the scan has pages for it,
-   murmur3_words twice and radix_ranks once per batch an exchange
-   partitioned), then ``--reps`` timed runs; every result is held against
-   the NumPy oracle. One more run of each path records the inputs it hands
-   to the kernels, and each kernel is held against its plain version on
-   them;
+   then q1 as in q1-files), q5 (five broadcast hash joins, all on the
+   direct-address table, then the dense group-by on ``n_name`` and the
+   sort) and q5-sparse (q5 with the supplier join on sparse 64-bit ids,
+   whose build takes the hash table: radix_ranks in its build,
+   hash_join_probe once per stream batch). Each path has one run with the
+   launch counts reset just before and read just after (every kernel of
+   the path must have launched: bitunpack128 as often as the q1 scan has
+   pages for it, murmur3_words twice and radix_ranks once per batch an
+   exchange partitioned, hash_join_probe never on q5), and its peak device
+   memory; each join prints its build side, probe mode, build rows and
+   buckets. Then ``--reps`` timed runs of each path (at most ``Q1_REPS`` of
+   each q1 path), the paths in turns; every result is held against the
+   NumPy oracle. One more run of each path records the inputs it hands to
+   the kernels, and each kernel is held against its plain version on them;
 5. times each kernel, its plain version and, where one exists, the PyTorch
    call that computes the same function, on the paths' inputs, beside the
    least time the card could take (bytes over 3.35 TB/s, operations over
    the float32 peak), and prints each exchange's map-stage host seconds;
+   for hash_join_probe, which no single PyTorch call computes, it also
+   times the reference's own alternative on the same inputs (the ``one``
+   probe mode: sorted build keys, torch.searchsorted, one compare, one
+   gather); radix_ranks also on the q5-sparse hash build's own input,
+   beside torch.argsort(stable=True);
 6. prints one JSON line describing every ported kernel, the card's name and
    power limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -65,6 +79,9 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # the CUDA kernel's symbol, as the profiler names its launches
 KERNEL_NAME = "bitunpack_kernel"
+# timed runs of each q1 path: fewer than the q5 paths' --reps, so that the
+# five paths at SF1 take no longer than the three q1 paths did before
+Q1_REPS = 2
 
 
 def card_line() -> str:
@@ -260,6 +277,78 @@ def radix_check(ids, num_lanes: int, in_domain: bool) -> int:
     return 0
 
 
+def check_q5(got, exp):
+    """bench.py's q5 check: nation names exact, revenue within 1e-6
+    relative."""
+    if len(got) != len(exp):
+        raise AssertionError(f"q5 rows {len(got)} != oracle {len(exp)}")
+    for g, (n, v) in zip(got, exp):
+        if g["n_name"] != n or abs(g["revenue"] - v) > 1e-6 * max(1.0,
+                                                                  abs(v)):
+            raise AssertionError(f"q5 row {g} != oracle {(n, v)}")
+
+
+def probe_bound_ms(n: int, num_buckets: int) -> float:
+    """Least time for one hash_join_probe call: read n 8-byte keys and
+    write n 4-byte rows and n 1-byte flags, and read the table of 8 slots
+    of 8 + 4 bytes per bucket once, over the card's memory rate."""
+    return (n * (8 + 4 + 1) + 8 * num_buckets * 12) / HBM_BYTES_PER_S * 1e3
+
+
+def probe_inputs(rng, n: int, n_build: int, dev):
+    """(build keys, stream keys) on the card: n_build sparse unique int64
+    keys about 10^10 apart (a third negative), and n stream keys of which
+    about half are hits, 5 % null rows' canonical 0, and the first the
+    empty-slot key int64 min."""
+    from spark_rapids_tpu_torch.ops import cuda_kernels as CK
+    keys = (rng.permutation(n_build).astype(np.int64) + 1) * 9_999_991_337
+    keys[::3] *= -1
+    stream = np.where(rng.random(n) < 0.5, rng.choice(keys, n),
+                      rng.integers(-2**62, 2**62, n)).astype(np.int64)
+    stream[rng.random(n) < 0.05] = 0
+    stream[0] = CK.HJ_EMPTY
+    return (torch.from_numpy(keys).to(dev), torch.from_numpy(stream).to(dev))
+
+
+def probe_check(tk, tr, stream, num_buckets: int) -> int:
+    """hash_join_probe against its plain version, bit for bit (rows and
+    flags); raises on a difference, else returns 0."""
+    from spark_rapids_tpu_torch.ops import cuda_kernels as CK
+    pos, found = CK.hash_join_probe(tk, tr, stream, num_buckets)
+    want_pos, want_found = CK.hash_join_probe_plain(tk, tr, stream,
+                                                    num_buckets)
+    if not (torch.equal(pos, want_pos) and torch.equal(found, want_found)):
+        raise AssertionError(f"hash_join_probe != plain at "
+                             f"n={stream.numel()} buckets={num_buckets}")
+    return 0
+
+
+def one_mode_inputs(tk, tr):
+    """The build the reference's ``one`` probe mode would hold for the same
+    table: its keys sorted once, and their build rows in that order."""
+    occupied = tr >= 0
+    keys, order = torch.sort(tk[occupied])
+    return keys, tr[occupied][order]
+
+
+def one_mode_probe(sorted_keys, rows, stream):
+    """``(pos, found)`` by the ``one`` mode's formulation: one
+    torch.searchsorted, one compare, one gather."""
+    lo = torch.clamp(torch.searchsorted(sorted_keys, stream),
+                     max=sorted_keys.numel() - 1)
+    found = sorted_keys[lo] == stream
+    return torch.where(found, rows[lo], -1), found
+
+
+def joins(plan) -> list:
+    """The hash joins of an exec tree, top down."""
+    from spark_rapids_tpu_torch.exec.joins import HashJoinExec
+    out = [plan] if isinstance(plan, HashJoinExec) else []
+    for c in plan.children:
+        out += joins(c)
+    return out
+
+
 def exchanges(plan) -> list:
     """The shuffle exchanges of an exec tree, top down."""
     from spark_rapids_tpu_torch.exec.exchange import ShuffleExchangeExec
@@ -315,17 +404,18 @@ def main() -> int:
     ap.add_argument("--sf", type=float, default=1.0,
                     help="TPC-H scale factor of the q1 run (default 1.0)")
     ap.add_argument("--reps", type=int, default=3,
-                    help="timed runs of each q1 path after the first "
-                         "(default 3)")
+                    help="timed runs of each path after the first (default "
+                         "3; at most Q1_REPS for the q1 paths)")
     ap.add_argument("--map-threads", type=int, default=None,
                     help="spark.rapids.tpu.sql.localScheduler.numThreads "
                          "of the session (default: the conf's default)")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one run of each q1 path with "
+                    help="also trace one run of each path with "
                          "torch.profiler and cProfile")
     args = ap.parse_args()
     # progress must survive a kill at a time limit, so flush every line
     sys.stdout.reconfigure(line_buffering=True)
+    t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -448,6 +538,38 @@ def main() -> int:
     for cap, lanes, k, p_, a_, b in rx_rows:
         print(f"  {cap} {lanes} {k:.6f} {p_:.6f} {a_:.6f} {b:.6f}")
 
+    # hash_join_probe bit for bit at the two table sizes a path can give
+    # (the SF1 supplier build, 10,000 keys in 4,096 buckets; a small build
+    # in the fewest, 128 buckets); device times beside the one-mode
+    # formulation on the same inputs
+    hj_err = 0
+    hj_rows = []
+    for n, n_build in ((1 << 20, 10_000), (1 << 20, 200)):
+        keys, stream = probe_inputs(rng, n, n_build, dev)
+        nb = CK.hash_join_buckets(n_build)
+        tk, tr, ok = CK.hash_join_build(
+            keys, torch.ones(n_build, dtype=torch.bool, device=dev), nb)
+        if not bool(ok):
+            raise AssertionError(f"hash_join_build refused {n_build} "
+                                 f"sparse keys in {nb} buckets")
+        hj_err = max(hj_err, probe_check(tk, tr, stream, nb))
+        sk, rows = one_mode_inputs(tk, tr)
+        if not torch.equal(one_mode_probe(sk, rows, stream)[1],
+                           CK.hash_join_probe(tk, tr, stream, nb)[1]):
+            raise AssertionError("the one-mode formulation disagrees with "
+                                 "hash_join_probe")
+        hj_rows.append((n, n_build, nb, device_ms(
+            lambda: CK.hash_join_probe(tk, tr, stream, nb), 20,
+            "hash_join_probe_kernel"), device_ms(
+            lambda: CK.hash_join_probe_plain(tk, tr, stream, nb), 5),
+            device_ms(lambda: one_mode_probe(sk, rows, stream), 10),
+            probe_bound_ms(n, nb)))
+    torch.cuda.synchronize()
+    print("hash_join_probe n build_keys buckets kernel_device_ms "
+          "plain_device_ms one_mode_device_ms bound_ms")
+    for n, n_build, nb, k, p_, o_, b in hj_rows:
+        print(f"  {n} {n_build} {nb} {k:.6f} {p_:.6f} {o_:.6f} {b:.6f}")
+
     # -- 3. q1 data and its page census --------------------------------------
     from spark_rapids_tpu_torch.benchmarks import tpch
     from spark_rapids_tpu_torch.session import TorchSession
@@ -490,15 +612,16 @@ def main() -> int:
           f"bound {page_bound_ms:.6f} ms per q1 scan")
     del dev_pages
 
-    # -- 4. the three q1 paths through the session on the card -------------
+    # -- 4. the five paths through the session on the card -----------------
     spark = TorchSession(
         {} if args.map_threads is None else
         {"spark.rapids.tpu.sql.localScheduler.numThreads": args.map_threads})
-    exp = tpch.np_q1(tpch.load_np({"lineitem": paths["lineitem"]}))
+    exp_q1 = tpch.np_q1(tpch.load_np({"lineitem": paths["lineitem"]}))
+    exp_q5 = tpch.np_q5(tpch.load_np(paths))
     li_dir = paths["lineitem"]
     li_files = sorted(os.path.join(li_dir, f) for f in os.listdir(li_dir)
                       if f.endswith(".parquet"))
-    q1_paths = {
+    all_paths = {
         # the table directory: one partition, a COMPLETE aggregate
         "q1": lambda: tpch.q1(tpch.load(spark, paths)),
         # one partition per file: PARTIAL -> hash exchange -> FINAL
@@ -507,10 +630,29 @@ def main() -> int:
         # the whole scan through a hash exchange on q1's keys, then q1
         "q1-repartition": lambda: tpch.q1({"lineitem": spark.read_parquet(
             li_dir).repartition(8, "l_returnflag", "l_linestatus")}),
+        # five broadcast hash joins on the direct-address table
+        "q5": lambda: tpch.q5(tpch.load(spark, paths)),
+        # the supplier join on sparse ids: the hash table
+        "q5-sparse": lambda: tpch.q5_sparse(tpch.load(spark, paths)),
     }
-    path_kernels = {"q1": ("bitunpack128", "onehot_sum_f32")}
+    q1_labels = ("q1", "q1-files", "q1-repartition")
+
+    def check(label, res):
+        if label in q1_labels:
+            check_q1(res.to_pylist(), exp_q1)
+        else:
+            check_q5(res.to_pylist(), exp_q5)
+    exchange_kernels = ("bitunpack128", "onehot_sum_f32", "murmur3_words",
+                        "radix_ranks")
+    path_kernels = {"q1": ("bitunpack128", "onehot_sum_f32"),
+                    "q1-files": exchange_kernels,
+                    "q1-repartition": exchange_kernels,
+                    "q5": ("bitunpack128", "onehot_sum_f32"),
+                    "q5-sparse": ("bitunpack128", "onehot_sum_f32",
+                                  "radix_ranks", "hash_join_probe")}
     counts_by_path = {}
-    for label, make_df in q1_paths.items():
+    peak_by_path = {}
+    for label, make_df in all_paths.items():
         plan = make_df().physical_plan()
         torch.cuda.reset_peak_memory_stats(dev)
         CK.reset_launches()
@@ -519,26 +661,47 @@ def main() -> int:
         first_s = time.perf_counter() - t0
         counts = dict(CK.launches)
         peak = torch.cuda.max_memory_allocated(dev)
-        check_q1(res.to_pylist(), exp)
-        kernels_here = path_kernels.get(label, tuple(counts))
-        for k in kernels_here:
+        check(label, res)
+        for k in path_kernels[label]:
             if counts[k] <= 0:
                 raise AssertionError(
                     f"kernel {k} never launched on the {label} path")
-        if counts["bitunpack128"] != len(census):
-            raise AssertionError(
-                f"{label}: bitunpack128 launched {counts['bitunpack128']} "
-                f"times, the scan has {len(census)} bit-packed pages")
         exs = exchanges(plan)
         batches = sum(e.map_batches for e in exs)
-        if (counts["murmur3_words"] != 2 * batches
-                or counts["radix_ranks"] != batches):
+        if label in q1_labels:
+            if counts["bitunpack128"] != len(census):
+                raise AssertionError(
+                    f"{label}: bitunpack128 launched "
+                    f"{counts['bitunpack128']} times, the scan has "
+                    f"{len(census)} bit-packed pages")
+            if (counts["murmur3_words"] != 2 * batches
+                    or counts["radix_ranks"] != batches):
+                raise AssertionError(
+                    f"{label}: {batches} partitioned batches (two string "
+                    f"keys each) but murmur3_words launched "
+                    f"{counts['murmur3_words']} and radix_ranks "
+                    f"{counts['radix_ranks']} times")
+        js = joins(plan)
+        hashed = [j for j in js if j.stats["probe_mode"] == "hash"]
+        hash_builds = len(hashed) + sum(j.stats["hash_refused"] for j in js)
+        if label == "q5" and (hashed or counts["hash_join_probe"]):
             raise AssertionError(
-                f"{label}: {batches} partitioned batches (two string keys "
-                f"each) but murmur3_words launched "
-                f"{counts['murmur3_words']} and radix_ranks "
-                f"{counts['radix_ranks']} times")
+                f"q5 took the hash table: {len(hashed)} hash joins, "
+                f"{counts['hash_join_probe']} hash_join_probe launches")
+        if label == "q5-sparse":
+            probed = sum(j.stats["stream_batches"] for j in hashed)
+            if len(hashed) != 1 or counts["hash_join_probe"] != probed:
+                raise AssertionError(
+                    f"q5-sparse: {len(hashed)} hash joins probed {probed} "
+                    f"stream batches, hash_join_probe launched "
+                    f"{counts['hash_join_probe']} times (want one join, "
+                    f"one launch per stream batch)")
+            if counts["radix_ranks"] != hash_builds:
+                raise AssertionError(
+                    f"q5-sparse: {hash_builds} hash builds, radix_ranks "
+                    f"launched {counts['radix_ranks']} times")
         counts_by_path[label] = counts
+        peak_by_path[label] = peak
         print(f"{label} first run: {first_s:.3f} s; launches {counts}; "
               f"peak device memory {peak} B")
         for e in exs:
@@ -548,51 +711,70 @@ def main() -> int:
                   f"{e.partition_seconds:.4f} s host (partition + write); "
                   f"map stage {e.map_seconds:.4f} s host wall, child "
                   f"included")
+        for j in js:
+            st = j.stats
+            print(f"{label} join {j.join_type}: build {j.build_side} "
+                  f"{j.exchange.output.names}, {st['build_rows']} rows, "
+                  f"probe mode {st['probe_mode']}, buckets "
+                  f"{st['hash_buckets']}, hash builds refused "
+                  f"{st['hash_refused']}; {st['stream_batches']} stream "
+                  f"batches; build {j.exchange.build_seconds:.4f} s host")
 
     # timed runs, the paths taken in turns (forward, then backward) so that
     # the shared host's drift falls on all of them alike
-    times = {label: [] for label in q1_paths}
-    order = list(q1_paths)
+    times = {label: [] for label in all_paths}
+    order = list(all_paths)
     for rep in range(args.reps):
         for label in (order if rep % 2 == 0 else order[::-1]):
+            if label in q1_labels and rep >= Q1_REPS:
+                continue
             t0 = time.perf_counter()
-            res = q1_paths[label]().collect()
+            res = all_paths[label]().collect()
             torch.cuda.synchronize()
             times[label].append(time.perf_counter() - t0)
-            check_q1(res.to_pylist(), exp)
+            check(label, res)
     for label, ts in times.items():
-        print(f"{label} sf={args.sf:g} on {name}: median "
-              f"{statistics.median(ts):.4f} s, min {min(ts):.4f} s, "
-              f"max {max(ts):.4f} s over {len(ts)} runs: "
-              f"{[round(t, 4) for t in ts]}")
+        if ts:
+            print(f"{label} sf={args.sf:g} on {name}: median "
+                  f"{statistics.median(ts):.4f} s, min {min(ts):.4f} s, "
+                  f"max {max(ts):.4f} s over {len(ts)} runs: "
+                  f"{[round(t, 4) for t in ts]}; peak device memory "
+                  f"{peak_by_path[label]} B")
 
     # the inputs the paths hand to the kernels: onehot_sum_f32 in one q1
-    # run; murmur3_words and radix_ranks in one run of each exchange path
-    recorded = {"onehot_sum_f32": [], "murmur3_words": [], "radix_ranks": []}
+    # run; murmur3_words and radix_ranks in one run of each exchange path;
+    # hash_join_probe, hash_join_build and the build's radix_ranks in one
+    # q5-sparse run
+    recorded = {"onehot_sum_f32": [], "murmur3_words": [], "radix_ranks": [],
+                "hash_join_probe": [], "hash_join_build": []}
     launchers = {k: getattr(CK, k) for k in recorded}
+    build_radix = []
 
-    def recorder(kname):
+    def recorder(kname, into):
         def record(*args_):
-            recorded[kname].append(tuple(
-                a.clone() if isinstance(a, torch.Tensor) else a
-                for a in args_))
+            into.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                              for a in args_))
             return launchers[kname](*args_)
         return record
     for label, knames in (("q1", ["onehot_sum_f32"]),
                           ("q1-files", ["murmur3_words", "radix_ranks"]),
                           ("q1-repartition", ["murmur3_words",
-                                              "radix_ranks"])):
-        before = {k: len(recorded[k]) for k in knames}
+                                              "radix_ranks"]),
+                          ("q5-sparse", ["hash_join_probe",
+                                         "hash_join_build", "radix_ranks"])):
+        into = {k: build_radix if (label, k) == ("q5-sparse", "radix_ranks")
+                else recorded[k] for k in knames}
+        before = {k: len(into[k]) for k in knames}
         for k in knames:
-            setattr(CK, k, recorder(k))
+            setattr(CK, k, recorder(k, into[k]))
         try:
-            check_q1(q1_paths[label]().collect().to_pylist(), exp)
+            check(label, all_paths[label]().collect())
         finally:
             for k in knames:
                 setattr(CK, k, launchers[k])
         for k in knames:
-            got = len(recorded[k]) - before[k]
-            if got != counts_by_path[label][k]:
+            got = len(into[k]) - before[k]
+            if k in counts_by_path[label] and got != counts_by_path[label][k]:
                 raise AssertionError(
                     f"recorded {got} {k} calls on {label}, the counted run "
                     f"launched {counts_by_path[label][k]}")
@@ -666,24 +848,105 @@ def main() -> int:
         radix_bound_ms(ids.numel(), lanes) for ids, lanes in rx_calls)))
     rx_bound_ms = max(rx_bytes_ms, rx_ops_ms)
     rx_bound_by = "bytes" if rx_bytes_ms >= rx_ops_ms else "operations"
+    # the permutation reads each 4-byte id once and writes its 8-byte slot
+    perm_bound_ms = sum(12 * ids.numel() for ids, _l in rx_calls) \
+        / HBM_BYTES_PER_S * 1e3
     shapes = sorted({(ids.numel(), lanes) for ids, lanes in rx_calls})
     print(f"exchange paths radix_ranks: {len(rx_calls)} launches at "
           f"(cap, lanes) {shapes}; kernel {rx_ms:.4f} ms device "
           f"({rx_call_ms:.4f} ms enqueued back to back), plain "
           f"{rx_plain_ms:.4f} ms, torch.argsort(stable=True) "
           f"{rx_lib_ms:.4f} ms, torch.bincount {rx_bincount_ms:.4f} ms, "
-          f"the whole radix_partition_permutation {rx_perm_ms:.4f} ms, "
-          f"bound {rx_bound_ms:.6f} ms ({rx_bound_by})")
-    del recorded, oh_calls, mm_calls, rx_calls
+          f"the whole radix_partition_permutation {rx_perm_ms:.4f} ms "
+          f"(bound {perm_bound_ms:.6f} ms, bytes; torch.argsort(stable=True) "
+          f"computes the same permutation), bound {rx_bound_ms:.6f} ms "
+          f"({rx_bound_by})")
+
+    # hash_join_probe: every call of one q5-sparse run; beside it the
+    # reference's one-mode formulation on the same inputs (its sorted build
+    # made outside the timing, as the build does it once)
+    hj_calls = recorded["hash_join_probe"]
+    hj_err = max([probe_check(*a) for a in hj_calls], default=hj_err)
+    one_calls = [(*one_mode_inputs(tk, tr), stream)
+                 for tk, tr, stream, _nb in hj_calls]
+    for (tk, tr, stream, nb), oc in zip(hj_calls, one_calls):
+        if not torch.equal(one_mode_probe(*oc)[1],
+                           CK.hash_join_probe(tk, tr, stream, nb)[1]):
+            raise AssertionError("the one-mode formulation disagrees with "
+                                 "hash_join_probe on a q5-sparse input")
+    torch.cuda.synchronize()
+    hj_ms = device_ms(each_call(CK.hash_join_probe, hj_calls), 5,
+                      "hash_join_probe_kernel")
+    hj_plain_ms = device_ms(each_call(CK.hash_join_probe_plain, hj_calls), 3)
+    hj_one_ms = device_ms(each_call(one_mode_probe, one_calls), 5)
+    hj_call_ms = call_ms(each_call(CK.hash_join_probe, hj_calls), 5, 1)
+    hj_bound_ms = sum(probe_bound_ms(stream.numel(), nb)
+                      for _tk, _tr, stream, nb in hj_calls)
+    shapes = sorted({(stream.numel(), nb) for _k, _r, stream, nb in hj_calls})
+    print(f"q5-sparse hash_join_probe: {len(hj_calls)} launches at (n, "
+          f"buckets) {shapes}; kernel {hj_ms:.4f} ms device ({hj_call_ms:.4f} "
+          f"ms enqueued back to back), plain {hj_plain_ms:.4f} ms, the "
+          f"one-mode formulation (searchsorted, compare, gather) "
+          f"{hj_one_ms:.4f} ms, bound {hj_bound_ms:.6f} ms (bytes); no "
+          f"single PyTorch call probes a hash table")
+
+    # hash_join_build, plain torch around radix_ranks: the whole build with
+    # the kernel, and with the plain radix_ranks in its place; beside them
+    # the one mode's build, one sort of the keys
+    hb_calls = recorded["hash_join_build"]
+
+    def plain_build(keys, eligible, nb):
+        CK.radix_ranks = CK.radix_ranks_plain
+        try:
+            return CK.hash_join_build(keys, eligible, nb)
+        finally:
+            CK.radix_ranks = launchers["radix_ranks"]
+    for a in hb_calls:
+        if not all(torch.equal(x, y) for x, y in zip(CK.hash_join_build(*a),
+                                                    plain_build(*a))):
+            raise AssertionError("hash_join_build with the radix_ranks "
+                                 "kernel != with its plain version")
+    hb_ms = device_ms(each_call(CK.hash_join_build, hb_calls), 5)
+    hb_plain_ms = device_ms(each_call(plain_build, hb_calls), 3)
+    hb_sort_ms = device_ms(each_call(
+        lambda keys, _e, _nb: torch.sort(keys), hb_calls), 5)
+    # read the keys and the mask once, write the two tables once
+    hb_bound_ms = sum((9 * keys.numel() + 12 * 8 * nb) / HBM_BYTES_PER_S * 1e3
+                      for keys, _e, nb in hb_calls)
+    print(f"q5-sparse hash_join_build: {len(hb_calls)} builds at (cap, "
+          f"buckets) {sorted({(k.numel(), nb) for k, _e, nb in hb_calls})}; "
+          f"{hb_ms:.4f} ms device with the radix_ranks kernel, "
+          f"{hb_plain_ms:.4f} ms with its plain version, torch.sort of the "
+          f"keys (the one mode's build) {hb_sort_ms:.4f} ms, bound "
+          f"{hb_bound_ms:.6f} ms (bytes)")
+    # radix_ranks inside that build, on its own input: 4,096 lanes, ids of
+    # ineligible rows past the domain; beside it torch's stable argsort
+    rb_err = max([radix_check(ids, lanes, False)
+                  for ids, lanes in build_radix], default=0)
+    rb_ms = device_ms(each_call(CK.radix_ranks, build_radix), 5, "radix_")
+    rb_plain_ms = device_ms(each_call(CK.radix_ranks_plain, build_radix), 3)
+    rb_argsort_ms = device_ms(each_call(argsort, build_radix), 5)
+    rb_bytes_ms, rb_ops_ms = (sum(x) for x in zip(*(
+        radix_bound_ms(ids.numel(), lanes) for ids, lanes in build_radix)))
+    rb_bound_ms = max(rb_bytes_ms, rb_ops_ms)
+    print(f"q5-sparse hash_join_build's radix_ranks: {len(build_radix)} "
+          f"launches at (cap, lanes) "
+          f"{sorted({(ids.numel(), lanes) for ids, lanes in build_radix})}; "
+          f"kernel {rb_ms:.4f} ms device, plain {rb_plain_ms:.4f} ms, "
+          f"torch.argsort(stable=True) {rb_argsort_ms:.4f} ms, bound "
+          f"{rb_bound_ms:.6f} ms")
+    del recorded, oh_calls, mm_calls, rx_calls, hj_calls, one_calls, hb_calls
+    del build_radix
 
     if args.profile:
-        for label, make_df in q1_paths.items():
+        for label, make_df in all_paths.items():
             profile_run(label, lambda: make_df().collect(), repo)
 
     # -- 5. the kernels line, the card, the verdict --------------------------
     # "launches" counts the runs whose inputs the times cover: the q1 path's
     # for bitunpack128 and onehot_sum_f32, q1-files plus q1-repartition for
-    # murmur3_words and radix_ranks; launches_by_path has every path's
+    # murmur3_words and radix_ranks, q5-sparse for hash_join_probe;
+    # launches_by_path has every path's
     exchange_paths = ("q1-files", "q1-repartition")
 
     def entry(kname, source, line, launch_paths, err, ms, plain_ms, bound,
@@ -705,9 +968,20 @@ def main() -> int:
               oh_plain_ms, oh_bound_ms, oh_bound_by, oh_lib_ms),
         entry("murmur3_words", "murmur3.cu", 169, exchange_paths, mm_err,
               mm_ms, mm_plain_ms, mm_bound_ms, mm_bound_by, None),
-        entry("radix_ranks", "radix.cu", 359, exchange_paths, rx_err, rx_ms,
-              rx_plain_ms, rx_bound_ms, rx_bound_by, rx_lib_ms),
+        # the hash_build_* keys: the call inside q5-sparse's hash build
+        dict(entry("radix_ranks", "radix.cu", 359, exchange_paths,
+                   max(rx_err, rb_err), rx_ms, rx_plain_ms, rx_bound_ms,
+                   rx_bound_by, rx_lib_ms),
+             hash_build_ms=rb_ms, hash_build_plain_ms=rb_plain_ms,
+             hash_build_bound_ms=rb_bound_ms,
+             hash_build_argsort_ms=rb_argsort_ms),
+        # no single PyTorch call probes a hash table: library_ms is null and
+        # one_mode_ms is the reference's own alternative on the same inputs
+        dict(entry("hash_join_probe", "hashjoin.cu", 479, ("q5-sparse",),
+                   hj_err, hj_ms, hj_plain_ms, hj_bound_ms, "bytes", None),
+             one_mode_ms=hj_one_ms),
     ]
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

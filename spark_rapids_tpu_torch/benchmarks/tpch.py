@@ -1,5 +1,6 @@
-"""TPC-H benchmark: deterministic data generator, q1 via the session API, and
-an independent single-core NumPy oracle.
+"""TPC-H benchmark: deterministic data generator, q1 and q5 via the session
+API (and q5 over sparse supplier ids), and independent single-core NumPy
+oracles.
 
 Counterpart of ``spark_rapids_tpu/benchmarks/tpch.py``, kept as the port's own
 copy. The generator keeps the seed (20260729) and the draw order, so both
@@ -158,6 +159,91 @@ def q1(dfs):
             .sort(c("l_returnflag"), c("l_linestatus")))
 
 
+def q5(dfs):
+    """Local supplier volume (TPC-H q5): revenue by nation in ASIA."""
+    import spark_rapids_tpu_torch.functions as F
+    from spark_rapids_tpu_torch import types as T
+    c = F.col
+    d0 = F.cast(F.lit("1994-01-01"), T.DATE)
+    d1 = F.cast(F.lit("1995-01-01"), T.DATE)
+    asia = dfs["region"].filter(c("r_name") == F.lit("ASIA")).select(
+        c("r_regionkey").alias("n_regionkey"))
+    nations = (dfs["nation"].join(asia, on="n_regionkey")
+               .select(c("n_nationkey"), c("n_name")))
+    supp = (dfs["supplier"]
+            .select(c("s_suppkey").alias("l_suppkey"),
+                    c("s_nationkey").alias("n_nationkey"))
+            .join(nations, on="n_nationkey"))
+    orders = (dfs["orders"]
+              .filter((c("o_orderdate") >= d0) & (c("o_orderdate") < d1))
+              .select(c("o_orderkey").alias("l_orderkey"),
+                      c("o_custkey").alias("c_custkey")))
+    cust = dfs["customer"].select(c("c_custkey"),
+                                  c("c_nationkey"))
+    co = orders.join(cust, on="c_custkey")
+    li = dfs["lineitem"].select(c("l_orderkey"), c("l_suppkey"),
+                                c("l_extendedprice"), c("l_discount"))
+    j = (li.join(co, on="l_orderkey")
+         .join(supp, on="l_suppkey")
+         # q5's extra equality: the customer must share the supplier's nation
+         .filter(c("c_nationkey") == c("n_nationkey")))
+    return (j.select(c("n_name"),
+                     (c("l_extendedprice") * (F.lit(1.0) - c("l_discount")))
+                     .alias("volume"))
+            .group_by(c("n_name"))
+            .agg(F.sum(c("volume")).alias("revenue"))
+            .sort(c("revenue"), ascending=False))
+
+
+#: multiplier that spreads the dense supplier keys 1..n over ~10^10 ids in
+#: q5_sparse. It keeps every bucket of the join's 4,096-bucket Fibonacci table
+#: at 4 keys or fewer at SF1 (the table takes 8); the stride 999,999,937 put
+#: up to 29 keys in one bucket and would make the hash build refuse.
+SPARSE_SUPPKEY_STRIDE = 1_000_003
+
+
+def q5_sparse(dfs):
+    """q5 with TPC-H's ``l_suppkey = s_suppkey`` condition carried on sparse
+    64-bit supplier ids (``suppkey * SPARSE_SUPPKEY_STRIDE``): the supplier
+    join's key range is too wide for the direct-address table, so its build
+    (every supplier) takes the hash table. The joins: lineitem with the
+    year's orders and their customers on ``l_orderkey``, then with every
+    supplier on ``s_id``, the customer's nation held equal to the
+    supplier's, then with ASIA's nations. Gives ``np_q5``'s answer."""
+    import spark_rapids_tpu_torch.functions as F
+    from spark_rapids_tpu_torch import types as T
+    c = F.col
+    stride = F.lit(SPARSE_SUPPKEY_STRIDE)
+    d0 = F.cast(F.lit("1994-01-01"), T.DATE)
+    d1 = F.cast(F.lit("1995-01-01"), T.DATE)
+    asia = dfs["region"].filter(c("r_name") == F.lit("ASIA")).select(
+        c("r_regionkey").alias("n_regionkey"))
+    nations = (dfs["nation"].join(asia, on="n_regionkey")
+               .select(c("n_nationkey"), c("n_name")))
+    supp = dfs["supplier"].select((c("s_suppkey") * stride).alias("s_id"),
+                                  c("s_nationkey").alias("n_nationkey"))
+    orders = (dfs["orders"]
+              .filter((c("o_orderdate") >= d0) & (c("o_orderdate") < d1))
+              .select(c("o_orderkey").alias("l_orderkey"),
+                      c("o_custkey").alias("c_custkey")))
+    co = orders.join(dfs["customer"].select(c("c_custkey"),
+                                            c("c_nationkey")),
+                     on="c_custkey")
+    li = dfs["lineitem"].select(c("l_orderkey"),
+                                (c("l_suppkey") * stride).alias("s_id"),
+                                c("l_extendedprice"), c("l_discount"))
+    j = (li.join(co, on="l_orderkey")
+         .join(supp, on="s_id")
+         .filter(c("c_nationkey") == c("n_nationkey"))
+         .join(nations, on="n_nationkey"))
+    return (j.select(c("n_name"),
+                     (c("l_extendedprice") * (F.lit(1.0) - c("l_discount")))
+                     .alias("volume"))
+            .group_by(c("n_name"))
+            .agg(F.sum(c("volume")).alias("revenue"))
+            .sort(c("revenue"), ascending=False))
+
+
 # -- independent NumPy oracle (single core, the CPU-Spark stand-in) ----------
 
 def load_np(paths: dict) -> dict:
@@ -189,3 +275,37 @@ def np_q1(tb):
                      charge[s:e].sum(), qty[s:e].sum() / n,
                      price[s:e].sum() / n, disc[s:e].sum() / n, n))
     return rows
+
+
+def np_q5(tb):
+    date0, date1 = _days(1994, 1, 1), _days(1995, 1, 1)
+    region = tb["region"]
+    nation = tb["nation"]
+    asia = region["r_regionkey"][region["r_name"] == "ASIA"]
+    nmask = np.isin(nation["n_regionkey"], asia)
+    nkeys = nation["n_nationkey"][nmask]
+    nnames = nation["n_name"][nmask]
+    supp = tb["supplier"]
+    smask = np.isin(supp["s_nationkey"], nkeys)
+    # supplier key → nation (dense s_suppkey 1..n)
+    s_nation = np.full(int(supp["s_suppkey"].max()) + 1, -1, dtype=np.int64)
+    s_nation[supp["s_suppkey"][smask]] = supp["s_nationkey"][smask]
+    cust = tb["customer"]
+    c_nation = np.full(int(cust["c_custkey"].max()) + 1, -2, dtype=np.int64)
+    c_nation[cust["c_custkey"]] = cust["c_nationkey"]
+    orders = tb["orders"]
+    om = (orders["o_orderdate"] >= date0) & (orders["o_orderdate"] < date1)
+    o_cnation = np.full(int(orders["o_orderkey"].max()) + 1, -3,
+                        dtype=np.int64)
+    o_cnation[orders["o_orderkey"][om]] = c_nation[orders["o_custkey"][om]]
+    li = tb["lineitem"]
+    lsn = s_nation[li["l_suppkey"]]
+    lcn = o_cnation[li["l_orderkey"]]
+    keep = (lsn >= 0) & (lsn == lcn)
+    vol = li["l_extendedprice"][keep] * (1.0 - li["l_discount"][keep])
+    nat = lsn[keep]
+    name_of = {int(k): n for k, n in zip(nkeys, nnames)}
+    out = {}
+    for k in np.unique(nat):
+        out[name_of[int(k)]] = float(vol[nat == k].sum())
+    return sorted(out.items(), key=lambda kv: -kv[1])

@@ -1,0 +1,359 @@
+"""Equi-join execs over one fixed-point key — counterpart of
+``spark_rapids_tpu/exec/joins.py`` (``_int_backed``, ``_emit_pairs``, the
+single-key build and probe of ``_JoinCore``, ``HashJoinExec`` and
+``BroadcastHashJoinExec``; reference GpuHashJoin, GpuBroadcastHashJoinExec).
+
+The build side is one device batch. ``_JoinCore`` evaluates its key once and
+picks a probe mode in the reference's order for a backend where scatters are
+cheap (``runtime/hw.scatters_cheap`` is true off the TPU, so on a GPU):
+
+1. build stats: the least and greatest eligible key (one host sync);
+2. ``dense``: a direct-address table over the key range, when the range fits
+   ``max(4 * capacity, 2^22)`` slots and the keys are unique (one more sync);
+3. ``hash`` (the reference's ``pallas_hash``): the 8-slot Fibonacci table of
+   ``cuda_kernels.hash_join_build``, for a build of at most 16,384 rows whose
+   least key lies above int64 min; the build's ``ok`` is synced once, and a
+   refused build (an overfull bucket or a duplicate key) goes on to
+4. ``one`` / ``two``: the build keys sorted once (one int64 sort of packed
+   ``(key - vmin, row)`` when the range allows, else two stable sorts), then
+   one ``searchsorted`` and a compare for unique keys, two for the general
+   case.
+
+Each stream batch probes on the device and gives each row a range
+``[lo, hi)`` of build positions; ``_emit_pairs`` syncs the pair count once
+per stream batch and expands the pairs in chunks, in stream order, so every
+mode emits the rows in the same order.
+
+Not ported (the planner refuses them, ``plan/overrides.py``): several keys
+and keys that are not fixed-point (the rank path), right and full outer
+joins (matched-build tracking), residual conditions, keyless and cross joins
+(the nested-loop join), and the shuffled/mesh route. The reference's probe
+chain fusion and its stream prefilter/preproject hoist change no result and
+are not ported either.
+"""
+
+from __future__ import annotations
+
+import threading
+
+import torch
+
+from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+from spark_rapids_tpu_torch.columnar.vector import bucket_capacity
+from spark_rapids_tpu_torch.exec.base import TorchExec
+from spark_rapids_tpu_torch.expr.core import (Col, EvalContext,
+                                              bind_references)
+from spark_rapids_tpu_torch.ops import cuda_kernels as CK
+from spark_rapids_tpu_torch.ops import joining as J
+from spark_rapids_tpu_torch.ops.filtering import gather_cols
+
+# max pairs expanded per output chunk (the JoinGatherer row-target analog)
+_MAX_CHUNK_ROWS = 1 << 20
+
+
+def _int_backed(dtype) -> bool:
+    """Orderable fixed-point key: comparisons over raw device values are key
+    comparisons (unlike string codes, which compare only under one shared
+    dictionary, or floats, which need NaN totalization)."""
+    return isinstance(dtype, (T.IntegralType, T.BooleanType, T.DateType))
+
+
+def _key_values(k: Col) -> torch.Tensor:
+    return k.values.to(torch.int8) if k.values.dtype == torch.bool \
+        else k.values
+
+
+def _emit_pairs(join_type, stream_is_left, stream_batch, build_batch,
+                build_perm, lo, hi, counts, total, out_schema):
+    """Expand the probe's pairs in chunks of at most ``_MAX_CHUNK_ROWS`` and
+    yield output batches: stream columns, then build columns (swapped when
+    the build side is the left one), null-extended where an outer join found
+    no match; semi and anti joins emit the stream columns only."""
+    total = int(total)  # one host sync per stream batch
+    semi_anti = join_type in (J.LEFT_SEMI, J.LEFT_ANTI)
+    s_in = [Col.from_vector(c) for c in stream_batch.columns]
+    b_in = ([] if semi_anti else
+            [Col.from_vector(c) for c in build_batch.columns])
+    pos = 0
+    while pos < total:
+        out_cap = bucket_capacity(min(total - pos, _MAX_CHUNK_ROWS))
+        s_idx, b_idx, b_matched, live = J.expand_pairs(
+            build_perm, lo, hi, counts, pos, out_cap)
+        cols = gather_cols(s_in, s_idx, live)
+        if not semi_anti:
+            b_cols = gather_cols(b_in, b_idx.long(), b_matched)
+            cols = (cols + b_cols) if stream_is_left else (b_cols + cols)
+        yield ColumnarBatch([c.to_vector() for c in cols],
+                            min(total - pos, out_cap), out_schema)
+        pos += out_cap
+
+
+class _JoinCore:
+    """Probe machinery over one materialized build batch and one
+    fixed-point key (module docstring: the build order and the modes)."""
+
+    def __init__(self, build_batch: ColumnarBatch, build_key_exprs,
+                 stream_key_exprs, join_type: str, device):
+        if len(build_key_exprs) != 1 or not _int_backed(
+                build_key_exprs[0].dtype):
+            raise NotImplementedError(
+                "joins on several keys or on a key that is not fixed-point "
+                "(the rank path) are not ported yet")
+        self.device = torch.device(device)
+        self.stream_key_exprs = stream_key_exprs
+        self.join_type = join_type
+        bctx = EvalContext.from_batch(build_batch, self.device)
+        self.build_keys_raw = [e.eval(bctx) for e in build_key_exprs]
+        self.n_build = build_batch.num_rows
+        #: the reference's name of the probe mode ("hash" is "pallas_hash")
+        self.probe_mode = None
+        self.hash_buckets = 0
+        #: True when a hash build returned ok=False and the sorted modes took
+        #: over (the reference's own contract, not a fallback)
+        self.hash_refused = False
+        self._prep_fast_build()
+
+    def _prep_fast_build(self):
+        k = self.build_keys_raw[0]
+        vals = _key_values(k)
+        dev = vals.device
+        cap = vals.shape[0]
+        idx_bits = max(int(cap - 1).bit_length(), 1)
+        rows = torch.arange(cap, device=dev)
+        eligible = k.validity & (rows < self.n_build)
+        info = torch.iinfo(vals.dtype)
+        vmin_t = torch.where(eligible, vals, info.max).min()
+        vmax_t = torch.where(eligible, vals, info.min).max()
+        # one host sync per build
+        vmin, vmax, n_valid = torch.stack(
+            [vmin_t.long(), vmax_t.long(), eligible.sum()]).tolist()
+        rng = max(vmax - vmin, 0)
+        # vmax + 1 (the ineligible rows' sentinel) must stay representable
+        packable = (self.n_build > 0 and rng < (1 << (62 - idx_bits))
+                    and vmax < (1 << 62))
+        dsize = rng + 2 if self.n_build > 0 else 1
+        dense_budget = max(4 * cap, 1 << 22)
+        self._vmin = vmin
+        self._n_valid = n_valid
+        # probe positions of the direct and hash tables are build rows
+        self._build_perm = torch.arange(cap, dtype=torch.int32, device=dev)
+        # the reference's direct-table gate also asks scatters_cheap() and no
+        # full-outer matched-build tracking: both hold in the port (a GPU or
+        # the CPU; full outer joins are refused at planning)
+        if self.n_build > 0 and dsize <= dense_budget:
+            rel = torch.where(eligible, vals.long() - vmin,
+                              torch.full_like(rows, dsize))
+            hits = torch.zeros((dsize + 1,), dtype=torch.int32, device=dev)
+            hits.scatter_add_(0, rel, torch.ones_like(rel, dtype=torch.int32))
+            if bool((hits[:dsize] <= 1).all()):   # a duplicate key sorts
+                self._dense_table = _direct_table(rel, dsize, cap)
+                self._dense_size = dsize
+                self.probe_mode = "dense"
+                return
+        nb = CK.hash_join_buckets(self.n_build)
+        if nb and self.n_build > 0 and vmin > CK.HJ_EMPTY:
+            tk, tr, ok = CK.hash_join_build(vals.long(), eligible, nb)
+            if bool(ok):    # one host sync per hash build
+                self._hash_keys, self._hash_rows = tk, tr
+                self.hash_buckets = nb
+                self.probe_mode = "hash"
+                return
+            self.hash_refused = True
+        in_valid = torch.arange(1, cap, device=dev) < n_valid
+        if packable:
+            # one int64 sort of (key - vmin) << idx_bits | row, ineligible
+            # rows above every key
+            rel = torch.where(eligible, vals.long() - vmin,
+                              torch.full_like(rows, rng + 1))
+            s = torch.sort((rel << idx_bits) | rows).values
+            perm = s & ((1 << idx_bits) - 1)
+            # int64 on purpose: the vmax + 1 tail must not wrap in a narrower
+            # key type, or the order searchsorted needs would break
+            sorted_vals = (s >> idx_bits) + vmin
+            same = (s[1:] >> idx_bits) == (s[:-1] >> idx_bits)
+        else:
+            # eligibility first, then the key, then the row: two stable sorts
+            masked = torch.where(eligible, vals, info.max)
+            by_key = torch.sort(masked, stable=True).indices
+            perm = by_key[torch.sort((~eligible)[by_key].to(torch.int8),
+                                     stable=True).indices]
+            sorted_vals = masked[perm]
+            same = sorted_vals[1:] == sorted_vals[:-1]
+        self._sorted_build = sorted_vals
+        self._build_perm = perm.to(torch.int32)
+        unique = (bool(~(same & in_valid).any()) if self.n_build > 0
+                  else True)
+        self.probe_mode = "two"
+        if unique:
+            self.probe_mode = "one"
+            if dsize <= dense_budget:
+                # direct-address table over the sorted order (reached only by
+                # an empty build: a unique one took the direct table above)
+                slot = torch.where(rows < n_valid, sorted_vals.long() - vmin,
+                                   torch.full_like(rows, dsize))
+                self._dense_table = _direct_table(slot, dsize, cap)
+                self._dense_size = dsize
+                self.probe_mode = "dense"
+
+    def probe_batch(self, stream_batch: ColumnarBatch):
+        """``(build_perm, lo, hi, counts, total)`` for one stream batch, all
+        on the device."""
+        sctx = EvalContext.from_batch(stream_batch, self.device)
+        k = self.stream_key_exprs[0].eval(sctx)
+        svals = _key_values(k)
+        scap = svals.shape[0]
+        n_stream = stream_batch.num_rows
+        live = torch.arange(scap, device=svals.device) < n_stream
+        mode = self.probe_mode
+        if mode == "hash":
+            # equality over int64 images is equality over any narrower key
+            pos, found = CK.hash_join_probe(
+                self._hash_keys, self._hash_rows,
+                svals.to(torch.int64).contiguous(), self.hash_buckets)
+            hit = found & k.validity & live
+            lo = torch.where(hit, pos, 0)
+            hi = torch.where(hit, pos + 1, lo)
+        elif mode == "dense":
+            dsize = self._dense_size
+            slot = svals.long() - self._vmin
+            in_dom = (slot >= 0) & (slot < dsize - 1)
+            r = self._dense_table[torch.clamp(slot, 0, dsize - 1)]
+            hit = in_dom & (r >= 0) & k.validity & live
+            lo = torch.where(hit, r, 0)
+            hi = torch.where(hit, r + 1, lo)
+        else:
+            # mixed-width keys: promote both sides (casting the stream down
+            # would wrap values and fabricate matches)
+            common = torch.promote_types(svals.dtype,
+                                         self._sorted_build.dtype)
+            sc = self._sorted_build.to(common).contiguous()
+            sv = svals.to(common).contiguous()
+            n_valid = self._n_valid
+            lo = torch.clamp(torch.searchsorted(sc, sv), max=n_valid)
+            if mode == "one":
+                found = ((sc[torch.clamp(lo, 0, sc.shape[0] - 1)] == sv)
+                         & (lo < n_valid) & k.validity & live)
+                hi = torch.where(found, lo + 1, lo)
+            else:
+                hi = torch.clamp(torch.searchsorted(sc, sv, right=True),
+                                 max=n_valid)
+                hi = torch.where(k.validity & live, hi, lo)
+        counts = J.pair_counts(lo, hi, n_stream, scap, self.join_type)
+        return self._build_perm, lo, hi, counts, J.total_pairs(counts)
+
+
+def _direct_table(rel, dsize: int, cap: int):
+    """int32 table of ``dsize`` slots: ``table[rel[i]] = i``, -1 elsewhere;
+    rows whose ``rel`` is ``dsize`` are dropped."""
+    table = torch.full((dsize + 1,), -1, dtype=torch.int32, device=rel.device)
+    table.scatter_(0, rel, torch.arange(cap, dtype=torch.int32,
+                                        device=rel.device))
+    return table[:dsize]
+
+
+class HashJoinExec(TorchExec):
+    """What every equi-join with a materialized build side shares (reference
+    GpuShuffledHashJoinBase): keys, build side, output schema, the build's
+    core and the probe loop. The co-partitioned (shuffled) route is not
+    ported, so only the broadcast subclass executes."""
+
+    def __init__(self, join_type: str, left_keys, right_keys,
+                 left: TorchExec, right: TorchExec,
+                 build_side: str = "right", conf=None):
+        super().__init__(left, right, conf=conf)
+        jt = join_type.lower().replace("_", "")
+        if jt not in (J.INNER, J.LEFT_OUTER, J.LEFT_SEMI, J.LEFT_ANTI):
+            raise NotImplementedError(
+                f"{join_type} joins are not ported yet")
+        self.join_type = jt
+        self.left_keys = [bind_references(k, left.output) for k in left_keys]
+        self.right_keys = [bind_references(k, right.output)
+                           for k in right_keys]
+        # the preserved side streams; an inner join may build either side
+        self.stream_is_left = not (jt == J.INNER and build_side == "left")
+        #: what the last build chose and how many stream batches it probed;
+        #: partitions may run on an exchange's map threads, hence the lock
+        self.stats = {"build_rows": 0, "probe_mode": None, "hash_buckets": 0,
+                      "hash_refused": 0, "stream_batches": 0}
+        self._lock = threading.Lock()
+
+    @property
+    def build_side(self) -> str:
+        return "right" if self.stream_is_left else "left"
+
+    @property
+    def output(self) -> T.StructType:
+        lf = list(self.children[0].output)
+        rf = list(self.children[1].output)
+        if self.join_type in (J.LEFT_SEMI, J.LEFT_ANTI):
+            return T.StructType(lf)
+        if self.join_type == J.LEFT_OUTER:
+            rf = [T.StructField(f.name, f.data_type, True) for f in rf]
+        return T.StructType(lf + rf)
+
+    @property
+    def num_partitions(self):
+        return self._stream_child.num_partitions
+
+    @property
+    def _stream_child(self):
+        return self.children[0 if self.stream_is_left else 1]
+
+    def _core(self, build_batch) -> _JoinCore:
+        bk, sk = ((self.right_keys, self.left_keys) if self.stream_is_left
+                  else (self.left_keys, self.right_keys))
+        core = _JoinCore(build_batch, bk, sk, self.join_type, self.device)
+        with self._lock:
+            self.stats.update(build_rows=core.n_build,
+                              probe_mode=core.probe_mode,
+                              hash_buckets=core.hash_buckets)
+            self.stats["hash_refused"] += int(core.hash_refused)
+        return core
+
+    def _probe_stream(self, core, build_batch, split):
+        out_schema = self.output
+        for stream_batch in self._stream_child.execute_partition(split):
+            with self._lock:
+                self.stats["stream_batches"] += 1
+            build_perm, lo, hi, counts, total = core.probe_batch(stream_batch)
+            yield from _emit_pairs(
+                self.join_type, self.stream_is_left, stream_batch,
+                build_batch, build_perm, lo, hi, counts, total, out_schema)
+
+    def args_string(self):
+        return (f"{self.join_type} lk={self.left_keys} rk={self.right_keys} "
+                f"build={self.build_side}")
+
+
+class BroadcastHashJoinExec(HashJoinExec):
+    """The build side is broadcast: a ``BroadcastExchangeExec`` materializes
+    it once, every stream partition probes it, and the last stream partition
+    to finish (or to be abandoned) releases it (reference
+    GpuBroadcastHashJoinExec)."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        from spark_rapids_tpu_torch.exec.broadcast import BroadcastExchangeExec
+        bi = 1 if self.stream_is_left else 0
+        self.exchange = BroadcastExchangeExec(self.children[bi],
+                                              conf=self.conf)
+        self.children[bi] = self.exchange
+        self._readers_left = self.num_partitions
+
+    def _finish_reader(self) -> None:
+        with self._lock:
+            self._readers_left -= 1
+            last = self._readers_left == 0
+            if last:
+                self._readers_left = self.num_partitions
+        if last:
+            self.exchange.release()
+
+    def execute_partition(self, split):
+        try:
+            build_batch = self.exchange.broadcast()
+            core = self._core(build_batch)
+            yield from self._probe_stream(core, build_batch, split)
+        finally:
+            self._finish_reader()

@@ -4,8 +4,9 @@ Counterpart of ``spark_rapids_tpu/expr/core.py``. ``Expression.eval`` runs
 eager torch ops over a ``Col`` (values + validity). Null semantics are
 Spark's: null in, null out for arithmetic and comparisons, Kleene AND.
 
-Only the expressions TPC-H q1 uses exist; the operators that would build any
-other expression raise ``NotImplementedError`` where the expression is built.
+Only the expressions of the ported slices (TPC-H q1 and q5) exist; the
+operators that would build any other expression raise
+``NotImplementedError`` where the expression is built.
 """
 
 from __future__ import annotations
@@ -127,9 +128,25 @@ class Expression:
         from spark_rapids_tpu_torch.expr.arithmetic import Multiply
         return self._bin(other, Multiply, swap=True)
 
+    def __eq__(self, other):
+        from spark_rapids_tpu_torch.expr.predicates import EqualTo
+        return self._bin(other, EqualTo)
+
+    def __lt__(self, other):
+        from spark_rapids_tpu_torch.expr.predicates import LessThan
+        return self._bin(other, LessThan)
+
     def __le__(self, other):
         from spark_rapids_tpu_torch.expr.predicates import LessThanOrEqual
         return self._bin(other, LessThanOrEqual)
+
+    def __gt__(self, other):
+        from spark_rapids_tpu_torch.expr.predicates import GreaterThan
+        return self._bin(other, GreaterThan)
+
+    def __ge__(self, other):
+        from spark_rapids_tpu_torch.expr.predicates import GreaterThanOrEqual
+        return self._bin(other, GreaterThanOrEqual)
 
     def __and__(self, other):
         from spark_rapids_tpu_torch.expr.predicates import And
@@ -137,20 +154,8 @@ class Expression:
 
     # the JAX package builds these expressions; the port has not ported them,
     # and falling back to Python's defaults would silently mean identity
-    def __eq__(self, other):
-        _not_ported("EqualTo")
-
     def __ne__(self, other):
         _not_ported("NotEqual")
-
-    def __lt__(self, other):
-        _not_ported("LessThan")
-
-    def __gt__(self, other):
-        _not_ported("GreaterThan")
-
-    def __ge__(self, other):
-        _not_ported("GreaterThanOrEqual")
 
     def __or__(self, other):
         _not_ported("Or")

@@ -1,8 +1,14 @@
 """Comparison and boolean predicates with Spark three-valued logic.
 
-Counterpart of ``spark_rapids_tpu/expr/predicates.py``: LessThanOrEqual and
-And. Spark float comparison: NaN is greater than every other value and equal
-to itself; -0.0 == 0.0.
+Counterpart of ``spark_rapids_tpu/expr/predicates.py``: EqualTo, LessThan,
+LessThanOrEqual, GreaterThan, GreaterThanOrEqual and And. Spark float
+comparison: NaN is greater than every other value and equal to itself;
+-0.0 == 0.0. Integers of different widths compare in the wider type.
+
+String comparisons run over dictionary codes after both sides are remapped
+onto one sorted union dictionary (order-preserving), so a comparison of
+codes is the comparison of the strings; a string literal is a one-entry
+dictionary. Or, Not, In and NotEqual are not ported.
 """
 
 from __future__ import annotations
@@ -12,22 +18,43 @@ import torch
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.expr.arithmetic import _cast_col, promote
 from spark_rapids_tpu_torch.expr.core import Col, Expression, valid_and
+from spark_rapids_tpu_torch.ops.strings import align_many
+
+
+def _operand_type(ldt: T.DataType, rdt: T.DataType) -> T.DataType:
+    """The type both operands compare in; raises on a pair the port cannot
+    compare (so planning refuses it)."""
+    l_str, r_str = isinstance(ldt, T.StringType), isinstance(rdt, T.StringType)
+    if l_str or r_str:
+        if not (l_str and r_str):
+            raise NotImplementedError(
+                f"comparison of {ldt} with {rdt} is not ported yet")
+        return ldt
+    return ldt if ldt == rdt else promote(ldt, rdt)
 
 
 def _comparable(l: Col, r: Col, ldt: T.DataType, rdt: T.DataType):
-    if isinstance(ldt, T.StringType) or isinstance(rdt, T.StringType):
-        raise NotImplementedError("string comparisons are not ported yet")
+    if isinstance(ldt, T.StringType):
+        # the reference's align_strings: one sorted union dictionary
+        return align_many([l, r])
     if ldt == rdt:
         return l, r
-    ct = promote(ldt, rdt)
+    ct = _operand_type(ldt, rdt)
     return _cast_col(l, ct), _cast_col(r, ct)
 
 
-def _float_le(lv, rv):
-    """<= with Spark NaN semantics: NaN equals NaN and sorts above +inf."""
+def _float_total(lv, rv, op):
+    """Comparison with Spark NaN semantics: NaN equals NaN and sorts above
+    +inf."""
     l_nan = torch.isnan(lv)
     r_nan = torch.isnan(rv)
-    return torch.where(l_nan, r_nan, torch.where(r_nan, True, lv <= rv))
+    if op == "eq":
+        return torch.where(l_nan & r_nan, True, lv == rv)
+    if op == "lt":
+        return torch.where(l_nan, False, torch.where(r_nan, True, lv < rv))
+    if op == "le":
+        return torch.where(l_nan, r_nan, torch.where(r_nan, True, lv <= rv))
+    raise AssertionError(op)
 
 
 class BinaryComparison(Expression):
@@ -46,6 +73,7 @@ class BinaryComparison(Expression):
 
     @property
     def dtype(self):
+        _operand_type(self.left.dtype, self.right.dtype)
         return T.BOOLEAN
 
     def with_children(self, children):
@@ -66,11 +94,39 @@ class BinaryComparison(Expression):
         return f"({self.left!r} {self.symbol} {self.right!r})"
 
 
+class EqualTo(BinaryComparison):
+    symbol = "="
+
+    def compare(self, lv, rv, is_float):
+        return _float_total(lv, rv, "eq") if is_float else lv == rv
+
+
+class LessThan(BinaryComparison):
+    symbol = "<"
+
+    def compare(self, lv, rv, is_float):
+        return _float_total(lv, rv, "lt") if is_float else lv < rv
+
+
 class LessThanOrEqual(BinaryComparison):
     symbol = "<="
 
     def compare(self, lv, rv, is_float):
-        return _float_le(lv, rv) if is_float else lv <= rv
+        return _float_total(lv, rv, "le") if is_float else lv <= rv
+
+
+class GreaterThan(BinaryComparison):
+    symbol = ">"
+
+    def compare(self, lv, rv, is_float):
+        return _float_total(rv, lv, "lt") if is_float else lv > rv
+
+
+class GreaterThanOrEqual(BinaryComparison):
+    symbol = ">="
+
+    def compare(self, lv, rv, is_float):
+        return _float_total(rv, lv, "le") if is_float else lv >= rv
 
 
 class And(Expression):

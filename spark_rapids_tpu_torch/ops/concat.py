@@ -5,10 +5,13 @@ total row count with canonical defaults in the padding."""
 
 from __future__ import annotations
 
+import pyarrow as pa
 import torch
 
+from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
-from spark_rapids_tpu_torch.columnar.vector import bucket_capacity
+from spark_rapids_tpu_torch.columnar.vector import (TorchColumnVector,
+                                                    bucket_capacity)
 from spark_rapids_tpu_torch.expr.core import Col
 
 
@@ -37,3 +40,22 @@ def concat_batches(batches) -> ColumnarBatch:
             off += n
         out.append(Col(v, m, first.dtype, first.dictionary).to_vector())
     return ColumnarBatch(out, total, schema)
+
+
+def concat_all(batches, schema, device) -> ColumnarBatch:
+    """Drain ``batches`` into exactly one batch (the reference's
+    ``concat_all``, ConcatAndConsumeAll): empty batches are dropped, and
+    no batch at all gives an empty batch of ``schema`` at the smallest
+    capacity."""
+    batches = [b for b in batches if b.num_rows > 0]
+    if batches:
+        return concat_batches(batches)
+    cap = bucket_capacity(0)
+    cols = [TorchColumnVector(
+        f.data_type,
+        torch.full((cap,), f.data_type.default_value(),
+                   dtype=f.data_type.torch_dtype, device=device),
+        torch.zeros((cap,), dtype=torch.bool, device=device),
+        pa.array([], type=pa.string())
+        if isinstance(f.data_type, T.StringType) else None) for f in schema]
+    return ColumnarBatch(cols, 0, schema)

@@ -26,7 +26,12 @@ Kernels ported so far (see PERF.md for the table of all TPU kernels):
   key of a hash exchange).
 * ``radix_ranks`` — ``csrc/radix.cu``, replaces ``pallas_kernels.radix_ranks``
   (stable counting ranks behind every exchange's partition step, through
-  ``radix_partition_permutation``).
+  ``radix_partition_permutation``, and behind ``hash_join_build``).
+* ``hash_join_probe`` — ``csrc/hashjoin.cu``, replaces
+  ``pallas_kernels.hash_join_probe`` (the broadcast hash join's probe of an
+  8-slot Fibonacci table over a sparse unique build key). Its table comes
+  from ``hash_join_build``, plain torch around ``radix_ranks`` as in the
+  reference.
 
 Map tasks of an exchange run on a thread pool, so the launch counts and the
 first build are taken under a lock.
@@ -51,11 +56,12 @@ _BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "cuda")
 
 # kernel library name -> CUDA source under csrc/
 SOURCES = {"bitunpack": "bitunpack.cu", "onehot": "onehot.cu",
-           "murmur3": "murmur3.cu", "radix": "radix.cu"}
+           "murmur3": "murmur3.cu", "radix": "radix.cu",
+           "hashjoin": "hashjoin.cu"}
 
 #: launches of each kernel since the last reset_launches()
 launches = {"bitunpack128": 0, "onehot_sum_f32": 0, "murmur3_words": 0,
-            "radix_ranks": 0}
+            "radix_ranks": 0, "hash_join_probe": 0}
 
 _LIBS: dict = {}
 _FNS: dict = {}
@@ -464,3 +470,173 @@ def radix_partition_permutation(ids: torch.Tensor,
     perm.scatter_(0, dest, torch.arange(cap, dtype=torch.int64,
                                         device=ids.device))
     return perm
+
+
+# ---------------------------------------------------------------------------
+# hash-table join over unique fixed-point keys: build (plain torch around
+# radix_ranks) and probe (kernel)
+# ---------------------------------------------------------------------------
+
+#: slots per bucket; the build refuses a table whose bucket holds more
+HJ_SLOTS = 8
+#: the key of an empty slot; the join takes the table only when every build
+#: key lies above it (its engage gate), and an empty slot's row is -1
+HJ_EMPTY = -(1 << 63)
+#: the Fibonacci multiplier 0x9E3779B97F4A7C15 as a signed int64
+_HJ_MULT = 0x9E3779B97F4A7C15 - (1 << 64)
+
+
+def hash_join_buckets(n_build: int) -> int:
+    """Bucket count for a build of ``n_build`` rows: about 0.25 load over
+    ``HJ_SLOTS``-deep buckets, at most 4,096 buckets; 0 when the build cannot
+    stay under 0.5 load (more than 16,384 rows), and the caller takes
+    another join mode. The reference's sizing, unchanged."""
+    want = 128
+    while want * HJ_SLOTS < 4 * max(n_build, 1) and want < 4096:
+        want *= 2
+    if want * HJ_SLOTS < 2 * n_build:
+        return 0
+    return want
+
+
+def _check_buckets(num_buckets: int) -> int:
+    if (num_buckets & (num_buckets - 1) or num_buckets < 128
+            or num_buckets > RADIX_MAX_PARTS):
+        raise ValueError(f"num_buckets {num_buckets}: need a power of two "
+                         f"in [128, {RADIX_MAX_PARTS}]")
+    return num_buckets.bit_length() - 1
+
+
+def hash_join_bucket(keys_i64: torch.Tensor, h_bits: int) -> torch.Tensor:
+    """int32 bucket of each int64 key: the top ``h_bits`` bits of ``key *
+    0x9E3779B97F4A7C15`` mod 2^64. torch's int64 product wraps in two's
+    complement (the tests hold it against numpy uint64 over the whole int64
+    range), and its ``>>`` is arithmetic, so the shifted value is masked to
+    ``h_bits`` bits to make the shift logical."""
+    h = keys_i64 * _HJ_MULT
+    return ((h >> (64 - h_bits)) & ((1 << h_bits) - 1)).to(torch.int32)
+
+
+def hash_join_build(keys_i64: torch.Tensor, eligible: torch.Tensor,
+                    num_buckets: int):
+    """The ``(num_buckets * HJ_SLOTS,)`` open table over unique int64 keys,
+    as ``pallas_kernels.hash_join_build`` builds it: a key's bucket is its
+    Fibonacci hash, its slot its stable rank within the bucket
+    (``radix_ranks``: the kernel for a CUDA tensor). Returns ``(table_keys
+    int64, table_rows int32, ok)``, ``ok`` a 0-dim bool tensor on the device
+    that is False when a bucket holds more than ``HJ_SLOTS`` keys or two
+    slots hold one key; the caller then discards the table. Ineligible rows
+    (nulls, padding) are never inserted. Where an overfull bucket sends
+    several rows to its last slot, the highest row wins, which is the
+    reference's last write, on every device."""
+    h_bits = _check_buckets(num_buckets)
+    if keys_i64.dtype != torch.int64 or keys_i64.dim() != 1:
+        raise TypeError("hash_join_build takes 1-D int64 keys, got "
+                        f"{keys_i64.dtype} of shape {tuple(keys_i64.shape)}")
+    if eligible.dtype != torch.bool or eligible.shape != keys_i64.shape:
+        raise TypeError("hash_join_build takes a bool eligibility mask "
+                        f"shaped like the keys, got {eligible.dtype} "
+                        f"{tuple(eligible.shape)}")
+    if eligible.device != keys_i64.device:
+        raise ValueError(f"hash_join_build: keys on {keys_i64.device}, mask "
+                         f"on {eligible.device}")
+    dev = keys_i64.device
+    cap = keys_i64.shape[0]
+    hs = num_buckets * HJ_SLOTS
+    bucket = torch.where(eligible, hash_join_bucket(keys_i64, h_bits),
+                         torch.full_like(keys_i64, num_buckets,
+                                         dtype=torch.int32))
+    ranks, counts = radix_ranks(bucket, num_buckets)
+    ok = counts.max() <= HJ_SLOTS
+    slot = (bucket.long() * HJ_SLOTS
+            + torch.clamp(ranks, max=HJ_SLOTS - 1).long())
+    slot = torch.where(eligible, slot, torch.full_like(slot, hs))
+    rows = torch.full((hs + 1,), -1, dtype=torch.int32, device=dev)
+    rows.scatter_reduce_(0, slot, torch.arange(cap, dtype=torch.int32,
+                                               device=dev), reduce="amax")
+    table_rows = rows[:hs]
+    keys_ext = torch.cat([keys_i64, torch.full((1,), HJ_EMPTY,
+                                               dtype=torch.int64,
+                                               device=dev)])
+    table_keys = keys_ext[torch.where(table_rows >= 0, table_rows,
+                                      cap).long()]
+    # a duplicate key lands in one bucket with two ranks: the 28 slot pairs
+    # of every bucket are compared, as the reference's static column compares
+    t2 = table_keys.view(num_buckets, HJ_SLOTS)
+    si, ti = torch.triu_indices(HJ_SLOTS, HJ_SLOTS, offset=1, device=dev)
+    a, b = t2[:, si], t2[:, ti]
+    dup = ((a == b) & (a != HJ_EMPTY)).any()
+    return table_keys, table_rows, ok & ~dup
+
+
+def hash_join_probe(table_keys: torch.Tensor, table_rows: torch.Tensor,
+                    stream_i64: torch.Tensor, num_buckets: int):
+    """``(pos int32, found bool)`` per stream key: the build row of the slot
+    of the key's bucket that holds the key, or -1. A slot is occupied when its
+    row is >= 0, so an empty slot never matches. Validity and liveness of
+    stream rows are the caller's mask.
+
+    table_keys: ``(num_buckets * HJ_SLOTS,)`` int64 and table_rows: the same
+    length int32, from ``hash_join_build``; stream_i64: ``(n,)`` int64.
+    """
+    h_bits = _check_buckets(num_buckets)
+    hs = num_buckets * HJ_SLOTS
+    if table_keys.dtype != torch.int64 or table_keys.shape != (hs,):
+        raise TypeError(f"hash_join_probe takes ({hs},) int64 table keys, "
+                        f"got {table_keys.dtype} {tuple(table_keys.shape)}")
+    if table_rows.dtype != torch.int32 or table_rows.shape != (hs,):
+        raise TypeError(f"hash_join_probe takes ({hs},) int32 table rows, "
+                        f"got {table_rows.dtype} {tuple(table_rows.shape)}")
+    if stream_i64.dtype != torch.int64 or stream_i64.dim() != 1:
+        raise TypeError("hash_join_probe takes 1-D int64 stream keys, got "
+                        f"{stream_i64.dtype} of shape "
+                        f"{tuple(stream_i64.shape)}")
+    tensors = (table_keys, table_rows, stream_i64)
+    if any(t.device != stream_i64.device for t in tensors):
+        raise ValueError("hash_join_probe: inputs on different devices")
+    if stream_i64.device.type == "cpu":
+        return hash_join_probe_plain(table_keys, table_rows, stream_i64,
+                                     num_buckets)
+    if stream_i64.device.type != "cuda":
+        raise TypeError(f"hash_join_probe: no kernel for {stream_i64.device}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("hash_join_probe takes contiguous tensors")
+    if table_keys.data_ptr() % 16 or table_rows.data_ptr() % 16:
+        raise ValueError("hash_join_probe reads each bucket with 16-byte "
+                         "loads: the tables must be 16-byte aligned")
+    n = stream_i64.shape[0]
+    pos = torch.empty((n,), dtype=torch.int32, device=stream_i64.device)
+    found = torch.empty((n,), dtype=torch.bool, device=stream_i64.device)
+    if n == 0:
+        return pos, found
+    launch = _launcher("hashjoin", "hash_join_probe_launch", [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p])
+    stream = torch.cuda.current_stream(stream_i64.device).cuda_stream
+    err = launch(stream_i64.device.index, table_keys.data_ptr(),
+                 table_rows.data_ptr(), stream_i64.data_ptr(), n, h_bits,
+                 pos.data_ptr(), found.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"hash_join_probe launch failed: CUDA error {err}")
+    _count("hash_join_probe")
+    return pos, found
+
+
+def hash_join_probe_plain(table_keys: torch.Tensor, table_rows: torch.Tensor,
+                          stream_i64: torch.Tensor, num_buckets: int):
+    """Plain PyTorch version of ``hash_join_probe`` on any device: the
+    bucket's 8 slots compared one after another, the last hit winning as in
+    the TPU kernel's loop."""
+    h_bits = _check_buckets(num_buckets)
+    base = hash_join_bucket(stream_i64, h_bits).long() * HJ_SLOTS
+    pos = torch.full(stream_i64.shape, -1, dtype=torch.int32,
+                     device=stream_i64.device)
+    found = torch.zeros(stream_i64.shape, dtype=torch.bool,
+                        device=stream_i64.device)
+    for s in range(HJ_SLOTS):
+        row = table_rows[base + s]
+        hit = (table_keys[base + s] == stream_i64) & (row >= 0)
+        pos = torch.where(hit, row, pos)
+        found = found | hit
+    return pos, found

@@ -121,6 +121,51 @@ class SortNode(PlanNode):
         return 1
 
 
+class JoinNode(PlanNode):
+    """Equi-join (a cross join when it has no keys) with Spark null
+    semantics: null keys never match. The override rules plan the ported
+    shapes and refuse the others."""
+
+    TYPES = ("inner", "left", "right", "full", "leftsemi", "leftanti", "cross")
+
+    def __init__(self, left: PlanNode, right: PlanNode, left_keys: list,
+                 right_keys: list, join_type: str = "inner",
+                 condition: E.Expression | None = None):
+        super().__init__(left, right)
+        if join_type not in self.TYPES:
+            raise ValueError(f"unknown join type {join_type}")
+        self.left_keys = [E.bind_references(e, left.output)
+                          for e in left_keys]
+        self.right_keys = [E.bind_references(e, right.output)
+                           for e in right_keys]
+        self.join_type = join_type
+        self.condition = condition
+
+    @property
+    def left(self):
+        return self.children[0]
+
+    @property
+    def right(self):
+        return self.children[1]
+
+    @property
+    def output(self):
+        if self.join_type in ("leftsemi", "leftanti"):
+            return self.left.output
+        lnull = self.join_type in ("right", "full")
+        rnull = self.join_type in ("left", "full")
+        return T.StructType(
+            [T.StructField(f.name, f.data_type, f.nullable or lnull)
+             for f in self.left.output]
+            + [T.StructField(f.name, f.data_type, f.nullable or rnull)
+               for f in self.right.output])
+
+    @property
+    def num_partitions(self):
+        return 1
+
+
 def agg_fn(e) -> AggregateFunction:
     f = e.child if isinstance(e, E.Alias) else e
     if not isinstance(f, AggregateFunction):

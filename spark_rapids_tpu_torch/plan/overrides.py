@@ -5,10 +5,15 @@ ported slices need: scan, filter, project, aggregate (``:710-770``, with the
 legacy depth-2 hoist of a child Filter/Project into the aggregation; several
 input partitions plan PARTIAL → hash exchange → FINAL), the hash exchange
 (``_hash_exchange``, ``:635-659``), the exchange node (``:901-917``) and sort
-(``:881-899``). Every node, expression or shape outside the slices raises
-``NotImplementedError`` here, while the plan is built, so nothing runs
-wrongly: the mesh exchange and range partitioning among them. There is no
-partial CPU fallback: the whole plan runs on the device.
+(``:881-899``), and the equi-join (``:770-875``): a broadcast hash join over
+one fixed-point key, inner joins building the side with the smaller row
+estimate (``plan/cbo.py``). Every node, expression or shape outside the
+slices raises ``NotImplementedError`` here, while the plan is built, so
+nothing runs wrongly: range partitioning, joins on several keys or on
+strings or floats (the rank path), right and full outer joins, residual
+join conditions, keyless and cross joins (the nested-loop join) among them.
+The mesh is refused earlier, by the conf, which does not know its keys.
+There is no partial CPU fallback: the whole plan runs on the device.
 """
 
 from __future__ import annotations
@@ -18,19 +23,24 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.exec import aggregate as XA
 from spark_rapids_tpu_torch.exec import basic as XB
 from spark_rapids_tpu_torch.exec import exchange as XE
+from spark_rapids_tpu_torch.exec import joins as XJ
 from spark_rapids_tpu_torch.exec.sort import SortExec
 from spark_rapids_tpu_torch.expr import core as E
 from spark_rapids_tpu_torch.expr.aggregates import AggregateFunction
 from spark_rapids_tpu_torch.expr.arithmetic import BinaryArithmetic
 from spark_rapids_tpu_torch.expr.cast import Cast, supported_cast
-from spark_rapids_tpu_torch.expr.predicates import And, LessThanOrEqual
+from spark_rapids_tpu_torch.expr.predicates import (
+    And, EqualTo, GreaterThan, GreaterThanOrEqual, LessThan, LessThanOrEqual)
 from spark_rapids_tpu_torch.io.filescan import FileScanNode, FileSourceScanExec
+from spark_rapids_tpu_torch.ops import joining as J
 from spark_rapids_tpu_torch.ops.sorting import SortOrder
 from spark_rapids_tpu_torch.plan import nodes as NN
+from spark_rapids_tpu_torch.plan.cbo import estimate_rows
 from spark_rapids_tpu_torch.shuffle import partitioning as SP
 
 _PORTED_EXPRS = (E.BoundReference, E.Literal, E.Alias, BinaryArithmetic,
-                 LessThanOrEqual, And, Cast, AggregateFunction)
+                 EqualTo, LessThan, LessThanOrEqual, GreaterThan,
+                 GreaterThanOrEqual, And, Cast, AggregateFunction)
 
 
 def check_expression(e: E.Expression) -> None:
@@ -58,6 +68,7 @@ class TorchOverrides:
                 NN.ProjectNode: self._project,
                 NN.AggregateNode: self._aggregate,
                 NN.ExchangeNode: self._exchange,
+                NN.JoinNode: self._join,
                 NN.SortNode: self._sort}.get(type(plan))
         if conv is None:
             raise NotImplementedError(
@@ -151,6 +162,36 @@ class TorchOverrides:
             p = SP.RangePartitioner(n.keys, [SortOrder() for _ in n.keys],
                                     n.num_out)
         return XE.ShuffleExchangeExec(p, kids[0], conf=self.conf)
+
+    def _join(self, n, kids):
+        if not n.left_keys or n.join_type == "cross":
+            raise NotImplementedError(
+                "keyless and cross joins (the nested-loop join) are not "
+                "ported yet")
+        if n.join_type in ("right", "full"):
+            raise NotImplementedError(
+                f"{n.join_type} outer joins are not ported yet")
+        if n.condition is not None:
+            raise NotImplementedError(
+                "residual join conditions are not ported yet")
+        if len(n.left_keys) != 1:
+            raise NotImplementedError(
+                "joins on several keys (the rank path) are not ported yet")
+        for k in (*n.left_keys, *n.right_keys):
+            check_expression(k)
+            if not XJ._int_backed(k.dtype):
+                raise NotImplementedError(
+                    f"joins on a {k.dtype} key (the rank path) are not "
+                    "ported yet")
+        jt = {"left": J.LEFT_OUTER}.get(n.join_type, n.join_type)
+        # an inner join builds the smaller estimated side (reference
+        # GpuJoinUtils.getGpuBuildSide); the others stream the preserved side
+        build_side = "right"
+        if jt == J.INNER and estimate_rows(n.left) < estimate_rows(n.right):
+            build_side = "left"
+        return XJ.BroadcastHashJoinExec(jt, n.left_keys, n.right_keys,
+                                        kids[0], kids[1],
+                                        build_side=build_side, conf=self.conf)
 
     def _sort(self, n, kids):
         for e, _, _ in n.sort_exprs:

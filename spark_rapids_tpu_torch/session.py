@@ -57,6 +57,41 @@ class DataFrame:
                       for c, a in zip(cols, ascs)]
         return DataFrame(NN.SortNode(sort_exprs, self._plan), self.session)
 
+    def join(self, other: "DataFrame", on=None, how: str = "inner",
+             condition=None) -> "DataFrame":
+        """Join on the columns named ``on`` (USING semantics: one key column
+        per name, the left one; the right duplicate is dropped). Semi and
+        anti joins keep the left columns only. The planner refuses the
+        shapes the port has not ported."""
+        jt = {"left_outer": "left", "right_outer": "right",
+              "full_outer": "full", "outer": "full",
+              "left_semi": "leftsemi", "semi": "leftsemi",
+              "left_anti": "leftanti", "anti": "leftanti"}.get(how, how)
+        if on is None:
+            names, lk, rk = [], [], []
+        else:
+            names = [on] if isinstance(on, str) else list(on)
+            lk = [E.col(n) for n in names]
+            rk = [E.col(n) for n in names]
+        jn = NN.JoinNode(self._plan, other._plan, lk, rk, jt, condition)
+        if on is None or jt in ("leftsemi", "leftanti"):
+            return DataFrame(jn, self.session)
+        lout, rout = self._plan.output, other._plan.output
+        nl = len(lout.fields)
+        proj = []
+        for n in names:
+            li = lout.index_of(n)
+            proj.append(E.Alias(
+                E.BoundReference(li, lout.fields[li].data_type), n))
+        for i, f in enumerate(lout.fields):
+            if f.name not in names:
+                proj.append(E.Alias(E.BoundReference(i, f.data_type), f.name))
+        for i, f in enumerate(rout.fields):
+            if f.name not in names:
+                proj.append(E.Alias(E.BoundReference(nl + i, f.data_type),
+                                    f.name))
+        return DataFrame(NN.ProjectNode(proj, jn), self.session)
+
     def repartition(self, n: int, *keys) -> "DataFrame":
         """``n`` partitions: hashed on ``keys`` (Spark's
         ``repartition(n, cols)``), or dealt round-robin without keys."""

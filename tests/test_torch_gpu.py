@@ -10,7 +10,9 @@ for 0/1 values (counts below 2^24 are exact in f32), and for other float32
 values 1e-5 of the bucket's sum of magnitudes, because atomics add in an
 order that changes from run to run; murmur3_words and radix_ranks exact
 (integer hashes and ranks), radix_ranks also against torch's stable
-argsort.
+argsort; hash_join_probe exact (build rows and flags), hash_join_build on
+the card equal to its CPU result, and q5 over sparse supplier ids on the
+card equal to the NumPy oracle (revenue within 1e-9 relative).
 """
 
 import numpy as np
@@ -151,3 +153,108 @@ def test_radix_ranks_kernel_matches_plain(cuda_device, lanes):
                                   .astype(np.int32)).to(cuda_device)
         perm = CK.radix_partition_permutation(inside, lanes)
         assert torch.equal(perm, torch.argsort(inside, stable=True))
+
+
+def _probe_inputs(n: int, n_build: int, seed: int):
+    """Sparse unique int64 build keys (about 10^10 apart, negatives too)
+    and n stream keys: about half of them hits, the rest misses, and some
+    null rows' canonical 0 and the empty-slot key int64 min."""
+    rng = np.random.default_rng(seed)
+    keys = (rng.permutation(n_build).astype(np.int64) + 1) * 9_999_991_337
+    keys[::3] *= -1
+    stream = np.where(rng.random(n) < 0.5, rng.choice(keys, n),
+                      rng.integers(-2**62, 2**62, n))
+    stream[rng.random(n) < 0.05] = 0
+    head = np.array([CK.HJ_EMPTY, 0], np.int64)[:n]
+    stream[:len(head)] = head
+    return keys, stream.astype(np.int64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,n_build", [(1 << 20, 10_000), (1 << 20, 200),
+                                       (1000, 10_000), (1, 200)])
+def test_hash_join_probe_kernel_matches_plain(cuda_device, n, n_build):
+    keys, stream = _probe_inputs(n, n_build, n + n_build)
+    nb = CK.hash_join_buckets(n_build)
+    k = torch.from_numpy(keys).to(cuda_device)
+    tk, tr, ok = CK.hash_join_build(
+        k, torch.ones(n_build, dtype=torch.bool, device=cuda_device), nb)
+    assert bool(ok)
+    s = torch.from_numpy(stream).to(cuda_device)
+    before = CK.launches["hash_join_probe"]
+    pos, found = CK.hash_join_probe(tk, tr, s, nb)
+    want_pos, want_found = CK.hash_join_probe_plain(tk, tr, s, nb)
+    torch.cuda.synchronize()
+    assert CK.launches["hash_join_probe"] == before + 1
+    assert torch.equal(pos, want_pos) and torch.equal(found, want_found)
+    assert not bool(found[0])      # int64 min never matches an empty slot
+    member = torch.from_numpy(np.isin(stream, keys)).to(cuda_device)
+    assert torch.equal(found, member)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["unique", "overfull", "duplicate",
+                                  "ineligible"])
+def test_hash_join_build_on_card_equals_cpu(cuda_device, case):
+    rng = np.random.default_rng(len(case))
+    keys, _ = _probe_inputs(1, 3000, 3)
+    elig = np.ones(len(keys), bool)
+    if case == "overfull":
+        keys = np.arange(1, 16_385, dtype=np.int64) * 977
+        elig = np.ones(len(keys), bool)
+    elif case == "duplicate":
+        keys[100] = keys[2000]
+    elif case == "ineligible":
+        elig = rng.random(len(keys)) < 0.6
+    nb = 1024
+    cpu = CK.hash_join_build(torch.from_numpy(keys), torch.from_numpy(elig),
+                             nb)
+    before = CK.launches["radix_ranks"]
+    card = CK.hash_join_build(torch.from_numpy(keys).to(cuda_device),
+                              torch.from_numpy(elig).to(cuda_device), nb)
+    torch.cuda.synchronize()
+    assert CK.launches["radix_ranks"] == before + 1
+    for a, b in zip(card, cpu):
+        assert torch.equal(a.cpu(), b), case
+    assert bool(card[2]) == (case in ("unique", "ineligible"))
+
+
+@pytest.mark.gpu
+def test_hash_join_probe_rejects_misaligned_tables(cuda_device):
+    keys, stream = _probe_inputs(64, 200, 1)
+    tk, tr, _ = CK.hash_join_build(
+        torch.from_numpy(keys).to(cuda_device),
+        torch.ones(200, dtype=torch.bool, device=cuda_device), 128)
+    shifted = torch.cat([tk[:1], tk])[1:]      # 8 bytes off its allocation
+    with pytest.raises(ValueError):
+        CK.hash_join_probe(shifted, tr,
+                           torch.from_numpy(stream).to(cuda_device), 128)
+
+
+@pytest.mark.gpu
+def test_q5_sparse_on_card_matches_numpy(cuda_device, tmp_path):
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    from spark_rapids_tpu_torch.exec.joins import HashJoinExec
+    from spark_rapids_tpu_torch.session import TorchSession
+    paths = tpch.generate(0.01, str(tmp_path))
+    spark = TorchSession(device=cuda_device)
+    exp = tpch.np_q5(tpch.load_np(paths))
+    for query in (tpch.q5, tpch.q5_sparse):
+        plan = query(tpch.load(spark, paths)).physical_plan()
+        CK.reset_launches()
+        got = [tuple(r.values()) for r in plan.execute_collect().to_pylist()]
+        assert [g[0] for g in got] == [e[0] for e in exp]
+        for (_, a), (_, b) in zip(got, exp):
+            assert a == pytest.approx(b, rel=1e-9)
+
+        def joins(p):
+            own = [p] if isinstance(p, HashJoinExec) else []
+            return own + [j for c in p.children for j in joins(c)]
+        hashed = [j for j in joins(plan) if j.stats["probe_mode"] == "hash"]
+        if query is tpch.q5:
+            assert not hashed and CK.launches["hash_join_probe"] == 0
+        else:
+            assert len(hashed) == 1
+            assert (CK.launches["hash_join_probe"]
+                    == hashed[0].stats["stream_batches"] > 0)
+            assert CK.launches["radix_ranks"] >= 1

@@ -75,10 +75,11 @@ def table_path(tmp_path):
 
 def test_unported_expressions_raise_when_built(table_path):
     import spark_rapids_tpu_torch.functions as F
+    # ==, <, > and >= are ported with the join slice; these are not
     with pytest.raises(NotImplementedError):
-        F.col("x") > F.lit(1.0)
+        F.col("x") != F.lit(1.0)
     with pytest.raises(NotImplementedError):
-        F.col("x") == F.lit(1.0)
+        (F.col("x") <= F.lit(1.0)) | (F.col("x") <= F.lit(2.0))
     with pytest.raises(NotImplementedError):
         F.count()
 
