@@ -11,15 +11,18 @@ It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
    (one process per source, all started together) and prints the build time
    and ptxas' register/shared-memory lines;
 3. holds each kernel against its plain PyTorch version on the card:
-   bitunpack128 exactly, at every bit width 1..32 for n = 20,000 (a parquet
-   page) and n = 2^20, and on every real page of the TPC-H q1 scan;
+   bitunpack128 (the chunk decode kernel over one page, no dictionary)
+   exactly, at every bit width 1..32 for n = 20,000 (a parquet page) and
+   n = 2^20; the chunk decode exactly (values and validity) on every
+   dictionary column chunk of the TPC-H q1 scan, and against the per-page
+   route it replaced;
    onehot_sum_f32 exactly on 0/1 values and within 1e-5 of each bucket's
    sum of magnitudes on other float32 values (atomics add in a changing
    order), at q1's batch shape and at the largest dense domain;
    murmur3_words bit for bit at n = 20,000 and 2^20, W = 1..8, lengths
    0..4W of multi-byte UTF-8 rows cut anywhere, scalar and row-varying
    seeds; radix_ranks exactly (ranks and counts) at 2, 5, 9, 129 and 4,096
-   lanes, cap 8, 2^19 and 2^20, with ids outside the domain, and
+   lanes, cap 8, 16,384, 2^19 and 2^20, with ids outside the domain, and
    radix_partition_permutation equal to torch's stable argsort;
    hash_join_probe bit for bit (rows and flags) at n = 2^20 against 10,000
    build keys (4,096 buckets) and 200 (128 buckets), about half of the
@@ -36,9 +39,10 @@ It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
    whose build takes the hash table: radix_ranks in its build,
    hash_join_probe once per stream batch). Each path has one run with the
    launch counts reset just before and read just after (every kernel of
-   the path must have launched: bitunpack128 as often as the q1 scan has
-   pages for it, murmur3_words twice and radix_ranks once per batch an
-   exchange partitioned, hash_join_probe never on q5), and its peak device
+   the path must have launched: the chunk decode once per dictionary chunk
+   of the q1 scan, murmur3_words twice and the radix permutation once per
+   batch an exchange partitioned, hash_join_probe never on q5), and its
+   peak device
    memory; each join prints its build side, probe mode, build rows and
    buckets. Then ``--reps`` timed runs of each path (at most ``Q1_REPS`` of
    each q1 path), the paths in turns; every result is held against the
@@ -48,6 +52,9 @@ It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
    call that computes the same function, on the paths' inputs, beside the
    least time the card could take (bytes over 3.35 TB/s, operations over
    the float32 peak), and prints each exchange's map-stage host seconds;
+   the chunk decode on the q1 scan's chunks also beside every device op of
+   the per-page route it replaced; the radix permutation on the exchange
+   paths' ids beside torch.argsort(stable=True);
    for hash_join_probe, which no single PyTorch call computes, it also
    times the reference's own alternative on the same inputs (the ``one``
    probe mode: sorted build keys, torch.searchsorted, one compare, one
@@ -77,8 +84,8 @@ import torch
 # data sheet, 700 W): the bounds of a kernel
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# the CUDA kernel's symbol, as the profiler names its launches
-KERNEL_NAME = "bitunpack_kernel"
+# the chunk decode kernel's symbol, as the profiler names its launches
+KERNEL_NAME = "chunk_decode_kernel"
 # timed runs of each q1 path: fewer than the q5 paths' --reps, so that the
 # five paths at SF1 take no longer than the three q1 paths did before
 Q1_REPS = 2
@@ -108,6 +115,23 @@ def call_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def queued_ms(fn, reps: int) -> float:
+    """Mean device time of one fn() call from CUDA events around reps calls
+    that the host enqueues while the card sleeps, so that the card then runs
+    them back to back without waiting on the host (launch gaps included)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)      # ~0.1 s of card clock cycles
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def device_ms(fn, reps: int, match: str | None = None) -> float:
     """Mean device time of one fn() call: the summed durations of the device
     activities (kernels, copies, memsets) it ran, traced by torch.profiler
@@ -116,9 +140,9 @@ def device_ms(fn, reps: int, match: str | None = None) -> float:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    # a trace can come back without its device records (seen once on the
-    # first trace of a process), so a trace that saw nothing is taken again
-    for _ in range(3):
+    # a trace can come back without its device records (seen up to three
+    # times in a row), so a trace that saw nothing is taken again
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -129,11 +153,9 @@ def device_ms(fn, reps: int, match: str | None = None) -> float:
                  and (match is None or match in e.name))
         if us > 0:
             return us / reps / 1e3
-    # no device records at all: CUDA events around back-to-back calls, an
-    # upper bound on the device time (it includes the host's enqueue gaps)
-    print(f"device_ms: 3 traces saw no device activity ({match}); "
-          "timed with CUDA events instead")
-    return call_ms(fn, reps, 1)
+    print(f"device_ms: 5 traces saw no device activity ({match}); timed "
+          "with CUDA events around calls queued behind a sleep instead")
+    return queued_ms(fn, reps)
 
 
 def unpack_bound_ms(n: int, bw: int, capacity: int) -> float:
@@ -167,37 +189,86 @@ def onehot_check(vals, codes, n_domain: int, exact: bool) -> float:
     return err
 
 
-def page_census(lineitem_dir: str):
-    """Every data page of the q1 scan that reaches bitunpack128, read on the
-    host exactly as the scan reads it: [(words int32 np, bw, n, pcap)], plus
-    the count of dictionary data pages decoded (kernel or host RLE)."""
+def chunk_census(lineitem_dir: str):
+    """Every column chunk of the q1 scan that the device decode takes (a
+    dictionary chunk), read on the host exactly as the scan reads it:
+    [(ChunkPages, capacity)], and the count of its data pages."""
     import pyarrow.parquet as pq
     from spark_rapids_tpu_torch.columnar.vector import bucket_capacity
     from spark_rapids_tpu_torch.io import parquet_native as PN
-    from spark_rapids_tpu_torch.ops import cuda_kernels as CK
-    pages, dict_pages = [], 0
+    chunks, pages = [], 0
     for f in sorted(os.listdir(lineitem_dir)):
         if not f.endswith(".parquet"):
             continue
         path = os.path.join(lineitem_dir, f)
         md = pq.ParquetFile(path).metadata
         for rg in range(md.num_row_groups):
+            cap = bucket_capacity(max(md.row_group(rg).num_rows, 1))
             for ci in range(md.num_columns):
                 try:
                     chunk = PN.read_chunk_pages(path, rg, ci, md=md)
                 except NotImplementedError:
                     continue      # arrow fallback column: no kernel
-                for (nv, dl, bw, page_bytes, _off, segs) in \
-                        chunk.index_segments:
-                    dict_pages += 1
-                    if not PN._all_packed(segs):
-                        continue  # RLE runs: indices decode on the host
-                    n = int(dl.sum())
-                    words = CK.bytes_to_words_u32(np.frombuffer(
-                        PN._packed_bytes(page_bytes, segs), np.uint8))
-                    pages.append((words, bw, n,
-                                  max(bucket_capacity(max(n, 1)), 8)))
-    return pages, dict_pages
+                chunks.append((chunk, cap))
+                pages += len(chunk.index_segments)
+    return chunks, pages
+
+
+def per_page_route(chunk, capacity: int, device):
+    """The scan's decode of one chunk before the fused kernel, page by page:
+    per page an upload of its words and its def levels, one bitunpack128
+    launch, the dictionary gather and the rank spread (RLE pages decode on
+    the host and gather); then the concatenation, the padding and the
+    canonical nulls. Returns (values, validity), to time against the fused
+    decode and to hold it against."""
+    from spark_rapids_tpu_torch.columnar.vector import bucket_capacity
+    from spark_rapids_tpu_torch.io import parquet_native as PN
+    from spark_rapids_tpu_torch.ops import parquet_decode as PD
+    _st, want, default, dictionary, _sd = PN.chunk_column(chunk, None)
+    dict_dev = dictionary.to(device)
+    all_vals, all_valid = [], []
+    for (num_values, def_levels, bw, page_bytes, values_off, segs) in \
+            chunk.index_segments:
+        pcap = bucket_capacity(max(num_values, 1))
+        n_present = int(def_levels.sum())
+        if PN._all_packed(segs):
+            vals, valid = PD.decode_dictionary_page(
+                np.frombuffer(PN._packed_bytes(page_bytes, segs), np.uint8),
+                bw, n_present, def_levels, dict_dev, pcap)
+        else:
+            idx = PN.decode_rle_host(page_bytes, values_off + 1,
+                                     len(page_bytes), bw, n_present) \
+                if segs else np.zeros(0, np.int32)
+            nd = int(dict_dev.shape[0])
+            idx_h = np.zeros(pcap, np.int64)
+            idx_h[:len(idx)] = np.clip(idx, 0, max(nd - 1, 0))
+            present = (dict_dev[torch.from_numpy(idx_h).to(device)] if nd
+                       else torch.zeros((pcap,), dtype=want, device=device))
+            dl = torch.zeros((pcap,), dtype=torch.bool)
+            dl[:len(def_levels)] = torch.from_numpy(def_levels.astype(bool))
+            vals, valid = PD.expand_present_to_rows(present, dl.to(device),
+                                                    pcap)
+        all_vals.append(vals[:num_values])
+        all_valid.append(valid[:num_values])
+    vals, valid = torch.cat(all_vals), torch.cat(all_valid)
+    n = chunk.num_values
+    out_v = torch.zeros((capacity,), dtype=vals.dtype, device=device)
+    out_v[:n] = vals[:n]
+    out_m = torch.zeros((capacity,), dtype=torch.bool, device=device)
+    out_m[:n] = valid[:n]
+    fill = torch.tensor(default, dtype=want, device=device)
+    return torch.where(out_m, out_v, fill), out_m
+
+
+def chunk_bound_ms(packed, want, capacity: int) -> float:
+    """Least time for one chunk decode: read its packed words, its page
+    table, its def levels and its dictionary once, and write the values and
+    the validity bytes once, over the card's memory rate."""
+    size = torch.empty((), dtype=want).element_size()
+    read = (4 * packed.words[1] + 32 * packed.num_pages
+            + (packed.defs[1] if packed.defs is not None else 0)
+            + size * packed.dictionary[1])
+    return (read + (size + 1) * capacity) / HBM_BYTES_PER_S * 1e3
 
 
 def check_q1(got, exp):
@@ -224,6 +295,12 @@ def murmur3_bound_ms(words, lengths) -> tuple:
     ops = int((11 * whole + 15 * (lens % 4) + 8).sum())
     return ((4 * W + 12) * n / HBM_BYTES_PER_S * 1e3,
             ops / F32_OPS_PER_S * 1e3)
+
+
+def perm_bound_ms(cap: int) -> float:
+    """Least time for one radix_partition_permutation: read cap 4-byte ids
+    and write cap 8-byte slots once, over the card's memory rate."""
+    return 12 * cap / HBM_BYTES_PER_S * 1e3
 
 
 def radix_bound_ms(cap: int, num_lanes: int) -> tuple:
@@ -519,24 +596,28 @@ def main() -> int:
     rx_err = 0
     rx_rows = []
     for lanes in (2, 5, 9, 129, 4096):
-        for cap in (8, 1 << 19, 1 << 20):
+        for cap in (8, 16_384, 1 << 19, 1 << 20):
             ids = torch.from_numpy(rng.integers(
                 -1, lanes + 2, cap).astype(np.int32)).to(dev)
             inside = torch.from_numpy(rng.integers(
                 0, lanes, cap).astype(np.int32)).to(dev)
             rx_err = max(rx_err, radix_check(ids, lanes, False),
                          radix_check(inside, lanes, True))
-            if cap == 1 << 20:
+            if cap == 1 << 20 or (cap, lanes) == (16_384, 4096):
                 rx_rows.append((cap, lanes, device_ms(
                     lambda: CK.radix_ranks(inside, lanes), 20, "radix_"),
                     device_ms(lambda: CK.radix_ranks_plain(inside, lanes), 3),
                     device_ms(lambda: torch.argsort(inside, stable=True), 5),
-                    radix_bound_ms(cap, lanes)[0]))
+                    device_ms(lambda: CK.radix_partition_permutation(
+                        inside, lanes), 20, "radix_"),
+                    radix_bound_ms(cap, lanes)[0], perm_bound_ms(cap)))
     torch.cuda.synchronize()
-    print("radix_ranks cap lanes kernel_device_ms plain_device_ms "
-          "argsort_device_ms bound_ms")
-    for cap, lanes, k, p_, a_, b in rx_rows:
-        print(f"  {cap} {lanes} {k:.6f} {p_:.6f} {a_:.6f} {b:.6f}")
+    print("radix cap lanes ranks_kernel_device_ms ranks_plain_device_ms "
+          "argsort_device_ms permutation_kernel_device_ms ranks_bound_ms "
+          "permutation_bound_ms")
+    for cap, lanes, k, p_, a_, pk, b, pb in rx_rows:
+        print(f"  {cap} {lanes} {k:.6f} {p_:.6f} {a_:.6f} {pk:.6f} {b:.6f} "
+              f"{pb:.6f}")
 
     # hash_join_probe bit for bit at the two table sizes a path can give
     # (the SF1 supplier build, 10,000 keys in 4,096 buckets; a small build
@@ -570,8 +651,9 @@ def main() -> int:
     for n, n_build, nb, k, p_, o_, b in hj_rows:
         print(f"  {n} {n_build} {nb} {k:.6f} {p_:.6f} {o_:.6f} {b:.6f}")
 
-    # -- 3. q1 data and its page census --------------------------------------
+    # -- 3. q1 data and its chunk census -------------------------------------
     from spark_rapids_tpu_torch.benchmarks import tpch
+    from spark_rapids_tpu_torch.io import parquet_native as PN
     from spark_rapids_tpu_torch.session import TorchSession
     data_dir = os.path.join(repo, "build", f"tpch_sf{args.sf:g}")
     t0 = time.perf_counter()
@@ -579,38 +661,74 @@ def main() -> int:
     print(f"data: sf={args.sf:g} at {data_dir} in "
           f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    census, dict_pages = page_census(paths["lineitem"])
-    print(f"census: {dict_pages} dictionary data pages, {len(census)} all "
-          f"bit-packed (kernel) pages, {time.perf_counter() - t0:.1f} s")
+    census, census_pages = chunk_census(paths["lineitem"])
+    print(f"census: {len(census)} dictionary chunks (one chunk decode "
+          f"launch each) holding {census_pages} data pages, "
+          f"{time.perf_counter() - t0:.1f} s")
     if not census:
-        raise AssertionError("the q1 scan has no page for bitunpack128")
-    dev_pages = [(torch.from_numpy(w).to(dev), bw, n, pcap)
-                 for (w, bw, n, pcap) in census]
-    for w, bw, n, pcap in dev_pages:
-        got = CK.bitunpack128(w, bw, n, pcap)
-        want = CK.bitunpack128_plain(w, bw, n, pcap)
-        max_err = max(max_err, int((got.long() - want.long()).abs().max()))
-        if not torch.equal(got, want):
-            raise AssertionError(
-                f"bitunpack128 != plain on a q1 page bw={bw} n={n}")
+        raise AssertionError("the q1 scan has no chunk for the chunk decode")
+    # each chunk packed and on the card, as the scan hands it to the kernel
+    dev_chunks = []
+    for chunk, cap in census:
+        _st, want, default, dictionary, _sd = PN.chunk_column(chunk, None)
+        packed = PN.pack_chunk(chunk, dictionary, cap, pin=True)
+        views = PN.chunk_views(packed.buf.to(dev, non_blocking=True), packed,
+                               want)
+        dev_chunks.append((views, packed.n_rows, cap, want, default,
+                           chunk_bound_ms(packed, want, cap)))
+    for (chunk, cap), (views, n_rows, _c, want, default, _b) in zip(
+            census, dev_chunks):
+        got = CK.chunk_decode(*views, n_rows, cap, want, default)
+        plain = CK.chunk_decode_plain(*views, n_rows, cap, want, default)
+        old = per_page_route(chunk, cap, dev)
+        for a, b, what in ((got, plain, "its plain version"),
+                           (got, old, "the per-page route")):
+            if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+                raise AssertionError(
+                    f"chunk decode != {what} on a q1 chunk of "
+                    f"{len(chunk.index_segments)} pages ({want})")
     torch.cuda.synchronize()
 
-    def all_pages(fn):
+    def all_chunks(fn):
         def run():
-            for w, bw, n, pcap in dev_pages:
-                fn(w, bw, n, pcap)
+            for views, n_rows, cap, want, default, _b in dev_chunks:
+                fn(*views, n_rows, cap, want, default)
         return run
-    page_ms = device_ms(all_pages(CK.bitunpack128), 3, KERNEL_NAME)
-    page_plain_ms = device_ms(all_pages(CK.bitunpack128_plain), 2)
-    page_call_ms = call_ms(all_pages(CK.bitunpack128), 5, 1)
-    page_bound_ms = sum(unpack_bound_ms(n, bw, pcap)
-                        for (_w, bw, n, pcap) in dev_pages)
-    bws = sorted({bw for (_w, bw, _n, _p) in dev_pages})
-    print(f"q1 pages: {len(dev_pages)} launches, bit widths {bws}; "
-          f"kernel {page_ms:.4f} ms device ({page_call_ms:.4f} ms enqueued "
-          f"back to back), plain {page_plain_ms:.4f} ms device, "
-          f"bound {page_bound_ms:.6f} ms per q1 scan")
-    del dev_pages
+
+    def routes(fn):
+        def run():
+            for chunk, cap in census:
+                fn(chunk, cap)
+        return run
+
+    def wall_s(run) -> float:
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    chunk_ms = device_ms(all_chunks(CK.chunk_decode), 3, KERNEL_NAME)
+    chunk_plain_ms = device_ms(all_chunks(CK.chunk_decode_plain), 2)
+    chunk_call_ms = call_ms(all_chunks(CK.chunk_decode), 5, 1)
+    chunk_bound = sum(c[-1] for c in dev_chunks)
+    fused = routes(lambda chunk, cap: PN.chunk_to_device(chunk, None, cap,
+                                                         dev))
+    per_page = routes(lambda chunk, cap: per_page_route(chunk, cap, dev))
+    fused_ms, per_page_ms = device_ms(fused, 2), device_ms(per_page, 2)
+    fused_s, per_page_s = wall_s(fused), wall_s(per_page)
+    print(f"q1 chunks: {len(dev_chunks)} chunk decode launches for "
+          f"{census_pages} pages; kernel {chunk_ms:.4f} ms device "
+          f"({chunk_call_ms:.4f} ms enqueued back to back), plain "
+          f"{chunk_plain_ms:.4f} ms device, bound {chunk_bound:.6f} ms "
+          f"(bytes) per q1 scan")
+    print(f"q1 chunks, whole device side of the decode per q1 scan: fused "
+          f"route (pack, one pinned copy, one launch a chunk) "
+          f"{fused_ms:.4f} ms of device ops, {fused_s:.4f} s host wall; "
+          f"per-page route (two pageable copies and ~10 ops a page) "
+          f"{per_page_ms:.4f} ms of device ops, {per_page_s:.4f} s host "
+          f"wall")
+    del dev_chunks
 
     # -- 4. the five paths through the session on the card -----------------
     spark = TorchSession(
@@ -671,9 +789,9 @@ def main() -> int:
         if label in q1_labels:
             if counts["bitunpack128"] != len(census):
                 raise AssertionError(
-                    f"{label}: bitunpack128 launched "
+                    f"{label}: the chunk decode launched "
                     f"{counts['bitunpack128']} times, the scan has "
-                    f"{len(census)} bit-packed pages")
+                    f"{len(census)} dictionary chunks")
             if (counts["murmur3_words"] != 2 * batches
                     or counts["radix_ranks"] != batches):
                 raise AssertionError(
@@ -742,13 +860,15 @@ def main() -> int:
                   f"{peak_by_path[label]} B")
 
     # the inputs the paths hand to the kernels: onehot_sum_f32 in one q1
-    # run; murmur3_words and radix_ranks in one run of each exchange path;
-    # hash_join_probe, hash_join_build and the build's radix_ranks in one
-    # q5-sparse run
-    recorded = {"onehot_sum_f32": [], "murmur3_words": [], "radix_ranks": [],
+    # run; murmur3_words and radix_partition_permutation in one run of each
+    # exchange path; hash_join_probe, hash_join_build and the build's
+    # radix_ranks in one q5-sparse run. The permutation counts its launches
+    # under radix_ranks.
+    recorded = {"onehot_sum_f32": [], "murmur3_words": [],
+                "radix_partition_permutation": [], "radix_ranks": [],
                 "hash_join_probe": [], "hash_join_build": []}
+    counter_of = {"radix_partition_permutation": "radix_ranks"}
     launchers = {k: getattr(CK, k) for k in recorded}
-    build_radix = []
 
     def recorder(kname, into):
         def record(*args_):
@@ -756,35 +876,34 @@ def main() -> int:
                               for a in args_))
             return launchers[kname](*args_)
         return record
+    exchange_knames = ["murmur3_words", "radix_partition_permutation"]
     for label, knames in (("q1", ["onehot_sum_f32"]),
-                          ("q1-files", ["murmur3_words", "radix_ranks"]),
-                          ("q1-repartition", ["murmur3_words",
-                                              "radix_ranks"]),
+                          ("q1-files", exchange_knames),
+                          ("q1-repartition", exchange_knames),
                           ("q5-sparse", ["hash_join_probe",
                                          "hash_join_build", "radix_ranks"])):
-        into = {k: build_radix if (label, k) == ("q5-sparse", "radix_ranks")
-                else recorded[k] for k in knames}
-        before = {k: len(into[k]) for k in knames}
+        before = {k: len(recorded[k]) for k in knames}
         for k in knames:
-            setattr(CK, k, recorder(k, into[k]))
+            setattr(CK, k, recorder(k, recorded[k]))
         try:
             check(label, all_paths[label]().collect())
         finally:
             for k in knames:
                 setattr(CK, k, launchers[k])
         for k in knames:
-            got = len(into[k]) - before[k]
-            if k in counts_by_path[label] and got != counts_by_path[label][k]:
+            got = len(recorded[k]) - before[k]
+            counted = counts_by_path[label].get(counter_of.get(k, k))
+            if counted is not None and got != counted:
                 raise AssertionError(
                     f"recorded {got} {k} calls on {label}, the counted run "
-                    f"launched {counts_by_path[label][k]}")
+                    f"launched {counted}")
 
     for vals, codes, dom in recorded["onehot_sum_f32"]:
         oh_err = max(oh_err, onehot_check(vals, codes, dom, True))
     mm_err = max([murmur3_check(*a) for a in recorded["murmur3_words"]],
                  default=mm_err)
-    rx_err = max([radix_check(ids, lanes, True)
-                  for ids, lanes in recorded["radix_ranks"]], default=rx_err)
+    rx_err = max([radix_check(ids, lanes, True) for ids, lanes
+                  in recorded["radix_partition_permutation"]], default=rx_err)
     torch.cuda.synchronize()
 
     def each_call(fn, calls):
@@ -830,37 +949,33 @@ def main() -> int:
           f"{mm_bound_ms:.6f} ms ({mm_bound_by}; bytes {mm_bytes_ms:.6f}, "
           f"operations {mm_ops_ms:.6f}); no PyTorch call hashes strings")
 
-    rx_calls = recorded["radix_ranks"]
+    # radix_partition_permutation: every call of one q1-files and one
+    # q1-repartition run; beside it the stable argsort that computes the
+    # same permutation, and radix_ranks on the same ids
+    rx_calls = recorded["radix_partition_permutation"]
 
     def argsort(ids, lanes):
         return torch.argsort(ids, stable=True)
-
-    def counts_of(ids, lanes):
-        return torch.bincount(ids, minlength=lanes)
-    rx_ms = device_ms(each_call(CK.radix_ranks, rx_calls), 5, "radix_")
-    rx_plain_ms = device_ms(each_call(CK.radix_ranks_plain, rx_calls), 3)
+    rx_ms = device_ms(each_call(CK.radix_partition_permutation, rx_calls), 5,
+                      "radix_")
+    rx_plain_ms = device_ms(each_call(CK.radix_partition_permutation_plain,
+                                      rx_calls), 3)
     rx_lib_ms = device_ms(each_call(argsort, rx_calls), 5)
-    rx_bincount_ms = device_ms(each_call(counts_of, rx_calls), 5)
-    rx_perm_ms = device_ms(each_call(CK.radix_partition_permutation,
-                                     rx_calls), 5)
-    rx_call_ms = call_ms(each_call(CK.radix_ranks, rx_calls), 5, 1)
-    rx_bytes_ms, rx_ops_ms = (sum(x) for x in zip(*(
-        radix_bound_ms(ids.numel(), lanes) for ids, lanes in rx_calls)))
-    rx_bound_ms = max(rx_bytes_ms, rx_ops_ms)
-    rx_bound_by = "bytes" if rx_bytes_ms >= rx_ops_ms else "operations"
-    # the permutation reads each 4-byte id once and writes its 8-byte slot
-    perm_bound_ms = sum(12 * ids.numel() for ids, _l in rx_calls) \
-        / HBM_BYTES_PER_S * 1e3
+    rx_ranks_ms = device_ms(each_call(CK.radix_ranks, rx_calls), 5, "radix_")
+    rx_all_ms = device_ms(each_call(CK.radix_partition_permutation,
+                                    rx_calls), 5)
+    rx_call_ms = call_ms(each_call(CK.radix_partition_permutation, rx_calls),
+                         5, 1)
+    rx_bound_ms = sum(perm_bound_ms(ids.numel()) for ids, _l in rx_calls)
     shapes = sorted({(ids.numel(), lanes) for ids, lanes in rx_calls})
-    print(f"exchange paths radix_ranks: {len(rx_calls)} launches at "
-          f"(cap, lanes) {shapes}; kernel {rx_ms:.4f} ms device "
-          f"({rx_call_ms:.4f} ms enqueued back to back), plain "
-          f"{rx_plain_ms:.4f} ms, torch.argsort(stable=True) "
-          f"{rx_lib_ms:.4f} ms, torch.bincount {rx_bincount_ms:.4f} ms, "
-          f"the whole radix_partition_permutation {rx_perm_ms:.4f} ms "
-          f"(bound {perm_bound_ms:.6f} ms, bytes; torch.argsort(stable=True) "
-          f"computes the same permutation), bound {rx_bound_ms:.6f} ms "
-          f"({rx_bound_by})")
+    print(f"exchange paths radix_partition_permutation: {len(rx_calls)} "
+          f"calls at (cap, lanes) {shapes}; kernels {rx_ms:.4f} ms device "
+          f"(every device op of the call {rx_all_ms:.4f} ms; "
+          f"{rx_call_ms:.4f} ms enqueued back to back), plain "
+          f"{rx_plain_ms:.4f} ms, torch.argsort(stable=True) {rx_lib_ms:.4f} "
+          f"ms (the same permutation), radix_ranks on the same ids "
+          f"{rx_ranks_ms:.4f} ms, bound {rx_bound_ms:.6f} ms (bytes: 4 B "
+          f"in, 8 B out a row)")
 
     # hash_join_probe: every call of one q5-sparse run; beside it the
     # reference's one-mode formulation on the same inputs (its sorted build
@@ -921,6 +1036,7 @@ def main() -> int:
           f"{hb_bound_ms:.6f} ms (bytes)")
     # radix_ranks inside that build, on its own input: 4,096 lanes, ids of
     # ineligible rows past the domain; beside it torch's stable argsort
+    build_radix = recorded["radix_ranks"]
     rb_err = max([radix_check(ids, lanes, False)
                   for ids, lanes in build_radix], default=0)
     rb_ms = device_ms(each_call(CK.radix_ranks, build_radix), 5, "radix_")
@@ -929,6 +1045,7 @@ def main() -> int:
     rb_bytes_ms, rb_ops_ms = (sum(x) for x in zip(*(
         radix_bound_ms(ids.numel(), lanes) for ids, lanes in build_radix)))
     rb_bound_ms = max(rb_bytes_ms, rb_ops_ms)
+    rb_bound_by = "bytes" if rb_bytes_ms >= rb_ops_ms else "operations"
     print(f"q5-sparse hash_join_build's radix_ranks: {len(build_radix)} "
           f"launches at (cap, lanes) "
           f"{sorted({(ids.numel(), lanes) for ids, lanes in build_radix})}; "
@@ -944,37 +1061,50 @@ def main() -> int:
 
     # -- 5. the kernels line, the card, the verdict --------------------------
     # "launches" counts the runs whose inputs the times cover: the q1 path's
-    # for bitunpack128 and onehot_sum_f32, q1-files plus q1-repartition for
-    # murmur3_words and radix_ranks, q5-sparse for hash_join_probe;
-    # launches_by_path has every path's
+    # for bitunpack128 (the chunk decode) and onehot_sum_f32, q1-files plus
+    # q1-repartition for murmur3_words and radix_partition_permutation,
+    # q5-sparse for radix_ranks and hash_join_probe; launches_by_path has
+    # every path's, under the counter each kernel counts on
     exchange_paths = ("q1-files", "q1-repartition")
 
     def entry(kname, source, line, launch_paths, err, ms, plain_ms, bound,
-              bound_by, library_ms):
+              bound_by, library_ms, counter=None):
+        counter = counter or kname
         return {
             "name": kname, "route": "cuda",
             "source": f"spark_rapids_tpu_torch/csrc/{source}",
             "replaces": f"spark_rapids_tpu/ops/pallas_kernels.py:{line}",
-            "launches": sum(counts_by_path[p][kname] for p in launch_paths),
-            "launches_by_path": {p: c[kname]
+            "launches": sum(counts_by_path[p][counter] for p in launch_paths),
+            "launches_by_path": {p: c[counter]
                                  for p, c in counts_by_path.items()},
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by,
             "library_ms": library_ms}
     kernels = [
-        entry("bitunpack128", "bitunpack.cu", 221, ("q1",), max_err, page_ms,
-              page_plain_ms, page_bound_ms, "bytes", None),
+        # the fused chunk decode: times over every dictionary chunk of one
+        # q1 scan; per_page_route_ms is every device op of the per-page
+        # route it replaced, fused_route_ms the fused route's (copy + kernel)
+        dict(entry("bitunpack128", "chunkdecode.cu", 221, ("q1",), max_err,
+                   chunk_ms, chunk_plain_ms, chunk_bound, "bytes", None),
+             chunks=len(census), pages=census_pages,
+             fused_route_ms=fused_ms, per_page_route_ms=per_page_ms,
+             fused_route_host_s=fused_s, per_page_route_host_s=per_page_s),
         entry("onehot_sum_f32", "onehot.cu", 289, ("q1",), oh_err, oh_ms,
               oh_plain_ms, oh_bound_ms, oh_bound_by, oh_lib_ms),
         entry("murmur3_words", "murmur3.cu", 169, exchange_paths, mm_err,
               mm_ms, mm_plain_ms, mm_bound_ms, mm_bound_by, None),
-        # the hash_build_* keys: the call inside q5-sparse's hash build
-        dict(entry("radix_ranks", "radix.cu", 359, exchange_paths,
-                   max(rx_err, rb_err), rx_ms, rx_plain_ms, rx_bound_ms,
-                   rx_bound_by, rx_lib_ms),
-             hash_build_ms=rb_ms, hash_build_plain_ms=rb_plain_ms,
-             hash_build_bound_ms=rb_bound_ms,
-             hash_build_argsort_ms=rb_argsort_ms),
+        # on q5-sparse's hash build input; the hash_build_* keys are the
+        # whole hash_join_build around it
+        dict(entry("radix_ranks", "radix.cu", 359, ("q5-sparse",),
+                   max(rx_err, rb_err), rb_ms, rb_plain_ms, rb_bound_ms,
+                   rb_bound_by, rb_argsort_ms),
+             hash_build_ms=hb_ms, hash_build_plain_ms=hb_plain_ms,
+             hash_build_bound_ms=hb_bound_ms, hash_build_sort_ms=hb_sort_ms),
+        # on the exchange paths' ids; counts under radix_ranks
+        dict(entry("radix_partition_permutation", "radix.cu", 389,
+                   exchange_paths, rx_err, rx_ms, rx_plain_ms, rx_bound_ms,
+                   "bytes", rx_lib_ms, counter="radix_ranks"),
+             all_device_ops_ms=rx_all_ms, radix_ranks_same_ids_ms=rx_ranks_ms),
         # no single PyTorch call probes a hash table: library_ms is null and
         # one_mode_ms is the reference's own alternative on the same inputs
         dict(entry("hash_join_probe", "hashjoin.cu", 479, ("q5-sparse",),

@@ -3,18 +3,19 @@ bulk index decode on the device.
 
 Counterpart of ``spark_rapids_tpu/io/parquet_native.py``. The thrift page
 headers and RLE run structure are metadata (bytes to kilobytes) parsed on the
-host in Python; the bulk bytes, the bit-packed dictionary indices, go to the
-device, where the ``bitunpack128`` kernel unpacks them and the dictionary
-values are gathered (``ops/parquet_decode.py``). The parquet dictionary page
-maps 1:1 onto the engine's sorted string dictionary, so a string column never
-materializes per-row bytes.
+host in Python; the bulk bytes, the bit-packed dictionary indices of every
+page of a column chunk, go to the device in one copy, where one
+``chunk_decode`` launch (``ops/cuda_kernels.py``) unpacks them, gathers the
+dictionary values and spreads them over the null layout. The parquet
+dictionary page maps 1:1 onto the engine's sorted string dictionary, so a
+string column never materializes per-row bytes.
 
 Scope: UNCOMPRESSED / SNAPPY / GZIP / ZSTD chunks (compressed page bodies
 decompress on the host through arrow's codecs), RLE_DICTIONARY-encoded data
 pages (v1 and v2), flat schemas, physical types INT32/INT64/FLOAT/DOUBLE/
 BYTE_ARRAY. Anything else (for example a dictionary that overflowed to PLAIN
-pages) falls back to the arrow decode per column chunk. Every page is decoded
-standalone at the scan; uploading pages encoded is not ported yet.
+pages) falls back to the arrow decode per column chunk. Every chunk is decoded
+at the scan; uploading pages encoded is not ported yet.
 """
 
 from __future__ import annotations
@@ -359,128 +360,137 @@ def _packed_bytes(page_bytes: bytes, segs) -> bytes:
                     for s in segs)
 
 
-def chunk_to_device(pages: ChunkPages, spark_type, capacity: int, device):
-    """Decode a parsed chunk into a device column. Pages whose hybrid
-    segments are all bit-packed unpack their indices ON THE DEVICE through
-    the ``bitunpack128`` kernel; pages with RLE runs decode their indices on
-    the host, and the dictionary gather stays on the device either way."""
-    from spark_rapids_tpu_torch import types as T
-    from spark_rapids_tpu_torch.columnar.vector import (TorchColumnVector,
-                                                        bucket_capacity)
-    from spark_rapids_tpu_torch.ops import parquet_decode as PD
+class PackedChunk(typing.NamedTuple):
+    """One column chunk packed for ``cuda_kernels.chunk_decode``: one int32
+    buffer that crosses to the card in one copy, holding at 16-byte
+    boundaries the page table (``PAGE_FIELDS``), every page's index words,
+    the chunk's def levels (one byte a row, only when some page has nulls)
+    and the dictionary in the column's type. The tuples say where each
+    section lies, in int32 words."""
+    buf: torch.Tensor            # (n,) int32 on the host
+    num_pages: int
+    words: tuple                 # (offset, words)
+    defs: tuple | None           # (offset, rows)
+    dictionary: tuple            # (offset, entries)
+    n_rows: int
 
-    is_string = pages.physical_type == "BYTE_ARRAY"
-    sorted_dict = None
-    if is_string:
-        # parquet dictionary == the engine's sorted string dictionary
-        from spark_rapids_tpu_torch.ops.strings import sorted_dict_and_rank
-        sorted_dict, rank = sorted_dict_and_rank(pages.dict_values)
-        dict_dev = torch.from_numpy(rank).to(device)  # parquet idx -> code
-    else:
-        dict_dev = torch.from_numpy(np.asarray(pages.dict_values)).to(device)
 
-    # one data page, all bit-packed: the single decode body at the output
-    # capacity (unpack + dictionary gather + null spread + canonical nulls)
-    if len(pages.index_segments) == 1:
-        (num_values, def_levels, bw, page_bytes, values_off, segs) = \
-            pages.index_segments[0]
-        if _all_packed(segs):
-            return _decode_single_page(
-                _packed_bytes(page_bytes, segs), bw, def_levels, dict_dev,
-                num_values, capacity, pages, spark_type, sorted_dict)
+def _words_of(n_bytes: int) -> int:
+    """int32 words holding n_bytes, rounded up to a 16-byte boundary."""
+    return -(-n_bytes // 16) * 4
 
-    all_vals, all_valid = [], []
+
+def pack_chunk(pages: ChunkPages, dictionary: torch.Tensor, capacity: int,
+               pin: bool = False) -> PackedChunk:
+    """Host prep of one chunk: each page's index words (its bit-packed
+    segments as they are; pages with RLE runs decode their indices on the
+    host and carry them at bit width 32, which unpacks as the identity), its
+    row of the page table, the def levels and the (converted) dictionary, in
+    one buffer. ``pin`` takes the buffer from torch's caching pinned-memory
+    allocator, so that the copy to the card can run asynchronously; every
+    call has its own buffer, so concurrent scans share none."""
+    from spark_rapids_tpu_torch.ops import cuda_kernels as CK
+    table, streams, levels = [], [], []
+    row_off = word_off = present_before = 0
     for (num_values, def_levels, bw, page_bytes, values_off, segs) in \
             pages.index_segments:
-        pcap = bucket_capacity(max(num_values, 1))
         n_present = int(def_levels.sum())
-        if _all_packed(segs):
-            vals, valid = PD.decode_dictionary_page(
-                np.frombuffer(_packed_bytes(page_bytes, segs), np.uint8), bw,
-                n_present, def_levels, dict_dev, pcap)
+        if _all_packed(segs) and bw > 0:
+            words = CK.bytes_to_words_u32(
+                np.frombuffer(_packed_bytes(page_bytes, segs), np.uint8))
         else:
-            idx = decode_rle_host(page_bytes, values_off + 1,
-                                  len(page_bytes), bw, n_present) \
-                if segs else np.zeros(0, np.int32)
-            nd = int(dict_dev.shape[0])
-            idx_h = np.zeros(pcap, np.int64)
-            idx_h[:len(idx)] = np.clip(idx, 0, max(nd - 1, 0))
-            # an all-null page may carry an EMPTY dictionary — nothing to
-            # gather, every slot is the canonical default
-            present = (dict_dev[torch.from_numpy(idx_h).to(device)] if nd
-                       else torch.zeros((pcap,), dtype=dict_dev.dtype,
-                                        device=device))
-            dl = torch.zeros((pcap,), dtype=torch.bool)
-            dl[:len(def_levels)] = torch.from_numpy(def_levels.astype(bool))
-            vals, valid = PD.expand_present_to_rows(present, dl.to(device),
-                                                    pcap)
-        all_vals.append(vals[:num_values])
-        all_valid.append(valid[:num_values])
+            if not segs:
+                idx = np.zeros(0, np.int32)
+            elif bw == 0:               # one-entry dictionary: every index 0
+                idx = np.zeros(n_present, np.int32)
+            else:
+                idx = decode_rle_host(page_bytes, values_off + 1,
+                                      len(page_bytes), bw, n_present)
+            words, bw = idx.astype(np.int32), 32
+        table.append((row_off, num_values, word_off, len(words), bw,
+                      n_present, present_before,
+                      int(n_present != num_values)))
+        streams.append(words)
+        levels.append(def_levels)
+        row_off += num_values
+        word_off += len(words)
+        present_before += n_present
+    n_rows = min(row_off, pages.num_values, capacity)
+    has_nulls = any(t[-1] for t in table)
+    raw_dict = np.ascontiguousarray(dictionary.numpy()).view(np.uint8)
+    n_table = len(table) * len(CK.PAGE_FIELDS)
+    at_words = _words_of(4 * n_table)
+    at_defs = at_words + _words_of(4 * word_off)
+    at_dict = at_defs + (_words_of(n_rows) if has_nulls else 0)
+    buf = torch.empty((at_dict + _words_of(raw_dict.size),),
+                      dtype=torch.int32, pin_memory=pin)
+    host = buf.numpy()
+    host[:n_table] = np.asarray(table, np.int32).reshape(-1)
+    if word_off:
+        host[at_words:at_words + word_off] = np.concatenate(streams)
+    if has_nulls:
+        host[at_defs:at_dict].view(np.uint8)[:n_rows] = \
+            np.concatenate(levels)[:n_rows] != 0
+    host[at_dict:].view(np.uint8)[:raw_dict.size] = raw_dict
+    return PackedChunk(buf, len(table), (at_words, word_off),
+                       (at_defs, n_rows) if has_nulls else None,
+                       (at_dict, dictionary.numel()), n_rows)
 
-    vals = torch.cat(all_vals) if len(all_vals) > 1 else all_vals[0]
-    valid = torch.cat(all_valid) if len(all_valid) > 1 else all_valid[0]
-    n = pages.num_values
-    out_v = torch.zeros((capacity,), dtype=vals.dtype, device=device)
-    out_v[:n] = vals[:n]
-    out_m = torch.zeros((capacity,), dtype=torch.bool, device=device)
-    out_m[:n] = valid[:n]
 
-    if is_string:
-        # canonical-null invariant: invalid slots hold code 0, never
-        # rank-gather residue — group-by compares raw codes
-        codes = torch.where(out_m, out_v.to(torch.int32), 0)
-        return TorchColumnVector(T.STRING, codes, out_m, sorted_dict)
-    st = _spark_type_of(pages.physical_type, spark_type)
-    want = st.torch_dtype
-    if out_v.dtype != want:
-        out_v = out_v.to(want)
-    default = torch.tensor(st.default_value(), dtype=want, device=device)
-    return TorchColumnVector(st, torch.where(out_m, out_v, default), out_m)
+def chunk_views(buf: torch.Tensor, packed: PackedChunk, want: torch.dtype):
+    """``(words, page table, defs or None, dictionary)``: views of a packed
+    chunk's buffer (on the host or on the card) for ``chunk_decode``."""
+    n_table = packed.num_pages * 8
+    table = buf[:n_table].view(packed.num_pages, 8)
+    at_words, n_words = packed.words
+    words = buf[at_words:at_words + n_words]
+    defs = None
+    if packed.defs is not None:
+        at_defs, rows = packed.defs
+        defs = buf[at_defs:].view(torch.uint8)[:rows]
+    at_dict, nd = packed.dictionary
+    size = torch.empty((), dtype=want).element_size()
+    dictionary = buf[at_dict:].view(torch.uint8)[:nd * size].view(want)
+    return words, table, defs, dictionary
 
 
-def _page_spec_and_args(packed: bytes, bw: int, def_levels, dict_dev,
-                        num_values: int, capacity: int, pages, spark_type):
-    """Host prep of one single-page chunk: the EncodedPageSpec plus the device
-    arguments (packed words, dictionary, def levels, live count). The one
-    place a single page's bytes become device buffers."""
+def chunk_column(pages: ChunkPages, spark_type):
+    """``(spark type, dtype, default, host dictionary in that dtype, sorted
+    string dictionary or None)`` of a parsed chunk. A string chunk's
+    dictionary is the rank array mapping each parquet index to its code in
+    the engine's sorted dictionary (parquet's dictionary is that dictionary,
+    reordered), and its invalid slots hold code 0 (the canonical-null
+    invariant: group-by compares raw codes)."""
     from spark_rapids_tpu_torch import types as T
-    from spark_rapids_tpu_torch.columnar.vector import bucket_capacity
-    from spark_rapids_tpu_torch.ops import cuda_kernels as CK
-    from spark_rapids_tpu_torch.ops import parquet_decode as PD
-
-    device = dict_dev.device
-    is_string = pages.physical_type == "BYTE_ARRAY"
-    n_present = int(def_levels.sum())
-    pcap = max(bucket_capacity(max(n_present, 1)), 8)
+    if pages.physical_type == "BYTE_ARRAY":
+        from spark_rapids_tpu_torch.ops.strings import sorted_dict_and_rank
+        sorted_dict, rank = sorted_dict_and_rank(pages.dict_values)
+        return T.STRING, torch.int32, 0, torch.from_numpy(rank), sorted_dict
     st = _spark_type_of(pages.physical_type, spark_type)
-    want = torch.int32 if is_string else st.torch_dtype
-    default = 0 if is_string else st.default_value()
-    spec = PD.EncodedPageSpec(bw, pcap, capacity, want, is_string, default,
-                              n_present)
-    words = CK.bytes_to_words_u32(np.frombuffer(packed, np.uint8))
-    dh = np.zeros(capacity, bool)
-    nd_lv = min(len(def_levels), capacity)
-    dh[:nd_lv] = def_levels[:nd_lv].astype(bool)
-    n = min(num_values, pages.num_values, capacity)
-    args = (torch.from_numpy(words).to(device), dict_dev,
-            torch.from_numpy(dh).to(device), n)
-    return spec, (T.STRING if is_string else st), args
+    dictionary = torch.from_numpy(
+        np.asarray(pages.dict_values)).to(st.torch_dtype)
+    return st, st.torch_dtype, st.default_value(), dictionary, None
 
 
-def _decode_single_page(packed: bytes, bw: int, def_levels, dict_dev,
-                        num_values: int, capacity: int, pages, spark_type,
-                        sorted_dict):
-    """One single-page chunk through ``decode_page_cols``, the single decode
-    body, straight at the output capacity."""
+def chunk_to_device(pages: ChunkPages, spark_type, capacity: int, device):
+    """Decode a parsed chunk into a device column in one ``chunk_decode``
+    launch (the kernel for a CUDA device): the packed chunk crosses in one
+    asynchronous copy from pinned memory, and the kernel unpacks, gathers
+    from the dictionary and spreads over the null layout at the output
+    capacity. Bit for bit the reference's page-by-page decode."""
     from spark_rapids_tpu_torch.columnar.vector import TorchColumnVector
-    from spark_rapids_tpu_torch.ops import parquet_decode as PD
+    from spark_rapids_tpu_torch.ops import cuda_kernels as CK
 
-    spec, st, args = _page_spec_and_args(packed, bw, def_levels, dict_dev,
-                                         num_values, capacity, pages,
-                                         spark_type)
-    v, m = PD.decode_page_cols(spec, *args)
-    return TorchColumnVector(st, v, m,
-                             sorted_dict if spec.is_string else None)
+    device = torch.device(device)
+    st, want, default, dictionary, sorted_dict = chunk_column(pages,
+                                                              spark_type)
+    packed = pack_chunk(pages, dictionary, capacity,
+                        pin=device.type == "cuda")
+    buf = packed.buf.to(device, non_blocking=True)
+    words, table, defs, dict_d = chunk_views(buf, packed, want)
+    v, m = CK.chunk_decode(words, table, defs, dict_d, packed.n_rows,
+                           capacity, want, default)
+    return TorchColumnVector(st, v, m, sorted_dict)
 
 
 def read_row_group_device(path: str, row_group: int, schema, device,

@@ -16,17 +16,23 @@ Counterpart of ``spark_rapids_tpu/ops/pallas_kernels.py``. Each kernel lives in
 
 Kernels ported so far (see PERF.md for the table of all TPU kernels):
 
-* ``bitunpack128`` — ``csrc/bitunpack.cu``, replaces
-  ``pallas_kernels.bitunpack128`` (parquet RLE_DICTIONARY index unpack).
+* ``chunk_decode`` — ``csrc/chunkdecode.cu``, replaces
+  ``pallas_kernels.bitunpack128`` and the per-page device work around it:
+  one launch decodes a whole dictionary-encoded parquet column chunk
+  (unpack, dictionary gather, null spread, canonical nulls).
+  ``bitunpack128`` is a call of the same kernel with one page and no
+  dictionary. Both count under ``launches["bitunpack128"]``.
 * ``onehot_sum_f32`` — ``csrc/onehot.cu``, replaces
   ``pallas_kernels.onehot_sum_f32`` (the dense group-by's count-like bucket
   sums).
 * ``murmur3_words`` — ``csrc/murmur3.cu``, replaces
   ``pallas_kernels.murmur3_words`` (Spark's string hash, for every string
   key of a hash exchange).
-* ``radix_ranks`` — ``csrc/radix.cu``, replaces ``pallas_kernels.radix_ranks``
-  (stable counting ranks behind every exchange's partition step, through
-  ``radix_partition_permutation``, and behind ``hash_join_build``).
+* ``radix_ranks`` and ``radix_partition_permutation`` — ``csrc/radix.cu``,
+  replace ``pallas_kernels.radix_ranks`` and the reference's permutation
+  around it (stable counting ranks behind ``hash_join_build``; the
+  permutation, scan and scatter inside the kernels, behind every exchange's
+  partition step). Both count under ``launches["radix_ranks"]``.
 * ``hash_join_probe`` — ``csrc/hashjoin.cu``, replaces
   ``pallas_kernels.hash_join_probe`` (the broadcast hash join's probe of an
   8-slot Fibonacci table over a sparse unique build key). Its table comes
@@ -55,7 +61,7 @@ _CSRC = os.path.join(_PKG, "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "cuda")
 
 # kernel library name -> CUDA source under csrc/
-SOURCES = {"bitunpack": "bitunpack.cu", "onehot": "onehot.cu",
+SOURCES = {"chunkdecode": "chunkdecode.cu", "onehot": "onehot.cu",
            "murmur3": "murmur3.cu", "radix": "radix.cu",
            "hashjoin": "hashjoin.cu"}
 
@@ -149,15 +155,183 @@ def _launcher(lib: str, symbol: str, argtypes: list):
 
 
 # ---------------------------------------------------------------------------
-# parquet bit-unpack
+# parquet chunk decode (and bitunpack128, its one-page, dictionary-less call)
 # ---------------------------------------------------------------------------
+
+#: the int32 fields of one row of the chunk decode's page table, in order
+#: (csrc/chunkdecode.cu's ``Page``). ``row_off``/``row_count``: the page's
+#: rows in the chunk; ``word_off``/``n_words``: its index words in the word
+#: stream; ``n_present``: its non-null values; ``present_before``: the
+#: non-null values of the pages before it; ``has_nulls``: 0 or 1.
+PAGE_FIELDS = ("row_off", "row_count", "word_off", "n_words", "bit_width",
+               "n_present", "present_before", "has_nulls")
+
+
+def _chunk_launch(words, pages, defs, dictionary, n_rows: int, capacity: int,
+                  value_bytes: int, default_bits: int, values, valid) -> None:
+    """Launch csrc/chunkdecode.cu on CUDA tensors that the caller checked;
+    ``pages`` is an int32 ``(P, 8)`` table or a tuple of one page's fields,
+    passed by value; with no dictionary (``value_bytes`` 0) the values are
+    the unpacked indices."""
+    launch = _launcher("chunkdecode", "chunk_decode_launch", [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_ulonglong, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p])
+    if isinstance(pages, torch.Tensor):
+        table, num_pages, one = pages.data_ptr(), pages.shape[0], (0,) * 8
+    else:
+        table, num_pages, one = None, 1, pages
+    _off, row_count, _w, n_words, bw, n_present, _pb, has_nulls = one
+    err = launch(
+        words.device.index, table, num_pages, row_count, n_words, bw,
+        n_present, has_nulls, words.data_ptr(),
+        None if defs is None else defs.data_ptr(),
+        None if dictionary is None else dictionary.data_ptr(),
+        0 if dictionary is None else dictionary.numel(), n_rows, capacity,
+        value_bytes, default_bits, values.data_ptr(),
+        None if valid is None else valid.data_ptr(),
+        torch.cuda.current_stream(words.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"chunk decode launch failed: CUDA error {err}")
+    _count("bitunpack128")
+
+
+def _default_bits(want: torch.dtype, default) -> int:
+    """The default value of dtype ``want`` as the unsigned integer of its
+    bytes (little-endian), as the kernel writes it."""
+    raw = torch.tensor([default], dtype=want).view(torch.uint8).numpy()
+    return int.from_bytes(raw.tobytes(), "little")
+
+
+def chunk_decode(words: torch.Tensor, pages, defs, dictionary, n_rows: int,
+                 capacity: int, want: torch.dtype, default):
+    """Decode a dictionary-encoded parquet column chunk in one launch:
+    ``(values (capacity,) want, validity (capacity,) bool)``.
+
+    words: ``(W,)`` int32, every page's index words, each page's little-endian
+    bit-packed indices at its own bit width (bit width 32 for indices the host
+    decoded from RLE runs); pages: the ``(P, 8)`` int32 page table
+    (``PAGE_FIELDS``), or a tuple of one page's 8 fields; defs: ``None`` when
+    no page has nulls, else ``(>= n_rows,)`` bool or uint8 def levels (0/1)
+    of the chunk's rows; dictionary: ``(nd,)`` of dtype ``want`` (the
+    conversion to the column's type is elementwise, so it happens before the
+    gather).
+
+    A valid row takes the dictionary entry of its index, clamped into the
+    dictionary (0 for an empty one); an invalid row and every row past
+    ``n_rows`` take ``default``. Bit for bit what the reference's per-page
+    decode returns (``parquet_native.chunk_to_device``)."""
+    on = words.device
+    if words.dtype != torch.int32 or words.dim() != 1:
+        raise TypeError("chunk_decode takes 1-D int32 words, got "
+                        f"{words.dtype} of shape {tuple(words.shape)}")
+    if isinstance(pages, torch.Tensor):
+        if (pages.dtype != torch.int32 or pages.dim() != 2
+                or pages.shape[1] != len(PAGE_FIELDS) or pages.shape[0] < 1):
+            raise TypeError("chunk_decode takes a (P >= 1, 8) int32 page "
+                            f"table, got {pages.dtype} {tuple(pages.shape)}")
+        if pages.device != on:
+            raise ValueError(f"chunk_decode: words on {on}, pages on "
+                             f"{pages.device}")
+    elif len(pages) != len(PAGE_FIELDS):
+        raise TypeError(f"chunk_decode: a page has {len(PAGE_FIELDS)} fields")
+    elif pages[0] or pages[2] or pages[6]:
+        raise ValueError("chunk_decode: a page given by value starts at row "
+                         "0, word 0, with no values before it")
+    if not 0 <= n_rows <= capacity:
+        raise ValueError(f"chunk_decode: n_rows {n_rows} outside "
+                         f"[0, capacity {capacity}]")
+    if defs is not None:
+        if defs.dtype not in (torch.bool, torch.uint8) or defs.dim() != 1 \
+                or defs.numel() < n_rows:
+            raise TypeError("chunk_decode takes 1-D bool or uint8 def levels "
+                            f"covering {n_rows} rows, got {defs.dtype} "
+                            f"{tuple(defs.shape)}")
+        if defs.device != on:
+            raise ValueError(f"chunk_decode: words on {on}, defs on "
+                             f"{defs.device}")
+    if dictionary.dtype != want or dictionary.dim() != 1:
+        raise TypeError(f"chunk_decode takes a 1-D {want} dictionary, got "
+                        f"{dictionary.dtype} {tuple(dictionary.shape)}")
+    if dictionary.device != on:
+        raise ValueError(f"chunk_decode: words on {on}, dictionary on "
+                         f"{dictionary.device}")
+    if on.type == "cpu":
+        return chunk_decode_plain(words, pages, defs, dictionary, n_rows,
+                                  capacity, want, default)
+    if on.type != "cuda":
+        raise TypeError(f"chunk_decode: no kernel for {on}")
+    tensors = [t for t in (words, pages, defs, dictionary)
+               if t is not None and not isinstance(t, tuple)]
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("chunk_decode takes contiguous tensors")
+    if isinstance(pages, torch.Tensor) and pages.data_ptr() % 16:
+        raise ValueError("chunk_decode reads each page with 16-byte loads: "
+                         "the page table must be 16-byte aligned")
+    value_bytes = torch.empty((), dtype=want).element_size()
+    if value_bytes not in (1, 2, 4, 8):
+        raise TypeError(f"chunk_decode: no kernel for {want} values")
+    if dictionary.data_ptr() % dictionary.element_size():
+        raise ValueError("chunk_decode: the dictionary is not aligned to "
+                         "its element size")
+    values = torch.empty((capacity,), dtype=want, device=on)
+    valid = torch.empty((capacity,), dtype=torch.bool, device=on)
+    if capacity:
+        _chunk_launch(words, pages, defs, dictionary, n_rows, capacity,
+                      value_bytes, _default_bits(want, default), values,
+                      valid)
+    return values, valid
+
+
+def chunk_decode_plain(words: torch.Tensor, pages, defs, dictionary,
+                       n_rows: int, capacity: int, want: torch.dtype,
+                       default):
+    """Plain PyTorch version of ``chunk_decode`` on any device, page by page
+    as the reference decodes: ``bitunpack128_plain`` of the page's words, the
+    dictionary gather with the index clamped into it, and the spread of
+    present values over the page's rows by the prefix count of its def
+    levels; then the pages at their rows and the default everywhere else."""
+    dev = words.device
+    rows = [pages] if not isinstance(pages, torch.Tensor) else pages.tolist()
+    fill = torch.tensor(default, dtype=want, device=dev)
+    values = torch.full((capacity,), default, dtype=want, device=dev)
+    valid = torch.zeros((capacity,), dtype=torch.bool, device=dev)
+    nd = dictionary.shape[0]
+    for (row_off, row_count, word_off, n_words, bw, n_present, _pb,
+         has_nulls) in rows:
+        row_count = min(row_count, n_rows - row_off)
+        if row_count <= 0:
+            continue
+        pcap = 8
+        while pcap < n_present:
+            pcap <<= 1
+        idx = bitunpack128_plain(words[word_off:word_off + n_words], bw,
+                                 n_present, pcap)
+        if nd:
+            present = dictionary[idx.clamp(0, nd - 1).long()]
+        else:
+            present = torch.zeros((pcap,), dtype=want, device=dev)
+        if defs is not None and has_nulls:
+            dl = defs[row_off:row_off + row_count].to(torch.bool)
+        else:
+            dl = torch.ones((row_count,), dtype=torch.bool, device=dev)
+        rank = torch.cumsum(dl.to(torch.int32), 0, dtype=torch.int32) - 1
+        v = present[rank.clamp(0, pcap - 1).long()]
+        values[row_off:row_off + row_count] = torch.where(dl, v, fill)
+        valid[row_off:row_off + row_count] = dl
+    return values, valid
+
 
 def bitunpack128(words_u32: torch.Tensor, bit_width: int, n: int,
                  capacity: int) -> torch.Tensor:
     """Unpack ``n`` little-endian bit-packed values of ``bit_width`` bits from
     32-bit words into a ``(capacity,)`` int32 tensor; slots >= n are 0. A
     buffer longer than the values need is truncated; a shorter one reads as
-    zeros past its end (the Pallas kernel's contract).
+    zeros past its end (the Pallas kernel's contract). On the card it is the
+    chunk decode kernel over one page with no dictionary.
 
     words_u32: ``(ceil(n/128)*4*bw,)`` int32 — packed little-endian words
     (``bytes_to_words_u32``). The name keeps the TPU kernel's, whose 128-value
@@ -176,18 +350,11 @@ def bitunpack128(words_u32: torch.Tensor, bit_width: int, n: int,
         raise TypeError(f"bitunpack128: no kernel for {words_u32.device}")
     if not words_u32.is_contiguous():
         raise ValueError("bitunpack128 takes a contiguous word tensor")
-    launch = _launcher("bitunpack", "bitunpack128_launch", [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
-        ctypes.c_void_p])
     out = torch.empty((capacity,), dtype=torch.int32, device=words_u32.device)
-    stream = torch.cuda.current_stream(words_u32.device).cuda_stream
-    err = launch(
-        words_u32.device.index, words_u32.data_ptr(), words_u32.numel(),
-        bit_width, n, capacity, out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"bitunpack128 launch failed: CUDA error {err}")
-    _count("bitunpack128")
+    if capacity:
+        _chunk_launch(words_u32, (0, n, 0, words_u32.numel(), bit_width, n,
+                                  0, 0), None, None, min(n, capacity),
+                      capacity, 0, 0, out, None)
     return out
 
 
@@ -373,18 +540,56 @@ def murmur3_words_plain(words: torch.Tensor, lengths: torch.Tensor,
 # radix partition: stable counting ranks over a small id domain
 # ---------------------------------------------------------------------------
 
-#: lane cap, as the TPU kernel's (hash-join buckets top out here); the
-#: per-block histogram of 4,096 int32 is 16 KB of shared memory
+#: lane cap, as the TPU kernel's (hash-join buckets top out here)
 RADIX_MAX_PARTS = 4096
 
 
-def _radix_tile(num_lanes: int) -> int:
-    """Rows per block: 1,024, or more for wide domains, so that the
-    (blocks, num_lanes) scratch of per-block counts stays a few MB."""
-    tile = 1024
-    while tile < 2 * num_lanes:
-        tile <<= 1
-    return tile
+def _radix_steps(cap: int) -> int:
+    """Steps of 32 rows each warp of csrc/radix.cu walks: 16 (a block of 8
+    warps owns 4,096 rows), halved while that leaves fewer than 256 blocks,
+    so that a small input still spreads over the card."""
+    steps = 16
+    while steps > 1 and -(-cap // (256 * steps)) < 256:
+        steps //= 2
+    return steps
+
+
+def _check_radix(ids: torch.Tensor, num_lanes: int, who: str) -> None:
+    if not 0 <= num_lanes <= RADIX_MAX_PARTS:
+        raise ValueError(f"{who}: domain {num_lanes} outside "
+                         f"[0, {RADIX_MAX_PARTS}]")
+    if ids.dtype != torch.int32 or ids.dim() != 1:
+        raise TypeError(f"{who} takes 1-D int32 ids, got "
+                        f"{ids.dtype} of shape {tuple(ids.shape)}")
+    if ids.device.type not in ("cpu", "cuda"):
+        raise TypeError(f"{who}: no kernel for {ids.device}")
+    if ids.device.type == "cuda" and not ids.is_contiguous():
+        raise ValueError(f"{who} takes a contiguous id tensor")
+
+
+def _radix_launch(ids: torch.Tensor, num_lanes: int, counts, ranks,
+                  perm) -> None:
+    """The three kernels of csrc/radix.cu, in one launcher call: ranks and
+    ``counts``, or (``ranks`` None) the permutation into ``perm``."""
+    cap = ids.shape[0]
+    steps = _radix_steps(cap)
+    nblocks = -(-cap // (256 * steps))
+    # per-block counts, then the permutation's lane totals
+    scratch = torch.empty((nblocks * num_lanes + num_lanes,),
+                          dtype=torch.int32, device=ids.device)
+    launch = _launcher("radix", "radix_launch", [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p])
+    stream = torch.cuda.current_stream(ids.device).cuda_stream
+    err = launch(ids.device.index, ids.data_ptr(), cap, num_lanes, steps,
+                 scratch.data_ptr(),
+                 None if counts is None else counts.data_ptr(),
+                 None if ranks is None else ranks.data_ptr(),
+                 None if perm is None else perm.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"radix launch failed: CUDA error {err}")
+    _count("radix_ranks")
 
 
 def radix_ranks(ids: torch.Tensor, num_lanes: int):
@@ -394,40 +599,17 @@ def radix_ranks(ids: torch.Tensor, num_lanes: int):
     ``ranks[i] = #{j < i : ids[j] == ids[i]}`` and ``counts[l] = #{ids ==
     l}``. Ids outside ``[0, num_lanes)`` get rank 0 and are not counted.
     """
-    if not 0 <= num_lanes <= RADIX_MAX_PARTS:
-        raise ValueError(f"radix domain {num_lanes} outside "
-                         f"[0, {RADIX_MAX_PARTS}]")
-    if ids.dtype != torch.int32 or ids.dim() != 1:
-        raise TypeError("radix_ranks takes 1-D int32 ids, got "
-                        f"{ids.dtype} of shape {tuple(ids.shape)}")
+    _check_radix(ids, num_lanes, "radix_ranks")
     if ids.device.type == "cpu":
         return radix_ranks_plain(ids, num_lanes)
-    if ids.device.type != "cuda":
-        raise TypeError(f"radix_ranks: no kernel for {ids.device}")
-    if not ids.is_contiguous():
-        raise ValueError("radix_ranks takes a contiguous id tensor")
     cap = ids.shape[0]
     if cap == 0 or num_lanes == 0:
         return (torch.zeros((cap,), dtype=torch.int32, device=ids.device),
                 torch.zeros((num_lanes,), dtype=torch.int32,
                             device=ids.device))
-    tile = _radix_tile(num_lanes)
-    nblocks = -(-cap // tile)
     ranks = torch.empty((cap,), dtype=torch.int32, device=ids.device)
     counts = torch.empty((num_lanes,), dtype=torch.int32, device=ids.device)
-    scratch = torch.empty((nblocks, num_lanes), dtype=torch.int32,
-                          device=ids.device)
-    launch = _launcher("radix", "radix_ranks_launch", [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p])
-    stream = torch.cuda.current_stream(ids.device).cuda_stream
-    err = launch(ids.device.index, ids.data_ptr(), cap, num_lanes, tile,
-                 scratch.data_ptr(), ranks.data_ptr(), counts.data_ptr(),
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"radix_ranks launch failed: CUDA error {err}")
-    _count("radix_ranks")
+    _radix_launch(ids, num_lanes, counts, ranks, None)
     return ranks, counts
 
 
@@ -455,14 +637,34 @@ def radix_ranks_plain(ids: torch.Tensor, num_lanes: int):
 def radix_partition_permutation(ids: torch.Tensor,
                                 num_lanes: int) -> torch.Tensor:
     """Stable permutation (int64) grouping rows by id, equal to
-    ``argsort(ids, stable=True)`` for ids in ``[0, num_lanes)``: the
-    ``radix_ranks`` kernel, an exclusive scan of its counts, and one 1:1
-    scatter in plain torch, as the reference does around its Pallas call
-    (``pallas_kernels.py:389-399``). An id outside the domain would collide
-    with the first row of the last lane, so callers keep every id inside
-    it (the partition step's padding sentinel has its own lane)."""
+    ``argsort(ids, stable=True)`` when every id lies in ``[0, num_lanes)``.
+    On the card it is one launcher call whose kernels count, scan and
+    scatter (``perm[offset[id] + rank] = row``): no torch op runs between the
+    ids and the permutation. It is defined only for ids inside the domain:
+    a row outside it takes no slot there, and on the CPU collides with the
+    first row of the last lane, so callers keep every id inside it (the
+    partition step's padding sentinel has its own lane)."""
+    _check_radix(ids, num_lanes, "radix_partition_permutation")
     cap = ids.shape[0]
-    ranks, counts = radix_ranks(ids, num_lanes)
+    if cap and num_lanes == 0:
+        raise ValueError("radix_partition_permutation: an empty domain "
+                         "holds no id")
+    if ids.device.type == "cpu":
+        return radix_partition_permutation_plain(ids, num_lanes)
+    perm = torch.empty((cap,), dtype=torch.int64, device=ids.device)
+    if cap:
+        _radix_launch(ids, num_lanes, None, None, perm)
+    return perm
+
+
+def radix_partition_permutation_plain(ids: torch.Tensor,
+                                      num_lanes: int) -> torch.Tensor:
+    """Plain PyTorch version of ``radix_partition_permutation`` on any
+    device: ``radix_ranks_plain``, an exclusive scan of its counts, and one
+    1:1 scatter, as the reference does around its Pallas call
+    (``pallas_kernels.py:389-399``)."""
+    cap = ids.shape[0]
+    ranks, counts = radix_ranks_plain(ids, num_lanes)
     counts = counts.to(torch.int64)
     offsets = torch.cumsum(counts, 0) - counts
     dest = offsets[ids.clamp(0, num_lanes - 1).long()] + ranks

@@ -1,10 +1,13 @@
 """Device parquet page decode: bit-unpack, dictionary gather, null spread.
 
 Counterpart of ``spark_rapids_tpu/ops/parquet_decode.py``. The bulk bytes of a
-dictionary-encoded column are bit-packed indices; the ``bitunpack128`` kernel
-(``ops/cuda_kernels.py``) unpacks them, the dictionary values are gathered,
-and present values are spread over the null layout by a rank gather. Buffers
-keep the JAX package's power-of-two capacity buckets.
+dictionary-encoded column are bit-packed indices. The scan decodes a whole
+column chunk in one ``chunk_decode`` launch (``ops/cuda_kernels.py``), and
+``decode_page_cols`` is that call for a chunk of one page. The page-wise
+helpers below (``unpack_bits_device``, ``expand_present_to_rows``,
+``decode_dictionary_page``) keep the reference's per-page formulation in
+plain tensor ops. Buffers keep the JAX package's power-of-two capacity
+buckets.
 """
 
 from __future__ import annotations
@@ -67,37 +70,29 @@ def expand_present_to_rows(present_vals: torch.Tensor,
 
 def decode_page_cols(spec: EncodedPageSpec, words_d: torch.Tensor,
                      dict_d: torch.Tensor, dl_d: torch.Tensor, n: int):
-    """The single-page decode body: bit-unpack → dictionary gather →
-    definition-level spread → canonical nulls, returning (values, validity)
-    at ``spec.capacity``. Device args: the packed page as int32 words, the
-    device dictionary, and the definition levels as bool (capacity,); ``n``
-    is the live row count."""
-    idx = CK.bitunpack128(words_d, spec.bit_width, spec.n_present, spec.pcap)
-    nd = dict_d.shape[0]
-    # an all-null page may carry an EMPTY dictionary: nothing to gather
-    present = (dict_d[idx.clamp(0, max(nd - 1, 0)).long()] if nd
-               else torch.zeros((spec.pcap,), dtype=dict_d.dtype,
-                                device=dict_d.device))
-    cap = spec.capacity
-    present_padded = torch.zeros((cap,), dtype=present.dtype,
-                                 device=present.device)
-    k = min(spec.pcap, cap)
-    present_padded[:k] = present[:k]
-    vals, valid = expand_present_to_rows(present_padded, dl_d, cap)
-    live = torch.arange(cap, device=dl_d.device) < n
-    m = valid & live
-    default = torch.tensor(spec.default, dtype=spec.want, device=dl_d.device)
-    v = torch.where(m, vals.to(spec.want), default)
-    return v, m
+    """The single-page decode body: a chunk of one page through
+    ``cuda_kernels.chunk_decode`` (the scan's one decode body: bit-unpack →
+    dictionary gather → definition-level spread → canonical nulls),
+    returning (values, validity) at ``spec.capacity``. Device args: the
+    packed page as int32 words, the device dictionary, and the definition
+    levels as bool (capacity,); ``n`` is the live row count."""
+    n = min(n, spec.capacity)
+    page = (0, n, 0, words_d.numel(), spec.bit_width, spec.n_present, 0, 1)
+    # the conversion is elementwise: converting the dictionary before the
+    # gather gives what converting the gathered values gives
+    return CK.chunk_decode(words_d, page, dl_d, dict_d.to(spec.want), n,
+                           spec.capacity, spec.want, spec.default)
 
 
 def decode_dictionary_page(packed_bytes: np.ndarray, bit_width: int,
                            n_present: int, def_levels: np.ndarray,
                            dict_values: torch.Tensor, capacity: int):
     """One data page of a multi-page chunk → (values, validity) padded to
-    capacity. The packed index bytes go to the dictionary's device as words;
-    run structure was already validated on the host (every hybrid segment
-    bit-packed — parse_rle_hybrid)."""
+    capacity, as the reference decodes it page by page (the scan decodes
+    whole chunks through ``chunk_decode``; ``chip_smoke.py`` times this
+    route against it). The packed index bytes go to the dictionary's device
+    as words; run structure was already validated on the host (every hybrid
+    segment bit-packed — parse_rle_hybrid)."""
     from spark_rapids_tpu_torch.columnar.vector import bucket_capacity
     dev = dict_values.device
     pcap = max(bucket_capacity(n_present), 8)

@@ -81,9 +81,9 @@ def partition_permutation(part_ids, num_partitions: int, num_rows: int,
     """Stable permutation (int64) grouping live rows by partition id, with
     padding sunk to the end: the exchange's partition step. Padding rows
     take the sentinel id ``num_partitions``, which has a lane of its own.
-    The ids are a tiny dense domain, so the ``radix_ranks`` kernel ranks
-    them (``cuda_kernels.radix_partition_permutation``) whenever the domain
-    with its sentinel fits the kernel's lanes; a wider one takes the stable
+    The ids are a tiny dense domain, so the radix kernels compute the
+    permutation (``cuda_kernels.radix_partition_permutation``) whenever the
+    domain with its sentinel fits their lanes; a wider one takes the stable
     argsort, as in the reference."""
     from spark_rapids_tpu_torch.ops import cuda_kernels as CK
     dev = part_ids.device

@@ -2,7 +2,8 @@
 ``spark_rapids_tpu/shuffle/partitioning.py``.
 
 Partition ids are computed on the device, rows are grouped by partition id
-with one stable permutation (the ``radix_ranks`` kernel through
+with one stable permutation (the radix kernels of
+``radix_partition_permutation``, through
 ``ops/sorting.partition_permutation``) and sliced into per-partition
 batches. The per-partition counts come to the host in one sync per batch,
 the one sync the reference also needs to cut its slices

@@ -5,15 +5,18 @@ the port only, so it also runs where jax is not installed:
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest
 
-Tolerance: bitunpack128 exact (integer bit patterns); onehot_sum_f32 exact
+Tolerance: bitunpack128 and the chunk decode exact (integer bit patterns,
+raw value bits and validity); onehot_sum_f32 exact
 for 0/1 values (counts below 2^24 are exact in f32), and for other float32
 values 1e-5 of the bucket's sum of magnitudes, because atomics add in an
 order that changes from run to run; murmur3_words and radix_ranks exact
-(integer hashes and ranks), radix_ranks also against torch's stable
-argsort; hash_join_probe exact (build rows and flags), hash_join_build on
+(integer hashes and ranks), radix_ranks and radix_partition_permutation
+also against torch's stable argsort; hash_join_probe exact (build rows and flags), hash_join_build on
 the card equal to its CPU result, and q5 over sparse supplier ids on the
 card equal to the NumPy oracle (revenue within 1e-9 relative).
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -258,3 +261,199 @@ def test_q5_sparse_on_card_matches_numpy(cuda_device, tmp_path):
             assert (CK.launches["hash_join_probe"]
                     == hashed[0].stats["stream_batches"] > 0)
             assert CK.launches["radix_ranks"] >= 1
+
+
+# -- the fused chunk decode -------------------------------------------------
+
+def _varint(x: int) -> bytes:
+    out = bytearray()
+    while True:
+        b, x = x & 0x7F, x >> 7
+        out.append(b | 0x80 if x else b)
+        if not x:
+            return bytes(out)
+
+
+def _synthetic_chunk(rng, bw: int, nd: int, plans):
+    """A parsed chunk (``parquet_native.ChunkPages``, INT64 dictionary) of
+    v1 pages, one per plan (rows, mode, null fraction): "packed" pages hold
+    bit-packed groups only, "rle" pages runs only, "mixed" pages both."""
+    from spark_rapids_tpu_torch.io import parquet_native as PN
+    pages = []
+    for n, mode, null_frac in plans:
+        dl = (rng.random(n) >= null_frac).astype(np.int32)
+        n_present = int(dl.sum())
+        idx = np.where(rng.random(n_present) < 0.9,
+                       rng.integers(0, nd, n_present),
+                       rng.integers(0, 1 << bw, n_present, dtype=np.uint64))
+        idx = idx.astype(np.uint64)
+        out, at = bytearray(), 0
+        while at < n_present:
+            if mode == "rle" or (mode == "mixed" and rng.random() < 0.5):
+                count = int(min(n_present - at, rng.integers(1, 300)))
+                v = int(rng.integers(0, min(1 << bw, 1 << 31)))
+                out += _varint(count << 1) + v.to_bytes((bw + 7) // 8,
+                                                        "little")
+            else:
+                count = int(min(n_present - at, 8 * rng.integers(1, 200)))
+                groups = -(-count // 8)
+                vals = np.zeros(groups * 8, np.uint64)
+                vals[:count] = idx[at:at + count]
+                bits = ((vals[:, None] >> np.arange(bw, dtype=np.uint64)) & 1)
+                out += _varint((groups << 1) | 1) + np.packbits(
+                    bits.astype(np.uint8).reshape(-1),
+                    bitorder="little").tobytes()
+            at += count
+        page_bytes = b"\x00" * 5 + bytes([bw]) + bytes(out)
+        segs = PN.parse_rle_hybrid(page_bytes, 6, len(page_bytes), bw,
+                                   n_present)
+        pages.append((n, dl, bw, page_bytes, 5, segs))
+    dvals = rng.integers(-2**62, 2**62, nd).astype("<i8")
+    return PN.ChunkPages("INT64", dvals, pages, sum(p[0] for p in plans))
+
+
+def _packed_on_card(chunk, capacity, want, device):
+    from spark_rapids_tpu_torch.io import parquet_native as PN
+    dictionary = torch.from_numpy(np.asarray(chunk.dict_values)).to(want)
+    packed = PN.pack_chunk(chunk, dictionary, capacity, pin=True)
+    buf = packed.buf.to(device, non_blocking=True)
+    return packed, PN.chunk_views(buf, packed, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bw", list(range(1, 33)))
+def test_chunk_decode_kernel_matches_plain(cuda_device, bw):
+    rng = np.random.default_rng(bw)
+    plans = [(20_000, "packed", 0.0), (7_000, "mixed", 0.3),
+             (4_100, "rle", 0.0), (20_000, "packed", 0.1),
+             (513, "mixed", 1.0), (9_000, "packed", 0.0)]
+    chunk = _synthetic_chunk(rng, bw, 301, plans)
+    cap = bucket_capacity(chunk.num_values)
+    for want in (torch.int64, torch.float64, torch.int32, torch.int16,
+                 torch.int8):
+        packed, (words, table, defs, dic) = _packed_on_card(
+            chunk, cap, want, cuda_device)
+        before = CK.launches["bitunpack128"]
+        got = CK.chunk_decode(words, table, defs, dic, packed.n_rows, cap,
+                              want, 0)
+        want_v, want_m = CK.chunk_decode_plain(words, table, defs, dic,
+                                               packed.n_rows, cap, want, 0)
+        torch.cuda.synchronize()
+        assert CK.launches["bitunpack128"] == before + 1
+        assert torch.equal(got[0], want_v) and torch.equal(got[1], want_m)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("null_frac", [0.0, 0.35])
+def test_chunk_decode_kernel_one_large_page(cuda_device, null_frac):
+    """One page of 2^20 rows: with nulls, each of its 256 tiles sums the
+    page's def levels before it."""
+    rng = np.random.default_rng(7)
+    chunk = _synthetic_chunk(rng, 17, 5000, [(1 << 20, "mixed", null_frac)])
+    packed, (words, table, defs, dic) = _packed_on_card(
+        chunk, 1 << 20, torch.float64, cuda_device)
+    got = CK.chunk_decode(words, table, defs, dic, packed.n_rows, 1 << 20,
+                          torch.float64, 0.0)
+    want = CK.chunk_decode_plain(words, table, defs, dic, packed.n_rows,
+                                 1 << 20, torch.float64, 0.0)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_chunk_decode_on_card_rejects_bad_input(cuda_device):
+    w = torch.zeros(64, dtype=torch.int32, device=cuda_device)
+    page = (0, 32, 0, 32, 4, 32, 0, 0)
+    d = torch.arange(7, 23, dtype=torch.int32, device=cuda_device)
+    before = CK.launches["bitunpack128"]
+    with pytest.raises(ValueError):
+        CK.chunk_decode(w[::2], page, None, d, 32, 32, torch.int32, 0)
+    table = torch.zeros(17, dtype=torch.int32, device=cuda_device)[1:] \
+        .view(2, 8)                     # 4 bytes off its allocation
+    with pytest.raises(ValueError):
+        CK.chunk_decode(w, table, None, d, 32, 32, torch.int32, 0)
+    with pytest.raises(ValueError):
+        CK.chunk_decode(w, page, None, torch.zeros(4, dtype=torch.int32), 32,
+                        32, torch.int32, 0)   # dictionary on the host
+    assert CK.launches["bitunpack128"] == before
+    v, m = CK.chunk_decode(w, page, None, d, 32, 40, torch.int32, -1)
+    assert CK.launches["bitunpack128"] == before + 1
+    assert bool(m[:32].all()) and not bool(m[32:].any())
+    assert bool((v[:32] == 7).all()) and bool((v[32:] == -1).all())
+
+
+@pytest.mark.gpu
+def test_scan_on_card_equals_cpu(cuda_device, tmp_path):
+    """Every lineitem row group of TPC-H SF 0.01 through the device decode
+    on the card and on the CPU: equal, one launch per dictionary chunk."""
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    from spark_rapids_tpu_torch.io import parquet_native as PN
+    paths = tpch.generate(0.01, str(tmp_path))
+    d = paths["lineitem"]
+    for f in sorted(os.listdir(d)):
+        path = os.path.join(d, f)
+        md = pq.ParquetFile(path).metadata
+        for rg in range(md.num_row_groups):
+            chunks = 0
+            for ci in range(md.num_columns):
+                try:
+                    PN.read_chunk_pages(path, rg, ci, md=md)
+                    chunks += 1
+                except NotImplementedError:
+                    pass
+            CK.reset_launches()
+            card = PN.read_row_group_device(path, rg, None, cuda_device)
+            torch.cuda.synchronize()
+            assert CK.launches["bitunpack128"] == chunks > 0
+            cpu = PN.read_row_group_device(path, rg, None, "cpu")
+            for a, b in zip(card.columns, cpu.columns):
+                assert torch.equal(a.data.cpu(), b.data)
+                assert torch.equal(a.validity.cpu(), b.validity)
+
+
+# -- the redesigned radix kernels ------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", [16_384, 1 << 20])
+def test_radix_ranks_kernel_at_4096_lanes(cuda_device, cap):
+    rng = np.random.default_rng(cap)
+    for ids_np in (rng.integers(0, 4096, cap),
+                   np.where(np.arange(cap) < cap * 10 // 16,
+                            rng.integers(0, 4096, cap), 4096),
+                   np.where(rng.random(cap) < 0.9, 17,
+                            rng.integers(-1, 4097, cap))):
+        ids = torch.from_numpy(ids_np.astype(np.int32)).to(cuda_device)
+        before = CK.launches["radix_ranks"]
+        ranks, counts = CK.radix_ranks(ids, 4096)
+        want_r, want_c = CK.radix_ranks_plain(ids, 4096)
+        torch.cuda.synchronize()
+        assert CK.launches["radix_ranks"] == before + 1
+        assert torch.equal(ranks, want_r) and torch.equal(counts, want_c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [1, 2, 9, 129, 1000, 4096])
+def test_radix_partition_permutation_kernel_is_argsort(cuda_device, lanes):
+    for cap in (1, 4095, 4097, 16_384, 1 << 20):
+        rng = np.random.default_rng(cap * 7 + lanes)
+        ids = torch.from_numpy(rng.integers(0, lanes, cap)
+                               .astype(np.int32)).to(cuda_device)
+        before = CK.launches["radix_ranks"]
+        perm = CK.radix_partition_permutation(ids, lanes)
+        want = torch.argsort(ids, stable=True)
+        torch.cuda.synchronize()
+        assert CK.launches["radix_ranks"] == before + 1
+        assert torch.equal(perm, want), (lanes, cap)
+        assert torch.equal(
+            CK.radix_partition_permutation_plain(ids, lanes), want)
+
+
+@pytest.mark.gpu
+def test_radix_partition_permutation_on_card_rejects_bad_input(cuda_device):
+    ids = torch.zeros(64, dtype=torch.int32, device=cuda_device)
+    before = CK.launches["radix_ranks"]
+    with pytest.raises(ValueError):
+        CK.radix_partition_permutation(ids[::2], 4)
+    with pytest.raises(ValueError):
+        CK.radix_partition_permutation(ids, 0)
+    assert CK.launches["radix_ranks"] == before
