@@ -16,9 +16,10 @@ It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
    n = 2^20; the chunk decode exactly (values and validity) on every
    dictionary column chunk of the TPC-H q1 scan, and against the per-page
    route it replaced;
-   onehot_sum_f32 exactly on 0/1 values and within 1e-5 of each bucket's
-   sum of magnitudes on other float32 values (atomics add in a changing
-   order), at q1's batch shape and at the largest dense domain;
+   onehot_sum_f32 (the one-request call of the fused count launch) exactly
+   on 0/1 values and within 1e-5 of each bucket's sum of magnitudes on
+   other float32 values (atomics add in a changing order), at q1's batch
+   shape and at the largest dense domain;
    murmur3_words bit for bit at n = 20,000 and 2^20, W = 1..8, lengths
    0..4W of multi-byte UTF-8 rows cut anywhere, scalar and row-varying
    seeds; radix_ranks exactly (ranks and counts) at 2, 5, 9, 129 and 4,096
@@ -27,6 +28,8 @@ It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
    hash_join_probe bit for bit (rows and flags) at n = 2^20 against 10,000
    build keys (4,096 buckets) and 200 (128 buckets), about half of the
    stream keys hits, with null rows' zeros and the empty-slot key;
+   hash_join_build bit for bit (tables and ok) at 16,384 keys in 4,096
+   buckets: unique, overfull, duplicate and ineligible keys;
 4. runs five TPC-H paths at scale factor ``--sf`` (data generated from the
    fixed seed into build/) through ``TorchSession()`` on the card:
    q1 (the table directory as one partition: scan, COMPLETE aggregate,
@@ -36,18 +39,21 @@ It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
    then q1 as in q1-files), q5 (five broadcast hash joins, all on the
    direct-address table, then the dense group-by on ``n_name`` and the
    sort) and q5-sparse (q5 with the supplier join on sparse 64-bit ids,
-   whose build takes the hash table: radix_ranks in its build,
+   whose build takes the hash table: hash_join_build once,
    hash_join_probe once per stream batch). Each path has one run with the
    launch counts reset just before and read just after (every kernel of
    the path must have launched: the chunk decode once per dictionary chunk
-   of the q1 scan, murmur3_words twice and the radix permutation once per
-   batch an exchange partitioned, hash_join_probe never on q5), and its
-   peak device
-   memory; each join prints its build side, probe mode, build rows and
-   buckets. Then ``--reps`` timed runs of each path (at most ``Q1_REPS`` of
-   each q1 path), the paths in turns; every result is held against the
-   NumPy oracle. One more run of each path records the inputs it hands to
-   the kernels, and each kernel is held against its plain version on them;
+   of the q1 scan, the count kernel once per aggregate batch with
+   count-like requests, murmur3_words twice and the radix permutation once
+   per batch an exchange partitioned, hash_join_probe never on q5, on
+   q5-sparse hash_join_build once per hash build and radix_ranks never),
+   and its peak device memory; each join prints its build side, probe
+   mode, build rows and buckets. Then ``--reps`` timed runs of each path
+   (at most ``Q1_REPS`` of each q1 path), the paths in turns; every result
+   is held against the NumPy oracle. One more run of each path records the
+   inputs it hands to the kernels, and each kernel is held against its
+   plain version on them (the fused count launch on every batch of one q1
+   and one q5-sparse run, bit for bit);
 5. times each kernel, its plain version and, where one exists, the PyTorch
    call that computes the same function, on the paths' inputs, beside the
    least time the card could take (bytes over 3.35 TB/s, operations over
@@ -55,11 +61,17 @@ It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
    the chunk decode on the q1 scan's chunks also beside every device op of
    the per-page route it replaced; the radix permutation on the exchange
    paths' ids beside torch.argsort(stable=True);
-   for hash_join_probe, which no single PyTorch call computes, it also
-   times the reference's own alternative on the same inputs (the ``one``
-   probe mode: sorted build keys, torch.searchsorted, one compare, one
-   gather); radix_ranks also on the q5-sparse hash build's own input,
-   beside torch.argsort(stable=True);
+   the fused count launch on one q1 run's batches also beside every device
+   op of its route, the per-request chain of the route it replaced
+   (``where``, cast and onehot_sum_f32 per request, over today's
+   one-request launch), torch.bincount per request and the dense
+   aggregate's float sums, with its bound on both bases; for
+   hash_join_probe, which no single PyTorch call computes, it also times
+   the reference's own alternative on the same inputs (the ``one`` probe
+   mode: sorted build keys, torch.searchsorted, one compare, one gather);
+   hash_join_build beside torch.sort of its keys (the ``one`` mode's
+   build); radix_ranks, which no path calls, on the q5-sparse hash build's
+   bucket ids, beside torch.argsort(stable=True);
 6. prints one JSON line describing every ported kernel, the card's name and
    power limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -169,6 +181,79 @@ def onehot_bound_ms(n: int, n_domain: int) -> tuple:
     and n values once and write n_domain sums; n float32 adds."""
     return ((8 * n + 4 * n_domain) / HBM_BYTES_PER_S * 1e3,
             n / F32_OPS_PER_S * 1e3)
+
+
+def counts_bound_ms(codes, reqs, n_domain: int) -> tuple:
+    """(bytes ms, operations ms) of one fused count launch: read the codes
+    and each request's mask and values once, as the path hands them in (a
+    count of every row has neither), and write the (k, n_domain) sums; one
+    float32 add a row a request."""
+    n = codes.numel()
+    read = 4 * n + sum(
+        (0 if v is None else v.numel() * v.element_size())
+        + (0 if m is None else n) for v, m in reqs)
+    return ((read + 4 * len(reqs) * n_domain) / HBM_BYTES_PER_S * 1e3,
+            n * len(reqs) / F32_OPS_PER_S * 1e3)
+
+
+def counts_check(codes, reqs, n_domain: int) -> float:
+    """The fused count launch against its plain version on 0/1 values, bit
+    for bit; raises on a difference, else returns 0."""
+    from spark_rapids_tpu_torch.ops import cuda_kernels as CK
+    got = CK.onehot_sums_f32(codes, reqs, n_domain)
+    want = CK.onehot_sums_f32_plain(codes, reqs, n_domain)
+    if not torch.equal(got, want):
+        raise AssertionError(f"onehot_sums_f32 != plain at n={codes.numel()} "
+                             f"D={n_domain} k={len(reqs)}")
+    return 0.0
+
+
+def per_request_chain(codes, reqs, n_domain: int):
+    """The count route before the fused launch, request by request, over
+    today's kernel: a column of ones for a count of every row, the mask
+    applied with ``where``, the cast to float32, one onehot_sum_f32 call
+    (the one-request launch) and the cast of its sums to int64."""
+    from spark_rapids_tpu_torch.ops import cuda_kernels as CK
+    out = []
+    for v, m in reqs:
+        if v is None:
+            v = torch.ones_like(codes, dtype=torch.bool)
+        x = v if m is None else torch.where(m, v, torch.zeros_like(v))
+        out.append(CK.onehot_sum_f32(x.to(torch.float32), codes,
+                                     n_domain).to(torch.int64))
+    return out
+
+
+def fused_route(codes, reqs, n_domain: int):
+    """The count route of ops/grouping.resolve_dense_group_sums: one fused
+    call and the casts of its sums to the states' int64 and int32."""
+    from spark_rapids_tpu_torch.ops import cuda_kernels as CK
+    sums = CK.onehot_sums_f32(codes, reqs, n_domain)
+    return sums.to(torch.int64), sums.to(torch.int32)
+
+
+def build_check(keys, eligible, num_buckets: int) -> int:
+    """hash_join_build against its plain version, bit for bit (tables and
+    ok); raises on a difference, else returns 0."""
+    from spark_rapids_tpu_torch.ops import cuda_kernels as CK
+    got = CK.hash_join_build(keys, eligible, num_buckets)
+    want = CK.hash_join_build_plain(keys, eligible, num_buckets)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"hash_join_build != plain at n={keys.numel()} "
+                             f"buckets={num_buckets}")
+    return 0
+
+
+def clone_args(obj, memo: dict):
+    """A copy of a call's arguments with every tensor cloned once, so that
+    tensors the call passed twice (a value that is its own mask) stay one."""
+    if isinstance(obj, torch.Tensor):
+        if id(obj) not in memo:
+            memo[id(obj)] = obj.clone()
+        return memo[id(obj)]
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(clone_args(x, memo) for x in obj)
+    return obj
 
 
 def onehot_check(vals, codes, n_domain: int, exact: bool) -> float:
@@ -567,6 +652,25 @@ def main() -> int:
         oh_err = max(oh_err, onehot_check(ones, codes, dom, True),
                      onehot_check(vals, codes, dom, False))
     print(f"onehot_sum_f32 random inputs: max |kernel - plain| {oh_err}")
+    # the fused count launch bit for bit on 0/1 values of every type and on
+    # counts of every row (no column), with masks and values that are their
+    # own mask, a tenth of the rows dropped with the code dom as the dense
+    # aggregate drops the rows that are not live, at q1's batch and merge
+    # shapes and past one launch's requests
+    for n, dom, k in ((1 << 20, 12, 6), (8, 12, 8),
+                      (20_000, 4096, CK.ONEHOT_MAX_REQUESTS + 1)):
+        codes = torch.from_numpy(np.where(
+            rng.random(n) < 0.9, rng.integers(-2, dom + 2, n),
+            dom).astype(np.int32)).to(dev)
+        reqs = []
+        for j in range(k):
+            t = (np.bool_, np.int32, np.int64, np.float32)[j % 4]
+            v = torch.from_numpy((rng.random(n) < 0.7).astype(t)).to(dev)
+            reqs.append((None if j % 5 == 4 else v,
+                         None if j % 3 == 2 else torch.from_numpy(
+                             rng.random(n) < 0.8).to(dev)))
+        counts_check(codes, reqs, dom)
+    print("onehot_sums_f32 random 0/1 inputs: bit for bit")
 
     # murmur3_words bit for bit: a page-sized and a batch-sized n, W 1..8,
     # lengths 0..4W of multi-byte UTF-8 cut anywhere, scalar and per-row
@@ -650,6 +754,26 @@ def main() -> int:
           "plain_device_ms one_mode_device_ms bound_ms")
     for n, n_build, nb, k, p_, o_, b in hj_rows:
         print(f"  {n} {n_build} {nb} {k:.6f} {p_:.6f} {o_:.6f} {b:.6f}")
+
+    # hash_join_build bit for bit at the largest build (16,384 keys, 4,096
+    # buckets): 10,000 eligible sparse keys as q5-sparse's, then every key
+    # (some buckets overfill), 12 keys of one bucket, a duplicate key, and
+    # 60 % eligible
+    hb_err = 0
+    keys, _ = probe_inputs(rng, 1, 16_384, dev)
+    first = torch.arange(16_384, device=dev) < 10_000
+    pool = torch.arange(1, 1 << 22, dtype=torch.int64, device=dev) * 7919
+    crowd = pool[CK.hash_join_bucket(pool, 12) == 0][:12]
+    crowded = keys.clone()
+    crowded[torch.linspace(0, 16_383, 12, device=dev).long()] = crowd
+    dup = keys.clone()
+    dup[8_000] = dup[3]
+    ineligible = torch.from_numpy(rng.random(16_384) < 0.6).to(dev)
+    every = torch.ones(16_384, dtype=torch.bool, device=dev)
+    for k, e in ((keys, first), (keys, every), (crowded, every),
+                 (dup, first), (keys, ineligible)):
+        hb_err = max(hb_err, build_check(k, e, 4096))
+    print("hash_join_build at (16,384, 4,096): bit for bit on 5 cases")
 
     # -- 3. q1 data and its chunk census -------------------------------------
     from spark_rapids_tpu_torch.benchmarks import tpch
@@ -767,15 +891,33 @@ def main() -> int:
                     "q1-repartition": exchange_kernels,
                     "q5": ("bitunpack128", "onehot_sum_f32"),
                     "q5-sparse": ("bitunpack128", "onehot_sum_f32",
-                                  "radix_ranks", "hash_join_probe")}
+                                  "hash_join_build", "hash_join_probe")}
+    # the dense aggregate's batches, counted beside the launches: each batch
+    # with count-like requests is one count launch (at most
+    # ONEHOT_MAX_REQUESTS distinct requests each)
+    from spark_rapids_tpu_torch.ops import grouping as G
+    resolve = G.resolve_dense_group_sums
+    agg_batches = []
+
+    def counting_resolve(reqs, codes, n_domain, live):
+        if codes.shape[0] < (1 << 24):
+            agg_batches.append(len({(id(v), id(m))
+                                    for v, m, _a, cl in reqs if cl}))
+        return resolve(reqs, codes, n_domain, live)
     counts_by_path = {}
+    batches_by_path = {}
     peak_by_path = {}
     for label, make_df in all_paths.items():
         plan = make_df().physical_plan()
         torch.cuda.reset_peak_memory_stats(dev)
+        agg_batches.clear()
+        G.resolve_dense_group_sums = counting_resolve
         CK.reset_launches()
         t0 = time.perf_counter()
-        res = plan.execute_collect()
+        try:
+            res = plan.execute_collect()
+        finally:
+            G.resolve_dense_group_sums = resolve
         first_s = time.perf_counter() - t0
         counts = dict(CK.launches)
         peak = torch.cuda.max_memory_allocated(dev)
@@ -784,6 +926,15 @@ def main() -> int:
             if counts[k] <= 0:
                 raise AssertionError(
                     f"kernel {k} never launched on the {label} path")
+        count_batches = [k for k in agg_batches if k]
+        if (any(k > CK.ONEHOT_MAX_REQUESTS for k in count_batches)
+                or counts["onehot_sum_f32"] != len(count_batches)):
+            raise AssertionError(
+                f"{label}: {len(count_batches)} aggregate batches with "
+                f"count-like requests ({count_batches} distinct requests) "
+                f"but the count kernel launched {counts['onehot_sum_f32']} "
+                f"times (want one launch a batch)")
+        batches_by_path[label] = count_batches
         exs = exchanges(plan)
         batches = sum(e.map_batches for e in exs)
         if label in q1_labels:
@@ -814,14 +965,19 @@ def main() -> int:
                     f"stream batches, hash_join_probe launched "
                     f"{counts['hash_join_probe']} times (want one join, "
                     f"one launch per stream batch)")
-            if counts["radix_ranks"] != hash_builds:
+            if (counts["hash_join_build"] != hash_builds
+                    or counts["radix_ranks"] != 0):
                 raise AssertionError(
-                    f"q5-sparse: {hash_builds} hash builds, radix_ranks "
-                    f"launched {counts['radix_ranks']} times")
+                    f"q5-sparse: {hash_builds} hash builds, hash_join_build "
+                    f"launched {counts['hash_join_build']} and radix_ranks "
+                    f"{counts['radix_ranks']} times (want one build launch "
+                    f"a hash build and no radix_ranks)")
         counts_by_path[label] = counts
         peak_by_path[label] = peak
         print(f"{label} first run: {first_s:.3f} s; launches {counts}; "
-              f"peak device memory {peak} B")
+              f"{len(count_batches)} aggregate batches with count-like "
+              f"requests, distinct requests each {count_batches}; peak "
+              f"device memory {peak} B")
         for e in exs:
             print(f"{label} exchange {e.args_string()} over "
                   f"{e.child.num_partitions} map partitions: "
@@ -859,37 +1015,42 @@ def main() -> int:
                   f"{[round(t, 4) for t in ts]}; peak device memory "
                   f"{peak_by_path[label]} B")
 
-    # the inputs the paths hand to the kernels: onehot_sum_f32 in one q1
-    # run; murmur3_words and radix_partition_permutation in one run of each
-    # exchange path; hash_join_probe, hash_join_build and the build's
-    # radix_ranks in one q5-sparse run. The permutation counts its launches
-    # under radix_ranks.
-    recorded = {"onehot_sum_f32": [], "murmur3_words": [],
-                "radix_partition_permutation": [], "radix_ranks": [],
-                "hash_join_probe": [], "hash_join_build": []}
-    counter_of = {"radix_partition_permutation": "radix_ranks"}
+    # the inputs the paths hand to the kernels: the fused count launch in
+    # one q1 and one q5-sparse run (and q1's whole batches, for the float
+    # sums beside it); murmur3_words and radix_partition_permutation in one
+    # run of each exchange path; hash_join_probe and hash_join_build in one
+    # q5-sparse run. The permutation counts its launches under radix_ranks,
+    # the fused count launch under onehot_sum_f32.
+    recorded = {"onehot_sums_f32": [], "murmur3_words": [],
+                "radix_partition_permutation": [], "hash_join_probe": [],
+                "hash_join_build": []}
+    counter_of = {"radix_partition_permutation": "radix_ranks",
+                  "onehot_sums_f32": "onehot_sum_f32"}
     launchers = {k: getattr(CK, k) for k in recorded}
+    q1_batches = []
 
-    def recorder(kname, into):
+    def recorder(call, into):
         def record(*args_):
-            into.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a
-                              for a in args_))
-            return launchers[kname](*args_)
+            into.append(clone_args(args_, {}))
+            return call(*args_)
         return record
     exchange_knames = ["murmur3_words", "radix_partition_permutation"]
-    for label, knames in (("q1", ["onehot_sum_f32"]),
+    for label, knames in (("q1", ["onehot_sums_f32"]),
                           ("q1-files", exchange_knames),
                           ("q1-repartition", exchange_knames),
-                          ("q5-sparse", ["hash_join_probe",
-                                         "hash_join_build", "radix_ranks"])):
+                          ("q5-sparse", ["onehot_sums_f32", "hash_join_probe",
+                                         "hash_join_build"])):
         before = {k: len(recorded[k]) for k in knames}
         for k in knames:
-            setattr(CK, k, recorder(k, recorded[k]))
+            setattr(CK, k, recorder(launchers[k], recorded[k]))
+        if label == "q1":
+            G.resolve_dense_group_sums = recorder(resolve, q1_batches)
         try:
             check(label, all_paths[label]().collect())
         finally:
             for k in knames:
                 setattr(CK, k, launchers[k])
+            G.resolve_dense_group_sums = resolve
         for k in knames:
             got = len(recorded[k]) - before[k]
             counted = counts_by_path[label].get(counter_of.get(k, k))
@@ -898,8 +1059,10 @@ def main() -> int:
                     f"recorded {got} {k} calls on {label}, the counted run "
                     f"launched {counted}")
 
-    for vals, codes, dom in recorded["onehot_sum_f32"]:
-        oh_err = max(oh_err, onehot_check(vals, codes, dom, True))
+    oh_calls = recorded["onehot_sums_f32"]
+    # every batch the two runs counted, bit for bit; then q1's alone
+    oh_err = max([oh_err] + [counts_check(*a) for a in oh_calls])
+    oh_calls = oh_calls[:counts_by_path["q1"]["onehot_sum_f32"]]
     mm_err = max([murmur3_check(*a) for a in recorded["murmur3_words"]],
                  default=mm_err)
     rx_err = max([radix_check(ids, lanes, True) for ids, lanes
@@ -912,24 +1075,58 @@ def main() -> int:
                 fn(*a)
         return run
 
-    oh_calls = recorded["onehot_sum_f32"]
+    def bincount_calls(calls):
+        """Per request, what torch.bincount takes: its values as float32
+        with the rows outside its mask zeroed (made here, outside the
+        timing), or no weights for a count of every row, and the codes."""
+        out = []
+        for codes, reqs, dom in calls:
+            for v, m in reqs:
+                w = None if v is None else v.to(torch.float32)
+                if m is not None:
+                    w = torch.where(m, w, torch.zeros_like(w))
+                out.append((codes, w, dom))
+        return out
 
-    def bincount(vals, codes, dom):
+    def bincount(codes, w, dom):
         # codes of dropped rows are dom (the pad bucket), never negative
-        return torch.bincount(codes, weights=vals, minlength=dom)[:dom]
-    oh_ms = device_ms(each_call(CK.onehot_sum_f32, oh_calls), 5)
-    oh_plain_ms = device_ms(each_call(CK.onehot_sum_f32_plain, oh_calls), 5)
-    oh_lib_ms = device_ms(each_call(bincount, oh_calls), 5)
-    oh_call_ms = call_ms(each_call(CK.onehot_sum_f32, oh_calls), 5, 1)
+        return torch.bincount(codes, weights=w, minlength=dom)[:dom]
+    bc_calls = bincount_calls(oh_calls)
+    oh_ms = device_ms(each_call(CK.onehot_sums_f32, oh_calls), 5,
+                      "onehot_sums_kernel")
+    oh_plain_ms = device_ms(each_call(CK.onehot_sums_f32_plain, oh_calls), 3)
+    oh_lib_ms = device_ms(each_call(bincount, bc_calls), 5)
+    oh_route_ms = device_ms(each_call(fused_route, oh_calls), 5)
+    oh_chain_ms = device_ms(each_call(per_request_chain, oh_calls), 3)
+    oh_call_ms = call_ms(each_call(CK.onehot_sums_f32, oh_calls), 5, 1)
     oh_bytes_ms, oh_ops_ms = (sum(x) for x in zip(*(
-        onehot_bound_ms(v.numel(), dom) for v, _c, dom in oh_calls)))
+        counts_bound_ms(*a) for a in oh_calls)))
     oh_bound_ms = max(oh_bytes_ms, oh_ops_ms)
     oh_bound_by = "bytes" if oh_bytes_ms >= oh_ops_ms else "operations"
-    shapes = sorted({(v.numel(), dom) for v, _c, dom in oh_calls})
-    print(f"q1 onehot_sum_f32: {len(oh_calls)} launches at (n, D) {shapes}; "
-          f"kernel {oh_ms:.4f} ms device ({oh_call_ms:.4f} ms enqueued back "
-          f"to back), plain {oh_plain_ms:.4f} ms, torch.bincount "
-          f"{oh_lib_ms:.4f} ms, bound {oh_bound_ms:.6f} ms per q1 run")
+    # PR 4's basis: 8 B a row a request (a float32 value and a code)
+    oh_old_bound_ms = sum(onehot_bound_ms(c.numel(), dom)[0] * len(r)
+                          for c, r, dom in oh_calls)
+    # the dense aggregate's float sums on the same batches (stacked f64
+    # matvecs, not a kernel), every other request left out
+    float_batches = [([r for r in reqs if not r[3] and r[2].is_floating_point],
+                      codes, dom, live)
+                     for reqs, codes, dom, live in q1_batches]
+    float_ms = device_ms(each_call(resolve, float_batches), 3)
+    shapes = sorted({(c.numel(), dom, len(r)) for c, r, dom in oh_calls})
+    print(f"q1 count kernel (onehot_sums_f32): {len(oh_calls)} launches for "
+          f"{len(batches_by_path['q1'])} aggregate batches at (n, D, k) "
+          f"{shapes}; kernel {oh_ms:.4f} ms device ({oh_call_ms:.4f} ms "
+          f"enqueued back to back), plain {oh_plain_ms:.4f} ms, every device "
+          f"op of the fused route (memset, kernel, casts of the sums) "
+          f"{oh_route_ms:.4f} ms, the per-request chain over today's kernel "
+          f"(where, cast, onehot_sum_f32, cast per request) "
+          f"{oh_chain_ms:.4f} ms, "
+          f"torch.bincount per request {oh_lib_ms:.4f} ms; bound "
+          f"{oh_bound_ms:.6f} ms ({oh_bound_by}; codes and each request's "
+          f"inputs once), {oh_old_bound_ms:.6f} ms on the "
+          f"per-request basis (8 B a row a request); the float sums of the "
+          f"same {len(float_batches)} batches (stacked f64 matvecs) "
+          f"{float_ms:.4f} ms device per q1 run")
 
     # murmur3_words and radix_ranks: one run of q1-files plus one of
     # q1-repartition, every call as the paths made it
@@ -1005,38 +1202,31 @@ def main() -> int:
           f"{hj_one_ms:.4f} ms, bound {hj_bound_ms:.6f} ms (bytes); no "
           f"single PyTorch call probes a hash table")
 
-    # hash_join_build, plain torch around radix_ranks: the whole build with
-    # the kernel, and with the plain radix_ranks in its place; beside them
-    # the one mode's build, one sort of the keys
+    # hash_join_build: the kernel (memset, insert, finalize) against its
+    # plain version, and beside them the one mode's build, one sort of the
+    # keys
     hb_calls = recorded["hash_join_build"]
-
-    def plain_build(keys, eligible, nb):
-        CK.radix_ranks = CK.radix_ranks_plain
-        try:
-            return CK.hash_join_build(keys, eligible, nb)
-        finally:
-            CK.radix_ranks = launchers["radix_ranks"]
-    for a in hb_calls:
-        if not all(torch.equal(x, y) for x, y in zip(CK.hash_join_build(*a),
-                                                    plain_build(*a))):
-            raise AssertionError("hash_join_build with the radix_ranks "
-                                 "kernel != with its plain version")
+    hb_err = max([hb_err] + [build_check(*a) for a in hb_calls])
     hb_ms = device_ms(each_call(CK.hash_join_build, hb_calls), 5)
-    hb_plain_ms = device_ms(each_call(plain_build, hb_calls), 3)
+    hb_plain_ms = device_ms(each_call(CK.hash_join_build_plain, hb_calls), 3)
     hb_sort_ms = device_ms(each_call(
         lambda keys, _e, _nb: torch.sort(keys), hb_calls), 5)
+    hb_call_ms = call_ms(each_call(CK.hash_join_build, hb_calls), 20, 3)
     # read the keys and the mask once, write the two tables once
     hb_bound_ms = sum((9 * keys.numel() + 12 * 8 * nb) / HBM_BYTES_PER_S * 1e3
                       for keys, _e, nb in hb_calls)
     print(f"q5-sparse hash_join_build: {len(hb_calls)} builds at (cap, "
           f"buckets) {sorted({(k.numel(), nb) for k, _e, nb in hb_calls})}; "
-          f"{hb_ms:.4f} ms device with the radix_ranks kernel, "
-          f"{hb_plain_ms:.4f} ms with its plain version, torch.sort of the "
-          f"keys (the one mode's build) {hb_sort_ms:.4f} ms, bound "
-          f"{hb_bound_ms:.6f} ms (bytes)")
-    # radix_ranks inside that build, on its own input: 4,096 lanes, ids of
-    # ineligible rows past the domain; beside it torch's stable argsort
-    build_radix = recorded["radix_ranks"]
+          f"kernels {hb_ms:.4f} ms device (memset, insert, finalize; "
+          f"{hb_call_ms:.4f} ms enqueued back to back), plain "
+          f"{hb_plain_ms:.4f} ms, torch.sort of the keys (the one mode's "
+          f"build) {hb_sort_ms:.4f} ms, bound {hb_bound_ms:.6f} ms (bytes)")
+    # radix_ranks at the build's shape, on its bucket ids (4,096 lanes,
+    # ineligible rows past the domain), which the reference's build ranks;
+    # beside it torch's stable argsort
+    build_radix = [(torch.where(e, CK.hash_join_bucket(k, nb.bit_length() - 1),
+                                torch.full_like(k, nb, dtype=torch.int32)), nb)
+                   for k, e, nb in hb_calls]
     rb_err = max([radix_check(ids, lanes, False)
                   for ids, lanes in build_radix], default=0)
     rb_ms = device_ms(each_call(CK.radix_ranks, build_radix), 5, "radix_")
@@ -1046,14 +1236,14 @@ def main() -> int:
         radix_bound_ms(ids.numel(), lanes) for ids, lanes in build_radix)))
     rb_bound_ms = max(rb_bytes_ms, rb_ops_ms)
     rb_bound_by = "bytes" if rb_bytes_ms >= rb_ops_ms else "operations"
-    print(f"q5-sparse hash_join_build's radix_ranks: {len(build_radix)} "
-          f"launches at (cap, lanes) "
+    print(f"radix_ranks on q5-sparse's build bucket ids: {len(build_radix)} "
+          f"calls at (cap, lanes) "
           f"{sorted({(ids.numel(), lanes) for ids, lanes in build_radix})}; "
           f"kernel {rb_ms:.4f} ms device, plain {rb_plain_ms:.4f} ms, "
           f"torch.argsort(stable=True) {rb_argsort_ms:.4f} ms, bound "
           f"{rb_bound_ms:.6f} ms")
     del recorded, oh_calls, mm_calls, rx_calls, hj_calls, one_calls, hb_calls
-    del build_radix
+    del build_radix, bc_calls, q1_batches, float_batches
 
     if args.profile:
         for label, make_df in all_paths.items():
@@ -1061,10 +1251,15 @@ def main() -> int:
 
     # -- 5. the kernels line, the card, the verdict --------------------------
     # "launches" counts the runs whose inputs the times cover: the q1 path's
-    # for bitunpack128 (the chunk decode) and onehot_sum_f32, q1-files plus
-    # q1-repartition for murmur3_words and radix_partition_permutation,
-    # q5-sparse for radix_ranks and hash_join_probe; launches_by_path has
-    # every path's, under the counter each kernel counts on
+    # for bitunpack128 (the chunk decode) and onehot_sum_f32 (the fused
+    # count launch), q1-files plus q1-repartition for murmur3_words and
+    # radix_partition_permutation, q5-sparse for hash_join_build and
+    # hash_join_probe; launches_by_path has every path's, under the counter
+    # each kernel counts on. radix_ranks is called by no main path: the
+    # radix kernels run there only inside the permutation, whose entry
+    # carries their launches (counted under radix_ranks) and their times,
+    # so its own entry is timed off the paths, on q5-sparse's build bucket
+    # ids, with no launches
     exchange_paths = ("q1-files", "q1-repartition")
 
     def entry(kname, source, line, launch_paths, err, ms, plain_ms, bound,
@@ -1089,17 +1284,26 @@ def main() -> int:
              chunks=len(census), pages=census_pages,
              fused_route_ms=fused_ms, per_page_route_ms=per_page_ms,
              fused_route_host_s=fused_s, per_page_route_host_s=per_page_s),
-        entry("onehot_sum_f32", "onehot.cu", 289, ("q1",), oh_err, oh_ms,
-              oh_plain_ms, oh_bound_ms, oh_bound_by, oh_lib_ms),
+        # the fused count launch over one q1 run's batches; library_ms is
+        # torch.bincount once per request; fused_route_ms is every device op
+        # of the route; per_request_chain_new_kernel_ms the replaced route's
+        # per-request chain (where, cast, call, cast) over this kernel's
+        # one-request launch, not the replaced kernel; float_sums_ms the
+        # same batches' stacked f64 float sums
+        dict(entry("onehot_sum_f32", "onehot.cu", 289, ("q1",), oh_err,
+                   oh_ms, oh_plain_ms, oh_bound_ms, oh_bound_by, oh_lib_ms),
+             aggregate_batches=len(batches_by_path["q1"]),
+             fused_route_ms=oh_route_ms,
+             per_request_chain_new_kernel_ms=oh_chain_ms,
+             per_request_bound_ms=oh_old_bound_ms, float_sums_ms=float_ms),
         entry("murmur3_words", "murmur3.cu", 169, exchange_paths, mm_err,
               mm_ms, mm_plain_ms, mm_bound_ms, mm_bound_by, None),
-        # on q5-sparse's hash build input; the hash_build_* keys are the
-        # whole hash_join_build around it
-        dict(entry("radix_ranks", "radix.cu", 359, ("q5-sparse",),
-                   max(rx_err, rb_err), rb_ms, rb_plain_ms, rb_bound_ms,
-                   rb_bound_by, rb_argsort_ms),
-             hash_build_ms=hb_ms, hash_build_plain_ms=hb_plain_ms,
-             hash_build_bound_ms=hb_bound_ms, hash_build_sort_ms=hb_sort_ms),
+        # timed off the main paths, on q5-sparse's hash build bucket ids;
+        # no main path calls it (see above)
+        dict(entry("radix_ranks", "radix.cu", 359, (), max(rx_err, rb_err),
+                   rb_ms, rb_plain_ms, rb_bound_ms, rb_bound_by,
+                   rb_argsort_ms), launches_by_path={}, on_main_path=False,
+             timed_on="q5-sparse hash build bucket ids"),
         # on the exchange paths' ids; counts under radix_ranks
         dict(entry("radix_partition_permutation", "radix.cu", 389,
                    exchange_paths, rx_err, rx_ms, rx_plain_ms, rx_bound_ms,
@@ -1110,6 +1314,11 @@ def main() -> int:
         dict(entry("hash_join_probe", "hashjoin.cu", 479, ("q5-sparse",),
                    hj_err, hj_ms, hj_plain_ms, hj_bound_ms, "bytes", None),
              one_mode_ms=hj_one_ms),
+        # no PyTorch call builds this table: library_ms is null and sort_ms
+        # is the one mode's build, one sort of the keys
+        dict(entry("hash_join_build", "hashjoin.cu", 421, ("q5-sparse",),
+                   hb_err, hb_ms, hb_plain_ms, hb_bound_ms, "bytes", None),
+             sort_ms=hb_sort_ms),
     ]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start")
     print(json.dumps({"kernels": kernels}))

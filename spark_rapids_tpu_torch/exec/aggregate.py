@@ -7,8 +7,9 @@ planner-hoisted prefilter/preproject (the whole-stage hoist of a child
 Filter/Project into the aggregation), over the dense small-domain path
 (``_agg_dense``): keys with statically known domains (dictionary strings,
 booleans) and Sum/Count/Average reduce straight into D per-group buckets
-(``ops/grouping.py``), the count-like ones through the ``onehot_sum_f32``
-kernel as on a TPU. Batches aggregate incrementally: update (FINAL: merge)
+(``ops/grouping.py``), the count-like ones of a batch through one launch
+of the count kernel (``onehot_sums_f32``; one ``onehot_sum_f32`` call each
+on a TPU). Batches aggregate incrementally: update (FINAL: merge)
 per batch, then concat the partials and merge (the reference's update →
 concat → merge loop); only COMPLETE and FINAL finalize.
 
@@ -151,11 +152,12 @@ class HashAggregateExec(TorchExec):
             live = live & live_mask
         codes = torch.where(live, codes, torch.full_like(codes, D))
 
-        # memoized child eval + count images: aggregates sharing a child
-        # (sum(x) + avg(x) + count(x)) feed IDENTICAL tensors to gsum, so
-        # the resolve pass reduces each distinct request once
+        # memoized child eval: aggregates sharing a child (sum(x) + avg(x) +
+        # count(x)) feed IDENTICAL tensors to gsum, so the resolve pass
+        # reduces each distinct request once. A count's values are its
+        # validity itself (bool, counted as 0/1), which the count kernel
+        # reads once
         child_memo: dict = {}
-        cnt_memo: dict = {}
 
         def eval_child(e):
             k = repr(e)
@@ -163,18 +165,10 @@ class HashAggregateExec(TorchExec):
                 child_memo[k] = e.eval(ctx)
             return child_memo[k]
 
-        def cnt_vals(col):
-            hit = cnt_memo.get(id(col))
-            if hit is None:
-                # holding col keeps its id unique for the memo's lifetime
-                hit = cnt_memo[id(col)] = (col.validity.to(torch.int64), col)
-            return hit[0]
-
-        ones_i32 = torch.ones((cap,), dtype=torch.int32, device=dev)
-        ones_b = torch.ones((cap,), dtype=torch.bool, device=dev)
-
         def state_cols_of(gsum):
-            rows_per = gsum(ones_i32, ones_b, torch.int32, count_like=True)
+            # the rows per group: no values and no mask, a count of every
+            # row whose code is in the domain
+            rows_per = gsum(None, None, torch.int32, count_like=True)
             state_cols = []
             off = len(key_cols)
             for f in self.fns:
@@ -185,7 +179,7 @@ class HashAggregateExec(TorchExec):
                     ins = [eval_child(f.child)]
                 off += nstates
                 if isinstance(f, Count):
-                    s = gsum(cnt_vals(ins[0]) if not merge else ins[0].values,
+                    s = gsum(ins[0].validity if not merge else ins[0].values,
                              ins[0].validity, torch.int64,
                              count_like=not merge)  # update inputs are 0/1
                     state_cols.append(Col(s, torch.ones_like(s, dtype=torch.bool),
@@ -193,7 +187,7 @@ class HashAggregateExec(TorchExec):
                     continue
                 sum_t = f.state_types[0]
                 s = gsum(ins[0].values, ins[0].validity, sum_t.torch_dtype)
-                cnt = gsum(cnt_vals(ins[0]), ins[0].validity, torch.int64,
+                cnt = gsum(ins[0].validity, ins[0].validity, torch.int64,
                            count_like=True)   # validity is 0/1
                 state_cols.append(Col(s, cnt > 0, sum_t))
                 if isinstance(f, Average):

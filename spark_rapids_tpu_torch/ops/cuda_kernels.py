@@ -22,22 +22,24 @@ Kernels ported so far (see PERF.md for the table of all TPU kernels):
   (unpack, dictionary gather, null spread, canonical nulls).
   ``bitunpack128`` is a call of the same kernel with one page and no
   dictionary. Both count under ``launches["bitunpack128"]``.
-* ``onehot_sum_f32`` — ``csrc/onehot.cu``, replaces
+* ``onehot_sums_f32`` — ``csrc/onehot.cu``, replaces
   ``pallas_kernels.onehot_sum_f32`` (the dense group-by's count-like bucket
-  sums).
+  sums): one launch takes all of an aggregate batch's count-like requests
+  over its codes. ``onehot_sum_f32`` is its one-request call. Both count
+  under ``launches["onehot_sum_f32"]``, one a launch.
 * ``murmur3_words`` — ``csrc/murmur3.cu``, replaces
   ``pallas_kernels.murmur3_words`` (Spark's string hash, for every string
   key of a hash exchange).
 * ``radix_ranks`` and ``radix_partition_permutation`` — ``csrc/radix.cu``,
   replace ``pallas_kernels.radix_ranks`` and the reference's permutation
-  around it (stable counting ranks behind ``hash_join_build``; the
-  permutation, scan and scatter inside the kernels, behind every exchange's
-  partition step). Both count under ``launches["radix_ranks"]``.
-* ``hash_join_probe`` — ``csrc/hashjoin.cu``, replaces
-  ``pallas_kernels.hash_join_probe`` (the broadcast hash join's probe of an
-  8-slot Fibonacci table over a sparse unique build key). Its table comes
-  from ``hash_join_build``, plain torch around ``radix_ranks`` as in the
-  reference.
+  around it (stable counting ranks; the permutation, scan and scatter
+  inside the kernels, behind every exchange's partition step). Both count
+  under ``launches["radix_ranks"]``.
+* ``hash_join_build`` and ``hash_join_probe`` — ``csrc/hashjoin.cu``,
+  replace ``pallas_kernels.hash_join_build`` and ``hash_join_probe`` (the
+  broadcast hash join's 8-slot Fibonacci table over a sparse unique build
+  key: its build, one launcher call of a memset and two kernels, and its
+  probe).
 
 Map tasks of an exchange run on a thread pool, so the launch counts and the
 first build are taken under a lock.
@@ -67,7 +69,7 @@ SOURCES = {"chunkdecode": "chunkdecode.cu", "onehot": "onehot.cu",
 
 #: launches of each kernel since the last reset_launches()
 launches = {"bitunpack128": 0, "onehot_sum_f32": 0, "murmur3_words": 0,
-            "radix_ranks": 0, "hash_join_probe": 0}
+            "radix_ranks": 0, "hash_join_build": 0, "hash_join_probe": 0}
 
 _LIBS: dict = {}
 _FNS: dict = {}
@@ -399,13 +401,117 @@ def bytes_to_words_u32(packed: np.ndarray) -> np.ndarray:
 
 #: n_domain float32 buckets fill a block's default 48 KB of shared memory
 ONEHOT_MAX_DOMAIN = 12288
+#: requests one launch of csrc/onehot.cu takes (its kMaxRequests); a longer
+#: list splits into launches of this many
+ONEHOT_MAX_REQUESTS = 16
+#: the value types csrc/onehot.cu reads, by its ValueType code; None (no
+#: value column) is its kOne, every row counting 1
+_ONEHOT_TYPES = {torch.bool: 0, torch.int32: 1, torch.int64: 2,
+                 torch.float32: 3, None: 4}
+
+
+def onehot_sums_f32(codes: torch.Tensor, reqs, n_domain: int) -> torch.Tensor:
+    """``(k, n_domain)`` float32 bucket sums of ``k`` requests over one set of
+    codes, in one launch per ``ONEHOT_MAX_REQUESTS`` requests::
+
+        out[j, d] = sum of vals_j[i] over the rows i with codes[i] == d
+                    and mask_j[i]
+
+    Rows whose code lies outside ``[0, n_domain)`` are dropped: a caller
+    drops a row that is not live by giving it such a code. Sums of 0/1
+    values are exact below 2^24 rows.
+
+    codes: ``(cap,)`` int32; reqs: ``[(vals, mask), ...]``, each ``vals`` a
+    ``(cap,)`` bool, int32, int64 or float32 tensor read in its own type (a
+    bool counts 1), or None (every row counts 1, and no column is read),
+    each ``mask`` a ``(cap,)`` bool tensor or None (every row). A request
+    whose value is its mask passes the mask as ``vals`` and None as
+    ``mask``, and is read once.
+    """
+    if not 0 <= n_domain <= ONEHOT_MAX_DOMAIN:
+        raise ValueError(f"onehot_sums_f32: domain {n_domain} outside "
+                         f"[0, {ONEHOT_MAX_DOMAIN}]")
+    if codes.dtype != torch.int32 or codes.dim() != 1:
+        raise TypeError("onehot_sums_f32 takes 1-D int32 codes, got "
+                        f"{codes.dtype} of shape {tuple(codes.shape)}")
+    tensors = [codes]
+    for vals, mask in reqs:
+        if vals is not None:
+            if (vals.dtype not in _ONEHOT_TYPES
+                    or vals.shape != codes.shape):
+                raise TypeError("onehot_sums_f32 takes bool, int32, int64 or "
+                                "float32 values shaped like the codes, got "
+                                f"{vals.dtype} {tuple(vals.shape)}")
+            tensors.append(vals)
+        if mask is not None:
+            if mask.dtype != torch.bool or mask.shape != codes.shape:
+                raise TypeError("onehot_sums_f32 takes bool masks shaped like "
+                                f"the codes, got {mask.dtype} "
+                                f"{tuple(mask.shape)}")
+            tensors.append(mask)
+    if any(t.device != codes.device for t in tensors):
+        raise ValueError("onehot_sums_f32: inputs on different devices")
+    if codes.device.type == "cpu":
+        return onehot_sums_f32_plain(codes, reqs, n_domain)
+    if codes.device.type != "cuda":
+        raise TypeError(f"onehot_sums_f32: no kernel for {codes.device}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("onehot_sums_f32 takes contiguous tensors")
+    out = torch.empty((len(reqs), n_domain), dtype=torch.float32,
+                      device=codes.device)
+    if n_domain == 0:
+        return out
+    launch = _launcher("onehot", "onehot_sums_launch", [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+        ctypes.c_void_p, ctypes.c_void_p])
+    stream = torch.cuda.current_stream(codes.device).cuda_stream
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    for j0 in range(0, len(reqs), ONEHOT_MAX_REQUESTS):
+        part = reqs[j0:j0 + ONEHOT_MAX_REQUESTS]
+        k = len(part)
+        vals = (ctypes.c_void_p * k)(*[ptr(v) for v, _m in part])
+        masks = (ctypes.c_void_p * k)(*[ptr(m) for _v, m in part])
+        types = (ctypes.c_int * k)(*[
+            _ONEHOT_TYPES[None if v is None else v.dtype] for v, _m in part])
+        err = launch(codes.device.index, codes.data_ptr(), codes.numel(),
+                     n_domain, k, vals, masks, types, out[j0].data_ptr(),
+                     stream)
+        if err != 0:
+            raise RuntimeError(f"onehot_sums_f32 launch failed: CUDA error "
+                               f"{err}")
+        _count("onehot_sum_f32")
+    return out
+
+
+def onehot_sums_f32_plain(codes: torch.Tensor, reqs,
+                          n_domain: int) -> torch.Tensor:
+    """Plain PyTorch version of ``onehot_sums_f32`` on any device: per
+    request, its values as float32 (ones where it has none) with the rows
+    outside its mask zeroed, through ``onehot_sum_f32_plain``."""
+    rows = []
+    for vals, mask in reqs:
+        v = (torch.ones(codes.shape, dtype=torch.float32, device=codes.device)
+             if vals is None else vals.to(torch.float32))
+        if mask is not None:
+            v = torch.where(mask, v, torch.zeros((), dtype=torch.float32,
+                                                 device=v.device))
+        rows.append(onehot_sum_f32_plain(v, codes, n_domain))
+    if not rows:
+        return torch.zeros((0, n_domain), dtype=torch.float32,
+                           device=codes.device)
+    return torch.stack(rows)
 
 
 def onehot_sum_f32(vals: torch.Tensor, codes: torch.Tensor,
                    n_domain: int) -> torch.Tensor:
     """``(n_domain,)`` float32 sums of ``vals`` per code: ``out[d]`` adds the
     rows whose code is ``d``; rows whose code lies outside ``[0, n_domain)``
-    are dropped. Counts of 0/1 values are exact below 2^24 rows.
+    are dropped. Counts of 0/1 values are exact below 2^24 rows. On the card
+    it is the one-request launch of ``onehot_sums_f32``.
 
     vals: ``(cap,)`` float32; codes: ``(cap,)`` int32 on the same device.
     """
@@ -423,23 +529,7 @@ def onehot_sum_f32(vals: torch.Tensor, codes: torch.Tensor,
                          f"{codes.device}")
     if vals.device.type == "cpu":
         return onehot_sum_f32_plain(vals, codes, n_domain)
-    if vals.device.type != "cuda":
-        raise TypeError(f"onehot_sum_f32: no kernel for {vals.device}")
-    if not (vals.is_contiguous() and codes.is_contiguous()):
-        raise ValueError("onehot_sum_f32 takes contiguous tensors")
-    out = torch.empty((n_domain,), dtype=torch.float32, device=vals.device)
-    if n_domain == 0:
-        return out
-    launch = _launcher("onehot", "onehot_sum_f32_launch", [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
-    stream = torch.cuda.current_stream(vals.device).cuda_stream
-    err = launch(vals.device.index, vals.data_ptr(), codes.data_ptr(),
-                 vals.numel(), n_domain, out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"onehot_sum_f32 launch failed: CUDA error {err}")
-    _count("onehot_sum_f32")
-    return out
+    return onehot_sums_f32(codes, [(vals, None)], n_domain)[0]
 
 
 def onehot_sum_f32_plain(vals: torch.Tensor, codes: torch.Tensor,
@@ -675,8 +765,7 @@ def radix_partition_permutation_plain(ids: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# hash-table join over unique fixed-point keys: build (plain torch around
-# radix_ranks) and probe (kernel)
+# hash-table join over unique fixed-point keys: build and probe
 # ---------------------------------------------------------------------------
 
 #: slots per bucket; the build refuses a table whose bucket holds more
@@ -723,14 +812,15 @@ def hash_join_build(keys_i64: torch.Tensor, eligible: torch.Tensor,
                     num_buckets: int):
     """The ``(num_buckets * HJ_SLOTS,)`` open table over unique int64 keys,
     as ``pallas_kernels.hash_join_build`` builds it: a key's bucket is its
-    Fibonacci hash, its slot its stable rank within the bucket
-    (``radix_ranks``: the kernel for a CUDA tensor). Returns ``(table_keys
-    int64, table_rows int32, ok)``, ``ok`` a 0-dim bool tensor on the device
-    that is False when a bucket holds more than ``HJ_SLOTS`` keys or two
-    slots hold one key; the caller then discards the table. Ineligible rows
-    (nulls, padding) are never inserted. Where an overfull bucket sends
-    several rows to its last slot, the highest row wins, which is the
-    reference's last write, on every device."""
+    Fibonacci hash, its slot its stable rank within the bucket. Returns
+    ``(table_keys int64, table_rows int32, ok)``, ``ok`` a 0-dim bool tensor
+    on the device that is False when a bucket holds more than ``HJ_SLOTS``
+    keys or two slots hold one key; the caller then discards the table.
+    Ineligible rows (nulls, padding) are never inserted. An overfull bucket
+    holds its ``HJ_SLOTS - 1`` lowest rows and, in its last slot, its highest
+    row, which is the reference's last write. On the card it is one launcher
+    call of csrc/hashjoin.cu (a memset and two kernels), bit for bit
+    ``hash_join_build_plain``."""
     h_bits = _check_buckets(num_buckets)
     if keys_i64.dtype != torch.int64 or keys_i64.dim() != 1:
         raise TypeError("hash_join_build takes 1-D int64 keys, got "
@@ -743,12 +833,49 @@ def hash_join_build(keys_i64: torch.Tensor, eligible: torch.Tensor,
         raise ValueError(f"hash_join_build: keys on {keys_i64.device}, mask "
                          f"on {eligible.device}")
     dev = keys_i64.device
+    if dev.type == "cpu":
+        return hash_join_build_plain(keys_i64, eligible, num_buckets)
+    if dev.type != "cuda":
+        raise TypeError(f"hash_join_build: no kernel for {dev}")
+    if not (keys_i64.is_contiguous() and eligible.is_contiguous()):
+        raise ValueError("hash_join_build takes contiguous tensors")
+    hs = num_buckets * HJ_SLOTS
+    table_keys = torch.empty((hs,), dtype=torch.int64, device=dev)
+    table_rows = torch.empty((hs,), dtype=torch.int32, device=dev)
+    ok = torch.empty((), dtype=torch.bool, device=dev)
+    # per bucket its count, then its HJ_SLOTS staging words
+    scratch = torch.empty((num_buckets * (1 + HJ_SLOTS),), dtype=torch.int32,
+                          device=dev)
+    launch = _launcher("hashjoin", "hash_join_build_launch", [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = launch(dev.index, keys_i64.data_ptr(), eligible.data_ptr(),
+                 keys_i64.numel(), h_bits, scratch.data_ptr(),
+                 scratch[num_buckets:].data_ptr(), table_keys.data_ptr(),
+                 table_rows.data_ptr(), ok.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"hash_join_build launch failed: CUDA error {err}")
+    _count("hash_join_build")
+    return table_keys, table_rows, ok
+
+
+def hash_join_build_plain(keys_i64: torch.Tensor, eligible: torch.Tensor,
+                          num_buckets: int):
+    """Plain PyTorch version of ``hash_join_build`` on any device, as the
+    reference builds the table: ``radix_ranks_plain`` of the buckets gives
+    each key its slot (ranks past the last slot clamp to it), a max-scatter
+    writes the rows (so the highest row wins a shared last slot), a gather
+    the keys, and the 28 slot pairs of every bucket are compared."""
+    h_bits = _check_buckets(num_buckets)
+    dev = keys_i64.device
     cap = keys_i64.shape[0]
     hs = num_buckets * HJ_SLOTS
     bucket = torch.where(eligible, hash_join_bucket(keys_i64, h_bits),
                          torch.full_like(keys_i64, num_buckets,
                                          dtype=torch.int32))
-    ranks, counts = radix_ranks(bucket, num_buckets)
+    ranks, counts = radix_ranks_plain(bucket, num_buckets)
     ok = counts.max() <= HJ_SLOTS
     slot = (bucket.long() * HJ_SLOTS
             + torch.clamp(ranks, max=HJ_SLOTS - 1).long())

@@ -6,14 +6,16 @@ the port only, so it also runs where jax is not installed:
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest
 
 Tolerance: bitunpack128 and the chunk decode exact (integer bit patterns,
-raw value bits and validity); onehot_sum_f32 exact
-for 0/1 values (counts below 2^24 are exact in f32), and for other float32
-values 1e-5 of the bucket's sum of magnitudes, because atomics add in an
-order that changes from run to run; murmur3_words and radix_ranks exact
-(integer hashes and ranks), radix_ranks and radix_partition_permutation
-also against torch's stable argsort; hash_join_probe exact (build rows and flags), hash_join_build on
-the card equal to its CPU result, and q5 over sparse supplier ids on the
-card equal to the NumPy oracle (revenue within 1e-9 relative).
+raw value bits and validity); onehot_sum_f32 and the fused count launch
+(onehot_sums_f32) exact for 0/1 values of every type (counts below 2^24 are
+exact in f32), and for other float32 values 1e-5 of the bucket's sum of
+magnitudes, because atomics add in an order that changes from run to run;
+murmur3_words and radix_ranks exact (integer hashes and ranks), radix_ranks
+and radix_partition_permutation also against torch's stable argsort;
+hash_join_probe exact (build rows and flags), the hash_join_build kernel
+bit for bit its plain version and its CPU result, and q5 over sparse
+supplier ids on the card equal to the NumPy oracle (revenue within 1e-9
+relative).
 """
 
 import os
@@ -90,6 +92,74 @@ def test_onehot_sum_f32_kernel_matches_plain(cuda_device, cap, D):
     want = CK.onehot_sum_f32_plain(vals, codes, D).double()
     mags = CK.onehot_sum_f32_plain(vals.abs(), codes, D).double()
     assert bool(((got - want).abs() <= 1e-5 * mags).all()), (cap, D)
+
+
+def _count_requests(rng, cap: int, k: int, dev):
+    """k requests cycling through bool, int32, int64 and float32 values,
+    with every fifth a count of every row (no value column), masks with
+    nulls, some with no mask (a value that is its own mask); float32 values
+    are random normals every eighth request, else 0/1."""
+    reqs, exact = [], []
+    for j in range(k):
+        t = (np.bool_, np.int32, np.int64, np.float32)[j % 4]
+        floats = t == np.float32 and j % 8 == 3 and j % 5 != 4
+        v = (rng.normal(0, 10, cap).astype(np.float32) if floats
+             else (rng.random(cap) < 0.7).astype(t))
+        m = None if j % 3 == 2 else torch.from_numpy(
+            rng.random(cap) < 0.8).to(dev)
+        reqs.append((None if j % 5 == 4 else torch.from_numpy(v).to(dev), m))
+        exact.append(not floats)
+    return reqs, exact
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap,D,k", [
+    (1 << 20, 12, 6), (8, 12, 8), (20_000, 4096, 3),
+    (3000, CK.ONEHOT_MAX_DOMAIN, 2), (0, 12, 3), (1, 12, 3),
+    (1 << 20, 12, CK.ONEHOT_MAX_REQUESTS + 1),
+    (5000, 26, CK.ONEHOT_MAX_REQUESTS + 1)])
+def test_onehot_sums_kernel_matches_plain(cuda_device, cap, D, k):
+    """The fused count launch against its plain version, with the rows
+    that are not live given the code D (as the dense aggregate gives them)
+    and without, on aligned tensors (16-byte row quads) and on slices one
+    row in (one row a step); one launch per ONEHOT_MAX_REQUESTS requests."""
+    rng = np.random.default_rng(cap * 7 + D + k)
+    codes = torch.from_numpy(
+        rng.integers(-2, D + 2, cap).astype(np.int32)).to(cuda_device)
+    live = torch.from_numpy(rng.random(cap) < 0.9).to(cuda_device)
+    dropped = torch.where(live, codes, D)
+    reqs, exact = _count_requests(rng, cap, k, cuda_device)
+    per_call = -(-k // CK.ONEHOT_MAX_REQUESTS)
+    cases = [(dropped, reqs), (codes, reqs)]
+    if cap > 1:
+        cases.append((dropped[1:], [(None if v is None else v[1:],
+                                     None if m is None else m[1:])
+                                    for v, m in reqs]))
+    for c, r in cases:
+        before = CK.launches["onehot_sum_f32"]
+        got = CK.onehot_sums_f32(c, r, D).double()
+        want = CK.onehot_sums_f32_plain(c, r, D).double()
+        torch.cuda.synchronize()
+        assert CK.launches["onehot_sum_f32"] == before + per_call
+        assert got.shape == (k, D)
+        for j, ex in enumerate(exact):
+            if ex:
+                assert torch.equal(got[j], want[j]), (cap, D, k, j)
+            else:
+                mags = CK.onehot_sums_f32_plain(
+                    c, [(r[j][0].abs(), r[j][1])], D)[0].double()
+                assert bool(((got[j] - want[j]).abs()
+                             <= 1e-5 * mags).all()), (cap, D, k, j)
+
+
+@pytest.mark.gpu
+def test_onehot_sums_rejects_non_contiguous(cuda_device):
+    codes = torch.zeros(64, dtype=torch.int32, device=cuda_device)[::2]
+    vals = torch.ones(32, dtype=torch.bool, device=cuda_device)
+    before = CK.launches["onehot_sum_f32"]
+    with pytest.raises(ValueError):
+        CK.onehot_sums_f32(codes, [(vals, None)], 4)
+    assert CK.launches["onehot_sum_f32"] == before
 
 
 @pytest.mark.gpu
@@ -212,14 +282,65 @@ def test_hash_join_build_on_card_equals_cpu(cuda_device, case):
     nb = 1024
     cpu = CK.hash_join_build(torch.from_numpy(keys), torch.from_numpy(elig),
                              nb)
-    before = CK.launches["radix_ranks"]
+    before = dict(CK.launches)
     card = CK.hash_join_build(torch.from_numpy(keys).to(cuda_device),
                               torch.from_numpy(elig).to(cuda_device), nb)
     torch.cuda.synchronize()
-    assert CK.launches["radix_ranks"] == before + 1
+    assert CK.launches["hash_join_build"] == before["hash_join_build"] + 1
+    assert CK.launches["radix_ranks"] == before["radix_ranks"]
     for a, b in zip(card, cpu):
         assert torch.equal(a.cpu(), b), case
     assert bool(card[2]) == (case in ("unique", "ineligible"))
+
+
+def _one_bucket_keys(count: int, nb: int) -> np.ndarray:
+    """count distinct int64 keys that share one Fibonacci bucket of nb."""
+    cand = np.arange(1, 1 << 22, dtype=np.int64) * 7919
+    h = (cand.view(np.uint64) * np.uint64(0x9E3779B97F4A7C15)) >> np.uint64(
+        64 - (nb.bit_length() - 1))
+    return cand[h == h[0]][:count]
+
+
+def _build_keys(case: str, n: int, nb: int, seed: int):
+    """(keys, eligible) of a build of n rows: sparse unique keys, or the
+    overfull, duplicate, ineligible, all-ineligible or extreme-key case."""
+    rng = np.random.default_rng(seed)
+    keys = (rng.permutation(n).astype(np.int64) + 1) * 9_999_991_337
+    keys[::3] *= -1
+    elig = np.ones(n, bool)
+    if case == "overfull":
+        # 12 keys of one bucket spread over the rows, the rest sparse
+        keys[np.linspace(0, n - 1, 12).astype(int)] = _one_bucket_keys(12, nb)
+    elif case == "duplicate":
+        keys[n // 2] = keys[3]
+    elif case == "ineligible":
+        elig = rng.random(n) < 0.6
+    elif case == "all_ineligible":
+        elig[:] = False
+    elif case == "extremes":
+        keys[:2] = [np.iinfo(np.int64).min + 1, np.iinfo(np.int64).max]
+    return keys, elig
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,nb", [(16_384, 4096), (200, 128)])
+@pytest.mark.parametrize("case", ["unique", "overfull", "duplicate",
+                                  "ineligible", "all_ineligible",
+                                  "extremes"])
+def test_hash_join_build_kernel_matches_plain(cuda_device, case, n, nb):
+    keys, elig = _build_keys(case, n, nb, n + len(case))
+    k = torch.from_numpy(keys).to(cuda_device)
+    e = torch.from_numpy(elig).to(cuda_device)
+    before = dict(CK.launches)
+    got = CK.hash_join_build(k, e, nb)
+    want = CK.hash_join_build_plain(k, e, nb)
+    torch.cuda.synchronize()
+    assert CK.launches["hash_join_build"] == before["hash_join_build"] + 1
+    assert CK.launches["radix_ranks"] == before["radix_ranks"]
+    for a, b in zip(got, want):
+        assert a.device == k.device and torch.equal(a, b), case
+    if n == 200:     # at 16,384 random keys some buckets overfill anyway
+        assert bool(got[2]) == (case not in ("overfull", "duplicate")), case
 
 
 @pytest.mark.gpu
@@ -260,7 +381,8 @@ def test_q5_sparse_on_card_matches_numpy(cuda_device, tmp_path):
             assert len(hashed) == 1
             assert (CK.launches["hash_join_probe"]
                     == hashed[0].stats["stream_batches"] > 0)
-            assert CK.launches["radix_ranks"] >= 1
+            assert CK.launches["hash_join_build"] >= 1
+            assert CK.launches["radix_ranks"] == 0
 
 
 # -- the fused chunk decode -------------------------------------------------
