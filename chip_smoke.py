@@ -3,6 +3,7 @@
 Run from the root of a checkout:
 
     python3 chip_smoke.py [--sf 1.0] [--reps 3] [--profile]
+                          [--parent-tree DIR]
 
 It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
 
@@ -25,9 +26,11 @@ It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
    seeds; radix_ranks exactly (ranks and counts) at 2, 5, 9, 129 and 4,096
    lanes, cap 8, 16,384, 2^19 and 2^20, with ids outside the domain, and
    radix_partition_permutation equal to torch's stable argsort;
-   hash_join_probe bit for bit (rows and flags) at n = 2^20 against 10,000
-   build keys (4,096 buckets) and 200 (128 buckets), about half of the
-   stream keys hits, with null rows' zeros and the empty-slot key;
+   hash_join_probe bit for bit (rows and flags) against 10,000 build keys
+   (4,096 buckets) and 200 (128 buckets), at n = 1, 31, 33, 2^20 + 5 and
+   2^20, hit shares 0, 0.5 and 1, with null rows' zeros and the empty-slot
+   key, on a full bucket hit in all 8 slots and on int64 min in an occupied
+   slot;
    hash_join_build bit for bit (tables and ok) at 16,384 keys in 4,096
    buckets: unique, overfull, duplicate and ineligible keys;
 4. runs five TPC-H paths at scale factor ``--sf`` (data generated from the
@@ -68,12 +71,28 @@ It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
    aggregate's float sums, with its bound on both bases; for
    hash_join_probe, which no single PyTorch call computes, it also times
    the reference's own alternative on the same inputs (the ``one`` probe
-   mode: sorted build keys, torch.searchsorted, one compare, one gather);
+   mode: sorted build keys, torch.searchsorted, one compare, one gather),
+   at 2^20 rows for each table and hit share and on q5-sparse's inputs, and
+   with ``--parent-tree DIR`` the kernel of another checkout (the parent
+   commit's) on the same inputs;
    hash_join_build beside torch.sort of its keys (the ``one`` mode's
    build); radix_ranks, which no path calls, on the q5-sparse hash build's
    bucket ids, beside torch.argsort(stable=True);
-6. prints one JSON line describing every ported kernel, the card's name and
-   power limit, and last ``{"ok": true, "device": {...}}``.
+6. prints how many traces ``device_ms`` took and found short, one JSON
+   line describing every ported kernel, the card's name and power limit,
+   and last ``{"ok": true, "device": {...}}``.
+
+Device times come from torch.profiler traces (``traced``: a warm-up of
+64 tiny kernels first, since a trace can lose its first launches' device
+records). A trace is refused when a host call that enqueued device work
+has no device record of its correlation id, or a counted kernel has fewer
+records than its launches (``trace_check``): ``device_ms`` takes it again
+and, after five short traces, times with CUDA events and prints a "short
+traces" line, and the kernels line marks such a time (an entry's
+``timing`` is "cuda_events" for its ``ms``, and ``cuda_event_times``
+names every key so taken); ``--profile`` prints each path's device
+records and host enqueue calls beside its idle share and marks a "SHORT
+TRACE", whose idle share is only an upper bound.
 
 It exits non-zero, before printing any result, when no CUDA device is
 available, and on any failed phase.
@@ -127,6 +146,12 @@ def call_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+class QueuedMs(float):
+    """A time that device_ms took from queued_ms after five short traces:
+    the kernels line marks it (an entry's "timing" and "cuda_event_times"),
+    since it holds launch gaps that a traced time does not."""
+
+
 def queued_ms(fn, reps: int) -> float:
     """Mean device time of one fn() call from CUDA events around reps calls
     that the host enqueues while the card sleeps, so that the card then runs
@@ -144,30 +169,134 @@ def queued_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, match: str | None = None) -> float:
-    """Mean device time of one fn() call: the summed durations of the device
-    activities (kernels, copies, memsets) it ran, traced by torch.profiler
-    over reps calls; ``match`` keeps only activities whose name contains it."""
+# host-side calls that enqueue device work, as torch.profiler names them
+# (runtime and low-level API launches, async copies and memsets)
+ENQUEUE_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpyAsync",
+                 "cudaMemsetAsync")
+# kernels whose launches cuda_kernels counts, by the name device_ms matches:
+# the counter, and the device records of that name one counted launch makes
+COUNTED = {KERNEL_NAME: ("bitunpack128", 1),
+           "onehot_sums_kernel": ("onehot_sum_f32", 1),
+           "murmur3_words_kernel": ("murmur3_words", 1),
+           "radix_": ("radix_ranks", 3),
+           "hash_join_insert_kernel": ("hash_join_build", 1),
+           "hash_join_probe_kernel": ("hash_join_probe", 1)}
+# the region of a trace that its census covers, and the launches before it
+# whose device records a trace may lose (traced)
+TRACE_MARK = "chip_smoke.traced"
+WARMUP_LAUNCHES = 64
+# traces device_ms took, those it found short, and its CUDA-event fallbacks
+TRACES = {"taken": 0, "short": 0, "fallbacks": 0}
+
+
+def trace_check(events, match: str | None = None,
+                want: int | None = None) -> tuple:
+    """Census of one torch.profiler trace, given as (name, on_device,
+    correlation id) tuples: (device records, host calls that enqueue device
+    work, device records whose name contains ``match`` (all of them for
+    None), why the trace is short or ""). A trace is short when it has no
+    device record, when a host enqueue call has no device record of its
+    correlation id (the profiler lost it: so always when the device records
+    are fewer than the host enqueue calls), or when fewer records match than
+    ``want``: a time or an idle share summed from it would be too small."""
+    device = host = matched = 0
+    ran, enqueued = set(), []
+    for name, on_device, corr in events:
+        if on_device:
+            device += 1
+            matched += match is None or match in name
+            ran.add(corr)
+        elif name.startswith(ENQUEUE_CALLS):
+            host += 1
+            enqueued.append(corr)
+    lost = sum(c not in ran for c in enqueued)
+    why = ""
+    if device == 0:
+        why = "no device records"
+    elif lost:
+        why = (f"{lost} of {host} host enqueue calls without a device record "
+               f"({device} device records)")
+    elif want is not None and matched < want:
+        why = f"{matched} {match} records for {want} counted launches"
+    return device, host, matched, why
+
+
+def traced(run) -> tuple:
+    """Trace run() with torch.profiler. A trace can lose the device records
+    of its first launches, however long they run (3 or 4 after the card sat
+    idle or the paths had run, up to about 18 right after the SF1 paths),
+    so WARMUP_LAUNCHES tiny sleep kernels go first, inside the same trace,
+    and the census covers only the host calls inside run's region and the
+    device records that the warm-up did not enqueue. Returns (the census's
+    (name, on_device, correlation id) tuples for trace_check, [(name, us)]
+    of its device records, run's wall seconds)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(WARMUP_LAUNCHES):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        with record_function(TRACE_MARK):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    events = list(prof.profiler.kineto_results.events())
+    host = [e for e in events if e.device_type() != DeviceType.CUDA]
+    mark = next(e for e in host if e.name() == TRACE_MARK)
+    lo, hi = mark.start_ns(), mark.start_ns() + mark.duration_ns()
+    warm = {e.correlation_id() for e in host if e.start_ns() < lo
+            and e.name().startswith(ENQUEUE_CALLS)}
+    inside = [e for e in host
+              if lo <= e.start_ns() <= hi and e.name() != TRACE_MARK]
+    device = [e for e in events if e.device_type() == DeviceType.CUDA
+              and e.correlation_id() not in warm
+              and not e.name().startswith(TRACE_MARK)]
+    census = ([(e.name(), False, e.correlation_id()) for e in inside]
+              + [(e.name(), True, e.correlation_id()) for e in device])
+    return census, [(e.name(), e.duration_ns() / 1e3) for e in device], wall
+
+
+def device_ms(fn, reps: int, match: str | None = None,
+              per_call: int | None = None) -> float:
+    """Mean device time of one fn() call: the summed durations of the device
+    records (kernels, copies, memsets) it ran, traced by torch.profiler over
+    reps calls (traced); ``match`` keeps only records whose name contains
+    it. ``per_call`` is the matched records one call makes; for a ``match``
+    in COUNTED it defaults to what the counted launches of the traced calls
+    make. A short trace (trace_check) is taken again; after five, the time
+    comes from CUDA events around calls queued behind a sleep (queued_ms),
+    and a line says so."""
+    from spark_rapids_tpu_torch.ops import cuda_kernels as CK
+    counter, per_launch = COUNTED.get(match, (None, 0))
     fn()
     torch.cuda.synchronize()
-    # a trace can come back without its device records (seen up to three
-    # times in a row), so a trace that saw nothing is taken again
+    why = ""
+
+    def run():
+        for _ in range(reps):
+            fn()
     for _ in range(5):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA
-                 and (match is None or match in e.name))
-        if us > 0:
+        before = CK.launches[counter] if counter else 0
+        census, device, _wall = traced(run)
+        if per_call is not None:
+            want = reps * per_call
+        elif counter:
+            want = (CK.launches[counter] - before) * per_launch
+        else:
+            want = None
+        TRACES["taken"] += 1
+        why = trace_check(census, match, want)[3]
+        if not why:
+            us = sum(t for name, t in device
+                     if match is None or match in name)
             return us / reps / 1e3
-    print(f"device_ms: 5 traces saw no device activity ({match}); timed "
+        TRACES["short"] += 1
+    TRACES["fallbacks"] += 1
+    print(f"device_ms: 5 short traces ({match}; the last had {why}); timed "
           "with CUDA events around calls queued behind a sleep instead")
-    return queued_ms(fn, reps)
+    return QueuedMs(queued_ms(fn, reps))
 
 
 def unpack_bound_ms(n: int, bw: int, capacity: int) -> float:
@@ -457,32 +586,80 @@ def probe_bound_ms(n: int, num_buckets: int) -> float:
     return (n * (8 + 4 + 1) + 8 * num_buckets * 12) / HBM_BYTES_PER_S * 1e3
 
 
-def probe_inputs(rng, n: int, n_build: int, dev):
-    """(build keys, stream keys) on the card: n_build sparse unique int64
-    keys about 10^10 apart (a third negative), and n stream keys of which
-    about half are hits, 5 % null rows' canonical 0, and the first the
-    empty-slot key int64 min."""
-    from spark_rapids_tpu_torch.ops import cuda_kernels as CK
+def probe_build_keys(rng, n_build: int, dev):
+    """n_build sparse unique int64 build keys on the card, about 10^10
+    apart, a third of them negative."""
     keys = (rng.permutation(n_build).astype(np.int64) + 1) * 9_999_991_337
     keys[::3] *= -1
-    stream = np.where(rng.random(n) < 0.5, rng.choice(keys, n),
-                      rng.integers(-2**62, 2**62, n)).astype(np.int64)
-    stream[rng.random(n) < 0.05] = 0
-    stream[0] = CK.HJ_EMPTY
-    return (torch.from_numpy(keys).to(dev), torch.from_numpy(stream).to(dev))
+    return torch.from_numpy(keys).to(dev)
 
 
-def probe_check(tk, tr, stream, num_buckets: int) -> int:
-    """hash_join_probe against its plain version, bit for bit (rows and
-    flags); raises on a difference, else returns 0."""
+def probe_stream(rng, n: int, keys, share: float, dev):
+    """n stream keys on the card, each a build key with probability share,
+    else a random int64; below share 1, 5 % of them (hits too) are null
+    rows' canonical 0 and the first is the empty-slot key int64 min."""
     from spark_rapids_tpu_torch.ops import cuda_kernels as CK
-    pos, found = CK.hash_join_probe(tk, tr, stream, num_buckets)
+    k = keys.cpu().numpy()
+    stream = np.where(rng.random(n) < share, rng.choice(k, n),
+                      rng.integers(-2**62, 2**62, n)).astype(np.int64)
+    if share < 1:
+        stream[rng.random(n) < 0.05] = 0
+        stream[0] = CK.HJ_EMPTY
+    return torch.from_numpy(stream).to(dev)
+
+
+def probe_check(tk, tr, stream, num_buckets: int, probe=None) -> int:
+    """hash_join_probe (or ``probe``, called the same way) against its plain
+    version, bit for bit (rows and flags); raises on a difference, else
+    returns 0."""
+    from spark_rapids_tpu_torch.ops import cuda_kernels as CK
+    pos, found = (probe or CK.hash_join_probe)(tk, tr, stream, num_buckets)
     want_pos, want_found = CK.hash_join_probe_plain(tk, tr, stream,
                                                     num_buckets)
     if not (torch.equal(pos, want_pos) and torch.equal(found, want_found)):
         raise AssertionError(f"hash_join_probe != plain at "
                              f"n={stream.numel()} buckets={num_buckets}")
     return 0
+
+
+def tree_probe(tree: str):
+    """hash_join_probe of another checkout of this repo (a git archive of
+    the parent commit): its csrc/hashjoin.cu built with nvcc into
+    build/cuda/ and loaded, called like cuda_kernels.hash_join_probe on CUDA
+    tensors. Its launches are not counted."""
+    import ctypes
+    import hashlib
+
+    from spark_rapids_tpu_torch.ops import cuda_kernels as CK
+    src = os.path.join(tree, "spark_rapids_tpu_torch", "csrc", "hashjoin.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    so = os.path.join(CK._BUILD_DIR, f"libhashjoin-tree-{digest}.so")
+    if not os.path.exists(so):
+        os.makedirs(CK._BUILD_DIR, exist_ok=True)
+        out = subprocess.run(CK.nvcc_command(src, so), capture_output=True,
+                             text=True, check=True)
+        for ln in (out.stdout + out.stderr).splitlines():
+            if "ptxas" in ln:
+                print(f"  {tree}: {ln.strip()}")
+    fn = ctypes.CDLL(so).hash_join_probe_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def probe(tk, tr, stream, num_buckets):
+        n = stream.numel()
+        pos = torch.empty((n,), dtype=torch.int32, device=stream.device)
+        found = torch.empty((n,), dtype=torch.bool, device=stream.device)
+        err = fn(stream.device.index, tk.data_ptr(), tr.data_ptr(),
+                 stream.data_ptr(), n, num_buckets.bit_length() - 1,
+                 pos.data_ptr(), found.data_ptr(),
+                 torch.cuda.current_stream(stream.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{tree} hash_join_probe: CUDA error {err}")
+        return pos, found
+    return probe
 
 
 def one_mode_inputs(tk, tr):
@@ -521,30 +698,40 @@ def exchanges(plan) -> list:
 
 
 def profile_run(label: str, run, repo: str) -> None:
-    """Trace one run with torch.profiler (device busy time, the largest
-    device items) and profile it once more on the host with cProfile."""
+    """Trace one run with torch.profiler (traced: device busy time, the
+    largest device items) and profile it once more on the host with
+    cProfile. Each trace prints its device records and host enqueue calls;
+    a short trace (trace_check, or fewer records of a counted kernel than
+    its launches in the run) is taken again, at most three times, and one
+    that stays short prints its idle share marked as from a short trace."""
     import collections
     import cProfile
     import io
     import pstats
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+
+    from spark_rapids_tpu_torch.ops import cuda_kernels as CK
+    for attempt in range(3):
+        before = dict(CK.launches)
+        census, device, wall = traced(run)
+        n_dev, n_host, _m, why = trace_check(census)
+        for match, (counter, per) in COUNTED.items():
+            counted = CK.launches[counter] - before[counter]
+            if not why and counted:
+                why = trace_check(census, match, counted * per)[3]
+        if not why:
+            break
     by_kernel = collections.Counter()
     launched = collections.Counter()
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_kernel[e.name] += e.time_range.elapsed_us()
-            launched[e.name] += 1
+    for name, us in device:
+        by_kernel[name] += us
+        launched[name] += 1
     dev_s = sum(by_kernel.values()) / 1e6
-    print(f"profile {label}: wall {wall:.4f} s, device kernel time "
-          f"{dev_s:.4f} s, device idle share {1 - dev_s / wall:.4f}, "
-          f"{sum(launched.values())} kernel launches")
+    share = (f"device idle share {1 - dev_s / wall:.4f}" if not why else
+             f"SHORT TRACE ({why}) after {attempt + 1} traces: device idle "
+             f"share at most {1 - dev_s / wall:.4f}, not whole")
+    print(f"profile {label}: wall {wall:.4f} s, device activity time "
+          f"{dev_s:.4f} s, {share}; {n_dev} device records for {n_host} "
+          f"host enqueue calls (trace {attempt + 1})")
     for kname, us in by_kernel.most_common(12):
         print(f"  {us / 1e3:10.3f} ms {launched[kname]:6d}x {kname[:90]}")
     prof_host = cProfile.Profile()
@@ -574,6 +761,10 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace one run of each path with "
                          "torch.profiler and cProfile")
+    ap.add_argument("--parent-tree", default=None,
+                    help="another checkout of this repo (a git archive of "
+                         "the parent commit): its hash_join_probe kernel is "
+                         "timed beside this one on the same inputs")
     args = ap.parse_args()
     # progress must survive a kill at a time limit, so flush every line
     sys.stdout.reconfigure(line_buffering=True)
@@ -725,42 +916,88 @@ def main() -> int:
 
     # hash_join_probe bit for bit at the two table sizes a path can give
     # (the SF1 supplier build, 10,000 keys in 4,096 buckets; a small build
-    # in the fewest, 128 buckets); device times beside the one-mode
-    # formulation on the same inputs
+    # in the fewest, 128 buckets), at hit shares 0, 0.5 and 1 (an anti join
+    # finds few keys, q5-sparse's supplier join every one) and at the ragged
+    # lengths 1, 31, 33 and 2^20 + 5; device times at 2^20 beside the parent
+    # tree's kernel (--parent-tree), the plain version, the one-mode
+    # formulation on the same inputs and the bound
+    parent_probe = tree_probe(args.parent_tree) if args.parent_tree else None
     hj_err = 0
     hj_rows = []
-    for n, n_build in ((1 << 20, 10_000), (1 << 20, 200)):
-        keys, stream = probe_inputs(rng, n, n_build, dev)
+    for n_build in (10_000, 200):
+        keys = probe_build_keys(rng, n_build, dev)
         nb = CK.hash_join_buckets(n_build)
         tk, tr, ok = CK.hash_join_build(
             keys, torch.ones(n_build, dtype=torch.bool, device=dev), nb)
         if not bool(ok):
             raise AssertionError(f"hash_join_build refused {n_build} "
                                  f"sparse keys in {nb} buckets")
-        hj_err = max(hj_err, probe_check(tk, tr, stream, nb))
         sk, rows = one_mode_inputs(tk, tr)
-        if not torch.equal(one_mode_probe(sk, rows, stream)[1],
-                           CK.hash_join_probe(tk, tr, stream, nb)[1]):
-            raise AssertionError("the one-mode formulation disagrees with "
-                                 "hash_join_probe")
-        hj_rows.append((n, n_build, nb, device_ms(
-            lambda: CK.hash_join_probe(tk, tr, stream, nb), 20,
-            "hash_join_probe_kernel"), device_ms(
-            lambda: CK.hash_join_probe_plain(tk, tr, stream, nb), 5),
-            device_ms(lambda: one_mode_probe(sk, rows, stream), 10),
-            probe_bound_ms(n, nb)))
+        for n in (1, 31, 33, (1 << 20) + 5):
+            hj_err = max(hj_err, probe_check(
+                tk, tr, probe_stream(rng, n, keys, 0.5, dev), nb))
+        for share in (0.0, 0.5, 1.0):
+            stream = probe_stream(rng, 1 << 20, keys, share, dev)
+            hj_err = max(hj_err, probe_check(tk, tr, stream, nb))
+            if not torch.equal(one_mode_probe(sk, rows, stream)[1],
+                               CK.hash_join_probe(tk, tr, stream, nb)[1]):
+                raise AssertionError("the one-mode formulation disagrees "
+                                     "with hash_join_probe")
+            parent_ms = None
+            if parent_probe is not None:
+                probe_check(tk, tr, stream, nb, parent_probe)
+                parent_ms = device_ms(
+                    lambda: parent_probe(tk, tr, stream, nb), 20,
+                    "hash_join_probe_kernel", per_call=1)
+            hj_rows.append((n_build, nb, share, float(
+                CK.hash_join_probe(tk, tr, stream, nb)[1].float().mean()),
+                device_ms(lambda: CK.hash_join_probe(tk, tr, stream, nb), 20,
+                          "hash_join_probe_kernel"), parent_ms,
+                device_ms(lambda: CK.hash_join_probe_plain(tk, tr, stream,
+                                                           nb), 5),
+                device_ms(lambda: one_mode_probe(sk, rows, stream), 10),
+                probe_bound_ms(1 << 20, nb)))
+    # a full bucket of 8 keys hit in every slot, with misses of the same
+    # bucket; and int64 min in an occupied slot (only hash_join_build_plain
+    # makes such a table: the join path keeps int64 min out), found by a
+    # stream key of int64 min
+    pool = torch.arange(1, 1 << 22, dtype=torch.int64, device=dev) * 7919
+    crowd = pool[CK.hash_join_bucket(pool, 7) == 0][:40]
+    other = probe_build_keys(rng, 200, dev)
+    other = other[CK.hash_join_bucket(other, 7) != 0][:100]
+    keys = torch.cat([crowd[:8], other])
+    tk, tr, ok = CK.hash_join_build(
+        keys, torch.ones(keys.numel(), dtype=torch.bool, device=dev), 128)
+    if not bool(ok) or not bool((tr[:8] >= 0).all()):
+        raise AssertionError("hash_join_build: no full bucket")
+    stream = crowd[torch.from_numpy(rng.integers(0, 40, 1000)).to(dev)]
+    hj_err = max(hj_err, probe_check(tk, tr, stream, 128))
+    keys[50] = CK.HJ_EMPTY
+    tk, tr, _ok = CK.hash_join_build_plain(
+        keys, torch.ones(keys.numel(), dtype=torch.bool, device=dev), 128)
+    stream = torch.cat([keys[45:55], keys[45:55]])
+    hj_err = max(hj_err, probe_check(tk, tr, stream, 128))
+    if not bool(CK.hash_join_probe(tk, tr, stream, 128)[1][5]):
+        raise AssertionError("hash_join_probe missed int64 min in an "
+                             "occupied slot")
     torch.cuda.synchronize()
-    print("hash_join_probe n build_keys buckets kernel_device_ms "
-          "plain_device_ms one_mode_device_ms bound_ms")
-    for n, n_build, nb, k, p_, o_, b in hj_rows:
-        print(f"  {n} {n_build} {nb} {k:.6f} {p_:.6f} {o_:.6f} {b:.6f}")
+    print("hash_join_probe n build_keys buckets hit_share found_share "
+          "kernel_device_ms parent_device_ms plain_device_ms "
+          "one_mode_device_ms bound_ms")
+    for n_build, nb, share, f_, k, pk, p_, o_, b in hj_rows:
+        print(f"  {1 << 20} {n_build} {nb} {share} {f_:.4f} {k:.6f} "
+              f"{'not measured' if pk is None else f'{pk:.6f}'} {p_:.6f} "
+              f"{o_:.6f} {b:.6f}")
+    print("hash_join_probe bit for bit at n = 1, 31, 33, 2^20 + 5 and 2^20 "
+          "(hit shares 0, 0.5, 1) on both tables, on a full bucket and on "
+          "int64 min in an occupied slot")
 
     # hash_join_build bit for bit at the largest build (16,384 keys, 4,096
     # buckets): 10,000 eligible sparse keys as q5-sparse's, then every key
     # (some buckets overfill), 12 keys of one bucket, a duplicate key, and
     # 60 % eligible
     hb_err = 0
-    keys, _ = probe_inputs(rng, 1, 16_384, dev)
+    keys = probe_build_keys(rng, 16_384, dev)
     first = torch.arange(16_384, device=dev) < 10_000
     pool = torch.arange(1, 1 << 22, dtype=torch.int64, device=dev) * 7919
     crowd = pool[CK.hash_join_bucket(pool, 12) == 0][:12]
@@ -1189,18 +1426,31 @@ def main() -> int:
     torch.cuda.synchronize()
     hj_ms = device_ms(each_call(CK.hash_join_probe, hj_calls), 5,
                       "hash_join_probe_kernel")
+    hj_parent_ms = None
+    if parent_probe is not None:
+        for a in hj_calls:
+            probe_check(*a, parent_probe)
+        hj_parent_ms = device_ms(each_call(parent_probe, hj_calls), 5,
+                                 "hash_join_probe_kernel",
+                                 per_call=len(hj_calls))
     hj_plain_ms = device_ms(each_call(CK.hash_join_probe_plain, hj_calls), 3)
     hj_one_ms = device_ms(each_call(one_mode_probe, one_calls), 5)
     hj_call_ms = call_ms(each_call(CK.hash_join_probe, hj_calls), 5, 1)
     hj_bound_ms = sum(probe_bound_ms(stream.numel(), nb)
                       for _tk, _tr, stream, nb in hj_calls)
+    hj_found = sum(int(CK.hash_join_probe(*a)[1].sum()) for a in hj_calls)
     shapes = sorted({(stream.numel(), nb) for _k, _r, stream, nb in hj_calls})
+    parent = ("not measured" if hj_parent_ms is None
+              else f"{hj_parent_ms:.4f} ms")
     print(f"q5-sparse hash_join_probe: {len(hj_calls)} launches at (n, "
-          f"buckets) {shapes}; kernel {hj_ms:.4f} ms device ({hj_call_ms:.4f} "
-          f"ms enqueued back to back), plain {hj_plain_ms:.4f} ms, the "
-          f"one-mode formulation (searchsorted, compare, gather) "
-          f"{hj_one_ms:.4f} ms, bound {hj_bound_ms:.6f} ms (bytes); no "
-          f"single PyTorch call probes a hash table")
+          f"buckets) {shapes}, {hj_found} of "
+          f"{sum(a[2].numel() for a in hj_calls)} keys found; kernel "
+          f"{hj_ms:.4f} ms device ({hj_call_ms:.4f} ms enqueued back to "
+          f"back), parent tree's kernel {parent}, plain {hj_plain_ms:.4f} "
+          f"ms, the one-mode formulation "
+          f"(searchsorted, compare, gather) {hj_one_ms:.4f} ms, bound "
+          f"{hj_bound_ms:.6f} ms (bytes); no single PyTorch call probes a "
+          f"hash table")
 
     # hash_join_build: the kernel (memset, insert, finalize) against its
     # plain version, and beside them the one mode's build, one sort of the
@@ -1311,15 +1561,27 @@ def main() -> int:
              all_device_ops_ms=rx_all_ms, radix_ranks_same_ids_ms=rx_ranks_ms),
         # no single PyTorch call probes a hash table: library_ms is null and
         # one_mode_ms is the reference's own alternative on the same inputs
+        # parent_ms: the parent tree's kernel on the same inputs
+        # (--parent-tree), else null
         dict(entry("hash_join_probe", "hashjoin.cu", 479, ("q5-sparse",),
                    hj_err, hj_ms, hj_plain_ms, hj_bound_ms, "bytes", None),
-             one_mode_ms=hj_one_ms),
+             one_mode_ms=hj_one_ms, parent_ms=hj_parent_ms),
         # no PyTorch call builds this table: library_ms is null and sort_ms
         # is the one mode's build, one sort of the keys
         dict(entry("hash_join_build", "hashjoin.cu", 421, ("q5-sparse",),
                    hb_err, hb_ms, hb_plain_ms, hb_bound_ms, "bytes", None),
              sort_ms=hb_sort_ms),
     ]
+    # how each entry's times were taken: "timing" for its ms, and every key
+    # whose time came from CUDA events after five short traces (QueuedMs)
+    for k in kernels:
+        k["timing"] = ("cuda_events" if isinstance(k["ms"], QueuedMs)
+                       else "trace")
+        k["cuda_event_times"] = sorted(key for key, v in k.items()
+                                       if isinstance(v, QueuedMs))
+    print(f"traces: device_ms took {TRACES['taken']}, {TRACES['short']} short "
+          f"(taken again), {TRACES['fallbacks']} timed with CUDA events "
+          f"after five short ones")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

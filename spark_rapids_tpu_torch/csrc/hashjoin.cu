@@ -49,26 +49,44 @@
 // What it computes: for each int64 stream key k, its bucket is the top h_bits
 // bits of k * 0x9E3779B97F4A7C15 (mod 2^64, the Fibonacci hash); the bucket
 // owns the 8 slots [8*bucket, 8*bucket + 8) of the table. The output is the
-// build row of the slot whose key equals k, or -1, and whether one was found.
-// A slot is occupied when its row is >= 0, so an empty slot (key int64 min,
-// row -1) never matches, not even a stream key of int64 min. Validity and
-// liveness of stream rows are the caller's mask.
+// build row of the highest slot whose key equals k and whose row is >= 0, or
+// -1, and whether one was found (the last qualifying slot wins, as in the TPU
+// kernel's loop; a unique build has at most one). A slot is occupied when its
+// row is >= 0, so an empty slot (key int64 min, row -1) never matches, not
+// even a stream key of int64 min; an occupied slot holding int64 min does.
+// Validity and liveness of stream rows are the caller's mask.
 //
 // What bounds it: bytes. Each stream row reads its 8-byte key once and
 // writes a 4-byte row and a 1-byte flag; the table (8 * H slots of 8 + 4
 // bytes, at most 384 KB at H = 4,096) is read once: n*13 + 96*H bytes over
 // the card's memory rate.
 //
-// What the design does about it: the TPU kernel kept the whole table in VMEM
-// and unrolled the slot loop over static columns, because a per-row gather
-// was the only dynamic access it could afford. On Hopper one thread takes
-// one stream row: its key load is coalesced, and its bucket's 8 keys are one
-// aligned 64-byte line (four 16-byte loads) and its 8 rows one 32-byte
-// sector (two 16-byte loads), read through the read-only cache. The table is
-// at most 384 KB, so after the first touches it is served from the 50 MB L2;
-// staging it in shared memory is left for a later version. The 8 compares
-// are unrolled and branch-free; the last matching slot wins, as in the TPU
-// kernel's loop (a unique build has at most one).
+// What held the first design back: it gave each stream row one thread, which
+// read its bucket's 8 keys and 8 rows with six 16-byte loads. Each such warp
+// load touches 32 different buckets, so the L1 serves it as about 32
+// requests ("wavefronts"): about six per row, hits or misses, which at 2^20
+// rows over 132 SMs is the ~23 us it took, five times its bytes bound. Where
+// the table lives did not matter (a 12 KB table was barely faster).
+//
+// The design: a warp probes cooperatively. It loads 32 stream keys with one
+// coalesced load and hands them out by __shfl_sync to groups of 4 lanes, one
+// key a group a step (4 steps for the warp's 32 keys). A lane of a group
+// reads two consecutive slot keys of that key's bucket in one 16-byte load,
+// so one warp load touches 8 bucket lines, not 32: about one L1 request a
+// row. Only a lane whose slot key equals the stream key reads that slot's
+// row, so a miss reads no row. A ballot gives every lane the group's
+// qualifying slots; the lane that owns the key takes the highest one's row
+// with one shuffle, so pos (int32) and found (bool) are stored coalesced.
+// The steps run in phases (every step's shuffles, then every step's slot-key
+// loads, then its row loads, then its ballots), so that a phase's loads are
+// in flight together: with one step after another a warp waited out each
+// step's two dependent loads, which made small batches slower than the
+// first design. The grid is the SM count times the blocks an SM holds (from
+// the occupancy calculator), and a grid-stride loop takes the rest. Groups
+// of 8 lanes, more keys a lane in flight and a shared-memory table were
+// measured against it and lost (PERF.md section 6). It is about 1.6-1.9x
+// faster than the first design at 2^20 rows; what remains is not requests
+// alone.
 //
 // C interface for ctypes: every pointer and the stream are void*. The caller
 // passes 16-byte aligned tables and h_bits in [7, 12], and each function
@@ -77,6 +95,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -178,38 +198,100 @@ __global__ void hash_join_finalize_kernel(
   }
 }
 
-__global__ void hash_join_probe_kernel(const int64_t* __restrict__ table_keys,
-                                       const int32_t* __restrict__ table_rows,
-                                       const int64_t* __restrict__ stream,
-                                       int64_t n, int h_bits,
-                                       int32_t* __restrict__ pos,
-                                       bool* __restrict__ found) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const int64_t key = __ldg(stream + i);
-    const uint64_t bucket = bucket_of(key, h_bits);
-    const longlong2* k2 =
-        reinterpret_cast<const longlong2*>(table_keys + bucket * kSlots);
-    const int4* r4 = reinterpret_cast<const int4*>(table_rows + bucket * kSlots);
-    const longlong2 ka = __ldg(k2), kb = __ldg(k2 + 1), kc = __ldg(k2 + 2),
-                    kd = __ldg(k2 + 3);
-    const int4 ra = __ldg(r4), rb = __ldg(r4 + 1);
-    const long long keys[kSlots] = {ka.x, ka.y, kb.x, kb.y,
-                                    kc.x, kc.y, kd.x, kd.y};
-    const int32_t rows[kSlots] = {ra.x, ra.y, ra.z, ra.w,
-                                  rb.x, rb.y, rb.z, rb.w};
-    int32_t p = -1;
-    bool f = false;
+constexpr int kProbeThreads = 256;
+
+// four lanes a key, two slots a lane: a warp probes 8 keys a step and its 32
+// keys in 4 steps
+__global__ void __launch_bounds__(kProbeThreads)
+    hash_join_probe_kernel(const long long* __restrict__ table_keys,
+                           const int32_t* __restrict__ table_rows,
+                           const long long* __restrict__ stream, int64_t n,
+                           int h_bits, int32_t* __restrict__ pos,
+                           bool* __restrict__ found) {
+  const int lane = threadIdx.x & 31;
+  const int group = lane >> 2;       // this lane probes key step * 8 + group
+  const int slot0 = (lane & 3) * 2;  // ... at slots slot0 and slot0 + 1
+  // this lane's own key is probed by group lane % 8 in step lane / 8
+  const int owner = lane & 7;
+  const int owner_step = lane >> 3;
+  const int64_t warp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int64_t warps = ((int64_t)gridDim.x * blockDim.x) >> 5;
+  for (int64_t base = warp * 32; base < n; base += warps * 32) {
+    const int64_t i = base + lane;
+    const long long mine = i < n ? __ldg(stream + i) : 0;  // the tail probes 0
+    // the 4 steps go in phases, so that each phase's loads are in flight
+    // together: the keys and slots of every step, then every step's slot
+    // keys, then the rows of matching slots, then the ballots
+    long long key[4];
+    int slot[4];  // < 8 * 4,096
 #pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
-      const bool hit = keys[s] == key && rows[s] >= 0;
-      p = hit ? rows[s] : p;
-      f = f || hit;
+    for (int step = 0; step < 4; ++step) {
+      key[step] = __shfl_sync(kFull, mine, step * 8 + group);
+      slot[step] = (int)bucket_of(key[step], h_bits) * kSlots + slot0;
     }
-    pos[i] = p;
-    found[i] = f;
+    longlong2 tk[4];
+#pragma unroll
+    for (int step = 0; step < 4; ++step)
+      tk[step] =
+          __ldg(reinterpret_cast<const longlong2*>(table_keys + slot[step]));
+    // the row of this lane's higher qualifying slot, or -1: only a slot
+    // whose key matches has its row read
+    int32_t row[4];
+#pragma unroll
+    for (int step = 0; step < 4; ++step) {
+      const int32_t r0 = tk[step].x == key[step]
+                             ? __ldg(table_rows + slot[step]) : -1;
+      const int32_t r1 = tk[step].y == key[step]
+                             ? __ldg(table_rows + slot[step] + 1) : -1;
+      row[step] = r1 >= 0 ? r1 : (r0 >= 0 ? r0 : -1);
+    }
+    int32_t got = -1;
+#pragma unroll
+    for (int step = 0; step < 4; ++step) {
+      // lanes of a group hold ascending slots: the group's highest lane
+      // with a qualifying slot holds the highest qualifying slot
+      const unsigned hits =
+          (__ballot_sync(kFull, row[step] >= 0) >> (owner * 4)) & 0xFu;
+      const int winner = hits ? owner * 4 + 31 - __clz(hits) : lane;
+      const int32_t won = __shfl_sync(kFull, row[step], winner);
+      if (owner_step == step && hits) got = won;
+    }
+    if (i < n) {
+      pos[i] = got;
+      found[i] = got >= 0;
+    }
   }
+}
+
+// cudaGetDevice reads this runtime's own state; set only on a change
+int select_device(int device) {
+  int current = -1;
+  if (cudaGetDevice(&current) != cudaSuccess || current != device) {
+    const cudaError_t set = cudaSetDevice(device);
+    if (set != cudaSuccess) return (int)set;
+  }
+  return 0;
+}
+
+// blocks of hash_join_probe_kernel that fill the card: the SM count times
+// the blocks an SM holds at its register use, read once (the cards of one
+// host are of one model). Returns a CUDA error, or 0 and the count.
+int probe_grid_cap(int device, long long* blocks) {
+  static std::atomic<int> cap{0};
+  int c = cap.load(std::memory_order_relaxed);
+  if (c == 0) {
+    int sms = 0, per_sm = 0;
+    cudaError_t err =
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, hash_join_probe_kernel, kProbeThreads, 0);
+    if (err != cudaSuccess) return (int)err;
+    c = sms * (per_sm > 0 ? per_sm : 1);
+    cap.store(c, std::memory_order_relaxed);
+  }
+  *blocks = c;
+  return 0;
 }
 
 }  // namespace
@@ -219,22 +301,18 @@ extern "C" int hash_join_probe_launch(int device, const void* table_keys,
                                       const void* stream_keys, long long n,
                                       int h_bits, void* pos, void* found,
                                       void* stream) {
-  // cudaGetDevice reads this runtime's own state; set only on a change
-  int current = -1;
-  if (cudaGetDevice(&current) != cudaSuccess || current != device) {
-    const cudaError_t set = cudaSetDevice(device);
-    if (set != cudaSuccess) return (int)set;
-  }
-  const int threads = 256;
-  // eight blocks of 256 threads per SM of an H100 (132 SMs) fill the card;
-  // past that the grid-stride loop takes the rest
-  long long blocks = (n + threads - 1) / threads;
+  long long cap = 0;
+  int err = select_device(device);
+  if (err == 0) err = probe_grid_cap(device, &cap);
+  if (err != 0) return err;
+  // one warp takes 32 keys a loop step
+  long long blocks = (n + kProbeThreads - 1) / kProbeThreads;
   if (blocks < 1) blocks = 1;
-  if (blocks > 132 * 8) blocks = 132 * 8;
-  hash_join_probe_kernel<<<(unsigned)blocks, threads, 0,
+  if (blocks > cap) blocks = cap;
+  hash_join_probe_kernel<<<(unsigned)blocks, kProbeThreads, 0,
                            (cudaStream_t)stream>>>(
-      (const int64_t*)table_keys, (const int32_t*)table_rows,
-      (const int64_t*)stream_keys, (int64_t)n, h_bits, (int32_t*)pos,
+      (const long long*)table_keys, (const int32_t*)table_rows,
+      (const long long*)stream_keys, (int64_t)n, h_bits, (int32_t*)pos,
       (bool*)found);
   return (int)cudaGetLastError();
 }
@@ -244,11 +322,8 @@ extern "C" int hash_join_build_launch(int device, const void* keys,
                                       int h_bits, void* counts, void* staging,
                                       void* table_keys, void* table_rows,
                                       void* ok, void* stream) {
-  int current = -1;
-  if (cudaGetDevice(&current) != cudaSuccess || current != device) {
-    const cudaError_t set = cudaSetDevice(device);
-    if (set != cudaSuccess) return (int)set;
-  }
+  const int set = select_device(device);
+  if (set != 0) return set;
   const cudaStream_t s = (cudaStream_t)stream;
   const int num_buckets = 1 << h_bits;
   const cudaError_t zero =

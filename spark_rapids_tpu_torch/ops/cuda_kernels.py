@@ -39,7 +39,7 @@ Kernels ported so far (see PERF.md for the table of all TPU kernels):
   replace ``pallas_kernels.hash_join_build`` and ``hash_join_probe`` (the
   broadcast hash join's 8-slot Fibonacci table over a sparse unique build
   key: its build, one launcher call of a memset and two kernels, and its
-  probe).
+  probe, where a warp probes 32 keys together, four lanes a bucket).
 
 Map tasks of an exchange run on a thread pool, so the launch counts and the
 first build are taken under a lock.
@@ -98,6 +98,14 @@ def _nvcc() -> str:
     return found
 
 
+def nvcc_command(src: str, out: str) -> list:
+    """The nvcc command that builds the CUDA source ``src`` into the shared
+    library ``out`` for ``sm_90a``, with ptxas' register lines."""
+    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+            "-Xptxas", "-v", "-o", out, src]
+
+
 def _so_path(name: str) -> str:
     src = os.path.join(_CSRC, SOURCES[name])
     with open(src, "rb") as f:
@@ -118,9 +126,7 @@ def build_all(names=None) -> dict:
             info[name] = {"seconds": 0.0, "ptxas": []}
             continue
         tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", tmp, os.path.join(_CSRC, SOURCES[name])]
+        cmd = nvcc_command(os.path.join(_CSRC, SOURCES[name]), tmp)
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.PIPE, text=True),
                        time.perf_counter(), tmp, so)

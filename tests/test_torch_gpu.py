@@ -12,7 +12,8 @@ exact in f32), and for other float32 values 1e-5 of the bucket's sum of
 magnitudes, because atomics add in an order that changes from run to run;
 murmur3_words and radix_ranks exact (integer hashes and ranks), radix_ranks
 and radix_partition_permutation also against torch's stable argsort;
-hash_join_probe exact (build rows and flags), the hash_join_build kernel
+hash_join_probe exact (build rows and flags, also on a full bucket, the
+ragged tail and int64 min in an occupied slot), the hash_join_build kernel
 bit for bit its plain version and its CPU result, and q5 over sparse
 supplier ids on the card equal to the NumPy oracle (revenue within 1e-9
 relative).
@@ -228,41 +229,105 @@ def test_radix_ranks_kernel_matches_plain(cuda_device, lanes):
         assert torch.equal(perm, torch.argsort(inside, stable=True))
 
 
-def _probe_inputs(n: int, n_build: int, seed: int):
+def _probe_inputs(n: int, n_build: int, seed: int, share: float = 0.5):
     """Sparse unique int64 build keys (about 10^10 apart, negatives too)
-    and n stream keys: about half of them hits, the rest misses, and some
-    null rows' canonical 0 and the empty-slot key int64 min."""
+    and n stream keys, each a build key with probability share; below
+    share 1 also some null rows' canonical 0 and, first, the empty-slot key
+    int64 min."""
     rng = np.random.default_rng(seed)
     keys = (rng.permutation(n_build).astype(np.int64) + 1) * 9_999_991_337
     keys[::3] *= -1
-    stream = np.where(rng.random(n) < 0.5, rng.choice(keys, n),
+    stream = np.where(rng.random(n) < share, rng.choice(keys, n),
                       rng.integers(-2**62, 2**62, n))
-    stream[rng.random(n) < 0.05] = 0
-    head = np.array([CK.HJ_EMPTY, 0], np.int64)[:n]
-    stream[:len(head)] = head
+    if share < 1:
+        stream[rng.random(n) < 0.05] = 0
+        head = np.array([CK.HJ_EMPTY, 0], np.int64)[:n]
+        stream[:len(head)] = head
     return keys, stream.astype(np.int64)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("n,n_build", [(1 << 20, 10_000), (1 << 20, 200),
-                                       (1000, 10_000), (1, 200)])
-def test_hash_join_probe_kernel_matches_plain(cuda_device, n, n_build):
-    keys, stream = _probe_inputs(n, n_build, n + n_build)
-    nb = CK.hash_join_buckets(n_build)
-    k = torch.from_numpy(keys).to(cuda_device)
-    tk, tr, ok = CK.hash_join_build(
-        k, torch.ones(n_build, dtype=torch.bool, device=cuda_device), nb)
-    assert bool(ok)
-    s = torch.from_numpy(stream).to(cuda_device)
+def _probe_on_card(tk, tr, s, nb):
+    """hash_join_probe on the card against its plain version, bit for bit,
+    with one launch counted; returns (pos, found)."""
     before = CK.launches["hash_join_probe"]
     pos, found = CK.hash_join_probe(tk, tr, s, nb)
     want_pos, want_found = CK.hash_join_probe_plain(tk, tr, s, nb)
     torch.cuda.synchronize()
     assert CK.launches["hash_join_probe"] == before + 1
     assert torch.equal(pos, want_pos) and torch.equal(found, want_found)
-    assert not bool(found[0])      # int64 min never matches an empty slot
+    return pos, found
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,n_build,share", [
+    (1 << 20, 10_000, 0.5), (1 << 20, 200, 0.5), (1000, 10_000, 0.5),
+    (1, 200, 0.5)] + [
+    (n, n_build, share) for n in (1, 31, 33, (1 << 20) + 5)
+    for n_build in (10_000, 200) for share in (0.0, 1.0)])
+def test_hash_join_probe_kernel_matches_plain(cuda_device, n, n_build,
+                                              share):
+    seed = n + n_build + {0.5: 0, 0.0: 1, 1.0: 2}[share]
+    keys, stream = _probe_inputs(n, n_build, seed, share)
+    nb = CK.hash_join_buckets(n_build)
+    assert nb == (4096 if n_build == 10_000 else 128)
+    k = torch.from_numpy(keys).to(cuda_device)
+    tk, tr, ok = CK.hash_join_build(
+        k, torch.ones(n_build, dtype=torch.bool, device=cuda_device), nb)
+    assert bool(ok)
+    s = torch.from_numpy(stream).to(cuda_device)
+    pos, found = _probe_on_card(tk, tr, s, nb)
+    if share < 1:
+        assert not bool(found[0])  # int64 min never matches an empty slot
+    else:
+        assert bool(found.all())
     member = torch.from_numpy(np.isin(stream, keys)).to(cuda_device)
     assert torch.equal(found, member)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nb", [128, 4096])
+def test_hash_join_probe_kernel_full_bucket(cuda_device, nb):
+    """A bucket of 8 keys, every slot hit, beside misses of that bucket."""
+    crowd = _one_bucket_keys(40, nb)
+    rng = np.random.default_rng(nb)
+    h_bits = nb.bit_length() - 1
+    b = int(CK.hash_join_bucket(torch.from_numpy(crowd[:1]), h_bits)[0])
+    other, _ = _probe_inputs(1, 200, nb)
+    other = other[CK.hash_join_bucket(torch.from_numpy(other),
+                                      h_bits).numpy() != b][:100]
+    keys = np.concatenate([crowd[:8], other])
+    tk, tr, ok = CK.hash_join_build(
+        torch.from_numpy(keys).to(cuda_device),
+        torch.ones(len(keys), dtype=torch.bool, device=cuda_device), nb)
+    assert bool(ok)
+    slots = tr[b * CK.HJ_SLOTS:(b + 1) * CK.HJ_SLOTS]
+    assert sorted(slots.tolist()) == list(range(8))
+    stream = rng.permutation(np.concatenate([np.repeat(crowd[:8], 33),
+                                             rng.choice(crowd[8:], 301)]))
+    pos, found = _probe_on_card(tk, tr, torch.from_numpy(stream).to(
+        cuda_device), nb)
+    hit = np.isin(stream, crowd[:8])
+    assert found.cpu().numpy().tolist() == hit.tolist()
+    assert set(pos.cpu().numpy()[hit].tolist()) == set(range(8))
+
+
+@pytest.mark.gpu
+def test_hash_join_probe_kernel_finds_int64_min_in_an_occupied_slot(
+        cuda_device):
+    """A table that holds int64 min in an occupied slot (only
+    hash_join_build_plain makes one: the join path keeps int64 min out of
+    the build) is probed exactly: a stream key of int64 min finds that
+    slot's row."""
+    keys, _ = _probe_inputs(1, 200, 5)
+    keys[77] = CK.HJ_EMPTY
+    k = torch.from_numpy(keys).to(cuda_device)
+    tk, tr, _ok = CK.hash_join_build_plain(
+        k, torch.ones(200, dtype=torch.bool, device=cuda_device), 128)
+    stream = torch.tensor([CK.HJ_EMPTY, int(keys[3]), 0, CK.HJ_EMPTY],
+                          dtype=torch.int64, device=cuda_device)
+    pos, found = _probe_on_card(tk, tr, stream, 128)
+    assert found.tolist() == [True, True, False, True]
+    assert pos.tolist() == [77, 3, -1, 77]
 
 
 @pytest.mark.gpu

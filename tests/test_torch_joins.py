@@ -101,17 +101,57 @@ def test_hash_join_build_matches_pallas(pallas_forced, case, n_buckets):
     np.testing.assert_array_equal(got_r.numpy(), np.asarray(want_r))
 
 
-@pytest.mark.parametrize("n_buckets", [128, 1024])
-def test_hash_join_probe_matches_pallas(pallas_forced, n_buckets):
-    rng = np.random.default_rng(7 + n_buckets)
+def _full_bucket_keys(rng, n_buckets):
+    """Build keys whose bucket 0 is full: 8 keys of that bucket, then 100
+    sparse keys of other buckets; and 32 more keys of bucket 0 (misses that
+    read the full bucket)."""
+    cand = np.arange(1, 1 << 22, dtype=np.int64) * 7919
+    h_bits = n_buckets.bit_length() - 1
+    bucket = (cand.view(np.uint64) * np.uint64(0x9E3779B97F4A7C15)) >> \
+        np.uint64(64 - h_bits)
+    crowd = cand[bucket == 0][:40]
+    other = _sparse_keys(rng, 400) + 1
+    ob = (other.view(np.uint64) * np.uint64(0x9E3779B97F4A7C15)) >> \
+        np.uint64(64 - h_bits)
+    return np.concatenate([crowd[:8], other[ob != 0][:100]]), crowd[8:]
+
+
+def _probe_case(case, n_buckets, rng):
+    """(build keys, eligibility, stream) of a probe case: ``mixed`` (hits,
+    misses and negative misses, 90 % of the build eligible), ``full_bucket``
+    (a bucket of 8 keys hit in every slot, and misses of that bucket) or
+    ``all_miss`` (no stream key is a build key)."""
+    if case == "full_bucket":
+        keys, misses = _full_bucket_keys(rng, n_buckets)
+        stream = np.concatenate([np.repeat(keys[:8], 64),
+                                 rng.choice(misses, 512), keys[8:]])
+        return keys, np.ones(len(keys), bool), rng.permutation(stream)
     n_build = n_buckets * 2
     keys = np.concatenate([_sparse_keys(rng, n_build // 2),
                            -_sparse_keys(rng, n_build // 2) - 1])
+    if case == "all_miss":
+        # every non-negative build key is even (a multiple of 2^44 // n)
+        # and every negative one odd (minus such a multiple, less one):
+        # odd non-negative and even negative stream keys miss them all
+        stream = rng.integers(-2**62, 2**62, 4096, dtype=np.int64)
+        stream = np.where(stream >= 0, stream | 1, stream & ~1)
+        return keys, np.ones(n_build, bool), stream
     elig = rng.random(n_build) < 0.9
     stream = np.concatenate([
         rng.choice(keys, 2048),                                # hits
         rng.integers(-2**62, 2**62, 1024, dtype=np.int64),     # misses
         -rng.choice(np.abs(keys) + 1, 1024)]).astype(np.int64)  # negatives
+    return keys, elig, stream
+
+
+@pytest.mark.parametrize("n_buckets,case", [
+    (128, "mixed"), (1024, "mixed"), (128, "full_bucket"),
+    (1024, "full_bucket"), (128, "all_miss"), (1024, "all_miss")],
+    ids=["128", "1024", "full_bucket-128", "full_bucket-1024",
+         "all_miss-128", "all_miss-1024"])
+def test_hash_join_probe_matches_pallas(pallas_forced, n_buckets, case):
+    rng = np.random.default_rng(7 + n_buckets)
+    keys, elig, stream = _probe_case(case, n_buckets, rng)
     tk, tr, ok = PK.hash_join_build(jnp.asarray(keys), jnp.asarray(elig),
                                     n_buckets)
     assert bool(ok)
@@ -124,7 +164,16 @@ def test_hash_join_probe_matches_pallas(pallas_forced, n_buckets):
     np.testing.assert_array_equal(got_pos.numpy(), np.asarray(want_pos))
     member = np.isin(stream, keys[elig])
     np.testing.assert_array_equal(got_found.numpy(), member)
-    assert member.sum() > 1000 and (~member).sum() > 1000
+    if case == "mixed":
+        assert member.sum() > 1000 and (~member).sum() > 1000
+    elif case == "all_miss":
+        assert not member.any()
+        assert (got_pos.numpy() == -1).all()
+    else:
+        # every slot of the full bucket occupied, and each one hit
+        assert (np.array(tr)[:8] >= 0).all()
+        assert set(got_pos.numpy()[member]) >= set(range(8))
+        assert (~member).sum() == 512
 
 
 def test_hash_join_probe_never_matches_an_empty_slot():
