@@ -33,7 +33,7 @@ It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
    slot;
    hash_join_build bit for bit (tables and ok) at 16,384 keys in 4,096
    buckets: unique, overfull, duplicate and ineligible keys;
-4. runs five TPC-H paths at scale factor ``--sf`` (data generated from the
+4. runs seven TPC-H paths at scale factor ``--sf`` (data generated from the
    fixed seed into build/) through ``TorchSession()`` on the card:
    q1 (the table directory as one partition: scan, COMPLETE aggregate,
    sort), q1-files (one partition per file: PARTIAL aggregate, hash
@@ -43,15 +43,24 @@ It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
    direct-address table, then the dense group-by on ``n_name`` and the
    sort) and q5-sparse (q5 with the supplier join on sparse 64-bit ids,
    whose build takes the hash table: hash_join_build once,
-   hash_join_probe once per stream batch). Each path has one run with the
+   hash_join_probe once per stream batch), q3 (two joins, the sort-based
+   group-by on three integer keys, the sort and ``limit(10)``) and q18 (the
+   sort-based group-by of all of lineitem on ``l_orderkey``, whose batches
+   arrive sorted and skip the sort, a HAVING filter, two joins, the sort
+   and ``limit(100)``). Each path has one run with the
    launch counts reset just before and read just after (every kernel of
    the path must have launched: the chunk decode once per dictionary chunk
-   of the q1 scan, the count kernel once per aggregate batch with
+   of the q1 scan, and on q3 and q18 of the lineitem, orders and customer
+   scans, the count kernel once per aggregate batch with
    count-like requests, murmur3_words twice and the radix permutation once
    per batch an exchange partitioned, hash_join_probe never on q5, on
-   q5-sparse hash_join_build once per hash build and radix_ranks never),
+   q5-sparse hash_join_build once per hash build and radix_ranks never,
+   and on q3 and q18 no kernel but the chunk decode),
    and its peak device memory; each join prints its build side, probe
-   mode, build rows and buckets. Then ``--reps`` timed runs of each path
+   mode, build rows and buckets; each aggregate its mode, its update and
+   merge batches, how many took the sort-based path and skipped the sort,
+   its group counts, its host seconds and host syncs; q3 and q18 their
+   plan's shape. Then ``--reps`` timed runs of each path
    (at most ``Q1_REPS`` of each q1 path), the paths in turns; every result
    is held against the NumPy oracle. One more run of each path records the
    inputs it hands to the kernels, and each kernel is held against its
@@ -403,18 +412,18 @@ def onehot_check(vals, codes, n_domain: int, exact: bool) -> float:
     return err
 
 
-def chunk_census(lineitem_dir: str):
-    """Every column chunk of the q1 scan that the device decode takes (a
-    dictionary chunk), read on the host exactly as the scan reads it:
-    [(ChunkPages, capacity)], and the count of its data pages."""
+def chunk_census(*table_dirs: str):
+    """Every column chunk of the tables' scans that the device decode takes
+    (a dictionary chunk; the scans read every column), read on the host
+    exactly as the scan reads it: [(ChunkPages, capacity)], and the count
+    of their data pages."""
     import pyarrow.parquet as pq
     from spark_rapids_tpu_torch.columnar.vector import bucket_capacity
     from spark_rapids_tpu_torch.io import parquet_native as PN
     chunks, pages = [], 0
-    for f in sorted(os.listdir(lineitem_dir)):
-        if not f.endswith(".parquet"):
-            continue
-        path = os.path.join(lineitem_dir, f)
+    files = [os.path.join(d, f) for d in table_dirs
+             for f in sorted(os.listdir(d)) if f.endswith(".parquet")]
+    for path in files:
         md = pq.ParquetFile(path).metadata
         for rg in range(md.num_row_groups):
             cap = bucket_capacity(max(md.row_group(rg).num_rows, 1))
@@ -577,6 +586,68 @@ def check_q5(got, exp):
         if g["n_name"] != n or abs(g["revenue"] - v) > 1e-6 * max(1.0,
                                                                   abs(v)):
             raise AssertionError(f"q5 row {g} != oracle {(n, v)}")
+
+
+def check_q3(got, exp):
+    """bench.py's q3 check (order keys exact, revenue within 1e-6
+    relative), with the order date and the ship priority held exactly."""
+    import datetime
+    if len(got) != len(exp):
+        raise AssertionError(f"q3 rows {len(got)} != oracle {len(exp)}")
+    for g, (k, d, p, rev) in zip(got, exp):
+        gd = (g["o_orderdate"] - datetime.date(1970, 1, 1)).days
+        if (g["l_orderkey"] != k or gd != d or g["o_shippriority"] != p
+                or abs(g["revenue"] - rev) > 1e-6 * max(1.0, abs(rev))):
+            raise AssertionError(f"q3 row {g} != oracle {(k, d, p, rev)}")
+
+
+def check_q18(got, exp):
+    """bench.py's q18 check: customer and order keys and the order date
+    exact, total price and quantity within 1e-6 relative; and not empty."""
+    import datetime
+    if not exp or len(got) != len(exp):
+        raise AssertionError(f"q18 rows {len(got)}, oracle {len(exp)} "
+                             f"(want the same, more than none)")
+    for g, (c, o, d, t, q) in zip(got, exp):
+        gd = (g["o_orderdate"] - datetime.date(1970, 1, 1)).days
+        if (g["c_custkey"] != c or g["o_orderkey"] != o or gd != d
+                or abs(g["o_totalprice"] - t) > 1e-6 * max(1.0, abs(t))
+                or abs(g["sum_qty"] - q) > 1e-6 * max(1.0, abs(q))):
+            raise AssertionError(f"q18 row {g} != oracle {(c, o, d, t, q)}")
+
+
+def aggregates(plan) -> list:
+    """The aggregate execs of an exec tree, top down."""
+    from spark_rapids_tpu_torch.exec.aggregate import HashAggregateExec
+    out = [plan] if isinstance(plan, HashAggregateExec) else []
+    for c in plan.children:
+        out += aggregates(c)
+    return out
+
+
+def ladder_shape(label: str, plan) -> str:
+    """q3's and q18's plan shape, checked: GlobalLimitExec over SortExec,
+    one aggregate (COMPLETE, on the sort-based path), under a FilterExec
+    (the HAVING) on q18. Returns a line that names it."""
+    from spark_rapids_tpu_torch.exec import basic as XB
+    from spark_rapids_tpu_torch.exec.sort import SortExec
+
+    def walk(p):
+        yield p
+        for c in p.children:
+            yield from walk(c)
+    aggs = aggregates(plan)
+    having = [p for p in walk(plan) if isinstance(p, XB.FilterExec)
+              and aggs and p.child is aggs[0]]
+    if not (isinstance(plan, XB.GlobalLimitExec)
+            and isinstance(plan.child, SortExec) and len(aggs) == 1
+            and aggs[0].mode == "complete" and aggs[0].stats["segment"] > 0
+            and len(having) == (label == "q18")):
+        raise AssertionError(f"{label}: unexpected plan\n{plan}")
+    return (f"GlobalLimitExec({plan.limit}) > SortExec > "
+            + ("FilterExec (HAVING) > " if having else "... > ")
+            + f"HashAggregateExec mode={aggs[0].mode} (segment path); the "
+            "limit reads no count back (row counts are host ints)")
 
 
 def probe_bound_ms(n: int, num_buckets: int) -> float:
@@ -1096,7 +1167,8 @@ def main() -> int:
         {} if args.map_threads is None else
         {"spark.rapids.tpu.sql.localScheduler.numThreads": args.map_threads})
     exp_q1 = tpch.np_q1(tpch.load_np({"lineitem": paths["lineitem"]}))
-    exp_q5 = tpch.np_q5(tpch.load_np(paths))
+    tb = tpch.load_np(paths)
+    exp_q5 = tpch.np_q5(tb)
     li_dir = paths["lineitem"]
     li_files = sorted(os.path.join(li_dir, f) for f in os.listdir(li_dir)
                       if f.endswith(".parquet"))
@@ -1113,12 +1185,32 @@ def main() -> int:
         "q5": lambda: tpch.q5(tpch.load(spark, paths)),
         # the supplier join on sparse ids: the hash table
         "q5-sparse": lambda: tpch.q5_sparse(tpch.load(spark, paths)),
+        # two joins, the sort-based group-by on three integer keys, limit
+        "q3": lambda: tpch.q3(tpch.load(spark, paths)),
+        # the sort-based group-by of all of lineitem, HAVING, two joins
+        "q18": lambda: tpch.q18(tpch.load(spark, paths)),
     }
     q1_labels = ("q1", "q1-files", "q1-repartition")
+    ladder_labels = ("q3", "q18")
+    exp_ladder = {"q3": tpch.np_q3(tb), "q18": tpch.np_q18(tb)}
+    del tb
+    print(f"q18 oracle: {len(exp_ladder['q18'])} rows at sf={args.sf:g}")
+    # the dictionary chunks of the three tables q3 and q18 scan (every
+    # column of lineitem, orders and customer): one chunk decode each
+    t0 = time.perf_counter()
+    ladder_chunks = len(census) + sum(
+        len(chunk_census(paths[t])[0]) for t in ("orders", "customer"))
+    print(f"census: {ladder_chunks} dictionary chunks in the lineitem, "
+          f"orders and customer scans of q3 and q18, "
+          f"{time.perf_counter() - t0:.1f} s")
 
     def check(label, res):
         if label in q1_labels:
             check_q1(res.to_pylist(), exp_q1)
+        elif label == "q3":
+            check_q3(res.to_pylist(), exp_ladder["q3"])
+        elif label == "q18":
+            check_q18(res.to_pylist(), exp_ladder["q18"])
         else:
             check_q5(res.to_pylist(), exp_q5)
     exchange_kernels = ("bitunpack128", "onehot_sum_f32", "murmur3_words",
@@ -1128,7 +1220,8 @@ def main() -> int:
                     "q1-repartition": exchange_kernels,
                     "q5": ("bitunpack128", "onehot_sum_f32"),
                     "q5-sparse": ("bitunpack128", "onehot_sum_f32",
-                                  "hash_join_build", "hash_join_probe")}
+                                  "hash_join_build", "hash_join_probe"),
+                    "q3": ("bitunpack128",), "q18": ("bitunpack128",)}
     # the dense aggregate's batches, counted beside the launches: each batch
     # with count-like requests is one count launch (at most
     # ONEHOT_MAX_REQUESTS distinct requests each)
@@ -1209,6 +1302,37 @@ def main() -> int:
                     f"launched {counts['hash_join_build']} and radix_ranks "
                     f"{counts['radix_ranks']} times (want one build launch "
                     f"a hash build and no radix_ranks)")
+        if label in ladder_labels:
+            if counts["bitunpack128"] != ladder_chunks:
+                raise AssertionError(
+                    f"{label}: the chunk decode launched "
+                    f"{counts['bitunpack128']} times, its scans have "
+                    f"{ladder_chunks} dictionary chunks")
+            others = {k: v for k, v in counts.items()
+                      if k != "bitunpack128" and v}
+            if others:
+                raise AssertionError(
+                    f"{label}: no dense aggregate, exchange or hash join, "
+                    f"but kernels launched: {others}")
+            print(f"{label} plan: {ladder_shape(label, plan)}")
+            modes = [j.stats["probe_mode"] for j in js]
+            print(f"{label} joins: probe modes {modes}"
+                  + ("" if all(m == "dense" for m in modes) else
+                     " (not all dense: see the join lines)"))
+        for a in aggregates(plan):
+            st = a.stats
+            calls = st["updates"] + st["merges"]
+            # host syncs: one group count a call, one per probe, and one
+            # per compaction of prefiltered rows on the segment path
+            pre = (st["updates"] if a.prefilter is not None
+                   and st["segment"] else 0)
+            print(f"{label} aggregate mode={a.mode}: {st['updates']} update "
+                  f"and {st['merges']} merge batches, {st['segment']} on "
+                  f"the segment path, {st['presorted']} presorted "
+                  f"({st['probes']} probes); groups {st['groups']}; "
+                  f"{st['seconds']:.4f} s host; host syncs "
+                  f"{calls + st['probes'] + pre} ({calls} group counts, "
+                  f"{st['probes']} probes, {pre} prefilter compactions)")
         counts_by_path[label] = counts
         peak_by_path[label] = peak
         print(f"{label} first run: {first_s:.3f} s; launches {counts}; "
@@ -1532,6 +1656,8 @@ def main() -> int:
         dict(entry("bitunpack128", "chunkdecode.cu", 221, ("q1",), max_err,
                    chunk_ms, chunk_plain_ms, chunk_bound, "bytes", None),
              chunks=len(census), pages=census_pages,
+             paths=[p for p, c in counts_by_path.items()
+                    if c["bitunpack128"]],
              fused_route_ms=fused_ms, per_page_route_ms=per_page_ms,
              fused_route_host_s=fused_s, per_page_route_host_s=per_page_s),
         # the fused count launch over one q1 run's batches; library_ms is

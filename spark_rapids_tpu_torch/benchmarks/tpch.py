@@ -1,6 +1,6 @@
-"""TPC-H benchmark: deterministic data generator, q1 and q5 via the session
-API (and q5 over sparse supplier ids), and independent single-core NumPy
-oracles.
+"""TPC-H benchmark: deterministic data generator, the ladder q1, q3, q5 and
+q18 via the session API (and q5 over sparse supplier ids), and independent
+single-core NumPy oracles.
 
 Counterpart of ``spark_rapids_tpu/benchmarks/tpch.py``, kept as the port's own
 copy. The generator keeps the seed (20260729) and the draw order, so both
@@ -159,6 +159,31 @@ def q1(dfs):
             .sort(c("l_returnflag"), c("l_linestatus")))
 
 
+def q3(dfs):
+    """Shipping priority (TPC-H q3): top-10 unshipped orders by revenue."""
+    import spark_rapids_tpu_torch.functions as F
+    from spark_rapids_tpu_torch import types as T
+    c = F.col
+    date = F.cast(F.lit("1995-03-15"), T.DATE)
+    cust = dfs["customer"].filter(c("c_mktsegment") == F.lit("BUILDING"))
+    orders = dfs["orders"].filter(c("o_orderdate") < date).select(
+        c("o_orderkey"), c("o_custkey"), c("o_orderdate"), c("o_shippriority"))
+    li = dfs["lineitem"].filter(c("l_shipdate") > date).select(
+        c("l_orderkey"), c("l_extendedprice"), c("l_discount"))
+    j = (cust.select(c("c_custkey").alias("o_custkey"))
+         .join(orders, on="o_custkey")
+         .select(c("o_orderkey").alias("l_orderkey"), c("o_orderdate"),
+                 c("o_shippriority"))
+         .join(li, on="l_orderkey"))
+    return (j.select(c("l_orderkey"), c("o_orderdate"), c("o_shippriority"),
+                     (c("l_extendedprice") * (F.lit(1.0) - c("l_discount")))
+                     .alias("volume"))
+            .group_by(c("l_orderkey"), c("o_orderdate"), c("o_shippriority"))
+            .agg(F.sum(c("volume")).alias("revenue"))
+            .sort(c("revenue"), c("o_orderdate"), ascending=[False, True])
+            .limit(10))
+
+
 def q5(dfs):
     """Local supplier volume (TPC-H q5): revenue by nation in ASIA."""
     import spark_rapids_tpu_torch.functions as F
@@ -244,7 +269,34 @@ def q5_sparse(dfs):
             .sort(c("revenue"), ascending=False))
 
 
-# -- independent NumPy oracle (single core, the CPU-Spark stand-in) ----------
+def q18(dfs):
+    """Large volume customer (TPC-H q18, adapted to the generator's schema
+    subset: c_name is absent, so the output keys on c_custkey): a sum per
+    order over all of lineitem, a HAVING filter, then joins back through
+    orders and customer."""
+    import spark_rapids_tpu_torch.functions as F
+    c = F.col
+    li = dfs["lineitem"]
+    big = (li.group_by(c("l_orderkey"))
+           .agg(F.sum(c("l_quantity")).alias("sum_qty"))
+           .filter(c("sum_qty") > F.lit(300.0)))
+    orders = dfs["orders"].select(
+        c("o_orderkey").alias("l_orderkey"), c("o_custkey"),
+        c("o_orderdate"), c("o_totalprice"))
+    cust = dfs["customer"].select(c("c_custkey").alias("o_custkey"))
+    j = big.join(orders, on="l_orderkey").join(cust, on="o_custkey")
+    return (j.select(c("o_custkey").alias("c_custkey"),
+                     c("l_orderkey").alias("o_orderkey"),
+                     c("o_orderdate"), c("o_totalprice"), c("sum_qty"))
+            .sort(c("o_totalprice"), c("o_orderdate"), c("o_orderkey"),
+                  ascending=[False, True, True])
+            .limit(100))
+
+
+QUERIES = {"q1": q1, "q3": q3, "q5": q5, "q18": q18}
+
+
+# -- independent NumPy oracles (single core, the CPU-Spark stand-in) ---------
 
 def load_np(paths: dict) -> dict:
     from spark_rapids_tpu_torch.benchmarks.common import load_np as _load_np
@@ -275,6 +327,51 @@ def np_q1(tb):
                      charge[s:e].sum(), qty[s:e].sum() / n,
                      price[s:e].sum() / n, disc[s:e].sum() / n, n))
     return rows
+
+
+def np_q3(tb):
+    cust = tb["customer"]
+    orders = tb["orders"]
+    li = tb["lineitem"]
+    date = _days(1995, 3, 15)
+    ck = cust["c_custkey"][cust["c_mktsegment"] == "BUILDING"]
+    om = (orders["o_orderdate"] < date) & np.isin(orders["o_custkey"], ck)
+    okeys = orders["o_orderkey"][om]
+    odate = orders["o_orderdate"][om]
+    oprio = orders["o_shippriority"][om]
+    lm = (li["l_shipdate"] > date) & np.isin(li["l_orderkey"], okeys)
+    lkey = li["l_orderkey"][lm]
+    vol = li["l_extendedprice"][lm] * (1.0 - li["l_discount"][lm])
+    order = np.argsort(lkey, kind="stable")
+    lkey, vol = lkey[order], vol[order]
+    uk, start = np.unique(lkey, return_index=True)
+    rev = np.add.reduceat(vol, start)
+    osort = np.argsort(okeys, kind="stable")
+    pos = osort[np.searchsorted(okeys, uk, sorter=osort)]
+    rows = sorted(zip(uk, odate[pos], oprio[pos], rev),
+                  key=lambda r: (-r[3], r[1], r[0]))[:10]
+    return [(int(k), int(d), int(p), float(r)) for k, d, p, r in rows]
+
+
+def np_q18(tb):
+    li = tb["lineitem"]
+    order = np.argsort(li["l_orderkey"], kind="stable")
+    lk, q = li["l_orderkey"][order], li["l_quantity"][order]
+    uk, start = np.unique(lk, return_index=True)
+    sums = np.add.reduceat(q, start)
+    keep = sums > 300.0
+    big, bsum = uk[keep], sums[keep]
+    orders = tb["orders"]
+    osort = np.argsort(orders["o_orderkey"], kind="stable")
+    pos = osort[np.searchsorted(orders["o_orderkey"], big, sorter=osort)]
+    # every o_custkey exists in customer (dense 1..n), so the customer
+    # inner join filters nothing
+    rows = sorted(zip(orders["o_custkey"][pos], big,
+                      orders["o_orderdate"][pos],
+                      orders["o_totalprice"][pos], bsum),
+                  key=lambda r: (-r[3], r[2], r[1]))[:100]
+    return [(int(c), int(o), int(d), float(t), float(s))
+            for c, o, d, t, s in rows]
 
 
 def np_q5(tb):

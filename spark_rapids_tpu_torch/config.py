@@ -133,6 +133,12 @@ ADVISORY_PARTITION_BYTES = conf(
     "Target size of a coalesced post-shuffle partition "
     "(Spark spark.sql.adaptive.advisoryPartitionSizeInBytes)").bytes_conf("64m")
 
+STAGE_FUSION_ENABLED = conf("spark.rapids.tpu.sql.stageFusion.enabled").doc(
+    "Whole-stage fusion switch. The port fuses no programs; of what the key "
+    "governs it reads one thing: the sort-based group-by skips its sort "
+    "when a per-batch probe proves the live rows arrive sorted by their one "
+    "64-bit key with no null. False turns that skip off").boolean_conf(True)
+
 
 class RapidsConf:
     """Resolved view over user settings."""

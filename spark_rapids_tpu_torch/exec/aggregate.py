@@ -4,23 +4,42 @@ Ported: Spark's three modes — COMPLETE (update and finalize in one exec),
 PARTIAL (emits keys + state columns ahead of the exchange) and FINAL (its
 input is PARTIAL's layout; merges the states and finalizes) — with the
 planner-hoisted prefilter/preproject (the whole-stage hoist of a child
-Filter/Project into the aggregation), over the dense small-domain path
-(``_agg_dense``): keys with statically known domains (dictionary strings,
-booleans) and Sum/Count/Average reduce straight into D per-group buckets
-(``ops/grouping.py``), the count-like ones of a batch through one launch
-of the count kernel (``onehot_sums_f32``; one ``onehot_sum_f32`` call each
-on a TPU). Batches aggregate incrementally: update (FINAL: merge)
-per batch, then concat the partials and merge (the reference's update →
-concat → merge loop); only COMPLETE and FINAL finalize.
+Filter/Project into the aggregation), over two group-by paths:
 
-Not ported yet: the sort-based segment group-by, keyless aggregation, HAVING
-fusion and the chained update step.
+- the dense small-domain path (``_agg_dense``): keys with statically known
+  domains (dictionary strings, booleans) and Sum/Count/Average reduce
+  straight into D per-group buckets (``ops/grouping.py``), the count-like
+  ones of a batch through one launch of the count kernel
+  (``onehot_sums_f32``; one ``onehot_sum_f32`` call each on a TPU);
+- the sort-based segment path (the rest of ``_agg_kernel``): compact the
+  prefiltered rows, sort them by key (``G.group_segments``), gather the
+  keys and inputs, segment-reduce each aggregate's update or merge, and
+  compact one row per group at the boundaries. A single 64-bit integer key
+  at a capacity of 2^17 or more is probed once per batch
+  (``_presorted``): live rows that arrive sorted with no null skip the
+  sort and the gathers (TPC-H lineitem is ordered by ``l_orderkey``).
+
+Batches aggregate incrementally: update (FINAL: merge) per batch, then
+concat the partials and merge (the reference's unchained update → concat →
+merge loop); only COMPLETE and FINAL finalize. Each call costs one host
+sync for its group count, and the probe one more.
+
+Not ported yet: keyless aggregation (the planner refuses it), HAVING fusion
+(``fuse_having``: the port plans a FilterExec above the aggregate, which
+keeps the same rows), the chained update step (``_chain_step``, which the
+reference holds bit-identical to the unchained loop) and the packed
+single-operand sort key with its range hint (every sort ends in the row
+order, so the result is the same).
 """
 
 from __future__ import annotations
 
+import threading
+import time
+
 import torch
 
+from spark_rapids_tpu_torch import config as CFG
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.vector import bucket_capacity
@@ -29,7 +48,8 @@ from spark_rapids_tpu_torch.expr.aggregates import Average, Count, Sum
 from spark_rapids_tpu_torch.expr.core import Col, EvalContext, bind_references
 from spark_rapids_tpu_torch.ops import grouping as G
 from spark_rapids_tpu_torch.ops.concat import concat_batches
-from spark_rapids_tpu_torch.ops.filtering import compact_cols, selection_mask
+from spark_rapids_tpu_torch.ops.filtering import (compact_cols, gather_cols,
+                                                  selection_mask)
 from spark_rapids_tpu_torch.plan.nodes import agg_fn
 
 PARTIAL = "partial"
@@ -38,6 +58,8 @@ COMPLETE = "complete"
 
 # off-TPU domain bound of the dense path (JAX package: max_dom = 4096)
 _MAX_DENSE_DOMAIN = 4096
+# smallest capacity whose single 64-bit key is probed for sorted input
+_PRESORTED_MIN_CAPACITY = 1 << 17
 
 
 class HashAggregateExec(TorchExec):
@@ -75,9 +97,14 @@ class HashAggregateExec(TorchExec):
                           or prefilter_on_projected
                           else bind_references(prefilter, child.output))
         self.fns = [agg_fn(e) for e in self.agg_exprs]
-        if not all(isinstance(f, (Sum, Count, Average)) for f in self.fns):
-            raise NotImplementedError(
-                "only sum/count/avg aggregates are ported so far")
+        #: per-run record of the aggregation calls: update and merge calls,
+        #: those that took the segment path and those of them that skipped
+        #: the sort, the key-stats probes (one host sync each), the group
+        #: count of every call, and host seconds inside the calls
+        self.stats = {"updates": 0, "merges": 0, "segment": 0,
+                      "presorted": 0, "probes": 0, "groups": [],
+                      "seconds": 0.0}
+        self._lock = threading.Lock()
 
     @property
     def output(self):
@@ -102,12 +129,52 @@ class HashAggregateExec(TorchExec):
                          merge: bool) -> ColumnarBatch:
         """One update (raw child rows) or merge (keys+state rows)
         aggregation; returns keys+state layout, one row per group."""
+        t0 = time.perf_counter()
         ctx = EvalContext.from_batch(batch, self.device)
-        cols, n_groups = self._agg_kernel(ctx, merge)
+        presorted = self._presorted(ctx, merge)
+        cols, n_groups, segment = self._agg_kernel(ctx, merge,
+                                                   presorted=presorted)
+        with self._lock:
+            st = self.stats
+            st["merges" if merge else "updates"] += 1
+            st["segment"] += int(segment)
+            st["presorted"] += int(segment and bool(presorted))
+            st["probes"] += int(presorted is not None)
+            st["groups"].append(n_groups)
+            st["seconds"] += time.perf_counter() - t0
         return ColumnarBatch([c.to_vector() for c in cols], n_groups,
                              self._partial_schema())
 
-    def _agg_kernel(self, ctx: EvalContext, merge: bool):
+    def _presorted(self, ctx: EvalContext, merge: bool):
+        """Whether the batch's live rows arrive sorted by their one 64-bit
+        integer key with no null (the reference's key-stats probe,
+        ``_key_range_hint``): one reduction and one host sync. None when the
+        batch is not probed: several keys, a capacity below 2^17, a hoisted
+        projection (the probe reads the raw batch), a key of 32 bits or
+        fewer, or ``stageFusion.enabled`` false (the port reads the probe
+        for nothing else)."""
+        if (len(self.group_exprs) != 1
+                or ctx.capacity < _PRESORTED_MIN_CAPACITY
+                or (not merge and self.preproject is not None)
+                or not self.conf.get(CFG.STAGE_FUSION_ENABLED)):
+            return None
+        e = self.group_exprs[0]
+        if (not isinstance(e.dtype, T.IntegralType)
+                or e.dtype.torch_dtype != torch.int64):
+            return None
+        k = ctx.cols[0] if merge else e.eval(ctx)
+        live = torch.arange(ctx.capacity, device=ctx.device) < ctx.num_rows
+        all_valid = (k.validity | ~live).all()
+        nondec = torch.where(live[1:], k.values[1:] >= k.values[:-1],
+                             True).all()
+        return bool(all_valid & nondec)   # the probe's one host sync
+
+    def _agg_kernel(self, ctx: EvalContext, merge: bool,
+                    presorted: bool | None = None):
+        """One batch's update or merge: ``(cols, n_groups, segment)``, where
+        ``segment`` says the sort-based path ran. ``presorted`` asserts
+        that the probe proved the single key sorted and null-free: the sort
+        and every row gather become the identity."""
         cap = ctx.capacity
         keep = None
 
@@ -126,18 +193,51 @@ class HashAggregateExec(TorchExec):
         key_cols = ([ctx.cols[i] for i in range(nkeys)] if merge
                     else [e.eval(ctx) for e in self.group_exprs])
         dense = self._agg_dense(ctx, merge, key_cols, live_mask=keep)
-        if dense is None:
-            raise NotImplementedError(
-                "group keys without a small static domain need the "
-                "sort-based group-by, which is not ported yet")
-        return dense
+        if dense is not None:
+            return (*dense, False)
+        if keep is not None:
+            # the segment path sorts by key: masked rows must become
+            # padding, so compact them out first
+            new_cols, cnt = compact_cols(ctx.cols, keep)
+            ctx = EvalContext(new_cols, cnt, cap, ctx.device)
+            key_cols = [e.eval(ctx) for e in self.group_exprs]
+        combined = G.combine_compact_keys(key_cols)
+        presorted = bool(presorted) and combined is None
+        perm, seg_ids, boundary, live = G.group_segments(
+            [combined] if combined is not None else key_cols,
+            ctx.num_rows, cap, presorted=presorted)
+
+        def in_order(cols):
+            if presorted:
+                return [Col(c.values, c.validity & live, c.dtype,
+                            c.dictionary) for c in cols]
+            return gather_cols(cols, perm, live)
+        sorted_keys = in_order(key_cols)
+        segctx = G.segment_structure(seg_ids, cap)
+        # the states are per row (row i holds the aggregate of its whole
+        # segment), so one compaction at the boundaries pulls keys and
+        # states together
+        state_cols = []
+        off = nkeys
+        for f in self.fns:
+            nstates = len(f.state_types)
+            if merge:
+                outs = f.merge(in_order(ctx.cols[off:off + nstates]), segctx)
+            else:
+                outs = f.update(in_order([f.child.eval(ctx)])[0], segctx)
+            off += nstates
+            state_cols.extend(outs)
+        return (*compact_cols(sorted_keys + state_cols, boundary), True)
 
     def _agg_dense(self, ctx: EvalContext, merge: bool, key_cols,
                    live_mask=None):
         """Sort-free small-domain aggregation: every bucket sum of the batch
         is recorded, resolved together by ``G.resolve_dense_group_sums``,
         then replayed into the state columns. Returns (cols, n_groups) or
-        None when ineligible."""
+        None when ineligible (a key without a small static domain, or an
+        aggregate other than Sum/Count/Average)."""
+        if not all(isinstance(f, (Sum, Count, Average)) for f in self.fns):
+            return None
         ks = G.compact_key_codes(key_cols, max_domain=_MAX_DENSE_DOMAIN)
         if ks is None:
             return None

@@ -1,14 +1,19 @@
-"""Filter and project execs — counterpart of ``spark_rapids_tpu/exec/basic.py``.
+"""Filter, project and limit execs — counterpart of
+``spark_rapids_tpu/exec/basic.py``.
 
-Under an aggregate the planner hoists both into the aggregate (the JAX
-package's whole-stage hoist), so these run only where a filter or project
-stands elsewhere in a plan.
+Under an aggregate the planner hoists a filter or project into the
+aggregate (the JAX package's whole-stage hoist), so these run only where a
+filter or project stands elsewhere in a plan, a HAVING filter above an
+aggregate among them.
 """
 
 from __future__ import annotations
 
+import torch
+
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+from spark_rapids_tpu_torch.columnar.vector import TorchColumnVector
 from spark_rapids_tpu_torch.exec.base import TorchExec
 from spark_rapids_tpu_torch.expr.core import (EvalContext, Expression,
                                               bind_references)
@@ -57,3 +62,52 @@ class FilterExec(TorchExec):
 
     def args_string(self):
         return repr(self.condition)
+
+
+class LocalLimitExec(TorchExec):
+    """The first ``limit`` rows of each partition (reference limit.scala
+    GpuLocalLimitExec). The port's row counts are host ints, so the limit
+    reads no count back from the device. A batch cut in the middle keeps
+    the canonical defaults in the slots that are no longer live."""
+
+    def __init__(self, limit: int, child: TorchExec, conf=None):
+        super().__init__(child, conf=conf)
+        self.limit = limit
+
+    @property
+    def output(self):
+        return self.child.output
+
+    def execute_partition(self, split):
+        remaining = self.limit
+        for batch in self.child.execute_partition(split):
+            if remaining <= 0:
+                break
+            n = batch.num_rows
+            if n <= remaining:
+                remaining -= n
+                yield batch
+                continue
+            live = torch.arange(batch.capacity, device=self.device) < remaining
+            cols = []
+            for c in batch.columns:
+                default = torch.tensor(c.dtype.default_value(),
+                                       dtype=c.data.dtype, device=self.device)
+                cols.append(TorchColumnVector(
+                    c.dtype, torch.where(live, c.data, default),
+                    c.validity & live, c.dictionary))
+            yield ColumnarBatch(cols, remaining, batch.schema)
+            remaining = 0
+
+    def args_string(self):
+        return str(self.limit)
+
+
+class GlobalLimitExec(LocalLimitExec):
+    """The first ``limit`` rows of the whole plan, over a single-partition
+    child (Spark plans GlobalLimit over a single-partition exchange)."""
+
+    def __init__(self, limit: int, child: TorchExec, conf=None):
+        if child.num_partitions != 1:
+            raise ValueError("GlobalLimitExec needs a single-partition child")
+        super().__init__(limit, child, conf=conf)

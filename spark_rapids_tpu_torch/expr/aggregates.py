@@ -1,14 +1,17 @@
 """Aggregate functions with Spark two-phase (update/merge) semantics.
 
-Counterpart of ``spark_rapids_tpu/expr/aggregates.py``: Sum, Count and
-Average. Each names its partial-state columns (``state_types``) and how the
-final value is computed from merged states (``evaluate``). The update and
-merge reductions themselves are the aggregate exec's dense group sums
-(``exec/aggregate.py``), which is the only group-by path ported so far.
+Counterpart of ``spark_rapids_tpu/expr/aggregates.py``: Sum, Count,
+Average, Min, Max, First and Last. Each names its partial-state columns
+(``state_types``), segment-reduces raw values into them on the sort path
+(``update``) and partial states of several batches into one (``merge``),
+and computes the final value from merged states (``evaluate``). The dense
+small-domain path of the aggregate exec (``exec/aggregate.py``) reduces
+Sum, Count and Average by its own route.
 
-Null semantics: COUNT(x) counts non-nulls and is never null; SUM and AVG
-ignore nulls and are null iff no input was non-null; SUM of integrals is
-long, of doubles double; AVG is double.
+Null semantics: COUNT(x) counts non-nulls and is never null; SUM, AVG, MIN
+and MAX ignore nulls and are null iff no input was non-null; SUM of
+integrals is long, of doubles double; AVG is double. COUNT(*) and the
+decimal types are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.expr.core import Col, Expression
+from spark_rapids_tpu_torch.ops import grouping as G
 
 
 class AggregateFunction(Expression):
@@ -37,6 +41,14 @@ class AggregateFunction(Expression):
 
     @property
     def state_types(self) -> list:
+        raise NotImplementedError
+
+    def update(self, in_col: Col, segctx: "G.SegCtx") -> list:
+        """Raw column -> list of state Cols (one per state_types entry)."""
+        raise NotImplementedError
+
+    def merge(self, state_cols: list, segctx: "G.SegCtx") -> list:
+        """Partial states -> merged states."""
         raise NotImplementedError
 
     def evaluate(self, state_cols: list) -> Col:
@@ -68,6 +80,16 @@ class Sum(AggregateFunction):
     def state_types(self):
         return [self.dtype]
 
+    def update(self, in_col, segctx):
+        vals = in_col.values.to(self.dtype.torch_dtype)
+        s, cnt = G.segment_sum(vals, in_col.validity, segctx)
+        return [Col(s, cnt > 0, self.dtype)]
+
+    def merge(self, state_cols, segctx):
+        st = state_cols[0]
+        s, cnt = G.segment_sum(st.values, st.validity, segctx)
+        return [Col(s, cnt > 0, self.dtype)]
+
     def evaluate(self, state_cols):
         return state_cols[0].canonicalized()
 
@@ -87,8 +109,52 @@ class Count(AggregateFunction):
     def state_types(self):
         return [T.LONG]
 
+    def update(self, in_col, segctx):
+        validity = in_col.validity
+        s, _ = G.segment_sum(validity.to(torch.int64),
+                             torch.ones_like(validity), segctx)
+        return [Col(s, torch.ones_like(s, dtype=torch.bool), T.LONG)]
+
+    def merge(self, state_cols, segctx):
+        st = state_cols[0]
+        s, _ = G.segment_sum(st.values, st.validity, segctx)
+        return [Col(s, torch.ones_like(s, dtype=torch.bool), T.LONG)]
+
     def evaluate(self, state_cols):
         return state_cols[0]
+
+
+class _Extreme(AggregateFunction):
+    """MIN/MAX: one state of the child's type; merge is update over the
+    states (the extreme of extremes). ``_reduce`` is the segment reduction
+    (``G.segment_min`` or ``G.segment_max``)."""
+
+    @property
+    def dtype(self):
+        return self.child.dtype
+
+    @property
+    def state_types(self):
+        return [self.dtype]
+
+    def update(self, in_col, segctx):
+        m = self._reduce(in_col.values, in_col.validity, segctx, self.dtype)
+        cnt = G.segment_count(in_col.validity, segctx)
+        return [Col(m, cnt > 0, self.dtype, in_col.dictionary)]
+
+    def merge(self, state_cols, segctx):
+        return self.update(state_cols[0], segctx)
+
+    def evaluate(self, state_cols):
+        return state_cols[0].canonicalized()
+
+
+class Min(_Extreme):
+    _reduce = staticmethod(G.segment_min)
+
+
+class Max(_Extreme):
+    _reduce = staticmethod(G.segment_max)
 
 
 class Average(AggregateFunction):
@@ -103,6 +169,20 @@ class Average(AggregateFunction):
     def state_types(self):
         return [_sum_result_type(self.child.dtype), T.LONG]
 
+    def update(self, in_col, segctx):
+        sum_t = self.state_types[0]
+        vals = in_col.values.to(sum_t.torch_dtype)
+        s, cnt = G.segment_sum(vals, in_col.validity, segctx)
+        return [Col(s, cnt > 0, sum_t),
+                Col(cnt, torch.ones_like(cnt, dtype=torch.bool), T.LONG)]
+
+    def merge(self, state_cols, segctx):
+        s_st, c_st = state_cols
+        s, _ = G.segment_sum(s_st.values, s_st.validity, segctx)
+        c, _ = G.segment_sum(c_st.values, c_st.validity, segctx)
+        return [Col(s, c > 0, self.state_types[0]),
+                Col(c, torch.ones_like(c, dtype=torch.bool), T.LONG)]
+
     def evaluate(self, state_cols):
         s_st, c_st = state_cols
         cnt = c_st.values
@@ -113,3 +193,44 @@ class Average(AggregateFunction):
 
     def __repr__(self):
         return f"avg({self.child!r})"
+
+
+class _Positional(AggregateFunction):
+    """FIRST/LAST(ignoreNulls): the value at the group's first or last row
+    in sorted order (reference GpuFirst, GpuLast); merge takes the first or
+    last of the partial states. ``_pick`` is ``G.segment_first`` or
+    ``G.segment_last``."""
+
+    def __init__(self, child, ignore_nulls: bool = False):
+        super().__init__(child)
+        self.ignore_nulls = ignore_nulls
+
+    def with_children(self, children):
+        return type(self)(children[0], self.ignore_nulls)
+
+    @property
+    def dtype(self):
+        return self.child.dtype
+
+    @property
+    def state_types(self):
+        return [self.dtype]
+
+    def update(self, in_col, segctx):
+        vals, valid = self._pick(in_col.values, in_col.validity, segctx,
+                                 self.ignore_nulls)
+        return [Col(vals, valid, self.dtype, in_col.dictionary)]
+
+    def merge(self, state_cols, segctx):
+        return self.update(state_cols[0], segctx)
+
+    def evaluate(self, state_cols):
+        return state_cols[0].canonicalized()
+
+
+class First(_Positional):
+    _pick = staticmethod(G.segment_first)
+
+
+class Last(_Positional):
+    _pick = staticmethod(G.segment_last)

@@ -1,7 +1,8 @@
 """Column-function builders — the pyspark.sql.functions facade.
 
-Counterpart of ``spark_rapids_tpu/functions.py``, limited to what TPC-H q1
-uses: ``col``, ``lit``, ``cast``, ``sum``, ``avg`` and ``count``.
+Counterpart of ``spark_rapids_tpu/functions.py``, limited to what the
+ported TPC-H queries use: ``col``, ``lit``, ``cast``, ``sum``, ``avg`` and
+``count``, and ``min``, ``max``, ``first`` and ``last``.
 """
 
 from __future__ import annotations
@@ -25,8 +26,24 @@ def count(c=None):
     return _AG.Count(None if c is None else _e(c))
 
 
+def min(c):  # noqa: A001
+    return _AG.Min(_e(c))
+
+
+def max(c):  # noqa: A001
+    return _AG.Max(_e(c))
+
+
 def avg(c):
     return _AG.Average(_e(c))
+
+
+def first(c, ignore_nulls: bool = False):
+    return _AG.First(_e(c), ignore_nulls)
+
+
+def last(c, ignore_nulls: bool = False):
+    return _AG.Last(_e(c), ignore_nulls)
 
 
 def cast(c, to: T.DataType):

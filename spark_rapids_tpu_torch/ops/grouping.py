@@ -1,22 +1,48 @@
-"""Small-domain group-by reductions — counterpart of the dense part of
-``spark_rapids_tpu/ops/grouping.py``.
+"""Group-by reductions — counterpart of ``spark_rapids_tpu/ops/grouping.py``.
 
-Keys whose domains are statically known (dictionary strings, booleans) fuse
+The dense path: keys whose domains are statically known (dictionary strings, booleans) fuse
 into one int32 code per row; sum-shaped aggregates then reduce straight into
 D per-group buckets with no sort. A batch's count-like reductions go
 through the count kernel together (``cuda_kernels.onehot_sums_f32``, one
 launch), where the JAX package sends each to its ``onehot_sum_f32`` kernel
 on a TPU. A batch's float sums at small domains stack into masked matvecs,
-one per bucket; the rest is a D-bucket scatter-add. The sort-based segment
-group-by is not ported yet.
+one per bucket; the rest is a D-bucket scatter-add.
+
+The segment path, for every other key: sort the rows by key
+(``group_segments``), flag group boundaries, segment-reduce the values, and
+the aggregate exec compacts one row per group to the front. Results are
+PER-ROW (row i holds the aggregate of row i's whole segment). Reductions are
+scan- and sort-based, never scatter-based, as in the reference, so that the
+results match it bit for bit: integer sums and counts difference one global
+cumsum at the segment edges (exact, even across wrap); float sums add
+aligned blocks of a pairwise tree in the reference's order of adds (a float
+scatter-add on CUDA adds in whatever order its atomics land); min, max,
+first and last re-sort ``(segment, value)`` stably. Like the reference,
+which computes them with XLA ops, these are plain torch ops
+(``torch.sort(stable=True)``, ``cumsum``, ``index_select``).
 """
 
 from __future__ import annotations
 
+import typing
+
 import torch
 
 from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.expr.core import Col
 from spark_rapids_tpu_torch.ops import cuda_kernels as CK
+from spark_rapids_tpu_torch.ops import windowing as W
+from spark_rapids_tpu_torch.ops.filtering import gather_cols
+from spark_rapids_tpu_torch.ops.sorting import SortOrder, sort_permutation
+
+
+class SegCtx(typing.NamedTuple):
+    """Shared segment structure for one sorted group-by batch."""
+    seg_ids: torch.Tensor    # group index per sorted row (pad -> capacity-1)
+    boundary: torch.Tensor   # True at the first row of each segment
+    seg_start: torch.Tensor  # index of the first row of the row's segment
+    seg_end: torch.Tensor    # index of the last row of the row's segment
+    capacity: int
 
 
 def compact_key_codes(key_cols, max_domain: int = 1 << 20):
@@ -131,3 +157,207 @@ def resolve_dense_group_sums(reqs, codes, n_domain: int, live):
                     n_domain)
             outs[i] = done[kk]
     return outs
+
+
+def combine_compact_keys(key_cols):
+    """Fuse two or more group keys with statically known small domains
+    (dictionary strings, booleans) into one int32 code column, so that the
+    sort and the boundary checks touch one operand. Nulls get their own
+    code. None for a single key, or when a domain is unknown or the product
+    overflows."""
+    if len(key_cols) < 2:
+        return None
+    ks = compact_key_codes(key_cols)
+    if ks is None:
+        return None
+    combined, _ = ks
+    return Col(combined, torch.ones_like(combined, dtype=torch.bool), T.INT)
+
+
+def group_segments(key_cols, num_rows: int, capacity: int,
+                   presorted: bool = False):
+    """Sort by keys and flag the groups: ``(perm, seg_ids, boundary, live)``.
+    ``perm`` sorts the rows; ``seg_ids[i]`` is the group of sorted row i,
+    and padding rows go to segment ``capacity - 1``; ``boundary`` marks the
+    first row of each group. NaN groups with NaN, -0.0 with 0.0, and nulls
+    form their own group. ``presorted=True`` asserts that the caller proved
+    the live rows arrive key-sorted with no null (the aggregate exec's
+    per-batch probe): the sort and the key gather are skipped."""
+    dev = key_cols[0].values.device
+    live = torch.arange(capacity, dtype=torch.int32, device=dev) < num_rows
+    if presorted:
+        perm = torch.arange(capacity, dtype=torch.int64, device=dev)
+        sorted_keys = [Col(c.values, c.validity & live, c.dtype, c.dictionary)
+                       for c in key_cols]
+    else:
+        perm = sort_permutation(key_cols, [SortOrder() for _ in key_cols],
+                                num_rows, capacity)
+        sorted_keys = gather_cols(key_cols, perm, live)
+
+    neq = torch.zeros((capacity,), dtype=torch.bool, device=dev)
+    for c in sorted_keys:
+        prev_vals = torch.roll(c.values, 1)
+        prev_valid = torch.roll(c.validity, 1)
+        if isinstance(c.dtype, T.FractionalType):
+            a, b = c.values, prev_vals
+            both_nan = torch.isnan(a) & torch.isnan(b)
+            differs = ~both_nan & ~(a == b)
+        else:
+            differs = c.values != prev_vals
+        neq = neq | differs | (c.validity != prev_valid)
+    first_live = torch.arange(capacity, device=dev) == 0
+    boundary = (first_live | neq) & live
+    seg_ids = torch.cumsum(boundary.to(torch.int32), 0, dtype=torch.int32) - 1
+    seg_ids = torch.where(live, seg_ids,
+                          torch.full_like(seg_ids, capacity - 1))
+    seg_ids = seg_ids.clamp(0, capacity - 1)
+    return perm, seg_ids, boundary, live
+
+
+def segment_structure(seg_ids, capacity: int) -> SegCtx:
+    """Per-row segment start and end from sorted seg_ids, shared by every
+    aggregate of the batch."""
+    idx = torch.arange(capacity, dtype=torch.int32, device=seg_ids.device)
+    prev = torch.roll(seg_ids, 1)
+    boundary = (idx == 0) | (seg_ids != prev)
+    return SegCtx(seg_ids, boundary, W.seg_starts(boundary),
+                  W.seg_ends(boundary), capacity)
+
+
+def _take(x, idx):
+    return x.index_select(0, idx)
+
+
+def _edge_sum(data, ctx: SegCtx):
+    """Per-row segment total of integer ``data`` by one global cumsum
+    differenced at the row's segment edges: exact, even across wrap. The
+    sum keeps the type of ``data``; booleans count in int64, as
+    ``jnp.cumsum`` promotes them."""
+    acc = torch.int64 if data.dtype == torch.bool else data.dtype
+    cs = torch.cumsum(data, 0, dtype=acc)
+    csz = torch.cat([torch.zeros((1,), dtype=cs.dtype, device=cs.device), cs])
+    return _take(csz, ctx.seg_end + 1) - _take(csz, ctx.seg_start)
+
+
+def _seg_sum_tree(data, ctx: SegCtx):
+    """Per-segment float total by a range-sum tree: level k holds the sums
+    of aligned 2^k-blocks (pairwise halving), and each row's
+    ``[seg_start, seg_end]`` is covered by at most 2*log2(cap) disjoint
+    aligned blocks, added front and back level by level in the reference's
+    order. No prefix is subtracted, so a total never cancels against the
+    prefixes of other segments."""
+    levels = [data]
+    while levels[-1].shape[0] > 1:
+        x = levels[-1]
+        if x.shape[0] % 2:    # non-power-of-two capacity: zero-pad the level
+            x = torch.cat([x, torch.zeros((1,), dtype=x.dtype,
+                                          device=x.device)])
+        levels.append(x[0::2] + x[1::2])
+
+    lo = ctx.seg_start
+    hi = ctx.seg_end + 1
+    out = torch.zeros_like(data)
+    zero = torch.zeros_like(data)
+    for k, level in enumerate(levels):
+        blk = 1 << k
+        top = level.shape[0] - 1
+        # a 2^k block at the front when lo has bit k set
+        take_lo = ((lo & blk) != 0) & (lo + blk <= hi)
+        contrib = _take(level, (lo >> k).clamp(0, top))
+        out = out + torch.where(take_lo, contrib, zero)
+        lo = torch.where(take_lo, lo + blk, lo)
+        # and one at the back when hi has bit k set
+        take_hi = ((hi & blk) != 0) & (hi - blk >= lo)
+        contrib = _take(level, ((hi - blk) >> k).clamp(0, top))
+        out = out + torch.where(take_hi, contrib, zero)
+        hi = torch.where(take_hi, hi - blk, hi)
+    return out
+
+
+def _seg_extreme(data, ctx: SegCtx, largest: bool):
+    """Per-segment min or max by re-sorting ``(seg_id, value)`` pairs: the
+    seg_ids are already sorted, so the sort only reorders within segments
+    and the extreme lands on the segment's first or last row. The sort is
+    stable and ties -0.0 with 0.0, as the reference's ``jax.lax.sort``
+    does, so a segment's extreme has the reference's bits."""
+    key = data
+    if data.is_floating_point():
+        key = torch.where(data == 0, torch.zeros_like(data), data)
+    perm = torch.sort(key, stable=True).indices
+    perm = _take(perm, torch.sort(_take(ctx.seg_ids, perm),
+                                  stable=True).indices)
+    pos = ctx.seg_end if largest else ctx.seg_start
+    return _take(_take(data, perm), pos)
+
+
+def segment_count(validity, ctx: SegCtx):
+    """Per-row count of valid rows in the row's segment."""
+    return _edge_sum(validity.to(torch.int64), ctx)
+
+
+def segment_sum(values, validity, ctx: SegCtx):
+    data = torch.where(validity, values, torch.zeros_like(values))
+    if data.is_floating_point():
+        s = _take(_seg_sum_tree(data, ctx), ctx.seg_end)
+    else:
+        s = _edge_sum(data, ctx)
+    return s, segment_count(validity, ctx)
+
+
+def segment_min(values, validity, ctx: SegCtx, dtype: T.DataType):
+    if isinstance(dtype, T.FractionalType):
+        nan = torch.isnan(values)
+        data = torch.where(validity & ~nan, values,
+                           torch.full_like(values, float("inf")))
+        m = _seg_extreme(data, ctx, largest=False)
+        # all-NaN group: NaN (Spark: NaN is largest, so min skips it if it
+        # can)
+        has_non_nan = _edge_sum((validity & ~nan).to(torch.int32), ctx)
+        has_nan = _edge_sum((validity & nan).to(torch.int32), ctx)
+        return torch.where((has_non_nan == 0) & (has_nan > 0),
+                           torch.full_like(m, float("nan")), m)
+    if values.dtype == torch.bool:
+        data = torch.where(validity, values, True).to(torch.int8)
+        return _seg_extreme(data, ctx, largest=False).to(torch.bool)
+    data = torch.where(validity, values,
+                       torch.full_like(values, torch.iinfo(values.dtype).max))
+    return _seg_extreme(data, ctx, largest=False)
+
+
+def segment_max(values, validity, ctx: SegCtx, dtype: T.DataType):
+    if isinstance(dtype, T.FractionalType):
+        nan = torch.isnan(values)
+        data = torch.where(validity & ~nan, values,
+                           torch.full_like(values, float("-inf")))
+        m = _seg_extreme(data, ctx, largest=True)
+        # any NaN in the group: NaN (NaN is largest)
+        has_nan = _edge_sum((validity & nan).to(torch.int32), ctx)
+        return torch.where(has_nan > 0, torch.full_like(m, float("nan")), m)
+    if values.dtype == torch.bool:
+        data = torch.where(validity, values, False).to(torch.int8)
+        return _seg_extreme(data, ctx, largest=True).to(torch.bool)
+    data = torch.where(validity, values,
+                       torch.full_like(values, torch.iinfo(values.dtype).min))
+    return _seg_extreme(data, ctx, largest=True)
+
+
+def segment_first(values, validity, ctx: SegCtx, ignore_nulls: bool):
+    """First value of each group in sorted order; Spark First(ignoreNulls)."""
+    idx = torch.arange(ctx.capacity, dtype=torch.int32, device=values.device)
+    eligible = validity if ignore_nulls else torch.ones_like(validity)
+    cand = torch.where(eligible, idx, torch.full_like(idx, ctx.capacity))
+    pos = _seg_extreme(cand, ctx, largest=False)
+    pos_clamped = pos.clamp(0, ctx.capacity - 1)
+    return (_take(values, pos_clamped),
+            (pos < ctx.capacity) & _take(validity, pos_clamped))
+
+
+def segment_last(values, validity, ctx: SegCtx, ignore_nulls: bool):
+    """Last value of each group in sorted order; Spark Last(ignoreNulls)."""
+    idx = torch.arange(ctx.capacity, dtype=torch.int32, device=values.device)
+    eligible = validity if ignore_nulls else torch.ones_like(validity)
+    cand = torch.where(eligible, idx, torch.full_like(idx, -1))
+    pos = _seg_extreme(cand, ctx, largest=True)
+    pos_clamped = pos.clamp(0, ctx.capacity - 1)
+    return (_take(values, pos_clamped),
+            (pos > -1) & _take(validity, pos_clamped))

@@ -6,7 +6,8 @@ side builds in both packages and rows come out in the same order.
 
 A parquet scan counts the rows in its footers (cached on the node, keyed on
 the files' mtimes); a filter halves its child, an aggregate divides it by
-10, a join takes the larger side, and any other node its largest child.
+10, a join takes the larger side, a limit the smaller of its ``n`` and its
+child, and any other node its largest child.
 """
 
 from __future__ import annotations
@@ -67,6 +68,8 @@ def _estimate_rows(node, memo) -> int:
         return max(1, est(node.child) // 10)  # grouping factor
     if isinstance(node, NN.JoinNode):
         return max(est(node.left), est(node.right))
+    if isinstance(node, NN.LimitNode):
+        return min(node.n, est(node.child))
     if node.children:
         return max(est(c) for c in node.children)
     return 1 << 20

@@ -121,6 +121,24 @@ class SortNode(PlanNode):
         return 1
 
 
+class LimitNode(PlanNode):
+    """The first ``n`` rows: of each partition (a local limit), or of the
+    whole plan (a global limit, one partition)."""
+
+    def __init__(self, n: int, child: PlanNode, global_limit: bool = False):
+        super().__init__(child)
+        self.n = n
+        self.global_limit = global_limit
+
+    @property
+    def output(self):
+        return self.child.output
+
+    @property
+    def num_partitions(self):
+        return 1 if self.global_limit else self.child.num_partitions
+
+
 class JoinNode(PlanNode):
     """Equi-join (a cross join when it has no keys) with Spark null
     semantics: null keys never match. The override rules plan the ported

@@ -3,15 +3,19 @@
 Counterpart of the rules of ``spark_rapids_tpu/plan/overrides.py`` that the
 ported slices need: scan, filter, project, aggregate (``:710-770``, with the
 legacy depth-2 hoist of a child Filter/Project into the aggregation; several
-input partitions plan PARTIAL → hash exchange → FINAL), the hash exchange
-(``_hash_exchange``, ``:635-659``), the exchange node (``:901-917``) and sort
-(``:881-899``), and the equi-join (``:770-875``): a broadcast hash join over
-one fixed-point key, inner joins building the side with the smaller row
-estimate (``plan/cbo.py``). Every node, expression or shape outside the
-slices raises ``NotImplementedError`` here, while the plan is built, so
-nothing runs wrongly: range partitioning, joins on several keys or on
-strings or floats (the rank path), right and full outer joins, residual
-join conditions, keyless and cross joins (the nested-loop join) among them.
+input partitions plan PARTIAL → hash exchange → FINAL; keys of every ported
+type, on the dense or the sort-based path), the hash exchange
+(``_hash_exchange``, ``:635-659``), the exchange node (``:901-917``), sort
+(``:881-899``), limit (``conv_limit``, ``:697-705``), and the equi-join
+(``:770-875``): a broadcast hash join over one fixed-point key, inner joins
+building the side with the smaller row estimate (``plan/cbo.py``). A HAVING
+filter above an aggregate plans as a FilterExec: the reference folds it into
+the aggregate (``fuse_having``), which keeps the same rows. Every node,
+expression or shape outside the slices raises ``NotImplementedError`` here,
+while the plan is built, so nothing runs wrongly: keyless aggregates, range
+partitioning, joins on several keys or on strings or floats (the rank
+path), right and full outer joins, residual join conditions, keyless and
+cross joins (the nested-loop join) among them.
 The mesh is refused earlier, by the conf, which does not know its keys.
 There is no partial CPU fallback: the whole plan runs on the device.
 """
@@ -19,12 +23,11 @@ There is no partial CPU fallback: the whole plan runs on the device.
 from __future__ import annotations
 
 from spark_rapids_tpu_torch import config as CFG
-from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.exec import aggregate as XA
 from spark_rapids_tpu_torch.exec import basic as XB
 from spark_rapids_tpu_torch.exec import exchange as XE
 from spark_rapids_tpu_torch.exec import joins as XJ
-from spark_rapids_tpu_torch.exec.sort import SortExec
+from spark_rapids_tpu_torch.exec.sort import SortExec, _GatherAllExec
 from spark_rapids_tpu_torch.expr import core as E
 from spark_rapids_tpu_torch.expr.aggregates import AggregateFunction
 from spark_rapids_tpu_torch.expr.arithmetic import BinaryArithmetic
@@ -69,7 +72,8 @@ class TorchOverrides:
                 NN.AggregateNode: self._aggregate,
                 NN.ExchangeNode: self._exchange,
                 NN.JoinNode: self._join,
-                NN.SortNode: self._sort}.get(type(plan))
+                NN.SortNode: self._sort,
+                NN.LimitNode: self._limit}.get(type(plan))
         if conv is None:
             raise NotImplementedError(
                 f"plan node {type(plan).__name__} is not ported yet")
@@ -96,12 +100,9 @@ class TorchOverrides:
     def _aggregate(self, n, kids):
         for e in (*n.group_exprs, *n.agg_exprs):
             check_expression(e)
-        if not n.group_exprs or not all(
-                isinstance(e.dtype, (T.StringType, T.BooleanType))
-                for e in n.group_exprs):
+        if not n.group_exprs:
             raise NotImplementedError(
-                "only group-bys on string/boolean keys (the dense path) are "
-                "ported so far")
+                "aggregation without grouping keys is not ported yet")
         child = kids[0]
         # whole-stage hoist of the child Filter/Project into the
         # aggregation: the predicate masks rows there and the projection
@@ -200,3 +201,14 @@ class TorchOverrides:
         orders = [SortOrder(ascending=asc, nulls_first=nf)
                   for (_, asc, nf) in n.sort_exprs]
         return SortExec(exprs, orders, kids[0], conf=self.conf)
+
+    def _limit(self, n, kids):
+        child = kids[0]
+        if not n.global_limit:
+            return XB.LocalLimitExec(n.n, child, conf=self.conf)
+        if child.num_partitions > 1:
+            # Spark plans LocalLimit -> single-partition exchange ->
+            # GlobalLimit
+            child = _GatherAllExec(
+                XB.LocalLimitExec(n.n, child, conf=self.conf), conf=self.conf)
+        return XB.GlobalLimitExec(n.n, child, conf=self.conf)

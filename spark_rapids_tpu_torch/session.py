@@ -57,6 +57,11 @@ class DataFrame:
                       for c, a in zip(cols, ascs)]
         return DataFrame(NN.SortNode(sort_exprs, self._plan), self.session)
 
+    def limit(self, n: int) -> "DataFrame":
+        """The first ``n`` rows of the whole result (a global limit)."""
+        return DataFrame(NN.LimitNode(n, self._plan, global_limit=True),
+                         self.session)
+
     def join(self, other: "DataFrame", on=None, how: str = "inner",
              condition=None) -> "DataFrame":
         """Join on the columns named ``on`` (USING semantics: one key column

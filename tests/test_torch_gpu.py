@@ -16,7 +16,10 @@ hash_join_probe exact (build rows and flags, also on a full bucket, the
 ragged tail and int64 min in an occupied slot), the hash_join_build kernel
 bit for bit its plain version and its CPU result, and q5 over sparse
 supplier ids on the card equal to the NumPy oracle (revenue within 1e-9
-relative).
+relative). The sort-based group-by (plain torch ops, no kernel of its own)
+on the card equal to the same functions on the CPU, bit for bit, and TPC-H
+q3 and q18 at SF 0.1 on the card equal to the CPU run bit for bit and to
+the NumPy oracles (keys exact, numbers within 1e-9 relative).
 """
 
 import os
@@ -644,3 +647,135 @@ def test_radix_partition_permutation_on_card_rejects_bad_input(cuda_device):
     with pytest.raises(ValueError):
         CK.radix_partition_permutation(ids, 0)
     assert CK.launches["radix_ranks"] == before
+
+
+# -- the sort-based group-by and the TPC-H ladder on the card ----------------
+
+def _segment_columns(rng, cap: int, n: int, kind: str):
+    """A key column of ``kind`` and value columns of every type, from a
+    seed: nulls, NaN, -0.0 and 0.0, ints across their whole range."""
+    from spark_rapids_tpu_torch import types as T
+    if kind == "int64":
+        keys, kt = rng.integers(-50, 50, cap).astype(np.int64), T.LONG
+    elif kind == "float64":
+        keys = rng.choice(np.array([np.nan, -0.0, 0.0, 1.5, -2.25, 7.0]),
+                          cap)
+        kt = T.DOUBLE
+    else:
+        keys, kt = rng.integers(0, 5, cap).astype(np.int32), T.STRING
+    kvalid = (rng.random(cap) >= 0.1) & (np.arange(cap) < n)
+    keys[~kvalid] = 0
+    floats = rng.normal(0, 100, cap)
+    floats[rng.random(cap) < 0.05] = np.nan
+    floats[rng.random(cap) < 0.05] = -0.0
+    values = [(rng.integers(-2**63, 2**63 - 1, cap, dtype=np.int64,
+                            endpoint=True), T.LONG),
+              (rng.integers(-2**31, 2**31, cap).astype(np.int32), T.INT),
+              (floats, T.DOUBLE), (rng.random(cap) < 0.5, T.BOOLEAN)]
+    out = []
+    for v, t in values:
+        valid = (rng.random(cap) >= 0.15) & (np.arange(cap) < n)
+        v = v.copy()
+        v[~valid] = 0
+        out.append((v, valid, t))
+    return (keys, kvalid, kt), out
+
+
+def _segment_results(key, values, n: int, cap: int, dev,
+                     presorted: bool = False):
+    from spark_rapids_tpu_torch.expr.core import Col
+    from spark_rapids_tpu_torch.ops import grouping as G
+
+    def col(v, m, t):
+        return Col(torch.from_numpy(v).to(dev), torch.from_numpy(m).to(dev),
+                   t)
+    perm, ids, bnd, live = G.group_segments([col(*key)], n, cap,
+                                            presorted=presorted)
+    ctx = G.segment_structure(ids, cap)
+    out = [perm, ids, bnd, live, ctx.seg_start, ctx.seg_end]
+    for v, m, t in values:
+        c = col(v, m, t)
+        out.append(G.segment_count(c.validity, ctx))
+        if t.torch_dtype != torch.bool:
+            out.extend(G.segment_sum(c.values, c.validity, ctx))
+        out.append(G.segment_min(c.values, c.validity, ctx, t))
+        out.append(G.segment_max(c.values, c.validity, ctx, t))
+        for ign in (False, True):
+            out.extend(G.segment_first(c.values, c.validity, ctx, ign))
+            out.extend(G.segment_last(c.values, c.validity, ctx, ign))
+    return [o.cpu() for o in out]
+
+
+def _bits(t):
+    return t.view(torch.int64) if t.dtype == torch.float64 else t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["int64", "float64", "string"])
+@pytest.mark.parametrize("cap", [8, 4096, 1 << 20])
+def test_segment_functions_on_card_equal_cpu(cuda_device, cap, kind):
+    """Every segment function and the float range-sum tree: the card's
+    results equal the CPU's bit for bit, padding rows included."""
+    rng = np.random.default_rng([cap, len(kind)])
+    for n in (0, cap * 3 // 4, cap):
+        key, values = _segment_columns(rng, cap, n, kind)
+        card = _segment_results(key, values, n, cap, cuda_device)
+        cpu = _segment_results(key, values, n, cap, "cpu")
+        for i, (a, b) in enumerate(zip(card, cpu)):
+            assert a.dtype == b.dtype and torch.equal(_bits(a), _bits(b)), \
+                (n, i)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", [1 << 17, 1 << 20])
+def test_presorted_segments_on_card(cuda_device, cap):
+    """Sorted int64 keys with no null: skipping the sort gives the sorted
+    result on the card."""
+    from spark_rapids_tpu_torch import types as T
+    rng = np.random.default_rng(cap)
+    n = cap - 5
+    keys = np.zeros(cap, np.int64)
+    keys[:n] = np.sort(rng.integers(0, cap // 4, n))
+    kvalid = np.arange(cap) < n
+    _key, values = _segment_columns(rng, cap, n, "int64")
+    a = _segment_results((keys, kvalid, T.LONG), values, n, cap,
+                         cuda_device)
+    b = _segment_results((keys, kvalid, T.LONG), values, n, cap,
+                         cuda_device, presorted=True)
+    for x, y in zip(a, b):
+        assert torch.equal(_bits(x), _bits(y))
+
+
+@pytest.fixture(scope="module")
+def ladder_paths(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    return tpch.generate(0.1, str(tmp_path_factory.mktemp("tpch_sf0.1")))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q", ["q3", "q18"])
+def test_ladder_query_on_card(cuda_device, ladder_paths, q):
+    """q3 and q18 at SF 0.1 on the card: the CPU run's rows bit for bit,
+    and the NumPy oracle (q18 has 3 rows at SF 0.1)."""
+    import datetime
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    from spark_rapids_tpu_torch.session import TorchSession
+    card = tpch.QUERIES[q](tpch.load(TorchSession(), ladder_paths)) \
+        .collect().to_pylist()
+    cpu = tpch.QUERIES[q](tpch.load(TorchSession(device="cpu"),
+                                    ladder_paths)).collect().to_pylist()
+    assert card == cpu
+    exp = getattr(tpch, "np_" + q)(tpch.load_np(ladder_paths))
+    assert len(card) == len(exp) == (10 if q == "q3" else 3)
+    epoch = datetime.date(1970, 1, 1)
+    for g, e in zip(card, exp):
+        g = [(v - epoch).days if isinstance(v, datetime.date) else v
+             for v in g.values()]
+        if q == "q3":
+            assert g[:3] == list(e[:3])
+            assert g[3] == pytest.approx(e[3], rel=1e-9)
+        else:
+            assert g[:3] == list(e[:3])
+            assert g[3:] == pytest.approx(list(e[3:]), rel=1e-9)
