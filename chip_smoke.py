@@ -15,8 +15,8 @@ It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
    bitunpack128 (the chunk decode kernel over one page, no dictionary)
    exactly, at every bit width 1..32 for n = 20,000 (a parquet page) and
    n = 2^20; the chunk decode exactly (values and validity) on every
-   dictionary column chunk of the TPC-H q1 scan, and against the per-page
-   route it replaced;
+   dictionary column chunk of the TPC-H q1 scan (the 7 lineitem columns
+   q1 reads), and against the per-page route it replaced;
    onehot_sum_f32 (the one-request call of the fused count launch) exactly
    on 0/1 values and within 1e-5 of each bucket's sum of magnitudes on
    other float32 values (atomics add in a changing order), at q1's batch
@@ -33,8 +33,9 @@ It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
    slot;
    hash_join_build bit for bit (tables and ok) at 16,384 keys in 4,096
    buckets: unique, overfull, duplicate and ineligible keys;
-4. runs seven TPC-H paths at scale factor ``--sf`` (data generated from the
-   fixed seed into build/) through ``TorchSession()`` on the card:
+4. runs ten TPC-H paths at scale factor ``--sf`` (data generated from the
+   fixed seed into build/) through ``TorchSession()`` on the card, every
+   scan pruned to the columns its query reads:
    q1 (the table directory as one partition: scan, COMPLETE aggregate,
    sort), q1-files (one partition per file: PARTIAL aggregate, hash
    exchange on the keys, AQE reader, FINAL aggregate), q1-repartition
@@ -47,16 +48,21 @@ It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
    group-by on three integer keys, the sort and ``limit(10)``) and q18 (the
    sort-based group-by of all of lineitem on ``l_orderkey``, whose batches
    arrive sorted and skip the sort, a HAVING filter, two joins, the sort
-   and ``limit(100)``). Each path has one run with the
+   and ``limit(100)``), and the official q1, q3 and q5 SQL text through
+   ``spark.sql`` over the tables' temp views (sql-q1, sql-q3, sql-q5; q5's
+   ``c_nationkey = s_nationkey`` is a second key of the customer join,
+   which takes the rank path). Each path has one run with the
    launch counts reset just before and read just after (every kernel of
    the path must have launched: the chunk decode once per dictionary chunk
-   of the q1 scan, and on q3 and q18 of the lineitem, orders and customer
-   scans, the count kernel once per aggregate batch with
+   of the columns its scans read (the pruned census; each scan prints its
+   columns and must read exactly its query's, ``Q_TABLES``), the count
+   kernel once per aggregate batch with
    count-like requests, murmur3_words twice and the radix permutation once
    per batch an exchange partitioned, hash_join_probe never on q5, on
    q5-sparse hash_join_build once per hash build and radix_ranks never,
-   and on q3 and q18 no kernel but the chunk decode),
-   and its peak device memory; each join prints its build side, probe
+   on q3, q18 and sql-q3 no kernel but the chunk decode, and on sql-q5 one
+   rank join on two keys),
+   and its peak device memory; each join prints its keys, build side, probe
    mode, build rows and buckets; each aggregate its mode, its update and
    merge batches, how many took the sort-based path and skipped the sort,
    its group counts, its host seconds and host syncs; q3 and q18 their
@@ -412,29 +418,74 @@ def onehot_check(vals, codes, n_domain: int, exact: bool) -> float:
     return err
 
 
-def chunk_census(*table_dirs: str):
-    """Every column chunk of the tables' scans that the device decode takes
-    (a dictionary chunk; the scans read every column), read on the host
-    exactly as the scan reads it: [(ChunkPages, capacity)], and the count
-    of their data pages."""
+def chunk_census(table_columns: dict):
+    """Every column chunk that the device decode takes (a dictionary chunk)
+    of the named columns of each table directory (``{dir: columns}``, the
+    columns a pruned scan reads), read on the host exactly as the scan reads
+    it: [(ChunkPages, capacity)], and the count of their data pages."""
     import pyarrow.parquet as pq
     from spark_rapids_tpu_torch.columnar.vector import bucket_capacity
     from spark_rapids_tpu_torch.io import parquet_native as PN
     chunks, pages = [], 0
-    files = [os.path.join(d, f) for d in table_dirs
-             for f in sorted(os.listdir(d)) if f.endswith(".parquet")]
-    for path in files:
-        md = pq.ParquetFile(path).metadata
-        for rg in range(md.num_row_groups):
-            cap = bucket_capacity(max(md.row_group(rg).num_rows, 1))
-            for ci in range(md.num_columns):
-                try:
-                    chunk = PN.read_chunk_pages(path, rg, ci, md=md)
-                except NotImplementedError:
-                    continue      # arrow fallback column: no kernel
-                chunks.append((chunk, cap))
-                pages += len(chunk.index_segments)
+    for d, columns in table_columns.items():
+        for f in sorted(os.listdir(d)):
+            if not f.endswith(".parquet"):
+                continue
+            path = os.path.join(d, f)
+            md = pq.ParquetFile(path).metadata
+            for rg in range(md.num_row_groups):
+                cap = bucket_capacity(max(md.row_group(rg).num_rows, 1))
+                for ci in range(md.num_columns):
+                    if md.schema.column(ci).path not in columns:
+                        continue
+                    try:
+                        chunk = PN.read_chunk_pages(path, rg, ci, md=md)
+                    except NotImplementedError:
+                        continue      # arrow fallback column: no kernel
+                    chunks.append((chunk, cap))
+                    pages += len(chunk.index_segments)
     return chunks, pages
+
+
+# the columns each TPC-H query reads of each table: the port's copy of
+# bench.py's Q_TABLES, which the JAX package's pruned plans read
+Q_TABLES = {
+    "q1": {"lineitem": ["l_discount", "l_extendedprice", "l_linestatus",
+                        "l_quantity", "l_returnflag", "l_shipdate", "l_tax"]},
+    "q3": {"customer": ["c_custkey", "c_mktsegment"],
+           "orders": ["o_custkey", "o_orderdate", "o_orderkey",
+                      "o_shippriority"],
+           "lineitem": ["l_discount", "l_extendedprice", "l_orderkey",
+                        "l_shipdate"]},
+    "q5": {"customer": ["c_custkey", "c_nationkey"],
+           "orders": ["o_custkey", "o_orderdate", "o_orderkey"],
+           "lineitem": ["l_discount", "l_extendedprice", "l_orderkey",
+                        "l_suppkey"],
+           "supplier": ["s_nationkey", "s_suppkey"],
+           "nation": ["n_name", "n_nationkey", "n_regionkey"],
+           "region": ["r_name", "r_regionkey"]},
+    "q18": {"customer": ["c_custkey"],
+            "orders": ["o_custkey", "o_orderdate", "o_orderkey",
+                       "o_totalprice"],
+            "lineitem": ["l_orderkey", "l_quantity"]},
+}
+# the TPC-H query each path answers
+QUERY_OF = {"q1": "q1", "q1-files": "q1", "q1-repartition": "q1",
+            "q5": "q5", "q5-sparse": "q5", "q3": "q3", "q18": "q18",
+            "sql-q1": "q1", "sql-q3": "q3", "sql-q5": "q5"}
+
+
+def scans(plan) -> list:
+    """``(table, column names)`` of each file scan of an exec tree, top
+    down; the table is the directory of the scan's files."""
+    from spark_rapids_tpu_torch.io.filescan import FileSourceScanExec
+    if isinstance(plan, FileSourceScanExec):
+        dirs = {os.path.dirname(p) for part in plan.node.partitions
+                for p in part.paths}
+        if len(dirs) != 1:
+            raise AssertionError(f"a scan over several directories {dirs}")
+        return [(dirs.pop(), plan.output.names)]
+    return [s for c in plan.children for s in scans(c)]
 
 
 def per_page_route(chunk, capacity: int, device):
@@ -1093,10 +1144,11 @@ def main() -> int:
     print(f"data: sf={args.sf:g} at {data_dir} in "
           f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    census, census_pages = chunk_census(paths["lineitem"])
-    print(f"census: {len(census)} dictionary chunks (one chunk decode "
-          f"launch each) holding {census_pages} data pages, "
-          f"{time.perf_counter() - t0:.1f} s")
+    census, census_pages = chunk_census(
+        {paths["lineitem"]: Q_TABLES["q1"]["lineitem"]})
+    print(f"census: {len(census)} dictionary chunks of the 7 lineitem "
+          f"columns q1 reads (one chunk decode launch each) holding "
+          f"{census_pages} data pages, {time.perf_counter() - t0:.1f} s")
     if not census:
         raise AssertionError("the q1 scan has no chunk for the chunk decode")
     # each chunk packed and on the card, as the scan hands it to the kernel
@@ -1162,14 +1214,20 @@ def main() -> int:
           f"wall")
     del dev_chunks
 
-    # -- 4. the five paths through the session on the card -----------------
+    # -- 4. the ten paths through the session on the card ------------------
     spark = TorchSession(
         {} if args.map_threads is None else
         {"spark.rapids.tpu.sql.localScheduler.numThreads": args.map_threads})
     exp_q1 = tpch.np_q1(tpch.load_np({"lineitem": paths["lineitem"]}))
     tb = tpch.load_np(paths)
     exp_q5 = tpch.np_q5(tb)
+    tpch_columns = {t: list(cols) for t, cols in tb.items()}
     li_dir = paths["lineitem"]
+
+    def sql(spark, q):
+        from spark_rapids_tpu_torch.sql.tpch_queries import SQL_QUERIES
+        tpch.load(spark, paths)       # registers the tables as temp views
+        return spark.sql(SQL_QUERIES[q])
     li_files = sorted(os.path.join(li_dir, f) for f in os.listdir(li_dir)
                       if f.endswith(".parquet"))
     all_paths = {
@@ -1189,28 +1247,38 @@ def main() -> int:
         "q3": lambda: tpch.q3(tpch.load(spark, paths)),
         # the sort-based group-by of all of lineitem, HAVING, two joins
         "q18": lambda: tpch.q18(tpch.load(spark, paths)),
+        # the official SQL text through spark.sql over the temp views that
+        # tpch.load registers: q1 as the q1 path; q3 as the q3 path; q5
+        # with c_nationkey = s_nationkey as a second key of the customer
+        # join, which takes the rank path
+        "sql-q1": lambda: sql(spark, "q1"),
+        "sql-q3": lambda: sql(spark, "q3"),
+        "sql-q5": lambda: sql(spark, "q5"),
     }
     q1_labels = ("q1", "q1-files", "q1-repartition")
-    ladder_labels = ("q3", "q18")
+    ladder_labels = ("q3", "q18", "sql-q3")
     exp_ladder = {"q3": tpch.np_q3(tb), "q18": tpch.np_q18(tb)}
     del tb
     print(f"q18 oracle: {len(exp_ladder['q18'])} rows at sf={args.sf:g}")
-    # the dictionary chunks of the three tables q3 and q18 scan (every
-    # column of lineitem, orders and customer): one chunk decode each
-    t0 = time.perf_counter()
-    ladder_chunks = len(census) + sum(
-        len(chunk_census(paths[t])[0]) for t in ("orders", "customer"))
-    print(f"census: {ladder_chunks} dictionary chunks in the lineitem, "
-          f"orders and customer scans of q3 and q18, "
-          f"{time.perf_counter() - t0:.1f} s")
+    # the pruned census: the dictionary chunks of the columns a scan of
+    # each table reads in each query, one chunk decode each
+    table_dirs = {os.path.normpath(p): t for t, p in paths.items()}
+    census_memo = {}
+
+    def scan_chunks(table, columns) -> int:
+        key = (table, tuple(sorted(columns)))
+        if key not in census_memo:
+            census_memo[key] = len(chunk_census(
+                {paths[table]: list(columns)})[0])
+        return census_memo[key]
 
     def check(label, res):
-        if label in q1_labels:
+        q = QUERY_OF[label]
+        if q == "q1":
             check_q1(res.to_pylist(), exp_q1)
-        elif label == "q3":
-            check_q3(res.to_pylist(), exp_ladder["q3"])
-        elif label == "q18":
-            check_q18(res.to_pylist(), exp_ladder["q18"])
+        elif q in ("q3", "q18"):
+            (check_q3 if q == "q3" else check_q18)(res.to_pylist(),
+                                                    exp_ladder[q])
         else:
             check_q5(res.to_pylist(), exp_q5)
     exchange_kernels = ("bitunpack128", "onehot_sum_f32", "murmur3_words",
@@ -1221,7 +1289,10 @@ def main() -> int:
                     "q5": ("bitunpack128", "onehot_sum_f32"),
                     "q5-sparse": ("bitunpack128", "onehot_sum_f32",
                                   "hash_join_build", "hash_join_probe"),
-                    "q3": ("bitunpack128",), "q18": ("bitunpack128",)}
+                    "q3": ("bitunpack128",), "q18": ("bitunpack128",),
+                    "sql-q1": ("bitunpack128", "onehot_sum_f32"),
+                    "sql-q3": ("bitunpack128",),
+                    "sql-q5": ("bitunpack128", "onehot_sum_f32")}
     # the dense aggregate's batches, counted beside the launches: each batch
     # with count-like requests is one count launch (at most
     # ONEHOT_MAX_REQUESTS distinct requests each)
@@ -1265,14 +1336,29 @@ def main() -> int:
                 f"but the count kernel launched {counts['onehot_sum_f32']} "
                 f"times (want one launch a batch)")
         batches_by_path[label] = count_batches
+        # every scan reads exactly the query's columns of its table, and
+        # the chunk decode launches once per dictionary chunk of them
+        want_chunks = 0
+        for d, cols in scans(plan):
+            table = table_dirs[os.path.normpath(d)]
+            want = Q_TABLES[QUERY_OF[label]].get(table)
+            n = scan_chunks(table, cols)
+            print(f"{label} scan {table}: read {len(cols)} of "
+                  f"{len(tpch_columns[table])} columns {cols}; {n} "
+                  f"dictionary chunks")
+            if want is None or sorted(cols) != sorted(want):
+                raise AssertionError(
+                    f"{label}: the {table} scan read {cols}, the query "
+                    f"reads {want}")
+            want_chunks += n
+        if counts["bitunpack128"] != want_chunks:
+            raise AssertionError(
+                f"{label}: the chunk decode launched "
+                f"{counts['bitunpack128']} times, the pruned scans have "
+                f"{want_chunks} dictionary chunks")
         exs = exchanges(plan)
         batches = sum(e.map_batches for e in exs)
         if label in q1_labels:
-            if counts["bitunpack128"] != len(census):
-                raise AssertionError(
-                    f"{label}: the chunk decode launched "
-                    f"{counts['bitunpack128']} times, the scan has "
-                    f"{len(census)} dictionary chunks")
             if (counts["murmur3_words"] != 2 * batches
                     or counts["radix_ranks"] != batches):
                 raise AssertionError(
@@ -1302,12 +1388,16 @@ def main() -> int:
                     f"launched {counts['hash_join_build']} and radix_ranks "
                     f"{counts['radix_ranks']} times (want one build launch "
                     f"a hash build and no radix_ranks)")
-        if label in ladder_labels:
-            if counts["bitunpack128"] != ladder_chunks:
+        if label == "sql-q5":
+            ranked = [j for j in js if j.stats["probe_mode"] == "rank"]
+            if (len(ranked) != 1 or len(ranked[0].left_keys) != 2
+                    or any(len(j.left_keys) != 1 for j in js
+                           if j is not ranked[0])):
                 raise AssertionError(
-                    f"{label}: the chunk decode launched "
-                    f"{counts['bitunpack128']} times, its scans have "
-                    f"{ladder_chunks} dictionary chunks")
+                    f"sql-q5: want one rank join on two keys and single-key "
+                    f"joins elsewhere; joins "
+                    f"{[(j.stats['probe_mode'], len(j.left_keys)) for j in js]}")
+        if label in ladder_labels:
             others = {k: v for k, v in counts.items()
                       if k != "bitunpack128" and v}
             if others:
@@ -1348,7 +1438,11 @@ def main() -> int:
                   f"included")
         for j in js:
             st = j.stats
-            print(f"{label} join {j.join_type}: build {j.build_side} "
+            keys = " and ".join(
+                f"{lk.name} = {rk.name}"
+                for lk, rk in zip(j.left_keys, j.right_keys))
+            print(f"{label} join {j.join_type} on {keys}: build "
+                  f"{j.build_side} "
                   f"{j.exchange.output.names}, {st['build_rows']} rows, "
                   f"probe mode {st['probe_mode']}, buckets "
                   f"{st['hash_buckets']}, hash builds refused "

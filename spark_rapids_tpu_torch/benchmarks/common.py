@@ -35,9 +35,14 @@ def write_partitioned(outdir: str, name: str, table: pa.Table,
 
 
 def load(spark, paths: dict, files_per_partition: int = 2) -> dict:
-    return {name: spark.read_parquet(p,
-                                     files_per_partition=files_per_partition)
-            for name, p in paths.items()}
+    """One DataFrame per table, each also registered as a temp view of its
+    name, so that ``spark.sql`` can read it."""
+    dfs = {name: spark.read_parquet(p,
+                                    files_per_partition=files_per_partition)
+           for name, p in paths.items()}
+    for name, df in dfs.items():
+        spark.create_or_replace_temp_view(name, df)
+    return dfs
 
 
 def read_np(path, columns=None):

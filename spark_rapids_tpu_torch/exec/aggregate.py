@@ -224,10 +224,23 @@ class HashAggregateExec(TorchExec):
             if merge:
                 outs = f.merge(in_order(ctx.cols[off:off + nstates]), segctx)
             else:
-                outs = f.update(in_order([f.child.eval(ctx)])[0], segctx)
+                outs = f.update(in_order([self._input(f, ctx)])[0], segctx)
             off += nstates
             state_cols.extend(outs)
         return (*compact_cols(sorted_keys + state_cols, boundary), True)
+
+    @staticmethod
+    def _input(f, ctx: EvalContext) -> Col:
+        """An aggregate's raw input column; COUNT(*) (no child) counts a
+        placeholder that is valid on every row, which the segment path's
+        gather then masks to the live rows."""
+        if f.child is None:
+            dev = ctx.device
+            return Col(torch.zeros((ctx.capacity,), dtype=torch.int32,
+                                   device=dev),
+                       torch.ones((ctx.capacity,), dtype=torch.bool,
+                                  device=dev), T.INT)
+        return f.child.eval(ctx)
 
     def _agg_dense(self, ctx: EvalContext, merge: bool, key_cols,
                    live_mask=None):
@@ -275,6 +288,14 @@ class HashAggregateExec(TorchExec):
                 nstates = len(f.state_types)
                 if merge:
                     ins = [ctx.cols[off + i] for i in range(nstates)]
+                elif f.child is None:
+                    # COUNT(*): the rows per group (non-live rows carry the
+                    # code D, so a count of every row reads only the codes)
+                    off += nstates
+                    s = gsum(None, None, torch.int64, count_like=True)
+                    state_cols.append(Col(
+                        s, torch.ones_like(s, dtype=torch.bool), T.LONG))
+                    continue
                 else:
                     ins = [eval_child(f.child)]
                 off += nstates

@@ -1,11 +1,12 @@
-"""Equi-join execs over one fixed-point key — counterpart of
-``spark_rapids_tpu/exec/joins.py`` (``_int_backed``, ``_emit_pairs``, the
-single-key build and probe of ``_JoinCore``, ``HashJoinExec`` and
-``BroadcastHashJoinExec``; reference GpuHashJoin, GpuBroadcastHashJoinExec).
+"""Equi-join execs — counterpart of ``spark_rapids_tpu/exec/joins.py``
+(``_int_backed``, ``_align_string_keys``, ``_emit_pairs``, the build and the
+probes of ``_JoinCore``, ``HashJoinExec`` and ``BroadcastHashJoinExec``;
+reference GpuHashJoin, GpuBroadcastHashJoinExec).
 
-The build side is one device batch. ``_JoinCore`` evaluates its key once and
-picks a probe mode in the reference's order for a backend where scatters are
-cheap (``runtime/hw.scatters_cheap`` is true off the TPU, so on a GPU):
+The build side is one device batch. ``_JoinCore`` evaluates its keys once.
+One fixed-point key (``fast``) picks a probe mode in the reference's order
+for a backend where scatters are cheap (``runtime/hw.scatters_cheap`` is
+true off the TPU, so on a GPU):
 
 1. build stats: the least and greatest eligible key (one host sync);
 2. ``dense``: a direct-address table over the key range, when the range fits
@@ -19,17 +20,23 @@ cheap (``runtime/hw.scatters_cheap`` is true off the TPU, so on a GPU):
    one ``searchsorted`` and a compare for unique keys, two for the general
    case.
 
+Several keys, or one string or double key, take the ``rank`` path (the
+reference's ``_probe_batch_eager``): per stream batch, string keys are
+remapped onto one dictionary of both sides (``_align_string_keys``), the
+build's and the batch's key rows are ranked together by one multi-operand
+sort (``ops/joining.join_ranks``), and the sorted build ranks are probed by
+two ``searchsorted`` (``ops/joining.probe``).
+
 Each stream batch probes on the device and gives each row a range
 ``[lo, hi)`` of build positions; ``_emit_pairs`` syncs the pair count once
 per stream batch and expands the pairs in chunks, in stream order, so every
 mode emits the rows in the same order.
 
-Not ported (the planner refuses them, ``plan/overrides.py``): several keys
-and keys that are not fixed-point (the rank path), right and full outer
-joins (matched-build tracking), residual conditions, keyless and cross joins
-(the nested-loop join), and the shuffled/mesh route. The reference's probe
-chain fusion and its stream prefilter/preproject hoist change no result and
-are not ported either.
+Not ported (the planner refuses them, ``plan/overrides.py``): right and full
+outer joins (matched-build tracking, ``track_matched``), residual
+conditions, keyless and cross joins (the nested-loop join), and the
+shuffled/mesh route. The reference's probe chain fusion and its stream
+prefilter/preproject hoist change no result and are not ported either.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from spark_rapids_tpu_torch.expr.core import (Col, EvalContext,
 from spark_rapids_tpu_torch.ops import cuda_kernels as CK
 from spark_rapids_tpu_torch.ops import joining as J
 from spark_rapids_tpu_torch.ops.filtering import gather_cols
+from spark_rapids_tpu_torch.ops.strings import align_many
 
 # max pairs expanded per output chunk (the JoinGatherer row-target analog)
 _MAX_CHUNK_ROWS = 1 << 20
@@ -57,6 +65,18 @@ def _int_backed(dtype) -> bool:
     comparisons (unlike string codes, which compare only under one shared
     dictionary, or floats, which need NaN totalization)."""
     return isinstance(dtype, (T.IntegralType, T.BooleanType, T.DateType))
+
+
+def _align_string_keys(build_keys, stream_keys):
+    """Remap each string key pair onto the sorted union of its two
+    dictionaries, so that equal codes are equal strings."""
+    out_b, out_s = [], []
+    for b, s in zip(build_keys, stream_keys):
+        if b.is_string:
+            b, s = align_many([b, s])
+        out_b.append(b)
+        out_s.append(s)
+    return out_b, out_s
 
 
 def _key_values(k: Col) -> torch.Tensor:
@@ -90,29 +110,29 @@ def _emit_pairs(join_type, stream_is_left, stream_batch, build_batch,
 
 
 class _JoinCore:
-    """Probe machinery over one materialized build batch and one
-    fixed-point key (module docstring: the build order and the modes)."""
+    """Probe machinery over one materialized build batch (module docstring:
+    the build order and the modes)."""
 
     def __init__(self, build_batch: ColumnarBatch, build_key_exprs,
                  stream_key_exprs, join_type: str, device):
-        if len(build_key_exprs) != 1 or not _int_backed(
-                build_key_exprs[0].dtype):
-            raise NotImplementedError(
-                "joins on several keys or on a key that is not fixed-point "
-                "(the rank path) are not ported yet")
         self.device = torch.device(device)
         self.stream_key_exprs = stream_key_exprs
         self.join_type = join_type
         bctx = EvalContext.from_batch(build_batch, self.device)
         self.build_keys_raw = [e.eval(bctx) for e in build_key_exprs]
         self.n_build = build_batch.num_rows
-        #: the reference's name of the probe mode ("hash" is "pallas_hash")
-        self.probe_mode = None
+        self.build_cap = build_batch.capacity
+        #: the reference's name of the probe mode ("hash" is "pallas_hash";
+        #: "rank" is the multi-key path)
+        self.probe_mode = "rank"
         self.hash_buckets = 0
         #: True when a hash build returned ok=False and the sorted modes took
         #: over (the reference's own contract, not a fallback)
         self.hash_refused = False
-        self._prep_fast_build()
+        self.fast = (len(self.build_keys_raw) == 1
+                     and _int_backed(self.build_keys_raw[0].dtype))
+        if self.fast:
+            self._prep_fast_build()
 
     def _prep_fast_build(self):
         k = self.build_keys_raw[0]
@@ -199,6 +219,8 @@ class _JoinCore:
     def probe_batch(self, stream_batch: ColumnarBatch):
         """``(build_perm, lo, hi, counts, total)`` for one stream batch, all
         on the device."""
+        if not self.fast:
+            return self._probe_batch_ranks(stream_batch)
         sctx = EvalContext.from_batch(stream_batch, self.device)
         k = self.stream_key_exprs[0].eval(sctx)
         svals = _key_values(k)
@@ -241,6 +263,24 @@ class _JoinCore:
                 hi = torch.where(k.validity & live, hi, lo)
         counts = J.pair_counts(lo, hi, n_stream, scap, self.join_type)
         return self._build_perm, lo, hi, counts, J.total_pairs(counts)
+
+
+    def _probe_batch_ranks(self, stream_batch: ColumnarBatch):
+        """The rank path (reference ``_probe_batch_eager``): the build's and
+        the batch's keys ranked together, then the sorted build ranks
+        probed."""
+        sctx = EvalContext.from_batch(stream_batch, self.device)
+        stream_keys = [e.eval(sctx) for e in self.stream_key_exprs]
+        build_keys, stream_keys = _align_string_keys(self.build_keys_raw,
+                                                     stream_keys)
+        n_stream = stream_batch.num_rows
+        b_ranks, s_ranks = J.join_ranks(
+            build_keys, self.n_build, self.build_cap,
+            stream_keys, n_stream, stream_batch.capacity)
+        build_perm, lo, hi = J.probe(b_ranks, s_ranks)
+        counts = J.pair_counts(lo, hi, n_stream, stream_batch.capacity,
+                               self.join_type)
+        return build_perm, lo, hi, counts, J.total_pairs(counts)
 
 
 def _direct_table(rel, dsize: int, cap: int):

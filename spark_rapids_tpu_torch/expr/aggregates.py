@@ -10,8 +10,8 @@ Sum, Count and Average by its own route.
 
 Null semantics: COUNT(x) counts non-nulls and is never null; SUM, AVG, MIN
 and MAX ignore nulls and are null iff no input was non-null; SUM of
-integrals is long, of doubles double; AVG is double. COUNT(*) and the
-decimal types are not ported yet.
+integrals is long, of doubles double; AVG is double; COUNT(*) counts rows.
+The decimal types are not ported yet.
 """
 
 from __future__ import annotations
@@ -27,17 +27,17 @@ class AggregateFunction(Expression):
     """Declarative aggregate. ``state_types`` names the partial-state columns."""
 
     def __init__(self, child: Expression | None):
-        if child is None:
+        if child is None and not isinstance(self, Count):
             raise NotImplementedError(
                 f"{type(self).__name__.lower()}(*) is not ported yet")
-        self.children = [child]
+        self.children = [child] if child is not None else []
 
     @property
     def child(self):
-        return self.children[0]
+        return self.children[0] if self.children else None
 
     def with_children(self, children):
-        return type(self)(children[0])
+        return type(self)(children[0] if children else None)
 
     @property
     def state_types(self) -> list:
@@ -95,7 +95,9 @@ class Sum(AggregateFunction):
 
 
 class Count(AggregateFunction):
-    """COUNT(expr) counts non-null rows."""
+    """COUNT(expr) counts non-null rows; COUNT(*) (child None) counts rows:
+    the exec passes a placeholder column whose validity is the row's
+    liveness."""
 
     @property
     def dtype(self):
@@ -122,6 +124,9 @@ class Count(AggregateFunction):
 
     def evaluate(self, state_cols):
         return state_cols[0]
+
+    def __repr__(self):
+        return f"count({self.child!r})" if self.children else "count(*)"
 
 
 class _Extreme(AggregateFunction):

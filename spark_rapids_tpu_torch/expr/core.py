@@ -4,8 +4,8 @@ Counterpart of ``spark_rapids_tpu/expr/core.py``. ``Expression.eval`` runs
 eager torch ops over a ``Col`` (values + validity). Null semantics are
 Spark's: null in, null out for arithmetic and comparisons, Kleene AND.
 
-Only the expressions of the ported slices (TPC-H q1 and q5) exist; the
-operators that would build any other expression raise
+Only the expressions of the ported slices (the TPC-H ladder and its SQL
+text) exist; the operators that would build any other expression raise
 ``NotImplementedError`` where the expression is built.
 """
 
@@ -152,17 +152,20 @@ class Expression:
         from spark_rapids_tpu_torch.expr.predicates import And
         return self._bin(other, And)
 
-    # the JAX package builds these expressions; the port has not ported them,
-    # and falling back to Python's defaults would silently mean identity
     def __ne__(self, other):
-        _not_ported("NotEqual")
+        from spark_rapids_tpu_torch.expr.predicates import NotEqual
+        return self._bin(other, NotEqual)
 
     def __or__(self, other):
-        _not_ported("Or")
+        from spark_rapids_tpu_torch.expr.predicates import Or
+        return self._bin(other, Or)
 
     def __invert__(self):
-        _not_ported("Not")
+        from spark_rapids_tpu_torch.expr.predicates import Not
+        return Not(self)
 
+    # the JAX package builds these expressions; the port has not ported them,
+    # and falling back to Python's defaults would silently mean identity
     def __truediv__(self, other):
         _not_ported("Divide")
 

@@ -1,14 +1,15 @@
 """Comparison and boolean predicates with Spark three-valued logic.
 
-Counterpart of ``spark_rapids_tpu/expr/predicates.py``: EqualTo, LessThan,
-LessThanOrEqual, GreaterThan, GreaterThanOrEqual and And. Spark float
+Counterpart of ``spark_rapids_tpu/expr/predicates.py``: EqualTo, NotEqual,
+LessThan, LessThanOrEqual, GreaterThan, GreaterThanOrEqual, the Kleene And,
+Or and Not, and In over a literal list (with InSet, its sorted form). Spark float
 comparison: NaN is greater than every other value and equal to itself;
 -0.0 == 0.0. Integers of different widths compare in the wider type.
 
 String comparisons run over dictionary codes after both sides are remapped
 onto one sorted union dictionary (order-preserving), so a comparison of
 codes is the comparison of the strings; a string literal is a one-entry
-dictionary. Or, Not, In and NotEqual are not ported.
+dictionary. EqualNullSafe is not ported.
 """
 
 from __future__ import annotations
@@ -129,6 +130,14 @@ class GreaterThanOrEqual(BinaryComparison):
         return _float_total(rv, lv, "le") if is_float else lv >= rv
 
 
+class NotEqual(BinaryComparison):
+    symbol = "!="
+
+    def compare(self, lv, rv, is_float):
+        eq = _float_total(lv, rv, "eq") if is_float else lv == rv
+        return ~eq
+
+
 class And(Expression):
     """Kleene AND: F & x = F; T & null = null."""
 
@@ -155,3 +164,101 @@ class And(Expression):
 
     def __repr__(self):
         return f"({self.children[0]!r} AND {self.children[1]!r})"
+
+
+class Or(Expression):
+    """Kleene OR: T | x = T; F | null = null."""
+
+    def __init__(self, left, right):
+        self.children = [left, right]
+
+    @property
+    def dtype(self):
+        return T.BOOLEAN
+
+    def with_children(self, children):
+        return Or(children[0], children[1])
+
+    def eval(self, ctx):
+        l = self.children[0].eval(ctx)
+        r = self.children[1].eval(ctx)
+        true_l = l.validity & l.values
+        true_r = r.validity & r.values
+        vals = true_l | true_r
+        validity = (l.validity & r.validity) | true_l | true_r
+        return Col(vals & validity, validity, T.BOOLEAN)
+
+    def __repr__(self):
+        return f"({self.children[0]!r} OR {self.children[1]!r})"
+
+
+class Not(Expression):
+    def __init__(self, child):
+        self.children = [child]
+
+    @property
+    def dtype(self):
+        return T.BOOLEAN
+
+    def with_children(self, children):
+        return Not(children[0])
+
+    def eval(self, ctx):
+        c = self.children[0].eval(ctx)
+        return Col(~c.values & c.validity, c.validity, T.BOOLEAN)
+
+    def __repr__(self):
+        return f"(NOT {self.children[0]!r})"
+
+
+class In(Expression):
+    """IN over a literal list (reference GpuInSet). Null semantics: x IN
+    (...) is null if x is null, or if nothing matches and the list holds a
+    null."""
+
+    def __init__(self, child, values: list):
+        self.children = [child]
+        self.values = values
+
+    @property
+    def dtype(self):
+        # each value becomes a literal of the child's type
+        is_str = isinstance(self.children[0].dtype, T.StringType)
+        if any(isinstance(v, str) != is_str
+               for v in self.values if v is not None):
+            raise NotImplementedError(
+                f"IN over {self.children[0].dtype} with values "
+                f"{self.values!r} is not ported yet")
+        return T.BOOLEAN
+
+    def with_children(self, children):
+        return In(children[0], self.values)
+
+    def eval(self, ctx):
+        from spark_rapids_tpu_torch.expr.core import Literal
+        c = self.children[0].eval(ctx)
+        has_null = any(v is None for v in self.values)
+        match = torch.zeros_like(c.validity)
+        for v in self.values:
+            if v is None:
+                continue
+            lc = Literal(v, self.children[0].dtype).eval(ctx)
+            if c.is_string:
+                l2, r2 = _comparable(c, lc, c.dtype, lc.dtype)
+                match = match | (l2.values == r2.values)
+            else:
+                match = match | (c.values == lc.values)
+        validity = c.validity & (match | (not has_null))
+        return Col(match & validity, validity, T.BOOLEAN)
+
+    def __repr__(self):
+        return f"({self.children[0]!r} IN {self.values!r})"
+
+
+class InSet(In):
+    """Literal-set membership (reference GpuInSet): In over the values in
+    a canonical order, as Spark plans a long IN list."""
+
+    def __init__(self, child, values):
+        super().__init__(child, sorted(values, key=lambda v: (v is None,
+                                                              repr(v))))

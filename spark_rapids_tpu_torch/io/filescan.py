@@ -6,6 +6,9 @@ into one partition per directory (the JAX package's ``discover_partitions``;
 each row group through the device parquet decode
 (``io/parquet_native.read_row_group_device``), one batch per row group; a
 column chunk out of the decode's scope goes through arrow for that column.
+The exec reads the columns of the node's schema only: column pruning
+(``plan/pruning.py``) narrows a copy of the node to the columns its plan
+uses, so an unread column is never parsed, uploaded or decoded.
 Hive partition values, the arrow reader strategies and the legacy datetime
 rebase are not ported yet and raise ``NotImplementedError``; pushed filters
 are not ported either, so the scan takes none.

@@ -7,17 +7,23 @@ input partitions plan PARTIAL → hash exchange → FINAL; keys of every ported
 type, on the dense or the sort-based path), the hash exchange
 (``_hash_exchange``, ``:635-659``), the exchange node (``:901-917``), sort
 (``:881-899``), limit (``conv_limit``, ``:697-705``), and the equi-join
-(``:770-875``): a broadcast hash join over one fixed-point key, inner joins
-building the side with the smaller row estimate (``plan/cbo.py``). A HAVING
-filter above an aggregate plans as a FilterExec: the reference folds it into
-the aggregate (``fuse_having``), which keeps the same rows. Every node,
-expression or shape outside the slices raises ``NotImplementedError`` here,
-while the plan is built, so nothing runs wrongly: keyless aggregates, range
-partitioning, joins on several keys or on strings or floats (the rank
-path), right and full outer joins, residual join conditions, keyless and
-cross joins (the nested-loop join) among them.
-The mesh is refused earlier, by the conf, which does not know its keys.
-There is no partial CPU fallback: the whole plan runs on the device.
+(``:770-875``): a broadcast hash join, inner joins building the side with
+the smaller row estimate (``plan/cbo.py``). One fixed-point key takes the
+single-key probe modes; several keys, or one string or double key, take the
+rank path (``ops/joining.join_ranks``). A HAVING filter above an aggregate
+plans as a FilterExec: the reference folds it into the aggregate
+(``fuse_having``), which keeps the same rows. The rules receive the plan
+after column pruning (``plan/pruning.py``, which ``DataFrame.physical_plan``
+runs once at the root, as the reference runs it first in
+``TpuOverrides.apply``).
+
+Every node, expression or shape outside the slices raises
+``NotImplementedError`` here, while the plan is built, so nothing runs
+wrongly: keyless aggregates, range partitioning, right and full outer joins
+(matched-build tracking), residual join conditions, keyless and cross joins
+(the nested-loop join), and join keys of two unlike types among them. The
+mesh is refused earlier, by the conf, which does not know its keys. There is
+no partial CPU fallback: the whole plan runs on the device.
 """
 
 from __future__ import annotations
@@ -31,9 +37,12 @@ from spark_rapids_tpu_torch.exec.sort import SortExec, _GatherAllExec
 from spark_rapids_tpu_torch.expr import core as E
 from spark_rapids_tpu_torch.expr.aggregates import AggregateFunction
 from spark_rapids_tpu_torch.expr.arithmetic import BinaryArithmetic
+from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.expr.cast import Cast, supported_cast
+from spark_rapids_tpu_torch.expr.datetime import AddMonths, DateAddInterval
 from spark_rapids_tpu_torch.expr.predicates import (
-    And, EqualTo, GreaterThan, GreaterThanOrEqual, LessThan, LessThanOrEqual)
+    And, EqualTo, GreaterThan, GreaterThanOrEqual, In, LessThan,
+    LessThanOrEqual, Not, NotEqual, Or)
 from spark_rapids_tpu_torch.io.filescan import FileScanNode, FileSourceScanExec
 from spark_rapids_tpu_torch.ops import joining as J
 from spark_rapids_tpu_torch.ops.sorting import SortOrder
@@ -42,8 +51,16 @@ from spark_rapids_tpu_torch.plan.cbo import estimate_rows
 from spark_rapids_tpu_torch.shuffle import partitioning as SP
 
 _PORTED_EXPRS = (E.BoundReference, E.Literal, E.Alias, BinaryArithmetic,
-                 EqualTo, LessThan, LessThanOrEqual, GreaterThan,
-                 GreaterThanOrEqual, And, Cast, AggregateFunction)
+                 EqualTo, NotEqual, LessThan, LessThanOrEqual, GreaterThan,
+                 GreaterThanOrEqual, And, Or, Not, In, Cast, DateAddInterval,
+                 AddMonths, AggregateFunction)
+
+
+def _joinable(ldt: T.DataType, rdt: T.DataType) -> bool:
+    """Key types the join compares: equal types, or integers of two
+    widths (compared in the wider one)."""
+    return ldt == rdt or (isinstance(ldt, T.IntegralType)
+                          and isinstance(rdt, T.IntegralType))
 
 
 def check_expression(e: E.Expression) -> None:
@@ -175,15 +192,13 @@ class TorchOverrides:
         if n.condition is not None:
             raise NotImplementedError(
                 "residual join conditions are not ported yet")
-        if len(n.left_keys) != 1:
-            raise NotImplementedError(
-                "joins on several keys (the rank path) are not ported yet")
-        for k in (*n.left_keys, *n.right_keys):
-            check_expression(k)
-            if not XJ._int_backed(k.dtype):
+        for lk, rk in zip(n.left_keys, n.right_keys):
+            check_expression(lk)
+            check_expression(rk)
+            if not _joinable(lk.dtype, rk.dtype):
                 raise NotImplementedError(
-                    f"joins on a {k.dtype} key (the rank path) are not "
-                    "ported yet")
+                    f"a join of a {lk.dtype} key with a {rk.dtype} key is "
+                    "not ported yet")
         jt = {"left": J.LEFT_OUTER}.get(n.join_type, n.join_type)
         # an inner join builds the smaller estimated side (reference
         # GpuJoinUtils.getGpuBuildSide); the others stream the preserved side

@@ -1,0 +1,187 @@
+"""Column pruning: narrow file scans to the columns the plan uses.
+
+The port's copy of ``spark_rapids_tpu/plan/pruning.py`` (Spark's Catalyst
+ColumnPruning and SchemaPruning feeding the scan a pruned read schema). Plans
+are built with eagerly BOUND ordinals (``plan/nodes.py`` binds at
+construction), so the pass both narrows the ``FileScanNode`` schema and
+rebinds every ordinal above it; the scan then parses, uploads and decodes
+only the kept columns (``io/filescan.py``).
+
+``_prune(node, required)`` returns ``(new_node, mapping)``, where
+``required`` is the set of output ordinals the parent consumes (None = all)
+and ``mapping`` maps old output ordinals to new ones for every column that
+survived. Nodes whose output is expression-defined (Project, Aggregate)
+absorb the remapping; pass-through nodes (Filter, Sort, Limit, Exchange)
+propagate it. Any other node type requires all of its children's columns,
+so correctness never depends on a node being listed here.
+
+The rewrite preserves identity: a subtree where nothing narrows comes back
+as the ORIGINAL node objects, and the input plan is never mutated, so a
+DataFrame can be collected again. ``DataFrame.physical_plan`` runs the pass
+once, at the root, before the override rules (the reference runs it first
+in ``TpuOverrides.apply``). The port has no cache node and no pushed scan
+filters or hive partition columns, so the reference's barrier and the rules
+that keep their columns have nothing to act on here.
+"""
+
+from __future__ import annotations
+
+import copy
+
+from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.expr import core as E
+from spark_rapids_tpu_torch.io.filescan import FileScanNode
+from spark_rapids_tpu_torch.plan import nodes as N
+
+
+def _refs(expr) -> set:
+    return {e.ordinal for e in
+            expr.collect(lambda x: isinstance(x, E.BoundReference))}
+
+
+def _is_ident(mapping: dict) -> bool:
+    return all(o == n for o, n in mapping.items())
+
+
+def _remap(expr, mapping: dict):
+    if _is_ident(mapping):
+        return expr
+
+    def fn(e):
+        if isinstance(e, E.BoundReference):
+            return E.BoundReference(mapping[e.ordinal], e.dtype, e.nullable,
+                                    e.name)
+        return e
+    return expr.transform(fn)
+
+
+def _identity(node):
+    return node, {i: i for i in range(len(node.output.fields))}
+
+
+def _all(node) -> set:
+    return set(range(len(node.output.fields)))
+
+
+def prune_columns(root: N.PlanNode) -> N.PlanNode:
+    """An equivalent plan whose file scans read only live columns. Subtrees
+    with nothing to narrow come back as the original objects."""
+    new_root, _ = _prune(root, None)
+    return new_root
+
+
+def _prune(node: N.PlanNode, required: set | None):
+    if isinstance(node, FileScanNode):
+        return _prune_scan(node, required)
+    if isinstance(node, N.ProjectNode):
+        keep = (sorted(required) if required is not None
+                else list(range(len(node.project_list))))
+        if not keep:                       # count(*)-style: keep one column
+            keep = [0]
+        kept_exprs = [node.project_list[i] for i in keep]
+        child_req = set()
+        for e in kept_exprs:
+            child_req |= _refs(e)
+        child, cmap = _prune(node.child, child_req)
+        mapping = {o: i for i, o in enumerate(keep)}
+        if child is node.child and _is_ident(cmap) and _is_ident(mapping) \
+                and len(keep) == len(node.project_list):
+            return node, mapping
+        return N.ProjectNode([_remap(e, cmap) for e in kept_exprs],
+                             child), mapping
+    if isinstance(node, N.FilterNode):
+        req = required if required is not None else _all(node)
+        child, cmap = _prune(node.child, req | _refs(node.condition))
+        if child is node.child and _is_ident(cmap):
+            return node, cmap
+        return N.FilterNode(_remap(node.condition, cmap), child), cmap
+    if isinstance(node, N.SortNode):
+        need = set(required if required is not None else _all(node))
+        for e, _, _ in node.sort_exprs:
+            need |= _refs(e)
+        child, cmap = _prune(node.child, need)
+        if child is node.child and _is_ident(cmap):
+            return node, cmap
+        return N.SortNode([(_remap(e, cmap), asc, nf)
+                           for (e, asc, nf) in node.sort_exprs],
+                          child), cmap
+    if isinstance(node, N.LimitNode):
+        child, cmap = _prune(node.child, required)
+        if child is node.child:
+            return node, cmap
+        return N.LimitNode(node.n, child, node.global_limit), cmap
+    if isinstance(node, N.ExchangeNode):
+        need = set(required if required is not None else _all(node))
+        for e in node.keys:
+            need |= _refs(e)
+        child, cmap = _prune(node.child, need)
+        if child is node.child and _is_ident(cmap):
+            return node, cmap
+        return N.ExchangeNode(child, node.partitioning, node.num_out,
+                              [_remap(e, cmap) for e in node.keys]), cmap
+    if isinstance(node, N.AggregateNode):
+        child_req = set()
+        for e in node.group_exprs + node.agg_exprs:
+            child_req |= _refs(e)
+        child, cmap = _prune(node.child, child_req)
+        if child is node.child and _is_ident(cmap):
+            return _identity(node)
+        return _identity(N.AggregateNode(
+            [_remap(e, cmap) for e in node.group_exprs],
+            [_remap(e, cmap) for e in node.agg_exprs], child))
+    if isinstance(node, N.JoinNode):
+        return _prune_join(node, required)
+    # any other node: require ALL columns of every child (children may still
+    # narrow deeper inside their own subtrees)
+    new_children = [_prune(c, None)[0] for c in node.children]
+    if any(nc is not oc for nc, oc in zip(new_children, node.children)):
+        node = copy.copy(node)
+        node.children = list(new_children)
+    return _identity(node)
+
+
+def _prune_join(node: N.JoinNode, required: set | None):
+    nleft = len(node.left.output.fields)
+    semi = node.join_type in ("leftsemi", "leftanti")
+    req = required if required is not None else _all(node)
+    lreq = {i for i in req if i < nleft}
+    rreq = set() if semi else {i - nleft for i in req if i >= nleft}
+    for e in node.left_keys:
+        lreq |= _refs(e)
+    for e in node.right_keys:
+        rreq |= _refs(e)
+    if node.condition is not None:
+        # the residual condition is stored unbound (resolved by name later):
+        # keep every column it names, on whichever side defines it
+        names = {a.name for a in node.condition.collect(
+            lambda x: isinstance(x, (E.AttributeReference,
+                                     E.BoundReference)))}
+        lreq |= {i for i, f in enumerate(node.left.output.fields)
+                 if f.name in names}
+        rreq |= {i for i, f in enumerate(node.right.output.fields)
+                 if f.name in names}
+    left, lmap = _prune(node.left, lreq)
+    right, rmap = _prune(node.right, rreq)
+    if left is node.left and right is node.right and _is_ident(lmap) \
+            and _is_ident(rmap):
+        return _identity(node)
+    new = N.JoinNode(left, right,
+                     [_remap(e, lmap) for e in node.left_keys],
+                     [_remap(e, rmap) for e in node.right_keys],
+                     node.join_type, node.condition)
+    nleft_new = len(left.output.fields)
+    mapping = dict(lmap)
+    if not semi:
+        for o, n2 in rmap.items():
+            mapping[o + nleft] = n2 + nleft_new
+    return new, mapping
+
+
+def _prune_scan(node: FileScanNode, required: set | None):
+    fields = node.output.fields
+    if required is None or len(required) >= len(fields):
+        return _identity(node)
+    kept = sorted(required) or [0]
+    new = copy.copy(node)
+    new._schema = T.StructType([fields[i] for i in kept])
+    return new, {o: i for i, o in enumerate(kept)}

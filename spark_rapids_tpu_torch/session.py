@@ -1,9 +1,11 @@
 """TorchSession + DataFrame — the user entry point.
 
 Counterpart of ``spark_rapids_tpu/session.py`` (``TpuSession``). A DataFrame
-builds a logical plan (plan/nodes.py); ``collect()`` turns it into device
-execs (plan/overrides.py), runs them on the session's device and returns an
-Arrow table. ``spark.rapids.tpu.*`` conf keys keep their names.
+builds a logical plan (plan/nodes.py), from the DataFrame API or from SQL
+text over temp views (``sql()``); ``collect()`` narrows its scans to the
+columns it uses (plan/pruning.py), turns it into device execs
+(plan/overrides.py), runs them on the session's device and returns an Arrow
+table. ``spark.rapids.tpu.*`` conf keys keep their names.
 
     from spark_rapids_tpu_torch.session import TorchSession
     import spark_rapids_tpu_torch.functions as F
@@ -13,6 +15,9 @@ Arrow table. ``spark.rapids.tpu.*`` conf keys keep their names.
     out = (df.filter(F.col("l_quantity") <= F.lit(10.0))
              .group_by("l_returnflag").agg(F.sum("l_tax").alias("t"))
              .collect())
+    spark.create_or_replace_temp_view("lineitem", df)
+    out = spark.sql("select l_returnflag, sum(l_tax) as t from lineitem "
+                    "where l_quantity <= 10 group by l_returnflag").collect()
 """
 
 from __future__ import annotations
@@ -109,10 +114,12 @@ class DataFrame:
 
     def physical_plan(self):
         """The device exec tree ``collect()`` runs (raises on anything not
-        ported)."""
+        ported): the plan with its scans narrowed to the columns it uses
+        (``plan/pruning.py``, once at the root), then the override rules."""
         from spark_rapids_tpu_torch.plan.overrides import TorchOverrides
-        return TorchOverrides(self.session.conf,
-                              self.session.device).apply(self._plan)
+        from spark_rapids_tpu_torch.plan.pruning import prune_columns
+        return TorchOverrides(self.session.conf, self.session.device).apply(
+            prune_columns(self._plan))
 
     def collect(self) -> pa.Table:
         return self.physical_plan().execute_collect()
@@ -152,6 +159,19 @@ class TorchSession:
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         self.device = device
+        self._views: dict = {}
+
+    def create_or_replace_temp_view(self, name: str, df: DataFrame) -> None:
+        """Register ``df`` under ``name`` for ``sql()`` (SparkSession's
+        createOrReplaceTempView)."""
+        self._views[name] = df
+
+    def sql(self, text: str) -> DataFrame:
+        """A DataFrame for SQL text over the registered temp views
+        (``sql/``). What the port cannot plan raises
+        ``NotImplementedError`` here, while the text is lowered."""
+        from spark_rapids_tpu_torch.sql import lower_sql
+        return DataFrame(lower_sql(text, self._views, self), self)
 
     def read_parquet(self, path, files_per_partition: int = 1) -> DataFrame:
         from spark_rapids_tpu_torch.io.filescan import FileScanNode

@@ -19,7 +19,17 @@ supplier ids on the card equal to the NumPy oracle (revenue within 1e-9
 relative). The sort-based group-by (plain torch ops, no kernel of its own)
 on the card equal to the same functions on the CPU, bit for bit, and TPC-H
 q3 and q18 at SF 0.1 on the card equal to the CPU run bit for bit and to
-the NumPy oracles (keys exact, numbers within 1e-9 relative).
+the NumPy oracles (keys exact, numbers within 1e-9 relative). The rank join
+(``ops/joining.join_ranks``/``probe``, plain torch ops) on the card bit for
+bit the CPU at 2^20 stream rows, over int, string and double keys, and a
+three-key join through the session the same rows as the CPU run. The
+official q1, q3 and q5 SQL text at SF 0.1 on the card: q3 bit for bit the
+CPU run; q1 and q5 the same keys and counts, their double sums within 1e-9
+relative of the CPU run (the dense aggregate sums doubles by cuBLAS matvecs
+or ``index_add_`` on the card, in another order than on the CPU); all
+three against the NumPy oracles within 1e-6 relative
+(``tests/test_sql_tpch.py``'s bound), and q5's two-key join on the rank
+path.
 """
 
 import os
@@ -779,3 +789,120 @@ def test_ladder_query_on_card(cuda_device, ladder_paths, q):
         else:
             assert g[:3] == list(e[:3])
             assert g[3:] == pytest.approx(list(e[3:]), rel=1e-9)
+
+
+# -- the rank join and the SQL text ------------------------------------------
+
+def _rank_keys(rng, cap: int, n: int, side: str):
+    """Key columns (long, string, double) of one join side at ``cap``
+    rows, ``n`` live, about 5 % nulls; the sides' dictionaries differ."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.expr.core import Col
+    import pyarrow as pa
+    live = np.arange(cap) < n
+    words = ["w%03d" % i for i in range(0, 300)] if side == "build" else \
+        ["w%03d" % i for i in range(100, 400)]
+    cols = []
+    for kind in ("long", "str", "double"):
+        valid = (rng.random(cap) < 0.95) & live
+        if kind == "long":
+            vals, t, d = rng.integers(0, 1 << 12, cap), T.LONG, None
+        elif kind == "str":
+            vals = rng.integers(0, len(words), cap).astype(np.int32)
+            t, d = T.STRING, pa.array(words, pa.string())
+        else:
+            vals = rng.choice(np.array([0.0, -0.0, 0.25, np.nan, 7.5]), cap)
+            t, d = T.DOUBLE, None
+        vals = np.where(valid, vals, np.zeros_like(vals))
+        cols.append(Col(torch.from_numpy(vals), torch.from_numpy(valid), t,
+                        d))
+    return cols
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_keys", [2, 3])
+def test_rank_join_on_card_equals_cpu(cuda_device, n_keys):
+    """join_ranks and probe at (2^18 build, 2^20 stream) rows."""
+    from spark_rapids_tpu_torch.exec.joins import _align_string_keys
+    from spark_rapids_tpu_torch.expr.core import Col
+    from spark_rapids_tpu_torch.ops import joining as J
+    rng = np.random.default_rng(n_keys)
+    bcap, scap = 1 << 18, 1 << 20
+    nb, ns = bcap - 1000, scap - 3
+    b = _rank_keys(rng, bcap, nb, "build")[:n_keys]
+    st = _rank_keys(rng, scap, ns, "stream")[:n_keys]
+
+    def run(dev):
+        bb = [Col(c.values.to(dev), c.validity.to(dev), c.dtype,
+                  c.dictionary) for c in b]
+        ss = [Col(c.values.to(dev), c.validity.to(dev), c.dtype,
+                  c.dictionary) for c in st]
+        bb, ss = _align_string_keys(bb, ss)
+        rb, rs = J.join_ranks(bb, nb, bcap, ss, ns, scap)
+        perm, lo, hi = J.probe(rb, rs)
+        counts = J.pair_counts(lo, hi, ns, scap, J.INNER)
+        return [t.cpu() for t in (rb, rs, perm, lo, hi, counts)]
+    card = run(cuda_device)
+    cpu = run(torch.device("cpu"))
+    for a, c in zip(card, cpu):
+        assert torch.equal(a, c)
+    assert int(cpu[-1].sum()) > 0
+
+
+@pytest.mark.gpu
+def test_three_key_join_on_card_equals_cpu(cuda_device, tmp_path):
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch.session import TorchSession
+    rng = np.random.default_rng(3)
+    for name, n in (("a", 1 << 20), ("b", 1 << 12)):
+        pq.write_table(pa.table({
+            "k": pa.array(rng.integers(0, 64, n)),
+            "s": pa.array(np.array(["x", "y", "z"])[rng.integers(0, 3, n)]),
+            "x": pa.array(rng.choice(np.array([0.0, -0.0, 1.5]), n)),
+            name + "_id": pa.array(np.arange(n))}),
+            str(tmp_path / f"{name}.parquet"))
+
+    def run(spark):
+        a = spark.read_parquet(str(tmp_path / "a.parquet"))
+        b = spark.read_parquet(str(tmp_path / "b.parquet"))
+        return a.join(b, on=["k", "s", "x"]).collect().to_pylist()
+    card = run(TorchSession())
+    assert card == run(TorchSession(device="cpu"))
+    assert len(card) > 1 << 20
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q", ["q1", "q3", "q5"])
+def test_sql_query_on_card(cuda_device, ladder_paths, q):
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    from spark_rapids_tpu_torch.exec.joins import HashJoinExec
+    from spark_rapids_tpu_torch.session import TorchSession
+    from spark_rapids_tpu_torch.sql.tpch_queries import SQL_QUERIES
+
+    def run(spark):
+        tpch.load(spark, ladder_paths)
+        plan = spark.sql(SQL_QUERIES[q]).physical_plan()
+        return plan, plan.execute_collect().to_pylist()
+    plan, card = run(TorchSession())
+    _, cpu = run(TorchSession(device="cpu"))
+    exp = getattr(tpch, "np_" + q)(tpch.load_np(ladder_paths))
+    assert len(card) == len(cpu) == len(exp) > 0
+    if q == "q3":
+        assert card == cpu
+    for g, c in zip(card, cpu):
+        for k, v in g.items():
+            if isinstance(v, float):
+                assert v == pytest.approx(c[k], rel=1e-9)
+            else:
+                assert v == c[k]
+    num = [[v for v in r.values() if isinstance(v, float)] for r in card]
+    want = [[v for v in e if isinstance(v, float)] for e in exp]
+    for g, e in zip(num, want):
+        assert g == pytest.approx(e, rel=1e-6)
+
+    def joins(p):
+        own = [p] if isinstance(p, HashJoinExec) else []
+        return own + [j for c in p.children for j in joins(c)]
+    ranked = [j for j in joins(plan) if j.stats["probe_mode"] == "rank"]
+    assert len(ranked) == (1 if q == "q5" else 0)
