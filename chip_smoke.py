@@ -10,7 +10,8 @@ It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
 1. prints the card's name and power limit, and the torch and CUDA versions;
 2. builds every CUDA kernel from ``spark_rapids_tpu_torch/csrc`` with nvcc
    (one process per source, all started together) and prints the build time
-   and ptxas' register/shared-memory lines;
+   and ptxas' register/shared-memory lines, then the native parquet scanner
+   from ``spark_rapids_tpu_torch/native`` with g++;
 3. holds each kernel against its plain PyTorch version on the card:
    bitunpack128 (the chunk decode kernel over one page, no dictionary)
    exactly, at every bit width 1..32 for n = 20,000 (a parquet page) and
@@ -33,7 +34,11 @@ It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
    slot;
    hash_join_build bit for bit (tables and ok) at 16,384 keys in 4,096
    buckets: unique, overfull, duplicate and ineligible keys;
-4. runs ten TPC-H paths at scale factor ``--sf`` (data generated from the
+4. reads the q1 scan's dictionary chunks on the host twice, with the
+   native scanner (``read_chunk_pages`` and ``pack_chunk``, built with g++
+   from ``spark_rapids_tpu_torch/native``) and with its plain version, the
+   Python page parser, and holds the packed buffers bit for bit; then runs
+   thirteen TPC-H paths at scale factor ``--sf`` (data generated from the
    fixed seed into build/) through ``TorchSession()`` on the card, every
    scan pruned to the columns its query reads:
    q1 (the table directory as one partition: scan, COMPLETE aggregate,
@@ -51,11 +56,20 @@ It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
    and ``limit(100)``), and the official q1, q3 and q5 SQL text through
    ``spark.sql`` over the tables' temp views (sql-q1, sql-q3, sql-q5; q5's
    ``c_nationkey = s_nationkey`` is a second key of the customer join,
-   which takes the rank path). Each path has one run with the
-   launch counts reset just before and read just after (every kernel of
-   the path must have launched: the chunk decode once per dictionary chunk
-   of the columns its scans read (the pruned census; each scan prints its
-   columns and must read exactly its query's, ``Q_TABLES``), the count
+   which takes the rank path), q1 over the lineitem files rewritten
+   UNCOMPRESSED (q1-uncompressed: every chunk in one ``sr_scan_chunk``
+   call), q1 with the device decode off (q1-arrow: the MULTITHREADED arrow
+   reader, each column staged from pinned memory in one copy), and q1 over
+   lineitem rewritten as hive directories ``l_returnflag=A|N|R`` without
+   the column (q1-hive: a constant STRING partition column, the arrow
+   reader, PARTIAL -> hash exchange -> FINAL). Each path has one run with
+   the launch counts and the scan route counts reset just before and read
+   just after (every kernel of the path must have launched: the chunk
+   decode once per dictionary chunk of the columns its scans read (the
+   pruned census; each scan prints its columns and must read exactly its
+   query's, ``Q_TABLES``), and the native scanner must have read every one
+   of those chunks and the Python parser none (``parquet_native.routes``;
+   the arrow paths' scans read none and launch no chunk decode), the count
    kernel once per aggregate batch with
    count-like requests, murmur3_words twice and the radix permutation once
    per batch an exchange partitioned, hash_join_probe never on q5, on
@@ -95,7 +109,8 @@ It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
    bucket ids, beside torch.argsort(stable=True);
 6. prints how many traces ``device_ms`` took and found short, one JSON
    line describing every ported kernel, the card's name and power limit,
-   and last ``{"ok": true, "device": {...}}``.
+   and last ``{"ok": true, "device": {...}}``. With ``--profile`` each
+   path's host profile must show no call of the Python page parser.
 
 Device times come from torch.profiler traces (``traced``: a warm-up of
 64 tiny kernels first, since a trace can lose its first launches' device
@@ -132,8 +147,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # the chunk decode kernel's symbol, as the profiler names its launches
 KERNEL_NAME = "chunk_decode_kernel"
-# timed runs of each q1 path: fewer than the q5 paths' --reps, so that the
-# five paths at SF1 take no longer than the three q1 paths did before
+# timed runs of each q1 path: fewer than the other paths' --reps
 Q1_REPS = 2
 
 
@@ -198,6 +212,9 @@ COUNTED = {KERNEL_NAME: ("bitunpack128", 1),
            "hash_join_probe_kernel": ("hash_join_probe", 1)}
 # the region of a trace that its census covers, and the launches before it
 # whose device records a trace may lose (traced)
+# the functions of the Python page parser, which no path may call
+PYTHON_PARSER = ("parse_rle_hybrid", "decode_rle_host", "parse_page_header",
+                 "read_chunk_pages_plain", "pack_chunk_plain")
 TRACE_MARK = "chip_smoke.traced"
 WARMUP_LAUNCHES = 64
 # traces device_ms took, those it found short, and its CUDA-event fallbacks
@@ -418,15 +435,12 @@ def onehot_check(vals, codes, n_domain: int, exact: bool) -> float:
     return err
 
 
-def chunk_census(table_columns: dict):
-    """Every column chunk that the device decode takes (a dictionary chunk)
-    of the named columns of each table directory (``{dir: columns}``, the
-    columns a pruned scan reads), read on the host exactly as the scan reads
-    it: [(ChunkPages, capacity)], and the count of their data pages."""
+def column_chunks(table_columns: dict):
+    """``(path, footer, row group, column, capacity)`` of every column
+    chunk of the named columns of each table directory (``{dir: columns}``,
+    the columns a pruned scan reads), in the scan's order."""
     import pyarrow.parquet as pq
     from spark_rapids_tpu_torch.columnar.vector import bucket_capacity
-    from spark_rapids_tpu_torch.io import parquet_native as PN
-    chunks, pages = [], 0
     for d, columns in table_columns.items():
         for f in sorted(os.listdir(d)):
             if not f.endswith(".parquet"):
@@ -436,15 +450,84 @@ def chunk_census(table_columns: dict):
             for rg in range(md.num_row_groups):
                 cap = bucket_capacity(max(md.row_group(rg).num_rows, 1))
                 for ci in range(md.num_columns):
-                    if md.schema.column(ci).path not in columns:
-                        continue
-                    try:
-                        chunk = PN.read_chunk_pages(path, rg, ci, md=md)
-                    except NotImplementedError:
-                        continue      # arrow fallback column: no kernel
-                    chunks.append((chunk, cap))
-                    pages += len(chunk.index_segments)
-    return chunks, pages
+                    if md.schema.column(ci).path in columns:
+                        yield path, md, rg, ci, cap
+
+
+def chunk_census(table_columns: dict):
+    """Every column chunk that the device decode takes (a dictionary chunk)
+    of ``column_chunks(table_columns)``, read on the host exactly as the
+    scan reads it: [(ChunkPages, capacity)], the count of their data pages,
+    and the count of the chunks of those columns that the decode refuses
+    (read through arrow)."""
+    from spark_rapids_tpu_torch.io import parquet_native as PN
+    chunks, pages, refused = [], 0, 0
+    for path, md, rg, ci, cap in column_chunks(table_columns):
+        try:
+            chunk = PN.read_chunk_pages(path, rg, ci, md=md)
+        except NotImplementedError:
+            refused += 1  # arrow fallback column: no kernel
+            continue
+        chunks.append((chunk, cap))
+        pages += len(chunk.index_segments)
+    return chunks, pages, refused
+
+
+def host_scan(table_columns: dict, read, pack):
+    """The host side of the scan of every dictionary chunk of
+    ``column_chunks(table_columns)`` by ``read`` (a chunk reader) and
+    ``pack`` (a chunk packer): (host seconds, the packed buffers)."""
+    from spark_rapids_tpu_torch.io import parquet_native as PN
+    bufs, secs = [], 0.0
+    for path, md, rg, ci, cap in column_chunks(table_columns):
+        t0 = time.perf_counter()
+        try:
+            chunk = read(path, rg, ci, md=md)
+        except NotImplementedError:
+            continue
+        _st, _want, _d, dictionary, _sd = PN.chunk_column(chunk, None)
+        packed = pack(chunk, dictionary, cap)
+        secs += time.perf_counter() - t0
+        bufs.append(packed.buf)
+    return secs, bufs
+
+
+def rewrite_uncompressed(src: str, dst: str) -> str:
+    """``src``'s parquet files rewritten into ``dst`` with compression NONE,
+    with the same row groups, page size and dictionary encoding (the
+    writer's defaults, as the generator's); kept when already there."""
+    import pyarrow.parquet as pq
+    if not os.path.isdir(dst):
+        tmp = f"{dst}.{os.getpid()}.tmp"
+        os.makedirs(tmp)
+        for f in sorted(os.listdir(src)):
+            if f.endswith(".parquet"):
+                pf = pq.ParquetFile(os.path.join(src, f))
+                pq.write_table(pf.read(), os.path.join(tmp, f),
+                               compression="NONE",
+                               row_group_size=pf.metadata.row_group(0)
+                               .num_rows)
+        os.replace(tmp, dst)
+    return dst
+
+
+def rewrite_hive(src: str, dst: str, key: str) -> str:
+    """``src``'s table rewritten into hive directories ``dst/key=v`` (one
+    file each, the column taken out of the files); kept when already
+    there."""
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+    if not os.path.isdir(dst):
+        tmp = f"{dst}.{os.getpid()}.tmp"
+        t = pq.read_table(src)
+        for v in sorted(pc.unique(t[key]).to_pylist()):
+            d = os.path.join(tmp, f"{key}={v}")
+            os.makedirs(d)
+            pq.write_table(t.filter(pc.equal(t[key], v)).drop_columns([key]),
+                           os.path.join(d, "part-0000.parquet"))
+        del t
+        os.replace(tmp, dst)
+    return dst
 
 
 # the columns each TPC-H query reads of each table: the port's copy of
@@ -472,19 +555,27 @@ Q_TABLES = {
 # the TPC-H query each path answers
 QUERY_OF = {"q1": "q1", "q1-files": "q1", "q1-repartition": "q1",
             "q5": "q5", "q5-sparse": "q5", "q3": "q3", "q18": "q18",
-            "sql-q1": "q1", "sql-q3": "q3", "sql-q5": "q5"}
+            "sql-q1": "q1", "sql-q3": "q3", "sql-q5": "q5",
+            "q1-uncompressed": "q1", "q1-arrow": "q1", "q1-hive": "q1"}
 
 
 def scans(plan) -> list:
-    """``(table, column names)`` of each file scan of an exec tree, top
-    down; the table is the directory of the scan's files."""
+    """``(table directory, scan exec)`` of each file scan of an exec tree,
+    top down; the table directory is the directory of the scan's files, or
+    the root of its hive partition directories."""
     from spark_rapids_tpu_torch.io.filescan import FileSourceScanExec
     if isinstance(plan, FileSourceScanExec):
-        dirs = {os.path.dirname(p) for part in plan.node.partitions
-                for p in part.paths}
+        # a hive table's directory is the root of its partition directories
+        dirs = set()
+        for part in plan.node.partitions:
+            for p in part.paths:
+                d = os.path.dirname(p)
+                for _kv in part.partition_values:
+                    d = os.path.dirname(d)
+                dirs.add(d)
         if len(dirs) != 1:
             raise AssertionError(f"a scan over several directories {dirs}")
-        return [(dirs.pop(), plan.output.names)]
+        return [(dirs.pop(), plan)]
     return [s for c in plan.children for s in scans(c)]
 
 
@@ -862,8 +953,15 @@ def profile_run(label: str, run, repo: str) -> None:
     torch.cuda.synchronize()
     prof_host.disable()
     buf = io.StringIO()
-    pstats.Stats(prof_host, stream=buf).sort_stats("cumulative") \
-        .print_stats("spark_rapids_tpu_torch", 18)
+    st = pstats.Stats(prof_host, stream=buf)
+    # the Python page parser (the scanner's plain version) runs on no path
+    parsed = {fn: v[1] for (f, _ln, fn), v in st.stats.items()
+              if f.endswith("parquet_native.py") and fn in PYTHON_PARSER}
+    if any(parsed.values()):
+        raise AssertionError(f"{label}: the Python page parser ran on the "
+                             f"path: calls {parsed}")
+    print(f"host profile {label}: calls of {', '.join(PYTHON_PARSER)}: 0")
+    st.sort_stats("cumulative").print_stats("spark_rapids_tpu_torch", 18)
     print(f"host profile {label} (cProfile, cumulative s, port functions):")
     for ln in buf.getvalue().splitlines():
         if "spark_rapids_tpu_torch" in ln or "ncalls" in ln:
@@ -908,6 +1006,7 @@ def main() -> int:
           f"python {sys.version.split()[0]}")
 
     # -- 1. build -----------------------------------------------------------
+    from spark_rapids_tpu_torch import native as N
     t0 = time.perf_counter()
     info = CK.build_all()
     print(f"build: {time.perf_counter() - t0:.2f} s wall")
@@ -915,6 +1014,13 @@ def main() -> int:
         print(f"build {lib}: {bi['seconds']:.2f} s nvcc")
         for ln in bi["ptxas"]:
             print(f"  {ln}")
+    # the native scanner (g++), which the scans load at first use
+    t0 = time.perf_counter()
+    N.parquet_lib()
+    print(f"build native scanner {os.path.relpath(N.SOURCE, repo)}: "
+          f"{time.perf_counter() - t0:.2f} s ({N.CXX} "
+          f"{' '.join(N.CXXFLAGS)}) into "
+          f"{os.path.relpath(N.BUILD_DIR, repo)}")
 
     # -- 2. kernel vs plain at fixed shapes ---------------------------------
     from spark_rapids_tpu_torch.columnar.vector import bucket_capacity
@@ -1144,13 +1250,30 @@ def main() -> int:
     print(f"data: sf={args.sf:g} at {data_dir} in "
           f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    census, census_pages = chunk_census(
+    census, census_pages, _refused = chunk_census(
         {paths["lineitem"]: Q_TABLES["q1"]["lineitem"]})
     print(f"census: {len(census)} dictionary chunks of the 7 lineitem "
           f"columns q1 reads (one chunk decode launch each) holding "
           f"{census_pages} data pages, {time.perf_counter() - t0:.1f} s")
     if not census:
         raise AssertionError("the q1 scan has no chunk for the chunk decode")
+    # the host side of the q1 scan: the native scanner (read_chunk_pages,
+    # pack_chunk) against its plain version, the reference's Python page
+    # parser (read_chunk_pages_plain, pack_chunk_plain), on the same chunks;
+    # the packed buffers bit for bit
+    q1_columns = {paths["lineitem"]: Q_TABLES["q1"]["lineitem"]}
+    native_s, native_bufs = host_scan(q1_columns, PN.read_chunk_pages,
+                                      PN.pack_chunk)
+    plain_s, plain_bufs = host_scan(q1_columns, PN.read_chunk_pages_plain,
+                                    PN.pack_chunk_plain)
+    if len(native_bufs) != len(census) or not all(
+            torch.equal(a, b) for a, b in zip(native_bufs, plain_bufs)):
+        raise AssertionError("pack_chunk over the native scan differs from "
+                             "the Python route on a q1 chunk")
+    del native_bufs, plain_bufs
+    print(f"q1 host scan of {len(census)} dictionary chunks (read + pack, "
+          f"host seconds): native scanner {native_s:.4f} s, Python page "
+          f"parser (plain) {plain_s:.4f} s; packed buffers bit for bit")
     # each chunk packed and on the card, as the scan hands it to the kernel
     dev_chunks = []
     for chunk, cap in census:
@@ -1214,10 +1337,15 @@ def main() -> int:
           f"wall")
     del dev_chunks
 
-    # -- 4. the ten paths through the session on the card ------------------
-    spark = TorchSession(
-        {} if args.map_threads is None else
-        {"spark.rapids.tpu.sql.localScheduler.numThreads": args.map_threads})
+    # -- 4. the thirteen paths through the session on the card -------------
+    threads = ({} if args.map_threads is None else
+               {"spark.rapids.tpu.sql.localScheduler.numThreads":
+                args.map_threads})
+    spark = TorchSession(threads)
+    # the arrow reader path (MULTITHREADED, the conf's default strategy)
+    arrow_spark = TorchSession(
+        {**threads, "spark.rapids.tpu.sql.parquet.deviceDecode.enabled":
+         "false"})
     exp_q1 = tpch.np_q1(tpch.load_np({"lineitem": paths["lineitem"]}))
     tb = tpch.load_np(paths)
     exp_q5 = tpch.np_q5(tb)
@@ -1230,6 +1358,15 @@ def main() -> int:
         return spark.sql(SQL_QUERIES[q])
     li_files = sorted(os.path.join(li_dir, f) for f in os.listdir(li_dir)
                       if f.endswith(".parquet"))
+    t0 = time.perf_counter()
+    unc_dir = rewrite_uncompressed(li_dir, os.path.join(
+        repo, "build", f"tpch_sf{args.sf:g}_uncompressed", "lineitem"))
+    hive_dir = rewrite_hive(li_dir, os.path.join(
+        repo, "build", f"tpch_sf{args.sf:g}_hive", "lineitem"),
+        "l_returnflag")
+    print(f"data: lineitem rewritten UNCOMPRESSED at {unc_dir} and as hive "
+          f"directories l_returnflag=A|N|R at {hive_dir} in "
+          f"{time.perf_counter() - t0:.1f} s")
     all_paths = {
         # the table directory: one partition, a COMPLETE aggregate
         "q1": lambda: tpch.q1(tpch.load(spark, paths)),
@@ -1254,8 +1391,21 @@ def main() -> int:
         "sql-q1": lambda: sql(spark, "q1"),
         "sql-q3": lambda: sql(spark, "q3"),
         "sql-q5": lambda: sql(spark, "q5"),
+        # q1 over UNCOMPRESSED files: every chunk in one sr_scan_chunk call
+        "q1-uncompressed": lambda: tpch.q1(
+            {"lineitem": spark.read_parquet(unc_dir)}),
+        # q1 through the arrow reader (device decode off), MULTITHREADED
+        "q1-arrow": lambda: tpch.q1(tpch.load(arrow_spark, paths)),
+        # q1 over hive directories: l_returnflag is a constant STRING
+        # partition column, the partitions take the arrow reader, and the
+        # three partitions plan PARTIAL -> hash exchange -> FINAL
+        "q1-hive": lambda: tpch.q1(
+            {"lineitem": spark.read_parquet(hive_dir)}),
     }
-    q1_labels = ("q1", "q1-files", "q1-repartition")
+    q1_labels = ("q1", "q1-files", "q1-repartition", "q1-uncompressed",
+                 "q1-arrow", "q1-hive")
+    # the paths whose scans take the arrow reader: no chunk decode
+    arrow_labels = ("q1-arrow", "q1-hive")
     ladder_labels = ("q3", "q18", "sql-q3")
     exp_ladder = {"q3": tpch.np_q3(tb), "q18": tpch.np_q18(tb)}
     del tb
@@ -1263,13 +1413,16 @@ def main() -> int:
     # the pruned census: the dictionary chunks of the columns a scan of
     # each table reads in each query, one chunk decode each
     table_dirs = {os.path.normpath(p): t for t, p in paths.items()}
+    table_dirs[os.path.normpath(unc_dir)] = "lineitem"
+    table_dirs[os.path.normpath(hive_dir)] = "lineitem"
     census_memo = {}
 
-    def scan_chunks(table, columns) -> int:
-        key = (table, tuple(sorted(columns)))
+    def scan_chunks(d, columns) -> tuple:
+        """(dictionary chunks, refused chunks) of the columns in d."""
+        key = (d, tuple(sorted(columns)))
         if key not in census_memo:
-            census_memo[key] = len(chunk_census(
-                {paths[table]: list(columns)})[0])
+            chunks, _pages, refused = chunk_census({d: list(columns)})
+            census_memo[key] = (len(chunks), refused)
         return census_memo[key]
 
     def check(label, res):
@@ -1292,7 +1445,11 @@ def main() -> int:
                     "q3": ("bitunpack128",), "q18": ("bitunpack128",),
                     "sql-q1": ("bitunpack128", "onehot_sum_f32"),
                     "sql-q3": ("bitunpack128",),
-                    "sql-q5": ("bitunpack128", "onehot_sum_f32")}
+                    "sql-q5": ("bitunpack128", "onehot_sum_f32"),
+                    "q1-uncompressed": ("bitunpack128", "onehot_sum_f32"),
+                    "q1-arrow": ("onehot_sum_f32",),
+                    "q1-hive": ("onehot_sum_f32", "murmur3_words",
+                                "radix_ranks")}
     # the dense aggregate's batches, counted beside the launches: each batch
     # with count-like requests is one count launch (at most
     # ONEHOT_MAX_REQUESTS distinct requests each)
@@ -1306,6 +1463,7 @@ def main() -> int:
                                     for v, m, _a, cl in reqs if cl}))
         return resolve(reqs, codes, n_domain, live)
     counts_by_path = {}
+    routes_by_path = {}
     batches_by_path = {}
     peak_by_path = {}
     for label, make_df in all_paths.items():
@@ -1314,6 +1472,7 @@ def main() -> int:
         agg_batches.clear()
         G.resolve_dense_group_sums = counting_resolve
         CK.reset_launches()
+        PN.reset_routes()
         t0 = time.perf_counter()
         try:
             res = plan.execute_collect()
@@ -1321,6 +1480,7 @@ def main() -> int:
             G.resolve_dense_group_sums = resolve
         first_s = time.perf_counter() - t0
         counts = dict(CK.launches)
+        routes = dict(PN.routes)
         peak = torch.cuda.max_memory_allocated(dev)
         check(label, res)
         for k in path_kernels[label]:
@@ -1336,26 +1496,52 @@ def main() -> int:
                 f"but the count kernel launched {counts['onehot_sum_f32']} "
                 f"times (want one launch a batch)")
         batches_by_path[label] = count_batches
-        # every scan reads exactly the query's columns of its table, and
-        # the chunk decode launches once per dictionary chunk of them
-        want_chunks = 0
-        for d, cols in scans(plan):
+        # every scan reads exactly the query's columns of its table; on the
+        # device decode the native scanner reads each dictionary chunk of
+        # them (none parsed in Python) and the chunk decode launches once
+        # per chunk; the arrow reader's scans read no chunk natively
+        want_chunks = want_refused = 0
+        for d, ex in scans(plan):
+            cols = ex.output.names
             table = table_dirs[os.path.normpath(d)]
             want = Q_TABLES[QUERY_OF[label]].get(table)
-            n = scan_chunks(table, cols)
+            data_cols = ex.node._data_columns()
+            n, refused = ((0, 0) if label in arrow_labels
+                          else scan_chunks(d, data_cols))
             print(f"{label} scan {table}: read {len(cols)} of "
                   f"{len(tpch_columns[table])} columns {cols}; {n} "
-                  f"dictionary chunks")
+                  f"dictionary chunks; batches {ex.stats}")
             if want is None or sorted(cols) != sorted(want):
                 raise AssertionError(
                     f"{label}: the {table} scan read {cols}, the query "
                     f"reads {want}")
+            arrow_scan = label in arrow_labels
+            if (ex.stats["device_batches"] > 0) == arrow_scan or \
+                    (ex.stats["arrow_batches"] > 0) != arrow_scan or \
+                    (arrow_scan and ex.stats["strategy"] != "MULTITHREADED"):
+                way = ("the MULTITHREADED arrow reader" if arrow_scan
+                       else "the device decode")
+                raise AssertionError(f"{label}: the {table} scan took "
+                                     f"{ex.stats}, want {way}")
             want_chunks += n
+            want_refused += refused
         if counts["bitunpack128"] != want_chunks:
             raise AssertionError(
                 f"{label}: the chunk decode launched "
                 f"{counts['bitunpack128']} times, the pruned scans have "
                 f"{want_chunks} dictionary chunks")
+        native = ("native_chunk" if label == "q1-uncompressed"
+                  else "native_pages")
+        want_routes = {"native_chunk": 0, "native_pages": 0,
+                       "arrow": want_refused, "python": 0}
+        want_routes[native] += want_chunks
+        if routes != want_routes:
+            raise AssertionError(
+                f"{label}: scan routes {routes}, want {want_routes} (every "
+                f"dictionary chunk of the pruned scans native, none in "
+                f"Python)")
+        routes_by_path[label] = routes
+        print(f"{label} scan routes: {routes}")
         exs = exchanges(plan)
         batches = sum(e.map_batches for e in exs)
         if label in q1_labels:
@@ -1750,6 +1936,8 @@ def main() -> int:
         dict(entry("bitunpack128", "chunkdecode.cu", 221, ("q1",), max_err,
                    chunk_ms, chunk_plain_ms, chunk_bound, "bytes", None),
              chunks=len(census), pages=census_pages,
+             host_scan_native_s=native_s, host_scan_plain_s=plain_s,
+             scan_routes_by_path=routes_by_path,
              paths=[p for p, c in counts_by_path.items()
                     if c["bitunpack128"]],
              fused_route_ms=fused_ms, per_page_route_ms=per_page_ms,

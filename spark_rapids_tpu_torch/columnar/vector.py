@@ -50,19 +50,37 @@ class TorchColumnVector:
     def from_numpy(dtype: T.DataType, values: np.ndarray,
                    validity: np.ndarray | None, capacity: int | None,
                    device, dictionary: pa.Array | None = None):
+        """A column of ``capacity`` slots from host values and validity.
+        For a CUDA device the values and the validity are laid out in one
+        buffer from torch's caching pinned-memory allocator and cross in one
+        asynchronous copy; the column's two tensors are views of it."""
         n = len(values)
         cap = capacity or bucket_capacity(n)
-        data = np.zeros(cap, dtype=T.to_numpy_dtype(dtype))
+        np_dtype = T.to_numpy_dtype(dtype)
+        device = torch.device(device)
+        stage = None
+        if device.type == "cuda":
+            size = np_dtype.itemsize * cap    # a multiple of 8: cap >= 8
+            stage = torch.empty((size + cap,), dtype=torch.uint8,
+                                pin_memory=True)
+            host = stage.numpy()
+            host[:] = 0
+            data, valid = host[:size].view(np_dtype), host[size:].view(bool)
+        else:
+            data = np.zeros(cap, dtype=np_dtype)
+            valid = np.zeros(cap, dtype=bool)
         data[:n] = values
-        valid = np.zeros(cap, dtype=bool)
         if validity is None:
             valid[:n] = True
         else:
             valid[:n] = validity
             data[~valid] = dtype.default_value()
-        return TorchColumnVector(dtype, torch.from_numpy(data).to(device),
-                                 torch.from_numpy(valid).to(device),
-                                 dictionary)
+        if stage is None:
+            return TorchColumnVector(dtype, torch.from_numpy(data),
+                                     torch.from_numpy(valid), dictionary)
+        on = stage.to(device, non_blocking=True)
+        return TorchColumnVector(dtype, on[:size].view(dtype.torch_dtype),
+                                 on[size:].view(torch.bool), dictionary)
 
     @property
     def capacity(self) -> int:

@@ -79,6 +79,9 @@ class ConfBuilder:
     def bytes_conf(self, default) -> ConfEntry:
         return self._register(parse_bytes(default), parse_bytes)
 
+    def string_conf(self, default) -> ConfEntry:
+        return self._register(default, str)
+
 
 def conf(key: str) -> ConfBuilder:
     return ConfBuilder(key)
@@ -98,7 +101,33 @@ PARQUET_DEVICE_DECODE = conf(
     "kernel + dictionary gather, ops/parquet_decode.py); out-of-scope chunks "
     "fall back to arrow per column. True on every device, the CPU included, "
     "so the CPU tests walk the same scan path with the kernel's plain "
-    "version").boolean_conf(True)
+    "version. False sends every partition through the arrow reader "
+    "(io/readers.py)").boolean_conf(True)
+
+PARQUET_READER_TYPE = conf("spark.rapids.tpu.sql.format.parquet.reader.type").doc(
+    "PERFILE | MULTITHREADED | COALESCING: the arrow reader's strategy for "
+    "the partitions the device decode does not take (reference "
+    "GpuParquetScan.scala:317,426 reader strategies)").string_conf(
+    "MULTITHREADED")
+
+MULTITHREADED_READ_NUM_THREADS = conf(
+    "spark.rapids.tpu.sql.format.parquet.multiThreadedRead.numThreads").doc(
+    "Thread pool size for the multithreaded reader (reference "
+    "multiThreadedRead.numThreads)").integer_conf(20)
+
+PARQUET_REBASE_MODE = conf(
+    "spark.rapids.tpu.sql.parquet.datetimeRebaseModeInRead").doc(
+    "EXCEPTION | CORRECTED | LEGACY for dates before 1582-10-15 in parquet "
+    "files read by the arrow reader (Spark "
+    "spark.sql.parquet.datetimeRebaseModeInRead; LEGACY applies the "
+    "Julian->proleptic-Gregorian rebase, "
+    "io/readers.rebase_julian_to_gregorian_days)").string_conf("EXCEPTION")
+
+ALLUXIO_PATHS_REPLACE = conf(
+    "spark.rapids.tpu.alluxio.pathsToReplace").doc(
+    "Path-prefix rewrites of every file scan (reference "
+    "spark.rapids.alluxio.pathsToReplace). Not ported yet: planning a scan "
+    "with it set raises NotImplementedError").string_conf(None)
 
 PARQUET_ENCODED_UPLOAD = conf(
     "spark.rapids.tpu.sql.parquet.encodedUpload.enabled").doc(

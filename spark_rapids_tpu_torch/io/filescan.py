@@ -1,17 +1,27 @@
-"""File scan: plan node + device exec.
+"""File scan: plan node + device exec with partition-values handling.
 
 Counterpart of ``spark_rapids_tpu/io/filescan.py``. A directory is discovered
-into one partition per directory (the JAX package's ``discover_partitions``;
-``files_per_partition`` applies only to an explicit file list). The exec reads
-each row group through the device parquet decode
-(``io/parquet_native.read_row_group_device``), one batch per row group; a
-column chunk out of the decode's scope goes through arrow for that column.
+into one partition per directory (``discover_partitions``, hive directories
+``a=1/b=x/`` included; ``files_per_partition`` applies only to an explicit
+file list). A partition goes one of two ways:
+
+- the device decode (``io/parquet_native.read_row_group_device``), one batch
+  per row group: the native scanner reads each dictionary column chunk and
+  one ``chunk_decode`` launch decodes it on the card; a chunk out of the
+  decode's scope goes through arrow for that column;
+- the arrow reader (``io/readers.py``, the PERFILE / MULTITHREADED /
+  COALESCING strategies of ``spark.rapids.tpu.sql.format.parquet.reader.type``)
+  wherever the reference takes it: the device decode turned off, a partition
+  with hive partition values (appended as constant columns), row groups above
+  the reader caps, or dates that footer statistics do not prove
+  post-cutover (the reader applies the configured DATE rebase).
+
 The exec reads the columns of the node's schema only: column pruning
 (``plan/pruning.py``) narrows a copy of the node to the columns its plan
-uses, so an unread column is never parsed, uploaded or decoded.
-Hive partition values, the arrow reader strategies and the legacy datetime
-rebase are not ported yet and raise ``NotImplementedError``; pushed filters
-are not ported either, so the scan takes none.
+uses, keeping every partition column, so an unread column is never parsed,
+uploaded or decoded. Pushed filters, the Alluxio path rewrite and the ORC
+and CSV formats are not ported and raise ``NotImplementedError`` when the
+plan is built.
 """
 
 from __future__ import annotations
@@ -19,6 +29,9 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
+import threading
+
+import pyarrow as pa
 
 from spark_rapids_tpu_torch import config as CFG
 from spark_rapids_tpu_torch import types as T
@@ -92,14 +105,27 @@ def _dates_post_cutover(md, date_cols: list) -> bool:
     return True
 
 
+def _infer_partition_type(values: list) -> T.DataType:
+    try:
+        for v in values:
+            int(v)
+        small = all(-2**31 <= int(v) < 2**31 for v in values)
+        return T.INT if small else T.LONG
+    except ValueError:
+        return T.STRING
+
+
 class FileScanNode(PlanNode):
     """Plan node for a file scan; the override rules turn it into
-    FileSourceScanExec."""
+    FileSourceScanExec. The schema is the files' columns, then one column
+    per hive partition key (INT, LONG or STRING, not nullable)."""
 
     def __init__(self, paths_or_dir, fmt: str = "parquet",
                  schema: T.StructType | None = None,
-                 files_per_partition: int = 1):
+                 pushed_filter=None, files_per_partition: int = 1):
         super().__init__()
+        if pushed_filter is not None:
+            raise NotImplementedError("pushed scan filters are not ported yet")
         self.fmt = fmt
         self.reader = R.reader_for(fmt)
         if isinstance(paths_or_dir, str) and os.path.isdir(paths_or_dir):
@@ -111,14 +137,25 @@ class FileScanNode(PlanNode):
                      for i in range(0, len(paths), files_per_partition)]
         if not parts:
             raise ValueError(f"no {fmt} files under {paths_or_dir}")
-        if any(p.partition_values for p in parts):
-            raise NotImplementedError(
-                "hive partition directories are not ported yet")
+        keys0 = tuple(k for k, _ in parts[0].partition_values)
+        for p in parts[1:]:
+            if tuple(k for k, _ in p.partition_values) != keys0:
+                raise ValueError(
+                    "inconsistent partition directory layout: "
+                    f"{keys0} vs {tuple(k for k, _ in p.partition_values)} "
+                    f"under {p.paths[0]}")
         self.partitions = parts
         if schema is None:
-            schema = T.StructType.from_arrow(
+            file_schema = T.StructType.from_arrow(
                 self.reader.schema_of(parts[0].paths[0]))
+            pfields = []
+            for i, (k, _) in enumerate(parts[0].partition_values):
+                vals = [p.partition_values[i][1] for p in parts]
+                pfields.append(T.StructField(
+                    k, _infer_partition_type(vals), False))
+            schema = T.StructType(list(file_schema.fields) + pfields)
         self._schema = schema
+        self._n_partition_cols = len(keys0)
 
     @property
     def output(self):
@@ -129,18 +166,66 @@ class FileScanNode(PlanNode):
         return len(self.partitions)
 
     def _data_columns(self) -> list:
-        return [f.name for f in self._schema.fields]
+        n = len(self._schema.fields) - self._n_partition_cols
+        return [f.name for f in self._schema.fields[:n]]
+
+    def _append_partition_values(self, tbl: pa.Table, part: FilePartition):
+        """Constant partition columns for every row (reference
+        ColumnarPartitionReaderWithPartitionValues)."""
+        if not part.partition_values:
+            return tbl
+        n = len(self._schema.fields) - self._n_partition_cols
+        for (k, v), f in zip(part.partition_values, self._schema.fields[n:]):
+            at = T.to_arrow_type(f.data_type)
+            val = int(v) if isinstance(f.data_type, T.IntegralType) else v
+            tbl = tbl.append_column(pa.field(k, at), pa.repeat(
+                pa.scalar(val, at), tbl.num_rows))
+        return tbl
+
+    def tables_for(self, split: int, batch_rows: int,
+                   strategy: str = "PERFILE", num_threads: int = 4,
+                   target_rows: int = 1 << 20,
+                   rebase_mode: str | None = None):
+        """The arrow tables of partition ``split`` by the named strategy,
+        each with its partition columns appended."""
+        reader = self.reader
+        if rebase_mode is not None and \
+                reader.rebase_mode != rebase_mode.upper():
+            # a fresh reader per divergent call: never mutate the shared one
+            reader = R.reader_for(self.fmt, rebase_mode=rebase_mode)
+        part = self.partitions[split]
+        cols = self._data_columns()
+        if strategy == "MULTITHREADED":
+            gen = R.multithreaded_tables(reader, list(part.paths), cols,
+                                         batch_rows, num_threads)
+        elif strategy == "COALESCING":
+            gen = R.coalescing_tables(reader, list(part.paths), cols,
+                                      batch_rows, target_rows)
+        else:
+            gen = R.perfile_tables(reader, list(part.paths), cols,
+                                   batch_rows)
+        for tbl in gen:
+            yield self._append_partition_values(tbl, part)
 
     def args_string(self):
         return f"{self.fmt} {len(self.partitions)} partitions"
 
 
 class FileSourceScanExec(TorchExec):
-    """Leaf device exec: row-group-at-a-time device decode."""
+    """Leaf device exec: row-group-at-a-time device decode, or the arrow
+    reader where the device decode does not apply. ``stats`` counts the
+    batches each way took and names the arrow reader's strategy."""
 
     def __init__(self, node: FileScanNode, conf=None, device=None):
         super().__init__(conf=conf, device=device)
         self.node = node
+        self.stats = {"device_batches": 0, "arrow_batches": 0,
+                      "strategy": None}
+        self._lock = threading.Lock()
+
+    def _count(self, key: str) -> None:
+        with self._lock:
+            self.stats[key] += 1
 
     @property
     def output(self):
@@ -153,12 +238,15 @@ class FileSourceScanExec(TorchExec):
     def _device_decode_batches(self, split, batch_rows: int,
                                batch_bytes: int):
         """Row-group-at-a-time device decode. Returns None when the partition
-        is out of the device path's scope (date columns that statistics do
-        not prove post-cutover, or row groups larger than the reader caps)."""
+        is out of the device path's scope (partition values, date columns
+        that statistics do not prove post-cutover, or row groups larger than
+        the reader caps)."""
         import pyarrow.parquet as pq
         from spark_rapids_tpu_torch.io import parquet_native as PN
         node = self.node
         part = node.partitions[split]
+        if part.partition_values:
+            return None
         date_cols = [f.name for f in self.output
                      if isinstance(f.data_type, T.DateType)]
         files = []
@@ -178,25 +266,34 @@ class FileSourceScanExec(TorchExec):
             cols = node._data_columns()
             for path, pf, n_groups in files:
                 for rg in range(n_groups):
+                    self._count("device_batches")
                     yield PN.read_row_group_device(
                         path, rg, self.output, self.device, cols, pf=pf)
         return it()
 
+    def _arrow_batches(self, split, batch_rows: int):
+        """The arrow reader path: the configured strategy's tables, each
+        staged to the card as one batch."""
+        from spark_rapids_tpu_torch.columnar.arrow import table_to_device
+        conf = self.conf
+        strategy = conf.get(CFG.PARQUET_READER_TYPE).upper()
+        self.stats["strategy"] = strategy
+        for tbl in self.node.tables_for(
+                split, batch_rows, strategy,
+                conf.get(CFG.MULTITHREADED_READ_NUM_THREADS),
+                rebase_mode=conf.get(CFG.PARQUET_REBASE_MODE)):
+            self._count("arrow_batches")
+            yield table_to_device(tbl, self.device, schema=self.output)
+
     def execute_partition(self, split):
         conf = self.conf
-        if not conf.get(CFG.PARQUET_DEVICE_DECODE):
-            raise NotImplementedError(
-                "the arrow parquet reader is not ported yet: "
-                f"{CFG.PARQUET_DEVICE_DECODE.key} must stay true")
         batch_rows = min(conf.get(CFG.MAX_READER_BATCH_SIZE_ROWS), 1 << 20)
-        dev_it = self._device_decode_batches(
-            split, batch_rows, conf.get(CFG.MAX_READER_BATCH_SIZE_BYTES))
-        if dev_it is None:
-            raise NotImplementedError(
-                "this partition needs the arrow reader (row groups above the "
-                "reader caps, or dates before the Gregorian cutover), which "
-                "is not ported yet")
-        return dev_it
+        if conf.get(CFG.PARQUET_DEVICE_DECODE):
+            dev_it = self._device_decode_batches(
+                split, batch_rows, conf.get(CFG.MAX_READER_BATCH_SIZE_BYTES))
+            if dev_it is not None:
+                return dev_it
+        return self._arrow_batches(split, batch_rows)
 
     def args_string(self):
         return self.node.args_string()

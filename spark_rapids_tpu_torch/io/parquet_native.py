@@ -1,26 +1,36 @@
-"""Native parquet page access: thrift metadata and page splitting on the host,
+"""Native parquet page access: the host scan of a column chunk, and its
 bulk index decode on the device.
 
-Counterpart of ``spark_rapids_tpu/io/parquet_native.py``. The thrift page
-headers and RLE run structure are metadata (bytes to kilobytes) parsed on the
-host in Python; the bulk bytes, the bit-packed dictionary indices of every
-page of a column chunk, go to the device in one copy, where one
-``chunk_decode`` launch (``ops/cuda_kernels.py``) unpacks them, gathers the
-dictionary values and spreads them over the null layout. The parquet
-dictionary page maps 1:1 onto the engine's sorted string dictionary, so a
-string column never materializes per-row bytes.
+Counterpart of ``spark_rapids_tpu/io/parquet_native.py``. The native scanner
+(``native/parquet_host.cpp``, one C call per chunk, built with g++ at first
+use) walks the thrift page headers, decodes the def levels and splits every
+page's RLE/bit-packed hybrid stream into runs: an UNCOMPRESSED chunk of v1
+pages in one ``sr_scan_chunk`` call, as the reference does; a SNAPPY / GZIP /
+ZSTD chunk, or one of v2 data pages, through the native header walk, arrow's
+codec per page body and one native page scan. ``pack_chunk`` then lays the
+chunk out in one buffer (the native scanner writes its page table and index
+words), which crosses to the card in one copy, where one ``chunk_decode``
+launch (``ops/cuda_kernels.py``) unpacks the indices, gathers the dictionary
+values and spreads them over the null layout. The parquet dictionary page
+maps 1:1 onto the engine's sorted string dictionary, so a string column never
+materializes per-row bytes. ``routes`` counts the chunks each route took.
 
-Scope: UNCOMPRESSED / SNAPPY / GZIP / ZSTD chunks (compressed page bodies
-decompress on the host through arrow's codecs), RLE_DICTIONARY-encoded data
-pages (v1 and v2), flat schemas, physical types INT32/INT64/FLOAT/DOUBLE/
-BYTE_ARRAY. Anything else (for example a dictionary that overflowed to PLAIN
-pages) falls back to the arrow decode per column chunk. Every chunk is decoded
-at the scan; uploading pages encoded is not ported yet.
+The reference's Python page parser stays here as the plain version
+(``read_chunk_pages_plain``, ``pack_chunk_plain``), which the tests hold the
+scanner against; no path of the package calls it, and nothing falls back to
+it: a scanner that cannot be built fails the scan.
+
+Scope: RLE_DICTIONARY-encoded data pages (v1 and v2), flat schemas, physical
+types INT32/INT64/FLOAT/DOUBLE/BYTE_ARRAY. Anything else (for example a
+dictionary that overflowed to PLAIN pages, or an unported codec) falls back
+to the arrow decode per column chunk. Every chunk is decoded at the scan;
+uploading pages encoded is not ported yet.
 """
 
 from __future__ import annotations
 
 import struct
+import threading
 import typing
 
 import numpy as np
@@ -206,10 +216,94 @@ def decode_rle_host(buf: bytes, pos: int, end: int, bit_width: int,
 class ChunkPages(typing.NamedTuple):
     physical_type: str
     dict_values: np.ndarray | list      # decoded PLAIN dictionary (host)
-    index_segments: list                # per data page: (num_values,
-                                        #   def_levels np | None,
-                                        #   bit_width, packed bytes | np idx)
+    index_segments: typing.Any          # the data pages: ScannedPages (the
+                                        #   native scan), or a list of
+                                        #   (num_values, def_levels, bit_width,
+                                        #   page bytes, values_off, segments)
     num_values: int
+
+
+class ScannedPages:
+    """The data pages of one column chunk as the native scanner returns
+    them: ``body`` (uint8) holds every page's bytes, ``pages`` one
+    ``native.PAGE_FIELDS`` row a page (offsets into ``body``), ``segs`` one
+    ``native.SEG_FIELDS`` row a run (offsets relative to its page), and
+    ``def_levels`` (int32) the chunk's def levels in page order. Indexing
+    and iteration give the reference's per-page tuples ``(num_values, def
+    levels, bit width, page bytes, values_off, [RleSegment])``, built on
+    demand (the tests and the per-page route read them; the scan packs the
+    arrays)."""
+
+    __slots__ = ("body", "pages", "segs", "def_levels")
+
+    def __init__(self, body, pages, segs, def_levels):
+        self.body = body
+        self.pages = pages
+        self.segs = segs
+        self.def_levels = def_levels
+
+    def __len__(self) -> int:
+        return int(self.pages.shape[0])
+
+    def __getitem__(self, i: int):
+        if not -len(self) <= i < len(self):
+            raise IndexError(i)
+        (nv, def_off, _n_present, bw, body_off, body_len, values_off,
+         seg_off, seg_count) = (int(v) for v in self.pages[i])
+        segs = [RleSegment("packed" if k == 1 else "rle", int(c), int(v),
+                           int(bo), int(bl))
+                for k, c, v, bo, bl in self.segs[seg_off:seg_off + seg_count]]
+        return (nv, self.def_levels[def_off:def_off + nv], bw,
+                bytes(self.body[body_off:body_off + body_len]), values_off,
+                segs)
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self)))
+
+    @classmethod
+    def from_list(cls, index_segments) -> "ScannedPages":
+        """The arrays of a per-page tuple list (a chunk that the Python
+        parser or a test built)."""
+        from spark_rapids_tpu_torch import native as N
+        pages = np.zeros((len(index_segments), N.PAGE_FIELDS), np.int64)
+        segs, levels, bodies = [], [], []
+        body_at = def_at = 0
+        for i, (nv, dl, bw, page_bytes, values_off, ps) in enumerate(
+                index_segments):
+            pages[i] = (nv, def_at, int(np.asarray(dl).sum()), bw, body_at,
+                        len(page_bytes), values_off, len(segs), len(ps))
+            segs += [(int(s.kind == "packed"), s.count, s.value, s.byte_off,
+                      s.byte_len) for s in ps]
+            levels.append(np.asarray(dl, np.int32))
+            bodies.append(bytes(page_bytes))
+            body_at += len(page_bytes)
+            def_at += nv
+        return cls(np.frombuffer(b"".join(bodies), np.uint8).copy(), pages,
+                   np.asarray(segs, np.int64).reshape(-1, N.SEG_FIELDS),
+                   np.concatenate(levels) if levels
+                   else np.zeros(0, np.int32))
+
+
+#: column chunks per scan route since the last reset_routes():
+#: ``native_chunk`` (an UNCOMPRESSED chunk in one sr_scan_chunk call),
+#: ``native_pages`` (a compressed chunk, or one of v2 pages: the native
+#: header walk, the arrow codec per page body, one native page scan),
+#: ``arrow`` (a chunk the device decode refuses, read through arrow by
+#: read_row_group_device) and ``python`` (read_chunk_pages_plain, which no
+#: path of the package calls)
+routes = {"native_chunk": 0, "native_pages": 0, "arrow": 0, "python": 0}
+_ROUTES_LOCK = threading.Lock()
+
+
+def reset_routes() -> None:
+    with _ROUTES_LOCK:
+        for k in routes:
+            routes[k] = 0
+
+
+def _route(name: str) -> None:
+    with _ROUTES_LOCK:
+        routes[name] += 1
 
 
 _FIXED = {"INT32": ("<i4", 4), "INT64": ("<i8", 8),
@@ -231,13 +325,11 @@ def _decode_plain_dictionary(physical_type: str, raw: bytes, n: int):
     raise NotImplementedError(physical_type)
 
 
-def read_chunk_pages(path: str, row_group: int, column: int,
-                     md=None) -> ChunkPages:
-    """Parse one dictionary-encoded column chunk (UNCOMPRESSED, or
-    SNAPPY/GZIP/ZSTD with page bodies decompressed on the host) into its raw
-    device-ready pieces. Raises NotImplementedError when out of scope (the
-    caller falls back to the arrow decode). ``md`` avoids re-parsing the
-    footer per chunk."""
+def _open_chunk(path: str, row_group: int, column: int, md):
+    """The scope checks of a column chunk and its bytes: ``(column chunk
+    metadata, max def level, arrow codec or None, chunk buffer)``. Raises
+    NotImplementedError when the chunk is out of the device decode's scope
+    (the caller reads it through arrow)."""
     if md is None:
         import pyarrow.parquet as pq
         md = pq.ParquetFile(path).metadata
@@ -266,7 +358,84 @@ def read_chunk_pages(path: str, row_group: int, column: int,
         start = col.dictionary_page_offset or col.data_page_offset
         f.seek(start)
         buf = f.read(col.total_compressed_size)
+    return col, max_def, dec, buf
 
+
+def read_chunk_pages(path: str, row_group: int, column: int,
+                     md=None) -> ChunkPages:
+    """Scan one dictionary-encoded column chunk with the native scanner
+    (``native/parquet_host.cpp``) into its raw device-ready pieces: an
+    UNCOMPRESSED chunk of v1 pages in one ``sr_scan_chunk`` call; any other
+    (SNAPPY/GZIP/ZSTD, or v2 data pages) through the native header walk, the
+    arrow codec per page body and one native page scan. Raises
+    NotImplementedError when out of scope (the caller falls back to the
+    arrow decode), ValueError on a malformed chunk and
+    ``native.NativeBuildError`` when the scanner cannot be built: nothing
+    falls back to the Python parser. ``md`` avoids re-parsing the footer per
+    chunk."""
+    from spark_rapids_tpu_torch import native as N
+    col, max_def, dec, buf = _open_chunk(path, row_group, column, md)
+    if dec is None:
+        try:
+            pages, segs, defs, (d_off, d_len, d_n) = N.scan_chunk(
+                buf, col.num_values, max_def)
+        except N.ScopeRefused as e:
+            if e.code != N.PAGE_TYPE:       # v2 pages take the page route
+                raise
+        else:
+            _route("native_chunk")
+            dict_vals = _decode_plain_dictionary(
+                col.physical_type, buf[d_off:d_off + d_len], d_n)
+            return ChunkPages(col.physical_type, dict_vals, ScannedPages(
+                np.frombuffer(buf, np.uint8), pages, segs, defs),
+                col.num_values)
+
+    view = memoryview(buf)
+    dict_vals = None
+    descs, parts = [], []
+    at = 0
+    for (page_type, body_off, csize, usize, nv, def_len,
+         v2_compressed) in N.page_headers(buf, col.num_values).tolist():
+        raw = view[body_off:body_off + csize]
+        if page_type == 2:                          # dictionary page
+            body = raw if dec is None else dec.decompress(raw, usize)
+            dict_vals = _decode_plain_dictionary(col.physical_type,
+                                                 bytes(body), nv)
+        elif page_type == 0:                        # data page v1
+            data = raw if dec is None else dec.decompress(raw, usize)
+            descs.append((1, nv, at, len(data), 0, 0))
+            parts.append(data)
+            at += len(data)
+        else:                                       # data page v2
+            # levels ride UNCOMPRESSED ahead of the (optionally
+            # compressed) values section; no repetition levels (the walk
+            # refuses them)
+            data = raw[def_len:]
+            if dec is not None and v2_compressed:
+                data = dec.decompress(data, usize - def_len)
+            descs.append((2, nv, at + def_len, len(data), at, def_len))
+            parts += [raw[:def_len], data]
+            at += def_len + len(data)
+    body = np.empty(at, np.uint8)
+    at = 0
+    for part in parts:
+        n = len(part)
+        body[at:at + n] = np.frombuffer(part, np.uint8)
+        at += n
+    pages, segs, defs = N.scan_pages(
+        body, np.asarray(descs, np.int64).reshape(-1, N.DESC_FIELDS),
+        max_def, col.num_values)
+    _route("native_pages")
+    return ChunkPages(col.physical_type, dict_vals,
+                      ScannedPages(body, pages, segs, defs), col.num_values)
+
+
+def read_chunk_pages_plain(path: str, row_group: int, column: int,
+                           md=None) -> ChunkPages:
+    """The plain version of ``read_chunk_pages``: the reference's Python
+    page parser, page by page. The tests hold the native scanner against it;
+    no path of the package calls it."""
+    col, max_def, dec, buf = _open_chunk(path, row_group, column, md)
     pos = 0
     dict_vals = None
     pages = []
@@ -332,6 +501,7 @@ def read_chunk_pages(path: str, row_group: int, column: int,
         pos = body + ph.compressed_size
     if dict_vals is None:
         raise NotImplementedError("no dictionary page")
+    _route("python")
     return ChunkPages(col.physical_type, dict_vals, pages, col.num_values)
 
 
@@ -365,8 +535,8 @@ class PackedChunk(typing.NamedTuple):
     buffer that crosses to the card in one copy, holding at 16-byte
     boundaries the page table (``PAGE_FIELDS``), every page's index words,
     the chunk's def levels (one byte a row, only when some page has nulls)
-    and the dictionary in the column's type. The tuples say where each
-    section lies, in int32 words."""
+    and the dictionary in the column's type; the gaps between sections are
+    zero. The tuples say where each section lies, in int32 words."""
     buf: torch.Tensor            # (n,) int32 on the host
     num_pages: int
     words: tuple                 # (offset, words)
@@ -380,15 +550,64 @@ def _words_of(n_bytes: int) -> int:
     return -(-n_bytes // 16) * 4
 
 
+def _pack(table: np.ndarray, n_words: int, write_words, def_levels,
+          dictionary: torch.Tensor, num_values: int, capacity: int,
+          pin: bool) -> PackedChunk:
+    """Lay out a packed chunk from its ``(P, 8)`` int32 page table, its
+    index word count and a ``write_words(dst)`` that fills the words
+    section."""
+    n_rows = min(int(table[:, 1].astype(np.int64).sum()), num_values,
+                 capacity)
+    has_nulls = bool(table[:, 7].any())
+    raw_dict = np.ascontiguousarray(dictionary.numpy()).view(np.uint8)
+    n_table = table.size
+    at_words = _words_of(4 * n_table)
+    at_defs = at_words + _words_of(4 * n_words)
+    at_dict = at_defs + (_words_of(n_rows) if has_nulls else 0)
+    buf = torch.empty((at_dict + _words_of(raw_dict.size),),
+                      dtype=torch.int32, pin_memory=pin)
+    host = buf.numpy()
+    host[:n_table] = table.reshape(-1)
+    host[n_table:at_words] = 0
+    write_words(host[at_words:at_words + n_words])
+    host[at_words + n_words:at_defs] = 0
+    if has_nulls:
+        defs = host[at_defs:at_dict].view(np.uint8)
+        defs[:n_rows] = def_levels[:n_rows] != 0
+        defs[n_rows:] = 0
+    tail = host[at_dict:].view(np.uint8)
+    tail[:raw_dict.size] = raw_dict
+    tail[raw_dict.size:] = 0
+    return PackedChunk(buf, table.shape[0], (at_words, n_words),
+                       (at_defs, n_rows) if has_nulls else None,
+                       (at_dict, dictionary.numel()), n_rows)
+
+
 def pack_chunk(pages: ChunkPages, dictionary: torch.Tensor, capacity: int,
                pin: bool = False) -> PackedChunk:
-    """Host prep of one chunk: each page's index words (its bit-packed
-    segments as they are; pages with RLE runs decode their indices on the
-    host and carry them at bit width 32, which unpacks as the identity), its
-    row of the page table, the def levels and the (converted) dictionary, in
-    one buffer. ``pin`` takes the buffer from torch's caching pinned-memory
+    """Host prep of one chunk in one buffer: the page table and every
+    page's index words from the native scanner (``sr_pack_table``,
+    ``sr_pack_words``: a page's bit-packed runs as they are; a page with RLE
+    runs decodes its indices natively and carries them at bit width 32,
+    which unpacks as the identity), the def levels and the (converted)
+    dictionary. ``pin`` takes the buffer from torch's caching pinned-memory
     allocator, so that the copy to the card can run asynchronously; every
     call has its own buffer, so concurrent scans share none."""
+    from spark_rapids_tpu_torch import native as N
+    sp = pages.index_segments
+    if not isinstance(sp, ScannedPages):
+        sp = ScannedPages.from_list(sp)
+    table, n_words = N.pack_table(sp.pages, sp.segs)
+    return _pack(table, n_words,
+                 lambda dst: N.pack_words(sp.body, sp.pages, sp.segs, table,
+                                          dst),
+                 sp.def_levels, dictionary, pages.num_values, capacity, pin)
+
+
+def pack_chunk_plain(pages: ChunkPages, dictionary: torch.Tensor,
+                     capacity: int) -> PackedChunk:
+    """The plain version of ``pack_chunk``, page by page in Python with
+    ``decode_rle_host``; the tests hold ``pack_chunk`` against it."""
     from spark_rapids_tpu_torch.ops import cuda_kernels as CK
     table, streams, levels = [], [], []
     row_off = word_off = present_before = 0
@@ -415,26 +634,13 @@ def pack_chunk(pages: ChunkPages, dictionary: torch.Tensor, capacity: int,
         row_off += num_values
         word_off += len(words)
         present_before += n_present
-    n_rows = min(row_off, pages.num_values, capacity)
-    has_nulls = any(t[-1] for t in table)
-    raw_dict = np.ascontiguousarray(dictionary.numpy()).view(np.uint8)
-    n_table = len(table) * len(CK.PAGE_FIELDS)
-    at_words = _words_of(4 * n_table)
-    at_defs = at_words + _words_of(4 * word_off)
-    at_dict = at_defs + (_words_of(n_rows) if has_nulls else 0)
-    buf = torch.empty((at_dict + _words_of(raw_dict.size),),
-                      dtype=torch.int32, pin_memory=pin)
-    host = buf.numpy()
-    host[:n_table] = np.asarray(table, np.int32).reshape(-1)
-    if word_off:
-        host[at_words:at_words + word_off] = np.concatenate(streams)
-    if has_nulls:
-        host[at_defs:at_dict].view(np.uint8)[:n_rows] = \
-            np.concatenate(levels)[:n_rows] != 0
-    host[at_dict:].view(np.uint8)[:raw_dict.size] = raw_dict
-    return PackedChunk(buf, len(table), (at_words, word_off),
-                       (at_defs, n_rows) if has_nulls else None,
-                       (at_dict, dictionary.numel()), n_rows)
+
+    def write(dst):
+        if word_off:
+            dst[:] = np.concatenate(streams)
+    return _pack(np.asarray(table, np.int32).reshape(-1, 8), word_off, write,
+                 np.concatenate(levels) if levels else np.zeros(0, np.int32),
+                 dictionary, pages.num_values, capacity, False)
 
 
 def chunk_views(buf: torch.Tensor, packed: PackedChunk, want: torch.dtype):
@@ -529,6 +735,7 @@ def read_row_group_device(path: str, row_group: int, schema, device,
             cv = chunk_to_device(pages, sf.data_type if sf else None, cap,
                                  device)
         except NotImplementedError:
+            _route("arrow")
             arr = pf.read_row_group(row_group, columns=[name]).column(0)
             cv = array_to_device(arr, sf.data_type if sf else None, cap,
                                  device)

@@ -99,10 +99,10 @@ class TorchOverrides:
     def _scan(self, n, kids):
         if n.fmt != "parquet":
             raise NotImplementedError(f"{n.fmt} scans are not ported yet")
-        if not self.conf.get(CFG.PARQUET_DEVICE_DECODE):
+        if self.conf.get(CFG.ALLUXIO_PATHS_REPLACE):
             raise NotImplementedError(
-                "the arrow parquet reader is not ported yet: "
-                f"{CFG.PARQUET_DEVICE_DECODE.key} must stay true")
+                f"{CFG.ALLUXIO_PATHS_REPLACE.key} (the Alluxio path rewrite) "
+                "is not ported yet")
         return FileSourceScanExec(n, conf=self.conf, device=self.device)
 
     def _filter(self, n, kids):

@@ -19,9 +19,10 @@ The rewrite preserves identity: a subtree where nothing narrows comes back
 as the ORIGINAL node objects, and the input plan is never mutated, so a
 DataFrame can be collected again. ``DataFrame.physical_plan`` runs the pass
 once, at the root, before the override rules (the reference runs it first
-in ``TpuOverrides.apply``). The port has no cache node and no pushed scan
-filters or hive partition columns, so the reference's barrier and the rules
-that keep their columns have nothing to act on here.
+in ``TpuOverrides.apply``). A narrowed scan keeps every hive partition
+column, after the kept data columns, as the reference's does. The port has
+no cache node and no pushed scan filters, so the reference's barrier and the
+rule that keeps a filter's columns have nothing to act on here.
 """
 
 from __future__ import annotations
@@ -181,7 +182,13 @@ def _prune_scan(node: FileScanNode, required: set | None):
     fields = node.output.fields
     if required is None or len(required) >= len(fields):
         return _identity(node)
-    kept = sorted(required) or [0]
+    n_data = len(fields) - node._n_partition_cols
+    # partition-value columns are per-file constants appended after the data
+    # columns; keep them all so _append_partition_values stays aligned
+    kept = ([i for i in sorted(required) if i < n_data] or [0]) \
+        + list(range(n_data, len(fields)))
+    if len(kept) == len(fields):
+        return _identity(node)
     new = copy.copy(node)
     new._schema = T.StructType([fields[i] for i in kept])
     return new, {o: i for i, o in enumerate(kept)}

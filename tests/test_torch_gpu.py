@@ -906,3 +906,143 @@ def test_sql_query_on_card(cuda_device, ladder_paths, q):
         return own + [j for c in p.children for j in joins(c)]
     ranked = [j for j in joins(plan) if j.stats["probe_mode"] == "rank"]
     assert len(ranked) == (1 if q == "q5" else 0)
+
+
+# -- the native chunk scanner and the arrow reader path ----------------------
+
+def _native_scan_file(tmp_path, codec: str, version: str) -> str:
+    """Nulls, a sorted low-cardinality column (RLE pages), short repeats
+    (RLE runs between bit-packed runs), strings and doubles in pages of
+    4,096 bytes, two row groups."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    rng = np.random.default_rng(17)
+    n = 200_000
+    k = n // 8
+    bursts = np.resize(np.repeat(rng.integers(0, 50, k),
+                                 rng.integers(1, 20, k)), n)
+    t = pa.table({
+        "i32": pa.array(rng.integers(0, 300, n).astype(np.int32),
+                        mask=rng.random(n) < 0.1),
+        "sorted": pa.array(np.sort(rng.integers(0, 12, n)).astype(np.int32)),
+        "bursts": pa.array(bursts.astype(np.int64), mask=rng.random(n) < 0.05),
+        "d": pa.array(np.round(rng.uniform(0, 100, n), 1)),
+        "s": pa.array(np.array(["x", "yy", "zzz", "a", ""])[
+            rng.integers(0, 5, n)], mask=rng.random(n) < 0.3),
+    })
+    path = str(tmp_path / f"{codec}-{version}.parquet")
+    pq.write_table(t, path, compression=codec, data_page_version=version,
+                   data_page_size=4096, row_group_size=n // 2)
+    return path
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("codec,version", [("NONE", "1.0"), ("SNAPPY", "1.0"),
+                                           ("ZSTD", "2.0")])
+def test_chunk_decode_of_native_packed_chunks(cuda_device, tmp_path, codec,
+                                              version):
+    """Every chunk the native scanner reads and packs decodes on the card
+    bit for bit as on the CPU, one launch each; so does each row group
+    through read_row_group_device."""
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch.io import parquet_native as PN
+    path = _native_scan_file(tmp_path, codec, version)
+    md = pq.ParquetFile(path).metadata
+    PN.reset_routes()
+    for rg in range(md.num_row_groups):
+        cap = bucket_capacity(md.row_group(rg).num_rows)
+        for ci in range(md.num_columns):
+            chunk = PN.read_chunk_pages(path, rg, ci, md=md)
+            _st, want, default, dictionary, _sd = PN.chunk_column(chunk, None)
+            packed = PN.pack_chunk(chunk, dictionary, cap, pin=True)
+            views = PN.chunk_views(packed.buf.to(cuda_device,
+                                                 non_blocking=True),
+                                   packed, want)
+            before = CK.launches["bitunpack128"]
+            got = CK.chunk_decode(*views, packed.n_rows, cap, want, default)
+            cpu = CK.chunk_decode(*PN.chunk_views(packed.buf, packed, want),
+                                  packed.n_rows, cap, want, default)
+            torch.cuda.synchronize()
+            assert CK.launches["bitunpack128"] == before + 1
+            assert torch.equal(got[0].cpu(), cpu[0])
+            assert torch.equal(got[1].cpu(), cpu[1])
+        CK.reset_launches()
+        card = PN.read_row_group_device(path, rg, None, cuda_device)
+        torch.cuda.synchronize()
+        assert CK.launches["bitunpack128"] == md.num_columns
+        host = PN.read_row_group_device(path, rg, None, "cpu")
+        for a, b in zip(card.columns, host.columns):
+            assert torch.equal(a.data.cpu(), b.data)
+            assert torch.equal(a.validity.cpu(), b.validity)
+    native = "native_chunk" if codec == "NONE" else "native_pages"
+    assert PN.routes[native] == 3 * md.num_row_groups * md.num_columns
+    assert PN.routes["python"] == PN.routes["arrow"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strategy", ["PERFILE", "MULTITHREADED",
+                                      "COALESCING"])
+def test_arrow_path_on_card_equals_cpu(cuda_device, tmp_path, strategy):
+    """The arrow reader path stages each column from pinned memory in one
+    copy: the card's batches equal the CPU's, capacity and padding
+    included."""
+    from spark_rapids_tpu_torch.config import RapidsConf
+    from spark_rapids_tpu_torch.io.filescan import (FileScanNode,
+                                                    FileSourceScanExec)
+    path = _native_scan_file(tmp_path, "SNAPPY", "1.0")
+    conf = RapidsConf({"spark.rapids.tpu.sql.parquet.deviceDecode.enabled":
+                       "false",
+                       "spark.rapids.tpu.sql.format.parquet.reader.type":
+                       strategy})
+
+    def batches(device):
+        ex = FileSourceScanExec(FileScanNode(path), conf=conf, device=device)
+        out = list(ex.execute_partition(0))
+        assert ex.stats["device_batches"] == 0 < ex.stats["arrow_batches"]
+        return out
+    card, cpu = batches(cuda_device), batches("cpu")
+    torch.cuda.synchronize()
+    assert len(card) == len(cpu)
+    for cb, hb in zip(card, cpu):
+        assert cb.num_rows == hb.num_rows
+        for a, b in zip(cb.columns, hb.columns):
+            assert a.data.device.type == "cuda"
+            assert torch.equal(a.data.cpu(), b.data)
+            assert torch.equal(a.validity.cpu(), b.validity)
+            assert (a.dictionary is None) == (b.dictionary is None)
+            if a.dictionary is not None:
+                assert a.dictionary.equals(b.dictionary)
+
+
+@pytest.mark.gpu
+def test_q1_over_hive_directories_on_card(cuda_device, ladder_paths,
+                                          tmp_path):
+    """q1 over lineitem rewritten as l_returnflag=A|N|R directories: the
+    card's rows equal the CPU run's (keys and counts exact, sums within
+    1e-9 relative) and the NumPy oracle's (1e-6 relative)."""
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    from spark_rapids_tpu_torch.session import TorchSession
+    li = pq.read_table(ladder_paths["lineitem"])
+    root = str(tmp_path / "lineitem_hive")
+    for flag in ("A", "N", "R"):
+        d = os.path.join(root, f"l_returnflag={flag}")
+        os.makedirs(d)
+        pq.write_table(li.filter(pc.equal(li["l_returnflag"], flag))
+                       .drop_columns(["l_returnflag"]),
+                       os.path.join(d, "part-0000.parquet"))
+
+    def run(spark):
+        return tpch.q1({"lineitem": spark.read_parquet(root)}) \
+            .collect().to_pylist()
+    card, cpu = run(TorchSession()), run(TorchSession(device="cpu"))
+    exp = tpch.np_q1(tpch.load_np({"lineitem": ladder_paths["lineitem"]}))
+    assert len(card) == len(cpu) == len(exp) == 4
+    for g, c, e in zip(card, cpu, exp):
+        for (k, v), w in zip(g.items(), e):
+            if isinstance(v, float):
+                assert v == pytest.approx(c[k], rel=1e-9)
+                assert v == pytest.approx(w, rel=1e-6)
+            else:
+                assert v == c[k] == w

@@ -2,6 +2,9 @@
 
 - no module of ``spark_rapids_tpu_torch``, and not ``chip_smoke.py``, imports
   jax or anything of the JAX package ``spark_rapids_tpu``;
+- the native scanner (``spark_rapids_tpu_torch/native``) builds from its own
+  source into the port's build directory and loads nothing of the JAX
+  package's ``native/``;
 - ``TorchSession()`` with no CUDA device raises instead of running on the CPU;
 - what the port has not ported raises ``NotImplementedError`` when the plan is
   built, never a wrong answer at run time.
@@ -30,7 +33,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         # the SQL slice's modules are among those checked
         assert {pkg.__name__ + "." + m for m in (
             "sql", "sql.lower", "sql.parser", "sql.tpch_queries",
-            "plan.pruning", "expr.exprkey", "expr.datetime")} <= set(names)
+            "plan.pruning", "expr.exprkey", "expr.datetime", "native",
+            "io.readers")} <= set(names)
         for name in names:
             importlib.import_module(name)
         import chip_smoke  # as a module: main() does not run
@@ -47,6 +51,48 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 30
+
+
+def test_native_scanner_builds_from_its_own_source():
+    """In a fresh process the port's scanner builds and loads from
+    ``spark_rapids_tpu_torch/native/parquet_host.cpp`` into
+    ``build/native/``; no library or source of ``spark_rapids_tpu/native``
+    is opened, and no module of the JAX package is imported."""
+    code = textwrap.dedent("""
+        import builtins, ctypes, os, sys
+        opened, loaded = [], []
+        real_open, real_cdll = builtins.open, ctypes.CDLL.__init__
+        def spy_open(f, *a, **k):
+            opened.append(os.path.abspath(str(f)))
+            return real_open(f, *a, **k)
+        def spy_cdll(self, name, *a, **k):
+            loaded.append(os.path.abspath(str(name)))
+            return real_cdll(self, name, *a, **k)
+        builtins.open = spy_open
+        ctypes.CDLL.__init__ = spy_cdll
+        from spark_rapids_tpu_torch import native as N
+        N.parquet_lib()
+        builtins.open = real_open
+        ref = os.path.abspath(os.path.join("spark_rapids_tpu", "native"))
+        port = os.path.abspath(os.path.join("spark_rapids_tpu_torch",
+                                            "native", "parquet_host.cpp"))
+        assert N.SOURCE == port, N.SOURCE
+        assert port in opened, opened
+        assert not [f for f in opened + loaded if f.startswith(ref)]
+        build = os.path.abspath(os.path.join("build", "native"))
+        assert loaded and all(f.startswith(build) for f in loaded), loaded
+        bad = sorted(m for m in sys.modules if m == "jax"
+                     or m.startswith(("jax.", "jaxlib", "spark_rapids_tpu."))
+                     or m == "spark_rapids_tpu")
+        assert not bad, bad
+        print("ok")
+    """)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def test_session_without_a_card_raises(monkeypatch):
@@ -120,11 +166,18 @@ def test_unported_plans_raise_at_planning(table_path):
     many = TorchSession(device="cpu").read_parquet([table_path, table_path])
     with pytest.raises(NotImplementedError):
         many.group_by().agg(F.sum(F.col("x"))).physical_plan()
-    # the arrow reader path is not ported
-    off = TorchSession({"spark.rapids.tpu.sql.parquet.deviceDecode.enabled":
-                        "false"}, device="cpu").read_parquet(table_path)
+    # the arrow reader path is ported; what the scan still refuses is the
+    # pushed filter, the Alluxio path rewrite, and the ORC and CSV formats
+    from spark_rapids_tpu_torch.io.filescan import FileScanNode
     with pytest.raises(NotImplementedError):
-        off.physical_plan()
+        FileScanNode(table_path, "parquet", pushed_filter=F.col("x") <= 1.0)
+    alluxio = TorchSession({"spark.rapids.tpu.alluxio.pathsToReplace":
+                            "/a->/b"}, device="cpu").read_parquet(table_path)
+    with pytest.raises(NotImplementedError):
+        alluxio.physical_plan()
+    for fmt in ("orc", "csv"):
+        with pytest.raises(NotImplementedError):
+            FileScanNode(table_path, fmt)
 
 
 def test_filter_and_project_outside_an_aggregate(table_path):
