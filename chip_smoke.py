@@ -2,8 +2,8 @@
 
 Run from the root of a checkout:
 
-    python3 chip_smoke.py [--sf 1.0] [--reps 3] [--profile]
-                          [--parent-tree DIR]
+    python3 chip_smoke.py [--sf 1.0] [--tpcds-sf 1.0] [--reps 3]
+                          [--profile] [--parent-tree DIR]
 
 It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
 
@@ -107,10 +107,26 @@ It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
    hash_join_build beside torch.sort of its keys (the ``one`` mode's
    build); radix_ranks, which no path calls, on the q5-sparse hash build's
    bucket ids, beside torch.argsort(stable=True);
+   then generates TPC-DS at ``--tpcds-sf`` (default 1.0: 2.88M store_sales
+   rows, the reference generator's seeds) into build/, computes the NumPy
+   oracles of the 17 ported DataFrame queries once (outside every timed
+   window) and runs each query as a path (ds-q3 ... ds-q96) through
+   ``TorchSession()`` on the card: one run with the launch and route
+   counts reset just before and read just after (equal to the oracle under
+   ``tpcds.check_rows`` and ``FLOAT_COLS``; every scan reads only columns
+   the query names and takes the device decode; the chunk decode once per
+   dictionary chunk of the pruned scans; every decimal chunk refused by
+   the decode and read through arrow, none by the Python parser; the count
+   kernel once per aggregate batch with count-like requests, and on ds-q6
+   and ds-q43 at least once; its aggregates, joins and peak device
+   memory), then ``--reps`` timed runs of each, in turns, each held against
+   its oracle;
 6. prints how many traces ``device_ms`` took and found short, one JSON
-   line describing every ported kernel, the card's name and power limit,
-   and last ``{"ok": true, "device": {...}}``. With ``--profile`` each
-   path's host profile must show no call of the Python page parser.
+   line describing every ported kernel (its launches on every path, the
+   TPC-DS paths among them, under ``launches_by_path``), the card's name
+   and power limit, and last ``{"ok": true, "device": {...}}``. With
+   ``--profile`` each path's host profile, the TPC-DS paths' too, must
+   show no call of the Python page parser.
 
 Device times come from torch.profiler traces (``traced``: a warm-up of
 64 tiny kernels first, since a trace can lose its first launches' device
@@ -975,6 +991,9 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=3,
                     help="timed runs of each path after the first (default "
                          "3; at most Q1_REPS for the q1 paths)")
+    ap.add_argument("--tpcds-sf", type=float, default=1.0,
+                    help="TPC-DS scale factor of the 17 TPC-DS paths "
+                         "(default 1.0: 2.88M store_sales rows)")
     ap.add_argument("--map-threads", type=int, default=None,
                     help="spark.rapids.tpu.sql.localScheduler.numThreads "
                          "of the session (default: the conf's default)")
@@ -1899,9 +1918,164 @@ def main() -> int:
     del recorded, oh_calls, mm_calls, rx_calls, hj_calls, one_calls, hb_calls
     del build_radix, bc_calls, q1_batches, float_batches
 
+    # -- 4b. the TPC-DS DataFrame paths through the session on the card ------
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.benchmarks import tpcds
+    ds_dir = os.path.join(repo, "build", f"tpcds_sf{args.tpcds_sf:g}")
+    t0 = time.perf_counter()
+    ds_paths = tpcds.generate(args.tpcds_sf, ds_dir)
+    print(f"data: TPC-DS sf={args.tpcds_sf:g} at {ds_dir} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ds_tb = tpcds.load_np(ds_paths)
+    ds_table_cols = {t: list(c) for t, c in ds_tb.items()}
+    # the oracles (Python loops over every store_sales row), once a path,
+    # outside every timed window
+    exp_ds = {q: [tuple(r) for r in tpcds.NP_QUERIES[q](ds_tb)]
+              for q in tpcds.QUERIES}
+    del ds_tb
+    print(f"TPC-DS oracles: {len(exp_ds)} queries in "
+          f"{time.perf_counter() - t0:.1f} s; rows "
+          f"{ {q: len(r) for q, r in exp_ds.items()} }")
+    for q, rows in exp_ds.items():
+        if not rows:
+            raise AssertionError(f"TPC-DS {q}: the oracle has no rows")
+    ds_dirs = {os.path.normpath(p): t for t, p in ds_paths.items()}
+    ds_labels = [f"ds-{q}" for q in tpcds.QUERIES]
+    ds_query = {f"ds-{q}": q for q in tpcds.QUERIES}
+
+    def ds_run(q):
+        return tpcds.QUERIES[q](tpcds.load(spark, ds_paths))
+
+    def ds_named(q) -> set:
+        """Every name a query's text quotes (its columns among them): a
+        pruned scan reads no column outside it."""
+        import inspect
+        import re
+        src = inspect.getsource(tpcds.QUERIES[q])
+        for helper in ("_star", "_ticket_counts"):
+            if helper + "(" in src:
+                src += inspect.getsource(getattr(tpcds, helper))
+        return set(re.findall(r'"(\w+)"', src))
+    # the kernels each path must launch: the chunk decode on every path,
+    # the count kernel where a dense aggregate has count-like sums (q6's
+    # category averages and state counts, q43's store group-by)
+    ds_kernels = {label: ("bitunpack128",) for label in ds_labels}
+    ds_kernels["ds-q6"] = ds_kernels["ds-q43"] = ("bitunpack128",
+                                                  "onehot_sum_f32")
+    for label in ds_labels:
+        q = ds_query[label]
+        plan = ds_run(q).physical_plan()
+        torch.cuda.reset_peak_memory_stats(dev)
+        agg_batches.clear()
+        G.resolve_dense_group_sums = counting_resolve
+        CK.reset_launches()
+        PN.reset_routes()
+        t0 = time.perf_counter()
+        try:
+            res = plan.execute_collect()
+        finally:
+            G.resolve_dense_group_sums = resolve
+        first_s = time.perf_counter() - t0
+        counts = dict(CK.launches)
+        routes = dict(PN.routes)
+        peak = torch.cuda.max_memory_allocated(dev)
+        tpcds.check_rows([tuple(r.values()) for r in res.to_pylist()],
+                         exp_ds[q], tpcds.FLOAT_COLS[q])
+        for k in ds_kernels[label]:
+            if counts[k] <= 0:
+                raise AssertionError(
+                    f"kernel {k} never launched on the {label} path")
+        count_batches = [k for k in agg_batches if k]
+        if (any(k > CK.ONEHOT_MAX_REQUESTS for k in count_batches)
+                or counts["onehot_sum_f32"] != len(count_batches)):
+            raise AssertionError(
+                f"{label}: {len(count_batches)} aggregate batches with "
+                f"count-like requests but the count kernel launched "
+                f"{counts['onehot_sum_f32']} times (want one a batch)")
+        batches_by_path[label] = count_batches
+        # every scan pruned to the query's columns; its dictionary chunks
+        # native and one chunk decode each; every decimal chunk refused by
+        # the decode and read through arrow; none parsed in Python
+        named = ds_named(q)
+        want_chunks = want_refused = dec_chunks = 0
+        for d, ex in scans(plan):
+            table = ds_dirs[os.path.normpath(d)]
+            cols = ex.node._data_columns()
+            n, refused = scan_chunks(d, cols)
+            decimals = [f.name for f in ex.output
+                        if isinstance(f.data_type, T.DecimalType)]
+            n_dec, dec_refused = (scan_chunks(d, decimals) if decimals
+                                  else (0, 0))
+            print(f"{label} scan {table}: read {len(cols)} of "
+                  f"{len(ds_table_cols[table])} columns {cols}; {n} "
+                  f"dictionary chunks, {refused} refused ({dec_refused} "
+                  f"decimal); batches {ex.stats}")
+            if not set(cols) <= named or not cols:
+                raise AssertionError(
+                    f"{label}: the {table} scan read {cols}, beyond the "
+                    f"columns the query names")
+            if n_dec or ex.stats["arrow_batches"] or \
+                    not ex.stats["device_batches"]:
+                raise AssertionError(
+                    f"{label}: the {table} scan took {ex.stats}, "
+                    f"{n_dec} decimal chunks natively (want the device "
+                    f"decode, decimal chunks through arrow)")
+            want_chunks += n
+            want_refused += refused
+            dec_chunks += dec_refused
+        if counts["bitunpack128"] != want_chunks:
+            raise AssertionError(
+                f"{label}: the chunk decode launched "
+                f"{counts['bitunpack128']} times, the pruned scans have "
+                f"{want_chunks} dictionary chunks")
+        want_routes = {"native_chunk": 0, "native_pages": want_chunks,
+                       "arrow": want_refused, "python": 0}
+        if routes != want_routes:
+            raise AssertionError(
+                f"{label}: scan routes {routes}, want {want_routes}")
+        routes_by_path[label] = routes
+        for a in aggregates(plan):
+            st = a.stats
+            print(f"{label} aggregate mode={a.mode} keys="
+                  f"{len(a.group_exprs)}: {st['updates']} update and "
+                  f"{st['merges']} merge batches, {st['segment']} on the "
+                  f"segment path; groups {st['groups']}; "
+                  f"{st['seconds']:.4f} s host")
+        modes = [(j.stats["probe_mode"], len(j.left_keys))
+                 for j in joins(plan)]
+        counts_by_path[label] = counts
+        peak_by_path[label] = peak
+        print(f"{label} first run: {first_s:.3f} s; {res.num_rows} rows "
+              f"equal to the oracle; launches {counts}; routes {routes} "
+              f"({dec_chunks} decimal chunks through arrow); "
+              f"{len(count_batches)} aggregate batches with count-like "
+              f"requests; joins (probe mode, keys) {modes}; peak device "
+              f"memory {peak} B")
+    ds_times = {label: [] for label in ds_labels}
+    for rep in range(args.reps):
+        for label in (ds_labels if rep % 2 == 0 else ds_labels[::-1]):
+            q = ds_query[label]
+            t0 = time.perf_counter()
+            res = ds_run(q).collect()
+            torch.cuda.synchronize()
+            ds_times[label].append(time.perf_counter() - t0)
+            tpcds.check_rows([tuple(r.values()) for r in res.to_pylist()],
+                             exp_ds[q], tpcds.FLOAT_COLS[q])
+    for label, ts in ds_times.items():
+        print(f"{label} sf={args.tpcds_sf:g} on {name}: median "
+              f"{statistics.median(ts):.4f} s, min {min(ts):.4f} s, max "
+              f"{max(ts):.4f} s over {len(ts)} runs: "
+              f"{[round(t, 4) for t in ts]}; peak device memory "
+              f"{peak_by_path[label]} B; launches "
+              f"{ {k: v for k, v in counts_by_path[label].items() if v} }")
+
     if args.profile:
         for label, make_df in all_paths.items():
             profile_run(label, lambda: make_df().collect(), repo)
+        for label in ds_labels:
+            profile_run(label, lambda: ds_run(ds_query[label]).collect(),
+                        repo)
 
     # -- 5. the kernels line, the card, the verdict --------------------------
     # "launches" counts the runs whose inputs the times cover: the q1 path's

@@ -2,7 +2,8 @@
 
 Fixed-width buffers go to the device as padded tensors; strings are
 dictionary-encoded with an order-preserving (sorted) dictionary so code
-comparisons equal string comparisons.
+comparisons equal string comparisons; decimals (p <= 18) travel as the low
+64 bits of their decimal128 storage, the scaled int64.
 """
 
 from __future__ import annotations
@@ -19,6 +20,16 @@ from spark_rapids_tpu_torch.columnar.vector import (TorchColumnVector,
 
 def _validity_of(arr: pa.Array) -> np.ndarray:
     return pc.is_valid(arr).to_numpy(zero_copy_only=False)
+
+
+def _decimal_unscaled_int64(arr: pa.Array) -> np.ndarray:
+    """Low 64 bits of the two's-complement decimal128 storage; exact for
+    p <= 18."""
+    if len(arr) == 0:
+        return np.zeros(0, dtype=np.int64)
+    words = np.frombuffer(arr.buffers()[1], dtype=np.int64)
+    off = arr.offset
+    return words[off * 2:(off + len(arr)) * 2:2].copy()
 
 
 def string_array_to_device(arr, device, capacity: int | None = None):
@@ -57,7 +68,9 @@ def array_to_device(arr, dtype: T.DataType | None, capacity: int | None,
     if isinstance(dtype, T.StringType):
         return string_array_to_device(arr, device, capacity)
     validity = _validity_of(arr)
-    if isinstance(dtype, T.DateType):
+    if isinstance(dtype, T.DecimalType):
+        vals = _decimal_unscaled_int64(arr)
+    elif isinstance(dtype, T.DateType):
         vals = arr.cast(pa.int32()).fill_null(0).to_numpy(zero_copy_only=False)
     else:
         vals = arr.fill_null(dtype.default_value()).to_numpy(

@@ -6,6 +6,7 @@ so the row count is always a host int here.
 
 from __future__ import annotations
 
+import numpy as np
 import pyarrow as pa
 
 from spark_rapids_tpu_torch import types as T
@@ -48,6 +49,19 @@ class ColumnarBatch:
                  else [f"c{i}" for i in range(self.num_cols)])
         return pa.Table.from_arrays(
             [col.to_arrow(n) for col in self.columns], names=list(names))
+
+    @staticmethod
+    def empty(schema: T.StructType, device) -> "ColumnarBatch":
+        """A batch of no rows (the smallest capacity) with ``schema``'s
+        columns; a string column has an empty dictionary."""
+        cols = []
+        for f in schema:
+            d = (pa.array([], type=pa.string())
+                 if isinstance(f.data_type, T.StringType) else None)
+            cols.append(TorchColumnVector.from_numpy(
+                f.data_type, np.zeros(0, T.to_numpy_dtype(f.data_type)),
+                None, bucket_capacity(0), device, dictionary=d))
+        return ColumnarBatch(cols, 0, schema)
 
     @staticmethod
     def from_arrow(table, device, schema: T.StructType | None = None):

@@ -131,6 +131,16 @@ class TorchColumnVector:
                      else pa.nulls(num_rows, pa.string()))
             return pc.if_else(pa.array(valid), taken,
                               pa.nulls(num_rows, pa.string()))
+        if isinstance(self.dtype, T.DecimalType):
+            # decimal128 from the scaled int64: the low word and its sign
+            # extension
+            words = np.zeros((num_rows, 2), dtype=np.int64)
+            words[:, 0] = vals
+            words[:, 1] = vals >> 63
+            mask = np.packbits(valid, bitorder="little")
+            return pa.Array.from_buffers(
+                T.to_arrow_type(self.dtype), num_rows,
+                [pa.py_buffer(mask.tobytes()), pa.py_buffer(words.tobytes())])
         if isinstance(self.dtype, T.DateType):
             arr = pa.array(vals.astype("int32")).cast(pa.date32())
         else:

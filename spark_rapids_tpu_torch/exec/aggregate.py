@@ -19,12 +19,18 @@ Filter/Project into the aggregation), over two group-by paths:
   (``_presorted``): live rows that arrive sorted with no null skip the
   sort and the gathers (TPC-H lineitem is ordered by ``l_orderkey``).
 
+A keyless aggregate (``df.agg(...)``, no grouping keys) reduces the live
+rows as one segment, in place of the sort (``_agg_keyless``), and yields
+one row even over empty input (COUNT 0, the other aggregates null), as
+Spark does; the planner gathers several input partitions into one first.
+
 Batches aggregate incrementally: update (FINAL: merge) per batch, then
 concat the partials and merge (the reference's unchained update → concat →
 merge loop); only COMPLETE and FINAL finalize. Each call costs one host
-sync for its group count, and the probe one more.
+sync for its group count (none for a keyless call, whose count is one), and
+the probe one more.
 
-Not ported yet: keyless aggregation (the planner refuses it), HAVING fusion
+Not ported yet: HAVING fusion
 (``fuse_having``: the port plans a FilterExec above the aggregate, which
 keeps the same rows), the chained update step (``_chain_step``, which the
 reference holds bit-identical to the unchained loop) and the packed
@@ -74,9 +80,6 @@ class HashAggregateExec(TorchExec):
                  preproject=None, prefilter_on_projected: bool = False):
         if mode not in (PARTIAL, FINAL, COMPLETE):
             raise ValueError(f"unknown aggregation mode {mode}")
-        if not group_exprs:
-            raise NotImplementedError(
-                "aggregation without grouping keys is not ported yet")
         super().__init__(child, conf=conf)
         self.mode = mode
         self.preproject = list(preproject) if preproject is not None else None
@@ -190,6 +193,8 @@ class HashAggregateExec(TorchExec):
             if self.prefilter is not None and self.prefilter_on_projected:
                 keep = eval_keep(ctx)
         nkeys = len(self.group_exprs)
+        if not nkeys:
+            return (*self._agg_keyless(ctx, merge, keep), True)
         key_cols = ([ctx.cols[i] for i in range(nkeys)] if merge
                     else [e.eval(ctx) for e in self.group_exprs])
         dense = self._agg_dense(ctx, merge, key_cols, live_mask=keep)
@@ -228,6 +233,38 @@ class HashAggregateExec(TorchExec):
             off += nstates
             state_cols.extend(outs)
         return (*compact_cols(sorted_keys + state_cols, boundary), True)
+
+    def _agg_keyless(self, ctx: EvalContext, merge: bool, keep):
+        """One batch's update or merge with no grouping keys: the live rows
+        (prefiltered rows compacted out first, as on the segment path) are
+        one segment, the padding another, and row 0 holds the result, so
+        an empty batch gives COUNT 0 and null sums (reference
+        ``_agg_kernel``'s keyless branch). Returns (state cols, 1)."""
+        cap = ctx.capacity
+        if keep is not None:
+            new_cols, cnt = compact_cols(ctx.cols, keep)
+            ctx = EvalContext(new_cols, cnt, cap, ctx.device)
+        idx = torch.arange(cap, dtype=torch.int32, device=ctx.device)
+        live = idx < ctx.num_rows
+        seg_ids = torch.where(live, torch.zeros_like(idx),
+                              torch.full_like(idx, cap - 1))
+        segctx = G.segment_structure(seg_ids, cap)
+
+        def masked(cols):
+            return [Col(c.values, c.validity & live, c.dtype, c.dictionary)
+                    for c in cols]
+        state_cols = []
+        off = 0
+        for f in self.fns:
+            nstates = len(f.state_types)
+            if merge:
+                outs = f.merge(masked(ctx.cols[off:off + nstates]), segctx)
+            else:
+                outs = f.update(masked([self._input(f, ctx)])[0], segctx)
+            off += nstates
+            state_cols.extend(outs)
+        # one output row: row 0's states; every other slot is padding
+        return gather_cols(state_cols, idx.long(), idx == 0), 1
 
     @staticmethod
     def _input(f, ctx: EvalContext) -> Col:
@@ -382,7 +419,12 @@ class HashAggregateExec(TorchExec):
                 both = concat_batches([acc, partial])
                 acc = self._aggregate_batch(both, merge=True)
         if acc is None:
-            return  # grouped aggregation over empty input → no rows (Spark)
+            if self.group_exprs:
+                return  # grouped aggregation over empty input → no rows
+            # a keyless aggregation: one row even over empty input (Spark)
+            acc = self._aggregate_batch(ColumnarBatch.empty(
+                self._partial_schema() if merge_input
+                else self.child.output, self.device), merge=merge_input)
         yield acc if self.mode == PARTIAL else self._finalize(acc)
 
     def args_string(self):

@@ -10,8 +10,11 @@ Sum, Count and Average by its own route.
 
 Null semantics: COUNT(x) counts non-nulls and is never null; SUM, AVG, MIN
 and MAX ignore nulls and are null iff no input was non-null; SUM of
-integrals is long, of doubles double; AVG is double; COUNT(*) counts rows.
-The decimal types are not ported yet.
+integrals is long, of doubles double, of ``decimal(p, s)``
+``decimal(min(p + 10, 18), s)`` (exact int64 sums, no float route); AVG of
+integrals and doubles is double, of ``decimal(p, s)`` ``decimal(18,
+s + 4)``, the sum rescaled and divided by the count with HALF_UP on the
+magnitude in int64; COUNT(*) counts rows.
 """
 
 from __future__ import annotations
@@ -64,6 +67,9 @@ class AggregateFunction(Expression):
 
 
 def _sum_result_type(t: T.DataType) -> T.DataType:
+    if isinstance(t, T.DecimalType):
+        return T.DecimalType(min(t.precision + 10,
+                                 T.DecimalType.MAX_PRECISION), t.scale)
     if isinstance(t, T.IntegralType):
         return T.LONG
     if isinstance(t, T.DoubleType):
@@ -163,11 +169,17 @@ class Max(_Extreme):
 
 
 class Average(AggregateFunction):
-    """AVG: (sum, count) state; double result."""
+    """AVG: (sum, count) state; a double result, or ``decimal(18, s + 4)``
+    over ``decimal(p, s)`` (Spark's +4 scale)."""
 
     @property
     def dtype(self):
-        _sum_result_type(self.child.dtype)
+        ct = self.child.dtype
+        _sum_result_type(ct)
+        if isinstance(ct, T.DecimalType):
+            return T.DecimalType(T.DecimalType.MAX_PRECISION,
+                                 min(ct.scale + 4,
+                                     T.DecimalType.MAX_PRECISION))
         return T.DOUBLE
 
     @property
@@ -193,7 +205,17 @@ class Average(AggregateFunction):
         cnt = c_st.values
         ok = cnt > 0
         safe = torch.where(ok, cnt, torch.ones_like(cnt))
-        vals = s_st.values.to(torch.float64) / safe
+        if isinstance(self.dtype, T.DecimalType):
+            # the sum at the result's scale (up <= 4 digits: 10 ** up fits),
+            # divided HALF_UP on the magnitude
+            up = self.dtype.scale - self.state_types[0].scale
+            num = s_st.values * (10 ** up)
+            qm = torch.div(num.abs() + torch.div(safe, 2,
+                                                 rounding_mode="floor"),
+                           safe, rounding_mode="floor")
+            vals = torch.where(num < 0, -qm, qm)
+        else:
+            vals = s_st.values.to(torch.float64) / safe
         return Col(vals, ok, self.dtype).canonicalized()
 
     def __repr__(self):

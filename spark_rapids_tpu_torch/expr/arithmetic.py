@@ -1,9 +1,14 @@
 """Arithmetic expressions with Spark semantics (non-ANSI mode).
 
 Counterpart of ``spark_rapids_tpu/expr/arithmetic.py``: Add, Subtract and
-Multiply over int/long/double. Integers wrap like Java (two's complement,
-which torch shares); the result type follows Spark's numeric precedence
-int < long < double.
+Multiply over int/long/double and decimals. Integers wrap like Java (two's
+complement, which torch shares); the result type follows Spark's numeric
+precedence int < long < double. Decimals follow the reference's simplified
+promotion (``promote``: the wider integral digits and the larger scale; an
+integral operand takes the decimal's type, a double makes the result a
+double) and its multiply typing (``decimal_mul_type``: Spark's
+``DecimalPrecision`` capped at precision 18), HALF_UP when the product's
+scale drops and null on overflow.
 """
 
 from __future__ import annotations
@@ -16,14 +21,61 @@ from spark_rapids_tpu_torch.expr.core import Col, Expression, valid_and
 _NUMERIC_ORDER = [T.IntegerType, T.LongType, T.DoubleType]
 
 
+_INTEGRAL = (T.IntegerType, T.LongType)
+_INT_DIGITS = {T.IntegerType: 10, T.LongType: 18}
+
+
 def promote(a: T.DataType, b: T.DataType) -> T.DataType:
     if a == b:
         return a
+    if isinstance(a, T.DecimalType) or isinstance(b, T.DecimalType):
+        da = a if isinstance(a, T.DecimalType) else None
+        db = b if isinstance(b, T.DecimalType) else None
+        if da and db:
+            scale = max(da.scale, db.scale)
+            prec = min(T.DecimalType.MAX_PRECISION,
+                       max(da.precision - da.scale,
+                           db.precision - db.scale) + scale)
+            return T.DecimalType(prec, scale)
+        other = b if da else a
+        if isinstance(other, _INTEGRAL):
+            return da or db
+        if isinstance(other, T.DoubleType):
+            return T.DOUBLE
+        raise NotImplementedError(
+            f"arithmetic on {a} and {b} is not ported yet")
     if type(a) not in _NUMERIC_ORDER or type(b) not in _NUMERIC_ORDER:
         raise NotImplementedError(f"arithmetic on {a} and {b} is not ported yet")
     ia = _NUMERIC_ORDER.index(type(a))
     ib = _NUMERIC_ORDER.index(type(b))
     return a if ia >= ib else b
+
+
+def _as_dec(t: T.DataType) -> T.DecimalType | None:
+    if isinstance(t, T.DecimalType):
+        return t
+    d = _INT_DIGITS.get(type(t))
+    return T.DecimalType(d, 0) if d is not None else None
+
+
+def _dec_adjust(p: int, s: int) -> T.DecimalType:
+    """Spark adjustPrecisionScale with a maximum precision of 18: when the
+    ideal precision overflows, keep the integral digits and at least
+    min(scale, 6) fractional digits."""
+    if p > 18:
+        s = max(18 - (p - s), min(s, 6))
+        p = 18
+    return T.DecimalType(p, max(s, 0))
+
+
+def decimal_mul_type(lt, rt):
+    """Result type of a decimal multiply, or None when it is not one."""
+    if not (isinstance(lt, T.DecimalType) or isinstance(rt, T.DecimalType)):
+        return None
+    d1, d2 = _as_dec(lt), _as_dec(rt)
+    if d1 is None or d2 is None:        # decimal x double -> double
+        return None
+    return _dec_adjust(d1.precision + d2.precision + 1, d1.scale + d2.scale)
 
 
 def _cast_col(c: Col, to: T.DataType) -> Col:
@@ -83,8 +135,52 @@ class Subtract(BinaryArithmetic):
         return lv - rv
 
 
+def _round_half_up_i64(q):
+    """HALF_UP (away from zero) float64 -> int64."""
+    return torch.where(q >= 0, torch.floor(q + 0.5),
+                       torch.ceil(q - 0.5)).to(torch.int64)
+
+
 class Multiply(BinaryArithmetic):
     symbol = "*"
+
+    @property
+    def dtype(self):
+        dt = decimal_mul_type(self.left.dtype, self.right.dtype)
+        return dt if dt is not None else promote(self.left.dtype,
+                                                 self.right.dtype)
+
+    def eval(self, ctx):
+        out_t = self.dtype
+        if not isinstance(out_t, T.DecimalType):
+            return super().eval(ctx)
+        # the unscaled product is at scale s1 + s2, rounded HALF_UP to the
+        # result's scale: exact in int64 when the ideal precision fits 18
+        # digits, else through float64 (as the reference)
+        l, r = self.left.eval(ctx), self.right.eval(ctx)
+        d1, d2 = _as_dec(self.left.dtype), _as_dec(self.right.dtype)
+        lv = l.values.to(torch.int64)
+        rv = r.values.to(torch.int64)
+        drop = d1.scale + d2.scale - out_t.scale
+        if d1.precision + d2.precision + 1 <= 18:
+            prod = lv * rv
+            if drop:
+                div = 10 ** drop
+                q = torch.div(prod.abs() + div // 2, div,
+                              rounding_mode="floor")
+                prod = torch.where(prod < 0, -q, q)
+            vals = prod
+            ok = vals.abs() < 10 ** out_t.precision
+        else:
+            qf = (lv.to(torch.float64) * rv.to(torch.float64)
+                  / (10.0 ** drop))
+            # the overflow check in the float domain: an out-of-range cast
+            # would saturate to int64 min, whose abs is negative
+            ok = qf.abs() < float(10 ** out_t.precision)
+            vals = _round_half_up_i64(torch.where(ok, qf,
+                                                  torch.zeros_like(qf)))
+        validity = valid_and(l.validity, r.validity) & ok
+        return Col(vals, validity, out_t).canonicalized()
 
     def op(self, lv, rv):
         return lv * rv

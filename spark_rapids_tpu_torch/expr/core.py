@@ -5,7 +5,7 @@ eager torch ops over a ``Col`` (values + validity). Null semantics are
 Spark's: null in, null out for arithmetic and comparisons, Kleene AND.
 
 Only the expressions of the ported slices (the TPC-H ladder and its SQL
-text) exist; the operators that would build any other expression raise
+text, the TPC-DS DataFrame queries) exist; the operators that would build any other expression raise
 ``NotImplementedError`` where the expression is built.
 """
 
@@ -177,6 +177,13 @@ class Expression:
     def alias(self, name: str) -> "Alias":
         return Alias(self, name)
 
+    def isin(self, *values):
+        """col.isin(a, b, ...) or col.isin([a, b]) (pyspark Column.isin)."""
+        from spark_rapids_tpu_torch.expr.predicates import InSet
+        if len(values) == 1 and isinstance(values[0], (list, tuple, set)):
+            values = tuple(values[0])
+        return InSet(self, list(values))
+
 
 class EvalContext:
     """Input columns for bound-reference lookup, the live row count, the
@@ -263,9 +270,14 @@ def _infer_literal_type(v):
 
 
 class Literal(Expression):
+    """A constant. A null takes the type it is given (CASE WHEN without ELSE
+    builds one); the untyped null literal (NullType) is not ported. A
+    decimal literal given as a non-integer holds its value at the type's
+    scale; an int is taken as the unscaled value, as in the reference."""
+
     def __init__(self, value, dtype: T.DataType | None = None):
-        if value is None:
-            _not_ported("a null literal")
+        if value is None and dtype is None:
+            _not_ported("an untyped null literal")
         self.value = value
         self._dtype = dtype if dtype is not None else _infer_literal_type(value)
 
@@ -275,18 +287,31 @@ class Literal(Expression):
 
     @property
     def nullable(self):
-        return False
+        return self.value is None
 
     def eval(self, ctx):
         cap = ctx.capacity
-        ones = torch.ones((cap,), dtype=torch.bool, device=ctx.device)
+        dev = ctx.device
+        if self.value is None:
+            import pyarrow as pa
+            d = (pa.array([], type=pa.string())
+                 if isinstance(self._dtype, T.StringType) else None)
+            return Col(torch.full((cap,), self._dtype.default_value(),
+                                  dtype=self._dtype.torch_dtype, device=dev),
+                       torch.zeros((cap,), dtype=torch.bool, device=dev),
+                       self._dtype, d)
+        ones = torch.ones((cap,), dtype=torch.bool, device=dev)
         if isinstance(self._dtype, T.StringType):
             import pyarrow as pa
             d = pa.array([self.value], type=pa.string())
-            return Col(torch.zeros((cap,), dtype=torch.int32,
-                                   device=ctx.device), ones, self._dtype, d)
-        vals = torch.full((cap,), self.value, dtype=self._dtype.torch_dtype,
-                          device=ctx.device)
+            return Col(torch.zeros((cap,), dtype=torch.int32, device=dev),
+                       ones, self._dtype, d)
+        v = self.value
+        if isinstance(self._dtype, T.DecimalType) and not isinstance(v, int):
+            from decimal import Decimal
+            v = int(Decimal(str(v)).scaleb(self._dtype.scale))
+        vals = torch.full((cap,), v, dtype=self._dtype.torch_dtype,
+                          device=dev)
         return Col(vals, ones, self._dtype)
 
     def __repr__(self):

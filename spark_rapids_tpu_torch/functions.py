@@ -1,14 +1,16 @@
 """Column-function builders — the pyspark.sql.functions facade.
 
 Counterpart of ``spark_rapids_tpu/functions.py``, limited to what the
-ported TPC-H queries use: ``col``, ``lit``, ``cast``, ``sum``, ``avg`` and
-``count``, and ``min``, ``max``, ``first`` and ``last``.
+ported TPC-H and TPC-DS queries use: ``col``, ``lit``, ``cast``, ``sum``,
+``avg`` and ``count``, ``min``, ``max``, ``first`` and ``last``, and the
+conditionals ``when`` and ``if_``.
 """
 
 from __future__ import annotations
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.expr import aggregates as _AG
+from spark_rapids_tpu_torch.expr import conditional as _C
 from spark_rapids_tpu_torch.expr.cast import Cast
 from spark_rapids_tpu_torch.expr.core import col, lit  # noqa: F401
 
@@ -44,6 +46,16 @@ def first(c, ignore_nulls: bool = False):
 
 def last(c, ignore_nulls: bool = False):
     return _AG.Last(_e(c), ignore_nulls)
+
+
+# a value position takes a non-expression as a literal (the pyspark
+# convention: only the first argument reads a string as a column name)
+def when(cond, value):
+    return _C.CaseWhen([(_e(cond), _C.as_value(value))])
+
+
+def if_(cond, a, b):
+    return _C.If(_e(cond), _C.as_value(a), _C.as_value(b))
 
 
 def cast(c, to: T.DataType):

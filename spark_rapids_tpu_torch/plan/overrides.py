@@ -4,7 +4,9 @@ Counterpart of the rules of ``spark_rapids_tpu/plan/overrides.py`` that the
 ported slices need: scan, filter, project, aggregate (``:710-770``, with the
 legacy depth-2 hoist of a child Filter/Project into the aggregation; several
 input partitions plan PARTIAL → hash exchange → FINAL; keys of every ported
-type, on the dense or the sort-based path), the hash exchange
+type, on the dense or the sort-based path; a keyless aggregate is COMPLETE,
+over a gather of its partitions into one when it has several,
+``:752-758``), the hash exchange
 (``_hash_exchange``, ``:635-659``), the exchange node (``:901-917``), sort
 (``:881-899``), limit (``conv_limit``, ``:697-705``), and the equi-join
 (``:770-875``): a broadcast hash join, inner joins building the side with
@@ -19,11 +21,13 @@ runs once at the root, as the reference runs it first in
 
 Every node, expression or shape outside the slices raises
 ``NotImplementedError`` here, while the plan is built, so nothing runs
-wrongly: keyless aggregates, range partitioning, right and full outer joins
-(matched-build tracking), residual join conditions, keyless and cross joins
-(the nested-loop join), and join keys of two unlike types among them. The
-mesh is refused earlier, by the conf, which does not know its keys. There is
-no partial CPU fallback: the whole plan runs on the device.
+wrongly: range partitioning, right and full outer joins (matched-build
+tracking), residual join conditions, keyless and cross joins (the
+nested-loop join), and join keys of two unlike types among them. Window
+functions have no plan node in the port (the SQL front-end refuses them
+while it lowers the text), and the mesh is refused earlier, by the conf,
+which does not know its keys. There is no partial CPU fallback: the whole
+plan runs on the device.
 """
 
 from __future__ import annotations
@@ -39,6 +43,8 @@ from spark_rapids_tpu_torch.expr.aggregates import AggregateFunction
 from spark_rapids_tpu_torch.expr.arithmetic import BinaryArithmetic
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.expr.cast import Cast, supported_cast
+from spark_rapids_tpu_torch.expr.conditional import (CaseWhen, Greatest, If,
+                                                     Least)
 from spark_rapids_tpu_torch.expr.datetime import AddMonths, DateAddInterval
 from spark_rapids_tpu_torch.expr.predicates import (
     And, EqualTo, GreaterThan, GreaterThanOrEqual, In, LessThan,
@@ -53,7 +59,7 @@ from spark_rapids_tpu_torch.shuffle import partitioning as SP
 _PORTED_EXPRS = (E.BoundReference, E.Literal, E.Alias, BinaryArithmetic,
                  EqualTo, NotEqual, LessThan, LessThanOrEqual, GreaterThan,
                  GreaterThanOrEqual, And, Or, Not, In, Cast, DateAddInterval,
-                 AddMonths, AggregateFunction)
+                 AddMonths, AggregateFunction, If, CaseWhen, Least, Greatest)
 
 
 def _joinable(ldt: T.DataType, rdt: T.DataType) -> bool:
@@ -117,9 +123,6 @@ class TorchOverrides:
     def _aggregate(self, n, kids):
         for e in (*n.group_exprs, *n.agg_exprs):
             check_expression(e)
-        if not n.group_exprs:
-            raise NotImplementedError(
-                "aggregation without grouping keys is not ported yet")
         child = kids[0]
         # whole-stage hoist of the child Filter/Project into the
         # aggregation: the predicate masks rows there and the projection
@@ -141,7 +144,10 @@ class TorchOverrides:
                 child = child.children[0]
         fused = dict(prefilter=prefilter, preproject=preproject,
                      prefilter_on_projected=pre_on_proj)
-        if child.num_partitions == 1:
+        if child.num_partitions == 1 or not n.group_exprs:
+            if child.num_partitions > 1:
+                # a keyless aggregation gathers every partition first
+                child = _GatherAllExec(child, conf=self.conf)
             return XA.HashAggregateExec(n.group_exprs, n.agg_exprs, child,
                                         mode=XA.COMPLETE, conf=self.conf,
                                         **fused)

@@ -54,6 +54,10 @@ class DataFrame:
     def group_by(self, *keys) -> "GroupedData":
         return GroupedData([_to_expr(k) for k in keys], self)
 
+    def agg(self, *aggs) -> "DataFrame":
+        """Aggregate the whole frame with no grouping keys: one row."""
+        return GroupedData([], self).agg(*aggs)
+
     def sort(self, *cols, ascending=True) -> "DataFrame":
         ascs = (ascending if isinstance(ascending, (list, tuple))
                 else [ascending] * len(cols))

@@ -45,7 +45,8 @@ def murmur3_row_hash(cols: list, capacity: int, seed: int = SPARK_HASH_SEED,
             words, lens = dict_words[ci]
             codes = c.values.long()
             nh = H.hash_string_words(words[codes], lens[codes], h)
-        elif isinstance(dt, T.LongType):
+        elif isinstance(dt, (T.LongType, T.DecimalType)):
+            # a decimal of precision <= 18 hashes its unscaled long (Spark)
             nh = H.hash_long(c.values, h)
         elif isinstance(dt, T.DoubleType):
             nh = H.hash_double(c.values, h)

@@ -1,10 +1,12 @@
 """Spark SQL data types with their torch device representations.
 
-Counterpart of ``spark_rapids_tpu/types.py``, limited to the types TPC-H q1
-touches. The device layout is the JAX package's, so buffers compare 1:1:
+Counterpart of ``spark_rapids_tpu/types.py``, limited to the types the
+ported TPC-H and TPC-DS paths touch. The device layout is the JAX package's,
+so buffers compare 1:1:
 
 - fixed-width types: one padded 1-D tensor plus a bool validity tensor;
 - DateType: int32 days since 1970-01-01; DoubleType: float64 (native on the card);
+- DecimalType: precision <= 18, the unscaled value as int64;
 - StringType: int32 codes into a host-side sorted pyarrow dictionary.
 """
 
@@ -76,6 +78,38 @@ class DoubleType(FractionalType):
         return 0.0
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class DecimalType(NumericType):
+    """Decimal of precision <= 18 carried as its scaled int64 (the
+    reference's DECIMAL64 bound)."""
+    precision: int = 10
+    scale: int = 0
+    torch_dtype = torch.int64
+
+    MAX_PRECISION = 18
+
+    def __post_init__(self):
+        if self.precision > self.MAX_PRECISION:
+            raise ValueError(
+                f"DecimalType precision {self.precision} > "
+                f"{self.MAX_PRECISION} is not supported on the device")
+
+    @property
+    def sql_name(self):  # type: ignore[override]
+        return f"decimal({self.precision},{self.scale})"
+
+    def __repr__(self):
+        return self.sql_name
+
+    def __eq__(self, other):
+        return (isinstance(other, DecimalType)
+                and other.precision == self.precision
+                and other.scale == self.scale)
+
+    def __hash__(self):
+        return hash(("decimal", self.precision, self.scale))
+
+
 class StringType(DataType):
     # int32 codes into a host-side sorted dictionary
     torch_dtype = torch.int32
@@ -113,12 +147,20 @@ def from_arrow_type(at: pa.DataType) -> DataType:
     """Map an Arrow type to the Spark SQL type the engine executes with."""
     if at in _ARROW_TO_SPARK:
         return _ARROW_TO_SPARK[at]
+    if pa.types.is_decimal(at):
+        if at.precision > DecimalType.MAX_PRECISION:
+            raise NotImplementedError(
+                f"arrow type {at}: decimals above precision "
+                f"{DecimalType.MAX_PRECISION} are not supported on the device")
+        return DecimalType(at.precision, at.scale)
     if pa.types.is_dictionary(at):
         return from_arrow_type(at.value_type)
     raise NotImplementedError(f"arrow type {at} is not ported yet")
 
 
 def to_arrow_type(dt: DataType) -> pa.DataType:
+    if isinstance(dt, DecimalType):
+        return pa.decimal128(dt.precision, dt.scale)
     for a, s in _ARROW_TO_SPARK.items():
         if s == dt and a != pa.large_string():
             return a

@@ -29,7 +29,12 @@ relative of the CPU run (the dense aggregate sums doubles by cuBLAS matvecs
 or ``index_add_`` on the card, in another order than on the CPU); all
 three against the NumPy oracles within 1e-6 relative
 (``tests/test_sql_tpch.py``'s bound), and q5's two-key join on the rank
-path.
+path. The 17 ported TPC-DS DataFrame queries at SF 0.012 on the card equal
+to the CPU run and the NumPy oracle under ``tpcds.check_rows`` (keys,
+counts and decimals exact, float slots within 1e-9 relative); decimals
+round-trip through the card exactly; a keyless aggregate (one partition,
+four, and empty input) on the card equals the CPU run (counts and decimals
+exact, a double sum within 1e-12 relative).
 """
 
 import os
@@ -1046,3 +1051,92 @@ def test_q1_over_hive_directories_on_card(cuda_device, ladder_paths,
                 assert v == pytest.approx(w, rel=1e-6)
             else:
                 assert v == c[k] == w
+
+
+# -- the TPC-DS DataFrame queries, decimals and keyless aggregates ------------
+
+@pytest.fixture(scope="module")
+def tpcds_paths(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    from spark_rapids_tpu_torch.benchmarks import tpcds
+    return tpcds.generate(0.012, str(tmp_path_factory.mktemp("tpcds")))
+
+
+def _tpcds_names():
+    from spark_rapids_tpu_torch.benchmarks import tpcds
+    return sorted(tpcds.QUERIES)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q", _tpcds_names())
+def test_tpcds_query_on_card(cuda_device, tpcds_paths, q):
+    """Each ported TPC-DS query at SF 0.012 on the card: the CPU run's rows
+    (keys, counts and decimals exact, float slots within 1e-9 relative:
+    the dense aggregate sums doubles in another order on the card) and the
+    NumPy oracle's, under check_rows and FLOAT_COLS."""
+    from spark_rapids_tpu_torch.benchmarks import tpcds
+    from spark_rapids_tpu_torch.session import TorchSession
+
+    def run(spark):
+        return [tuple(r.values()) for r in tpcds.QUERIES[q](
+            tpcds.load(spark, tpcds_paths)).collect().to_pylist()]
+    card, cpu = run(TorchSession()), run(TorchSession(device="cpu"))
+    exp = [tuple(r) for r in tpcds.NP_QUERIES[q](tpcds.load_np(tpcds_paths))]
+    assert exp
+    tpcds.check_rows(card, cpu, tpcds.FLOAT_COLS[q])
+    tpcds.check_rows(card, exp, tpcds.FLOAT_COLS[q])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p,s", [(7, 2), (18, 4)])
+def test_decimal_round_trip_on_card(cuda_device, p, s):
+    """arrow → card → arrow for decimals with nulls and negatives: the same
+    values back, and the same scaled int64 on the card as on the CPU."""
+    from decimal import Decimal
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.columnar.arrow import array_to_device
+    rng = np.random.default_rng(p)
+    top = 10 ** p - 1
+    v = rng.integers(-top, top + 1, 5000, dtype=np.int64)
+    arr = pa.array([None if i % 9 == 0 else Decimal(int(x)).scaleb(-s)
+                    for i, x in enumerate(v)], pa.decimal128(p, s))
+    card = array_to_device(arr, None, 8192, cuda_device)
+    cpu = array_to_device(arr, None, 8192, "cpu")
+    assert card.data.is_cuda
+    assert torch.equal(card.data.cpu(), cpu.data)
+    assert torch.equal(card.validity.cpu(), cpu.validity)
+    assert card.to_arrow(len(arr)).to_pylist() == arr.to_pylist()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("parts", [1, 4])
+def test_keyless_aggregate_on_card(cuda_device, tpcds_paths, parts):
+    """df.agg over store_sales (one partition, and one per file) on the
+    card: count and the decimal sum exact, the double sum within 1e-12
+    relative of the CPU run; and over input a filter empties, one row."""
+    import spark_rapids_tpu_torch.functions as F
+    from spark_rapids_tpu_torch.session import TorchSession
+    d = tpcds_paths["store_sales"]
+    src = d if parts == 1 else sorted(
+        os.path.join(d, f) for f in os.listdir(d) if f.endswith(".parquet"))
+
+    def run(spark, empty):
+        df = spark.read_parquet(src)
+        if empty:
+            df = df.filter(F.col("ss_quantity") > F.lit(1000))
+        return df.agg(F.count().alias("n"),
+                      F.sum(F.col("ss_net_profit")).alias("profit"),
+                      F.avg(F.col("ss_net_paid")).alias("paid"),
+                      F.sum(F.col("ss_sales_price")).alias("price")
+                      ).collect().to_pylist()
+    for empty in (False, True):
+        (card,), (cpu,) = run(TorchSession(), empty), run(
+            TorchSession(device="cpu"), empty)
+        assert card["n"] == cpu["n"] and card["profit"] == cpu["profit"]
+        assert card["paid"] == cpu["paid"]
+        if empty:
+            assert card == {"n": 0, "profit": None, "paid": None,
+                            "price": None}
+        else:
+            assert card["price"] == pytest.approx(cpu["price"], rel=1e-12)

@@ -34,7 +34,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         assert {pkg.__name__ + "." + m for m in (
             "sql", "sql.lower", "sql.parser", "sql.tpch_queries",
             "plan.pruning", "expr.exprkey", "expr.datetime", "native",
-            "io.readers")} <= set(names)
+            "io.readers", "expr.conditional", "benchmarks.tpcds")} <= set(
+                names)
         for name in names:
             importlib.import_module(name)
         import chip_smoke  # as a module: main() does not run
@@ -140,10 +141,12 @@ def test_unported_plans_raise_at_planning(table_path):
     from spark_rapids_tpu_torch import types as T
     from spark_rapids_tpu_torch.session import TorchSession
     df = TorchSession(device="cpu").read_parquet(table_path)
-    # a keyless aggregate over one partition (the sort-based group-by
-    # takes keys of every ported type, but no aggregate without keys)
+    # a window function (keyless aggregates are ported; windows have no
+    # plan node in the port, and the SQL front-end refuses them)
+    spark = df.session
+    spark.create_or_replace_temp_view("t", df)
     with pytest.raises(NotImplementedError):
-        df.group_by().agg(F.sum(F.col("x"))).physical_plan()
+        spark.sql("select k, sum(x) over (partition by k) as s from t")
     # a cast pair outside the slice
     with pytest.raises(NotImplementedError):
         df.select(F.cast(F.col("x"), T.INT)).physical_plan()
@@ -162,10 +165,14 @@ def test_unported_plans_raise_at_planning(table_path):
                                        keys=[F.col("k")]), df.session)
     with pytest.raises(NotImplementedError):
         ranged.physical_plan()
-    # a keyless aggregate over several partitions
+    # a cross join (the nested-loop join) of two keyless aggregates over
+    # several partitions, TPC-DS q88's shape; each aggregate alone plans
     many = TorchSession(device="cpu").read_parquet([table_path, table_path])
+    counts = many.agg(F.count().alias("c"))
+    counts.physical_plan()
     with pytest.raises(NotImplementedError):
-        many.group_by().agg(F.sum(F.col("x"))).physical_plan()
+        counts.join(many.agg(F.sum(F.col("x")).alias("s")),
+                    how="cross").physical_plan()
     # the arrow reader path is ported; what the scan still refuses is the
     # pushed filter, the Alluxio path rewrite, and the ORC and CSV formats
     from spark_rapids_tpu_torch.io.filescan import FileScanNode

@@ -222,8 +222,25 @@ def test_limit_of_an_empty_result(small):
 
 
 def test_keyless_aggregate_still_raises_at_planning(small):
+    """A keyless aggregate plans since the TPC-DS slice (one COMPLETE
+    aggregate, over a gather of the file partitions into one) and equals
+    TpuSession; what still raises at planning is the cross join of two of
+    them (the nested-loop join)."""
     paths, files = small
+    ref = TpuSession()
     for src in (paths["lineitem"], files):
         df = TorchSession(device="cpu").read_parquet(src)
+        out = df.group_by().agg(F.sum(F.col("l_quantity")).alias("s"),
+                                F.count().alias("n"))
+        (agg,) = _aggs(out.physical_plan())
+        assert agg.mode == XA.COMPLETE and not agg.group_exprs
+        want = (ref.read_parquet(src).agg(JF.sum(JF.col("l_quantity"))
+                                          .alias("s"),
+                                          JF.count().alias("n"))
+                .collect().to_pylist())
+        got = out.collect().to_pylist()
+        assert got[0]["n"] == want[0]["n"] > 0
+        assert got[0]["s"] == pytest.approx(want[0]["s"], rel=1e-12)
         with pytest.raises(NotImplementedError):
-            df.group_by().agg(F.sum(F.col("l_quantity"))).physical_plan()
+            out.join(df.agg(F.count().alias("c")),
+                     how="cross").physical_plan()
