@@ -109,8 +109,10 @@ It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
    bucket ids, beside torch.argsort(stable=True);
    then generates TPC-DS at ``--tpcds-sf`` (default 1.0: 2.88M store_sales
    rows, the reference generator's seeds) into build/, computes the NumPy
-   oracles of the 17 ported DataFrame queries once (outside every timed
-   window) and runs each query as a path (ds-q3 ... ds-q96) through
+   oracles of the reference's 22 DataFrame queries once (outside every
+   timed window) and runs each query as a path (ds-q3 ... ds-q88; q53, q63,
+   q89 and q98 run the window exec over an aggregate, q88 seven
+   nested-loop joins of eight keyless counts) through
    ``TorchSession()`` on the card: one run with the launch and route
    counts reset just before and read just after (equal to the oracle under
    ``tpcds.check_rows`` and ``FLOAT_COLS``; every scan reads only columns
@@ -118,7 +120,8 @@ It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
    dictionary chunk of the pruned scans; every decimal chunk refused by
    the decode and read through arrow, none by the Python parser; the count
    kernel once per aggregate batch with count-like requests, and on ds-q6
-   and ds-q43 at least once; its aggregates, joins and peak device
+   and ds-q43 at least once; its aggregates, joins, window execs and
+   nested-loop joins (rows in, partitions, rows out) and peak device
    memory), then ``--reps`` timed runs of each, in turns, each held against
    its oracle;
 6. prints how many traces ``device_ms`` took and found short, one JSON
@@ -917,6 +920,14 @@ def joins(plan) -> list:
     return out
 
 
+def of_type(plan, cls) -> list:
+    """The execs of an exec tree that are instances of ``cls``, top down."""
+    out = [plan] if isinstance(plan, cls) else []
+    for c in plan.children:
+        out += of_type(c, cls)
+    return out
+
+
 def exchanges(plan) -> list:
     """The shuffle exchanges of an exec tree, top down."""
     from spark_rapids_tpu_torch.exec.exchange import ShuffleExchangeExec
@@ -992,7 +1003,7 @@ def main() -> int:
                     help="timed runs of each path after the first (default "
                          "3; at most Q1_REPS for the q1 paths)")
     ap.add_argument("--tpcds-sf", type=float, default=1.0,
-                    help="TPC-DS scale factor of the 17 TPC-DS paths "
+                    help="TPC-DS scale factor of the 22 TPC-DS paths "
                          "(default 1.0: 2.88M store_sales rows)")
     ap.add_argument("--map-threads", type=int, default=None,
                     help="spark.rapids.tpu.sql.localScheduler.numThreads "
@@ -1921,6 +1932,8 @@ def main() -> int:
     # -- 4b. the TPC-DS DataFrame paths through the session on the card ------
     from spark_rapids_tpu_torch import types as T
     from spark_rapids_tpu_torch.benchmarks import tpcds
+    from spark_rapids_tpu_torch.exec.joins import NestedLoopJoinExec
+    from spark_rapids_tpu_torch.exec.window import WindowExec
     ds_dir = os.path.join(repo, "build", f"tpcds_sf{args.tpcds_sf:g}")
     t0 = time.perf_counter()
     ds_paths = tpcds.generate(args.tpcds_sf, ds_dir)
@@ -1953,7 +1966,7 @@ def main() -> int:
         import inspect
         import re
         src = inspect.getsource(tpcds.QUERIES[q])
-        for helper in ("_star", "_ticket_counts"):
+        for helper in ("_star", "_ticket_counts", "_win"):
             if helper + "(" in src:
                 src += inspect.getsource(getattr(tpcds, helper))
         return set(re.findall(r'"(\w+)"', src))
@@ -2042,6 +2055,16 @@ def main() -> int:
                   f"{st['merges']} merge batches, {st['segment']} on the "
                   f"segment path; groups {st['groups']}; "
                   f"{st['seconds']:.4f} s host")
+        for w in of_type(plan, WindowExec):
+            print(f"{label} window exec: {w.stats['input_rows']} rows in "
+                  f"{w.stats['partitions']} partitions, "
+                  f"{w.stats['output_rows']} rows out")
+        for j in of_type(plan, NestedLoopJoinExec):
+            st = j.stats
+            print(f"{label} nested-loop join {j.join_type}: "
+                  f"{st['stream_rows']} stream rows in {st['partitions']} "
+                  f"partitions x {st['build_rows']} build rows, "
+                  f"{st['pairs']} pairs, {st['output_rows']} rows out")
         modes = [(j.stats["probe_mode"], len(j.left_keys))
                  for j in joins(plan)]
         counts_by_path[label] = counts

@@ -7,9 +7,9 @@ own copy. The generator keeps the seeds (20260730, and 20260731 for the
 later tables and columns) and the draw order, so both packages write equal
 tables and read the same files; the ``decimal(7,2)`` money columns are built
 from their cents in one vectorized step rather than one Python ``Decimal``
-per row. ``QUERIES`` holds 17 of the reference's 22 DataFrame queries: q53,
-q63, q89 and q98 need the window exec and q88 the nested-loop join, which
-the port has not ported. The queries follow the official TPC-DS text over
+per row. ``QUERIES`` holds all 22 of the reference's DataFrame queries:
+q53, q63, q89 and q98 run a window over an aggregate, and q88 cross-joins
+eight keyless counts (the nested-loop join). The queries follow the official TPC-DS text over
 this schema subset; ``store_sales`` has ~2.88M rows per SF.
 """
 
@@ -820,10 +820,177 @@ def q65(dfs):
             .limit(100))
 
 
+def _win(df, fn, value_col, part_cols, out_name):
+    """fn(value) over (partition by part_cols) with a full-partition frame:
+    the q53/q63/q89 window avg and q98's window sum (``fn`` is ``F.avg`` or
+    ``F.sum``)."""
+    from spark_rapids_tpu_torch.expr import core as E
+    from spark_rapids_tpu_torch.expr import windows as WX
+    spec = WX.WindowSpec(tuple(E.col(p) for p in part_cols), (),
+                         WX.WindowFrame("rows", None, None))
+    return df.window([E.Alias(
+        WX.WindowExpression(fn(E.col(value_col)), spec), out_name)])
+
+
+def q53(dfs):
+    """Quarterly manufacturer sales vs their window average (TPC-DS q53:
+    sum by manufact x quarter, avg OVER (PARTITION BY i_manufact_id),
+    keep quarters deviating >10%)."""
+    import spark_rapids_tpu_torch.functions as F
+    c = F.col
+    item = (dfs["item"]
+            .filter(c("i_category").isin("Books", "Home", "Electronics"))
+            .select(c("i_item_sk").alias("ss_item_sk"), c("i_manufact_id")))
+    dd = (dfs["date_dim"].filter(c("d_year") == F.lit(2000))
+          .select(c("d_date_sk").alias("ss_sold_date_sk"), c("d_qoy")))
+    store = dfs["store"].select(c("s_store_sk").alias("ss_store_sk"))
+    base = (dfs["store_sales"]
+            .select(c("ss_item_sk"), c("ss_sold_date_sk"), c("ss_store_sk"),
+                    c("ss_sales_price"))
+            .join(item, on="ss_item_sk").join(dd, on="ss_sold_date_sk")
+            .join(store, on="ss_store_sk")
+            .group_by(c("i_manufact_id"), c("d_qoy"))
+            .agg(F.sum(c("ss_sales_price")).alias("sum_sales")))
+    w = _win(base, F.avg, "sum_sales", ["i_manufact_id"],
+             "avg_quarterly_sales")
+    return (w.filter((c("avg_quarterly_sales") > F.lit(0.0))
+                     & (F.abs(c("sum_sales") - c("avg_quarterly_sales"))
+                        / c("avg_quarterly_sales") > F.lit(0.1)))
+            .select(c("i_manufact_id"), c("sum_sales"),
+                    c("avg_quarterly_sales"))
+            .sort(c("avg_quarterly_sales"), c("sum_sales"),
+                  c("i_manufact_id"))
+            .limit(100))
+
+
+def q63(dfs):
+    """Monthly manager sales vs their window average (TPC-DS q63 — q53's
+    shape with i_manager_id and d_moy)."""
+    import spark_rapids_tpu_torch.functions as F
+    c = F.col
+    item = (dfs["item"]
+            .filter(c("i_category").isin("Books", "Home", "Electronics"))
+            .select(c("i_item_sk").alias("ss_item_sk"), c("i_manager_id")))
+    dd = (dfs["date_dim"].filter(c("d_year") == F.lit(2000))
+          .select(c("d_date_sk").alias("ss_sold_date_sk"), c("d_moy")))
+    base = (dfs["store_sales"]
+            .select(c("ss_item_sk"), c("ss_sold_date_sk"),
+                    c("ss_sales_price"))
+            .join(item, on="ss_item_sk").join(dd, on="ss_sold_date_sk")
+            .group_by(c("i_manager_id"), c("d_moy"))
+            .agg(F.sum(c("ss_sales_price")).alias("sum_sales")))
+    w = _win(base, F.avg, "sum_sales", ["i_manager_id"], "avg_monthly_sales")
+    return (w.filter((c("avg_monthly_sales") > F.lit(0.0))
+                     & (F.abs(c("sum_sales") - c("avg_monthly_sales"))
+                        / c("avg_monthly_sales") > F.lit(0.1)))
+            .select(c("i_manager_id"), c("sum_sales"),
+                    c("avg_monthly_sales"))
+            .sort(c("i_manager_id"), c("avg_monthly_sales"), c("sum_sales"))
+            .limit(100))
+
+
+def q89(dfs):
+    """Monthly class sales per store vs the (category, brand, store) window
+    average (TPC-DS q89)."""
+    import spark_rapids_tpu_torch.functions as F
+    c = F.col
+    item = (dfs["item"]
+            .filter(c("i_category").isin("Books", "Electronics", "Sports"))
+            .select(c("i_item_sk").alias("ss_item_sk"), c("i_category"),
+                    c("i_class"), c("i_brand")))
+    dd = (dfs["date_dim"].filter(c("d_year") == F.lit(1999))
+          .select(c("d_date_sk").alias("ss_sold_date_sk"), c("d_moy")))
+    store = dfs["store"].select(c("s_store_sk").alias("ss_store_sk"),
+                                c("s_store_name"))
+    base = (dfs["store_sales"]
+            .select(c("ss_item_sk"), c("ss_sold_date_sk"), c("ss_store_sk"),
+                    c("ss_sales_price"))
+            .join(item, on="ss_item_sk").join(dd, on="ss_sold_date_sk")
+            .join(store, on="ss_store_sk")
+            .group_by(c("i_category"), c("i_class"), c("i_brand"),
+                      c("s_store_name"), c("d_moy"))
+            .agg(F.sum(c("ss_sales_price")).alias("sum_sales")))
+    w = _win(base, F.avg, "sum_sales",
+             ["i_category", "i_brand", "s_store_name"], "avg_monthly_sales")
+    return (w.filter((c("avg_monthly_sales") != F.lit(0.0))
+                     & (F.abs(c("sum_sales") - c("avg_monthly_sales"))
+                        / c("avg_monthly_sales") > F.lit(0.1)))
+            .select(c("i_category"), c("i_class"), c("i_brand"),
+                    c("s_store_name"), c("d_moy"), c("sum_sales"),
+                    c("avg_monthly_sales"))
+            .sort((c("sum_sales") - c("avg_monthly_sales")).alias("_d"),
+                  c("s_store_name"), c("i_class"), c("d_moy"))
+            .limit(100))
+
+
+def q98(dfs):
+    """Class revenue ratio (TPC-DS q98): item revenue and its share of the
+    class total via SUM OVER (PARTITION BY i_class)."""
+    import spark_rapids_tpu_torch.functions as F
+    c = F.col
+    item = (dfs["item"]
+            .filter(c("i_category").isin("Sports", "Books", "Home"))
+            .select(c("i_item_sk").alias("ss_item_sk"), c("i_item_id"),
+                    c("i_item_desc"), c("i_category"), c("i_class"),
+                    c("i_current_price")))
+    dd = (dfs["date_dim"]
+          .filter((c("d_year") == F.lit(1999)) & (c("d_moy") == F.lit(2)))
+          .select(c("d_date_sk").alias("ss_sold_date_sk")))
+    base = (dfs["store_sales"]
+            .select(c("ss_item_sk"), c("ss_sold_date_sk"),
+                    c("ss_ext_sales_price"))
+            .join(item, on="ss_item_sk").join(dd, on="ss_sold_date_sk")
+            .group_by(c("i_item_id"), c("i_item_desc"), c("i_category"),
+                      c("i_class"), c("i_current_price"))
+            .agg(F.sum(c("ss_ext_sales_price")).alias("itemrevenue")))
+    w = _win(base, F.sum, "itemrevenue", ["i_class"], "class_revenue")
+    return (w.select(c("i_item_id"), c("i_item_desc"), c("i_category"),
+                     c("i_class"), c("i_current_price"), c("itemrevenue"),
+                     (c("itemrevenue") * F.lit(100.0) / c("class_revenue"))
+                     .alias("revenueratio"))
+            .sort(c("i_category"), c("i_class"), c("i_item_id"),
+                  c("i_item_desc"), c("revenueratio")))
+
+
+def q88(dfs):
+    """Half-hour traffic counts 8:30-12:30 (TPC-DS q88: eight filtered
+    counts cross-joined into one row)."""
+    import spark_rapids_tpu_torch.functions as F
+    c = F.col
+    hd = (dfs["household_demographics"]
+          .filter(((c("hd_dep_count") == F.lit(3))
+                   & (c("hd_vehicle_count") <= F.lit(5)))
+                  | ((c("hd_dep_count") == F.lit(0))
+                     & (c("hd_vehicle_count") <= F.lit(2)))
+                  | ((c("hd_dep_count") == F.lit(1))
+                     & (c("hd_vehicle_count") <= F.lit(3))))
+          .select(c("hd_demo_sk").alias("ss_hdemo_sk")))
+    store = (dfs["store"].filter(c("s_store_name") == F.lit("store0"))
+             .select(c("s_store_sk").alias("ss_store_sk")))
+    base = (dfs["store_sales"]
+            .select(c("ss_hdemo_sk"), c("ss_sold_time_sk"), c("ss_store_sk"))
+            .join(hd, on="ss_hdemo_sk").join(store, on="ss_store_sk"))
+
+    td = dfs["time_dim"]
+    out = None
+    for i in range(8):
+        hour = 8 + (i + 1) // 2
+        lo_min = 30 if i % 2 == 0 else 0
+        t = (td.filter((c("t_hour") == F.lit(hour))
+                       & (c("t_minute") >= F.lit(lo_min))
+                       & (c("t_minute") < F.lit(lo_min + 30)))
+             .select(c("t_time_sk").alias("ss_sold_time_sk")))
+        cnt = (base.join(t, on="ss_sold_time_sk")
+               .agg(F.count().alias(f"h{i}")))
+        out = cnt if out is None else out.join(cnt, how="cross")
+    return out
+
+
 QUERIES = {"q3": q3, "q42": q42, "q52": q52, "q55": q55, "q7": q7,
            "q19": q19, "q6": q6, "q27": q27, "q34": q34, "q43": q43,
            "q46": q46, "q48": q48, "q65": q65, "q68": q68, "q73": q73,
-           "q79": q79, "q96": q96}
+           "q79": q79, "q96": q96, "q53": q53, "q63": q63, "q89": q89,
+           "q98": q98, "q88": q88}
 
 
 # -- independent NumPy oracles ------------------------------------------------
@@ -1261,6 +1428,155 @@ def np_q65(tb):
     return _lex_top(rows, [0, 1], [True, True], 100)
 
 
+def _window_dev(groups, part_of, thresh=0.1, zero_ok=False):
+    """q53/q63/q89 tail: per-partition mean over the AGGREGATED rows, keep
+    rows deviating more than `thresh` from it. groups: {key: sum}. Returns
+    [(key..., sum, avg)]."""
+    parts = {}
+    for key, s in groups.items():
+        parts.setdefault(part_of(key), []).append(s)
+    means = {p: sum(v) / len(v) for p, v in parts.items()}
+    out = []
+    for key, s in groups.items():
+        a = means[part_of(key)]
+        cond = (a != 0.0) if zero_ok else (a > 0.0)
+        if cond and abs(s - a) / a > thresh:
+            out.append(key + (s, a))
+    return out
+
+
+def np_q53(tb):
+    it = tb["item"]
+    ok_cat = np.isin(it["i_category"], ["Books", "Home", "Electronics"])
+    manu = {k: int(m) for k, m, o in zip(it["i_item_sk"], it["i_manufact_id"],
+                                         ok_cat) if o}
+    dd = tb["date_dim"]
+    keep = dd["d_year"] == 2000
+    qoy_of = dict(zip(dd["d_date_sk"][keep], dd["d_qoy"][keep]))
+    ss = tb["store_sales"]
+    groups = {}
+    for ddk, ik, p in zip(ss["ss_sold_date_sk"], ss["ss_item_sk"],
+                          ss["ss_sales_price"]):
+        q = qoy_of.get(ddk)
+        m = manu.get(ik)
+        if q is None or m is None:
+            continue
+        key = (m, int(q))
+        groups[key] = groups.get(key, 0.0) + p
+    dev = _window_dev(groups, lambda k: k[0])
+    rows = [(d[0], d[-2], d[-1]) for d in dev]
+    return _lex_top(rows, [2, 1, 0], [True, True, True], 100)
+
+
+def np_q63(tb):
+    it = tb["item"]
+    ok_cat = np.isin(it["i_category"], ["Books", "Home", "Electronics"])
+    mgr = {k: int(m) for k, m, o in zip(it["i_item_sk"], it["i_manager_id"],
+                                        ok_cat) if o}
+    dd = tb["date_dim"]
+    keep = dd["d_year"] == 2000
+    moy_of = dict(zip(dd["d_date_sk"][keep], dd["d_moy"][keep]))
+    ss = tb["store_sales"]
+    groups = {}
+    for ddk, ik, p in zip(ss["ss_sold_date_sk"], ss["ss_item_sk"],
+                          ss["ss_sales_price"]):
+        mo = moy_of.get(ddk)
+        m = mgr.get(ik)
+        if mo is None or m is None:
+            continue
+        key = (m, int(mo))
+        groups[key] = groups.get(key, 0.0) + p
+    dev = _window_dev(groups, lambda k: k[0])
+    rows = [(d[0], d[-2], d[-1]) for d in dev]
+    return _lex_top(rows, [0, 2, 1], [True, True, True], 100)
+
+
+def np_q89(tb):
+    it = tb["item"]
+    ok = np.isin(it["i_category"], ["Books", "Electronics", "Sports"])
+    info = {k: (cat, cl, br) for k, cat, cl, br, o in zip(
+        it["i_item_sk"], it["i_category"], it["i_class"], it["i_brand"], ok)
+        if o}
+    dd = tb["date_dim"]
+    keep = dd["d_year"] == 1999
+    moy_of = dict(zip(dd["d_date_sk"][keep], dd["d_moy"][keep]))
+    st = tb["store"]
+    sname = dict(zip(st["s_store_sk"], st["s_store_name"]))
+    ss = tb["store_sales"]
+    groups = {}
+    for ddk, ik, sk, p in zip(ss["ss_sold_date_sk"], ss["ss_item_sk"],
+                              ss["ss_store_sk"], ss["ss_sales_price"]):
+        mo = moy_of.get(ddk)
+        inf = info.get(ik)
+        if mo is None or inf is None:
+            continue
+        key = (inf[0], inf[1], inf[2], sname[sk], int(mo))
+        groups[key] = groups.get(key, 0.0) + p
+    dev = _window_dev(groups, lambda k: (k[0], k[2], k[3]), zero_ok=True)
+    rows = [d + (d[-2] - d[-1],) for d in dev]       # append sum-avg key
+    rows = _lex_top(rows, [7, 3, 1, 4], [True, True, True, True], 100)
+    return [r[:-1] for r in rows]
+
+
+def np_q98(tb):
+    """q98 = the revenue-ratio skeleton over store_sales, no LIMIT."""
+    rows = _np_revenue_ratio(tb, "store_sales", "ss_sold_date_sk",
+                             "ss_item_sk", "ss_ext_sales_price", None)
+    return rows
+
+
+def np_q88(tb):
+    hd = tb["household_demographics"]
+    ok_hd = set(hd["hd_demo_sk"][
+        ((hd["hd_dep_count"] == 3) & (hd["hd_vehicle_count"] <= 5))
+        | ((hd["hd_dep_count"] == 0) & (hd["hd_vehicle_count"] <= 2))
+        | ((hd["hd_dep_count"] == 1) & (hd["hd_vehicle_count"] <= 3))])
+    st = tb["store"]
+    ok_s = set(st["s_store_sk"][st["s_store_name"] == "store0"])
+    td = tb["time_dim"]
+    hour_of = dict(zip(td["t_time_sk"],
+                       zip(td["t_hour"], td["t_minute"])))
+    counts = [0] * 8
+    ss = tb["store_sales"]
+    for h, t, s in zip(ss["ss_hdemo_sk"], ss["ss_sold_time_sk"],
+                       ss["ss_store_sk"]):
+        if h not in ok_hd or s not in ok_s:
+            continue
+        hh, mm = hour_of[t]
+        for i in range(8):
+            hour = 8 + (i + 1) // 2
+            lo = 30 if i % 2 == 0 else 0
+            if hh == hour and lo <= mm < lo + 30:
+                counts[i] += 1
+                break
+    return [tuple(counts)]
+
+
+def _np_revenue_ratio(tb, fact, dcol, icol, vcol, limit):
+    """q98/q12/q20 skeleton: item revenue + class-partition revenue ratio."""
+    it = tb["item"]
+    ok = np.isin(it["i_category"], ["Sports", "Books", "Home"])
+    info = {k: (iid, d, cat, cl, float(p)) for k, iid, d, cat, cl, p, o in
+            zip(it["i_item_sk"], it["i_item_id"], it["i_item_desc"],
+                it["i_category"], it["i_class"], it["i_current_price"], ok)
+            if o}
+    ok_d = _d(tb, d_year=lambda y: y == 1999, d_moy=lambda m: m == 2)
+    f = tb[fact]
+    groups = {}
+    for ddk, ik, p in zip(f[dcol], f[icol], f[vcol]):
+        inf = info.get(ik)
+        if ddk not in ok_d or inf is None:
+            continue
+        groups[inf] = groups.get(inf, 0.0) + p
+    cls_total = {}
+    for key, s in groups.items():
+        cls_total[key[3]] = cls_total.get(key[3], 0.0) + s
+    rows = [key + (s, s * 100.0 / cls_total[key[3]])
+            for key, s in groups.items()]
+    return _lex_top(rows, [2, 3, 0, 1, 6],
+                    [True, True, True, True, True], limit)
+
+
 NP_QUERIES = {name: globals()[f"np_{name}"] for name in QUERIES}
 
 
@@ -1272,7 +1588,8 @@ FLOAT_COLS = {
     "q19": {3}, "q6": set(), "q27": {2, 3, 4, 5}, "q34": set(),
     "q43": {1, 2, 3, 4, 5, 6, 7}, "q46": {5, 6}, "q48": set(),
     "q65": {2, 3}, "q68": {5, 6, 7}, "q73": set(), "q79": {5},
-    "q96": set(),
+    "q96": set(), "q53": {1, 2}, "q63": {1, 2}, "q89": {5, 6},
+    "q98": {4, 5, 6}, "q88": set(),
 }
 
 

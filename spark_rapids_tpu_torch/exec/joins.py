@@ -1,7 +1,8 @@
-"""Equi-join execs — counterpart of ``spark_rapids_tpu/exec/joins.py``
+"""Join execs — counterpart of ``spark_rapids_tpu/exec/joins.py``
 (``_int_backed``, ``_align_string_keys``, ``_emit_pairs``, the build and the
-probes of ``_JoinCore``, ``HashJoinExec`` and ``BroadcastHashJoinExec``;
-reference GpuHashJoin, GpuBroadcastHashJoinExec).
+probes of ``_JoinCore``, ``HashJoinExec``, ``BroadcastHashJoinExec`` and
+``NestedLoopJoinExec``, which also runs cross joins; reference GpuHashJoin,
+GpuBroadcastHashJoinExec and GpuBroadcastNestedLoopJoinExec).
 
 The build side is one device batch. ``_JoinCore`` evaluates its keys once.
 One fixed-point key (``fast``) picks a probe mode in the reference's order
@@ -32,10 +33,17 @@ Each stream batch probes on the device and gives each row a range
 per stream batch and expands the pairs in chunks, in stream order, so every
 mode emits the rows in the same order.
 
+The nested-loop join (keyless and cross joins) broadcasts its right side
+the same way and expands every (stream row, build row) pair in chunks of
+``_MAX_CHUNK_ROWS``, left-major, filtered by an optional condition over
+the pair schema: inner/cross, left outer, left semi and left anti. Which
+stream rows matched is kept on the device (one ``index_add_`` of the kept
+pairs per chunk) and read once per stream batch, where the unmatched rows
+are compacted.
+
 Not ported (the planner refuses them, ``plan/overrides.py``): right and full
 outer joins (matched-build tracking, ``track_matched``), residual
-conditions, keyless and cross joins (the nested-loop join), and the
-shuffled/mesh route. The reference's probe chain fusion and its stream
+conditions on an equi-join, and the shuffled/mesh route. The reference's probe chain fusion and its stream
 prefilter/preproject hoist change no result and are not ported either.
 """
 
@@ -53,7 +61,8 @@ from spark_rapids_tpu_torch.expr.core import (Col, EvalContext,
                                               bind_references)
 from spark_rapids_tpu_torch.ops import cuda_kernels as CK
 from spark_rapids_tpu_torch.ops import joining as J
-from spark_rapids_tpu_torch.ops.filtering import gather_cols
+from spark_rapids_tpu_torch.ops.filtering import (compact_cols, gather_cols,
+                                                  selection_mask)
 from spark_rapids_tpu_torch.ops.strings import align_many
 
 # max pairs expanded per output chunk (the JoinGatherer row-target analog)
@@ -397,3 +406,159 @@ class BroadcastHashJoinExec(HashJoinExec):
             yield from self._probe_stream(core, build_batch, split)
         finally:
             self._finish_reader()
+
+
+class NestedLoopJoinExec(TorchExec):
+    """Every (left row, right row) pair, kept where the optional condition
+    holds (reference GpuBroadcastNestedLoopJoinExec): the right side is
+    broadcast once and shared by every left (stream) partition; inner and
+    cross joins emit the pairs, a left outer join also the unmatched left
+    rows null-extended, and semi and anti joins the left rows that matched
+    or did not. Right and full outer joins are not ported."""
+
+    def __init__(self, join_type: str, left: TorchExec, right: TorchExec,
+                 condition=None, conf=None):
+        super().__init__(left, right, conf=conf)
+        jt = join_type.lower().replace("_", "")
+        jt = J.INNER if jt == J.CROSS else jt
+        if jt not in (J.INNER, J.LEFT_OUTER, J.LEFT_SEMI, J.LEFT_ANTI):
+            raise NotImplementedError(
+                f"{join_type} nested-loop joins are not ported yet")
+        self.join_type = jt
+        self.condition = (bind_references(condition, self._pair_schema())
+                          if condition is not None else None)
+        from spark_rapids_tpu_torch.exec.broadcast import BroadcastExchangeExec
+        self.exchange = BroadcastExchangeExec(self.children[1],
+                                              conf=self.conf)
+        self.children[1] = self.exchange
+        self._readers_left = self.num_partitions
+        #: rows in on each side, stream partitions, pairs expanded and rows
+        #: out; partitions may run on an exchange's map threads, hence the
+        #: lock
+        self.stats = {"stream_rows": 0, "build_rows": 0, "partitions": 0,
+                      "pairs": 0, "output_rows": 0}
+        self._lock = threading.Lock()
+
+    def _pair_schema(self):
+        return T.StructType(list(self.children[0].output)
+                            + list(self.children[1].output))
+
+    @property
+    def output(self):
+        lf, rf = list(self.children[0].output), list(self.children[1].output)
+        if self.join_type in (J.LEFT_SEMI, J.LEFT_ANTI):
+            return T.StructType(lf)
+        if self.join_type == J.LEFT_OUTER:
+            rf = [T.StructField(f.name, f.data_type, True) for f in rf]
+        return T.StructType(lf + rf)
+
+    @property
+    def num_partitions(self):
+        return self.children[0].num_partitions
+
+    def _finish_reader(self) -> None:
+        with self._lock:
+            self._readers_left -= 1
+            last = self._readers_left == 0
+            if last:
+                self._readers_left = self.num_partitions
+        if last:
+            self.exchange.release()
+
+    def execute_partition(self, split):
+        try:
+            build = self.exchange.broadcast()
+            with self._lock:
+                self.stats["build_rows"] = build.num_rows
+                self.stats["partitions"] += 1
+            for lb in self.children[0].execute_partition(split):
+                for out in self._join_batch(lb, build):
+                    with self._lock:
+                        self.stats["output_rows"] += out.num_rows
+                    yield out
+        finally:
+            self._finish_reader()
+
+    def _join_batch(self, lb, build):
+        n_left, n_build = lb.num_rows, build.num_rows
+        dev = self.device
+        jt = self.join_type
+        out_schema = self.output
+        lcols = [Col.from_vector(c) for c in lb.columns]
+        rcols = [Col.from_vector(c) for c in build.columns]
+        total = n_left * n_build
+        with self._lock:
+            self.stats["stream_rows"] += n_left
+            self.stats["pairs"] += total
+        emit_pairs = jt in (J.INNER, J.LEFT_OUTER)
+        if self.condition is None:
+            # every pair is kept: a left row matched iff the right side has
+            # rows, and the pairs need expanding only to be emitted
+            if emit_pairs:
+                yield from self._pair_chunks(lcols, rcols, lb.capacity,
+                                             build.capacity, total, n_build,
+                                             out_schema, None)
+            if jt == J.INNER:
+                return
+            # semi keeps every left row or none, and anti and the outer
+            # join's unmatched rows are the rest
+            everything = (n_build > 0) == (jt == J.LEFT_SEMI)
+            if not everything or not n_left:
+                return
+            keep_cols, count = lcols, n_left
+        else:
+            hits = torch.zeros((lb.capacity,), dtype=torch.int32, device=dev)
+            yield from self._pair_chunks(lcols, rcols, lb.capacity,
+                                         build.capacity, total, n_build,
+                                         out_schema if emit_pairs else None,
+                                         hits)
+            if jt == J.INNER:
+                return
+            matched = hits > 0
+            want = matched if jt == J.LEFT_SEMI else ~matched
+            live = torch.arange(lb.capacity, device=dev) < n_left
+            keep_cols, count = compact_cols(lcols, want & live)
+            if not count:
+                return
+        if jt == J.LEFT_OUTER:
+            nowhere = torch.zeros((lb.capacity,), dtype=torch.int64,
+                                  device=dev)
+            keep_cols = keep_cols + gather_cols(
+                rcols, nowhere, torch.zeros_like(nowhere, dtype=torch.bool))
+        yield ColumnarBatch([c.to_vector() for c in keep_cols], count,
+                            out_schema)
+
+    def _pair_chunks(self, lcols, rcols, lcap, rcap, total, n_build,
+                     out_schema, hits):
+        """Expand the pairs ``[0, total)`` left-major in chunks of at most
+        ``_MAX_CHUNK_ROWS``. Without a condition, yield each chunk; with
+        one, count the kept pairs of each left row into ``hits`` and yield
+        the kept pairs when ``out_schema`` is given (one host sync a chunk,
+        the kept count)."""
+        dev = self.device
+        pos = 0
+        while pos < total:
+            n_out = min(total - pos, _MAX_CHUNK_ROWS)
+            out_cap = bucket_capacity(n_out)
+            j = torch.arange(out_cap, dtype=torch.int64, device=dev) + pos
+            live = j < pos + n_out
+            pos += n_out
+            li = (j // n_build).clamp(max=lcap - 1)
+            ri = (j % n_build).clamp(max=rcap - 1)
+            cols = gather_cols(lcols, li, live) + gather_cols(rcols, ri, live)
+            if self.condition is None:
+                yield ColumnarBatch([c.to_vector() for c in cols], n_out,
+                                    out_schema)
+                continue
+            pred = self.condition.eval(EvalContext(cols, n_out, out_cap, dev))
+            keep = selection_mask(pred, n_out, out_cap)
+            hits.index_add_(0, li, keep.to(torch.int32))
+            if out_schema is not None:
+                kept, count = compact_cols(cols, keep)
+                if count:
+                    yield ColumnarBatch([c.to_vector() for c in kept], count,
+                                        out_schema)
+
+    def args_string(self):
+        return f"{self.join_type}" + (f" cond={self.condition}"
+                                      if self.condition is not None else "")

@@ -1,14 +1,16 @@
 """Arithmetic expressions with Spark semantics (non-ANSI mode).
 
-Counterpart of ``spark_rapids_tpu/expr/arithmetic.py``: Add, Subtract and
-Multiply over int/long/double and decimals. Integers wrap like Java (two's
+Counterpart of ``spark_rapids_tpu/expr/arithmetic.py``: Add, Subtract,
+Multiply and Divide over int/long/double and decimals, and Abs. Integers wrap like Java (two's
 complement, which torch shares); the result type follows Spark's numeric
 precedence int < long < double. Decimals follow the reference's simplified
 promotion (``promote``: the wider integral digits and the larger scale; an
 integral operand takes the decimal's type, a double makes the result a
-double) and its multiply typing (``decimal_mul_type``: Spark's
-``DecimalPrecision`` capped at precision 18), HALF_UP when the product's
-scale drops and null on overflow.
+double) and its multiply and divide typing (``decimal_mul_type``,
+``decimal_div_type``: Spark's ``DecimalPrecision`` capped at precision 18),
+HALF_UP when the result's scale drops and null on overflow. Divide is
+Spark's: a double for non-decimal operands, and null on a zero divisor,
+doubles included.
 """
 
 from __future__ import annotations
@@ -76,6 +78,18 @@ def decimal_mul_type(lt, rt):
     if d1 is None or d2 is None:        # decimal x double -> double
         return None
     return _dec_adjust(d1.precision + d2.precision + 1, d1.scale + d2.scale)
+
+
+def decimal_div_type(lt, rt):
+    """Result type of a decimal divide, or None when it is not one."""
+    if not (isinstance(lt, T.DecimalType) or isinstance(rt, T.DecimalType)):
+        return None
+    d1, d2 = _as_dec(lt), _as_dec(rt)
+    if d1 is None or d2 is None:        # decimal / double -> double
+        return None
+    s = max(6, d1.scale + d2.precision + 1)
+    p = d1.precision - d1.scale + d2.scale + s
+    return _dec_adjust(p, s)
 
 
 def _cast_col(c: Col, to: T.DataType) -> Col:
@@ -184,3 +198,63 @@ class Multiply(BinaryArithmetic):
 
     def op(self, lv, rv):
         return lv * rv
+
+
+class Divide(BinaryArithmetic):
+    """Spark Divide: a double result for non-decimal operands, null on a
+    zero divisor, doubles included (reference ``Divide``, GpuDivide)."""
+    symbol = "/"
+
+    @property
+    def dtype(self):
+        dt = decimal_div_type(self.left.dtype, self.right.dtype)
+        return dt if dt is not None else T.DOUBLE
+
+    def eval(self, ctx):
+        out_t = self.dtype
+        if isinstance(out_t, T.DecimalType):
+            # the float64 quotient at the result's scale, HALF_UP; null on a
+            # zero divisor and on overflow (checked in the float domain, as
+            # Multiply)
+            l, r = self.left.eval(ctx), self.right.eval(ctx)
+            d1, d2 = _as_dec(self.left.dtype), _as_dec(self.right.dtype)
+            lv = l.values.to(torch.int64)
+            rv = r.values.to(torch.int64)
+            zero = rv == 0
+            k = out_t.scale + d2.scale - d1.scale
+            q = (lv.to(torch.float64)
+                 / torch.where(zero, torch.ones_like(rv), rv).to(torch.float64)
+                 * (10.0 ** k))
+            ok = q.abs() < float(10 ** out_t.precision)
+            vals = _round_half_up_i64(torch.where(ok, q, torch.zeros_like(q)))
+            validity = valid_and(l.validity, r.validity) & ~zero & ok
+            return Col(vals, validity, out_t).canonicalized()
+        l = _cast_col(self.left.eval(ctx), out_t)
+        r = _cast_col(self.right.eval(ctx), out_t)
+        zero = r.values == 0
+        validity = valid_and(l.validity, r.validity) & ~zero
+        safe_r = torch.where(zero, torch.ones_like(r.values), r.values)
+        return Col(l.values / safe_r, validity, out_t).canonicalized()
+
+
+class Abs(Expression):
+    """abs(x) of the child's type; integers wrap at their minimum, as
+    Java's Math.abs."""
+
+    def __init__(self, child: Expression):
+        self.children = [child]
+
+    @property
+    def dtype(self):
+        return self.children[0].dtype
+
+    def with_children(self, children):
+        return Abs(children[0])
+
+    def eval(self, ctx):
+        c = self.children[0].eval(ctx)
+        return Col(c.values.abs(), c.validity, c.dtype,
+                   c.dictionary).canonicalized()
+
+    def __repr__(self):
+        return f"abs({self.children[0]!r})"

@@ -164,11 +164,16 @@ class Expression:
         from spark_rapids_tpu_torch.expr.predicates import Not
         return Not(self)
 
+    def __truediv__(self, other):
+        from spark_rapids_tpu_torch.expr.arithmetic import Divide
+        return self._bin(other, Divide)
+
+    def __rtruediv__(self, other):
+        from spark_rapids_tpu_torch.expr.arithmetic import Divide
+        return self._bin(other, Divide, swap=True)
+
     # the JAX package builds these expressions; the port has not ported them,
     # and falling back to Python's defaults would silently mean identity
-    def __truediv__(self, other):
-        _not_ported("Divide")
-
     def __neg__(self):
         _not_ported("UnaryMinus")
 

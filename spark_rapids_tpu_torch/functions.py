@@ -2,14 +2,15 @@
 
 Counterpart of ``spark_rapids_tpu/functions.py``, limited to what the
 ported TPC-H and TPC-DS queries use: ``col``, ``lit``, ``cast``, ``sum``,
-``avg`` and ``count``, ``min``, ``max``, ``first`` and ``last``, and the
-conditionals ``when`` and ``if_``.
+``avg`` and ``count``, ``min``, ``max``, ``first`` and ``last``, ``abs``,
+and the conditionals ``when`` and ``if_``.
 """
 
 from __future__ import annotations
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.expr import aggregates as _AG
+from spark_rapids_tpu_torch.expr import arithmetic as _A
 from spark_rapids_tpu_torch.expr import conditional as _C
 from spark_rapids_tpu_torch.expr.cast import Cast
 from spark_rapids_tpu_torch.expr.core import col, lit  # noqa: F401
@@ -46,6 +47,10 @@ def first(c, ignore_nulls: bool = False):
 
 def last(c, ignore_nulls: bool = False):
     return _AG.Last(_e(c), ignore_nulls)
+
+
+def abs(c):  # noqa: A001
+    return _A.Abs(_e(c))
 
 
 # a value position takes a non-expression as a literal (the pyspark

@@ -184,6 +184,29 @@ class JoinNode(PlanNode):
         return 1
 
 
+class WindowNode(PlanNode):
+    """Window functions over one partition/order spec (the GpuWindowExec
+    analog); ``exec/window.py`` evaluates them."""
+
+    def __init__(self, window_exprs: list, child: PlanNode):
+        """window_exprs: a list of Alias(WindowExpression)."""
+        super().__init__(child)
+        self.window_exprs = [E.bind_references(e, child.output)
+                             for e in window_exprs]
+
+    @property
+    def output(self):
+        fields = list(self.child.output.fields)
+        for e in self.window_exprs:
+            fields.append(T.StructField(_expr_name(e, len(fields)), e.dtype,
+                                        True))
+        return T.StructType(fields)
+
+    @property
+    def num_partitions(self):
+        return 1
+
+
 def agg_fn(e) -> AggregateFunction:
     f = e.child if isinstance(e, E.Alias) else e
     if not isinstance(f, AggregateFunction):

@@ -10,11 +10,15 @@ over a gather of its partitions into one when it has several,
 (``_hash_exchange``, ``:635-659``), the exchange node (``:901-917``), sort
 (``:881-899``), limit (``conv_limit``, ``:697-705``), and the equi-join
 (``:770-875``): a broadcast hash join, inner joins building the side with
-the smaller row estimate (``plan/cbo.py``). One fixed-point key takes the
+the smaller row estimate (``plan/cbo.py``), and a keyless or cross join as
+the nested-loop join (``conv_join``, ``:787-790``, with ``tag_join``'s
+refusals, ``:771-782``). One fixed-point key takes the
 single-key probe modes; several keys, or one string or double key, take the
 rank path (``ops/joining.join_ranks``). A HAVING filter above an aggregate
 plans as a FilterExec: the reference folds it into the aggregate
-(``fuse_having``), which keeps the same rows. The rules receive the plan
+(``fuse_having``), which keeps the same rows. The window node (``tag_window``/``conv_window``, ``:939-977``) plans a
+``WindowExec`` over a hash exchange on its partition keys, or a gather of
+every partition when it has none. The rules receive the plan
 after column pruning (``plan/pruning.py``, which ``DataFrame.physical_plan``
 runs once at the root, as the reference runs it first in
 ``TpuOverrides.apply``).
@@ -22,11 +26,12 @@ runs once at the root, as the reference runs it first in
 Every node, expression or shape outside the slices raises
 ``NotImplementedError`` here, while the plan is built, so nothing runs
 wrongly: range partitioning, right and full outer joins (matched-build
-tracking), residual join conditions, keyless and cross joins (the
-nested-loop join), and join keys of two unlike types among them. Window
-functions have no plan node in the port (the SQL front-end refuses them
-while it lowers the text), and the mesh is refused earlier, by the conf,
-which does not know its keys. There is no partial CPU fallback: the whole
+tracking; keyless ones too), residual conditions on an equi-join, join
+keys of two unlike types, several window specs in one node, and a window
+``avg`` over a decimal column (the reference returns the unscaled mean
+there) among them. The SQL front-end refuses window functions while it
+lowers the text, and the mesh is refused earlier, by the conf, which does
+not know its keys. There is no partial CPU fallback: the whole
 plan runs on the device.
 """
 
@@ -38,9 +43,11 @@ from spark_rapids_tpu_torch.exec import basic as XB
 from spark_rapids_tpu_torch.exec import exchange as XE
 from spark_rapids_tpu_torch.exec import joins as XJ
 from spark_rapids_tpu_torch.exec.sort import SortExec, _GatherAllExec
+from spark_rapids_tpu_torch.exec.window import (WindowExec,
+                                                supported_window_expr)
 from spark_rapids_tpu_torch.expr import core as E
 from spark_rapids_tpu_torch.expr.aggregates import AggregateFunction
-from spark_rapids_tpu_torch.expr.arithmetic import BinaryArithmetic
+from spark_rapids_tpu_torch.expr.arithmetic import Abs, BinaryArithmetic
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.expr.cast import Cast, supported_cast
 from spark_rapids_tpu_torch.expr.conditional import (CaseWhen, Greatest, If,
@@ -49,6 +56,7 @@ from spark_rapids_tpu_torch.expr.datetime import AddMonths, DateAddInterval
 from spark_rapids_tpu_torch.expr.predicates import (
     And, EqualTo, GreaterThan, GreaterThanOrEqual, In, LessThan,
     LessThanOrEqual, Not, NotEqual, Or)
+from spark_rapids_tpu_torch.expr.windows import WindowExpression
 from spark_rapids_tpu_torch.io.filescan import FileScanNode, FileSourceScanExec
 from spark_rapids_tpu_torch.ops import joining as J
 from spark_rapids_tpu_torch.ops.sorting import SortOrder
@@ -59,7 +67,8 @@ from spark_rapids_tpu_torch.shuffle import partitioning as SP
 _PORTED_EXPRS = (E.BoundReference, E.Literal, E.Alias, BinaryArithmetic,
                  EqualTo, NotEqual, LessThan, LessThanOrEqual, GreaterThan,
                  GreaterThanOrEqual, And, Or, Not, In, Cast, DateAddInterval,
-                 AddMonths, AggregateFunction, If, CaseWhen, Least, Greatest)
+                 AddMonths, AggregateFunction, If, CaseWhen, Least, Greatest,
+                 Abs)
 
 
 def _joinable(ldt: T.DataType, rdt: T.DataType) -> bool:
@@ -96,7 +105,8 @@ class TorchOverrides:
                 NN.ExchangeNode: self._exchange,
                 NN.JoinNode: self._join,
                 NN.SortNode: self._sort,
-                NN.LimitNode: self._limit}.get(type(plan))
+                NN.LimitNode: self._limit,
+                NN.WindowNode: self._window}.get(type(plan))
         if conv is None:
             raise NotImplementedError(
                 f"plan node {type(plan).__name__} is not ported yet")
@@ -189,15 +199,13 @@ class TorchOverrides:
 
     def _join(self, n, kids):
         if not n.left_keys or n.join_type == "cross":
-            raise NotImplementedError(
-                "keyless and cross joins (the nested-loop join) are not "
-                "ported yet")
+            return self._nested_loop_join(n, kids)
         if n.join_type in ("right", "full"):
             raise NotImplementedError(
                 f"{n.join_type} outer joins are not ported yet")
         if n.condition is not None:
             raise NotImplementedError(
-                "residual join conditions are not ported yet")
+                "residual conditions on an equi-join are not ported yet")
         for lk, rk in zip(n.left_keys, n.right_keys):
             check_expression(lk)
             check_expression(rk)
@@ -214,6 +222,54 @@ class TorchOverrides:
         return XJ.BroadcastHashJoinExec(jt, n.left_keys, n.right_keys,
                                         kids[0], kids[1],
                                         build_side=build_side, conf=self.conf)
+
+    def _nested_loop_join(self, n, kids):
+        """A keyless or cross join: the nested-loop join over a broadcast
+        right side (the reference's conv_join; a cross join's keys, if any,
+        are ignored there too)."""
+        if n.join_type in ("right", "full"):
+            # right: the reference refuses it too (tag_join); full: the
+            # unmatched build rows need the matched flags merged across the
+            # stream partitions
+            raise NotImplementedError(
+                f"a keyless {n.join_type} outer join (the nested-loop join "
+                "with a left build side or matched-build tracking) is not "
+                "ported yet")
+        jt = {"left": J.LEFT_OUTER, "cross": J.INNER}.get(n.join_type,
+                                                          n.join_type)
+        exec_ = XJ.NestedLoopJoinExec(jt, kids[0], kids[1],
+                                      condition=n.condition, conf=self.conf)
+        if exec_.condition is not None:
+            check_expression(exec_.condition)
+        return exec_
+
+    def _window(self, n, kids):
+        wes = [e.child if isinstance(e, E.Alias) else e
+               for e in n.window_exprs]
+        for we in wes:
+            if not isinstance(we, WindowExpression):
+                raise NotImplementedError(
+                    f"not a window expression: {we!r}")
+            for c in we.children:
+                check_expression(c)
+            reason = supported_window_expr(we)
+            if reason:
+                raise NotImplementedError(reason)
+            _ = we.dtype    # raises on unported input types
+        if len({repr((we.spec.partition_by, we.spec.order_by))
+                for we in wes}) > 1:
+            raise NotImplementedError(
+                "several window partition/order specs in one node are not "
+                "ported yet")
+        child = kids[0]
+        spec = wes[0].spec
+        if child.num_partitions > 1:
+            if spec.partition_by:
+                child = self._hash_exchange(list(spec.partition_by), child,
+                                            adaptive=True)
+            else:
+                child = _GatherAllExec(child, conf=self.conf)
+        return WindowExec(n.window_exprs, child, conf=self.conf)
 
     def _sort(self, n, kids):
         for e, _, _ in n.sort_exprs:

@@ -116,6 +116,11 @@ class DataFrame:
         return DataFrame(NN.ExchangeNode(self._plan, "roundrobin", n),
                          self.session)
 
+    def window(self, window_exprs: list) -> "DataFrame":
+        """Append one column per ``Alias(WindowExpression)`` (all over one
+        partition/order spec) to every row."""
+        return DataFrame(NN.WindowNode(window_exprs, self._plan), self.session)
+
     def physical_plan(self):
         """The device exec tree ``collect()`` runs (raises on anything not
         ported): the plan with its scans narrowed to the columns it uses

@@ -6,7 +6,8 @@ negatives, the decimal casts, ``promote`` and the multiply typing, Add,
 Subtract and Multiply, comparisons of a decimal column with int and double
 literals (TPC-DS q48's ``profit >= lit(0)``), and the decimal ``Sum`` and
 ``Average`` (``decimal(18, s + 4)``, HALF_UP on the magnitude) evaluated from
-the same states, negative means at the HALF_UP midpoint included.
+the same states, negative means at the HALF_UP midpoint included; ``Divide``
+(double, integer and decimal operands, zero divisors) and ``Abs``.
 
 Tolerance: none. Decimals are scaled int64 on both sides, so every value and
 validity bit is compared exactly; a decimal cast to double is the same
@@ -230,6 +231,76 @@ def test_decimal_arithmetic_matches_reference(op, a, b):
     pc, rc = _eval_both(pe, re_, cols)
     assert _ref_type(pc.dtype) == rc.dtype
     _assert_same(pc, rc)
+
+
+DIVIDE = [(T.DOUBLE, T.DOUBLE), (T.INT, T.INT), (T.LONG, T.DOUBLE),
+          (T.INT, T.LONG), (T.DecimalType(7, 2), T.DecimalType(7, 2)),
+          (T.DecimalType(7, 2), T.INT), (T.LONG, T.DecimalType(9, 3)),
+          (T.DecimalType(12, 1), T.DecimalType(5, 3)),
+          (T.DecimalType(18, 2), T.DecimalType(18, 10)),
+          (T.DecimalType(7, 2), T.DOUBLE)]
+
+
+def _with_zeros(v, rng):
+    """Values with zero divisors (and, for doubles, -0.0 and NaN)."""
+    v = v.copy()
+    v[rng.random(len(v)) < 0.15] = 0
+    if v.dtype == np.float64:
+        v[1:3] = [-0.0, np.nan]
+    return v
+
+
+@pytest.mark.parametrize("a,b", DIVIDE, ids=[f"{a},{b}" for a, b in DIVIDE])
+def test_divide_matches_reference(a, b):
+    """Divide: a double for non-decimal operands, the decimal quotient
+    HALF_UP at ``decimal_div_type``'s scale, and null on a zero divisor
+    (doubles included); the typing, every value and every validity bit as
+    the reference's."""
+    rng = np.random.default_rng(len(repr(a)) * 13 + len(repr(b)))
+    va, vb = _inputs(a, rng), _with_zeros(_inputs(b, rng), rng)
+    if b == T.INT:
+        vb = _with_zeros(rng.integers(-10**4, 10**4, len(vb))
+                         .astype(np.int32), rng)
+    cols = [_cols(va, rng.random(len(va)) < 0.9, a),
+            _cols(vb, rng.random(len(vb)) < 0.9, b)]
+    dt = AR.decimal_div_type(a, b)
+    rdt = RAR.decimal_div_type(_ref_type(a), _ref_type(b))
+    assert (dt is None and rdt is None) or _ref_type(dt) == rdt
+    pe = AR.Divide(E.BoundReference(0, a), E.BoundReference(1, b))
+    re_ = RAR.Divide(RE.BoundReference(0, _ref_type(a)),
+                     RE.BoundReference(1, _ref_type(b)))
+    pc, rc = _eval_both(pe, re_, cols)
+    assert pc.dtype == (dt if dt is not None else T.DOUBLE)
+    _assert_same(pc, rc)
+    zero = cols[1][0].values.numpy() == 0
+    assert not pc.validity.numpy()[zero].any()
+
+
+@pytest.mark.parametrize("t", [T.INT, T.LONG, T.DOUBLE, T.DecimalType(7, 2),
+                               T.DecimalType(18, 4)], ids=str)
+def test_abs_matches_reference(t):
+    """abs keeps its type; int minimum wraps to itself on both sides."""
+    rng = np.random.default_rng(len(repr(t)))
+    v = _inputs(t, rng)
+    cols = [_cols(v, rng.random(len(v)) < 0.9, t)]
+    pc, rc = _eval_both(AR.Abs(E.BoundReference(0, t)),
+                        RAR.Abs(RE.BoundReference(0, _ref_type(t))), cols)
+    assert pc.dtype == t
+    _assert_same(pc, rc)
+
+
+def test_divide_and_abs_operator_sugar():
+    """``/`` and ``F.abs`` build the ported expressions, a number on the left
+    of ``/`` included; unary minus is not ported."""
+    x = F.col("x")
+    assert isinstance(x / 2.0, AR.Divide)
+    r = 2.0 / x
+    assert isinstance(r, AR.Divide) and isinstance(r.left, E.Literal)
+    assert isinstance(F.abs("x"), AR.Abs)
+    with pytest.raises(NotImplementedError):
+        -(x / 2.0)
+    with pytest.raises(NotImplementedError):
+        -x
 
 
 LITS = [0, 2000, 25000, 150, -7, 1.5, 2.675, 12345.675]

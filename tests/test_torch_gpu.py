@@ -34,7 +34,14 @@ to the CPU run and the NumPy oracle under ``tpcds.check_rows`` (keys,
 counts and decimals exact, float slots within 1e-9 relative); decimals
 round-trip through the card exactly; a keyless aggregate (one partition,
 four, and empty input) on the card equals the CPU run (counts and decimals
-exact, a double sum within 1e-12 relative).
+exact, a double sum within 1e-12 relative). The five TPC-DS queries of the
+window exec and the nested-loop join come through the same per-query test.
+The window exec (plain torch ops) for every function and frame kind over
+three files on the card against the CPU run: integers, ranks, counts,
+min/max and lead/lag exact, double sums and averages within rel 1e-12 and
+abs 1e-9 (the card's cumsum adds in another order); the nested-loop join
+for every ported type, with and without a condition, the CPU run's rows in
+order.
 """
 
 import os
@@ -1140,3 +1147,173 @@ def test_keyless_aggregate_on_card(cuda_device, tpcds_paths, parts):
                             "price": None}
         else:
             assert card["price"] == pytest.approx(cpu["price"], rel=1e-12)
+
+
+# -- the window exec and the nested-loop join (plain torch ops) ---------------
+
+def _window_exprs():
+    """(case name, maker of Alias(WindowExpression) lists) over columns g
+    (partition), o (unique int order key), f (double order key with NaN and
+    nulls), v (double with nulls), b (bool), s (string) and d (decimal(7,2)
+    order key with nulls, its offsets in whole units): every ranking
+    and offset function, and sum/count/min/max/avg over every frame kind."""
+    from spark_rapids_tpu_torch.expr import core as E
+    from spark_rapids_tpu_torch.expr import windows as WX
+    from spark_rapids_tpu_torch.expr.aggregates import (Average, Count, Max,
+                                                        Min, Sum)
+    c = E.col
+
+    def spec(frame=WX.DEFAULT_FRAME, order="o", asc=True, parts=("g",)):
+        ob = ((c(order), asc, True),) if order else ()
+        return WX.WindowSpec(tuple(c(p) for p in parts), ob, frame)
+
+    def aggs(sp, col="v"):
+        return [E.Alias(WX.WindowExpression(f(c(col)), sp), n)
+                for f, n in ((Sum, "s"), (Count, "c"), (Min, "mn"),
+                             (Max, "mx"), (Average, "av"))]
+
+    def w(f, sp, n):
+        return E.Alias(WX.WindowExpression(f, sp), n)
+    return [
+        ("row_number", lambda: [w(WX.RowNumber(), spec(), "rn")]),
+        ("rank_over_ties", lambda: [w(WX.Rank(), spec(order="f"), "rk"),
+                                    w(WX.DenseRank(), spec(order="f"),
+                                      "dr")]),
+        ("lead_lag", lambda: [w(WX.Lead(c("v"), 2), spec(), "ld"),
+                              w(WX.Lag(c("o"), 3, default=-1), spec(), "lg"),
+                              w(WX.Lead(c("s"), 1), spec(), "ls")]),
+        ("rows_to_current", lambda: aggs(spec(WX.WindowFrame("rows", None,
+                                                             0)))),
+        ("rows_sliding", lambda: aggs(spec(WX.WindowFrame("rows", 3, 2)))),
+        ("rows_unbounded_both", lambda: aggs(spec(WX.FULL_FRAME))),
+        ("range_to_current", lambda: aggs(spec(order="f"))),
+        ("range_bounded_asc", lambda: aggs(spec(WX.WindowFrame("range", 3,
+                                                               5)))),
+        ("range_bounded_desc", lambda: aggs(spec(WX.WindowFrame("range", 2,
+                                                                4),
+                                                 asc=False))),
+        ("range_float_key", lambda: aggs(spec(WX.WindowFrame("range", 1, 1),
+                                              order="f"))),
+        ("range_one_sided", lambda: aggs(spec(WX.WindowFrame("range", None,
+                                                             4)))),
+        ("range_decimal_key", lambda: aggs(spec(WX.WindowFrame("range", 1,
+                                                               2),
+                                                order="d"))),
+        ("no_order_full", lambda: aggs(spec(WX.FULL_FRAME, order=None))),
+        ("no_partition", lambda: aggs(spec(WX.WindowFrame("rows", 5, 5),
+                                           parts=()))),
+        ("bool_string_min_max", lambda: [
+            w(Min(c("b")), spec(WX.FULL_FRAME), "bmin"),
+            w(Max(c("s")), spec(WX.WindowFrame("rows", 1, 1)), "smax"),
+            w(Min(c("s")), spec(), "smin")]),
+    ]
+
+
+def _window_table(n):
+    from decimal import Decimal
+
+    import pyarrow as pa
+    r = np.random.default_rng(n)
+    f = r.integers(0, 40, n).astype(np.float64) / 2
+    f[r.random(n) < 0.05] = np.nan
+    return pa.table({
+        "g": pa.array(r.integers(0, 16, n), pa.int64()),
+        "o": pa.array(r.permutation(n).astype(np.int32)),
+        "f": pa.array([None if m else x for x, m in
+                       zip(f, r.random(n) < 0.05)], pa.float64()),
+        "v": pa.array([None if m else x for x, m in
+                       zip(r.normal(0, 10, n), r.random(n) < 0.1)],
+                      pa.float64()),
+        "b": pa.array([None if m else bool(x) for x, m in
+                       zip(r.integers(0, 2, n), r.random(n) < 0.1)]),
+        "s": pa.array([None if i % 11 == 0 else f"s{i % 37}"
+                       for i in range(n)]),
+        "d": pa.array([None if m else Decimal(int(x)).scaleb(-2) for x, m in
+                       zip(r.integers(0, 4000, n), r.random(n) < 0.05)],
+                      pa.decimal128(7, 2)),
+    })
+
+
+def _sorted_rows(tbl):
+    import math
+
+    def key(v):
+        if v is None:
+            return (0, 0)
+        if isinstance(v, float) and math.isnan(v):
+            return (2, 0)
+        return (1, v)
+    return sorted((tuple(r.values()) for r in tbl.to_pylist()),
+                  key=lambda r: tuple(key(v) for v in r))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [c[0] for c in _window_exprs()])
+def test_window_on_card_equals_cpu(cuda_device, tmp_path, case):
+    """The window exec over three files (the hash exchange on the partition
+    key) on the card against the same call on the CPU: integers, ranks,
+    counts, min/max and lead/lag exact, double sums and averages within
+    rel 1e-12 and abs 1e-9 (the card's cumsum adds in another order)."""
+    import math
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch.session import TorchSession
+    t = _window_table(6000)
+    paths = []
+    for i in range(3):
+        p = str(tmp_path / f"w{i}.parquet")
+        pq.write_table(t.slice(i * 2000, 2000), p)
+        paths.append(p)
+    make = dict(_window_exprs())[case]
+
+    def run(spark):
+        return _sorted_rows(spark.read_parquet(paths).window(make())
+                            .collect())
+    card, cpu = run(TorchSession()), run(TorchSession(device="cpu"))
+    assert len(card) == len(cpu) == 6000
+    for a, b in zip(card, cpu):
+        for x, y in zip(a, b):
+            if isinstance(y, float) and math.isnan(y):
+                assert isinstance(x, float) and math.isnan(x), (a, b)
+            elif isinstance(y, float) and x is not None:
+                assert x == pytest.approx(y, rel=1e-12, abs=1e-9), (a, b)
+            else:
+                assert x == y, (a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("how", ["cross", "inner", "left", "leftsemi",
+                                 "leftanti"])
+@pytest.mark.parametrize("cond", [False, True])
+def test_nested_loop_join_on_card_equals_cpu(cuda_device, tmp_path, how,
+                                             cond):
+    """Every ported nested-loop join type over a three-file stream and a
+    700-row broadcast build, in chunks of 2^20 pairs (1.4M pairs), on the
+    card: the CPU run's rows, in order."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    import spark_rapids_tpu_torch.functions as F
+    from spark_rapids_tpu_torch.session import TorchSession
+    r = np.random.default_rng(len(how) + cond)
+    left = pa.table({"a": pa.array([None if m else int(x) for x, m in zip(
+        r.integers(0, 1000, 2000), r.random(2000) < 0.05)], pa.int64()),
+        "ls": pa.array([f"l{i % 13}" for i in range(2000)])})
+    right = pa.table({"b": pa.array(r.normal(500, 300, 700)),
+                      "rs": pa.array([None if i % 7 == 0 else f"r{i % 5}"
+                                      for i in range(700)])})
+    lpaths = []
+    for i in range(3):
+        p = str(tmp_path / f"l{i}.parquet")
+        pq.write_table(left.slice(i * 667, 667), p)
+        lpaths.append(p)
+    rpath = str(tmp_path / "r.parquet")
+    pq.write_table(right, rpath)
+
+    def run(spark):
+        c = (F.col("a") > F.col("b") + F.lit(400.0)) if cond else None
+        df = spark.read_parquet(lpaths).join(spark.read_parquet(rpath),
+                                             how=how, condition=c)
+        return [tuple(x.values()) for x in df.collect().to_pylist()]
+    card, cpu = run(TorchSession()), run(TorchSession(device="cpu"))
+    assert card == cpu
+    if how in ("cross", "inner") and not cond:
+        assert len(card) == 2000 * 700

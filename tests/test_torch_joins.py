@@ -680,8 +680,12 @@ def test_unported_join_shapes_raise_at_planning(two_tables, shape):
         "full": lambda: a.join(b, on="k", how="full"),
         "condition": lambda: a.join(b, on="k",
                                     condition=F.col("x") <= F.lit(2.0)),
-        "keyless": lambda: a.join(b),
-        "cross": lambda: a.join(b, how="cross"),
+        # keyless and cross joins plan the nested-loop join
+        # (tests/test_torch_nested_loop.py); its full and right outer
+        # shapes do not
+        "keyless": lambda: a.join(b, how="full"),
+        "cross": lambda: a.join(b, how="right",
+                                condition=F.col("x") <= F.lit(2.0)),
     }[shape]
     with pytest.raises(NotImplementedError):
         build().physical_plan()
@@ -690,9 +694,10 @@ def test_unported_join_shapes_raise_at_planning(two_tables, shape):
 def test_mesh_and_unported_operators_raise():
     with pytest.raises(NotImplementedError):
         TorchSession({"spark.rapids.tpu.mesh.enabled": "true"}, device="cpu")
-    # NotEqual, Or and Not are ported with the SQL slice; these are not
+    # NotEqual, Or and Not are ported with the SQL slice, / with the window
+    # slice; these are not
     with pytest.raises(NotImplementedError):
-        F.col("x") / F.lit(1.0)
+        -(F.col("x") / F.lit(1.0))
     with pytest.raises(NotImplementedError):
         -F.col("x")
     with pytest.raises(NotImplementedError):

@@ -3,9 +3,10 @@
 - The port's generator writes tables equal to the JAX package's
   (``pa.Table.equals``, schemas included) at SF 0.003, its vectorized
   ``decimal(7,2)`` columns among them.
-- Each of the 17 ported queries (q3, q42, q52, q55, q7, q19, q6, q27, q34,
-  q43, q46, q48, q65, q68, q73, q79, q96) through ``TorchSession(device=
-  "cpu")`` at SF 0.012 (``tests/test_tpcds.py``'s size) equals the
+- Each of the reference's 22 DataFrame queries (q3, q42, q52, q55, q7, q19,
+  q6, q27, q34, q43, q46, q48, q65, q68, q73, q79, q96, the window queries
+  q53, q63, q89 and q98, and q88's cross-joined counts) through
+  ``TorchSession(device="cpu")`` at SF 0.012 (``tests/test_tpcds.py``'s size) equals the
   reference's NumPy oracle (``spark_rapids_tpu.benchmarks.tpcds.NP_QUERIES``)
   and the reference's ``TpuSession`` result on the same files.
 - The paths they take: q43's seven conditional sums on the dense
@@ -58,8 +59,10 @@ def data(tmp_path_factory):
 
 
 def test_ported_queries_are_the_reference_set_but_five():
-    assert set(R.QUERIES) - set(tpcds.QUERIES) == {"q53", "q63", "q89",
-                                                    "q98", "q88"}
+    """All 22: the five the name counts (q53, q63, q89, q98, q88) are
+    ported now."""
+    assert set(R.QUERIES) == set(tpcds.QUERIES)
+    assert len(tpcds.QUERIES) == 22
     assert set(tpcds.NP_QUERIES) == set(tpcds.QUERIES)
     assert all(tpcds.FLOAT_COLS[q] == R.FLOAT_COLS[q] for q in PORTED)
 
@@ -150,3 +153,40 @@ def test_decimal_chunks_take_the_arrow_route(data, name):
     assert PN.routes["python"] == 0
     assert PN.routes["arrow"] >= n_files          # one decimal chunk a file
     assert PN.routes["native_pages"] > 0
+
+
+def _find(plan, cls):
+    out = [plan] if isinstance(plan, cls) else []
+    for c in plan.children:
+        out += _find(c, cls)
+    return out
+
+
+@pytest.mark.parametrize("name", ["q53", "q63", "q89", "q98"])
+def test_window_queries_plan_one_window_over_the_aggregate(data, name):
+    """The window sits over the group-by's one partition: no exchange below
+    it, and it sees every aggregated row."""
+    from spark_rapids_tpu_torch.exec.window import WindowExec
+    paths, _ = data
+    plan = tpcds.QUERIES[name](tpcds.load(TorchSession(device="cpu"),
+                                          paths)).physical_plan()
+    plan.execute_collect()
+    (win,) = _find(plan, WindowExec)
+    (agg,) = _aggs(win)
+    assert win.child is agg and agg.num_partitions == 1
+    assert win.stats["partitions"] == 1
+    assert win.stats["input_rows"] == win.stats["output_rows"] > 0
+
+
+def test_q88_cross_joins_eight_counts(data):
+    """Seven nested-loop joins over eight keyless counts, one row each."""
+    from spark_rapids_tpu_torch.exec.joins import NestedLoopJoinExec
+    paths, got = data
+    plan = tpcds.q88(tpcds.load(TorchSession(device="cpu"),
+                                paths)).physical_plan()
+    plan.execute_collect()
+    nljs = _find(plan, NestedLoopJoinExec)
+    assert len(nljs) == 7 and len(_aggs(plan)) == 8
+    assert all(j.stats["stream_rows"] == j.stats["build_rows"]
+               == j.stats["output_rows"] == 1 for j in nljs)
+    assert len(got["q88"]) == 1 and len(got["q88"][0]) == 8

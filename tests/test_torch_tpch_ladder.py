@@ -224,8 +224,8 @@ def test_limit_of_an_empty_result(small):
 def test_keyless_aggregate_still_raises_at_planning(small):
     """A keyless aggregate plans since the TPC-DS slice (one COMPLETE
     aggregate, over a gather of the file partitions into one) and equals
-    TpuSession; what still raises at planning is the cross join of two of
-    them (the nested-loop join)."""
+    TpuSession; the cross join of two of them plans the nested-loop join,
+    and what still raises at planning is their keyless full outer join."""
     paths, files = small
     ref = TpuSession()
     for src in (paths["lineitem"], files):
@@ -241,6 +241,8 @@ def test_keyless_aggregate_still_raises_at_planning(small):
         got = out.collect().to_pylist()
         assert got[0]["n"] == want[0]["n"] > 0
         assert got[0]["s"] == pytest.approx(want[0]["s"], rel=1e-12)
+        other = df.agg(F.count().alias("c"))
+        crossed = out.join(other, how="cross").collect().to_pylist()
+        assert crossed == [dict(got[0], c=got[0]["n"])]
         with pytest.raises(NotImplementedError):
-            out.join(df.agg(F.count().alias("c")),
-                     how="cross").physical_plan()
+            out.join(other, how="full").physical_plan()
