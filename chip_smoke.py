@@ -123,13 +123,26 @@ It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
    and ds-q43 at least once; its aggregates, joins, window execs and
    nested-loop joins (rows in, partitions, rows out) and peak device
    memory), then ``--reps`` timed runs of each, in turns, each held against
-   its oracle;
+   its oracle; then the 27 official TPC-DS SQL texts the port lowers
+   (``tpcds.SQL_PORTED``) through ``spark.sql`` over the same files'
+   temp views, as paths sql-ds-q3 ... sql-ds-q26: each planned once and
+   run once with the counts reset just before and read just after (the
+   oracle's rows under ``check_rows`` and the text's float columns; the
+   scans, routes and launches checked as on the ds paths, the count kernel
+   on sql-ds-q43; q97's full outer join on the rank path
+   with its probe mode, build rows, stream partitions and unmatched build
+   rows emitted, q61's nested-loop join), then at most ``SQL_DS_REPS``
+   timed runs of each, in turns, each held against its oracle, and one
+   traced run of each for its device idle share; each text prints its
+   median wall, spread, peak memory, idle share, scan routes and chunk
+   decode launches, and the DataFrame twin's median wall from the same
+   call where the text has one;
 6. prints how many traces ``device_ms`` took and found short, one JSON
    line describing every ported kernel (its launches on every path, the
    TPC-DS paths among them, under ``launches_by_path``), the card's name
    and power limit, and last ``{"ok": true, "device": {...}}``. With
-   ``--profile`` each path's host profile, the TPC-DS paths' too, must
-   show no call of the Python page parser.
+   ``--profile`` each path's host profile, the TPC-DS paths' and the SQL
+   texts' too, must show no call of the Python page parser.
 
 Device times come from torch.profiler traces (``traced``: a warm-up of
 64 tiny kernels first, since a trace can lose its first launches' device
@@ -152,6 +165,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -168,6 +182,8 @@ F32_OPS_PER_S = 67e12
 KERNEL_NAME = "chunk_decode_kernel"
 # timed runs of each q1 path: fewer than the other paths' --reps
 Q1_REPS = 2
+# timed runs of each official TPC-DS SQL text (the sql-ds paths)
+SQL_DS_REPS = 2
 
 
 def card_line() -> str:
@@ -935,6 +951,23 @@ def exchanges(plan) -> list:
     for c in plan.children:
         out += exchanges(c)
     return out
+
+
+def sql_idle_share(run) -> str:
+    """The device idle share of one traced run (1 - device activity time /
+    wall), as text; a trace that stays short after three (trace_check)
+    gives only an upper bound, and says so."""
+    for attempt in range(3):
+        census, device, wall = traced(run)
+        why = trace_check(census)[3]
+        if not why:
+            break
+    busy = sum(us for _name, us in device) / 1e6
+    if why:
+        return (f"SHORT TRACE ({why}): device idle share at most "
+                f"{1 - busy / wall:.4f}")
+    return (f"device idle share {1 - busy / wall:.4f} (traced wall "
+            f"{wall:.4f} s, device activity {busy:.4f} s)")
 
 
 def profile_run(label: str, run, repo: str) -> None:
@@ -1946,11 +1979,18 @@ def main() -> int:
     # outside every timed window
     exp_ds = {q: [tuple(r) for r in tpcds.NP_QUERIES[q](ds_tb)]
               for q in tpcds.QUERIES}
+    # the official SQL texts' oracles: the DataFrame twin's rows where the
+    # text has a twin, else its SQL-only oracle
+    sql_oracles = tpcds.sql_suite_oracles()
+    exp_sql = {q: (exp_ds[q] if q in tpcds.QUERIES
+                   else [tuple(r) for r in sql_oracles[q][0](ds_tb)])
+               for q in tpcds.SQL_PORTED}
     del ds_tb
-    print(f"TPC-DS oracles: {len(exp_ds)} queries in "
-          f"{time.perf_counter() - t0:.1f} s; rows "
-          f"{ {q: len(r) for q, r in exp_ds.items()} }")
-    for q, rows in exp_ds.items():
+    print(f"TPC-DS oracles: {len(exp_ds)} queries and {len(exp_sql)} SQL "
+          f"texts in {time.perf_counter() - t0:.1f} s; rows "
+          f"{ {q: len(r) for q, r in exp_ds.items()} }; SQL rows "
+          f"{ {q: len(r) for q, r in exp_sql.items()} }")
+    for q, rows in list(exp_ds.items()) + list(exp_sql.items()):
         if not rows:
             raise AssertionError(f"TPC-DS {q}: the oracle has no rows")
     ds_dirs = {os.path.normpath(p): t for t, p in ds_paths.items()}
@@ -1976,9 +2016,18 @@ def main() -> int:
     ds_kernels = {label: ("bitunpack128",) for label in ds_labels}
     ds_kernels["ds-q6"] = ds_kernels["ds-q43"] = ("bitunpack128",
                                                   "onehot_sum_f32")
-    for label in ds_labels:
-        q = ds_query[label]
-        plan = ds_run(q).physical_plan()
+    def counted_ds_run(label, plan, named, kernels, check):
+        """The counted run of one TPC-DS path (a DataFrame query or an SQL
+        text): the launch and route counts reset just before and read just
+        after, the result held by ``check``; every kernel of ``kernels``
+        launched, the count kernel once per aggregate batch with
+        count-like requests; every scan pruned to names the query's text
+        quotes (``named``), its dictionary chunks native and one chunk
+        decode each, every decimal chunk refused by the decode and read
+        through arrow, none parsed in Python. Prints the scans, aggregates,
+        window execs and nested-loop joins; returns the lines the path's
+        timing line repeats (each nested-loop and full outer join's
+        stats)."""
         torch.cuda.reset_peak_memory_stats(dev)
         agg_batches.clear()
         G.resolve_dense_group_sums = counting_resolve
@@ -1993,9 +2042,8 @@ def main() -> int:
         counts = dict(CK.launches)
         routes = dict(PN.routes)
         peak = torch.cuda.max_memory_allocated(dev)
-        tpcds.check_rows([tuple(r.values()) for r in res.to_pylist()],
-                         exp_ds[q], tpcds.FLOAT_COLS[q])
-        for k in ds_kernels[label]:
+        check(res)
+        for k in kernels:
             if counts[k] <= 0:
                 raise AssertionError(
                     f"kernel {k} never launched on the {label} path")
@@ -2006,11 +2054,6 @@ def main() -> int:
                 f"{label}: {len(count_batches)} aggregate batches with "
                 f"count-like requests but the count kernel launched "
                 f"{counts['onehot_sum_f32']} times (want one a batch)")
-        batches_by_path[label] = count_batches
-        # every scan pruned to the query's columns; its dictionary chunks
-        # native and one chunk decode each; every decimal chunk refused by
-        # the decode and read through arrow; none parsed in Python
-        named = ds_named(q)
         want_chunks = want_refused = dec_chunks = 0
         for d, ex in scans(plan):
             table = ds_dirs[os.path.normpath(d)]
@@ -2048,6 +2091,9 @@ def main() -> int:
             raise AssertionError(
                 f"{label}: scan routes {routes}, want {want_routes}")
         routes_by_path[label] = routes
+        counts_by_path[label] = counts
+        peak_by_path[label] = peak
+        batches_by_path[label] = count_batches
         for a in aggregates(plan):
             st = a.stats
             print(f"{label} aggregate mode={a.mode} keys="
@@ -2059,22 +2105,42 @@ def main() -> int:
             print(f"{label} window exec: {w.stats['input_rows']} rows in "
                   f"{w.stats['partitions']} partitions, "
                   f"{w.stats['output_rows']} rows out")
+        extra = []
         for j in of_type(plan, NestedLoopJoinExec):
             st = j.stats
-            print(f"{label} nested-loop join {j.join_type}: "
-                  f"{st['stream_rows']} stream rows in {st['partitions']} "
-                  f"partitions x {st['build_rows']} build rows, "
-                  f"{st['pairs']} pairs, {st['output_rows']} rows out")
-        modes = [(j.stats["probe_mode"], len(j.left_keys))
+            extra.append(
+                f"nested-loop join {j.join_type}: {st['stream_rows']} "
+                f"stream rows in {st['partitions']} partitions x "
+                f"{st['build_rows']} build rows, {st['pairs']} pairs, "
+                f"{st['output_rows']} rows out")
+        for j in joins(plan):
+            st = j.stats
+            if j.join_type == "fullouter":
+                extra.append(
+                    f"full outer join on {len(j.left_keys)} keys: probe "
+                    f"mode {st['probe_mode']}, {st['build_rows']} build "
+                    f"rows, {st['stream_partitions']} stream partitions, "
+                    f"{st['stream_batches']} stream batches, "
+                    f"{st['unmatched_build_rows']} unmatched build rows "
+                    f"emitted")
+        modes = [(j.join_type, j.stats["probe_mode"], len(j.left_keys))
                  for j in joins(plan)]
-        counts_by_path[label] = counts
-        peak_by_path[label] = peak
         print(f"{label} first run: {first_s:.3f} s; {res.num_rows} rows "
-              f"equal to the oracle; launches {counts}; routes {routes} "
+              f"equal to the oracle; launches "
+              f"{ {k: v for k, v in counts.items() if v} }; routes {routes} "
               f"({dec_chunks} decimal chunks through arrow); "
               f"{len(count_batches)} aggregate batches with count-like "
-              f"requests; joins (probe mode, keys) {modes}; peak device "
-              f"memory {peak} B")
+              f"requests; joins (type, probe mode, keys) {modes}; peak "
+              f"device memory {peak} B" + "".join(f"; {e}" for e in extra))
+        return extra
+
+    for label in ds_labels:
+        q = ds_query[label]
+        counted_ds_run(label, ds_run(q).physical_plan(), ds_named(q),
+                       ds_kernels[label],
+                       lambda res, q=q: tpcds.check_rows(
+                           [tuple(r.values()) for r in res.to_pylist()],
+                           exp_ds[q], tpcds.FLOAT_COLS[q]))
     ds_times = {label: [] for label in ds_labels}
     for rep in range(args.reps):
         for label in (ds_labels if rep % 2 == 0 else ds_labels[::-1]):
@@ -2093,11 +2159,75 @@ def main() -> int:
               f"{peak_by_path[label]} B; launches "
               f"{ {k: v for k, v in counts_by_path[label].items() if v} }")
 
+    # -- 4c. the official TPC-DS SQL texts through spark.sql on the card -----
+    # the 27 texts the port lowers, on the same SF1 files, as paths
+    # sql-ds-q3 ... : each lowered and planned once, one run with the counts
+    # reset just before and read just after, then the timed runs in turns,
+    # then one traced run for the device idle share
+    from spark_rapids_tpu_torch.sql.tpcds_queries import SQL_QUERIES as DS_SQL
+    tpcds.load(spark, ds_paths)          # registers the temp views
+    sql_labels = [f"sql-ds-{q}" for q in tpcds.SQL_PORTED]
+    sql_query = {f"sql-ds-{q}": q for q in tpcds.SQL_PORTED}
+    sql_float = {q: sql_oracles[q][1] for q in tpcds.SQL_PORTED}
+
+    def sql_run(q):
+        return spark.sql(DS_SQL[q])
+
+    def sql_check(q, res):
+        tpcds.check_rows([tuple(r.values()) for r in res.to_pylist()],
+                         exp_sql[q], sql_float[q])
+    # the kernels each text must launch: the chunk decode on every one, the
+    # count kernel where a dense aggregate has count-like sums (q43's seven
+    # nullable sums over 12 stores, as its DataFrame twin; at SF1 q7's
+    # i_item_id group-by is past the dense domain)
+    sql_kernels = {label: ("bitunpack128",) for label in sql_labels}
+    sql_kernels["sql-ds-q43"] = ("bitunpack128", "onehot_sum_f32")
+    sql_lines = {}
+    for label in sql_labels:
+        q = sql_query[label]
+        plan = sql_run(q).physical_plan()
+        sql_lines[label] = counted_ds_run(
+            label, plan, set(re.findall(r"\w+", DS_SQL[q])),
+            sql_kernels[label], lambda res, q=q: sql_check(q, res))
+        full = [j.stats for j in joins(plan) if j.join_type == "fullouter"]
+        if q == "q97" and (len(full) != 1 or full[0]["probe_mode"] != "rank"
+                           or full[0]["unmatched_build_rows"] <= 0):
+            raise AssertionError(f"{label}: full outer joins {full}")
+        if q == "q61" and not of_type(plan, NestedLoopJoinExec):
+            raise AssertionError(f"{label}: no nested-loop join")
+    sql_reps = min(args.reps, SQL_DS_REPS)
+    sql_times = {label: [] for label in sql_labels}
+    for rep in range(sql_reps):
+        for label in (sql_labels if rep % 2 == 0 else sql_labels[::-1]):
+            q = sql_query[label]
+            t0 = time.perf_counter()
+            res = sql_run(q).collect()
+            torch.cuda.synchronize()
+            sql_times[label].append(time.perf_counter() - t0)
+            sql_check(q, res)
+    for label, ts in sql_times.items():
+        q = sql_query[label]
+        idle = sql_idle_share(lambda: sql_run(q).collect())
+        twin = (f"; DataFrame twin ds-{q} median "
+                f"{statistics.median(ds_times['ds-' + q]):.4f} s"
+                if f"ds-{q}" in ds_times else "; no DataFrame twin")
+        print(f"{label} sf={args.tpcds_sf:g} on {name}: median "
+              f"{statistics.median(ts):.4f} s, min {min(ts):.4f} s, max "
+              f"{max(ts):.4f} s over {len(ts)} runs: "
+              f"{[round(t, 4) for t in ts]}{twin}; {idle}; peak device "
+              f"memory {peak_by_path[label]} B; scan routes "
+              f"{routes_by_path[label]}; chunk decode launches "
+              f"{counts_by_path[label]['bitunpack128']}"
+              + "".join(f"; {e}" for e in sql_lines[label]))
+
     if args.profile:
         for label, make_df in all_paths.items():
             profile_run(label, lambda: make_df().collect(), repo)
         for label in ds_labels:
             profile_run(label, lambda: ds_run(ds_query[label]).collect(),
+                        repo)
+        for label in sql_labels:
+            profile_run(label, lambda: sql_run(sql_query[label]).collect(),
                         repo)
 
     # -- 5. the kernels line, the card, the verdict --------------------------

@@ -1,9 +1,10 @@
 """Arithmetic expressions with Spark semantics (non-ANSI mode).
 
 Counterpart of ``spark_rapids_tpu/expr/arithmetic.py``: Add, Subtract,
-Multiply and Divide over int/long/double and decimals, and Abs. Integers wrap like Java (two's
-complement, which torch shares); the result type follows Spark's numeric
-precedence int < long < double. Decimals follow the reference's simplified
+Multiply and Divide over int/long/double and decimals, UnaryMinus and
+Abs. Integers wrap like Java (two's complement, which torch shares); the
+result type follows Spark's numeric precedence int < long < double.
+Decimals follow the reference's simplified
 promotion (``promote``: the wider integral digits and the larger scale; an
 integral operand takes the decimal's type, a double makes the result a
 double) and its multiply and divide typing (``decimal_mul_type``,
@@ -235,6 +236,31 @@ class Divide(BinaryArithmetic):
         validity = valid_and(l.validity, r.validity) & ~zero
         safe_r = torch.where(zero, torch.ones_like(r.values), r.values)
         return Col(l.values / safe_r, validity, out_t).canonicalized()
+
+
+class UnaryMinus(Expression):
+    """-x of the child's type, a number (int, long, double, decimal);
+    integers wrap at their minimum, as Java."""
+
+    def __init__(self, child: Expression):
+        self.children = [child]
+
+    @property
+    def dtype(self):
+        t = self.children[0].dtype
+        if not isinstance(t, T.NumericType):
+            raise NotImplementedError(f"negation of a {t} is not ported")
+        return t
+
+    def with_children(self, children):
+        return UnaryMinus(children[0])
+
+    def eval(self, ctx):
+        c = self.children[0].eval(ctx)
+        return Col(-c.values, c.validity, c.dtype).canonicalized()
+
+    def __repr__(self):
+        return f"(- {self.children[0]!r})"
 
 
 class Abs(Expression):

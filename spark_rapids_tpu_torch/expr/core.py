@@ -172,10 +172,9 @@ class Expression:
         from spark_rapids_tpu_torch.expr.arithmetic import Divide
         return self._bin(other, Divide, swap=True)
 
-    # the JAX package builds these expressions; the port has not ported them,
-    # and falling back to Python's defaults would silently mean identity
     def __neg__(self):
-        _not_ported("UnaryMinus")
+        from spark_rapids_tpu_torch.expr.arithmetic import UnaryMinus
+        return UnaryMinus(self)
 
     __hash__ = object.__hash__
 

@@ -20,7 +20,9 @@ capacity (the JoinGatherer analog). Pairs come out in stream order.
 
 Join-type semantics (Spark): LeftOuter emits an unmatched stream row once,
 null-extended; LeftSemi emits a matching stream row once; LeftAnti the
-stream rows without a match.
+stream rows without a match. A right or full outer join streams its
+preserved side, so its stream rows count as LeftOuter's; a full outer join
+also needs the build rows no stream row matched (``matched_build``).
 """
 
 from __future__ import annotations
@@ -138,6 +140,24 @@ def expand_pairs(build_perm, lo, hi, counts, start_pair: int, out_cap: int):
     build_idx = build_perm[b_pos]
     pair_live = j < total
     return stream_idx, build_idx, build_matched & pair_live, pair_live
+
+
+def matched_build(build_perm, lo, hi, build_cap: int):
+    """Which build rows one stream batch matched, from the probe's ranges:
+    a bool per build row. Every stream row marks the build positions
+    ``[lo, hi)`` (positions in ``build_perm``'s order) through a difference
+    array and one cumsum, so the work is linear in both sides whatever the
+    pair count. A stream row that matched nothing (a null or padding row
+    among them) has ``hi == lo`` and marks nothing."""
+    dev = lo.device
+    has = hi > lo
+    delta = torch.zeros((build_cap + 1,), dtype=torch.int32, device=dev)
+    delta.index_add_(0, lo.long(), has.to(torch.int32))
+    delta.index_add_(0, hi.long(), -has.to(torch.int32))
+    covered = torch.cumsum(delta[:build_cap], 0) > 0
+    out = torch.zeros((build_cap,), dtype=torch.bool, device=dev)
+    out[build_perm.long()] = covered
+    return out
 
 
 def total_pairs(counts):

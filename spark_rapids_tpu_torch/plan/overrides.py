@@ -9,12 +9,18 @@ over a gather of its partitions into one when it has several,
 ``:752-758``), the hash exchange
 (``_hash_exchange``, ``:635-659``), the exchange node (``:901-917``), sort
 (``:881-899``), limit (``conv_limit``, ``:697-705``), and the equi-join
-(``:770-875``): a broadcast hash join, inner joins building the side with
-the smaller row estimate (``plan/cbo.py``), and a keyless or cross join as
-the nested-loop join (``conv_join``, ``:787-790``, with ``tag_join``'s
-refusals, ``:771-782``). One fixed-point key takes the
-single-key probe modes; several keys, or one string or double key, take the
-rank path (``ops/joining.join_ranks``). A HAVING filter above an aggregate
+(``:770-875``): a broadcast hash join of every type (inner, left, right
+and full outer, semi, anti; an inner join with a residual condition),
+inner joins building the side with the smaller row estimate
+(``plan/cbo.py``), and a keyless or cross join as the nested-loop join
+(``conv_join``, ``:787-790``), with ``tag_join``'s refusals (``:771-782``:
+a residual condition on an outer, semi or anti equi-join, and a keyless
+right outer join). One fixed-point key takes the single-key probe modes;
+several keys, or one string or double key, take the rank path
+(``ops/joining.join_ranks``). Key pairs of two types: integers of two
+widths meet in the wider one, and decimals of one scale in their raw
+unscaled values, as the reference compares them; every other pair is
+refused (``_joinable``). A HAVING filter above an aggregate
 plans as a FilterExec: the reference folds it into the aggregate
 (``fuse_having``), which keeps the same rows. The window node (``tag_window``/``conv_window``, ``:939-977``) plans a
 ``WindowExec`` over a hash exchange on its partition keys, or a gather of
@@ -25,13 +31,11 @@ runs once at the root, as the reference runs it first in
 
 Every node, expression or shape outside the slices raises
 ``NotImplementedError`` here, while the plan is built, so nothing runs
-wrongly: range partitioning, right and full outer joins (matched-build
-tracking; keyless ones too), residual conditions on an equi-join, join
-keys of two unlike types, several window specs in one node, and a window
-``avg`` over a decimal column (the reference returns the unscaled mean
-there) among them. The SQL front-end refuses window functions while it
-lowers the text, and the mesh is refused earlier, by the conf, which does
-not know its keys. There is no partial CPU fallback: the whole
+wrongly: range partitioning, the join shapes above, join keys of two
+unlike types, several window specs in one node, and a window ``avg`` over
+a decimal column (the reference returns the unscaled mean there) among
+them. The mesh is refused earlier, by the conf, which does not know its
+keys. There is no partial CPU fallback: the whole
 plan runs on the device.
 """
 
@@ -47,15 +51,20 @@ from spark_rapids_tpu_torch.exec.window import (WindowExec,
                                                 supported_window_expr)
 from spark_rapids_tpu_torch.expr import core as E
 from spark_rapids_tpu_torch.expr.aggregates import AggregateFunction
-from spark_rapids_tpu_torch.expr.arithmetic import Abs, BinaryArithmetic
+from spark_rapids_tpu_torch.expr.arithmetic import (Abs, BinaryArithmetic,
+                                                   UnaryMinus)
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.expr.cast import Cast, supported_cast
 from spark_rapids_tpu_torch.expr.conditional import (CaseWhen, Greatest, If,
                                                      Least)
 from spark_rapids_tpu_torch.expr.datetime import AddMonths, DateAddInterval
+from spark_rapids_tpu_torch.expr.nullexprs import (AtLeastNNonNulls, Coalesce,
+                                                   IsNaN, IsNotNull, IsNull,
+                                                   NaNvl)
 from spark_rapids_tpu_torch.expr.predicates import (
     And, EqualTo, GreaterThan, GreaterThanOrEqual, In, LessThan,
     LessThanOrEqual, Not, NotEqual, Or)
+from spark_rapids_tpu_torch.expr.strings import Substring
 from spark_rapids_tpu_torch.expr.windows import WindowExpression
 from spark_rapids_tpu_torch.io.filescan import FileScanNode, FileSourceScanExec
 from spark_rapids_tpu_torch.ops import joining as J
@@ -68,14 +77,23 @@ _PORTED_EXPRS = (E.BoundReference, E.Literal, E.Alias, BinaryArithmetic,
                  EqualTo, NotEqual, LessThan, LessThanOrEqual, GreaterThan,
                  GreaterThanOrEqual, And, Or, Not, In, Cast, DateAddInterval,
                  AddMonths, AggregateFunction, If, CaseWhen, Least, Greatest,
-                 Abs)
+                 Abs, UnaryMinus, IsNull, IsNotNull, IsNaN, Coalesce, NaNvl,
+                 AtLeastNNonNulls, Substring)
 
 
 def _joinable(ldt: T.DataType, rdt: T.DataType) -> bool:
-    """Key types the join compares: equal types, or integers of two
-    widths (compared in the wider one)."""
-    return ldt == rdt or (isinstance(ldt, T.IntegralType)
-                          and isinstance(rdt, T.IntegralType))
+    """Key types the join compares: equal types, integers of two widths
+    (compared in the wider one), or decimals of one scale (their unscaled
+    values compare as the decimals do). The reference compares the raw
+    values of other pairs too, where they mean different numbers (decimals
+    of two scales, a decimal and an integer, a date and an integer), or
+    reads an integer's bounds off a double key in a full outer join."""
+    if ldt == rdt:
+        return True
+    if isinstance(ldt, T.IntegralType) and isinstance(rdt, T.IntegralType):
+        return True
+    return (isinstance(ldt, T.DecimalType) and isinstance(rdt, T.DecimalType)
+            and ldt.scale == rdt.scale)
 
 
 def check_expression(e: E.Expression) -> None:
@@ -200,12 +218,11 @@ class TorchOverrides:
     def _join(self, n, kids):
         if not n.left_keys or n.join_type == "cross":
             return self._nested_loop_join(n, kids)
-        if n.join_type in ("right", "full"):
+        if n.condition is not None and n.join_type != "inner":
+            # the reference's tag_join refuses them too (GpuHashJoin.tagJoin)
             raise NotImplementedError(
-                f"{n.join_type} outer joins are not ported yet")
-        if n.condition is not None:
-            raise NotImplementedError(
-                "residual conditions on an equi-join are not ported yet")
+                f"a residual condition on a {n.join_type} equi-join is not "
+                "ported (the reference runs it on the host)")
         for lk, rk in zip(n.left_keys, n.right_keys):
             check_expression(lk)
             check_expression(rk)
@@ -213,30 +230,32 @@ class TorchOverrides:
                 raise NotImplementedError(
                     f"a join of a {lk.dtype} key with a {rk.dtype} key is "
                     "not ported yet")
-        jt = {"left": J.LEFT_OUTER}.get(n.join_type, n.join_type)
+        jt = {"left": J.LEFT_OUTER, "right": J.RIGHT_OUTER,
+              "full": J.FULL_OUTER}.get(n.join_type, n.join_type)
         # an inner join builds the smaller estimated side (reference
         # GpuJoinUtils.getGpuBuildSide); the others stream the preserved side
         build_side = "right"
         if jt == J.INNER and estimate_rows(n.left) < estimate_rows(n.right):
             build_side = "left"
-        return XJ.BroadcastHashJoinExec(jt, n.left_keys, n.right_keys,
-                                        kids[0], kids[1],
-                                        build_side=build_side, conf=self.conf)
+        exec_ = XJ.BroadcastHashJoinExec(
+            jt, n.left_keys, n.right_keys, kids[0], kids[1],
+            condition=n.condition, build_side=build_side, conf=self.conf)
+        if exec_.condition is not None:
+            check_expression(exec_.condition)
+        return exec_
 
     def _nested_loop_join(self, n, kids):
         """A keyless or cross join: the nested-loop join over a broadcast
         right side (the reference's conv_join; a cross join's keys, if any,
         are ignored there too)."""
-        if n.join_type in ("right", "full"):
-            # right: the reference refuses it too (tag_join); full: the
-            # unmatched build rows need the matched flags merged across the
-            # stream partitions
+        if n.join_type == "right":
+            # the nested-loop join builds its right side; the reference
+            # refuses this shape too (tag_join)
             raise NotImplementedError(
-                f"a keyless {n.join_type} outer join (the nested-loop join "
-                "with a left build side or matched-build tracking) is not "
-                "ported yet")
-        jt = {"left": J.LEFT_OUTER, "cross": J.INNER}.get(n.join_type,
-                                                          n.join_type)
+                "a keyless right outer join (the nested-loop join with a "
+                "left build side) is not ported")
+        jt = {"left": J.LEFT_OUTER, "full": J.FULL_OUTER,
+              "cross": J.INNER}.get(n.join_type, n.join_type)
         exec_ = XJ.NestedLoopJoinExec(jt, kids[0], kids[1],
                                       condition=n.condition, conf=self.conf)
         if exec_.condition is not None:

@@ -73,10 +73,13 @@ class DataFrame:
 
     def join(self, other: "DataFrame", on=None, how: str = "inner",
              condition=None) -> "DataFrame":
-        """Join on the columns named ``on`` (USING semantics: one key column
-        per name, the left one; the right duplicate is dropped). Semi and
-        anti joins keep the left columns only. The planner refuses the
-        shapes the port has not ported."""
+        """Join on the columns named ``on`` (USING semantics, Spark's: one
+        key column per name, the left one for inner and left joins, the
+        right one for a right join, ``coalesce(left, right)`` for a full
+        join; the right duplicate is dropped). Semi and anti joins keep the
+        left columns only. ``how`` is inner, left[_outer], right[_outer],
+        full[_outer]/outer, [left_]semi, [left_]anti or cross. The planner
+        refuses the shapes the port has not ported."""
         jt = {"left_outer": "left", "right_outer": "right",
               "full_outer": "full", "outer": "full",
               "left_semi": "leftsemi", "semi": "leftsemi",
@@ -90,13 +93,17 @@ class DataFrame:
         jn = NN.JoinNode(self._plan, other._plan, lk, rk, jt, condition)
         if on is None or jt in ("leftsemi", "leftanti"):
             return DataFrame(jn, self.session)
+        from spark_rapids_tpu_torch.expr.nullexprs import Coalesce
         lout, rout = self._plan.output, other._plan.output
         nl = len(lout.fields)
         proj = []
         for n in names:
-            li = lout.index_of(n)
-            proj.append(E.Alias(
-                E.BoundReference(li, lout.fields[li].data_type), n))
+            li, ri = lout.index_of(n), rout.index_of(n)
+            lref = E.BoundReference(li, lout.fields[li].data_type)
+            rref = E.BoundReference(nl + ri, rout.fields[ri].data_type)
+            key = (rref if jt == "right"
+                   else Coalesce(lref, rref) if jt == "full" else lref)
+            proj.append(E.Alias(key, n))
         for i, f in enumerate(lout.fields):
             if f.name not in names:
                 proj.append(E.Alias(E.BoundReference(i, f.data_type), f.name))

@@ -12,20 +12,34 @@ reference plugin sees a plan:
    branch of an OR is hoisted out of it first. Explicit JOIN ... ON splits
    its condition the same way.
 2. Aggregation: distinct ``AggregateFunction`` subtrees (keyed by the
-   structural key of ``expr/exprkey.py``) become AggregateNode columns.
-3. HAVING → Filter; SELECT → Project; DISTINCT → group-by-all; ORDER BY
+   structural key of ``expr/exprkey.py``) become AggregateNode columns,
+   those inside a window function's input too (``avg(sum(x)) over (...)``).
+3. Window: the distinct ``OVER`` expressions, over the aggregate's output
+   when there is one, become one WindowNode.
+4. HAVING → Filter; SELECT → Project; DISTINCT → group-by-all; ORDER BY
    resolves output names, aliases, ordinals and select-list expressions
    (other expressions ride as hidden columns, dropped after the sort);
    LIMIT → a global LimitNode.
 
+The expressions lowered: column references, literals (``100.0`` is a
+double, as the parser reads it; ``cast(x as decimal(p, s))`` makes a
+decimal), + - * /, negation, comparisons, AND/OR/NOT, BETWEEN, IN over
+literals, CASE, IS [NOT] NULL, DATE literals and intervals, casts, the
+aggregates sum/min/max/avg/count/first/last, ``abs``, ``substr``/
+``substring`` and ``coalesce``, and the window functions (row_number,
+rank, dense_rank, lead, lag and the aggregates over a window). Joins: the
+comma list, and [INNER|LEFT|RIGHT|FULL] [OUTER] JOIN ... ON/USING, semi,
+anti and cross joins.
+
 What the port cannot plan raises ``NotImplementedError`` here, while the
-text is lowered, never at run time: window functions, ROLLUP/CUBE/GROUPING
-SETS, set operations, DISTINCT aggregates, scalar, IN and EXISTS
-subqueries (the reference runs the uncorrelated ones eagerly at lowering),
-SELECT without FROM, and every expression outside the ported ones (CASE,
-LIKE, IS NULL, the string, math and null functions, division, negation of a
-column, TIMESTAMP literals). Text the grammar or the catalog refuses raises
-``SqlParseError`` or ``SqlAnalysisError``, as in the reference.
+text is lowered, never at run time: ROLLUP/CUBE/GROUPING SETS, set
+operations, DISTINCT aggregates, scalar, IN and EXISTS subqueries (the
+reference runs the uncorrelated ones eagerly at lowering), SELECT without
+FROM, and every expression outside the ones above (LIKE, ``%``, ``||``,
+the other string and math functions, stddev/variance, TIMESTAMP
+literals, the untyped NULL outside a CASE branch). Text the grammar or
+the catalog refuses raises ``SqlParseError`` or ``SqlAnalysisError``, as
+in the reference.
 """
 
 from __future__ import annotations
@@ -94,13 +108,20 @@ _TYPE_MAP = {
     "boolean": T.BOOLEAN, "char": T.STRING, "varchar": T.STRING,
 }
 # types the reference's lowering knows and the port's type system lacks
-_UNPORTED_TYPES = ("smallint", "tinyint", "float", "real", "timestamp",
-                   "decimal", "numeric")
+_UNPORTED_TYPES = ("smallint", "tinyint", "float", "real", "timestamp")
 
 
-def _sql_type(name: str) -> T.DataType:
+def _sql_type(name: str, args: tuple = ()) -> T.DataType:
     if name in _TYPE_MAP:
         return _TYPE_MAP[name]
+    if name in ("decimal", "numeric"):
+        # the reference's defaults: decimal(10, 0), decimal(p, 0)
+        p = int(args[0]) if args else 10
+        s = int(args[1]) if len(args) > 1 else 0
+        if p > T.DecimalType.MAX_PRECISION:
+            raise _not_ported(f"decimal({p}, {s}) (precision above "
+                              f"{T.DecimalType.MAX_PRECISION})")
+        return T.DecimalType(p, s)
     if name in _UNPORTED_TYPES:
         raise _not_ported(f"the SQL type {name}")
     raise SqlAnalysisError(f"unsupported cast type {name}")
@@ -112,11 +133,9 @@ _AGG_FUNCS = {"sum": Sum, "min": Min, "max": Max, "avg": Average,
 _UNPORTED_AGGS = ("stddev_samp", "stddev", "stddev_pop", "var_samp",
                   "variance", "var_pop")
 # scalar functions the reference lowers and the port has not ported
-_UNPORTED_FUNCS = ("substr", "substring", "coalesce", "nullif", "abs",
-                   "grouping", "least", "greatest", "upper", "ucase", "lower",
-                   "lcase", "length", "trim", "concat", "round", "sqrt",
-                   "floor", "ceil", "ceiling", "row_number", "rank",
-                   "dense_rank", "lead", "lag")
+_UNPORTED_FUNCS = ("nullif", "grouping", "least", "greatest", "upper",
+                   "ucase", "lower", "lcase", "length", "trim", "concat",
+                   "round", "sqrt", "floor", "ceil", "ceiling")
 
 
 # -- expression conversion ----------------------------------------------------
@@ -133,12 +152,13 @@ class _ExprConverter:
             return self.scope.resolve(a.parts)
         if isinstance(a, P.UnOp):
             if a.op == "-":
+                from spark_rapids_tpu_torch.expr.arithmetic import UnaryMinus
                 inner = c(a.operand)
                 if isinstance(inner, E.Literal) and isinstance(
                         inner.value, (int, float)) and not isinstance(
                         inner.value, bool):
                     return E.Literal(-inner.value, inner.dtype)
-                raise _not_ported("UnaryMinus")
+                return UnaryMinus(inner)
             return PR.Not(c(a.operand))
         if isinstance(a, P.BinOp):
             from spark_rapids_tpu_torch.expr import arithmetic as AR
@@ -146,6 +166,7 @@ class _ExprConverter:
                 return _date_interval(c(a.left), a.right, a.op)
             table = {
                 "+": AR.Add, "-": AR.Subtract, "*": AR.Multiply,
+                "/": AR.Divide,
                 "=": PR.EqualTo, "<": PR.LessThan, "<=": PR.LessThanOrEqual,
                 ">": PR.GreaterThan, ">=": PR.GreaterThanOrEqual,
                 "<>": PR.NotEqual, "!=": PR.NotEqual,
@@ -173,11 +194,12 @@ class _ExprConverter:
             ins = PR.InSet(c(a.expr), vals)
             return PR.Not(ins) if a.negated else ins
         if isinstance(a, P.CaseAst):
-            raise _not_ported("CASE")
+            return self._case(a)
         if isinstance(a, P.LikeAst):
             raise _not_ported("LIKE")
         if isinstance(a, P.IsNullAst):
-            raise _not_ported("IS [NOT] NULL")
+            from spark_rapids_tpu_torch.expr.nullexprs import IsNotNull, IsNull
+            return (IsNotNull if a.negated else IsNull)(c(a.expr))
         if isinstance(a, P.SubqueryExpr):
             raise _not_ported("a scalar subquery")
         if isinstance(a, P.FuncCall):
@@ -189,9 +211,34 @@ class _ExprConverter:
                                    "or in count(*)")
         raise SqlAnalysisError(f"unsupported SQL construct: {a!r}")
 
+    def _case(self, a: P.CaseAst) -> E.Expression:
+        """CASE [x] WHEN ... THEN ... [ELSE ...] END. A NULL branch takes
+        the type of the first typed branch (the reference's
+        ``_retype_nulls``: the port has no untyped null)."""
+        from spark_rapids_tpu_torch.expr.conditional import CaseWhen
+        c = self.convert
+
+        def value(x):
+            return (None if isinstance(x, P.Lit) and x.value is None
+                    else c(x))
+        if a.operand is not None:
+            op = c(a.operand)
+            preds = [PR.EqualTo(op, c(w)) for w, _ in a.branches]
+        else:
+            preds = [c(w) for w, _ in a.branches]
+        vals = [value(v) for _, v in a.branches]
+        else_e = value(a.else_) if a.else_ is not None else None
+        typed = [v.dtype for v in vals + [else_e] if v is not None]
+        if not typed:
+            raise _not_ported("a CASE whose every branch is NULL")
+        vals = [E.Literal(None, typed[0]) if v is None else v for v in vals]
+        if a.else_ is not None and else_e is None:
+            else_e = E.Literal(None, typed[0])
+        return CaseWhen(list(zip(preds, vals)), else_e)
+
     def _cast(self, a: P.CastAst) -> E.Expression:
         from spark_rapids_tpu_torch.expr.cast import Cast
-        to = _sql_type(a.type_name)
+        to = _sql_type(a.type_name, a.type_args)
         # a typed literal (DATE '...') folds to a constant at plan time
         # (Spark's literal parsing); an explicit cast() keeps its run-time
         # cast semantics
@@ -213,7 +260,7 @@ class _ExprConverter:
         c = self.convert
         name = a.name
         if a.over is not None:
-            raise _not_ported("window functions")
+            return self._window(a)
         if name in _AGG_FUNCS:
             if len(a.args) != 1:
                 raise SqlAnalysisError(f"{name} takes one argument")
@@ -227,9 +274,69 @@ class _ExprConverter:
             if not a.args or isinstance(a.args[0], P.Star):
                 return Count(None)
             return Count(c(a.args[0]))
+        if name in ("substr", "substring"):
+            from spark_rapids_tpu_torch.expr.strings import Substring
+            if len(a.args) not in (2, 3):
+                raise SqlAnalysisError(f"{name} takes two or three arguments")
+            return Substring(*[c(x) for x in a.args])
+        if name == "coalesce":
+            from spark_rapids_tpu_torch.expr.nullexprs import Coalesce
+            return Coalesce(*[c(x) for x in a.args])
+        if name == "abs":
+            from spark_rapids_tpu_torch.expr.arithmetic import Abs
+            return Abs(c(a.args[0]))
+        if name in ("row_number", "rank", "dense_rank", "lead", "lag"):
+            raise SqlAnalysisError(f"{name}() requires an OVER clause")
         if name in _UNPORTED_AGGS or name in _UNPORTED_FUNCS:
             raise _not_ported(f"the SQL function {name}")
         raise SqlAnalysisError(f"unknown function {name}")
+
+    def _window(self, a: P.FuncCall) -> E.Expression:
+        """fn(...) OVER (PARTITION BY ... ORDER BY ... [frame]) as a
+        WindowExpression (the reference's ``_window``): no ORDER BY means
+        the whole partition, an ORDER BY without a frame Spark's default
+        RANGE UNBOUNDED PRECEDING..CURRENT ROW."""
+        from spark_rapids_tpu_torch.expr import windows as WX
+        spec_ast = a.over
+        if a.distinct:
+            raise _not_ported(f"DISTINCT aggregate {a.name} in a window")
+        name = a.name
+        if name == "row_number":
+            func = WX.RowNumber()
+        elif name == "rank":
+            func = WX.Rank()
+        elif name == "dense_rank":
+            func = WX.DenseRank()
+        elif name in ("lead", "lag"):
+            args = [self.convert(x) for x in a.args]
+            for x in args[1:]:
+                if not isinstance(x, E.Literal):
+                    raise _not_ported(f"{name} with a non-literal offset or "
+                                      "default")
+            off = int(args[1].value) if len(args) > 1 else 1
+            default = args[2].value if len(args) > 2 else None
+            cls = WX.Lead if name == "lead" else WX.Lag
+            func = cls(args[0], off, default)
+        else:
+            func = self.func(P.FuncCall(a.name, a.args, a.distinct, None))
+            if not isinstance(func, AggregateFunction):
+                raise SqlAnalysisError(f"{name} is not a window function")
+        parts = tuple(self.convert(p) for p in spec_ast.partition_by)
+        orders = tuple((self.convert(e), asc, asc if nf is None else nf)
+                       for (e, asc, nf) in spec_ast.order_by)
+        if spec_ast.frame is not None:
+            ftype, lo, hi = spec_ast.frame
+            # the exec's offsets count back from the lower bound and on
+            # from the upper one, each non-negative
+            if (lo is not None and lo > 0) or (hi is not None and hi < 0):
+                raise _not_ported("a window frame that starts FOLLOWING or "
+                                  "ends PRECEDING the current row")
+            frame = WX.WindowFrame(ftype, None if lo is None else -lo, hi)
+        elif orders:
+            frame = WX.DEFAULT_FRAME
+        else:
+            frame = WX.FULL_FRAME     # no ORDER BY: the whole partition
+        return WX.WindowExpression(func, WX.WindowSpec(parts, orders, frame))
 
 
 # -- lowering -----------------------------------------------------------------
@@ -421,9 +528,12 @@ class _Lowerer:
             for r in residual[1:]:
                 cond = PR.And(cond, r)
         if how != "inner" or not lkeys:
+            # an outer, semi or anti join without equi keys keeps its type
+            # (the nested-loop join runs it); the reference makes it a
+            # cross join, which drops its unmatched rows
             plan = NN.JoinNode(left.plan, right.plan, lkeys, rkeys,
-                               "cross" if (how == "cross" or not lkeys)
-                               else how, cond)
+                               "cross" if (how in ("cross", "inner")
+                                           and not lkeys) else how, cond)
         else:
             plan = NN.JoinNode(left.plan, right.plan, lkeys, rkeys, "inner")
             if cond is not None:
@@ -570,6 +680,10 @@ class _Lowerer:
             items.append((e, nm))
 
         having_e = conv.convert(q.having) if q.having is not None else None
+        if having_e is not None:
+            from spark_rapids_tpu_torch.expr.windows import WindowExpression
+            if having_e.collect(lambda x: isinstance(x, WindowExpression)):
+                raise _not_ported("a window function in HAVING")  # as Spark
         group_es = [self._group_expr(g, conv, items) for g in q.group_by]
         order_items = q.order_by
 
@@ -585,8 +699,13 @@ class _Lowerer:
             def sub(e):
                 return e
 
+        # HAVING filters the groups before any window sees them, as in
+        # Spark
         if having_e is not None:
             plan = NN.FilterNode(having_e, plan)
+
+        plan, wsub = self._windows(plan, items)
+        items = [(wsub(e), nm) for e, nm in items]
 
         plan = NN.ProjectNode([E.Alias(e, nm) for e, nm in items], plan)
 
@@ -595,10 +714,45 @@ class _Lowerer:
                                     plan)
 
         if order_items:
-            plan = self._order_by(plan, order_items, items, conv, sub)
+            plan = self._order_by(plan, order_items, items, conv,
+                                  lambda e: wsub(sub(e)))
         if q.limit is not None:
             plan = NN.LimitNode(q.limit, plan, global_limit=True)
         return plan
+
+    @staticmethod
+    def _windows(plan, items):
+        """The distinct window expressions of the select list as one
+        WindowNode over ``plan`` (after the aggregate and HAVING, when there
+        are); returns the plan and the substitution of each window
+        expression by its column."""
+        from spark_rapids_tpu_torch.expr.windows import WindowExpression
+        found = []
+        for e, _ in items:
+            found += e.collect(lambda x: isinstance(x, WindowExpression))
+        if not found:
+            return plan, lambda e: e
+        base_n = len(plan.output)
+        named, keys = [], {}
+        for w in found:
+            k = expr_key(w)
+            if k in keys:
+                continue
+            nm = f"_w{len(named)}"
+            keys[k] = (base_n + len(named), nm, w.dtype)
+            named.append(E.Alias(w, nm))
+        plan = NN.WindowNode(named, plan)
+
+        def wsub(e):
+            if e is None:
+                return None
+            k = expr_key(e)
+            if k in keys:
+                idx, nm, dt = keys[k]
+                return E.BoundReference(idx, dt, True, nm)
+            return (e.with_children([wsub(c) for c in e.children])
+                    if e.children else e)
+        return plan, wsub
 
     def _order_by(self, plan, order_items, items, conv, sub):
         # output-position map: by name and by substituted-expression key
@@ -694,6 +848,9 @@ class _Lowerer:
 
     @staticmethod
     def _contains_agg(e) -> bool:
+        """An aggregate outside a window function: a WindowExpression's
+        children are its function's inputs, so ``avg(sum(x)) over (...)``
+        counts (through ``sum``) and ``sum(x) over (...)`` does not."""
         if isinstance(e, AggregateFunction):
             return True
         return any(_Lowerer._contains_agg(c) for c in e.children)

@@ -813,18 +813,26 @@ class _Parser:
         if self.at_kw("rows", "range"):
             ftype = self.next().value
             self.expect_kw("between")
-            lo = self.parse_frame_bound()
+            lo = self.parse_frame_bound(upper=False)
             self.expect_kw("and")
-            hi = self.parse_frame_bound()
+            hi = self.parse_frame_bound(upper=True)
             frame = (ftype, lo, hi)
         self.expect_op(")")
         return WindowSpecAst(parts, orders, frame)
 
-    def parse_frame_bound(self):
-        """None = unbounded; 0 = current row; +n following / -n preceding."""
+    def parse_frame_bound(self, upper: bool):
+        """None = unbounded; 0 = current row; +n following / -n preceding.
+        UNBOUNDED FOLLOWING opens no lower bound and UNBOUNDED PRECEDING
+        closes no upper one (Spark refuses both)."""
         if self.eat_kw("unbounded"):
-            if not self.eat_kw("preceding"):
-                self.expect_kw("following")
+            wrong, right = (("preceding", "following") if upper
+                            else ("following", "preceding"))
+            if self.at_kw(wrong):
+                raise SqlParseError(
+                    f"UNBOUNDED {wrong.upper()} cannot be a frame's "
+                    f"{'upper' if upper else 'lower'} bound at pos "
+                    f"{self.peek().pos}")
+            self.expect_kw(right)
             return None
         if self.eat_kw("current"):
             self.expect_kw("row")

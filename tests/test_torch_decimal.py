@@ -291,16 +291,16 @@ def test_abs_matches_reference(t):
 
 def test_divide_and_abs_operator_sugar():
     """``/`` and ``F.abs`` build the ported expressions, a number on the left
-    of ``/`` included; unary minus is not ported."""
+    of ``/`` included; unary minus builds ``UnaryMinus`` (ported since)."""
     x = F.col("x")
     assert isinstance(x / 2.0, AR.Divide)
     r = 2.0 / x
     assert isinstance(r, AR.Divide) and isinstance(r.left, E.Literal)
     assert isinstance(F.abs("x"), AR.Abs)
-    with pytest.raises(NotImplementedError):
-        -(x / 2.0)
-    with pytest.raises(NotImplementedError):
-        -x
+    neg = -(x / 2.0)
+    assert isinstance(neg, AR.UnaryMinus)
+    assert isinstance(neg.children[0], AR.Divide)
+    assert isinstance(-x, AR.UnaryMinus)
 
 
 LITS = [0, 2000, 25000, 150, -7, 1.5, 2.675, 12345.675]

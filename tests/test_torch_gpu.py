@@ -41,7 +41,12 @@ three files on the card against the CPU run: integers, ranks, counts,
 min/max and lead/lag exact, double sums and averages within rel 1e-12 and
 abs 1e-9 (the card's cumsum adds in another order); the nested-loop join
 for every ported type, with and without a condition, the CPU run's rows in
-order.
+order. Right and full outer hash joins on an int key, a string key and two
+keys, an inner join with a residual condition, and the keyless full outer
+join, over a three-file stream on the card: the CPU run's rows in order;
+``matched_build`` at 2^20 stream rows bit for bit the CPU's. The 27
+official TPC-DS SQL texts the port lowers, at SF 0.012 on the card: the CPU
+run's rows and the NumPy oracle's under ``check_rows``.
 """
 
 import os
@@ -1282,7 +1287,7 @@ def test_window_on_card_equals_cpu(cuda_device, tmp_path, case):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("how", ["cross", "inner", "left", "leftsemi",
-                                 "leftanti"])
+                                 "leftanti", "full"])
 @pytest.mark.parametrize("cond", [False, True])
 def test_nested_loop_join_on_card_equals_cpu(cuda_device, tmp_path, how,
                                              cond):
@@ -1317,3 +1322,96 @@ def test_nested_loop_join_on_card_equals_cpu(cuda_device, tmp_path, how,
     assert card == cpu
     if how in ("cross", "inner") and not cond:
         assert len(card) == 2000 * 700
+
+
+# -- right and full outer joins, residual conditions, the SQL texts ----------
+
+def _outer_tables(tmp_path, seed):
+    """A three-file left stream and a one-file right side, an int key and
+    a string key with nulls and duplicates on both."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    r = np.random.default_rng(seed)
+
+    def table(n, prefix):
+        return pa.table({
+            "k": pa.array([None if m else int(x) for x, m in zip(
+                r.integers(0, n // 3, n), r.random(n) < 0.05)], pa.int64()),
+            "s": pa.array([None if m else f"v{x}" for x, m in zip(
+                r.integers(0, 40, n), r.random(n) < 0.05)]),
+            f"{prefix}_x": pa.array(r.normal(size=n))})
+    lpaths = []
+    left = table(30_000, "l")
+    for i in range(3):
+        p = str(tmp_path / f"l{i}.parquet")
+        pq.write_table(left.slice(i * 10_000, 10_000), p)
+        lpaths.append(p)
+    rpath = str(tmp_path / "r.parquet")
+    pq.write_table(table(6_000, "r"), rpath)
+    return lpaths, rpath
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("on", ["k", "s", "k,s"])
+@pytest.mark.parametrize("how", ["right", "full", "inner_condition"])
+def test_outer_hash_join_on_card_equals_cpu(cuda_device, tmp_path, how, on):
+    """Right and full outer joins (the full one over a three-partition
+    stream, its unmatched build rows emitted once) and an inner join with a
+    residual condition, on the card: the CPU run's rows, in order."""
+    import spark_rapids_tpu_torch.functions as F
+    from spark_rapids_tpu_torch.session import TorchSession
+    lpaths, rpath = _outer_tables(tmp_path, len(how) * 7 + len(on))
+    keys = on.split(",")
+
+    def run(spark):
+        cond = (F.col("l_x") < F.col("r_x")
+                if how == "inner_condition" else None)
+        df = spark.read_parquet(lpaths).join(
+            spark.read_parquet(rpath), on=keys,
+            how="inner" if how == "inner_condition" else how,
+            condition=cond)
+        t = df.collect()
+        return list(zip(*[c.to_pylist() for c in t.columns]))
+    card, cpu = run(TorchSession()), run(TorchSession(device="cpu"))
+    assert card == cpu and card
+
+
+@pytest.mark.gpu
+def test_matched_build_on_card_equals_cpu(cuda_device):
+    from spark_rapids_tpu_torch.ops import joining as J
+    r = np.random.default_rng(5)
+    cap, n = 1 << 16, 1 << 20
+    perm = torch.from_numpy(r.permutation(cap).astype(np.int64))
+    lo = torch.from_numpy(r.integers(0, cap + 1, n))
+    hi = torch.clamp(lo + torch.from_numpy(r.integers(0, 3, n)), max=cap)
+    cpu = J.matched_build(perm, lo, hi, cap)
+    card = J.matched_build(perm.to(cuda_device), lo.to(cuda_device),
+                           hi.to(cuda_device), cap)
+    assert torch.equal(card.cpu(), cpu)
+
+
+def _sql_ported():
+    from spark_rapids_tpu_torch.benchmarks import tpcds
+    return list(tpcds.SQL_PORTED)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q", _sql_ported())
+def test_tpcds_sql_text_on_card(cuda_device, tpcds_paths, q):
+    """Each of the 27 official texts the port lowers, at SF 0.012 on the
+    card: the CPU run's rows and the NumPy oracle's under check_rows (keys,
+    counts and decimals exact, float slots within 1e-9 relative)."""
+    from spark_rapids_tpu_torch.benchmarks import tpcds
+    from spark_rapids_tpu_torch.session import TorchSession
+    from spark_rapids_tpu_torch.sql.tpcds_queries import SQL_QUERIES
+    oracle, float_cols = tpcds.sql_suite_oracles()[q]
+
+    def run(spark):
+        tpcds.load(spark, tpcds_paths)
+        return [tuple(r.values())
+                for r in spark.sql(SQL_QUERIES[q]).collect().to_pylist()]
+    card, cpu = run(TorchSession()), run(TorchSession(device="cpu"))
+    exp = [tuple(r) for r in oracle(tpcds.load_np(tpcds_paths))]
+    assert exp
+    tpcds.check_rows(card, cpu, float_cols)
+    tpcds.check_rows(card, exp, float_cols)

@@ -127,12 +127,15 @@ def table_path(tmp_path):
 
 def test_unported_expressions_raise_when_built(table_path):
     import spark_rapids_tpu_torch.functions as F
-    # the comparisons, AND, OR, NOT, COUNT(*), / and abs are ported; unary
-    # minus and sum(*) are not
+    # the comparisons, AND, OR, NOT, COUNT(*), /, abs and unary minus over a
+    # number are ported; unary minus over a boolean, the untyped null and
+    # sum(*) are not
+    -(F.col("x") / F.lit(2.0))
     with pytest.raises(NotImplementedError):
-        -(F.col("x") / F.lit(2.0))
+        _ = (-((F.col("x") <= F.lit(1.0))
+               | (F.col("x") <= F.lit(2.0)))).dtype
     with pytest.raises(NotImplementedError):
-        -((F.col("x") <= F.lit(1.0)) | (F.col("x") <= F.lit(2.0)))
+        F.lit(None)
     from spark_rapids_tpu_torch.expr.aggregates import Sum
     with pytest.raises(NotImplementedError):
         Sum(None)    # sum(*)
@@ -143,12 +146,15 @@ def test_unported_plans_raise_at_planning(table_path):
     from spark_rapids_tpu_torch import types as T
     from spark_rapids_tpu_torch.session import TorchSession
     df = TorchSession(device="cpu").read_parquet(table_path)
-    # a window function in SQL text (the window exec is ported, but the SQL
-    # front-end does not lower windows yet)
+    # window functions in SQL text lower since (one spec plans); two specs
+    # in one select are one WindowNode the window exec does not run
     spark = df.session
     spark.create_or_replace_temp_view("t", df)
+    spark.sql("select k, sum(x) over (partition by k) as s from t"
+              ).physical_plan()
     with pytest.raises(NotImplementedError):
-        spark.sql("select k, sum(x) over (partition by k) as s from t")
+        spark.sql("select k, sum(x) over (partition by k) as s, "
+                  "sum(x) over (partition by n) as u from t").physical_plan()
     # a cast pair outside the slice
     with pytest.raises(NotImplementedError):
         df.select(F.cast(F.col("x"), T.INT)).physical_plan()
@@ -167,15 +173,17 @@ def test_unported_plans_raise_at_planning(table_path):
                                        keys=[F.col("k")]), df.session)
     with pytest.raises(NotImplementedError):
         ranged.physical_plan()
-    # a keyless full outer join (the nested-loop join with the matched
-    # build rows merged across stream partitions) of two keyless aggregates
-    # over several partitions; their cross join (TPC-DS q88's shape) plans
+    # joins of two keyless aggregates over several partitions: their cross
+    # join (TPC-DS q88's shape) plans
     many = TorchSession(device="cpu").read_parquet([table_path, table_path])
     counts = many.agg(F.count().alias("c"))
     sums = many.agg(F.sum(F.col("x")).alias("s"))
     counts.join(sums, how="cross").physical_plan()
+    # a keyless full outer join plans too since; a keyless right outer join
+    # (the nested-loop join with a left build side) does not
+    counts.join(sums, how="full").physical_plan()
     with pytest.raises(NotImplementedError):
-        counts.join(sums, how="full").physical_plan()
+        counts.join(sums, how="right").physical_plan()
     # a window avg over a decimal column: the reference returns the
     # unscaled mean there (a window avg over a double plans)
     from spark_rapids_tpu_torch.expr import core as E

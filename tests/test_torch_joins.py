@@ -676,14 +676,18 @@ def test_unported_join_shapes_raise_at_planning(two_tables, shape):
         "two keys": lambda: unlike(["k", "j"], ["k", "s"]),
         "string key": lambda: unlike(["s"], ["k"]),
         "double key": lambda: unlike(["x"], ["k"]),
-        "right": lambda: a.join(b, on="k", how="right"),
-        "full": lambda: a.join(b, on="k", how="full"),
-        "condition": lambda: a.join(b, on="k",
+        # right and full outer joins and an inner join's residual condition
+        # are ported (tests/test_torch_outer_joins.py); a residual condition
+        # on an outer equi-join is not, as in the reference's tag_join
+        "right": lambda: a.join(b, on="k", how="right",
+                                condition=F.col("x") <= F.lit(2.0)),
+        "full": lambda: a.join(b, on="k", how="full",
+                               condition=F.col("x") <= F.lit(2.0)),
+        "condition": lambda: a.join(b, on="k", how="left",
                                     condition=F.col("x") <= F.lit(2.0)),
         # keyless and cross joins plan the nested-loop join
-        # (tests/test_torch_nested_loop.py); its full and right outer
-        # shapes do not
-        "keyless": lambda: a.join(b, how="full"),
+        # (tests/test_torch_nested_loop.py); its right outer shape does not
+        "keyless": lambda: a.join(b, how="right"),
         "cross": lambda: a.join(b, how="right",
                                 condition=F.col("x") <= F.lit(2.0)),
     }[shape]
@@ -695,11 +699,9 @@ def test_mesh_and_unported_operators_raise():
     with pytest.raises(NotImplementedError):
         TorchSession({"spark.rapids.tpu.mesh.enabled": "true"}, device="cpu")
     # NotEqual, Or and Not are ported with the SQL slice, / with the window
-    # slice; these are not
+    # slice, unary minus with the outer joins; these are not
     with pytest.raises(NotImplementedError):
-        -(F.col("x") / F.lit(1.0))
-    with pytest.raises(NotImplementedError):
-        -F.col("x")
+        _ = (-(F.col("x") <= F.lit(1.0))).dtype
     with pytest.raises(NotImplementedError):
         F.lit(None)
 

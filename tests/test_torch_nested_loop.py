@@ -9,7 +9,9 @@ condition, semi and anti), every ported join type with and without a
 condition over one and several stream partitions and over an empty build
 side, the pair expansion cut into many chunks, string columns on both
 sides, and TPC-DS q88's shape (keyless aggregates cross-joined). The
-refused shapes (keyless right and full outer joins) raise at planning.
+refused shape (the keyless right outer join) raises at planning, and the
+keyless full outer join, refused until the matched-build flags were
+ported, equals the reference.
 
 Tolerance: none. The rows are compared exactly: in order over one stream
 partition (both packages expand the pairs left-major and emit the
@@ -187,8 +189,19 @@ def test_pairs_in_many_chunks(tmp_path, monkeypatch, how, cond, chunk):
 
 @pytest.mark.parametrize("how", ["right", "full"])
 def test_keyless_right_and_full_outer_refused(tmp_path, how):
+    """A keyless right outer join is refused, at planning and by the exec
+    (the reference's tag_join refuses it too). The keyless full outer join
+    was refused as well until the matched-build flags were ported: under
+    its old name it now plans and equals the reference
+    (tests/test_torch_outer_joins.py covers it in full)."""
     rng = np.random.default_rng(3)
     lt, rt = _tables(rng, 10, 4)
+    if how == "full":
+        got, want, plan = _run(_write(tmp_path, "l", lt),
+                               _write(tmp_path, "r", rt), how, _gt)
+        assert [j.join_type for j in _nlj(plan)] == ["fullouter"]
+        _same(got, want, 1)
+        return
     spark = TorchSession(device="cpu")
     df = spark.read_parquet(_write(tmp_path, "l", lt)).join(
         spark.read_parquet(_write(tmp_path, "r", rt)), how=how,
