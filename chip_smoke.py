@@ -123,23 +123,35 @@ It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
    and ds-q43 at least once; its aggregates, joins, window execs and
    nested-loop joins (rows in, partitions, rows out) and peak device
    memory), then ``--reps`` timed runs of each, in turns, each held against
-   its oracle; then the 27 official TPC-DS SQL texts the port lowers
+   its oracle; then the 40 official TPC-DS SQL texts
    (``tpcds.SQL_PORTED``) through ``spark.sql`` over the same files'
-   temp views, as paths sql-ds-q3 ... sql-ds-q26: each planned once and
-   run once with the counts reset just before and read just after (the
-   oracle's rows under ``check_rows`` and the text's float columns; the
-   scans, routes and launches checked as on the ds paths, the count kernel
-   on sql-ds-q43; q97's full outer join on the rank path
+   temp views, as paths sql-ds-q3 ... sql-ds-q69: each lowered, planned
+   and run once with the counts reset just before the text is lowered
+   (its eager subqueries run there, and their scans and launches count
+   with the path's) and read just after (the oracle's rows under
+   ``check_rows`` and the text's float columns; the scans, routes and
+   launches checked as on the ds paths, the count kernel on sql-ds-q43;
+   on every path with a hash exchange, one radix launch per partitioned
+   batch and one ``murmur3_words`` per string key of each, required on
+   the union-fed exchanges of sql-ds-q14, q33 and q56, each exchange's
+   keys, partitions and own launches printed beside the path's totals;
+   the Expand and Union execs' rows;
+   q97's full outer join on the rank path
    with its probe mode, build rows, stream partitions and unmatched build
    rows emitted, q61's nested-loop join), then at most ``SQL_DS_REPS``
    timed runs of each, in turns, each held against its oracle, and one
    traced run of each for its device idle share; each text prints its
    median wall, spread, peak memory, idle share, scan routes and chunk
    decode launches, and the DataFrame twin's median wall from the same
-   call where the text has one;
+   call where the text has one; then sql-ds-q28 under each DISTINCT
+   rewrite (the two-aggregate form it takes, and the general Expand form
+   forced), 4 runs each in turns, each equal to the oracle, their medians
+   and peaks printed;
 6. prints how many traces ``device_ms`` took and found short, one JSON
-   line describing every ported kernel (its launches on every path, the
-   TPC-DS paths among them, under ``launches_by_path``), the card's name
+   line describing every ported kernel (``launches``, its launches summed
+   over every path's counted run; each path's, the TPC-DS paths among
+   them, under ``launches_by_path``; ``timed_paths_launches``, those of
+   the runs its times cover), the card's name
    and power limit, and last ``{"ok": true, "device": {...}}``. With
    ``--profile`` each path's host profile, the TPC-DS paths' and the SQL
    texts' too, must show no call of the Python page parser.
@@ -1965,6 +1977,8 @@ def main() -> int:
     # -- 4b. the TPC-DS DataFrame paths through the session on the card ------
     from spark_rapids_tpu_torch import types as T
     from spark_rapids_tpu_torch.benchmarks import tpcds
+    from spark_rapids_tpu_torch.exec.basic import UnionExec
+    from spark_rapids_tpu_torch.exec.expand import ExpandExec
     from spark_rapids_tpu_torch.exec.joins import NestedLoopJoinExec
     from spark_rapids_tpu_torch.exec.window import WindowExec
     ds_dir = os.path.join(repo, "build", f"tpcds_sf{args.tpcds_sf:g}")
@@ -1982,7 +1996,9 @@ def main() -> int:
     # the official SQL texts' oracles: the DataFrame twin's rows where the
     # text has a twin, else its SQL-only oracle
     sql_oracles = tpcds.sql_suite_oracles()
-    exp_sql = {q: (exp_ds[q] if q in tpcds.QUERIES
+    sql_twins = {q for q in tpcds.SQL_PORTED
+                 if sql_oracles[q][0] is tpcds.NP_QUERIES.get(q)}
+    exp_sql = {q: (exp_ds[q] if q in sql_twins
                    else [tuple(r) for r in sql_oracles[q][0](ds_tb)])
                for q in tpcds.SQL_PORTED}
     del ds_tb
@@ -2016,18 +2032,24 @@ def main() -> int:
     ds_kernels = {label: ("bitunpack128",) for label in ds_labels}
     ds_kernels["ds-q6"] = ds_kernels["ds-q43"] = ("bitunpack128",
                                                   "onehot_sum_f32")
-    def counted_ds_run(label, plan, named, kernels, check):
+    def counted_ds_run(label, make_df, named, kernels, check):
         """The counted run of one TPC-DS path (a DataFrame query or an SQL
-        text): the launch and route counts reset just before and read just
-        after, the result held by ``check``; every kernel of ``kernels``
-        launched, the count kernel once per aggregate batch with
-        count-like requests; every scan pruned to names the query's text
-        quotes (``named``), its dictionary chunks native and one chunk
-        decode each, every decimal chunk refused by the decode and read
-        through arrow, none parsed in Python. Prints the scans, aggregates,
-        window execs and nested-loop joins; returns the lines the path's
-        timing line repeats (each nested-loop and full outer join's
-        stats)."""
+        text): the launch and route counts reset just before ``make_df``
+        builds the frame (an SQL text's eager subqueries run there, while
+        it is lowered) and read after its plan ran, the result held by
+        ``check``; every kernel of ``kernels`` launched, and the exchange's
+        kernels on a path with a hash exchange (the radix partition step
+        once per partitioned batch, ``murmur3_words`` once per string key
+        of each), the count kernel once per aggregate batch with
+        count-like requests; every scan (those of the eager subqueries
+        too) pruned to names the query's text quotes (``named``), its
+        dictionary chunks native and one chunk decode each, every decimal
+        chunk refused by the decode and read through arrow, none parsed in
+        Python. Prints the scans, aggregates, expands, unions, window
+        execs, exchanges and nested-loop joins; returns the plan and the
+        lines the path's timing line repeats (each nested-loop and full
+        outer join's stats, each exchange's keys, partitions and
+        launches)."""
         torch.cuda.reset_peak_memory_stats(dev)
         agg_batches.clear()
         G.resolve_dense_group_sums = counting_resolve
@@ -2035,10 +2057,13 @@ def main() -> int:
         PN.reset_routes()
         t0 = time.perf_counter()
         try:
+            df = make_df()
+            plan = df.physical_plan()
             res = plan.execute_collect()
         finally:
             G.resolve_dense_group_sums = resolve
         first_s = time.perf_counter() - t0
+        plans = [plan] + list(df.subquery_plans)
         counts = dict(CK.launches)
         routes = dict(PN.routes)
         peak = torch.cuda.max_memory_allocated(dev)
@@ -2055,7 +2080,7 @@ def main() -> int:
                 f"count-like requests but the count kernel launched "
                 f"{counts['onehot_sum_f32']} times (want one a batch)")
         want_chunks = want_refused = dec_chunks = 0
-        for d, ex in scans(plan):
+        for d, ex in [se for p in plans for se in scans(p)]:
             table = ds_dirs[os.path.normpath(d)]
             cols = ex.node._data_columns()
             n, refused = scan_chunks(d, cols)
@@ -2105,7 +2130,43 @@ def main() -> int:
             print(f"{label} window exec: {w.stats['input_rows']} rows in "
                   f"{w.stats['partitions']} partitions, "
                   f"{w.stats['output_rows']} rows out")
+        for x in of_type(plan, ExpandExec):
+            print(f"{label} expand exec: {len(x.projections)} projections, "
+                  f"{x.stats['input_rows']} rows in, "
+                  f"{x.stats['output_rows']} rows out")
+        for u in of_type(plan, UnionExec):
+            print(f"{label} union exec: {len(u.children)} children, "
+                  f"{u.num_partitions} partitions")
+        if df.subquery_plans:
+            print(f"{label}: {len(df.subquery_plans)} subqueries ran while "
+                  f"the text was lowered; their scans and launches are "
+                  f"counted with the path's")
         extra = []
+        exs = [e for p in plans for e in exchanges(p)]
+        batches = sum(e.map_batches for e in exs)
+        string_keyed = sum(
+            e.map_batches * sum(isinstance(k.dtype, T.StringType)
+                                for k in e.partitioner.key_exprs)
+            for e in exs)
+        if (counts["radix_ranks"] != batches
+                or counts["murmur3_words"] != string_keyed):
+            raise AssertionError(
+                f"{label}: {batches} partitioned batches ({string_keyed} "
+                f"string keys in all) but radix_ranks launched "
+                f"{counts['radix_ranks']} and murmur3_words "
+                f"{counts['murmur3_words']} times")
+        for e in exs:
+            keys = [type(k.dtype).__name__
+                    for k in e.partitioner.key_exprs]
+            extra.append(
+                f"hash exchange on {len(keys)} keys {keys}: "
+                f"{e.child.num_partitions} map partitions into "
+                f"{e.num_partitions}, {e.map_batches} partitioned batches, "
+                f"so {e.map_batches} radix and "
+                f"{e.map_batches * keys.count('StringType')} murmur3_words "
+                f"launches of its own; the path's totals (every exchange, "
+                f"the subqueries' too): murmur3_words "
+                f"{counts['murmur3_words']}, radix {counts['radix_ranks']}")
         for j in of_type(plan, NestedLoopJoinExec):
             st = j.stats
             extra.append(
@@ -2132,11 +2193,11 @@ def main() -> int:
               f"{len(count_batches)} aggregate batches with count-like "
               f"requests; joins (type, probe mode, keys) {modes}; peak "
               f"device memory {peak} B" + "".join(f"; {e}" for e in extra))
-        return extra
+        return plan, extra
 
     for label in ds_labels:
         q = ds_query[label]
-        counted_ds_run(label, ds_run(q).physical_plan(), ds_named(q),
+        counted_ds_run(label, lambda q=q: ds_run(q), ds_named(q),
                        ds_kernels[label],
                        lambda res, q=q: tpcds.check_rows(
                            [tuple(r.values()) for r in res.to_pylist()],
@@ -2160,10 +2221,11 @@ def main() -> int:
               f"{ {k: v for k, v in counts_by_path[label].items() if v} }")
 
     # -- 4c. the official TPC-DS SQL texts through spark.sql on the card -----
-    # the 27 texts the port lowers, on the same SF1 files, as paths
-    # sql-ds-q3 ... : each lowered and planned once, one run with the counts
-    # reset just before and read just after, then the timed runs in turns,
-    # then one traced run for the device idle share
+    # the 40 texts, on the same SF1 files, as paths sql-ds-q3 ... : each
+    # lowered and planned once with the counts reset just before and read
+    # just after its run, then the timed runs in turns (lowering, and so
+    # the eager subqueries, inside each), then one traced run for the
+    # device idle share
     from spark_rapids_tpu_torch.sql.tpcds_queries import SQL_QUERIES as DS_SQL
     tpcds.load(spark, ds_paths)          # registers the temp views
     sql_labels = [f"sql-ds-{q}" for q in tpcds.SQL_PORTED]
@@ -2182,12 +2244,18 @@ def main() -> int:
     # i_item_id group-by is past the dense domain)
     sql_kernels = {label: ("bitunpack128",) for label in sql_labels}
     sql_kernels["sql-ds-q43"] = ("bitunpack128", "onehot_sum_f32")
+    # the union-fed exchanges (the counted run also checks one radix launch
+    # per partitioned batch and one murmur3_words per string key of each):
+    # q14's ROLLUP over three channels (a string key, the channel), q56's
+    # group-by on i_item_id, q33's on i_manufact_id
+    sql_kernels["sql-ds-q14"] = sql_kernels["sql-ds-q56"] = (
+        "bitunpack128", "murmur3_words", "radix_ranks")
+    sql_kernels["sql-ds-q33"] = ("bitunpack128", "radix_ranks")
     sql_lines = {}
     for label in sql_labels:
         q = sql_query[label]
-        plan = sql_run(q).physical_plan()
-        sql_lines[label] = counted_ds_run(
-            label, plan, set(re.findall(r"\w+", DS_SQL[q])),
+        plan, sql_lines[label] = counted_ds_run(
+            label, lambda q=q: sql_run(q), set(re.findall(r"\w+", DS_SQL[q])),
             sql_kernels[label], lambda res, q=q: sql_check(q, res))
         full = [j.stats for j in joins(plan) if j.join_type == "fullouter"]
         if q == "q97" and (len(full) != 1 or full[0]["probe_mode"] != "rank"
@@ -2210,7 +2278,7 @@ def main() -> int:
         idle = sql_idle_share(lambda: sql_run(q).collect())
         twin = (f"; DataFrame twin ds-{q} median "
                 f"{statistics.median(ds_times['ds-' + q]):.4f} s"
-                if f"ds-{q}" in ds_times else "; no DataFrame twin")
+                if q in sql_twins else "; no DataFrame twin")
         print(f"{label} sf={args.tpcds_sf:g} on {name}: median "
               f"{statistics.median(ts):.4f} s, min {min(ts):.4f} s, max "
               f"{max(ts):.4f} s over {len(ts)} runs: "
@@ -2219,6 +2287,45 @@ def main() -> int:
               f"{routes_by_path[label]}; chunk decode launches "
               f"{counts_by_path[label]['bitunpack128']}"
               + "".join(f"; {e}" for e in sql_lines[label]))
+
+    # the two DISTINCT rewrites on sql-ds-q28, in turns in this call: the
+    # two-aggregate form the lowering takes for q28's one distinct argument
+    # beside its avg and count, and the general Expand form (taken when
+    # the first is refused), each run held against the oracle
+    from unittest import mock
+    from spark_rapids_tpu_torch.sql.lower import _Lowerer
+
+    def expand_form():
+        with mock.patch.object(_Lowerer, "_fast_distinct_ok",
+                               staticmethod(lambda aggs, grouping: False)):
+            return sql_run("q28")
+    forms = {"two-aggregate": lambda: sql_run("q28"), "expand": expand_form}
+    form_times = {f: [] for f in forms}
+    form_peak = {}
+    for f, make in forms.items():
+        torch.cuda.reset_peak_memory_stats(dev)
+        plan = make().physical_plan()
+        has_expand = bool(of_type(plan, ExpandExec))
+        if has_expand != (f == "expand"):
+            raise AssertionError(f"sql-ds-q28 {f} form: Expand exec "
+                                 f"{has_expand}")
+        sql_check("q28", plan.execute_collect())
+        form_peak[f] = torch.cuda.max_memory_allocated(dev)
+    for rep in range(4):
+        for f in (list(forms) if rep % 2 == 0 else list(forms)[::-1]):
+            t0 = time.perf_counter()
+            res = forms[f]().collect()
+            torch.cuda.synchronize()
+            form_times[f].append(time.perf_counter() - t0)
+            sql_check("q28", res)
+    med = {f: statistics.median(ts) for f, ts in form_times.items()}
+    print(f"sql-ds-q28 distinct rewrites on {name}: "
+          + "; ".join(f"{f} form median {med[f]:.4f} s, min "
+                      f"{min(ts):.4f} s, max {max(ts):.4f} s over "
+                      f"{len(ts)} runs, peak device memory {form_peak[f]} B"
+                      for f, ts in form_times.items())
+          + f"; expand / two-aggregate "
+            f"{med['expand'] / med['two-aggregate']:.3f}")
 
     if args.profile:
         for label, make_df in all_paths.items():
@@ -2231,16 +2338,17 @@ def main() -> int:
                         repo)
 
     # -- 5. the kernels line, the card, the verdict --------------------------
-    # "launches" counts the runs whose inputs the times cover: the q1 path's
-    # for bitunpack128 (the chunk decode) and onehot_sum_f32 (the fused
-    # count launch), q1-files plus q1-repartition for murmur3_words and
-    # radix_partition_permutation, q5-sparse for hash_join_build and
-    # hash_join_probe; launches_by_path has every path's, under the counter
-    # each kernel counts on. radix_ranks is called by no main path: the
-    # radix kernels run there only inside the permutation, whose entry
-    # carries their launches (counted under radix_ranks) and their times,
-    # so its own entry is timed off the paths, on q5-sparse's build bucket
-    # ids, with no launches
+    # "launches" sums every path's counted run, under the counter each
+    # kernel counts on, and launches_by_path has each path's;
+    # "timed_paths_launches" counts the runs whose inputs the times cover:
+    # the q1 path's for bitunpack128 (the chunk decode) and onehot_sum_f32
+    # (the fused count launch), q1-files plus q1-repartition for
+    # murmur3_words and radix_partition_permutation, q5-sparse for
+    # hash_join_build and hash_join_probe. radix_ranks is called by no
+    # main path: the radix kernels run there only inside the permutation,
+    # whose entry carries their launches (counted under radix_ranks) and
+    # their times, so its own entry is timed off the paths, on q5-sparse's
+    # build bucket ids, with no launches
     exchange_paths = ("q1-files", "q1-repartition")
 
     def entry(kname, source, line, launch_paths, err, ms, plain_ms, bound,
@@ -2250,9 +2358,12 @@ def main() -> int:
             "name": kname, "route": "cuda",
             "source": f"spark_rapids_tpu_torch/csrc/{source}",
             "replaces": f"spark_rapids_tpu/ops/pallas_kernels.py:{line}",
-            "launches": sum(counts_by_path[p][counter] for p in launch_paths),
+            "launches": sum(c[counter] for c in counts_by_path.values()),
+            "timed_paths_launches": sum(counts_by_path[p][counter]
+                                        for p in launch_paths),
             "launches_by_path": {p: c[counter]
                                  for p, c in counts_by_path.items()},
+            "paths": [p for p, c in counts_by_path.items() if c[counter]],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by,
             "library_ms": library_ms}
@@ -2265,8 +2376,6 @@ def main() -> int:
              chunks=len(census), pages=census_pages,
              host_scan_native_s=native_s, host_scan_plain_s=plain_s,
              scan_routes_by_path=routes_by_path,
-             paths=[p for p, c in counts_by_path.items()
-                    if c["bitunpack128"]],
              fused_route_ms=fused_ms, per_page_route_ms=per_page_ms,
              fused_route_host_s=fused_s, per_page_route_host_s=per_page_s),
         # the fused count launch over one q1 run's batches; library_ms is
@@ -2287,7 +2396,9 @@ def main() -> int:
         # no main path calls it (see above)
         dict(entry("radix_ranks", "radix.cu", 359, (), max(rx_err, rb_err),
                    rb_ms, rb_plain_ms, rb_bound_ms, rb_bound_by,
-                   rb_argsort_ms), launches_by_path={}, on_main_path=False,
+                   rb_argsort_ms), launches=0, launches_by_path={},
+             paths=[],
+             on_main_path=False,
              timed_on="q5-sparse hash build bucket ids"),
         # on the exchange paths' ids; counts under radix_ranks
         dict(entry("radix_partition_permutation", "radix.cu", 389,

@@ -1,4 +1,4 @@
-"""Filter, project and limit execs — counterpart of
+"""Filter, project, limit and union execs — counterpart of
 ``spark_rapids_tpu/exec/basic.py``.
 
 Under an aggregate the planner hoists a filter or project into the
@@ -62,6 +62,40 @@ class FilterExec(TorchExec):
 
     def args_string(self):
         return repr(self.condition)
+
+
+class UnionExec(TorchExec):
+    """UNION ALL: the children's partitions, concatenated (reference
+    ``UnionExec``, GpuUnionExec). A child's batches pass through as they
+    are, under the union's schema: each keeps its own string dictionaries,
+    which the operators above align where batches meet (``concat_batches``,
+    the exchange's string hash). ``out_schema`` is the union node's
+    (``plan/nodes.union_output``)."""
+
+    def __init__(self, children: list, out_schema, conf=None):
+        super().__init__(*children, conf=conf)
+        self._out = out_schema
+
+    @property
+    def output(self):
+        return self._out
+
+    @property
+    def num_partitions(self):
+        return sum(c.num_partitions for c in self.children)
+
+    def execute_partition(self, split):
+        out = self.output
+        for c in self.children:
+            if split < c.num_partitions:
+                for batch in c.execute_partition(split):
+                    yield ColumnarBatch(batch.columns, batch.num_rows, out)
+                return
+            split -= c.num_partitions
+        raise IndexError(split)
+
+    def args_string(self):
+        return f"{len(self.children)} children"
 
 
 class LocalLimitExec(TorchExec):

@@ -1,8 +1,11 @@
 """Arithmetic expressions with Spark semantics (non-ANSI mode).
 
 Counterpart of ``spark_rapids_tpu/expr/arithmetic.py``: Add, Subtract,
-Multiply and Divide over int/long/double and decimals, UnaryMinus and
-Abs. Integers wrap like Java (two's complement, which torch shares); the
+Multiply and Divide over int/long/double and decimals, UnaryMinus, Abs,
+and the bitwise operators and shifts over int and long (``BitwiseAnd``,
+``BitwiseOr``, ``BitwiseXor``, ``BitwiseNot``, ``ShiftLeft``,
+``ShiftRight``, ``ShiftRightUnsigned``; Java semantics, the shift count
+masked to 31 or 63). Integers wrap like Java (two's complement, which torch shares); the
 result type follows Spark's numeric precedence int < long < double.
 Decimals follow the reference's simplified
 promotion (``promote``: the wider integral digits and the larger scale; an
@@ -284,3 +287,115 @@ class Abs(Expression):
 
     def __repr__(self):
         return f"abs({self.children[0]!r})"
+
+
+# -- bitwise operators and shifts (reference bitwise.scala's GpuBitwiseAnd/
+# Or/Xor/Not and GpuShiftLeft/Right/RightUnsigned, Java semantics) ---------
+
+def _integral(t: T.DataType, what: str) -> T.DataType:
+    if not isinstance(t, _INTEGRAL):
+        raise NotImplementedError(f"{what} over a {t} is not ported")
+    return t
+
+
+class BitwiseBinary(BinaryArithmetic):
+    @property
+    def dtype(self):
+        return promote(_integral(self.left.dtype, self.symbol),
+                       _integral(self.right.dtype, self.symbol))
+
+
+class BitwiseAnd(BitwiseBinary):
+    symbol = "&"
+
+    def op(self, lv, rv):
+        return lv & rv
+
+
+class BitwiseOr(BitwiseBinary):
+    symbol = "|"
+
+    def op(self, lv, rv):
+        return lv | rv
+
+
+class BitwiseXor(BitwiseBinary):
+    symbol = "^"
+
+    def op(self, lv, rv):
+        return lv ^ rv
+
+
+class BitwiseNot(Expression):
+    def __init__(self, child: Expression):
+        self.children = [child]
+
+    @property
+    def dtype(self):
+        return _integral(self.children[0].dtype, "~")
+
+    def with_children(self, children):
+        return BitwiseNot(children[0])
+
+    def eval(self, ctx):
+        c = self.children[0].eval(ctx)
+        return Col(~c.values, c.validity, c.dtype).canonicalized()
+
+    def __repr__(self):
+        return f"(~ {self.children[0]!r})"
+
+
+class Shift(Expression):
+    """base SHIFT amount: the result has the base's type (int or long), and
+    the count is masked to the base's width as in Java (``x << 33`` is
+    ``x << 1`` for an int)."""
+    symbol = "?"
+
+    def __init__(self, base: Expression, amount: Expression):
+        self.children = [base, amount]
+
+    @property
+    def dtype(self):
+        _integral(self.children[1].dtype, self.symbol)
+        return _integral(self.children[0].dtype, self.symbol)
+
+    def with_children(self, children):
+        return type(self)(children[0], children[1])
+
+    def eval(self, ctx):
+        out_t = self.dtype
+        b = self.children[0].eval(ctx)
+        a = self.children[1].eval(ctx)
+        width = 64 if isinstance(out_t, T.LongType) else 32
+        amt = (a.values.to(torch.int64) & (width - 1)).to(b.values.dtype)
+        vals = self.op(b.values, amt, width)
+        return Col(vals, valid_and(b.validity, a.validity),
+                   out_t).canonicalized()
+
+    def __repr__(self):
+        return f"({self.children[0]!r} {self.symbol} {self.children[1]!r})"
+
+
+class ShiftLeft(Shift):
+    symbol = "<<"
+
+    def op(self, bv, amt, width):
+        return bv << amt
+
+
+class ShiftRight(Shift):
+    symbol = ">>"
+
+    def op(self, bv, amt, width):
+        return bv >> amt          # arithmetic: signed integers
+
+
+class ShiftRightUnsigned(Shift):
+    """``>>>``: the arithmetic shift with the sign-extended high bits
+    cleared (torch has no unsigned shift of every width)."""
+    symbol = ">>>"
+
+    def op(self, bv, amt, width):
+        keep = torch.clamp(width - amt, max=width - 1)
+        mask = (torch.ones_like(bv) << keep) - 1
+        return torch.where(amt == 0, bv, (bv >> amt) & mask)

@@ -9,6 +9,7 @@ are the same computation.
 
 from __future__ import annotations
 
+import decimal
 import threading
 import types as _types
 
@@ -94,6 +95,8 @@ def _value_key(v):
         return (type(v).__name__, v)
     if isinstance(v, T.DataType):
         return v
+    if isinstance(v, decimal.Decimal):   # a scalar subquery's value
+        return ("Decimal", str(v))
     if isinstance(v, type):
         return ("class", v.__module__, v.__qualname__)
     if isinstance(v, _types.CodeType):   # nested function consts

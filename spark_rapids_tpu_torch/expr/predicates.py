@@ -211,10 +211,32 @@ class Not(Expression):
         return f"(NOT {self.children[0]!r})"
 
 
+def _value_at(v, dtype: T.DataType):
+    """An IN value as a literal of the column's type, or None where that
+    type cannot hold it: Spark compares both in their common type, so such
+    a value matches no row. An int against a decimal is that number (a
+    decimal ``Literal`` takes an int as the unscaled value); ``1.505``
+    against a decimal of scale 2, or ``3.5`` against an integer, is no
+    value of the column."""
+    if isinstance(v, (str, bool)):
+        return v
+    if isinstance(dtype, T.DecimalType):
+        from decimal import Decimal
+        d = Decimal(v) if isinstance(v, int) else Decimal(str(v))
+        return d if d == d.quantize(Decimal(1).scaleb(-dtype.scale)) \
+            else None
+    if isinstance(dtype, T.IntegralType) and \
+            not isinstance(v, int):
+        return int(v) if float(v).is_integer() else None
+    if isinstance(dtype, T.DoubleType):
+        return float(v)
+    return v
+
+
 class In(Expression):
     """IN over a literal list (reference GpuInSet). Null semantics: x IN
     (...) is null if x is null, or if nothing matches and the list holds a
-    null."""
+    null. Each value compares at the column's type (``_value_at``)."""
 
     def __init__(self, child, values: list):
         self.children = [child]
@@ -242,7 +264,10 @@ class In(Expression):
         for v in self.values:
             if v is None:
                 continue
-            lc = Literal(v, self.children[0].dtype).eval(ctx)
+            v = _value_at(v, c.dtype)
+            if v is None:
+                continue
+            lc = Literal(v, c.dtype).eval(ctx)
             if c.is_string:
                 l2, r2 = _comparable(c, lc, c.dtype, lc.dtype)
                 match = match | (l2.values == r2.values)

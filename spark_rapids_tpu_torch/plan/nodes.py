@@ -207,6 +207,97 @@ class WindowNode(PlanNode):
         return 1
 
 
+def union_output(outputs: list) -> T.StructType:
+    """The schema of a union of children with these outputs: equal column
+    types (the SQL lowering casts the arms first), the first child's names,
+    and a column nullable when it is in any child (Spark's Union; the
+    reference takes the first child's nullability)."""
+    types = [[f.data_type for f in o] for o in outputs]
+    if any(t != types[0] for t in types[1:]):
+        raise ValueError(f"union of unlike column types {types}")
+    return T.StructType([
+        T.StructField(f.name, f.data_type,
+                      any(o.fields[i].nullable for o in outputs))
+        for i, f in enumerate(outputs[0].fields)])
+
+
+class UnionNode(PlanNode):
+    """UNION ALL: the children's partitions, one after another."""
+
+    def __init__(self, *children: PlanNode):
+        super().__init__(*children)
+        self._out = union_output([c.output for c in children])
+
+    @property
+    def output(self):
+        return self._out
+
+    @property
+    def num_partitions(self):
+        return sum(c.num_partitions for c in self.children)
+
+
+class ExpandNode(PlanNode):
+    """Each input row becomes ``len(projections)`` rows, one per projection,
+    interleaved (r0p0, r0p1, ..., r1p0, ...) as Spark's Expand emits them
+    (the GpuExpandExec analog; ``exec/expand.py`` runs it)."""
+
+    def __init__(self, projections: list, out_fields: list, child: PlanNode):
+        super().__init__(child)
+        self.projections = [[E.bind_references(e, child.output) for e in proj]
+                            for proj in projections]
+        self._out = T.StructType(out_fields)
+        if not self.projections or any(len(p) != len(out_fields)
+                                       for p in self.projections):
+            raise ValueError("every Expand projection must have one "
+                             "expression per output column")
+
+    @property
+    def output(self):
+        return self._out
+
+
+def build_rollup_expand(child: PlanNode, keys: list):
+    """ROLLUP(k1, ..., kn) as the grouping sets [k1..kn], [k1..kn-1], ...,
+    [] through ``build_grouping_sets_expand``; the SQL lowering and
+    ``DataFrame.rollup`` share it."""
+    n = len(keys)
+    return build_grouping_sets_expand(
+        child, keys, [list(range(level)) for level in range(n, -1, -1)])
+
+
+def build_grouping_sets_expand(child: PlanNode, keys: list, sets: list):
+    """GROUPING SETS (and CUBE and ROLLUP) as Spark's Expand: one projection
+    per grouping set, which keeps the child's columns, nulls the keys
+    outside the set, and appends the grouping id, whose bit ``n-1-i`` (the
+    most significant bit for the first key) is 1 when key ``i`` is nulled.
+    ``keys`` are bound column references; ``sets`` lists the indices of
+    the keys each set keeps. Returns (expand node, the key references over
+    its output, the grouping id's reference)."""
+    fields = list(child.output.fields)
+    n = len(keys)
+    projections = []
+    for kept in sets:
+        kept = set(kept)
+        gid = sum(1 << (n - 1 - i) for i in range(n) if i not in kept)
+        proj = [E.BoundReference(i, f.data_type, f.nullable, f.name)
+                for i, f in enumerate(fields)]
+        for gi, g in enumerate(keys):
+            proj.append(g if gi in kept else E.Literal(None, g.dtype))
+        proj.append(E.Literal(gid, T.INT))
+        projections.append(proj)
+    out_fields = fields + [
+        T.StructField(f"_g{i}", g.dtype, True) for i, g in enumerate(keys)
+    ] + [T.StructField("_gid", T.INT, False)]
+    expand = ExpandNode(projections, out_fields, child)
+    base = len(fields)
+    group_refs = [E.BoundReference(base + i, g.dtype, True,
+                                   getattr(g, "name", None) or f"_g{i}")
+                  for i, g in enumerate(keys)]
+    gid_ref = E.BoundReference(base + n, T.INT, False, "_gid")
+    return expand, group_refs, gid_ref
+
+
 def agg_fn(e) -> AggregateFunction:
     f = e.child if isinstance(e, E.Alias) else e
     if not isinstance(f, AggregateFunction):

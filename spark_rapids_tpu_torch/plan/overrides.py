@@ -24,7 +24,10 @@ refused (``_joinable``). A HAVING filter above an aggregate
 plans as a FilterExec: the reference folds it into the aggregate
 (``fuse_having``), which keeps the same rows. The window node (``tag_window``/``conv_window``, ``:939-977``) plans a
 ``WindowExec`` over a hash exchange on its partition keys, or a gather of
-every partition when it has none. The rules receive the plan
+every partition when it has none. The union node plans a ``UnionExec`` of
+its children's partitions (``conv_union``, ``:707-708``), so an aggregate
+above it with keys plans PARTIAL → hash exchange → FINAL; the expand node
+an ``ExpandExec`` (``conv_expand``, ``:970-978``). The rules receive the plan
 after column pruning (``plan/pruning.py``, which ``DataFrame.physical_plan``
 runs once at the root, as the reference runs it first in
 ``TpuOverrides.apply``).
@@ -46,18 +49,20 @@ from spark_rapids_tpu_torch.exec import aggregate as XA
 from spark_rapids_tpu_torch.exec import basic as XB
 from spark_rapids_tpu_torch.exec import exchange as XE
 from spark_rapids_tpu_torch.exec import joins as XJ
+from spark_rapids_tpu_torch.exec.expand import ExpandExec
 from spark_rapids_tpu_torch.exec.sort import SortExec, _GatherAllExec
 from spark_rapids_tpu_torch.exec.window import (WindowExec,
                                                 supported_window_expr)
 from spark_rapids_tpu_torch.expr import core as E
 from spark_rapids_tpu_torch.expr.aggregates import AggregateFunction
-from spark_rapids_tpu_torch.expr.arithmetic import (Abs, BinaryArithmetic,
-                                                   UnaryMinus)
+from spark_rapids_tpu_torch.expr.arithmetic import (
+    Abs, BinaryArithmetic, BitwiseNot, UnaryMinus, Shift)
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.expr.cast import Cast, supported_cast
 from spark_rapids_tpu_torch.expr.conditional import (CaseWhen, Greatest, If,
                                                      Least)
 from spark_rapids_tpu_torch.expr.datetime import AddMonths, DateAddInterval
+from spark_rapids_tpu_torch.expr.misc import ScalarSubquery
 from spark_rapids_tpu_torch.expr.nullexprs import (AtLeastNNonNulls, Coalesce,
                                                    IsNaN, IsNotNull, IsNull,
                                                    NaNvl)
@@ -78,7 +83,8 @@ _PORTED_EXPRS = (E.BoundReference, E.Literal, E.Alias, BinaryArithmetic,
                  GreaterThanOrEqual, And, Or, Not, In, Cast, DateAddInterval,
                  AddMonths, AggregateFunction, If, CaseWhen, Least, Greatest,
                  Abs, UnaryMinus, IsNull, IsNotNull, IsNaN, Coalesce, NaNvl,
-                 AtLeastNNonNulls, Substring)
+                 AtLeastNNonNulls, Substring, BitwiseNot, Shift,
+                 ScalarSubquery)
 
 
 def _joinable(ldt: T.DataType, rdt: T.DataType) -> bool:
@@ -124,7 +130,9 @@ class TorchOverrides:
                 NN.JoinNode: self._join,
                 NN.SortNode: self._sort,
                 NN.LimitNode: self._limit,
-                NN.WindowNode: self._window}.get(type(plan))
+                NN.WindowNode: self._window,
+                NN.UnionNode: self._union,
+                NN.ExpandNode: self._expand}.get(type(plan))
         if conv is None:
             raise NotImplementedError(
                 f"plan node {type(plan).__name__} is not ported yet")
@@ -289,6 +297,15 @@ class TorchOverrides:
             else:
                 child = _GatherAllExec(child, conf=self.conf)
         return WindowExec(n.window_exprs, child, conf=self.conf)
+
+    def _union(self, n, kids):
+        return XB.UnionExec(kids, n.output, conf=self.conf)
+
+    def _expand(self, n, kids):
+        for proj in n.projections:
+            for e in proj:
+                check_expression(e)
+        return ExpandExec(n.projections, n.output, kids[0], conf=self.conf)
 
     def _sort(self, n, kids):
         for e, _, _ in n.sort_exprs:

@@ -13,7 +13,12 @@ and ``mapping`` maps old output ordinals to new ones for every column that
 survived. Nodes whose output is expression-defined (Project, Aggregate)
 absorb the remapping; pass-through nodes (Filter, Sort, Limit, Exchange)
 propagate it. Any other node type requires all of its children's columns,
-so correctness never depends on a node being listed here.
+so correctness never depends on a node being listed here. Beyond the
+reference, an Expand keeps only its required output columns (each
+projection's expressions at those positions), and a Union asks each child
+for the columns its parent requires, projecting a child whose columns came
+back in another layout: without them a ROLLUP, or a union of SELECT *
+arms, would read every column of the tables below it.
 
 The rewrite preserves identity: a subtree where nothing narrows comes back
 as the ORIGINAL node objects, and the input plan is never mutated, so a
@@ -132,6 +137,10 @@ def _prune(node: N.PlanNode, required: set | None):
             [_remap(e, cmap) for e in node.agg_exprs], child))
     if isinstance(node, N.JoinNode):
         return _prune_join(node, required)
+    if isinstance(node, N.ExpandNode):
+        return _prune_expand(node, required)
+    if isinstance(node, N.UnionNode):
+        return _prune_union(node, required)
     # any other node: require ALL columns of every child (children may still
     # narrow deeper inside their own subtrees)
     new_children = [_prune(c, None)[0] for c in node.children]
@@ -176,6 +185,43 @@ def _prune_join(node: N.JoinNode, required: set | None):
         for o, n2 in rmap.items():
             mapping[o + nleft] = n2 + nleft_new
     return new, mapping
+
+
+def _prune_expand(node: N.ExpandNode, required: set | None):
+    n_out = len(node.output.fields)
+    keep = (sorted(required) if required is not None
+            else list(range(n_out))) or [0]
+    child_req = set()
+    for proj in node.projections:
+        for i in keep:
+            child_req |= _refs(proj[i])
+    child, cmap = _prune(node.child, child_req)
+    mapping = {o: i for i, o in enumerate(keep)}
+    if child is node.child and _is_ident(cmap) and len(keep) == n_out:
+        return node, mapping
+    return N.ExpandNode(
+        [[_remap(proj[i], cmap) for i in keep] for proj in node.projections],
+        [node.output.fields[i] for i in keep], child), mapping
+
+
+def _prune_union(node: N.UnionNode, required: set | None):
+    keep = (sorted(required) if required is not None
+            else list(range(len(node.output.fields)))) or [0]
+    kids = []
+    for c in node.children:
+        kid, cmap = _prune(c, set(keep))
+        cols = [cmap[o] for o in keep]
+        if cols != list(range(len(kid.output.fields))):
+            out = kid.output.fields
+            kid = N.ProjectNode(
+                [E.Alias(E.BoundReference(j, out[j].data_type,
+                                          out[j].nullable, out[j].name),
+                         out[j].name) for j in cols], kid)
+        kids.append(kid)
+    mapping = {o: i for i, o in enumerate(keep)}
+    if all(k is c for k, c in zip(kids, node.children)):
+        return node, mapping
+    return N.UnionNode(*kids), mapping
 
 
 def _prune_scan(node: FileScanNode, required: set | None):

@@ -39,9 +39,13 @@ def _to_expr(c) -> E.Expression:
 
 
 class DataFrame:
-    def __init__(self, plan: NN.PlanNode, session: "TorchSession"):
+    def __init__(self, plan: NN.PlanNode, session: "TorchSession",
+                 subquery_plans=()):
         self._plan = plan
         self.session = session
+        #: the physical plans of the subqueries ``sql()`` ran while it
+        #: lowered this frame's text (Spark runs subquery stages first)
+        self.subquery_plans = list(subquery_plans)
 
     def select(self, *cols) -> "DataFrame":
         return DataFrame(NN.ProjectNode([_to_expr(c) for c in cols],
@@ -54,9 +58,26 @@ class DataFrame:
     def group_by(self, *keys) -> "GroupedData":
         return GroupedData([_to_expr(k) for k in keys], self)
 
+    def rollup(self, *keys) -> "RollupData":
+        """``df.rollup(a, b).agg(...)``: the subtotals of every prefix of
+        the keys, through an Expand with a grouping id, as the SQL
+        lowering's GROUP BY ROLLUP."""
+        return RollupData([_to_expr(k) for k in keys], self)
+
     def agg(self, *aggs) -> "DataFrame":
         """Aggregate the whole frame with no grouping keys: one row."""
         return GroupedData([], self).agg(*aggs)
+
+    def union(self, other: "DataFrame") -> "DataFrame":
+        """UNION ALL by position (Spark's ``union``); the column types must
+        be equal."""
+        return DataFrame(NN.UnionNode(self._plan, other._plan), self.session)
+
+    def distinct(self) -> "DataFrame":
+        """The distinct rows: a group-by on every column."""
+        keys = [E.BoundReference(i, f.data_type, f.nullable, f.name)
+                for i, f in enumerate(self._plan.output)]
+        return DataFrame(NN.AggregateNode(keys, [], self._plan), self.session)
 
     def sort(self, *cols, ascending=True) -> "DataFrame":
         ascs = (ascending if isinstance(ascending, (list, tuple))
@@ -154,6 +175,36 @@ class GroupedData:
                          self.df.session)
 
 
+class RollupData:
+    """GROUP BY ROLLUP over plain columns: an Expand with a grouping id
+    (``plan/nodes.build_rollup_expand``, which the SQL lowering shares),
+    then the aggregate; the grouping id is dropped from the output."""
+
+    def __init__(self, keys: list, df: DataFrame):
+        for k in keys:
+            if not isinstance(k, (E.AttributeReference, E.BoundReference)):
+                raise ValueError("rollup supports plain columns only")
+        self.keys = [E.bind_references(k, df._plan.output) for k in keys]
+        self.df = df
+
+    def agg(self, *aggs) -> DataFrame:
+        named = [_to_expr(a) for a in aggs]
+        for e in named:
+            NN.agg_fn(e)   # raises on a non-aggregate
+        expand, group_refs, gid_ref = NN.build_rollup_expand(
+            self.df._plan, self.keys)
+        agg_node = NN.AggregateNode(
+            [E.Alias(r, r.name) for r in group_refs]
+            + [E.Alias(gid_ref, "_gid")], named, expand)
+        # drop the grouping id by position (an aggregate's alias may equal
+        # a key's name)
+        gid_pos = len(group_refs)
+        keep = [E.Alias(E.BoundReference(i, f.data_type, f.nullable, f.name),
+                        f.name)
+                for i, f in enumerate(agg_node.output) if i != gid_pos]
+        return DataFrame(NN.ProjectNode(keep, agg_node), self.df.session)
+
+
 class TorchSession:
     """The SparkSession stand-in; owns the conf, the device and the read API.
 
@@ -185,9 +236,12 @@ class TorchSession:
     def sql(self, text: str) -> DataFrame:
         """A DataFrame for SQL text over the registered temp views
         (``sql/``). What the port cannot plan raises
-        ``NotImplementedError`` here, while the text is lowered."""
+        ``NotImplementedError`` here, while the text is lowered; the
+        uncorrelated subqueries that are not joins run here too, on the
+        session's device."""
         from spark_rapids_tpu_torch.sql import lower_sql
-        return DataFrame(lower_sql(text, self._views, self), self)
+        plan, subquery_plans = lower_sql(text, self._views, self)
+        return DataFrame(plan, self, subquery_plans)
 
     def read_parquet(self, path, files_per_partition: int = 1) -> DataFrame:
         from spark_rapids_tpu_torch.io.filescan import FileScanNode

@@ -1,45 +1,66 @@
 """SQL AST → logical plan lowering (the Catalyst-analyzer role).
 
-Counterpart of ``spark_rapids_tpu/sql/lower.py``, for the SELECT core. Per
-SELECT block, the moves Spark's analyzer and optimizer make before the
-reference plugin sees a plan:
+Counterpart of ``spark_rapids_tpu/sql/lower.py``. Per SELECT block, the
+moves Spark's analyzer and optimizer make before the reference plugin sees
+a plan:
 
 1. FROM: resolve tables (temp views, CTEs, derived tables), then plan the
    join graph: single-relation WHERE conjuncts push down as filters under
-   the joins, two-relation equi conjuncts become join keys (a greedy
-   connected join order from the relation with the most edges), and the
-   rest lands in a filter above the joins. A conjunct common to every
+   the joins (``x IN (subquery)`` among them as a left semi join against
+   the subquery's plan), two-relation equi conjuncts become join keys (a
+   greedy connected join order from the relation with the most edges), and
+   the rest lands in a filter above the joins. A conjunct common to every
    branch of an OR is hoisted out of it first. Explicit JOIN ... ON splits
-   its condition the same way.
+   its condition the same way. [NOT] EXISTS conjuncts apply last, over the
+   whole join graph: their equality correlations become the keys of a semi
+   or anti join; an uncorrelated one is folded while the text is lowered.
 2. Aggregation: distinct ``AggregateFunction`` subtrees (keyed by the
    structural key of ``expr/exprkey.py``) become AggregateNode columns,
    those inside a window function's input too (``avg(sum(x)) over (...)``).
+   ROLLUP and GROUPING SETS (CUBE parses into grouping sets) lower through
+   an ExpandNode with a grouping-id key, as Spark's Expand; ``grouping(c)``
+   reads its bit. DISTINCT aggregates are rewritten as Spark's
+   RewriteDistinctAggregates does: one distinct argument whose other
+   aggregates are min/max or count/sum/avg of that argument takes two
+   aggregates (``_rewrite_distinct``, TPC-DS q28's form); anything else
+   takes the general Expand form (``_rewrite_distinct_expand``).
 3. Window: the distinct ``OVER`` expressions, over the aggregate's output
    when there is one, become one WindowNode.
 4. HAVING → Filter; SELECT → Project; DISTINCT → group-by-all; ORDER BY
    resolves output names, aliases, ordinals and select-list expressions
    (other expressions ride as hidden columns, dropped after the sort);
    LIMIT → a global LimitNode.
+5. Set operations: UNION [ALL] is a UnionNode over the arms cast to their
+   common column types (a group-by-all dedups UNION); INTERSECT and EXCEPT
+   dedup the left arm and semi or anti join it to the right one on every
+   column, null-safely; their ALL forms number each row's copies with a
+   window ``row_number()`` first and join on the number too. ORDER BY and
+   LIMIT over a set operation take output names and ordinals.
+
+Uncorrelated subqueries that are not joins run eagerly while the text is
+lowered, once each for the statement (``_Eager``), as Spark runs subquery
+stages first: a scalar subquery becomes ``expr/misc.ScalarSubquery`` (NULL
+on no row, an error on two), ``x [NOT] IN (subquery)`` outside a WHERE
+conjunct an ``InSet`` of its values, and an uncorrelated EXISTS a constant.
 
 The expressions lowered: column references, literals (``100.0`` is a
 double, as the parser reads it; ``cast(x as decimal(p, s))`` makes a
 decimal), + - * /, negation, comparisons, AND/OR/NOT, BETWEEN, IN over
-literals, CASE, IS [NOT] NULL, DATE literals and intervals, casts, the
-aggregates sum/min/max/avg/count/first/last, ``abs``, ``substr``/
-``substring`` and ``coalesce``, and the window functions (row_number,
+literals or a subquery, CASE, IS [NOT] NULL, DATE literals and intervals,
+casts, the aggregates sum/min/max/avg/count/first/last (sum, avg and count
+also DISTINCT), ``grouping``, ``abs``, ``substr``/``substring`` and
+``coalesce``, scalar subqueries, and the window functions (row_number,
 rank, dense_rank, lead, lag and the aggregates over a window). Joins: the
 comma list, and [INNER|LEFT|RIGHT|FULL] [OUTER] JOIN ... ON/USING, semi,
 anti and cross joins.
 
 What the port cannot plan raises ``NotImplementedError`` here, while the
-text is lowered, never at run time: ROLLUP/CUBE/GROUPING SETS, set
-operations, DISTINCT aggregates, scalar, IN and EXISTS subqueries (the
-reference runs the uncorrelated ones eagerly at lowering), SELECT without
-FROM, and every expression outside the ones above (LIKE, ``%``, ``||``,
-the other string and math functions, stddev/variance, TIMESTAMP
-literals, the untyped NULL outside a CASE branch). Text the grammar or
-the catalog refuses raises ``SqlParseError`` or ``SqlAnalysisError``, as
-in the reference.
+text is lowered, never at run time: SELECT without FROM, and every
+expression outside the ones above (LIKE, ``%``, ``||``, the other string
+and math functions, stddev/variance, TIMESTAMP literals, the untyped NULL
+outside a CASE branch). Text the grammar or the catalog refuses raises
+``SqlParseError`` or ``SqlAnalysisError``, as in the reference; so do the
+subquery and DISTINCT shapes the reference refuses.
 """
 
 from __future__ import annotations
@@ -133,16 +154,58 @@ _AGG_FUNCS = {"sum": Sum, "min": Min, "max": Max, "avg": Average,
 _UNPORTED_AGGS = ("stddev_samp", "stddev", "stddev_pop", "var_samp",
                   "variance", "var_pop")
 # scalar functions the reference lowers and the port has not ported
-_UNPORTED_FUNCS = ("nullif", "grouping", "least", "greatest", "upper",
+_UNPORTED_FUNCS = ("nullif", "least", "greatest", "upper",
                    "ucase", "lower", "lcase", "length", "trim", "concat",
                    "round", "sqrt", "floor", "ceil", "ceiling")
+
+
+class _Grouping(E.Expression):
+    """``grouping(col)`` until the rollup lowering turns it into a bit test
+    of the grouping id (``_Lowerer._grouping_bit``)."""
+
+    def __init__(self, ref: E.Expression):
+        self.children = [ref]
+
+    @property
+    def dtype(self):
+        return T.INT
+
+    def with_children(self, children):
+        return _Grouping(children[0])
+
+    def eval(self, ctx):
+        raise SqlAnalysisError("grouping() outside GROUP BY ROLLUP")
+
+
+class _DistinctAgg(AggregateFunction):
+    """``fn(DISTINCT x)`` until ``_Lowerer._aggregate`` rewrites it into
+    two aggregates (Spark's RewriteDistinctAggregates)."""
+
+    def __init__(self, fn_cls, child):
+        super().__init__(child)
+        self.fn_cls = fn_cls
+
+    def make(self, ref):
+        return self.fn_cls(ref)
+
+    @property
+    def dtype(self):
+        return self.fn_cls(self.child).dtype
+
+    def with_children(self, children):
+        return _DistinctAgg(self.fn_cls, children[0])
+
+    @property
+    def state_types(self):
+        raise SqlAnalysisError("DISTINCT aggregate outside its rewrite")
 
 
 # -- expression conversion ----------------------------------------------------
 
 class _ExprConverter:
-    def __init__(self, scope: Scope):
+    def __init__(self, scope: Scope, lowerer: "_Lowerer"):
         self.scope = scope
+        self.lowerer = lowerer
 
     def convert(self, a) -> E.Expression:
         c = self.convert
@@ -184,7 +247,7 @@ class _ExprConverter:
             return PR.Not(cond) if a.negated else cond
         if isinstance(a, P.InAst):
             if isinstance(a.values, (P.Select, P.SetOp)):
-                raise _not_ported("IN (subquery)")
+                return self._in_subquery(a)
             vals = []
             for v in a.values:
                 ve = c(v)
@@ -201,15 +264,44 @@ class _ExprConverter:
             from spark_rapids_tpu_torch.expr.nullexprs import IsNotNull, IsNull
             return (IsNotNull if a.negated else IsNull)(c(a.expr))
         if isinstance(a, P.SubqueryExpr):
-            raise _not_ported("a scalar subquery")
+            return self.lowerer.scalar_subquery(a.query)
         if isinstance(a, P.FuncCall):
             return self.func(a)
         if isinstance(a, P.ExistsAst):
-            raise _not_ported("EXISTS")
+            raise SqlAnalysisError(
+                "EXISTS is supported only as a top-level WHERE conjunct "
+                "(where it lowers to a semi/anti join); rewrite this "
+                "occurrence as a join")
         if isinstance(a, P.Star):
             raise SqlAnalysisError("* only allowed at select-list top level "
                                    "or in count(*)")
         raise SqlAnalysisError(f"unsupported SQL construct: {a!r}")
+
+    def _in_subquery(self, a: P.InAst) -> E.Expression:
+        """``x [NOT] IN (subquery)`` where no semi join can stand for it
+        (NOT IN, or inside an OR): the subquery runs once, eagerly, and its
+        distinct values become an ``InSet``, both sides widened to their
+        common type as Spark does. A NULL among them makes a non-match NULL
+        (NOT IN then keeps no row), the three-valued rule of ``In``. Over no
+        values IN is false and NOT IN true, for a NULL ``x`` too (Spark's
+        null-aware anti join; the reference's ``InSet`` of no values is
+        NULL there)."""
+        from spark_rapids_tpu_torch.expr.arithmetic import promote
+        from spark_rapids_tpu_torch.expr.cast import Cast
+        vals, sub_dt = self.lowerer.in_subquery_values(a.values)
+        lhs = self.convert(a.expr)
+        if not vals:
+            return E.Literal(bool(a.negated), T.BOOLEAN)
+        if lhs.dtype != sub_dt:
+            try:
+                target = promote(lhs.dtype, sub_dt)
+            except NotImplementedError as e:
+                raise SqlAnalysisError(
+                    f"IN (subquery): {lhs.dtype} vs {sub_dt}") from e
+            if target != lhs.dtype:
+                lhs = Cast(lhs, target)
+        ins = PR.InSet(lhs, vals)
+        return PR.Not(ins) if a.negated else ins
 
     def _case(self, a: P.CaseAst) -> E.Expression:
         """CASE [x] WHEN ... THEN ... [ELSE ...] END. A NULL branch takes
@@ -266,14 +358,26 @@ class _ExprConverter:
                 raise SqlAnalysisError(f"{name} takes one argument")
             if a.distinct and name not in ("min", "max"):
                 # min/max are insensitive to DISTINCT
-                raise _not_ported(f"DISTINCT aggregate {name}")
+                if name not in ("sum", "avg"):
+                    raise SqlAnalysisError(
+                        f"DISTINCT aggregate {name} not supported")
+                return _DistinctAgg(_AGG_FUNCS[name], c(a.args[0]))
             return _AGG_FUNCS[name](c(a.args[0]))
         if name == "count":
-            if a.distinct:
-                raise _not_ported("DISTINCT aggregate count")
             if not a.args or isinstance(a.args[0], P.Star):
+                if a.distinct:
+                    raise SqlAnalysisError("count(DISTINCT *) not supported")
                 return Count(None)
+            if a.distinct:
+                if len(a.args) != 1:
+                    raise SqlAnalysisError(
+                        "count(DISTINCT a, b, ...) not supported")
+                return _DistinctAgg(Count, c(a.args[0]))
             return Count(c(a.args[0]))
+        if name == "grouping":
+            if len(a.args) != 1:
+                raise SqlAnalysisError("grouping takes one argument")
+            return _Grouping(c(a.args[0]))
         if name in ("substr", "substring"):
             from spark_rapids_tpu_torch.expr.strings import Substring
             if len(a.args) not in (2, 3):
@@ -386,52 +490,40 @@ def _hoist_common_or_conjuncts(conj) -> list:
     return common + [out]
 
 
-def _ast_idents(a) -> list:
-    """Every column identifier of an AST expression (not descending into
+def _ast_nodes(a):
+    """Every node of an AST expression, ``a`` first (not descending into
     subqueries, which resolve in their own scope)."""
-    out = []
+    if a is None or isinstance(a, (P.SubqueryExpr, P.ExistsAst)):
+        return
+    yield a
+    if isinstance(a, P.FuncCall):
+        kids = list(a.args)
+        if a.over:
+            kids += list(a.over.partition_by)
+            kids += [e for e, _, _ in a.over.order_by]
+    elif isinstance(a, P.BinOp):
+        kids = [a.left, a.right]
+    elif isinstance(a, P.UnOp):
+        kids = [a.operand]
+    elif isinstance(a, P.CaseAst):
+        kids = [a.operand, *(x for b in a.branches for x in b), a.else_]
+    elif isinstance(a, P.CastAst):
+        kids = [a.expr]
+    elif isinstance(a, P.BetweenAst):
+        kids = [a.expr, a.lo, a.hi]
+    elif isinstance(a, P.InAst):
+        kids = [a.expr] + (a.values if isinstance(a.values, list) else [])
+    elif isinstance(a, (P.LikeAst, P.IsNullAst)):
+        kids = [a.expr]
+    else:
+        kids = []
+    for k in kids:
+        yield from _ast_nodes(k)
 
-    def walk(x):
-        if isinstance(x, P.Ident):
-            out.append(x)
-        elif isinstance(x, (P.SubqueryExpr, P.ExistsAst)):
-            return
-        elif isinstance(x, P.FuncCall):
-            for ar in x.args:
-                walk(ar)
-            if x.over:
-                for p_ in x.over.partition_by:
-                    walk(p_)
-                for (e_, _, _) in x.over.order_by:
-                    walk(e_)
-        elif isinstance(x, P.BinOp):
-            walk(x.left)
-            walk(x.right)
-        elif isinstance(x, P.UnOp):
-            walk(x.operand)
-        elif isinstance(x, P.CaseAst):
-            if x.operand is not None:
-                walk(x.operand)
-            for w, v in x.branches:
-                walk(w)
-                walk(v)
-            if x.else_ is not None:
-                walk(x.else_)
-        elif isinstance(x, P.CastAst):
-            walk(x.expr)
-        elif isinstance(x, P.BetweenAst):
-            walk(x.expr)
-            walk(x.lo)
-            walk(x.hi)
-        elif isinstance(x, P.InAst):
-            walk(x.expr)
-            if isinstance(x.values, list):
-                for v in x.values:
-                    walk(v)
-        elif isinstance(x, (P.LikeAst, P.IsNullAst)):
-            walk(x.expr)
-    walk(a)
-    return out
+
+def _ast_idents(a) -> list:
+    """Every column identifier of an AST expression, outside subqueries."""
+    return [x for x in _ast_nodes(a) if isinstance(x, P.Ident)]
 
 
 def _date_interval(date_expr, iv, op: str):
@@ -455,7 +547,7 @@ def _date_interval(date_expr, iv, op: str):
     raise P.SqlParseError(f"unsupported interval unit {iv.unit!r}")
 
 
-def _and_all(conv: _ExprConverter, conjs):
+def _and_all(conv: "_ExprConverter", conjs):
     cond = conv.convert(conjs[0])
     for cj in conjs[1:]:
         cond = PR.And(cond, conv.convert(cj))
@@ -470,23 +562,243 @@ class _Relation:
         self.scope = scope
 
 
+class _Eager:
+    """The eager subqueries of one statement: each result, keyed by the
+    subquery's text and the views it resolves against (q14 reads one
+    CTE-backed subquery from three UNION ALL arms: one run serves them),
+    and the physical plans that ran, so that a caller can count their
+    scans and launches with the statement's."""
+
+    def __init__(self):
+        self.cache: dict = {}
+        self.plans: list = []
+
+    def collect(self, plan, session):
+        from spark_rapids_tpu_torch.session import DataFrame
+        phys = DataFrame(plan, session).physical_plan()
+        self.plans.append(phys)
+        return phys.execute_collect()
+
+
 class _Lowerer:
-    def __init__(self, session, views: dict):
+    def __init__(self, session, views: dict, eager: _Eager | None = None):
         self.session = session
         self.views = dict(views)
+        self.eager = eager if eager is not None else _Eager()
 
     def lower(self, q):
         for name, cte in q.ctes:
             self.views = dict(self.views)
             self.views[name] = self.dataframe(cte)
-        if isinstance(q, P.SetOp):
-            raise _not_ported(f"the set operation {q.op.upper()}")
-        return self._select(q)
+        return self._query(q)
+
+    def _query(self, q):
+        return self._setop(q) if isinstance(q, P.SetOp) else self._select(q)
+
+    def _sub(self) -> "_Lowerer":
+        return _Lowerer(self.session, self.views, self.eager)
 
     def dataframe(self, q):
         from spark_rapids_tpu_torch.session import DataFrame
-        return DataFrame(_Lowerer(self.session, self.views).lower(q),
-                         self.session)
+        return DataFrame(self._sub().lower(q), self.session)
+
+    # -- eager subqueries -----------------------------------------------------
+    def _eager_key(self, kind, q):
+        return (kind, repr(q),
+                tuple(sorted((n, id(df)) for n, df in self.views.items())))
+
+    def scalar_subquery(self, q):
+        """A scalar subquery, run once (the reference's
+        ``ScalarSubquery.from_dataframe``)."""
+        from spark_rapids_tpu_torch.expr.misc import ScalarSubquery
+        key = self._eager_key("scalar", q)
+        hit = self.eager.cache.get(key)
+        if hit is None:
+            plan = self.dataframe(q)._plan
+            if len(plan.output) != 1:
+                raise SqlAnalysisError(
+                    "a scalar subquery must return one column")
+            hit = ScalarSubquery.from_table(
+                self.eager.collect(plan, self.session),
+                plan.output[0].data_type)
+            self.eager.cache[key] = hit
+        return hit
+
+    def in_subquery_values(self, q):
+        """The distinct values of an IN subquery's one column, in their
+        first order, and its type; run once."""
+        key = self._eager_key("in", q)
+        hit = self.eager.cache.get(key)
+        if hit is None:
+            plan = self.dataframe(q)._plan
+            if len(plan.output) != 1:
+                raise SqlAnalysisError(
+                    "IN (subquery) must return exactly one column")
+            tbl = self.eager.collect(plan, self.session)
+            from spark_rapids_tpu_torch.expr.misc import device_value
+            hit = ([device_value(v) for v in
+                    dict.fromkeys(tbl.column(0).to_pylist())],
+                   plan.output[0].data_type)
+            self.eager.cache[key] = hit
+        return hit
+
+    # -- set operations -------------------------------------------------------
+    def _setop(self, s: P.SetOp):
+        """UNION [ALL], INTERSECT [ALL] and EXCEPT [ALL] (Spark's
+        ResolveSetOperations and the optimizer's rewrites of them):
+
+        - UNION ALL: a UnionNode; UNION dedups it by a group-by-all;
+        - INTERSECT: the deduped left arm LEFT SEMI joined to the right on
+          every column, null-safely (a set operation's NULLs are equal,
+          unlike a join key's); EXCEPT: a LEFT ANTI join the same way;
+        - INTERSECT ALL and EXCEPT ALL: each arm numbers its copies of a
+          row with ``row_number() over (partition by every column)``, and
+          the semi or anti join on (the columns, the number) keeps
+          min(l, r) or max(l - r, 0) copies."""
+        def arm(q):
+            # a parenthesized arm may carry a WITH of its own
+            if getattr(q, "ctes", None):
+                return self.dataframe(q)._plan
+            return self._query(q)
+        left, right = self._align_setop(arm(s.left), arm(s.right), s.op)
+        if s.op == "union":
+            plan = NN.UnionNode(left, right)
+            if not s.all:
+                plan = self._dedup(plan)
+        elif not s.all:
+            jt = "leftsemi" if s.op == "intersect" else "leftanti"
+            dl = self._dedup(left)
+            lkeys, rkeys = self._nullsafe_keys(dl, right)
+            plan = NN.JoinNode(dl, right, lkeys, rkeys, jt)
+        else:
+            plan = self._setop_all(left, right, s.op)
+        if s.order_by:
+            plan = self._order_union(plan, s.order_by)
+        if s.limit is not None:
+            plan = NN.LimitNode(s.limit, plan, global_limit=True)
+        return plan
+
+    @staticmethod
+    def _align_setop(left, right, op):
+        """Spark's WidenSetOperationTypes: equal arity, and each column cast
+        to the arms' common type where they differ."""
+        from spark_rapids_tpu_torch.expr.arithmetic import promote
+        from spark_rapids_tpu_torch.expr.cast import Cast
+        lo, ro = left.output, right.output
+        if len(lo) != len(ro):
+            raise SqlAnalysisError(
+                f"{op.upper()} arms have {len(lo)} vs {len(ro)} columns")
+        targets = []
+        for lf, rf in zip(lo.fields, ro.fields):
+            if lf.data_type == rf.data_type:
+                targets.append(lf.data_type)
+                continue
+            try:
+                targets.append(promote(lf.data_type, rf.data_type))
+            except NotImplementedError as e:
+                raise SqlAnalysisError(
+                    f"{op.upper()} column {lf.name}: incompatible types "
+                    f"{lf.data_type} vs {rf.data_type}") from e
+
+        def cast_arm(plan, out):
+            if all(f.data_type == t for f, t in zip(out.fields, targets)):
+                return plan
+            proj = []
+            for i, (f, t) in enumerate(zip(out.fields, targets)):
+                r = E.BoundReference(i, f.data_type, f.nullable, f.name)
+                proj.append(E.Alias(r if f.data_type == t else Cast(r, t),
+                                    f.name))
+            return NN.ProjectNode(proj, plan)
+        return cast_arm(left, lo), cast_arm(right, ro)
+
+    @staticmethod
+    def _dedup(plan):
+        """DISTINCT as a group-by-all (Spark's
+        ReplaceDistinctWithAggregate)."""
+        keys = [E.BoundReference(i, f.data_type, f.nullable, f.name)
+                for i, f in enumerate(plan.output)]
+        return NN.AggregateNode(keys, [], plan)
+
+    @staticmethod
+    def _nullsafe_zero(dt):
+        if isinstance(dt, T.StringType):
+            return ""
+        if isinstance(dt, T.BooleanType):
+            return False
+        if isinstance(dt, T.DoubleType):
+            return 0.0
+        return 0
+
+    def _nullsafe_keys(self, left, right, extra=0):
+        """Join keys on every column with a set operation's NULL = NULL: a
+        column that is nullable in either arm joins on the pair (IS NULL,
+        coalesce(col, zero)), both never null, so the join's rule that a
+        null key never matches is not reached (the role of Spark's
+        ``<=>``). The last ``extra`` columns (a row number) join as they
+        are."""
+        from spark_rapids_tpu_torch.expr.nullexprs import Coalesce, IsNull
+        lkeys, rkeys = [], []
+        n = len(left.output) - extra
+        nullable = [lf.nullable or rf.nullable
+                    for lf, rf in zip(left.output.fields,
+                                      right.output.fields)]
+        for keys, out in ((lkeys, left.output), (rkeys, right.output)):
+            for i, f in enumerate(out.fields):
+                r = E.BoundReference(i, f.data_type, f.nullable, f.name)
+                if i >= n or not nullable[i]:
+                    keys.append(r)
+                    continue
+                keys.append(IsNull(r))
+                keys.append(Coalesce(r, E.Literal(
+                    self._nullsafe_zero(f.data_type), f.data_type)))
+        return lkeys, rkeys
+
+    @staticmethod
+    def _number_duplicates(plan):
+        """Append ``_n = row_number() over (partition by every column)``:
+        the k-th copy of a row gets k (equal rows are interchangeable, so
+        the order inside a partition does not matter)."""
+        from spark_rapids_tpu_torch.expr.windows import (
+            RowNumber, WindowExpression, WindowSpec)
+        refs = [E.BoundReference(i, f.data_type, f.nullable, f.name)
+                for i, f in enumerate(plan.output)]
+        spec = WindowSpec(tuple(refs), ((refs[0], True, True),))
+        return NN.WindowNode(
+            [E.Alias(WindowExpression(RowNumber(), spec), "_n")], plan)
+
+    def _setop_all(self, left, right, op):
+        ln = self._number_duplicates(left)
+        rn = self._number_duplicates(right)
+        lkeys, rkeys = self._nullsafe_keys(ln, rn, extra=1)
+        jt = "leftsemi" if op == "intersect" else "leftanti"
+        joined = NN.JoinNode(ln, rn, lkeys, rkeys, jt)
+        # drop the row number
+        proj = [E.Alias(E.BoundReference(i, f.data_type, f.nullable, f.name),
+                        f.name)
+                for i, f in enumerate(joined.output.fields[:-1])]
+        return NN.ProjectNode(proj, joined)
+
+    @staticmethod
+    def _order_union(plan, order_items):
+        """ORDER BY over a set operation: output names and ordinals."""
+        sort_exprs = []
+        for (ast, asc, nf) in order_items:
+            nulls_first = asc if nf is None else nf
+            if isinstance(ast, P.Lit) and isinstance(ast.value, int):
+                idx = ast.value - 1
+                if not (0 <= idx < len(plan.output)):
+                    raise SqlAnalysisError(
+                        f"ORDER BY position {ast.value} out of range")
+            elif isinstance(ast, P.Ident) and len(ast.parts) == 1:
+                idx = plan.output.index_of(ast.parts[-1])
+            else:
+                raise SqlAnalysisError(
+                    "ORDER BY over a set operation takes output names and "
+                    f"ordinals only (got {ast!r})")
+            f = plan.output[idx]
+            sort_exprs.append((E.BoundReference(idx, f.data_type, f.nullable,
+                                                f.name), asc, nulls_first))
+        return NN.SortNode(sort_exprs, plan)
 
     # -- FROM/join planning ---------------------------------------------------
     def _base_relation(self, item) -> _Relation:
@@ -521,7 +833,8 @@ class _Lowerer:
                     lkeys.append(eq[0])
                     rkeys.append(eq[1])
                 else:
-                    residual.append(_ExprConverter(combined).convert(conj))
+                    residual.append(
+                        _ExprConverter(combined, self).convert(conj))
         cond = None
         if residual:
             cond = residual[0]
@@ -567,6 +880,19 @@ class _Lowerer:
         conjuncts = [h for c in conjuncts
                      for h in _hoist_common_or_conjuncts(c)]
 
+        # [NOT] EXISTS conjuncts apply as semi/anti joins over the whole
+        # join graph (the correlation may name several outer relations)
+        exists_list, rest = [], []
+        for c in conjuncts:
+            if isinstance(c, P.ExistsAst):
+                exists_list.append((c.query, c.negated))
+            elif isinstance(c, P.UnOp) and c.op == "not" \
+                    and isinstance(c.operand, P.ExistsAst):
+                exists_list.append((c.operand.query, not c.operand.negated))
+            else:
+                rest.append(c)
+        conjuncts = rest
+
         # which relations does each conjunct touch? (by unique column name
         # or qualifier, on the AST, before any join order exists)
         def rel_ids_of(conj):
@@ -598,11 +924,28 @@ class _Lowerer:
             else:
                 leftover.append(conj)
 
-        # push single-relation filters down before joining
+        # push single-relation filters down before joining; `x IN
+        # (subquery)` becomes a LEFT SEMI join against the subquery's plan
+        # (Spark's RewritePredicateSubquery) rather than a literal set
+        # whose comparisons grow with the subquery's rows
         for ri, conjs in single.items():
             rel = rels[ri]
-            rel.plan = NN.FilterNode(_and_all(_ExprConverter(rel.scope),
-                                              conjs), rel.plan)
+            conv = _ExprConverter(rel.scope, self)
+            plain = [cj for cj in conjs if not self._is_in_subquery(cj)]
+            if plain:
+                rel.plan = NN.FilterNode(_and_all(conv, plain), rel.plan)
+            for cj in conjs:
+                if not self._is_in_subquery(cj):
+                    continue
+                sub = self.dataframe(cj.values)._plan
+                if len(sub.output) != 1:
+                    raise SqlAnalysisError(
+                        "IN (subquery) must return exactly one column")
+                f0 = sub.output[0]
+                rel.plan = NN.JoinNode(
+                    rel.plan, sub, [conv.convert(cj.expr)],
+                    [E.BoundReference(0, f0.data_type, f0.nullable,
+                                      f0.name)], "leftsemi")
 
         n = len(rels)
         if n == 1:
@@ -610,8 +953,10 @@ class _Lowerer:
             if leftover:
                 # an unresolvable conjunct must raise (a misspelt column),
                 # never drop the filter
-                plan = NN.FilterNode(_and_all(_ExprConverter(scope),
+                plan = NN.FilterNode(_and_all(_ExprConverter(scope, self),
                                               leftover), plan)
+            for sub_q, negated in exists_list:
+                plan = self._apply_exists(plan, scope, sub_q, negated)
             return plan, scope
         # greedy join: start from the relation with the most edges (the fact
         # table of a star query), attach connected relations first
@@ -653,18 +998,88 @@ class _Lowerer:
         # leftovers, filter above the joins
         leftover.extend(conj for (_, _, conj) in remaining_edges)
         if leftover:
-            plan = NN.FilterNode(_and_all(_ExprConverter(scope), leftover),
-                                 plan)
+            plan = NN.FilterNode(_and_all(_ExprConverter(scope, self),
+                                          leftover), plan)
+        for sub_q, negated in exists_list:
+            plan = self._apply_exists(plan, scope, sub_q, negated)
         return plan, scope
+
+    @staticmethod
+    def _is_in_subquery(cj) -> bool:
+        return (isinstance(cj, P.InAst) and not cj.negated
+                and isinstance(cj.values, (P.Select, P.SetOp)))
+
+    def _apply_exists(self, plan, scope, q2, negated: bool):
+        """[NOT] EXISTS (subquery) over the planned outer relation (Spark's
+        RewritePredicateSubquery; the reference runs the result as a
+        broadcast semi or anti join). The correlation must be equalities in
+        the subquery's WHERE between an outer and an inner column: they
+        become the join keys, and every other conjunct must resolve inside
+        the subquery. An uncorrelated EXISTS is folded now: the subquery
+        runs once, with LIMIT 1."""
+        if not isinstance(q2, P.Select) or q2.group_by or q2.having \
+                or q2.grouping_sets is not None or q2.ctes \
+                or q2.limit == 0 \
+                or any(self._ast_has_agg(it.expr) for it in q2.items
+                       if not isinstance(it.expr, P.Star)):
+            # an aggregate without GROUP BY yields one row whatever its
+            # input: the existence of its input rows is not what it asks
+            raise SqlAnalysisError(
+                "EXISTS subqueries support plain SELECT ... FROM ... WHERE "
+                "shapes (no GROUP BY/HAVING/CTE/aggregates/LIMIT 0)")
+        sub = self._sub()
+        # the scopes of the inner relations alone: the plan is built once,
+        # below, with the inner conjuncts as its WHERE
+        iscope = None
+        for item in q2.from_:
+            s2 = sub._base_relation(item).scope
+            iscope = s2 if iscope is None else iscope.concat(s2)
+        pairs, inner_only = [], []      # [(outer parts, inner parts)]
+        for cj in (_flatten_and(q2.where) if q2.where is not None else []):
+            if self._is_equi_ast(cj):
+                li, ri = cj.left.parts, cj.right.parts
+                l_in, r_in = len(iscope.find(li)), len(iscope.find(ri))
+                # a name in both scopes resolves inside (Spark's rule)
+                if l_in == 0 and r_in == 1 and len(scope.find(li)) == 1:
+                    pairs.append((li, ri))
+                    continue
+                if r_in == 0 and l_in == 1 and len(scope.find(ri)) == 1:
+                    pairs.append((ri, li))
+                    continue
+            if all(iscope.find(i.parts) for i in _ast_idents(cj)):
+                inner_only.append(cj)
+                continue
+            raise SqlAnalysisError(
+                "EXISTS: only equality correlation to the outer query "
+                f"is supported (got {cj!r})")
+        iplan, iscope = self._sub()._plan_from(
+            P.Select(q2.items, q2.from_,
+                     _and_of(inner_only) if inner_only else None))
+        lkeys = [scope.resolve(op) for op, _ in pairs]
+        rkeys = [iscope.resolve(ip) for _, ip in pairs]
+        if not lkeys:
+            n = self.eager.collect(NN.LimitNode(1, iplan, global_limit=True),
+                                   self.session).num_rows
+            if (n > 0) != negated:
+                return plan
+            return NN.FilterNode(E.Literal(False, T.BOOLEAN), plan)
+        return NN.JoinNode(plan, iplan, lkeys, rkeys,
+                           "leftanti" if negated else "leftsemi")
+
+    @staticmethod
+    def _ast_has_agg(a) -> bool:
+        """Whether an AST expression calls an aggregate (outside a window
+        and a subquery)."""
+        agg_names = set(_AGG_FUNCS) | set(_UNPORTED_AGGS) | {"count"}
+        return any(isinstance(x, P.FuncCall) and x.over is None
+                   and x.name in agg_names for x in _ast_nodes(a))
 
     # -- SELECT block ---------------------------------------------------------
     def _select(self, q: P.Select):
         if not q.from_:
             raise _not_ported("SELECT without FROM")
-        if q.rollup or q.grouping_sets is not None:
-            raise _not_ported("ROLLUP, CUBE and GROUPING SETS")
         plan, scope = self._plan_from(q)
-        conv = _ExprConverter(scope)
+        conv = _ExprConverter(scope, self)
 
         # expand stars, convert select items
         items = []       # (Expression, out_name)
@@ -691,11 +1106,17 @@ class _Lowerer:
             self._contains_agg(e) for e, _ in items) or (
             having_e is not None and self._contains_agg(having_e))
         if has_agg:
+            grouping = (q.grouping_sets if q.grouping_sets is not None
+                        else q.rollup)
             plan, sub = self._aggregate(plan, group_es, items, having_e,
-                                        order_items, conv)
+                                        grouping, order_items, conv)
             items = [(sub(e), nm) for e, nm in items]
             having_e = sub(having_e) if having_e is not None else None
         else:
+            if any(e.collect(lambda x: isinstance(x, _Grouping))
+                   for e, _ in items):
+                raise SqlAnalysisError("grouping() outside GROUP BY ROLLUP")
+
             def sub(e):
                 return e
 
@@ -710,8 +1131,7 @@ class _Lowerer:
         plan = NN.ProjectNode([E.Alias(e, nm) for e, nm in items], plan)
 
         if q.distinct:
-            plan = NN.AggregateNode([E.col(f.name) for f in plan.output], [],
-                                    plan)
+            plan = self._dedup(plan)
 
         if order_items:
             plan = self._order_by(plan, order_items, items, conv,
@@ -769,8 +1189,15 @@ class _Lowerer:
             except SqlAnalysisError:
                 # an expression over the projected output: carry it as a
                 # hidden column, sort, then drop it
-                out_conv = _ExprConverter(Scope.for_relation(plan, None))
+                out_conv = _ExprConverter(Scope.for_relation(plan, None),
+                                          self)
                 e = ("hidden", out_conv.convert(ast))
+                if e[1].collect(lambda x: isinstance(
+                        x, (_Grouping, AggregateFunction))):
+                    # Spark computes it below the projection; the
+                    # reference cannot either
+                    raise _not_ported("an ORDER BY aggregate or grouping() "
+                                      "outside the select list")
                 hidden.append(e[1])
             sort_exprs.append((e, asc, nulls_first))
         if not hidden:
@@ -855,8 +1282,12 @@ class _Lowerer:
             return True
         return any(_Lowerer._contains_agg(c) for c in e.children)
 
-    def _aggregate(self, plan, group_es, items, having_e, order_items, conv):
-        """Build the AggregateNode; return (plan, substitution fn)."""
+    # -- aggregation ----------------------------------------------------------
+    def _aggregate(self, plan, group_es, items, having_e, grouping,
+                   order_items, conv):
+        """Build the (Expand →) AggregateNode, or a DISTINCT rewrite of it;
+        return (plan, substitution fn). ``grouping`` is True for ROLLUP, a
+        list of grouping sets, or falsy."""
         # distinct aggregates of every post-aggregation expression
         aggs = []        # [(key, AggregateFunction)]
         seen = {}
@@ -882,16 +1313,38 @@ class _Lowerer:
             except SqlAnalysisError:
                 pass   # an alias or ordinal, resolved later
 
-        agg_node = NN.AggregateNode(
-            list(group_es), [E.Alias(a, f"_a{i}")
-                             for i, (_, a) in enumerate(aggs)], plan)
-        n_group = len(group_es)
+        gid_ref = None
+        if grouping:
+            sets = grouping if isinstance(grouping, list) else None
+            plan, group_refs, gid_ref = self._expand_rollup(plan, group_es,
+                                                            sets)
+            group_bound = group_refs + [gid_ref]
+        else:
+            group_bound = list(group_es)
+
+        if any(isinstance(a, _DistinctAgg) for _, a in aggs):
+            if self._fast_distinct_ok(aggs, grouping):
+                agg_node, n_group = self._rewrite_distinct(plan, group_bound,
+                                                           aggs)
+            else:
+                agg_node, n_group = self._rewrite_distinct_expand(
+                    plan, group_bound, aggs)
+        else:
+            agg_node = NN.AggregateNode(
+                group_bound, [E.Alias(a, f"_a{i}")
+                              for i, (_, a) in enumerate(aggs)], plan)
+            n_group = len(group_bound)
         out = agg_node.output
         group_keys = {expr_key(g): i for i, g in enumerate(group_es)}
 
         def sub(e):
             if e is None:
                 return None
+            if isinstance(e, _Grouping):
+                if gid_ref is None:
+                    raise SqlAnalysisError(
+                        "grouping() outside GROUP BY ROLLUP")
+                return self._grouping_bit(e, group_es, n_group, out)
             k = expr_key(e)
             if isinstance(e, AggregateFunction) and k in seen:
                 i = seen[k]
@@ -910,7 +1363,318 @@ class _Lowerer:
             return e
         return agg_node, sub
 
+    @staticmethod
+    def _grouping_bit(g: _Grouping, group_es, n_group, out_schema):
+        """grouping(col) → (gid >> bit) & 1 over the aggregate output's
+        grouping id, its last key (Spark's: the first GROUP BY column is the
+        most significant bit)."""
+        from spark_rapids_tpu_torch.expr.arithmetic import (BitwiseAnd,
+                                                           ShiftRight)
+        target = expr_key(g.children[0])
+        pos = next((i for i, ge in enumerate(group_es)
+                    if expr_key(ge) == target), None)
+        if pos is None:
+            raise SqlAnalysisError("grouping() argument must be a GROUP BY "
+                                   "column")
+        gid_idx = n_group - 1
+        f = out_schema[gid_idx]
+        gid = E.BoundReference(gid_idx, f.data_type, False, f.name)
+        bit = len(group_es) - 1 - pos
+        shifted = ShiftRight(gid, E.Literal(bit)) if bit else gid
+        return BitwiseAnd(shifted, E.Literal(1))
+
+    @staticmethod
+    def _expand_rollup(plan, group_es, sets=None):
+        """ROLLUP / CUBE / GROUPING SETS as Spark's Expand
+        (``plan/nodes.build_grouping_sets_expand``, which
+        ``DataFrame.rollup`` shares). ``sets`` lists the kept key indices of
+        each grouping set, or is None for ROLLUP."""
+        for g in group_es:
+            if not isinstance(g, (E.BoundReference, E.AttributeReference)):
+                raise SqlAnalysisError(
+                    "GROUP BY ROLLUP/CUBE/GROUPING SETS supports plain "
+                    "columns only")
+        if sets is None:
+            return NN.build_rollup_expand(plan, group_es)
+        return NN.build_grouping_sets_expand(plan, group_es, sets)
+
+    # -- DISTINCT aggregates --------------------------------------------------
+    @staticmethod
+    def _fast_distinct_ok(aggs, grouping) -> bool:
+        """Whether the two-aggregate rewrite (``_rewrite_distinct``) applies:
+        no grouping sets, ONE distinct argument, and every other aggregate
+        a min/max, or a count/sum/avg of that argument (not a decimal)."""
+        if grouping:
+            return False
+        xkeys = {expr_key(a.child) for _, a in aggs
+                 if isinstance(a, _DistinctAgg)}
+        if len(xkeys) != 1:
+            return False
+        xkey = next(iter(xkeys))
+        x = next(a.child for _, a in aggs if isinstance(a, _DistinctAgg))
+
+        def same_col(a):
+            return (isinstance(a, (Count, Sum, Average))
+                    and a.child is not None and expr_key(a.child) == xkey)
+        others = [a for _, a in aggs if not isinstance(a, _DistinctAgg)
+                  and not same_col(a)]
+        if not all(isinstance(a, (Min, Max)) for a in others):
+            return False
+        need_cnt = any(same_col(a) for _, a in aggs
+                       if not isinstance(a, _DistinctAgg))
+        return not (need_cnt and isinstance(x.dtype, T.DecimalType))
+
+    def _rewrite_distinct(self, plan, group_bound, aggs):
+        """Spark's RewriteDistinctAggregates for one distinct argument x:
+        the inner aggregate groups by (keys, x), which dedups x per group,
+        and the outer one re-reduces by the keys. The other aggregates:
+
+        - min/max of anything, re-reduced from the inner partials;
+        - count/sum/avg of x itself (TPC-DS q28's form): the inner also
+          counts cnt = count(x) per (keys, x), and the outer derives
+          count(x) = sum(cnt), sum(x) = sum(x*cnt) and
+          avg(x) = sum(x*cnt) / sum(cnt) (a double, summed in another order
+          than a plain avg)."""
+        from spark_rapids_tpu_torch.expr.arithmetic import Divide, Multiply
+        from spark_rapids_tpu_torch.expr.cast import Cast
+        from spark_rapids_tpu_torch.expr.nullexprs import Coalesce
+        xkey = next(expr_key(a.child) for _, a in aggs
+                    if isinstance(a, _DistinctAgg))
+        x = next(a.child for _, a in aggs if isinstance(a, _DistinctAgg))
+
+        def same_col(a):
+            return (isinstance(a, (Count, Sum, Average))
+                    and a.child is not None and expr_key(a.child) == xkey)
+
+        others = [(k, a) for k, a in aggs if not isinstance(a, _DistinctAgg)
+                  and not same_col(a)]
+        need_cnt = any(same_col(a) for _, a in aggs
+                       if not isinstance(a, _DistinctAgg))
+        inner_aggs = [E.Alias(a, f"_m{i}") for i, (_, a) in enumerate(others)]
+        if need_cnt:
+            inner_aggs.append(E.Alias(Count(x), "_cnt"))
+        inner = NN.AggregateNode(list(group_bound) + [x], inner_aggs, plan)
+        iout = inner.output
+        ng = len(group_bound)
+
+        def ref(j):
+            return E.BoundReference(j, iout.fields[j].data_type, True,
+                                    iout.fields[j].name)
+
+        x_ref = ref(ng)
+        other_pos = {k: ng + 1 + i for i, (k, _) in enumerate(others)}
+        cnt_ref = ref(ng + 1 + len(others)) if need_cnt else None
+        # the outer aggregates are plain functions (AggregateNode's
+        # contract); an avg takes two of them and a division, so a Project
+        # above maps each original aggregate to its value
+        outer_aggs = []       # Alias(AggregateFunction)
+        final = []            # per original aggregate: ordinal | ("div", i, j)
+        memo = {}             # expr key -> ordinal (avg and count share)
+
+        def add(agg_fn):
+            k = expr_key(agg_fn)
+            if k not in memo:
+                outer_aggs.append(E.Alias(agg_fn, f"_o{len(outer_aggs)}"))
+                memo[k] = len(outer_aggs) - 1
+            return memo[k]
+
+        for k, a in aggs:
+            if isinstance(a, _DistinctAgg):
+                final.append(add(a.make(x_ref)))
+            elif isinstance(a, (Min, Max)):
+                final.append(add(type(a)(ref(other_pos[k]))))
+            elif isinstance(a, Count):       # count(x) = sum(cnt)
+                final.append(add(Sum(cnt_ref)))
+            elif isinstance(a, Average):     # avg(x) = sum(x*cnt)/sum(cnt)
+                num = add(Sum(Multiply(Cast(x_ref, T.DOUBLE),
+                                       Cast(cnt_ref, T.DOUBLE))))
+                den = add(Sum(cnt_ref))
+                final.append(("div", num, den))
+            else:                            # sum(x) = sum(x*cnt)
+                st = Sum(x_ref).dtype
+                final.append(add(
+                    Sum(Multiply(Cast(x_ref, st), Cast(cnt_ref, st)))))
+        outer_groups = [E.BoundReference(i, f.data_type, f.nullable, f.name)
+                        for i, f in enumerate(iout.fields[:ng])]
+        agg_node = NN.AggregateNode(outer_groups, outer_aggs, inner)
+        aout = agg_node.output
+        proj = [E.BoundReference(i, f.data_type, f.nullable, f.name)
+                for i, f in enumerate(aout.fields[:ng])]
+        for i, spec in enumerate(final):
+            if isinstance(spec, tuple):
+                _, num, den = spec
+                e = Divide(
+                    E.BoundReference(ng + num, aout.fields[ng + num].data_type,
+                                     True, "n"),
+                    Cast(E.BoundReference(ng + den,
+                                          aout.fields[ng + den].data_type,
+                                          True, "d"), T.DOUBLE))
+            else:
+                j = ng + spec
+                e = E.BoundReference(j, aout.fields[j].data_type, True,
+                                     aout.fields[j].name)
+                if isinstance(aggs[i][1], Count):
+                    # count over no rows is 0, not the NULL of an empty sum
+                    e = Coalesce(e, E.Literal(0, T.LONG))
+            proj.append(E.Alias(e, f"_a{i}"))
+        return NN.ProjectNode(proj, agg_node), ng
+
+    def _rewrite_distinct_expand(self, plan, group_bound, aggs):
+        """Spark's RewriteDistinctAggregates in its general Expand form:
+        several distinct arguments, and any count/sum/avg/min/max beside
+        them. The Expand emits one projection per distinct argument, plus
+        one for the regular aggregates when there are any, told apart by a
+        branch id: the branch of argument x_i carries x_i and NULL for every
+        other distinct and regular input; the regular branch carries the
+        regular inputs and NULL x's. The inner aggregate groups by (keys,
+        branch id, x_1..x_m), which dedups each distinct argument per group
+        while the regular partials reduce (their inputs are NULL on the
+        distinct branches); the outer one groups by the keys, applies the
+        distinct functions to the deduped x's and merges the partials. With
+        ROLLUP, ``plan`` is already the rollup's Expand, its grouping id the
+        last of ``group_bound``."""
+        from spark_rapids_tpu_torch.expr.arithmetic import Divide
+        from spark_rapids_tpu_torch.expr.cast import Cast
+        from spark_rapids_tpu_torch.expr.nullexprs import Coalesce
+
+        # the distinct arguments, one branch each
+        dkeys, dexpr = [], {}
+        for _, a in aggs:
+            if isinstance(a, _DistinctAgg):
+                ck = expr_key(a.child)
+                if ck not in dexpr:
+                    dexpr[ck] = a.child
+                    dkeys.append(ck)
+        regulars = [(k, a) for k, a in aggs if not isinstance(a, _DistinctAgg)]
+        for _, a in regulars:
+            if not isinstance(a, (Min, Max, Count, Sum, Average)):
+                raise SqlAnalysisError(
+                    f"aggregate {a!r} cannot mix with DISTINCT aggregates")
+            if isinstance(a, (Sum, Average)) and a.child is not None \
+                    and isinstance(a.child.dtype, T.DecimalType):
+                raise SqlAnalysisError(
+                    "DECIMAL sum/avg mixed with DISTINCT aggregates "
+                    "not supported")
+        nk, m = len(group_bound), len(dkeys)
+        # one input column per regular aggregate (count(*) counts a live 1)
+        rcols = [E.Literal(1, T.INT) if a.child is None else a.child
+                 for _, a in regulars]
+
+        def null_of(e):
+            return E.Literal(None, e.dtype)
+
+        branches = ([("regular", None)] if regulars else []) \
+            + [("distinct", i) for i in range(m)]
+        projections = []
+        for kind, di in branches:
+            proj = list(group_bound)
+            proj.append(E.Literal(len(projections), T.INT))
+            for i, ck in enumerate(dkeys):
+                e = dexpr[ck]
+                proj.append(e if (kind == "distinct" and i == di)
+                            else null_of(e))
+            for rc in rcols:
+                proj.append(rc if kind == "regular" else null_of(rc))
+            projections.append(proj)
+        out_fields = (
+            [T.StructField(f"_k{i}", g.dtype, True)
+             for i, g in enumerate(group_bound)]
+            + [T.StructField("_bid", T.INT, False)]
+            + [T.StructField(f"_x{i}", dexpr[ck].dtype, True)
+               for i, ck in enumerate(dkeys)]
+            + [T.StructField(f"_rc{j}", rc.dtype, True)
+               for j, rc in enumerate(rcols)])
+        expand = NN.ExpandNode(projections, out_fields, plan)
+        eout = expand.output
+
+        def eref(j):
+            f = eout[j]
+            return E.BoundReference(j, f.data_type, f.nullable, f.name)
+
+        # inner: GROUP BY (keys, bid, x's); the regular partials
+        inner_groups = [eref(j) for j in range(nk + 1 + m)]
+        inner_aggs = []
+        partial = []     # per regular aggregate: its inner ordinals
+
+        def padd(fn):
+            inner_aggs.append(E.Alias(fn, f"_p{len(inner_aggs)}"))
+            return len(inner_aggs) - 1
+        rbase = nk + 1 + m
+        for j, (_, a) in enumerate(regulars):
+            rc_ref = eref(rbase + j)
+            if isinstance(a, (Min, Max)):
+                partial.append([padd(type(a)(rc_ref))])
+            elif isinstance(a, Count):
+                partial.append([padd(Count(rc_ref))])
+            elif isinstance(a, Sum):
+                partial.append([padd(Sum(rc_ref))])
+            else:                      # Average: sum and count partials
+                partial.append([padd(Sum(Cast(rc_ref, T.DOUBLE))),
+                                padd(Count(rc_ref))])
+        inner = NN.AggregateNode(inner_groups, inner_aggs, expand)
+        iout = inner.output
+
+        def iref(j):
+            f = iout[j]
+            return E.BoundReference(j, f.data_type, True, f.name)
+
+        outer_groups = [E.BoundReference(i, iout[i].data_type,
+                                         iout[i].nullable, iout[i].name)
+                        for i in range(nk)]
+        x_pos = {ck: nk + 1 + i for i, ck in enumerate(dkeys)}
+        pbase = nk + 1 + m
+        outer_aggs, final, memo = [], [], {}
+
+        def add(agg_fn):
+            k = expr_key(agg_fn)
+            if k not in memo:
+                outer_aggs.append(E.Alias(agg_fn, f"_o{len(outer_aggs)}"))
+                memo[k] = len(outer_aggs) - 1
+            return memo[k]
+
+        ri = iter(range(len(regulars)))
+        for _, a in aggs:
+            if isinstance(a, _DistinctAgg):
+                final.append(add(a.make(iref(x_pos[expr_key(a.child)]))))
+                continue
+            j = next(ri)
+            prefs = [iref(pbase + p) for p in partial[j]]
+            if isinstance(a, (Min, Max)):
+                final.append(add(type(a)(prefs[0])))
+            elif isinstance(a, Count):       # the partial counts' sum
+                final.append(("cnt", add(Sum(prefs[0]))))
+            elif isinstance(a, Sum):
+                final.append(add(Sum(prefs[0])))
+            else:                            # sum(sums) / sum(counts)
+                final.append(("div", add(Sum(prefs[0])),
+                              add(Sum(prefs[1]))))
+        agg_node = NN.AggregateNode(outer_groups, outer_aggs, inner)
+        aout = agg_node.output
+
+        def aref(j):
+            f = aout[j]
+            return E.BoundReference(j, f.data_type, True, f.name)
+
+        proj = [E.BoundReference(i, f.data_type, f.nullable, f.name)
+                for i, f in enumerate(aout.fields[:nk])]
+        for i, spec in enumerate(final):
+            a = aggs[i][1]
+            if isinstance(spec, tuple) and spec[0] == "div":
+                e = Divide(aref(nk + spec[1]),
+                           Cast(aref(nk + spec[2]), T.DOUBLE))
+            elif isinstance(spec, tuple):    # ("cnt", ordinal): no rows → 0
+                e = Coalesce(aref(nk + spec[1]), E.Literal(0, T.LONG))
+            else:
+                e = aref(nk + spec)
+            if e.dtype != a.dtype:           # back to Spark's result type
+                e = Cast(e, a.dtype)
+            proj.append(E.Alias(e, f"_a{i}"))
+        return NN.ProjectNode(proj, agg_node), nk
+
 
 def lower_sql(text: str, views: dict, session):
-    """Parse and lower ``text`` against ``views`` ({name: DataFrame})."""
-    return _Lowerer(session, views).lower(P.parse_sql(text))
+    """Parse and lower ``text`` against ``views`` ({name: DataFrame});
+    returns the plan and the physical plans of the subqueries that ran
+    while it was lowered."""
+    low = _Lowerer(session, views)
+    return low.lower(P.parse_sql(text)), list(low.eager.plans)

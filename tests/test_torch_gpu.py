@@ -44,9 +44,11 @@ for every ported type, with and without a condition, the CPU run's rows in
 order. Right and full outer hash joins on an int key, a string key and two
 keys, an inner join with a residual condition, and the keyless full outer
 join, over a three-file stream on the card: the CPU run's rows in order;
-``matched_build`` at 2^20 stream rows bit for bit the CPU's. The 27
-official TPC-DS SQL texts the port lowers, at SF 0.012 on the card: the CPU
-run's rows and the NumPy oracle's under ``check_rows``.
+``matched_build`` at 2^20 stream rows bit for bit the CPU's. The 40
+official TPC-DS SQL texts, at SF 0.012 on the card: the CPU run's rows and
+the NumPy oracle's under ``check_rows``. A ROLLUP Expand on the card bit
+for bit the CPU's batches; UNION ALL, INTERSECT, EXCEPT ALL and a ROLLUP
+over a union on the card the CPU run's rows (integer sums, exact).
 """
 
 import os
@@ -1398,7 +1400,7 @@ def _sql_ported():
 @pytest.mark.gpu
 @pytest.mark.parametrize("q", _sql_ported())
 def test_tpcds_sql_text_on_card(cuda_device, tpcds_paths, q):
-    """Each of the 27 official texts the port lowers, at SF 0.012 on the
+    """Each of the 40 official texts, at SF 0.012 on the
     card: the CPU run's rows and the NumPy oracle's under check_rows (keys,
     counts and decimals exact, float slots within 1e-9 relative)."""
     from spark_rapids_tpu_torch.benchmarks import tpcds
@@ -1415,3 +1417,86 @@ def test_tpcds_sql_text_on_card(cuda_device, tpcds_paths, q):
     assert exp
     tpcds.check_rows(card, cpu, float_cols)
     tpcds.check_rows(card, exp, float_cols)
+
+
+def _rollup_table(seed, n):
+    import pyarrow as pa
+    rng = np.random.default_rng(seed)
+    miss = rng.random(n) < 0.1
+    return pa.table({
+        "g": pa.array([None if m else f"g{v}" for v, m in
+                       zip(rng.integers(0, 4, n), miss)], pa.string()),
+        "h": pa.array(rng.integers(0, 5, n), pa.int64()),
+        "x": pa.array(rng.integers(0, 100, n), pa.int64()),
+    })
+
+
+def _write_parts(tmp_path, name, tables):
+    import pyarrow.parquet as pq
+    paths = []
+    for i, t in enumerate(tables):
+        p = str(tmp_path / f"{name}{i}.parquet")
+        pq.write_table(t, p)
+        paths.append(p)
+    return paths
+
+
+@pytest.mark.gpu
+def test_expand_exec_on_card_equals_cpu(cuda_device, tmp_path):
+    """A ROLLUP Expand (three projections, string and int keys with NULLs)
+    on the card: every batch's values, validity and dictionaries bit for
+    bit the CPU run's."""
+    from spark_rapids_tpu_torch.expr import core as E
+    from spark_rapids_tpu_torch.plan import nodes as NN
+    from spark_rapids_tpu_torch.plan.overrides import TorchOverrides
+    from spark_rapids_tpu_torch.session import TorchSession
+    paths = _write_parts(tmp_path, "t", [_rollup_table(1, 5000),
+                                         _rollup_table(2, 77)])
+
+    def run(spark):
+        plan = spark.read_parquet(paths)._plan
+        keys = [E.BoundReference(0, plan.output[0].data_type, True, "g"),
+                E.BoundReference(1, plan.output[1].data_type, True, "h")]
+        ex = TorchOverrides(spark.conf, spark.device).apply(
+            NN.build_rollup_expand(plan, keys)[0])
+        return [b for split in range(ex.num_partitions)
+                for b in ex.execute_partition(split)]
+    card, cpu = run(TorchSession()), run(TorchSession(device="cpu"))
+    assert len(card) == len(cpu) == 2
+    for bc, bh in zip(card, cpu):
+        assert bc.num_rows == bh.num_rows and bc.capacity == bh.capacity
+        for cc, ch in zip(bc.columns, bh.columns):
+            assert cc.data.is_cuda
+            assert torch.equal(cc.data.cpu(), ch.data)
+            assert torch.equal(cc.validity.cpu(), ch.validity)
+            assert (cc.dictionary is None) == (ch.dictionary is None)
+            if ch.dictionary is not None:
+                assert cc.dictionary.equals(ch.dictionary)
+
+
+@pytest.mark.gpu
+def test_union_and_set_operations_on_card_equal_cpu(cuda_device, tmp_path):
+    """UNION ALL of two tables (their string dictionaries differ), and the
+    set operations over them (INTERSECT, EXCEPT ALL) and a ROLLUP over the
+    union (PARTIAL → exchange → FINAL on the card): the CPU run's rows,
+    sorted (integer sums exact)."""
+    from spark_rapids_tpu_torch.session import TorchSession
+    a = _write_parts(tmp_path, "a", [_rollup_table(3, 3000),
+                                     _rollup_table(4, 900)])
+    b = _write_parts(tmp_path, "b", [_rollup_table(5, 2000)])
+    texts = [
+        "select g, h from a union all select g, h from b",
+        "select g, h from a intersect select g, h from b",
+        "select g, h from a except all select g, h from b",
+        "select g, h, sum(x) s, count(*) n from (select * from a union all "
+        "select * from b) u group by rollup(g, h)",
+    ]
+
+    def run(spark):
+        spark.create_or_replace_temp_view("a", spark.read_parquet(a))
+        spark.create_or_replace_temp_view("b", spark.read_parquet(b))
+        return [sorted(map(str, spark.sql(t).collect().to_pylist()))
+                for t in texts]
+    card, cpu = run(TorchSession()), run(TorchSession(device="cpu"))
+    for c, h in zip(card, cpu):
+        assert c == h and c

@@ -18,9 +18,11 @@ against the JAX package's ``TpuSession.sql()`` on the CPU:
   within rel 1e-9 (summed in another order);
 - each construct outside the slice raises ``NotImplementedError`` while
   the text is lowered, before anything runs; the constructs that have been
-  ported since (windows, CASE, IS NULL, division, negation) lower under the
-  same test names and equal the reference. Tolerance: exact, except
-  doubles within rel 1e-9;
+  ported since (windows, CASE, IS NULL, division, negation, ROLLUP, CUBE,
+  GROUPING SETS, the set operations, DISTINCT aggregates and the scalar,
+  IN and EXISTS subqueries) lower under the same test names, with an
+  ORDER BY where their rows have no order of their own, and equal the
+  reference. Tolerance: exact, except doubles within rel 1e-9;
 - a window over an aggregate sees only the groups HAVING keeps, and a
   window frame that starts FOLLOWING or ends PRECEDING the current row is
   refused: in both the reference's answer is shown beside the port's,
@@ -308,24 +310,30 @@ LOWERED_SINCE = {
                "order by id",
     "division": "select id, pay / 2 as h from emp order by id",
     "negation": "select id, -pay as n from emp order by id",
+    "rollup": "select dept, sum(pay) from emp group by rollup(dept) "
+              "order by dept",
+    "cube": "select dept, grade, sum(pay) from emp group by cube(dept, grade) "
+            "order by dept, grade",
+    "grouping sets": "select dept, sum(pay) from emp "
+                     "group by grouping sets ((dept), ()) order by dept",
+    "union": "select id from emp union all select dept_id from dept "
+             "order by id",
+    "intersect": "select dept from emp intersect select dept_id from dept "
+                 "order by dept",
+    "except": "select dept from emp except select dept_id from dept "
+              "where region = 1 order by dept",
+    "distinct sum": "select dept, sum(distinct pay) from emp group by dept "
+                    "order by dept",
+    "distinct count": "select count(distinct grade) from emp",
+    "scalar subquery": "select id from emp where pay > "
+                       "(select avg(pay) from emp) order by id",
+    "in subquery": "select id from emp where dept in "
+                   "(select dept_id from dept where region = 1) order by id",
+    "exists": "select id from emp where exists "
+              "(select 1 from dept where dept_id = dept) order by id",
 }
 
 UNPORTED = {
-    "rollup": "select dept, sum(pay) from emp group by rollup(dept)",
-    "cube": "select dept, grade, sum(pay) from emp group by cube(dept, grade)",
-    "grouping sets": "select dept, sum(pay) from emp "
-                     "group by grouping sets ((dept), ())",
-    "union": "select id from emp union all select dept_id from dept",
-    "intersect": "select dept from emp intersect select dept_id from dept",
-    "except": "select dept from emp except select dept_id from dept",
-    "distinct sum": "select dept, sum(distinct pay) from emp group by dept",
-    "distinct count": "select count(distinct grade) from emp",
-    "scalar subquery": "select id from emp where pay > "
-                       "(select avg(pay) from emp)",
-    "in subquery": "select id from emp where dept in "
-                   "(select dept_id from dept where region = 1)",
-    "exists": "select id from emp where exists "
-              "(select 1 from dept where dept_id = dept)",
     "like": "select id from emp where grade like 'a%'",
     "string function": "select upper(grade) from emp",
     "timestamp literal": "select timestamp '2020-03-01 12:30:00' from emp",
