@@ -147,6 +147,29 @@ It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
    rewrite (the two-aggregate form it takes, and the general Expand form
    forced), 4 runs each in turns, each equal to the oracle, their medians
    and peaks printed;
+   then the five read-write paths at ``--sf`` (``etl_paths``): etl-parquet
+   (lineitem and TPC-DS store_sales, read by the device decode and written
+   by the native parquet writer, SNAPPY; pyarrow reads both back equal to
+   the source; q1 over the written lineitem), etl-orc (the same through
+   the native ORC writer, SNAPPY; pyarrow.orc reads both back equal; the
+   port's ORC scan reads every written lineitem column back equal, the
+   integers, doubles and strings on the device and the date through
+   arrow; q1 through ``read_orc``), orc-foreign (lineitem written by
+   pyarrow's ORC writer, ZSTD with string dictionaries, which the ORC
+   decode refuses: q1 through the arrow reader), etl-csv (the native CSV
+   writer; pyarrow's CSV reader reads it back equal; the six numeric
+   columns through the device parse with
+   ``spark.rapids.tpu.sql.csv.read.float.enabled``, integers exact and
+   doubles within 1 ulp; q1 with the full schema, through the arrow
+   reader) and etl-hive (a parquet write partitioned by l_returnflag,
+   through the arrow writer, read back through hive discovery: q1 over
+   three partitions through a hash exchange). Each write runs once, traced
+   (wall, rows/s, bytes, files, the writer's routes, the source scan's
+   chunk decodes and routes, the device idle share); each path's counts
+   are set to 0 before its write and read after its counted q1 read-back
+   (equal to ``np_q1``, its scan pruned to q1's columns, the format's
+   routes equal to the prediction), with its peak device memory; then
+   ``Q1_REPS`` timed q1 read-backs;
 6. prints how many traces ``device_ms`` took and found short, one JSON
    line describing every ported kernel (``launches``, its launches summed
    over every path's counted run; each path's, the TPC-DS paths among
@@ -175,9 +198,11 @@ available, and on any failed phase.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -194,8 +219,9 @@ F32_OPS_PER_S = 67e12
 KERNEL_NAME = "chunk_decode_kernel"
 # timed runs of each q1 path: fewer than the other paths' --reps
 Q1_REPS = 2
-# timed runs of each official TPC-DS SQL text (the sql-ds paths)
-SQL_DS_REPS = 2
+# timed runs of each official TPC-DS SQL text (the sql-ds paths): 1 since
+# the read-write paths took the script past 1.3 times its earlier length
+SQL_DS_REPS = 1
 
 
 def card_line() -> str:
@@ -1038,6 +1064,398 @@ def profile_run(label: str, run, repo: str) -> None:
     for ln in buf.getvalue().splitlines():
         if "spark_rapids_tpu_torch" in ln or "ncalls" in ln:
             print("  " + ln.replace(repo + os.sep, ""))
+
+
+# the read-write paths: the port's writers and its ORC and CSV scans, on
+# TPC-H lineitem (and TPC-DS store_sales, for its decimal money columns)
+ETL_LABELS = ("etl-parquet", "etl-orc", "orc-foreign", "etl-csv", "etl-hive")
+ETL_KERNELS = {"etl-parquet": ("bitunpack128", "onehot_sum_f32"),
+               "etl-orc": ("bitunpack128", "onehot_sum_f32"),
+               "orc-foreign": ("onehot_sum_f32",),
+               "etl-csv": ("bitunpack128", "onehot_sum_f32"),
+               "etl-hive": ("bitunpack128", "onehot_sum_f32",
+                            "murmur3_words", "radix_ranks")}
+# the six numeric lineitem columns the etl-csv path parses on the device
+CSV_NUMERIC = ("l_orderkey", "l_suppkey", "l_quantity", "l_extendedprice",
+               "l_discount", "l_tax")
+
+
+def data_files(d: str, ext: str) -> list:
+    """The data files of a directory tree, sorted by path (as a scan lists
+    them), without the '_'/'.' entries."""
+    out = []
+    for dirpath, dirnames, files in os.walk(d):
+        dirnames[:] = sorted(x for x in dirnames
+                             if not x.startswith(("_", ".")))
+        out += [os.path.join(dirpath, f) for f in files
+                if f.endswith(ext) and not f.startswith(("_", "."))]
+    return sorted(out)
+
+
+def traced_write(run) -> tuple:
+    """One write under the tracer: (its result, wall seconds, device busy
+    seconds, the idle share as text; from a short trace only a bound)."""
+    got = []
+    census, device, wall = traced(lambda: got.append(run()))
+    why = trace_check(census)[3]
+    busy = sum(us for _name, us in device) / 1e6
+    share = (f"device idle share {1 - busy / wall:.4f}" if not why else
+             f"SHORT TRACE ({why}): device idle share at most "
+             f"{1 - busy / wall:.4f}")
+    return got[0], wall, busy, share
+
+
+def max_ulp(got, want) -> int:
+    """The largest distance in units in the last place between two float64
+    columns (nulls equal), or raises when their null layouts differ."""
+    g = got.combine_chunks() if hasattr(got, "combine_chunks") else got
+    w = want.combine_chunks() if hasattr(want, "combine_chunks") else want
+    gv, wv = g.is_valid().to_numpy(zero_copy_only=False), \
+        w.is_valid().to_numpy(zero_copy_only=False)
+    if not np.array_equal(gv, wv):
+        raise AssertionError("the CSV read's nulls differ from the source's")
+    a = g.fill_null(0.0).to_numpy(zero_copy_only=False)[gv].view(np.int64)
+    b = w.fill_null(0.0).to_numpy(zero_copy_only=False)[wv].view(np.int64)
+    return int(np.abs(a - b).max()) if a.size else 0
+
+
+def etl_paths(spark, dev, name, li_files, ss_files, exp_q1, root, counting,
+              agg_batches, scan_chunks, q1_reps, sf: float) -> tuple:
+    """The five read-write paths, each once with the counts reset just
+    before its write (``counting``) and read just after its counted q1
+    read-back, then ``q1_reps`` timed q1 read-backs. Returns each path's
+    (launch counts, peak device memory), and the lines it printed."""
+    import pyarrow as pa
+    import pyarrow.csv as pcsv
+    import pyarrow.orc as pa_orc     # the machine must have it: no skip
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    from spark_rapids_tpu_torch.io import csv_native as CN
+    from spark_rapids_tpu_torch.io import orc_native as ON
+    from spark_rapids_tpu_torch.io import parquet_native as PN
+    from spark_rapids_tpu_torch.io import writer as WR
+    from spark_rapids_tpu_torch.ops import cuda_kernels as CK
+    from spark_rapids_tpu_torch.session import TorchSession
+
+    t0 = time.perf_counter()
+    li_src = pa.concat_tables([pq.read_table(f) for f in li_files])
+    ss_src = pa.concat_tables([pq.read_table(f) for f in ss_files])
+    # one batch (one written file) per source row group: the scan's device
+    # decode yields one batch a row group
+    li_groups = [pq.ParquetFile(f).metadata.num_row_groups for f in li_files]
+    ss_groups = [pq.ParquetFile(f).metadata.num_row_groups for f in ss_files]
+    li_dir, ss_dir = (os.path.dirname(li_files[0]),
+                      os.path.dirname(ss_files[0]))
+    li_chunks, li_refused = scan_chunks(li_dir, li_src.column_names)
+    ss_chunks, ss_refused = scan_chunks(ss_dir, ss_src.column_names)
+    # the flags of each source row group: the partitioned write's files
+    flags = sum(len(pa.compute.unique(pq.ParquetFile(f).read_row_group(
+        g, columns=["l_returnflag"]).column(0)))
+        for f in li_files for g in range(pq.ParquetFile(f).metadata
+                                         .num_row_groups))
+    full = T.StructType.from_arrow(li_src.schema)
+    numeric = T.StructType([full[c] for c in CSV_NUMERIC])
+    csv_spark = TorchSession(
+        {**spark.conf.settings,
+         "spark.rapids.tpu.sql.csv.read.float.enabled": "true"},
+        device=spark.device)
+    print(f"etl sources: lineitem {li_src.num_rows} rows x "
+          f"{li_src.num_columns} columns in {len(li_files)} files "
+          f"({sum(li_groups)} row groups, {li_chunks} dictionary chunks), "
+          f"store_sales {ss_src.num_rows} rows x {ss_src.num_columns} "
+          f"columns in {len(ss_files)} files ({sum(ss_groups)} row groups, "
+          f"{ss_chunks} dictionary chunks) read in "
+          f"{time.perf_counter() - t0:.1f} s")
+    q1_cols = sorted(Q_TABLES["q1"]["lineitem"])
+    out_of = {k: os.path.join(root, k) for k in (
+        "lineitem_parquet", "store_sales_parquet", "lineitem_orc",
+        "store_sales_orc", "lineitem_orc_foreign", "lineitem_csv",
+        "lineitem_hive")}
+    results, lines = {}, []
+
+    def written(d, ext, read, src):
+        """pyarrow's read of every file of d, in order, equal to src."""
+        files = data_files(d, ext)
+        back = pa.concat_tables([read(f) for f in files])
+        if not back.equals(src):
+            raise AssertionError(f"{d}: pyarrow's read-back differs from "
+                                 f"the source ({back.schema} vs "
+                                 f"{src.schema})")
+        return files
+
+    def write(label, what, df_write, src_rows, files_want, routes_want,
+              chunks_want):
+        """One traced write, its routes and its scan's chunk decodes."""
+        launched = dict(CK.launches)
+        PN.reset_routes()
+        WR.reset_routes()
+        st, wall, busy, idle = traced_write(df_write)
+        routes = dict(WR.routes)
+        scan = dict(PN.routes)
+        decodes = CK.launches["bitunpack128"] - launched["bitunpack128"]
+        if (st.num_rows, st.num_files) != (src_rows, files_want) or \
+                routes != routes_want:
+            raise AssertionError(
+                f"{label} {what}: wrote {st.num_rows} rows in "
+                f"{st.num_files} files by {routes}, want {src_rows} rows in "
+                f"{files_want} files by {routes_want}")
+        n, refused = chunks_want
+        if decodes != n or scan != {"native_chunk": 0, "native_pages": n,
+                                    "arrow": refused, "python": 0}:
+            raise AssertionError(
+                f"{label} {what}: the source scan launched {decodes} chunk "
+                f"decodes with routes {scan}, want {n} and {refused} "
+                f"through arrow")
+        line = (f"{label} write {what} on {name}: wall {wall:.4f} s, "
+                f"{st.num_rows} rows, {st.num_rows / wall:.0f} rows/s, "
+                f"{st.num_bytes} B in {st.num_files} files; writer routes "
+                f"{routes}; source scan {decodes} chunk decodes, routes "
+                f"{scan}; {idle} (device activity {busy:.4f} s)")
+        print(line)
+        lines.append(line)
+        return st
+
+    def read_back(label, make_df, routes_of, routes_want):
+        """The counted q1 read-back: equal to np_q1, its scan pruned to
+        q1's columns, its format's routes as predicted."""
+        for mod in (PN, ON, CN):
+            mod.reset_routes()
+        launched = dict(CK.launches)
+        plan = tpch.q1({"lineitem": make_df()}).physical_plan()
+        t0 = time.perf_counter()
+        res = plan.execute_collect()
+        first = time.perf_counter() - t0
+        check_q1(res.to_pylist(), exp_q1)
+        routes = dict(routes_of.routes)
+        if routes != routes_want:
+            raise AssertionError(f"{label} q1 read-back: routes {routes}, "
+                                 f"want {routes_want}")
+        for _d, ex in scans(plan):
+            if sorted(ex.output.names) != q1_cols:
+                raise AssertionError(
+                    f"{label}: the read-back scan read {ex.output.names}, "
+                    f"q1 reads {q1_cols}")
+        own = {k: CK.launches[k] - launched[k] for k in CK.launches}
+        print(f"{label} q1 read-back first run: {first:.3f} s; routes "
+              f"{routes}; scan columns {q1_cols}; launches "
+              f"{ {k: v for k, v in own.items() if v} }")
+        return plan, own
+
+    def timed_q1(label, make_df):
+        ts = []
+        for _ in range(q1_reps):
+            t0 = time.perf_counter()
+            res = tpch.q1({"lineitem": make_df()}).collect()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+            check_q1(res.to_pylist(), exp_q1)
+        line = (f"{label} q1 read-back sf={sf:g} on {name}: median "
+                f"{statistics.median(ts):.4f} s, min {min(ts):.4f} s, max "
+                f"{max(ts):.4f} s over {len(ts)} runs: "
+                f"{[round(t, 4) for t in ts]}")
+        print(line)
+        lines.append(line)
+
+    def finish(label, own_q1, exchanges_of=None):
+        counts = dict(CK.launches)
+        peak = torch.cuda.max_memory_allocated(dev)
+        for k in ETL_KERNELS[label]:
+            if counts[k] <= 0:
+                raise AssertionError(f"kernel {k} never launched on the "
+                                     f"{label} path")
+        count_batches = [k for k in agg_batches if k]
+        if counts["onehot_sum_f32"] != len(count_batches):
+            raise AssertionError(
+                f"{label}: {len(count_batches)} aggregate batches with "
+                f"count-like requests, {counts['onehot_sum_f32']} count "
+                f"launches")
+        if exchanges_of is not None:
+            batches = sum(e.map_batches for e in exchanges(exchanges_of))
+            if (counts["murmur3_words"] != 2 * batches
+                    or counts["radix_ranks"] != batches):
+                raise AssertionError(
+                    f"{label}: {batches} partitioned batches but "
+                    f"murmur3_words launched {counts['murmur3_words']} and "
+                    f"radix_ranks {counts['radix_ranks']} times")
+        line = (f"{label} counted run (write and q1 read-back): launches "
+                f"{ {k: v for k, v in counts.items() if v} }; peak device "
+                f"memory {peak} B")
+        print(line)
+        lines.append(line)
+        results[label] = (counts, peak)
+
+    n_li = sum(li_groups)
+    native = {"native_files": n_li, "arrow_files": 0}
+
+    # etl-parquet: lineitem and store_sales through the native parquet
+    # writer (SNAPPY), read back by pyarrow; q1 over the written lineitem
+    with counting():
+        out = out_of["lineitem_parquet"]
+        write("etl-parquet", "lineitem parquet",
+              lambda: spark.read_parquet(li_files).write_parquet(
+                  out, mode="overwrite"),
+              li_src.num_rows, n_li, native, (li_chunks, li_refused))
+        written(out, ".parquet", pq.read_table, li_src)
+        out_ss = out_of["store_sales_parquet"]
+        write("etl-parquet", "store_sales parquet",
+              lambda: spark.read_parquet(ss_files).write_parquet(
+                  out_ss, mode="overwrite"),
+              ss_src.num_rows, sum(ss_groups),
+              {"native_files": sum(ss_groups), "arrow_files": 0},
+              (ss_chunks, ss_refused))
+        written(out_ss, ".parquet", pq.read_table, ss_src)
+        # the written files: the two flag columns dictionary-encoded (one
+        # chunk decode each a file), the five others PLAIN (arrow)
+        _plan, own = read_back(
+            "etl-parquet", lambda: spark.read_parquet(out), PN,
+            {"native_chunk": 0, "native_pages": 2 * n_li,
+             "arrow": 5 * n_li, "python": 0})
+        if own["bitunpack128"] != 2 * n_li:
+            raise AssertionError(f"etl-parquet: {own['bitunpack128']} chunk "
+                                 f"decodes in the read-back, want {2 * n_li}")
+        finish("etl-parquet", own)
+    timed_q1("etl-parquet", lambda: spark.read_parquet(out_of[
+        "lineitem_parquet"]))
+
+    # etl-orc: the same through the native ORC writer (SNAPPY), read back by
+    # pyarrow.orc and by the port's ORC scan; q1 over it
+    def orc_read(f):
+        return pa_orc.ORCFile(f).read()
+    with counting():
+        out = out_of["lineitem_orc"]
+        write("etl-orc", "lineitem orc",
+              lambda: spark.read_parquet(li_files).write_orc(
+                  out, mode="overwrite"),
+              li_src.num_rows, n_li, native, (li_chunks, li_refused))
+        written(out, ".orc", orc_read, li_src)
+        out_ss = out_of["store_sales_orc"]
+        write("etl-orc", "store_sales orc",
+              lambda: spark.read_parquet(ss_files).write_orc(
+                  out_ss, mode="overwrite"),
+              ss_src.num_rows, sum(ss_groups),
+              {"native_files": sum(ss_groups), "arrow_files": 0},
+              (ss_chunks, ss_refused))
+        written(out_ss, ".orc", orc_read, ss_src)
+        # the port's ORC scan of every column: the two int64, four double
+        # and two string columns on the device, l_shipdate (DATE) through
+        # arrow, one stripe a file
+        ON.reset_routes()
+        t0 = time.perf_counter()
+        back = spark.read_orc(out).collect()
+        whole_s = time.perf_counter() - t0
+        if not back.equals(li_src):
+            raise AssertionError("etl-orc: read_orc of the written lineitem "
+                                 "differs from the source")
+        if ON.routes != {"device_columns": 8 * n_li,
+                         "arrow_columns": n_li, "arrow_files": 0}:
+            raise AssertionError(f"etl-orc: whole read routes {ON.routes}")
+        line = (f"etl-orc read_orc of every column: {whole_s:.3f} s, equal "
+                f"to the source; routes {dict(ON.routes)}")
+        print(line)
+        lines.append(line)
+        del back
+        # q1 reads four doubles and two strings on the device, the date
+        # through arrow
+        _plan, own = read_back(
+            "etl-orc", lambda: spark.read_orc(out), ON,
+            {"device_columns": 6 * n_li, "arrow_columns": n_li,
+             "arrow_files": 0})
+        finish("etl-orc", own)
+    timed_q1("etl-orc", lambda: spark.read_orc(out_of["lineitem_orc"]))
+
+    # orc-foreign: lineitem written by pyarrow's ORC writer (ZSTD, string
+    # dictionaries, its default stripe size), one file per source file; the
+    # ORC decode refuses ZSTD, so every file goes through the arrow reader
+    out = out_of["lineitem_orc_foreign"]
+    if os.path.isdir(out):
+        shutil.rmtree(out)
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    for i, f in enumerate(li_files):
+        pa_orc.write_table(pq.read_table(f), os.path.join(
+            out, f"part-{i:04d}.orc"), compression="zstd",
+            dictionary_key_size_threshold=1.0)
+    foreign_s = time.perf_counter() - t0
+    fmeta = [pa_orc.ORCFile(f) for f in data_files(out, ".orc")]
+    line = (f"orc-foreign: pyarrow wrote {len(fmeta)} ZSTD files, "
+            f"{sum(m.nstripes for m in fmeta)} stripes, in {foreign_s:.2f} s "
+            f"(set-up, not the port)")
+    print(line)
+    lines.append(line)
+    written(out, ".orc", orc_read, li_src)
+    with counting():
+        _plan, own = read_back(
+            "orc-foreign", lambda: spark.read_orc(out), ON,
+            {"device_columns": 0, "arrow_columns": 0,
+             "arrow_files": len(li_files)})
+        finish("orc-foreign", own)
+    timed_q1("orc-foreign", lambda: spark.read_orc(
+        out_of["lineitem_orc_foreign"]))
+
+    # etl-csv: the native CSV writer; pyarrow's CSV reader reads it back
+    # equal; the six numeric columns through the device parse; q1 with the
+    # full schema (strings and a date: the arrow reader)
+    def csv_read(f):
+        return pcsv.read_csv(f, convert_options=pcsv.ConvertOptions(
+            column_types=li_src.schema))
+    with counting():
+        out = out_of["lineitem_csv"]
+        write("etl-csv", "lineitem csv",
+              lambda: spark.read_parquet(li_files).write_csv(
+                  out, mode="overwrite"),
+              li_src.num_rows, n_li, native, (li_chunks, li_refused))
+        written(out, ".csv", csv_read, li_src)
+        CN.reset_routes()
+        t0 = time.perf_counter()
+        back = csv_spark.read_csv(out, schema=numeric).collect()
+        num_s = time.perf_counter() - t0
+        if CN.routes != {"device_files": n_li, "arrow_files": 0}:
+            raise AssertionError(f"etl-csv: numeric read routes {CN.routes}")
+        ulps = {}
+        for c in CSV_NUMERIC:
+            if pa.types.is_floating(li_src.schema.field(c).type):
+                ulps[c] = max_ulp(back[c], li_src[c])
+                if ulps[c] > 1:
+                    raise AssertionError(f"etl-csv: {c} {ulps[c]} ulp from "
+                                         f"the source")
+            elif not back[c].equals(li_src[c]):
+                raise AssertionError(f"etl-csv: {c} differs from the source")
+        line = (f"etl-csv read_csv of the six numeric columns (device parse, "
+                f"{n_li} files): {num_s:.3f} s, {back.num_rows} rows; "
+                f"integers exact, doubles' largest distance in ulp {ulps}")
+        print(line)
+        lines.append(line)
+        del back
+        _plan, own = read_back(
+            "etl-csv", lambda: csv_spark.read_csv(out, schema=full), CN,
+            {"device_files": 0, "arrow_files": n_li})
+        finish("etl-csv", own)
+    timed_q1("etl-csv", lambda: csv_spark.read_csv(out_of["lineitem_csv"],
+                                                   schema=full))
+
+    # etl-hive: a partitioned parquet write (the arrow writer), read back
+    # through hive discovery: three partitions, PARTIAL -> exchange -> FINAL
+    with counting():
+        out = out_of["lineitem_hive"]
+        write("etl-hive", "lineitem parquet partitioned by l_returnflag",
+              lambda: spark.read_parquet(li_files).write_parquet(
+                  out, partition_by=["l_returnflag"], mode="overwrite"),
+              li_src.num_rows, flags,
+              {"native_files": 0, "arrow_files": flags},
+              (li_chunks, li_refused))
+        dirs = sorted(x for x in os.listdir(out) if not x.startswith("_"))
+        if dirs != ["l_returnflag=A", "l_returnflag=N", "l_returnflag=R"]:
+            raise AssertionError(f"etl-hive: directories {dirs}")
+        plan, own = read_back("etl-hive", lambda: spark.read_parquet(out),
+                              PN, {"native_chunk": 0, "native_pages": 0,
+                                   "arrow": 0, "python": 0})
+        finish("etl-hive", own, exchanges_of=plan)
+        line = f"etl-hive: directories {dirs}"
+        print(line)
+        lines.append(line)
+    timed_q1("etl-hive", lambda: spark.read_parquet(out_of["lineitem_hive"]))
+    return results, lines
 
 
 def main() -> int:
@@ -2326,6 +2744,30 @@ def main() -> int:
                       for f, ts in form_times.items())
           + f"; expand / two-aggregate "
             f"{med['expand'] / med['two-aggregate']:.3f}")
+
+    # -- 4d. the read-write paths: the writers, the ORC and CSV scans -------
+    @contextlib.contextmanager
+    def counting():
+        """The launch and route counts set to 0, and the count kernel's
+        batches recorded, for one path's counted run."""
+        torch.cuda.reset_peak_memory_stats(dev)
+        agg_batches.clear()
+        G.resolve_dense_group_sums = counting_resolve
+        CK.reset_launches()
+        PN.reset_routes()
+        try:
+            yield
+        finally:
+            G.resolve_dense_group_sums = resolve
+    etl_results, etl_lines = etl_paths(
+        spark, dev, name, li_files,
+        [os.path.join(ds_paths["store_sales"], f) for f in sorted(
+            os.listdir(ds_paths["store_sales"])) if f.endswith(".parquet")],
+        exp_q1, os.path.join(repo, "build", f"etl_sf{args.sf:g}"), counting,
+        agg_batches, scan_chunks, Q1_REPS, args.sf)
+    for label, (counts, peak) in etl_results.items():
+        counts_by_path[label] = counts
+        peak_by_path[label] = peak
 
     if args.profile:
         for label, make_df in all_paths.items():

@@ -162,6 +162,55 @@ ADVISORY_PARTITION_BYTES = conf(
     "Target size of a coalesced post-shuffle partition "
     "(Spark spark.sql.adaptive.advisoryPartitionSizeInBytes)").bytes_conf("64m")
 
+PARQUET_WRITER_TYPE = conf("spark.rapids.tpu.sql.format.parquet.writer.type").doc(
+    "NATIVE encodes Parquet pages from device columns (null compaction, "
+    "null count and min/max on the device, thrift framing on the host, "
+    "io/parquet_write_native.py); ARROW writes each batch through host "
+    "pyarrow. A partitioned write takes the arrow writer either way; a "
+    "native encoder's failure raises").string_conf("NATIVE")
+
+ORC_WRITER_TYPE = conf("spark.rapids.tpu.sql.format.orc.writer.type").doc(
+    "NATIVE encodes ORC stripes from device columns (the device prep of the "
+    "parquet writer, RLEv2/protobuf framing on the host, "
+    "io/orc_write_native.py); ARROW writes through host pyarrow. A "
+    "partitioned write takes the arrow writer either way").string_conf(
+    "NATIVE")
+
+CSV_WRITER_TYPE = conf("spark.rapids.tpu.sql.format.csv.writer.type").doc(
+    "NATIVE formats CSV text from one transfer per device column "
+    "(io/csv_write_native.py); ARROW writes through host pyarrow"
+).string_conf("NATIVE")
+
+CSV_ENABLED = conf("spark.rapids.tpu.sql.format.csv.enabled").doc(
+    "Plan CSV scans (reference spark.rapids.sql.format.csv.enabled). The "
+    "port has no host plan, so a CSV scan with this false raises "
+    "NotImplementedError when the plan is built").boolean_conf(True)
+
+ORC_ENABLED = conf("spark.rapids.tpu.sql.format.orc.enabled").doc(
+    "Plan ORC scans (reference spark.rapids.sql.format.orc.enabled). The "
+    "port has no host plan, so an ORC scan with this false raises "
+    "NotImplementedError when the plan is built").boolean_conf(True)
+
+ORC_DEVICE_DECODE = conf("spark.rapids.tpu.sql.orc.deviceDecode.enabled").doc(
+    "Decode in-scope ORC stripes on the device (protobuf and RLEv2 run "
+    "headers on the host, the packed bits unpacked on the device, "
+    "io/orc_native.py); out-of-scope files go through the arrow reader "
+    "whole, out-of-scope columns column by column. Taken on a CUDA device; "
+    "on the CPU only when the key is set explicitly").boolean_conf(True)
+
+CSV_DEVICE_DECODE = conf("spark.rapids.tpu.sql.csv.deviceDecode.enabled").doc(
+    "Parse in-scope CSV files on the device (a host boundary scan, the "
+    "digits turned into numbers on the device, io/csv_native.py); "
+    "out-of-scope files go through the arrow reader. Taken on a CUDA "
+    "device; on the CPU only when the key is set explicitly"
+).boolean_conf(True)
+
+CSV_READ_FLOATS = conf("spark.rapids.tpu.sql.csv.read.float.enabled").doc(
+    "Allow double CSV columns on the device parse; its last division by a "
+    "power of ten can differ from strtod by 1 ulp (reference "
+    "spark.rapids.sql.csv.read.float.enabled, same default)"
+).boolean_conf(False)
+
 STAGE_FUSION_ENABLED = conf("spark.rapids.tpu.sql.stageFusion.enabled").doc(
     "Whole-stage fusion switch. The port fuses no programs; of what the key "
     "governs it reads one thing: the sort-based group-by skips its sort "

@@ -3,25 +3,37 @@
 Counterpart of ``spark_rapids_tpu/io/filescan.py``. A directory is discovered
 into one partition per directory (``discover_partitions``, hive directories
 ``a=1/b=x/`` included; ``files_per_partition`` applies only to an explicit
-file list). A partition goes one of two ways:
+file list). A partition goes one of these ways:
 
-- the device decode (``io/parquet_native.read_row_group_device``), one batch
-  per row group: the native scanner reads each dictionary column chunk and
-  one ``chunk_decode`` launch decodes it on the card; a chunk out of the
-  decode's scope goes through arrow for that column;
+- parquet, the device decode (``io/parquet_native.read_row_group_device``),
+  one batch per row group: the native scanner reads each dictionary column
+  chunk and one ``chunk_decode`` launch decodes it on the card; a chunk out
+  of the decode's scope goes through arrow for that column;
+- ORC, the device decode (``io/orc_native.read_stripe_device``), one batch
+  per stripe: RLEv2 run headers on the host, the packed bits unpacked on
+  the device; a column out of its scope goes through arrow for that stripe;
+- CSV, the device parse (``io/csv_native``), one batch per file: the field
+  boundaries found on the host, the digits parsed on the device;
 - the arrow reader (``io/readers.py``, the PERFILE / MULTITHREADED /
   COALESCING strategies of ``spark.rapids.tpu.sql.format.parquet.reader.type``)
   wherever the reference takes it: the device decode turned off, a partition
-  with hive partition values (appended as constant columns), row groups above
-  the reader caps, or dates that footer statistics do not prove
-  post-cutover (the reader applies the configured DATE rebase).
+  with hive partition values (appended as constant columns), row groups or
+  stripes above the reader caps, parquet dates that footer statistics do not
+  prove post-cutover (the reader applies the configured DATE rebase), an ORC
+  file with a codec the ORC decode does not read, or a CSV file outside the
+  device parse's scope.
+
+The parquet device decode is taken on every device, the CPU included. The
+ORC and CSV device routes are taken on a CUDA device when their conf is on,
+and on the CPU only when their conf key is set explicitly (the reference's
+``decode_engaged``), so the CPU tests can run them. ``orc_native.routes``
+and ``csv_native.routes`` count the way each ORC column and CSV file took.
 
 The exec reads the columns of the node's schema only: column pruning
 (``plan/pruning.py``) narrows a copy of the node to the columns its plan
 uses, keeping every partition column, so an unread column is never parsed,
-uploaded or decoded. Pushed filters, the Alluxio path rewrite and the ORC
-and CSV formats are not ported and raise ``NotImplementedError`` when the
-plan is built.
+uploaded or decoded. Pushed filters and the Alluxio path rewrite are not
+ported and raise ``NotImplementedError`` when the plan is built.
 """
 
 from __future__ import annotations
@@ -50,7 +62,8 @@ class FilePartition:
 def discover_partitions(root: str, fmt: str) -> list[FilePartition]:
     """Walk a (possibly hive-partitioned) directory into per-directory
     partitions, skipping '_' and '.' entries like Spark's file index."""
-    exts = {"parquet": (".parquet", ".pq")}
+    exts = {"parquet": (".parquet", ".pq"), "orc": (".orc",),
+            "csv": (".csv",)}
     out = []
     for dirpath, dirnames, files in os.walk(root):
         # NB: os.walk must not be wrapped in sorted() — that would drain the
@@ -117,17 +130,21 @@ def _infer_partition_type(values: list) -> T.DataType:
 
 class FileScanNode(PlanNode):
     """Plan node for a file scan; the override rules turn it into
-    FileSourceScanExec. The schema is the files' columns, then one column
-    per hive partition key (INT, LONG or STRING, not nullable)."""
+    FileSourceScanExec. The schema is the files' columns (or the one given,
+    as a CSV scan's), then one column per hive partition key (INT, LONG or
+    STRING, not nullable). ``options`` are the reader's: a CSV scan's
+    header, delimiter and schema."""
 
     def __init__(self, paths_or_dir, fmt: str = "parquet",
                  schema: T.StructType | None = None,
-                 pushed_filter=None, files_per_partition: int = 1):
+                 pushed_filter=None, files_per_partition: int = 1,
+                 options: dict | None = None):
         super().__init__()
         if pushed_filter is not None:
             raise NotImplementedError("pushed scan filters are not ported yet")
         self.fmt = fmt
-        self.reader = R.reader_for(fmt)
+        self.options = dict(options or {})
+        self.reader = R.reader_for(fmt, **self.options)
         if isinstance(paths_or_dir, str) and os.path.isdir(paths_or_dir):
             parts = discover_partitions(paths_or_dir, fmt)
         else:
@@ -189,7 +206,7 @@ class FileScanNode(PlanNode):
         """The arrow tables of partition ``split`` by the named strategy,
         each with its partition columns appended."""
         reader = self.reader
-        if rebase_mode is not None and \
+        if rebase_mode is not None and self.fmt == "parquet" and \
                 reader.rebase_mode != rebase_mode.upper():
             # a fresh reader per divergent call: never mutate the shared one
             reader = R.reader_for(self.fmt, rebase_mode=rebase_mode)
@@ -212,9 +229,10 @@ class FileScanNode(PlanNode):
 
 
 class FileSourceScanExec(TorchExec):
-    """Leaf device exec: row-group-at-a-time device decode, or the arrow
-    reader where the device decode does not apply. ``stats`` counts the
-    batches each way took and names the arrow reader's strategy."""
+    """Leaf device exec: the device decode of its format (parquet row
+    groups, ORC stripes, CSV files), or the arrow reader where the device
+    decode does not apply. ``stats`` counts the batches each way took and
+    names the arrow reader's strategy."""
 
     def __init__(self, node: FileScanNode, conf=None, device=None):
         super().__init__(conf=conf, device=device)
@@ -271,6 +289,64 @@ class FileSourceScanExec(TorchExec):
                         path, rg, self.output, self.device, cols, pf=pf)
         return it()
 
+    def _orc_device_decode_batches(self, split, batch_rows: int,
+                                   batch_bytes: int):
+        """Stripe-at-a-time device ORC decode. Returns None (the arrow
+        reader) when the partition has partition values, a file that
+        ``orc_native.read_meta`` refuses, or a stripe above the reader
+        caps; columns out of scope go through arrow inside the stripe
+        read."""
+        from spark_rapids_tpu_torch.io import orc_native as ON
+        part = self.node.partitions[split]
+        if part.partition_values:
+            return None
+        metas = []
+        for path in part.paths:
+            try:
+                meta = ON.read_meta(path)
+            except (NotImplementedError, OSError, IndexError):
+                return None
+            if any(si.num_rows > batch_rows or si.data_length > batch_bytes
+                   for si in meta.stripes):
+                return None  # the arrow reader cuts oversized stripes
+            metas.append(meta)
+
+        def it():
+            import pyarrow.orc as orc
+            for path, meta in zip(part.paths, metas):
+                pf = orc.ORCFile(path)
+                for si in range(len(meta.stripes)):
+                    self._count("device_batches")
+                    yield ON.read_stripe_device(path, meta, si, self.output,
+                                                self.device, pf=pf)
+        return it()
+
+    def _csv_device_decode_batches(self, split):
+        """Whole-file device CSV parse. Every scope check runs first, in one
+        host pass per file: if any file is out of scope the partition takes
+        the arrow reader (None), so a committed device iterator finishes."""
+        from spark_rapids_tpu_torch.io import csv_native as CN
+        node = self.node
+        part = node.partitions[split]
+        if part.partition_values:
+            return None
+        allow_f = self.conf.get(CFG.CSV_READ_FLOATS)
+        rdr = node.reader
+        shapes = []
+        for path in part.paths:
+            shape = CN.try_scan_for_device(path, self.output, rdr.delimiter,
+                                           rdr.header, allow_f)
+            if shape is None:
+                return None
+            shapes.append(shape)
+
+        def it():
+            for shape in shapes:
+                CN.route("device_files")
+                self._count("device_batches")
+                yield CN.decode_shape_device(shape, self.output, self.device)
+        return it()
+
     def _arrow_batches(self, split, batch_rows: int):
         """The arrow reader path: the configured strategy's tables, each
         staged to the card as one batch."""
@@ -278,6 +354,12 @@ class FileSourceScanExec(TorchExec):
         conf = self.conf
         strategy = conf.get(CFG.PARQUET_READER_TYPE).upper()
         self.stats["strategy"] = strategy
+        fmt = self.node.fmt
+        if fmt != "parquet":
+            from spark_rapids_tpu_torch.io import csv_native as CN
+            from spark_rapids_tpu_torch.io import orc_native as ON
+            (CN if fmt == "csv" else ON).route(
+                "arrow_files", len(self.node.partitions[split].paths))
         for tbl in self.node.tables_for(
                 split, batch_rows, strategy,
                 conf.get(CFG.MULTITHREADED_READ_NUM_THREADS),
@@ -285,14 +367,30 @@ class FileSourceScanExec(TorchExec):
             self._count("arrow_batches")
             yield table_to_device(tbl, self.device, schema=self.output)
 
+    def _engaged(self, entry) -> bool:
+        """Whether a device route is taken (the reference's
+        ``decode_engaged``): an explicitly set key decides; otherwise the
+        conf's default, on a CUDA device only."""
+        if entry.key in self.conf.settings:
+            return self.conf.get(entry)
+        return self.conf.get(entry) and self.device.type == "cuda"
+
     def execute_partition(self, split):
         conf = self.conf
         batch_rows = min(conf.get(CFG.MAX_READER_BATCH_SIZE_ROWS), 1 << 20)
-        if conf.get(CFG.PARQUET_DEVICE_DECODE):
-            dev_it = self._device_decode_batches(
-                split, batch_rows, conf.get(CFG.MAX_READER_BATCH_SIZE_BYTES))
-            if dev_it is not None:
-                return dev_it
+        batch_bytes = conf.get(CFG.MAX_READER_BATCH_SIZE_BYTES)
+        fmt = self.node.fmt
+        dev_it = None
+        if fmt == "parquet" and conf.get(CFG.PARQUET_DEVICE_DECODE):
+            dev_it = self._device_decode_batches(split, batch_rows,
+                                                 batch_bytes)
+        elif fmt == "csv" and self._engaged(CFG.CSV_DEVICE_DECODE):
+            dev_it = self._csv_device_decode_batches(split)
+        elif fmt == "orc" and self._engaged(CFG.ORC_DEVICE_DECODE):
+            dev_it = self._orc_device_decode_batches(split, batch_rows,
+                                                     batch_bytes)
+        if dev_it is not None:
+            return dev_it
         return self._arrow_batches(split, batch_rows)
 
     def args_string(self):

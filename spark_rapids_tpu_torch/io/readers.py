@@ -1,12 +1,15 @@
 """Format readers with the reference's three strategies — counterpart of
 ``spark_rapids_tpu/io/readers.py``.
 
-The arrow reader path: a parquet file decodes on the host through Arrow C++
-into arrow tables, which reach the card as batches in one copy per column
-(``columnar/arrow.py``). The scan takes it for the partitions the device
-decode does not take (``io/filescan.py``): the device decode turned off,
-hive partition directories, row groups above the reader caps, and dates that
-footer statistics do not prove post-cutover. The strategies (reference
+The arrow reader path: a parquet, ORC or CSV file decodes on the host
+through Arrow C++ into arrow tables, which reach the card as batches in one
+copy per column (``columnar/arrow.py``). The scan takes it for the
+partitions the device decode does not take (``io/filescan.py``): the device
+decode turned off, hive partition directories, row groups or stripes above
+the reader caps, parquet dates that footer statistics do not prove
+post-cutover, and ORC or CSV files outside the device parse's scope. ORC is
+read a stripe at a time (reference GpuOrcPartitionReader:375), CSV a whole
+file at a time with the schema's types. The strategies (reference
 GpuParquetScan.scala): PERFILE (ParquetPartitionReader:1603, one file at a
 time), MULTITHREADED (MultiFileCloudParquetPartitionReader:1377, background
 threads decode files ahead of the consumer) and COALESCING
@@ -122,10 +125,88 @@ class ParquetReader:
         return pq.read_schema(path)
 
 
-def reader_for(fmt: str, rebase_mode: str = "EXCEPTION") -> ParquetReader:
-    if fmt != "parquet":
-        raise NotImplementedError(f"{fmt} scans are not ported yet")
-    return ParquetReader(rebase_mode=rebase_mode)
+class OrcReader:
+    """One ORC file → arrow tables, a stripe at a time, each cut to at most
+    ``batch_rows`` rows."""
+
+    format_name = "orc"
+
+    def read_file(self, path, columns, batch_rows):
+        import pyarrow.orc as orc
+        f = orc.ORCFile(path)
+        for stripe in range(f.nstripes):
+            tbl = f.read_stripe(stripe, columns=columns)
+            if isinstance(tbl, pa.RecordBatch):
+                tbl = pa.Table.from_batches([tbl])
+            for off in range(0, tbl.num_rows, batch_rows):
+                yield tbl.slice(off, batch_rows)
+
+    def schema_of(self, path):
+        import pyarrow.orc as orc
+        return orc.ORCFile(path).schema
+
+
+class CsvReader:
+    """One CSV file → arrow tables of at most ``batch_rows`` rows, parsed
+    whole by pyarrow with the schema's types. With a header, schema fields
+    are matched to the file's columns by name; without one, the schema
+    names the file's columns in order. Empty, ``null`` and ``NULL`` fields
+    are null."""
+
+    format_name = "csv"
+
+    def __init__(self, header: bool = True, delimiter: str = ",",
+                 schema=None, null_value: str = ""):
+        self.header = header
+        self.delimiter = delimiter
+        self.schema = schema
+        self.null_value = null_value
+
+    def _options(self):
+        import pyarrow.csv as pcsv
+        from spark_rapids_tpu_torch import types as T
+        read_opts = pcsv.ReadOptions(
+            autogenerate_column_names=not self.header,
+            column_names=(None if self.header or self.schema is None
+                          else [f.name for f in self.schema]))
+        parse_opts = pcsv.ParseOptions(delimiter=self.delimiter)
+        conv = {}
+        if self.schema is not None:
+            conv = {f.name: T.to_arrow_type(f.data_type) for f in self.schema}
+        convert_opts = pcsv.ConvertOptions(
+            column_types=conv, null_values=[self.null_value, "null", "NULL"],
+            strings_can_be_null=True)
+        return read_opts, parse_opts, convert_opts
+
+    def read_file(self, path, columns, batch_rows):
+        import pyarrow.csv as pcsv
+        ro, po, co = self._options()
+        tbl = pcsv.read_csv(path, read_options=ro, parse_options=po,
+                            convert_options=co)
+        if columns is not None:
+            tbl = tbl.select(columns)
+        for off in range(0, tbl.num_rows, batch_rows):
+            yield tbl.slice(off, batch_rows)
+
+    def schema_of(self, path):
+        import pyarrow.csv as pcsv
+        ro, po, co = self._options()
+        # the streaming reader: the schema of the first block, no full parse
+        with pcsv.open_csv(path, read_options=ro, parse_options=po,
+                           convert_options=co) as reader:
+            return reader.schema
+
+
+def reader_for(fmt: str, rebase_mode: str = "EXCEPTION", **kw):
+    """The reader of a format: ``rebase_mode`` applies to parquet, ``kw``
+    (header, delimiter, schema) to CSV."""
+    if fmt == "parquet":
+        return ParquetReader(rebase_mode=rebase_mode)
+    if fmt == "orc":
+        return OrcReader()
+    if fmt == "csv":
+        return CsvReader(**kw)
+    raise ValueError(f"unknown format {fmt}")
 
 
 # -- multi-file strategies ---------------------------------------------------

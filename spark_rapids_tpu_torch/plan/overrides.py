@@ -139,8 +139,12 @@ class TorchOverrides:
         return conv(plan, kids)
 
     def _scan(self, n, kids):
-        if n.fmt != "parquet":
-            raise NotImplementedError(f"{n.fmt} scans are not ported yet")
+        # the reference hands a scan its conf disables to the CPU plan; the
+        # port has none, so it refuses the plan
+        for fmt, entry in (("csv", CFG.CSV_ENABLED), ("orc", CFG.ORC_ENABLED)):
+            if n.fmt == fmt and not self.conf.get(entry):
+                raise NotImplementedError(
+                    f"{entry.key}=false: the port has no host {fmt} scan")
         if self.conf.get(CFG.ALLUXIO_PATHS_REPLACE):
             raise NotImplementedError(
                 f"{CFG.ALLUXIO_PATHS_REPLACE.key} (the Alluxio path rewrite) "

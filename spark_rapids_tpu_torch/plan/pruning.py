@@ -28,6 +28,12 @@ in ``TpuOverrides.apply``). A narrowed scan keeps every hive partition
 column, after the kept data columns, as the reference's does. The port has
 no cache node and no pushed scan filters, so the reference's barrier and the
 rule that keeps a filter's columns have nothing to act on here.
+
+Parquet and ORC scans narrow as the reference's do. A CSV scan with a header
+narrows too, where the reference keeps every field: its arrow reader and
+its device parse both match the narrowed schema's fields to the header by
+name, so the narrowed read returns the same columns, and the device parse
+reads only the kept fields. A CSV scan without a header keeps its schema.
 """
 
 from __future__ import annotations
@@ -227,6 +233,10 @@ def _prune_union(node: N.UnionNode, required: set | None):
 def _prune_scan(node: FileScanNode, required: set | None):
     fields = node.output.fields
     if required is None or len(required) >= len(fields):
+        return _identity(node)
+    if node.fmt == "csv" and not node.reader.header:
+        # without a header the schema names the file's columns in order, so
+        # a subset of it would misname them
         return _identity(node)
     n_data = len(fields) - node._n_partition_cols
     # partition-value columns are per-file constants appended after the data

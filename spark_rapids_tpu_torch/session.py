@@ -18,6 +18,13 @@ table. ``spark.rapids.tpu.*`` conf keys keep their names.
     spark.create_or_replace_temp_view("lineitem", df)
     out = spark.sql("select l_returnflag, sum(l_tax) as t from lineitem "
                     "where l_quantity <= 10 group by l_returnflag").collect()
+    df.write_orc("/data/lineitem_orc", mode="overwrite")
+    back = spark.read_orc("/data/lineitem_orc")
+
+``read_orc``/``read_csv`` scan ORC and CSV files as ``read_parquet`` scans
+parquet (``io/filescan.py``); ``write_parquet``/``write_orc``/``write_csv``
+run the frame's plan and write its batches through the commit protocol of
+``io/writer.py``.
 """
 
 from __future__ import annotations
@@ -161,6 +168,27 @@ class DataFrame:
     def collect(self) -> pa.Table:
         return self.physical_plan().execute_collect()
 
+    def write_parquet(self, path: str, partition_by=None, mode="error"):
+        """Write the frame as parquet files under ``path`` (SNAPPY; the
+        native writer, or the arrow writer for a partitioned write).
+        ``mode`` is error, overwrite, append or ignore. Returns the
+        ``WriteStats``."""
+        return self._write(path, "parquet", partition_by, mode)
+
+    def write_orc(self, path: str, partition_by=None, mode="error"):
+        """Write the frame as ORC files under ``path`` (SNAPPY), as
+        ``write_parquet``."""
+        return self._write(path, "orc", partition_by, mode)
+
+    def write_csv(self, path: str, mode="error"):
+        """Write the frame as CSV files with a header under ``path``."""
+        return self._write(path, "csv", None, mode)
+
+    def _write(self, path, fmt, partition_by, mode):
+        from spark_rapids_tpu_torch.io.writer import FileWriteNode
+        return FileWriteNode(self._plan, path, fmt, partition_by, mode).run(
+            self.session.conf, self.session.device)
+
 
 class GroupedData:
     def __init__(self, keys: list, df: DataFrame):
@@ -248,3 +276,21 @@ class TorchSession:
         return DataFrame(FileScanNode(path, "parquet",
                                       files_per_partition=files_per_partition),
                          self)
+
+    def read_orc(self, path, files_per_partition: int = 1) -> DataFrame:
+        from spark_rapids_tpu_torch.io.filescan import FileScanNode
+        return DataFrame(FileScanNode(path, "orc",
+                                      files_per_partition=files_per_partition),
+                         self)
+
+    def read_csv(self, path, schema=None, header: bool = True,
+                 delimiter: str = ",") -> DataFrame:
+        """A CSV scan. With ``schema`` (a ``StructType``) its fields are the
+        columns read, matched to the header by name (or naming the file's
+        columns in order when there is no header); without one, arrow infers
+        the types from the first file."""
+        from spark_rapids_tpu_torch.io.filescan import FileScanNode
+        return DataFrame(FileScanNode(
+            path, "csv", schema=schema,
+            options={"header": header, "delimiter": delimiter,
+                     "schema": schema}), self)

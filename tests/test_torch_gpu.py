@@ -48,7 +48,11 @@ join, over a three-file stream on the card: the CPU run's rows in order;
 official TPC-DS SQL texts, at SF 0.012 on the card: the CPU run's rows and
 the NumPy oracle's under ``check_rows``. A ROLLUP Expand on the card bit
 for bit the CPU's batches; UNION ALL, INTERSECT, EXCEPT ALL and a ROLLUP
-over a union on the card the CPU run's rows (integer sums, exact).
+over a union on the card the CPU run's rows (integer sums, exact). The
+ORC stripe decode and the CSV parse on the card: the CPU route's batches
+bit for bit (values, validity, dictionaries); each native writer's file
+from a card batch byte for byte its file from the same CPU batch; a write
+and its read-back through the session on the card: the source's rows.
 """
 
 import os
@@ -1500,3 +1504,162 @@ def test_union_and_set_operations_on_card_equal_cpu(cuda_device, tmp_path):
     card, cpu = run(TorchSession()), run(TorchSession(device="cpu"))
     for c, h in zip(card, cpu):
         assert c == h and c
+
+
+def _io_table(n: int, seed: int):
+    import pyarrow as pa
+    rng = np.random.default_rng(seed)
+    words = np.zeros((n, 2), np.int64)
+    words[:, 0] = rng.integers(-10**6, 10**6, n)
+    words[:, 1] = words[:, 0] >> 63
+    nulls = rng.random(n) < 0.1
+    return pa.table({
+        "b": pa.array(rng.random(n) < 0.5, mask=rng.random(n) < 0.1),
+        "i": pa.array(rng.integers(-2**31, 2**31, n).astype(np.int32),
+                      mask=rng.random(n) < 0.1),
+        "l": pa.array(rng.integers(-2**62, 2**62, n)),
+        # two decimals, as money: the CSV device parse reads them exactly
+        "d": pa.array(np.round(rng.normal(0, 1e4, n), 2),
+                      mask=rng.random(n) < 0.1),
+        "s": pa.array(rng.choice(["apple", "b,c", "zz", "ä€"], n),
+                      mask=rng.random(n) < 0.1),
+        "dt": pa.array(rng.integers(-5000, 30000, n).astype(np.int32),
+                       mask=rng.random(n) < 0.1).cast(pa.date32()),
+        "m": pa.Array.from_buffers(
+            pa.decimal128(7, 2), n,
+            [pa.py_buffer(np.packbits(~nulls, bitorder="little").tobytes()),
+             pa.py_buffer(words.tobytes())]),
+    })
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("codec", ["uncompressed", "zlib", "snappy"])
+def test_orc_device_decode_on_card_equals_cpu(cuda_device, tmp_path, codec):
+    """The ORC stripe decode (RLEv2 unpack, zigzag, null spread, both string
+    encodings) on the card: the CPU route's batches bit for bit."""
+    import pyarrow.orc as orc
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.io import orc_native as ON
+    t = _io_table(40_000, 1)
+    t = t.append_column("w", __import__("pyarrow").array(
+        np.random.default_rng(2).integers(-2**62, 2**62, t.num_rows)))
+    p = str(tmp_path / "t.orc")
+    orc.write_table(t, p, compression=codec, stripe_size=256 * 1024,
+                    dictionary_key_size_threshold=1.0 if codec == "zlib"
+                    else 0.0)
+    schema = T.StructType.from_arrow(t.schema)
+    meta = ON.read_meta(p)
+    assert len(meta.stripes) > 1
+    for si in range(len(meta.stripes)):
+        card = ON.read_stripe_device(p, meta, si, schema, cuda_device)
+        cpu = ON.read_stripe_device(p, meta, si, schema, "cpu")
+        for cc, ch in zip(card.columns, cpu.columns):
+            assert cc.data.is_cuda
+            assert torch.equal(cc.data.cpu(), ch.data)
+            assert torch.equal(cc.validity.cpu(), ch.validity)
+            if ch.dictionary is not None:
+                assert cc.dictionary.equals(ch.dictionary)
+
+
+@pytest.mark.gpu
+def test_csv_parse_on_card_equals_cpu(cuda_device, tmp_path):
+    """The CSV field parse (int32, int64, double) on the card: the CPU
+    route's values and validity bit for bit, malformed fields included."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.io import csv_native as CN
+    rng = np.random.default_rng(3)
+    n = 50_000
+    bad = np.array(["", "x1", "-", "1.2.3", "+5", "--1", "7."])
+    rows = ["a,b,c"]
+    for k in range(n):
+        a = str(rng.integers(-2**31, 2**31)) if rng.random() < 0.9 else \
+            rng.choice(bad)
+        b = str(rng.integers(-2**63, 2**63 - 1, dtype=np.int64))
+        c = f"{rng.uniform(-1e6, 1e6):.{int(rng.integers(0, 9))}f}" \
+            if rng.random() < 0.95 else rng.choice(bad)
+        rows.append(f"{a},{b},{c}")
+    p = tmp_path / "t.csv"
+    p.write_text("\n".join(rows) + "\n")
+    schema = T.StructType([T.StructField("a", T.INT),
+                           T.StructField("b", T.LONG),
+                           T.StructField("c", T.DOUBLE)])
+    shape = CN.try_scan_for_device(str(p), schema, ",", True, True)
+    assert shape is not None
+    card = CN.decode_shape_device(shape, schema, cuda_device)
+    cpu = CN.decode_shape_device(shape, schema, "cpu")
+    for cc, ch in zip(card.columns, cpu.columns):
+        assert cc.data.is_cuda
+        assert torch.equal(cc.validity.cpu(), ch.validity)
+        got, want = cc.data.cpu(), ch.data
+        if got.dtype == torch.float64:
+            got, want = got.view(torch.int64), want.view(torch.int64)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt,codec", [("parquet", "snappy"),
+                                       ("parquet", "gzip"), ("orc", "zlib"),
+                                       ("orc", "snappy"), ("csv", None)])
+def test_writer_prep_on_card_equals_cpu(cuda_device, tmp_path, fmt, codec):
+    """The writers' device prep (null compaction, null count, min/max, one
+    copy a column) on the card: each native writer's file from a card batch
+    is byte for byte its file from the same CPU batch."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.arrow import table_to_device
+    from spark_rapids_tpu_torch.io import csv_write_native as CW
+    from spark_rapids_tpu_torch.io import orc_write_native as OW
+    from spark_rapids_tpu_torch.io import parquet_write_native as PW
+    t = _io_table(30_000, 4)
+    schema = T.StructType.from_arrow(t.schema)
+    mod = {"parquet": PW, "orc": OW, "csv": CW}[fmt]
+    out = []
+    for dev in (cuda_device, "cpu"):
+        b = table_to_device(t, dev, schema=schema)
+        p = str(tmp_path / f"{dev}.{fmt}")
+        args = (p, b, schema) if codec is None else (p, b, schema, codec)
+        mod.write_batch_file(*args)
+        out.append(open(p, "rb").read())
+    assert out[0] == out[1]
+
+
+@pytest.mark.gpu
+def test_read_write_round_trip_on_card(cuda_device, tmp_path):
+    """A write through the session on the card and its read-back on every
+    route: the source's rows."""
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.io import csv_native as CN
+    from spark_rapids_tpu_torch.io import orc_native as ON
+    from spark_rapids_tpu_torch.session import TorchSession
+    t = _io_table(20_000, 5)
+    src = str(tmp_path / "src.parquet")
+    pq.write_table(t, src)
+    spark = TorchSession({"spark.rapids.tpu.sql.csv.read.float.enabled":
+                          "true"})
+    df = spark.read_parquet(src)
+    for fmt in ("parquet", "orc", "csv"):
+        out = str(tmp_path / fmt)
+        st = (df.write_csv(out) if fmt == "csv"
+              else getattr(df, f"write_{fmt}")(out))
+        assert st.num_rows == t.num_rows
+        ON.reset_routes()
+        CN.reset_routes()
+        if fmt == "parquet":
+            back = spark.read_parquet(out).collect()
+        elif fmt == "orc":
+            back = spark.read_orc(out).collect()
+            # DATE, DECIMAL and BOOLEAN columns through arrow
+            assert ON.routes == {"device_columns": 4, "arrow_columns": 3,
+                                 "arrow_files": 0}
+        else:
+            back = spark.read_csv(out, schema=T.StructType.from_arrow(
+                t.schema)).collect()
+            assert CN.routes == {"device_files": 0, "arrow_files": 1}
+        assert back.equals(t), fmt
+    # the numeric columns of the CSV file take the device parse
+    num = T.StructType([T.StructField("i", T.INT), T.StructField("l", T.LONG),
+                        T.StructField("d", T.DOUBLE)])
+    CN.reset_routes()
+    back = spark.read_csv(str(tmp_path / "csv"), schema=num).collect()
+    assert CN.routes == {"device_files": 1, "arrow_files": 0}
+    assert back.equals(t.select(["i", "l", "d"]))

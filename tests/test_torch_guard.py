@@ -197,8 +197,10 @@ def test_unported_plans_raise_at_planning(table_path):
     with pytest.raises(NotImplementedError):
         dec.window([E.Alias(WX.WindowExpression(Average(F.col("d")), spec),
                             "a")]).physical_plan()
-    # the arrow reader path is ported; what the scan still refuses is the
-    # pushed filter, the Alluxio path rewrite, and the ORC and CSV formats
+    # the arrow reader path and the ORC and CSV scans are ported; what the
+    # scan still refuses is the pushed filter, the Alluxio path rewrite, and
+    # an ORC or CSV scan its format's conf disables (the port has no host
+    # plan to hand it to)
     from spark_rapids_tpu_torch.io.filescan import FileScanNode
     with pytest.raises(NotImplementedError):
         FileScanNode(table_path, "parquet", pushed_filter=F.col("x") <= 1.0)
@@ -206,9 +208,21 @@ def test_unported_plans_raise_at_planning(table_path):
                             "/a->/b"}, device="cpu").read_parquet(table_path)
     with pytest.raises(NotImplementedError):
         alluxio.physical_plan()
-    for fmt in ("orc", "csv"):
-        with pytest.raises(NotImplementedError):
-            FileScanNode(table_path, fmt)
+    import pyarrow.csv as pcsv
+    import pyarrow.orc as orc
+    src = pq.read_table(table_path)
+    orc_path = os.path.join(os.path.dirname(table_path), "guard.orc")
+    csv_path = os.path.join(os.path.dirname(table_path), "guard.csv")
+    orc.write_table(src, orc_path)
+    pcsv.write_csv(src, csv_path)
+    for fmt, path in (("orc", orc_path), ("csv", csv_path)):
+        key = f"spark.rapids.tpu.sql.format.{fmt}.enabled"
+        on = TorchSession(device="cpu")
+        read = getattr(on, f"read_{fmt}")
+        assert read(path).collect().num_rows == src.num_rows
+        off = TorchSession({key: "false"}, device="cpu")
+        with pytest.raises(NotImplementedError, match=key):
+            getattr(off, f"read_{fmt}")(path).physical_plan()
 
 
 def test_filter_and_project_outside_an_aggregate(table_path):
