@@ -2,7 +2,7 @@
 
 Run from the root of a checkout:
 
-    python3 chip_smoke.py [--sf 1.0] [--tpcds-sf 1.0] [--reps 3]
+    python3 chip_smoke.py [--sf 1.0] [--tpcds-sf 1.0] [--reps 2]
                           [--profile] [--parent-tree DIR]
 
 It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
@@ -157,11 +157,13 @@ It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
    arrow; q1 through ``read_orc``), orc-foreign (lineitem written by
    pyarrow's ORC writer, ZSTD with string dictionaries, which the ORC
    decode refuses: q1 through the arrow reader), etl-csv (the native CSV
-   writer; pyarrow's CSV reader reads it back equal; the six numeric
+   writer over one lineitem file of four, to keep the script within its
+   time; pyarrow's CSV reader reads it back equal; the six numeric
    columns through the device parse with
    ``spark.rapids.tpu.sql.csv.read.float.enabled``, integers exact and
    doubles within 1 ulp; q1 with the full schema, through the arrow
-   reader) and etl-hive (a parquet write partitioned by l_returnflag,
+   reader, against np_q1 of that file) and etl-hive (a parquet write
+   partitioned by l_returnflag,
    through the arrow writer, read back through hive discovery: q1 over
    three partitions through a hash exchange). Each write runs once, traced
    (wall, rows/s, bytes, files, the writer's routes, the source scan's
@@ -170,6 +172,28 @@ It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
    (equal to ``np_q1``, its scan pruned to q1's columns, the format's
    routes equal to the prediction), with its peak device memory; then
    ``Q1_REPS`` timed q1 read-backs;
+   then sweep-sf1 (``sweep_path``): the typed ``qa`` table (strF, nameF,
+   byteF, shortF, intF, longF, floatF, doubleF, decimalF, booleanF, dateF,
+   timestampF; 10 % nulls from ``SWEEP_SEED`` in every column but longF)
+   built from the SF1 lineitem files, one row a lineitem row, written by
+   pyarrow as 4 files into build/, by the native parquet and ORC writers
+   (pyarrow reads each back equal to the source, column by column) and,
+   one file of four, by the native CSV writer (``read_csv`` with the typed
+   schema reads it back equal); then 20 statements over the pyarrow copy
+   through ``spark.sql`` and the DataFrame API (LIKE, ``||``, the string,
+   math and datetime functions, casts across the twelve types,
+   ``%``/``pmod``/``div``, stddev/variance, ``nullif``/``least``/
+   ``greatest``/``<=>``, ``pmod(hash(nameF, intF), 8)``, a 6.0M-row string
+   projection), each counted once (the chunk decode once per dictionary
+   chunk of its columns, none for a scan with a timestamp, which takes the
+   arrow reader; the count kernel once per aggregate batch;
+   ``murmur3_words`` once per batch of the hash statement), timed
+   ``SWEEP_REPS`` times and traced once, each result held against an
+   oracle over numpy and pyarrow.compute (a numpy Murmur3 for ``hash()``;
+   floats within the stated tolerance); then the chunk decode at value
+   widths 1, 2 and 4-float, ``murmur3_words`` and ``onehot_sums_f32`` on
+   the path's own inputs against their plain versions, timed beside their
+   bounds (``sweep_sf1`` in their kernels-line entries);
 6. prints how many traces ``device_ms`` took and found short, one JSON
    line describing every ported kernel (``launches``, its launches summed
    over every path's counted run; each path's, the TPC-DS paths among
@@ -200,6 +224,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import re
 import shutil
@@ -217,7 +242,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # the chunk decode kernel's symbol, as the profiler names its launches
 KERNEL_NAME = "chunk_decode_kernel"
-# timed runs of each q1 path: fewer than the other paths' --reps
+# timed runs of each q1 path, at most (``--reps`` may ask fewer)
 Q1_REPS = 2
 # timed runs of each official TPC-DS SQL text (the sql-ds paths): 1 since
 # the read-write paths took the script past 1.3 times its earlier length
@@ -1216,9 +1241,9 @@ def etl_paths(spark, dev, name, li_files, ss_files, exp_q1, root, counting,
         lines.append(line)
         return st
 
-    def read_back(label, make_df, routes_of, routes_want):
-        """The counted q1 read-back: equal to np_q1, its scan pruned to
-        q1's columns, its format's routes as predicted."""
+    def read_back(label, make_df, routes_of, routes_want, exp=exp_q1):
+        """The counted q1 read-back: equal to np_q1 (``exp``), its scan
+        pruned to q1's columns, its format's routes as predicted."""
         for mod in (PN, ON, CN):
             mod.reset_routes()
         launched = dict(CK.launches)
@@ -1226,7 +1251,7 @@ def etl_paths(spark, dev, name, li_files, ss_files, exp_q1, root, counting,
         t0 = time.perf_counter()
         res = plan.execute_collect()
         first = time.perf_counter() - t0
-        check_q1(res.to_pylist(), exp_q1)
+        check_q1(res.to_pylist(), exp)
         routes = dict(routes_of.routes)
         if routes != routes_want:
             raise AssertionError(f"{label} q1 read-back: routes {routes}, "
@@ -1242,14 +1267,14 @@ def etl_paths(spark, dev, name, li_files, ss_files, exp_q1, root, counting,
               f"{ {k: v for k, v in own.items() if v} }")
         return plan, own
 
-    def timed_q1(label, make_df):
+    def timed_q1(label, make_df, exp=exp_q1):
         ts = []
         for _ in range(q1_reps):
             t0 = time.perf_counter()
             res = tpch.q1({"lineitem": make_df()}).collect()
             torch.cuda.synchronize()
             ts.append(time.perf_counter() - t0)
-            check_q1(res.to_pylist(), exp_q1)
+            check_q1(res.to_pylist(), exp)
         line = (f"{label} q1 read-back sf={sf:g} on {name}: median "
                 f"{statistics.median(ts):.4f} s, min {min(ts):.4f} s, max "
                 f"{max(ts):.4f} s over {len(ts)} runs: "
@@ -1393,46 +1418,65 @@ def etl_paths(spark, dev, name, li_files, ss_files, exp_q1, root, counting,
     timed_q1("orc-foreign", lambda: spark.read_orc(
         out_of["lineitem_orc_foreign"]))
 
-    # etl-csv: the native CSV writer; pyarrow's CSV reader reads it back
+    # etl-csv: the native CSV writer over one lineitem file of four (to
+    # keep the script within its time: the write of all four took 32.5 s
+    # of host text formatting); pyarrow's CSV reader reads it back
     # equal; the six numeric columns through the device parse; q1 with the
-    # full schema (strings and a date: the arrow reader)
+    # full schema (strings and a date: the arrow reader) against np_q1 of
+    # that file
+    one_dir = os.path.join(root, "lineitem_one_file")
+    if os.path.isdir(one_dir):
+        shutil.rmtree(one_dir)
+    os.makedirs(one_dir)
+    one = os.path.join(one_dir, os.path.basename(li_files[0]))
+    try:
+        os.link(li_files[0], one)
+    except OSError:
+        shutil.copyfile(li_files[0], one)
+    one_src = pq.read_table(one)
+    n_one = li_groups[0]
+    one_chunks = scan_chunks(one_dir, one_src.column_names)
+    exp_q1_one = tpch.np_q1(tpch.load_np({"lineitem": one_dir}))
+
     def csv_read(f):
         return pcsv.read_csv(f, convert_options=pcsv.ConvertOptions(
             column_types=li_src.schema))
     with counting():
         out = out_of["lineitem_csv"]
-        write("etl-csv", "lineitem csv",
-              lambda: spark.read_parquet(li_files).write_csv(
+        write("etl-csv", "lineitem csv (one file of four)",
+              lambda: spark.read_parquet(one_dir).write_csv(
                   out, mode="overwrite"),
-              li_src.num_rows, n_li, native, (li_chunks, li_refused))
-        written(out, ".csv", csv_read, li_src)
+              one_src.num_rows, n_one,
+              {"native_files": n_one, "arrow_files": 0}, one_chunks)
+        written(out, ".csv", csv_read, one_src)
         CN.reset_routes()
         t0 = time.perf_counter()
         back = csv_spark.read_csv(out, schema=numeric).collect()
         num_s = time.perf_counter() - t0
-        if CN.routes != {"device_files": n_li, "arrow_files": 0}:
+        if CN.routes != {"device_files": n_one, "arrow_files": 0}:
             raise AssertionError(f"etl-csv: numeric read routes {CN.routes}")
         ulps = {}
         for c in CSV_NUMERIC:
-            if pa.types.is_floating(li_src.schema.field(c).type):
-                ulps[c] = max_ulp(back[c], li_src[c])
+            if pa.types.is_floating(one_src.schema.field(c).type):
+                ulps[c] = max_ulp(back[c], one_src[c])
                 if ulps[c] > 1:
                     raise AssertionError(f"etl-csv: {c} {ulps[c]} ulp from "
                                          f"the source")
-            elif not back[c].equals(li_src[c]):
+            elif not back[c].equals(one_src[c]):
                 raise AssertionError(f"etl-csv: {c} differs from the source")
         line = (f"etl-csv read_csv of the six numeric columns (device parse, "
-                f"{n_li} files): {num_s:.3f} s, {back.num_rows} rows; "
+                f"{n_one} files): {num_s:.3f} s, {back.num_rows} rows; "
                 f"integers exact, doubles' largest distance in ulp {ulps}")
         print(line)
         lines.append(line)
         del back
         _plan, own = read_back(
             "etl-csv", lambda: csv_spark.read_csv(out, schema=full), CN,
-            {"device_files": 0, "arrow_files": n_li})
+            {"device_files": 0, "arrow_files": n_one}, exp=exp_q1_one)
         finish("etl-csv", own)
     timed_q1("etl-csv", lambda: csv_spark.read_csv(out_of["lineitem_csv"],
-                                                   schema=full))
+                                                   schema=full),
+             exp=exp_q1_one)
 
     # etl-hive: a partitioned parquet write (the arrow writer), read back
     # through hive discovery: three partitions, PARTIAL -> exchange -> FINAL
@@ -1458,13 +1502,791 @@ def etl_paths(spark, dev, name, li_files, ss_files, exp_q1, root, counting,
     return results, lines
 
 
+QA_STRINGS = ["alpha", "Beta", "gamma", "", "déjà vu", "x" * 20]
+QA_NAMES = 150_000
+SWEEP_SEED = 15
+SWEEP_REPS = 2
+
+
+def _u32(x):
+    return np.asarray(x, np.uint64) & 0xFFFFFFFF
+
+
+def _mix_k1(k1):
+    k1 = _u32(k1 * 0xCC9E2D51)
+    k1 = _u32((k1 << 15) | (k1 >> 17))
+    return _u32(k1 * 0x1B873593)
+
+
+def _mix_h1(h1, k1):
+    h1 = _u32(h1 ^ k1)
+    h1 = _u32((h1 << 13) | (h1 >> 19))
+    return _u32(h1 * 5 + 0xE6546B64)
+
+
+def _fmix(h1, length):
+    h1 = _u32(h1 ^ np.uint64(length))
+    h1 = _u32(h1 ^ (h1 >> 16))
+    h1 = _u32(h1 * 0x85EBCA6B)
+    h1 = _u32(h1 ^ (h1 >> 13))
+    h1 = _u32(h1 * 0xC2B2AE35)
+    return _u32(h1 ^ (h1 >> 16))
+
+
+def np_murmur3_int(v, seed):
+    """Spark's ``Murmur3_x86_32.hashInt`` in numpy: (value int32, seed
+    uint32 array or int) → uint32."""
+    k1 = _mix_k1(_u32(np.asarray(v, np.int64)))
+    return _fmix(_mix_h1(_u32(np.asarray(seed, np.int64)), k1), 4)
+
+
+def np_murmur3_bytes(strings, seed: int):
+    """Spark's ``hashUnsafeBytes`` of each string's UTF-8 bytes in numpy:
+    the whole little-endian words, then each tail byte (signed) on its
+    own; strings of one byte length hash together."""
+    data = [s.encode("utf-8") for s in strings]
+    out = np.zeros(len(data), np.uint64)
+    by_len = {}
+    for i, b in enumerate(data):
+        by_len.setdefault(len(b), []).append(i)
+    for n, idx in by_len.items():
+        raw = np.frombuffer(b"".join(data[i] for i in idx), np.uint8)
+        raw = raw.reshape(len(idx), n) if n else raw.reshape(len(idx), 0)
+        h1 = np.full(len(idx), seed, np.uint64)
+        whole = n // 4
+        for w in range(whole):
+            word = (raw[:, 4 * w].astype(np.uint64)
+                    | raw[:, 4 * w + 1].astype(np.uint64) << 8
+                    | raw[:, 4 * w + 2].astype(np.uint64) << 16
+                    | raw[:, 4 * w + 3].astype(np.uint64) << 24)
+            h1 = _mix_h1(h1, _mix_k1(word))
+        for t in range(4 * whole, n):
+            sb = raw[:, t].astype(np.int8).astype(np.int64)
+            h1 = _mix_h1(h1, _mix_k1(_u32(sb)))
+        out[idx] = _fmix(h1, n)
+    return out
+
+
+def _signed32(u):
+    return np.asarray(u, np.uint64).astype(np.uint32).view(np.int32)
+
+
+def qa_source(li_files, seed: int = SWEEP_SEED):
+    """The sweep's ``qa`` table from the lineitem files, one row a lineitem
+    row, the typed columns of spark-rapids' qa_nightly tables: 10 % nulls
+    from ``numpy.random.default_rng(seed)`` in every column but longF.
+    Returns (the arrow table, its columns as numpy (values, valid))."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    li = pa.concat_tables([pq.read_table(f, columns=[
+        "l_orderkey", "l_suppkey", "l_quantity", "l_discount",
+        "l_extendedprice", "l_returnflag", "l_shipdate"]) for f in li_files])
+    n = li.num_rows
+    rng = np.random.default_rng(seed)
+    k = li.column("l_orderkey").to_numpy().astype(np.int64)
+    date = li.column("l_shipdate").cast(pa.int32()).to_numpy()
+    price = li.column("l_extendedprice").to_numpy()
+    cols = {
+        "strF": (k % 6).astype(np.int32),
+        "nameF": ((k * 2654435761) % QA_NAMES).astype(np.int32),
+        "byteF": li.column("l_quantity").to_numpy().astype(np.int8),
+        "shortF": ((k * 7919) % 65536 - 32768).astype(np.int16),
+        "intF": li.column("l_suppkey").to_numpy().astype(np.int32),
+        "longF": k,
+        "floatF": li.column("l_discount").to_numpy().astype(np.float32),
+        "doubleF": price,
+        "decimalF": np.round(price * 100).astype(np.int64),
+        "booleanF": (li.column("l_returnflag").to_numpy(
+            zero_copy_only=False) == "R"),
+        "dateF": date,
+        "timestampF": (date.astype(np.int64) * 86_400_000_000
+                       + ((k * 7919) % 86400) * 1_000_000),
+    }
+    valid = {c: (np.ones(n, bool) if c == "longF"
+                 else rng.random(n) >= 0.1) for c in cols}
+    names = pa.array([f"Customer#{i:09d}" for i in range(QA_NAMES)])
+
+    def arr(c):
+        v, m = cols[c], ~valid[c]
+        if c == "strF":
+            return pa.DictionaryArray.from_arrays(
+                pa.array(v, mask=m), pa.array(QA_STRINGS))
+        if c == "nameF":
+            return pa.DictionaryArray.from_arrays(pa.array(v, mask=m), names)
+        if c == "decimalF":
+            words = np.zeros((n, 2), np.int64)
+            words[:, 0] = v
+            bits = np.packbits(valid[c], bitorder="little")
+            return pa.Array.from_buffers(
+                pa.decimal128(12, 2), n,
+                [pa.py_buffer(bits.tobytes()), pa.py_buffer(words.tobytes())])
+        if c == "dateF":
+            return pa.array(v, mask=m).cast(pa.date32())
+        if c == "timestampF":
+            return pa.array(v, mask=m).cast(pa.timestamp("us", tz="UTC"))
+        return pa.array(v, mask=m)
+    t = pa.table({c: arr(c) for c in cols})
+    t = t.set_column(0, "strF", t.column("strF").cast(pa.string()))
+    t = t.set_column(1, "nameF", t.column("nameF").cast(pa.string()))
+    return t, {c: (cols[c], valid[c]) for c in cols}, names.to_pylist()
+
+
+def _rows_close(got, exp, rel: float, what: str):
+    """Rows (tuples) equal: floats within ``rel`` relative (NaN equal),
+    everything else exactly."""
+    if len(got) != len(exp):
+        raise AssertionError(f"{what}: {len(got)} rows, want {len(exp)}")
+    for g, e in zip(got, exp):
+        if len(g) != len(e):
+            raise AssertionError(f"{what}: row {g} vs {e}")
+        for a, b in zip(g, e):
+            if isinstance(b, float) and a is not None:
+                ok = (math.isnan(a) and math.isnan(b)) or (
+                    abs(a - b) <= rel * max(abs(b), 1e-300))
+            else:
+                ok = a == b
+            if not ok:
+                raise AssertionError(f"{what}: row {g} vs oracle {e}")
+
+
+def sweep_path(spark, dev, name, li_files, root, counting, agg_batches,
+               scan_chunks, reps: int) -> tuple:
+    """sweep-sf1: the qa table from SF1 lineitem (about 6.0M rows, twelve
+    typed columns) written by pyarrow's writer as four files and by the
+    port's native parquet, ORC and CSV writers (each read back equal), then
+    the sweep's statements over the pyarrow copy through ``spark.sql`` and
+    the DataFrame API, each held against a numpy/pyarrow oracle. Returns
+    each statement's (launch counts, peak device memory), the recorded
+    kernel calls for the kernels line, and the lines printed."""
+    import datetime as _dt
+    import decimal
+
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.orc as pa_orc
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.expr.arithmetic import IntegralDivide
+    from spark_rapids_tpu_torch.io import csv_native as CN
+    from spark_rapids_tpu_torch.io import parquet_native as PN
+    from spark_rapids_tpu_torch.io import writer as WR
+    from spark_rapids_tpu_torch.ops import cuda_kernels as CK
+
+    lines = []
+
+    def say(line):
+        print(line)
+        lines.append(line)
+    t0 = time.perf_counter()
+    src, npc, names = qa_source(li_files)
+    n = src.num_rows
+    qa_dir = os.path.join(root, "qa_pyarrow")
+    if os.path.isdir(qa_dir):
+        shutil.rmtree(qa_dir)
+    os.makedirs(qa_dir)
+    per = -(-n // 4)
+    for i in range(4):
+        pq.write_table(src.slice(i * per, per),
+                       os.path.join(qa_dir, f"part-{i}.parquet"))
+    groups = sum(pq.ParquetFile(f).metadata.num_row_groups
+                 for f in data_files(qa_dir, ".parquet"))
+    say(f"sweep-sf1 source: qa {n} rows x {src.num_columns} columns "
+        f"({', '.join(f'{f.name} {f.type}' for f in src.schema)}) from "
+        f"{len(li_files)} lineitem files, written by pyarrow as 4 files, "
+        f"{groups} row groups, in {time.perf_counter() - t0:.1f} s "
+        f"(set-up)")
+
+    # -- the port's three writers, each read back equal ----------------------
+    def same(back, want, what):
+        for c in want.column_names:
+            g, w = back.column(c), want.column(c)
+            if pa.types.is_timestamp(w.type):
+                us = pa.timestamp("us", tz="UTC")
+                g, w = g.cast(us), w.cast(us)
+            if not g.equals(w):
+                raise AssertionError(f"sweep-sf1 {what}: column {c} differs "
+                                     f"from the source")
+    for fmt in ("parquet", "orc"):
+        out = os.path.join(root, f"qa_{fmt}")
+        WR.reset_routes()
+        t0 = time.perf_counter()
+        st = getattr(spark.read_parquet(qa_dir), f"write_{fmt}")(
+            out, mode="overwrite")
+        wall = time.perf_counter() - t0
+        read = (pq.read_table if fmt == "parquet"
+                else lambda f: pa_orc.ORCFile(f).read())
+        back = pa.concat_tables([read(f) for f in data_files(out, "." + fmt)])
+        same(back, src, f"{fmt} write")
+        say(f"sweep-sf1 write {fmt} on {name}: wall {wall:.4f} s, "
+            f"{st.num_rows} rows in {st.num_files} files by "
+            f"{dict(WR.routes)}; pyarrow's read-back equal to the source, "
+            f"column by column")
+    csv_src = src.slice(0, per)
+    out = os.path.join(root, "qa_csv")
+    WR.reset_routes()
+    t0 = time.perf_counter()
+    st = spark.create_dataframe(csv_src).write_csv(out, mode="overwrite")
+    wall = time.perf_counter() - t0
+    CN.reset_routes()
+    t1 = time.perf_counter()
+    back = spark.read_csv(out, schema=T.StructType.from_arrow(
+        src.schema)).collect()
+    read_s = time.perf_counter() - t1
+    # CSV holds no difference between an empty string and a null one
+    strf = pc.if_else(pc.equal(csv_src.column("strF"), ""),
+                      pa.scalar(None, pa.string()), csv_src.column("strF"))
+    same(back, csv_src.set_column(0, "strF", strf), "csv write")
+    if CN.routes != {"device_files": 0, "arrow_files": st.num_files}:
+        raise AssertionError(f"sweep-sf1 csv read routes {CN.routes}")
+    say(f"sweep-sf1 write csv (one file of four) on {name}: wall "
+        f"{wall:.4f} s, {st.num_rows} rows in {st.num_files} files by "
+        f"{dict(WR.routes)}; read_csv with the typed schema {read_s:.3f} s, "
+        f"routes {dict(CN.routes)} (the timestamp sends the file to "
+        f"arrow), equal to the source")
+    del back
+
+    spark.create_or_replace_temp_view("qa", spark.read_parquet(qa_dir))
+
+    def qa():
+        return spark.read_parquet(qa_dir)
+
+    # -- the oracles: numpy and pyarrow.compute over the source -------------
+    def v(c):
+        return npc[c][0]
+
+    def ok(*cs):
+        m = np.ones(n, bool)
+        for c in cs:
+            m &= npc[c][1]
+        return m
+    name_arr = np.array(names, dtype=object)
+    str_arr = np.array(QA_STRINGS, dtype=object)
+    fs = lambda x: float(x)          # noqa: E731
+    key_s = lambda r: (r[0] is None, str(r[0]))   # noqa: E731
+
+    def like(pattern, values):
+        import re as _re
+        from spark_rapids_tpu_torch.ops.strings import like_to_regex
+        rx = _re.compile(like_to_regex(pattern))
+        return np.array([rx.match(s) is not None for s in values])
+
+    def o_like_both():
+        m = ok("nameF") & like("%er#0000%1%", names)[v("nameF")]
+        return [(int(m.sum()),)]
+
+    def o_like_prefix():
+        m = ok("nameF", "strF") & like("Customer#00001%", names)[v("nameF")] \
+            & ~np.array(["a" in s for s in QA_STRINGS])[v("strF")]
+        return [(int(m.sum()),)]
+
+    def by_str(fn):
+        rows = []
+        g = np.where(ok("strF"), v("strF"), 6)
+        for code in range(7):
+            rows.append(fn(None if code == 6 else QA_STRINGS[code], g == code))
+        return sorted(rows, key=key_s)
+
+    def o_strings():
+        def row(s, m):
+            if s is None:
+                return (None, int(m.sum()), None, None, None, None, None)
+            return (s, int(m.sum()), s.upper(), s.lower(),
+                    len(s) * int(m.sum()), s.strip(" ") + "!", s + "-" + s)
+        return by_str(row)
+
+    def o_dense():
+        def row(s, m):
+            mb, mi, md = m & ok("byteF"), m & ok("intF"), m & ok("doubleF")
+            return (s, int(m.sum()), int(mb.sum()),
+                    int(v("intF")[mi].astype(np.int64).sum()) if mi.any()
+                    else None,
+                    fs(v("doubleF")[md].mean()) if md.any() else None)
+        return by_str(row)
+
+    def o_moments():
+        def row(s, m):
+            out = [s]
+            for c in ("doubleF", "floatF", "shortF"):
+                x = v(c)[m & ok(c)].astype(np.float64)
+                out += [fs(x.std(ddof=1)), fs(x.var())]
+            return tuple(out)
+        return by_str(row)
+
+    def o_remainders():
+        def rsum(c, d, neg=False):
+            x = v(c)[ok(c)].astype(np.int64)
+            if neg:
+                x = (-v(c)[ok(c)]).astype(np.int64)   # wraps in its type
+            return int(np.fmod(x, d).sum())
+        return [(rsum("intF", 7), rsum("shortF", 13), rsum("byteF", 3),
+                 rsum("shortF", 5, neg=True))]
+
+    def o_pmod_div():
+        def pmod(x, d):
+            r = np.fmod(x, d)
+            return np.where(r < 0, np.fmod(r + d, d), r)
+        i = v("intF")[ok("intF")].astype(np.int64)
+        s = v("shortF")[ok("shortF")].astype(np.int64)
+        m = ok("shortF", "byteF")
+        q = np.trunc(v("shortF")[m].astype(np.float64)
+                     / v("byteF")[m]).astype(np.int64)
+        return [(int(pmod(i, -5).sum()), int(pmod(s, 7).sum()),
+                 int(q.sum()))]
+
+    def half_up_1(x):
+        # the prices print with two decimals (k / 100): HALF_UP to one is
+        # (k + 5) // 10 tenths, exactly, in integers
+        k = np.round(x * 100).astype(np.int64)
+        return np.floor_divide(k + 5, 10) / 10.0
+
+    def o_math():
+        d = v("doubleF")[ok("doubleF")]
+        f = v("floatF")[ok("floatF")]
+        return [(fs(half_up_1(d).sum()), fs(np.sqrt(d).sum()),
+                 int(np.floor(d).astype(np.int64).sum()),
+                 int(np.ceil(f * np.float32(100)).astype(np.int64).sum()))]
+
+    def o_math_df():
+        d = v("doubleF")[ok("doubleF")]
+        f = v("floatF")[ok("floatF")].astype(np.float64)
+        return [(fs(np.log10(d).sum()), fs((f * f).sum()),
+                 fs(np.round(d).sum()))]
+
+    def o_casts():
+        def s(c, conv=np.int64):
+            return v(c)[ok(c)].astype(conv)
+        day = np.floor_divide(v("timestampF")[ok("timestampF")],
+                              86_400_000_000).max()
+        big = (v("longF").astype(np.int64) & 0xFFFF).astype(
+            np.uint16).view(np.int16)
+        fl = v("floatF")[ok("floatF")]
+        return [(int(s("byteF").sum()), fs(s("shortF", np.float64).sum()),
+                 fs(s("floatF", np.float64).sum()),
+                 fs((s("decimalF") / 100.0).sum()), int(ok("dateF").sum()),
+                 _dt.date(1970, 1, 1) + _dt.timedelta(days=int(day)),
+                 max(str(x) for x in np.unique(s("intF"))),
+                 decimal.Decimal(int(np.round(
+                     s("doubleF", np.float64) * 100).astype(np.int64).sum())
+                 ).scaleb(-2),
+                 int(s("booleanF").sum()), int(big.astype(np.int64).sum()),
+                 fs(fl.min()),
+                 int(v("shortF")[ok("shortF")].astype(np.int8).max()), 0)]
+
+    def civil(days):
+        d = np.asarray(days).astype("datetime64[D]")
+        y = d.astype("datetime64[Y]").astype(np.int64) + 1970
+        mo = d.astype("datetime64[M]").astype(np.int64) % 12 + 1
+        dom = (d - d.astype("datetime64[M]")).astype(np.int64) + 1
+        return y, mo, dom
+
+    base_ts = (8049 * 86_400 + 6 * 3600) * 1_000_000   # 1992-01-15 06:00
+
+    def months_between(a_us, b_us):
+        da, db = a_us // 86_400_000_000, b_us // 86_400_000_000
+        ya, ma, dda = civil(da)
+        yb, mb, ddb = civil(db)
+        months = ((ya - yb) * 12 + (ma - mb)).astype(np.float64)
+
+        def mlen(y, m):
+            start = ((y - 1970) * 12 + m - 1).astype("datetime64[M]")
+            return ((start + 1).astype("datetime64[D]")
+                    - start.astype("datetime64[D]")).astype(np.int64)
+        same_ = (dda == ddb) | ((dda == mlen(ya, ma)) & (ddb == mlen(yb, mb)))
+        secs = ((dda - ddb) * 86_400 + (a_us - da * 86_400_000_000)
+                // 1_000_000 - (b_us - db * 86_400_000_000) // 1_000_000)
+        out = np.where(same_, months, months + secs / (31 * 86_400.0))
+        return np.floor(out * 1e8 + 0.5) / 1e8
+
+    def o_dates():
+        y, mo, dom = civil(v("dateF")[ok("dateF")])
+        ts = v("timestampF")[ok("timestampF")]
+        _, tmo, _ = civil(ts // 86_400_000_000)
+        hours = (ts % 86_400_000_000) // 3_600_000_000
+        return [(int(y.sum()), int(((tmo - 1) // 3 + 1).sum()),
+                 int(dom.sum()), int(hours.sum()),
+                 int((v("dateF")[ok("dateF")].astype(np.int64) - 8035).sum()),
+                 fs(months_between(ts, np.full(ts.shape, base_ts)).sum()))]
+
+    def o_date_format():
+        d = v("dateF")[ok("dateF")].astype("datetime64[D]")
+        ym, cnt = np.unique(d.astype("datetime64[M]"), return_counts=True)
+        rows = [(str(a), int(b)) for a, b in zip(ym, cnt)]
+        nulls = int((~ok("dateF")).sum())
+        return sorted(rows + [(None, nulls)], key=key_s)
+
+    def o_ts_filter():
+        m = ok("timestampF", "dateF") & (v("timestampF") < 9131 *
+                                         86_400_000_000) & (v("dateF") >= 8766)
+        return [(int(m.sum()),)]
+
+    def o_nullif():
+        b, s, i = v("byteF").astype(np.int64), v("shortF").astype(
+            np.int64), v("intF").astype(np.int64)
+        mb, ms, mi = ok("byteF"), ok("shortF"), ok("intF")
+        nb = mb & (b != 1)
+        lst = np.where(mb & ms, np.minimum(b, s), np.where(mb, b, s))
+        grt = np.where(mi & ms, np.maximum(i, s), np.where(mi, i, s))
+        return [(int(b[nb].sum()), int(lst[mb | ms].sum()),
+                 int(grt[mi | ms].sum()),
+                 int((ok("strF") & (v("strF") != 0)).sum()))]
+
+    def o_eq_null_safe():
+        mb, ms = ok("byteF"), ok("shortF")
+        eq = (mb & ms & (v("byteF").astype(np.int64) == v("shortF"))) | (
+            ~mb & ~ms)
+        return [(int(eq.sum()),)]
+
+    def o_hash():
+        h_names = np_murmur3_bytes(names, 42)
+        h = np.where(ok("nameF"), h_names[v("nameF")], np.uint64(42))
+        h = np.where(ok("intF"), np_murmur3_int(v("intF"), h), h)
+        b = np.mod(_signed32(h).astype(np.int64), 8)
+        keys, cnt = np.unique(b, return_counts=True)
+        return [(int(a), int(c)) for a, c in zip(keys, cnt)]
+
+    def o_project():
+        s = src.column("strF").combine_chunks()
+        nm = src.column("nameF").combine_chunks()
+        b = pc.cast(src.column("byteF").combine_chunks(), pa.string())
+        long_ = pc.greater_equal(pc.utf8_length(s), 8)
+        lp = pc.if_else(long_, pc.utf8_slice_codeunits(s, 0, 8),
+                        pc.utf8_lpad(s, 8, "*"))
+        return pa.table({
+            "u": pc.utf8_upper(nm), "p": lp,
+            "r": pc.replace_substring_regex(nm, "0+", "0"),
+            "w": pc.coalesce(pc.binary_join_element_wise(s, b, "-"),
+                             s, b, pa.scalar("", pa.string()))})
+
+    def o_mod_group():
+        m = ok("intF")
+        k = np.where(m, np.fmod(v("intF").astype(np.int64), 5), -99)
+        rows = []
+        for key in sorted(set(k.tolist())):
+            g = k == key
+            gb = g & ok("byteF")
+            rows.append((None if key == -99 else key, int(g.sum()),
+                         int(v("byteF")[gb].astype(np.int64).sum())))
+        return sorted(rows, key=key_s)
+
+    def o_in_columns():
+        b = v("byteF").astype(np.int64)
+        a1 = np.fmod(v("shortF").astype(np.int64), 50)
+        a2 = np.fmod(v("intF").astype(np.int64), 50)
+        hit = ok("byteF") & ((ok("shortF") & (b == a1))
+                             | (ok("intF") & (b == a2)))
+        return [(int(hit.sum()),)]
+
+    def o_unix():
+        d = v("dateF")[ok("dateF")].max()
+        ts = v("timestampF")[ok("timestampF")]
+        return [(str(np.datetime64(int(d), "D")),
+                 int((ts // 1_000_000).sum()))]
+
+    col = F.col
+    statements = [
+        ("like-both-ends", "sql", lambda: spark.sql(
+            "select count(*) c from qa where nameF like '%er#0000%1%'"),
+         o_like_both, 0.0),
+        ("like-prefix-not-like", "sql", lambda: spark.sql(
+            "select count(*) c from qa where nameF like 'Customer#00001%' "
+            "and strF not like '%a%'"), o_like_prefix, 0.0),
+        ("string-functions", "sql", lambda: spark.sql(
+            "select strF, count(*) n, max(upper(strF)) u, "
+            "min(lower(strF)) l, sum(length(strF)) len, "
+            "max(trim(strF) || '!') t, max(concat(strF, '-', strF)) c "
+            "from qa group by strF"), o_strings, 0.0),
+        ("dense-counts", "sql", lambda: spark.sql(
+            "select strF, count(*) n, count(byteF) nb, sum(intF) si, "
+            "avg(doubleF) ad from qa group by strF"), o_dense, 1e-9),
+        ("stddev-variance", "sql", lambda: spark.sql(
+            "select strF, stddev_samp(doubleF) sd, var_pop(doubleF) vd, "
+            "stddev_samp(floatF) sf, var_pop(floatF) vf, "
+            "stddev_samp(shortF) ss, var_pop(shortF) vs from qa "
+            "group by strF"), o_moments, 1e-6),
+        ("remainders", "sql", lambda: spark.sql(
+            "select sum(intF % 7) a, sum(shortF % 13) b, sum(byteF % 3) c, "
+            "sum(-shortF % 5) d from qa"), o_remainders, 0.0),
+        ("pmod-div", "df", lambda: qa().agg(
+            F.sum(F.pmod("intF", -5)).alias("a"),
+            F.sum(F.pmod("shortF", 7)).alias("b"),
+            F.sum(IntegralDivide(col("shortF"), col("byteF"))).alias("c")),
+         o_pmod_div, 0.0),
+        ("math-functions", "sql", lambda: spark.sql(
+            "select sum(round(doubleF, 1)) r, sum(sqrt(doubleF)) s, "
+            "sum(floor(doubleF)) f, sum(ceil(floatF * 100)) c from qa"),
+         o_math, 1e-9),
+        ("log-pow-bround", "df", lambda: qa().agg(
+            F.sum(F.log10("doubleF")).alias("l"),
+            F.sum(F.pow("floatF", 2.0)).alias("p"),
+            F.sum(F.bround("doubleF", 0)).alias("b")), o_math_df, 1e-9),
+        ("casts", "sql", lambda: spark.sql(
+            "select sum(cast(byteF as bigint)) a, "
+            "sum(cast(shortF as double)) b, sum(cast(floatF as double)) c, "
+            "sum(cast(decimalF as double)) d, "
+            "count(cast(dateF as timestamp)) e, "
+            "max(cast(timestampF as date)) f, max(cast(intF as string)) g, "
+            "sum(cast(doubleF as decimal(14,2))) h, "
+            "sum(cast(booleanF as int)) i, sum(cast(longF as smallint)) j, "
+            "min(cast(cast(floatF as string) as float)) k, "
+            "max(cast(shortF as tinyint)) l, count(cast(strF as int)) m "
+            "from qa"), o_casts, 1e-9),
+        ("date-parts", "df", lambda: qa().agg(
+            F.sum(F.year("dateF")).alias("y"),
+            F.sum(F.quarter("timestampF")).alias("q"),
+            F.sum(F.dayofmonth("dateF")).alias("d"),
+            F.sum(F.hour("timestampF")).alias("h"),
+            F.sum(F.datediff("dateF", F.lit(8035, T.DATE))).alias("dd"),
+            F.sum(F.months_between(
+                "timestampF", F.lit(base_ts, T.TIMESTAMP))).alias("mb")),
+         o_dates, 1e-9),
+        ("date-format", "df", lambda: qa().group_by(
+            F.date_format("dateF", "yyyy-MM").alias("ym")).agg(
+            F.count().alias("n")), o_date_format, 0.0),
+        ("timestamp-literal", "sql", lambda: spark.sql(
+            "select count(*) c from qa where timestampF < "
+            "timestamp '1995-01-01 00:00:00' and dateF >= date '1994-01-01'"),
+         o_ts_filter, 0.0),
+        ("nullif-least-greatest", "sql", lambda: spark.sql(
+            "select sum(nullif(byteF, 1)) a, sum(least(byteF, shortF)) b, "
+            "sum(greatest(intF, shortF)) c, count(nullif(strF, 'alpha')) d "
+            "from qa"), o_nullif, 0.0),
+        ("eq-null-safe", "df", lambda: qa().filter(
+            col("byteF").eqNullSafe(col("shortF"))).agg(
+            F.count().alias("n")), o_eq_null_safe, 0.0),
+        ("hash", "df", lambda: qa().select(
+            F.pmod(F.hash("nameF", "intF"), F.lit(8)).alias("b")).group_by(
+            "b").agg(F.count().alias("n")), o_hash, 0.0),
+        ("project-strings", "df", lambda: qa().select(
+            F.upper("nameF").alias("u"), F.lpad("strF", 8, "*").alias("p"),
+            F.regexp_replace("nameF", "0+", "0").alias("r"),
+            F.concat_ws("-", "strF", F.col("byteF").cast(T.STRING)).alias(
+                "w")), o_project, None),
+        ("remainder-group", "sql", lambda: spark.sql(
+            "select intF % 5 k, count(*) n, sum(byteF) s from qa "
+            "group by intF % 5"), o_mod_group, 0.0),
+        ("in-over-columns", "sql", lambda: spark.sql(
+            "select count(*) c from qa where byteF in (shortF % 50, "
+            "intF % 50)"), o_in_columns, 0.0),
+        ("unix-time", "df", lambda: qa().agg(
+            F.max(F.from_unixtime(F.unix_timestamp("dateF"),
+                                  "yyyy-MM-dd")).alias("m"),
+            F.sum(F.unix_timestamp("timestampF")).alias("s")),
+         o_unix, 0.0),
+    ]
+    oracles, oracle_s = {}, {}
+    t0 = time.perf_counter()
+    for label, _k, _make, oracle, _rel in statements:
+        t1 = time.perf_counter()
+        oracles[label] = oracle()
+        oracle_s[label] = time.perf_counter() - t1
+    slow = sorted(oracle_s.items(), key=lambda kv: -kv[1])[:3]
+    say(f"sweep-sf1 oracles (numpy and pyarrow.compute, outside every "
+        f"timed window): {time.perf_counter() - t0:.1f} s; the slowest "
+        f"{[(k, round(x, 1)) for k, x in slow]}")
+
+    def check(label, res):
+        exp = oracles[label]
+        rel = dict((s[0], s[4]) for s in statements)[label]
+        if rel is None:          # a whole table
+            if res.num_rows != exp.num_rows:
+                raise AssertionError(f"sweep-sf1 {label}: {res.num_rows} "
+                                     f"rows, want {exp.num_rows}")
+            for i, c in enumerate(exp.column_names):
+                if not res.column(i).combine_chunks().equals(
+                        exp.column(c).combine_chunks()):
+                    raise AssertionError(f"sweep-sf1 {label}: column {c} "
+                                         f"differs from the oracle")
+            return
+        got = [tuple(r.values()) for r in res.to_pylist()]
+        if len(exp) > 1:
+            got = sorted(got, key=key_s)
+        _rows_close(got, exp, rel, f"sweep-sf1 {label}")
+
+    results, calls = {}, {"chunk_decode": [], "murmur3_words": [],
+                          "onehot_sums_f32": []}
+    for label, kind, make, _o, _rel in statements:
+        full = f"sweep-sf1/{label}"
+        with counting():
+            t0 = time.perf_counter()
+            plan = make().physical_plan()
+            res = plan.execute_collect()
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+            counts = dict(CK.launches)
+            routes = dict(PN.routes)
+            peak = torch.cuda.max_memory_allocated(dev)
+            count_batches = [k for k in agg_batches if k]
+        check(label, res)
+        want, stats, cols = 0, [], []
+        for d, ex in scans(plan):
+            cs = ex.node._data_columns()
+            cols.append(cs)
+            stats.append(dict(ex.stats))
+            if any(isinstance(f.data_type, T.TimestampType)
+                   for f in ex.output):
+                if ex.stats["device_batches"] or not ex.stats["arrow_batches"]:
+                    raise AssertionError(f"{full}: a scan with a timestamp "
+                                         f"took {ex.stats}")
+            else:
+                if ex.stats["arrow_batches"] or not ex.stats["device_batches"]:
+                    raise AssertionError(f"{full}: the scan took {ex.stats}")
+                want += scan_chunks(d, cs)[0]
+        if counts["bitunpack128"] != want:
+            raise AssertionError(f"{full}: {counts['bitunpack128']} chunk "
+                                 f"decodes, the scans have {want} dictionary "
+                                 f"chunks")
+        if counts["onehot_sum_f32"] != len(count_batches):
+            raise AssertionError(f"{full}: {len(count_batches)} aggregate "
+                                 f"batches with count-like requests, "
+                                 f"{counts['onehot_sum_f32']} count launches")
+        if label == "hash":
+            batches = sum(s["device_batches"] for s in stats)
+            if counts["murmur3_words"] != batches or not batches:
+                raise AssertionError(f"{full}: murmur3_words launched "
+                                     f"{counts['murmur3_words']} times over "
+                                     f"{batches} batches")
+        if label in ("dense-counts", "stddev-variance", "date-format") and \
+                not counts["onehot_sum_f32"]:
+            raise AssertionError(f"{full}: no dense count launch")
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            r = make().collect()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+            check(label, r)
+        idle = sql_idle_share(lambda: make().collect())
+        results[full] = (counts, peak)
+        say(f"{full} ({kind}) on {name}: median {statistics.median(ts):.4f} "
+            f"s, min {min(ts):.4f} s, max {max(ts):.4f} s over {len(ts)} "
+            f"runs: {[round(x, 4) for x in ts]} (first {first:.3f} s); "
+            f"{res.num_rows} rows equal to the oracle; {idle}; peak device "
+            f"memory {peak} B; scan columns {cols}; scan batches {stats}; "
+            f"parquet routes {routes}; chunk decode launches "
+            f"{counts['bitunpack128']} (predicted {want}); launches "
+            f"{ {k: c for k, c in counts.items() if c} }")
+
+    # the kernels' inputs on this path, recorded from one more run of the
+    # statements that hand them: the chunk decode of the three narrow and
+    # float columns, the count kernel of the dense group-bys, the string
+    # hash of hash()
+    rec = {k: getattr(CK, k) for k in calls}
+
+    def recorder(k):
+        def record(*args_):
+            calls[k].append(clone_args(args_, {}))
+            return rec[k](*args_)
+        return record
+    for k in calls:
+        setattr(CK, k, recorder(k))
+    try:
+        qa().select("byteF", "shortF", "floatF").collect()
+        for label, _kind, make, _o, _rel in statements:
+            if label in ("dense-counts", "stddev-variance", "hash"):
+                make().collect()
+    finally:
+        for k in calls:
+            setattr(CK, k, rec[k])
+    torch.cuda.synchronize()
+    return results, calls, lines
+
+
+def decode_call_bound_ms(words, pages, defs, dictionary, n_rows, capacity,
+                         want, default) -> float:
+    """Least time for one recorded chunk decode call: read its words, its
+    page table, its def levels and its dictionary once, write the values
+    and the validity bytes once, over the card's memory rate."""
+    size = torch.empty((), dtype=want).element_size()
+    read = (words.numel() * 4
+            + (pages.numel() * 4 if isinstance(pages, torch.Tensor) else 32)
+            + (defs.numel() if defs is not None else 0)
+            + dictionary.numel() * size)
+    return (read + (size + 1) * capacity) / HBM_BYTES_PER_S * 1e3
+
+
+def sweep_kernel_times(calls, name, bincount_calls, bincount) -> dict:
+    """The three kernels on sweep-sf1's own inputs (the calls one more run
+    of its statements handed them): each held against its plain version,
+    then timed beside it, its bound and, where one exists, the one PyTorch
+    call computing the same function. The chunk decode per value width:
+    1 (tinyint), 2 (smallint) and 4-float (float)."""
+    from spark_rapids_tpu_torch.ops import cuda_kernels as CK
+
+    def each(fn, cs):
+        def run():
+            for a in cs:
+                fn(*a)
+        return run
+    out = {}
+    widths = {}
+    for dt, key in ((torch.int8, "1"), (torch.int16, "2"),
+                    (torch.float32, "4-float")):
+        cs = [a for a in calls["chunk_decode"] if a[6] == dt]
+        if not cs:
+            raise AssertionError(f"sweep-sf1: no chunk decode at width {key}")
+        for a in cs:
+            got, want = CK.chunk_decode(*a), CK.chunk_decode_plain(*a)
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                raise AssertionError(f"sweep-sf1: chunk_decode != plain at "
+                                     f"width {key}")
+        widths[key] = {
+            "calls": len(cs), "max_abs_err": 0,
+            "ms": device_ms(each(CK.chunk_decode, cs), 3, KERNEL_NAME),
+            "plain_ms": device_ms(each(CK.chunk_decode_plain, cs), 2),
+            "bound_ms": sum(decode_call_bound_ms(*a) for a in cs),
+            "bound_by": "bytes", "library_ms": None}
+        print(f"sweep-sf1 chunk_decode width {key} on {name}: {len(cs)} "
+              f"launches (one a chunk of the column); kernel "
+              f"{widths[key]['ms']:.4f} ms, plain "
+              f"{widths[key]['plain_ms']:.4f} ms, bound "
+              f"{widths[key]['bound_ms']:.6f} ms (bytes); equal to the plain "
+              f"version")
+    out["chunk_decode"] = {"err": 0, "value_widths": widths}
+    mm = calls["murmur3_words"]
+    err = max(murmur3_check(*a) for a in mm)
+    b, o = (sum(x) for x in zip(*(murmur3_bound_ms(w, ln)
+                                   for w, ln, _s in mm)))
+    out["murmur3_words"] = {
+        "err": err, "calls": len(mm),
+        "shapes": sorted({tuple(w.shape) for w, _l, _s in mm}),
+        "ms": device_ms(each(CK.murmur3_words, mm), 5,
+                        "murmur3_words_kernel"),
+        "plain_ms": device_ms(each(CK.murmur3_words_plain, mm), 3),
+        "bound_ms": max(b, o), "bound_by": "bytes" if b >= o
+        else "operations", "library_ms": None}
+    oh = calls["onehot_sums_f32"]
+    err = max(counts_check(*a) for a in oh)
+    b, o = (sum(x) for x in zip(*(counts_bound_ms(*a) for a in oh)))
+    out["onehot_sums_f32"] = {
+        "err": err, "calls": len(oh),
+        "shapes": sorted({(c.numel(), dom, len(r)) for c, r, dom in oh}),
+        "ms": device_ms(each(CK.onehot_sums_f32, oh), 5,
+                        "onehot_sums_kernel"),
+        "plain_ms": device_ms(each(CK.onehot_sums_f32_plain, oh), 3),
+        "bound_ms": max(b, o), "bound_by": "bytes" if b >= o
+        else "operations",
+        "library_ms": device_ms(each(bincount, bincount_calls(oh)), 5)}
+    for k in ("murmur3_words", "onehot_sums_f32"):
+        e = out[k]
+        print(f"sweep-sf1 {k} on {name}: {e['calls']} launches at "
+              f"{e['shapes']}; kernel {e['ms']:.4f} ms, plain "
+              f"{e['plain_ms']:.4f} ms, bound {e['bound_ms']:.6f} ms "
+              f"({e['bound_by']}), library "
+              f"{e['library_ms'] if e['library_ms'] is None else round(e['library_ms'], 4)}"
+              f" ms; equal to the plain version")
+    torch.cuda.synchronize()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=1.0,
                     help="TPC-H scale factor of the q1 run (default 1.0)")
-    ap.add_argument("--reps", type=int, default=3,
+    ap.add_argument("--reps", type=int, default=2,
                     help="timed runs of each path after the first (default "
-                         "3; at most Q1_REPS for the q1 paths)")
+                         "2; at most Q1_REPS for the q1 paths)")
     ap.add_argument("--tpcds-sf", type=float, default=1.0,
                     help="TPC-DS scale factor of the 22 TPC-DS paths "
                          "(default 1.0: 2.88M store_sales rows)")
@@ -2769,6 +3591,19 @@ def main() -> int:
         counts_by_path[label] = counts
         peak_by_path[label] = peak
 
+    # -- 4e. sweep-sf1: the expression slice's statements over qa -----------
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start, "
+          f"before sweep-sf1")
+    sweep_results, sweep_calls, _sweep_lines = sweep_path(
+        spark, dev, name, li_files, os.path.join(repo, "build",
+                                                 f"sweep_sf{args.sf:g}"),
+        counting, agg_batches, scan_chunks, SWEEP_REPS)
+    for label, (counts, peak) in sweep_results.items():
+        counts_by_path[label] = counts
+        peak_by_path[label] = peak
+    sweep_kernels = sweep_kernel_times(sweep_calls, name, bincount_calls,
+                                       bincount)
+
     if args.profile:
         for label, make_df in all_paths.items():
             profile_run(label, lambda: make_df().collect(), repo)
@@ -2813,8 +3648,10 @@ def main() -> int:
         # the fused chunk decode: times over every dictionary chunk of one
         # q1 scan; per_page_route_ms is every device op of the per-page
         # route it replaced, fused_route_ms the fused route's (copy + kernel)
-        dict(entry("bitunpack128", "chunkdecode.cu", 221, ("q1",), max_err,
+        dict(entry("bitunpack128", "chunkdecode.cu", 221, ("q1",),
+                   max(max_err, sweep_kernels["chunk_decode"]["err"]),
                    chunk_ms, chunk_plain_ms, chunk_bound, "bytes", None),
+             sweep_sf1=sweep_kernels["chunk_decode"],
              chunks=len(census), pages=census_pages,
              host_scan_native_s=native_s, host_scan_plain_s=plain_s,
              scan_routes_by_path=routes_by_path,
@@ -2826,14 +3663,18 @@ def main() -> int:
         # per-request chain (where, cast, call, cast) over this kernel's
         # one-request launch, not the replaced kernel; float_sums_ms the
         # same batches' stacked f64 float sums
-        dict(entry("onehot_sum_f32", "onehot.cu", 289, ("q1",), oh_err,
+        dict(entry("onehot_sum_f32", "onehot.cu", 289, ("q1",),
+                   max(oh_err, sweep_kernels["onehot_sums_f32"]["err"]),
                    oh_ms, oh_plain_ms, oh_bound_ms, oh_bound_by, oh_lib_ms),
+             sweep_sf1=sweep_kernels["onehot_sums_f32"],
              aggregate_batches=len(batches_by_path["q1"]),
              fused_route_ms=oh_route_ms,
              per_request_chain_new_kernel_ms=oh_chain_ms,
              per_request_bound_ms=oh_old_bound_ms, float_sums_ms=float_ms),
-        entry("murmur3_words", "murmur3.cu", 169, exchange_paths, mm_err,
-              mm_ms, mm_plain_ms, mm_bound_ms, mm_bound_by, None),
+        dict(entry("murmur3_words", "murmur3.cu", 169, exchange_paths,
+                   max(mm_err, sweep_kernels["murmur3_words"]["err"]),
+                   mm_ms, mm_plain_ms, mm_bound_ms, mm_bound_by, None),
+             sweep_sf1=sweep_kernels["murmur3_words"]),
         # timed off the main paths, on q5-sparse's hash build bucket ids;
         # no main path calls it (see above)
         dict(entry("radix_ranks", "radix.cu", 359, (), max(rx_err, rb_err),

@@ -72,6 +72,16 @@ def array_to_device(arr, dtype: T.DataType | None, capacity: int | None,
         vals = _decimal_unscaled_int64(arr)
     elif isinstance(dtype, T.DateType):
         vals = arr.cast(pa.int32()).fill_null(0).to_numpy(zero_copy_only=False)
+    elif isinstance(dtype, T.TimestampType):
+        # any source unit (s/ms/us/ns) to Spark's micros before the int64
+        # view (nanoseconds truncated, as Spark reads them); a naive
+        # timestamp is taken as UTC
+        us = pa.timestamp("us", tz=getattr(arr.type, "tz", None))
+        vals = arr.cast(us, safe=False).cast(pa.int64()).fill_null(
+            0).to_numpy(zero_copy_only=False)
+    elif isinstance(dtype, T.NullType):
+        vals = np.zeros(len(arr), dtype=np.int8)
+        validity = np.zeros(len(arr), dtype=bool)
     else:
         vals = arr.fill_null(dtype.default_value()).to_numpy(
             zero_copy_only=False).astype(T.to_numpy_dtype(dtype), copy=False)

@@ -141,8 +141,13 @@ class TorchColumnVector:
             return pa.Array.from_buffers(
                 T.to_arrow_type(self.dtype), num_rows,
                 [pa.py_buffer(mask.tobytes()), pa.py_buffer(words.tobytes())])
+        if isinstance(self.dtype, T.NullType):
+            return pa.nulls(num_rows)
         if isinstance(self.dtype, T.DateType):
             arr = pa.array(vals.astype("int32")).cast(pa.date32())
+        elif isinstance(self.dtype, T.TimestampType):
+            arr = pa.array(vals.astype("int64")).cast(
+                pa.timestamp("us", tz="UTC"))
         else:
             arr = pa.array(vals, type=T.to_arrow_type(self.dtype))
         if not valid.all():

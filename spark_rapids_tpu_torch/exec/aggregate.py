@@ -7,8 +7,10 @@ planner-hoisted prefilter/preproject (the whole-stage hoist of a child
 Filter/Project into the aggregation), over two group-by paths:
 
 - the dense small-domain path (``_agg_dense``): keys with statically known
-  domains (dictionary strings, booleans) and Sum/Count/Average reduce
-  straight into D per-group buckets (``ops/grouping.py``), the count-like
+  domains (dictionary strings, booleans) and Sum/Count/Average and the
+  central moments (stddev/variance: a count and two double sums each;
+  the reference takes them through the sort) reduce straight into D
+  per-group buckets (``ops/grouping.py``), the count-like
   ones of a batch through one launch of the count kernel
   (``onehot_sums_f32``; one ``onehot_sum_f32`` call each on a TPU);
 - the sort-based segment path (the rest of ``_agg_kernel``): compact the
@@ -50,7 +52,8 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.vector import bucket_capacity
 from spark_rapids_tpu_torch.exec.base import TorchExec
-from spark_rapids_tpu_torch.expr.aggregates import Average, Count, Sum
+from spark_rapids_tpu_torch.expr.aggregates import (Average, CentralMoment,
+                                                     Count, Sum)
 from spark_rapids_tpu_torch.expr.core import Col, EvalContext, bind_references
 from spark_rapids_tpu_torch.ops import grouping as G
 from spark_rapids_tpu_torch.ops.concat import concat_batches
@@ -285,8 +288,9 @@ class HashAggregateExec(TorchExec):
         is recorded, resolved together by ``G.resolve_dense_group_sums``,
         then replayed into the state columns. Returns (cols, n_groups) or
         None when ineligible (a key without a small static domain, or an
-        aggregate other than Sum/Count/Average)."""
-        if not all(isinstance(f, (Sum, Count, Average)) for f in self.fns):
+        aggregate other than Sum/Count/Average and the central moments)."""
+        if not all(isinstance(f, (Sum, Count, Average, CentralMoment))
+                   for f in self.fns):
             return None
         ks = G.compact_key_codes(key_cols, max_domain=_MAX_DENSE_DOMAIN)
         if ks is None:
@@ -315,6 +319,14 @@ class HashAggregateExec(TorchExec):
                 child_memo[k] = e.eval(ctx)
             return child_memo[k]
 
+        def moment_inputs(e):
+            # a central moment's doubles and their squares, once per child
+            k = ("moment", repr(e))
+            if k not in child_memo:
+                v = CentralMoment.as_double(eval_child(e))
+                child_memo[k] = (v, v * v)
+            return child_memo[k]
+
         def state_cols_of(gsum):
             # the rows per group: no values and no mask, a count of every
             # row whose code is in the domain
@@ -336,6 +348,24 @@ class HashAggregateExec(TorchExec):
                 else:
                     ins = [eval_child(f.child)]
                 off += nstates
+                if isinstance(f, CentralMoment):
+                    if merge:
+                        n = gsum(ins[0].values, ins[0].validity, torch.int64)
+                        sv = gsum(ins[1].values, ins[1].validity,
+                                  torch.float64)
+                        sq = gsum(ins[2].values, ins[2].validity,
+                                  torch.float64)
+                    else:
+                        v, v2 = moment_inputs(f.child)
+                        valid = ins[0].validity
+                        n = gsum(valid, valid, torch.int64, count_like=True)
+                        sv = gsum(v, valid, torch.float64)
+                        sq = gsum(v2, valid, torch.float64)
+                    for val, t in ((n, T.LONG), (sv, T.DOUBLE),
+                                   (sq, T.DOUBLE)):
+                        ones = torch.ones_like(val, dtype=torch.bool)
+                        state_cols.append(Col(val, ones, t))
+                    continue
                 if isinstance(f, Count):
                     s = gsum(ins[0].validity if not merge else ins[0].values,
                              ins[0].validity, torch.int64,

@@ -20,6 +20,28 @@ from spark_rapids_tpu_torch.expr.core import (EvalContext, Expression,
 from spark_rapids_tpu_torch.ops.filtering import compact_cols, selection_mask
 
 
+class LocalTableScanExec(TorchExec):
+    """Leaf exec of an in-memory ``ScanNode``: each partition's arrow table
+    crosses to the device as one batch."""
+
+    def __init__(self, node, conf=None, device=None):
+        super().__init__(conf=conf, device=device)
+        self.node = node
+
+    @property
+    def output(self):
+        return self.node.output
+
+    @property
+    def num_partitions(self):
+        return self.node.num_partitions
+
+    def execute_partition(self, split):
+        from spark_rapids_tpu_torch.columnar.arrow import table_to_device
+        tbl = self.node.partitions[split]
+        yield table_to_device(tbl, self.device, schema=self.output)
+
+
 class ProjectExec(TorchExec):
     def __init__(self, project_list: list, child: TorchExec, conf=None):
         super().__init__(child, conf=conf)

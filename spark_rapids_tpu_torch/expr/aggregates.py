@@ -1,12 +1,13 @@
 """Aggregate functions with Spark two-phase (update/merge) semantics.
 
 Counterpart of ``spark_rapids_tpu/expr/aggregates.py``: Sum, Count,
-Average, Min, Max, First and Last. Each names its partial-state columns
+Average, Min, Max, First, Last and the central moments StddevPop,
+StddevSamp, VariancePop and VarianceSamp. Each names its partial-state columns
 (``state_types``), segment-reduces raw values into them on the sort path
 (``update``) and partial states of several batches into one (``merge``),
 and computes the final value from merged states (``evaluate``). The dense
 small-domain path of the aggregate exec (``exec/aggregate.py``) reduces
-Sum, Count and Average by its own route.
+Sum, Count, Average and the central moments by its own route.
 
 Null semantics: COUNT(x) counts non-nulls and is never null; SUM, AVG, MIN
 and MAX ignore nulls and are null iff no input was non-null; SUM of
@@ -14,7 +15,11 @@ integrals is long, of doubles double, of ``decimal(p, s)``
 ``decimal(min(p + 10, 18), s)`` (exact int64 sums, no float route); AVG of
 integrals and doubles is double, of ``decimal(p, s)`` ``decimal(18,
 s + 4)``, the sum rescaled and divided by the count with HALF_UP on the
-magnitude in int64; COUNT(*) counts rows.
+magnitude in int64; COUNT(*) counts rows. The central moments keep the
+reference's buffers (count, sum, sum of squares, as doubles) and finish as
+``m2 = max(s2 - s * mean, 0)`` over n or n - 1; a sample moment of one row
+is null (Spark's legacy statistical aggregate gives NaN; the reference and
+Spark 3.1+ give null).
 """
 
 from __future__ import annotations
@@ -72,7 +77,7 @@ def _sum_result_type(t: T.DataType) -> T.DataType:
                                  T.DecimalType.MAX_PRECISION), t.scale)
     if isinstance(t, T.IntegralType):
         return T.LONG
-    if isinstance(t, T.DoubleType):
+    if isinstance(t, T.FractionalType):
         return T.DOUBLE
     raise NotImplementedError(f"sum/avg over {t} is not ported yet")
 
@@ -261,3 +266,78 @@ class First(_Positional):
 
 class Last(_Positional):
     _pick = staticmethod(G.segment_last)
+
+
+class CentralMoment(AggregateFunction):
+    """Variance and standard deviation over (n, sum, sum of squares)
+    states, each merged by summing (the reference's ``_CentralMoment``)."""
+
+    @property
+    def dtype(self):
+        t = self.child.dtype
+        if not isinstance(t, T.NumericType):
+            raise NotImplementedError(
+                f"{type(self).__name__.lower()} of a {t} is not ported yet")
+        return T.DOUBLE
+
+    @property
+    def state_types(self):
+        return [T.LONG, T.DOUBLE, T.DOUBLE]
+
+    @staticmethod
+    def as_double(in_col: Col) -> torch.Tensor:
+        """The input as doubles, 0 where it is null (a decimal unscaled)."""
+        v = in_col.values.to(torch.float64)
+        if isinstance(in_col.dtype, T.DecimalType):
+            v = v / float(10 ** in_col.dtype.scale)
+        return torch.where(in_col.validity, v, torch.zeros_like(v))
+
+    def update(self, in_col, segctx):
+        v = self.as_double(in_col)
+        s, cnt = G.segment_sum(v, in_col.validity, segctx)
+        s2, _ = G.segment_sum(v * v, in_col.validity, segctx)
+        ones = torch.ones_like(cnt, dtype=torch.bool)
+        return [Col(cnt, ones, T.LONG), Col(s, ones, T.DOUBLE),
+                Col(s2, ones, T.DOUBLE)]
+
+    def merge(self, state_cols, segctx):
+        outs = []
+        for st, t in zip(state_cols, self.state_types):
+            v, _ = G.segment_sum(st.values, st.validity, segctx)
+            outs.append(Col(v, torch.ones_like(v, dtype=torch.bool), t))
+        return outs
+
+    def evaluate(self, state_cols):
+        n = state_cols[0].values
+        s = state_cols[1].values
+        s2 = state_cols[2].values
+        safe = torch.where(n > 0, n.to(torch.float64),
+                           torch.ones_like(s))
+        m2 = torch.clamp(s2 - s * (s / safe), min=0.0)
+        denom = self.denominator(n)
+        ok = denom > 0
+        var = m2 / torch.where(ok, denom, torch.ones_like(denom))
+        return Col(self.finish(var), ok, T.DOUBLE).canonicalized()
+
+    def finish(self, var):
+        return var
+
+
+class VariancePop(CentralMoment):
+    def denominator(self, n):
+        return n.to(torch.float64)
+
+
+class VarianceSamp(CentralMoment):
+    def denominator(self, n):
+        return (n - 1).to(torch.float64)
+
+
+class StddevPop(VariancePop):
+    def finish(self, var):
+        return torch.sqrt(var)
+
+
+class StddevSamp(VarianceSamp):
+    def finish(self, var):
+        return torch.sqrt(var)

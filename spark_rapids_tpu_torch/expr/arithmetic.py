@@ -1,20 +1,23 @@
 """Arithmetic expressions with Spark semantics (non-ANSI mode).
 
 Counterpart of ``spark_rapids_tpu/expr/arithmetic.py``: Add, Subtract,
-Multiply and Divide over int/long/double and decimals, UnaryMinus, Abs,
-and the bitwise operators and shifts over int and long (``BitwiseAnd``,
+Multiply, Divide, IntegralDivide (``div``), Remainder (``%``) and Pmod over
+every numeric type and decimals, UnaryMinus, UnaryPositive, Abs, and the
+bitwise operators and shifts over the integral types (``BitwiseAnd``,
 ``BitwiseOr``, ``BitwiseXor``, ``BitwiseNot``, ``ShiftLeft``,
 ``ShiftRight``, ``ShiftRightUnsigned``; Java semantics, the shift count
-masked to 31 or 63). Integers wrap like Java (two's complement, which torch shares); the
-result type follows Spark's numeric precedence int < long < double.
-Decimals follow the reference's simplified
-promotion (``promote``: the wider integral digits and the larger scale; an
-integral operand takes the decimal's type, a double makes the result a
-double) and its multiply and divide typing (``decimal_mul_type``,
-``decimal_div_type``: Spark's ``DecimalPrecision`` capped at precision 18),
-HALF_UP when the result's scale drops and null on overflow. Divide is
-Spark's: a double for non-decimal operands, and null on a zero divisor,
-doubles included.
+masked to 31 or 63). Integers wrap like Java (two's complement, which torch
+shares), a tinyint or smallint result too; the result type follows Spark's
+numeric precedence byte < short < int < long < float < double. Decimals
+follow the reference's simplified promotion (``promote``: the wider
+integral digits and the larger scale; an integral operand takes the
+decimal's type, a float or double makes the result a double) and its
+multiply and divide typing (``decimal_mul_type``, ``decimal_div_type``:
+Spark's ``DecimalPrecision`` capped at precision 18), HALF_UP when the
+result's scale drops and null on overflow. Divide is Spark's: a double for
+non-decimal operands, and null on a zero divisor, doubles included; ``div``
+is a long truncated toward zero, ``%`` takes the dividend's sign and pmod
+the divisor's, each null on a zero divisor.
 """
 
 from __future__ import annotations
@@ -24,16 +27,24 @@ import torch
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.expr.core import Col, Expression, valid_and
 
-_NUMERIC_ORDER = [T.IntegerType, T.LongType, T.DoubleType]
+_NUMERIC_ORDER = [T.ByteType, T.ShortType, T.IntegerType, T.LongType,
+                  T.FloatType, T.DoubleType]
 
 
-_INTEGRAL = (T.IntegerType, T.LongType)
-_INT_DIGITS = {T.IntegerType: 10, T.LongType: 18}
+_INTEGRAL = (T.ByteType, T.ShortType, T.IntegerType, T.LongType)
+_INT_DIGITS = {T.ByteType: 3, T.ShortType: 5, T.IntegerType: 10,
+               T.LongType: 18}
 
 
 def promote(a: T.DataType, b: T.DataType) -> T.DataType:
     if a == b:
         return a
+    if isinstance(a, T.NullType):   # the untyped NULL takes any type
+        return b
+    if isinstance(b, T.NullType):
+        return a
+    if {type(a), type(b)} == {T.DateType, T.TimestampType}:
+        return T.TIMESTAMP      # a date meets a timestamp at its midnight
     if isinstance(a, T.DecimalType) or isinstance(b, T.DecimalType):
         da = a if isinstance(a, T.DecimalType) else None
         db = b if isinstance(b, T.DecimalType) else None
@@ -46,7 +57,7 @@ def promote(a: T.DataType, b: T.DataType) -> T.DataType:
         other = b if da else a
         if isinstance(other, _INTEGRAL):
             return da or db
-        if isinstance(other, T.DoubleType):
+        if isinstance(other, T.FractionalType):
             return T.DOUBLE
         raise NotImplementedError(
             f"arithmetic on {a} and {b} is not ported yet")
@@ -241,6 +252,109 @@ class Divide(BinaryArithmetic):
         return Col(l.values / safe_r, validity, out_t).canonicalized()
 
 
+def _java_rem(a, n):
+    """Java's ``%`` (the sign of the dividend): torch.fmod, with a divisor
+    of -1 answered as 0 for integers (the minimum divided by -1 traps in
+    C)."""
+    if a.is_floating_point():
+        return torch.fmod(a, n)
+    m1 = n == -1
+    return torch.where(m1, torch.zeros_like(a),
+                       torch.fmod(a, torch.where(m1, torch.ones_like(n), n)))
+
+
+class _ZeroNullArithmetic(BinaryArithmetic):
+    """An integer-style operator: null where the divisor is zero."""
+
+    @property
+    def dtype(self):
+        out = promote(self.left.dtype, self.right.dtype)
+        if isinstance(out, T.DecimalType):
+            raise NotImplementedError(
+                f"{self.symbol} over decimals is not ported yet")
+        if not isinstance(out, T.NumericType):
+            raise NotImplementedError(
+                f"{self.symbol} over {out} is not ported yet")
+        return out
+
+    def eval(self, ctx):
+        out_t = promote(self.left.dtype, self.right.dtype)
+        l = _cast_col(self.left.eval(ctx), out_t)
+        r = _cast_col(self.right.eval(ctx), out_t)
+        zero = r.values == 0
+        validity = valid_and(l.validity, r.validity) & ~zero
+        safe_r = torch.where(zero, torch.ones_like(r.values), r.values)
+        vals = self.op(l.values, safe_r)
+        return Col(vals, validity, self.dtype).canonicalized()
+
+
+class IntegralDivide(_ZeroNullArithmetic):
+    """``a div b``: a long, truncated toward zero (Java), null on a zero
+    divisor."""
+    symbol = "div"
+
+    @property
+    def dtype(self):
+        super().dtype
+        return T.LONG
+
+    def op(self, lv, rv):
+        if lv.is_floating_point():
+            q = torch.trunc(lv / rv)
+            from spark_rapids_tpu_torch.expr.cast import _float_to_integral
+            return _float_to_integral(q, T.LONG)
+        lv, rv = lv.to(torch.int64), rv.to(torch.int64)
+        m1 = rv == -1        # the minimum over -1 wraps in Java, traps in C
+        q = torch.div(lv, torch.where(m1, torch.ones_like(rv), rv),
+                      rounding_mode="trunc")
+        return torch.where(m1, -lv, q)
+
+
+class Remainder(_ZeroNullArithmetic):
+    """``a % b``: Java's remainder (the dividend's sign), null on a zero
+    divisor."""
+    symbol = "%"
+
+    def op(self, lv, rv):
+        return _java_rem(lv, rv)
+
+
+class Pmod(_ZeroNullArithmetic):
+    """pmod(a, n): ``r = a % n``; ``(r + n) % n`` when r < 0 (so a
+    negative divisor gives a non-positive result, as in Spark)."""
+    symbol = "pmod"
+
+    def op(self, lv, rv):
+        m = _java_rem(lv, rv)
+        return torch.where(m < 0, _java_rem(m + rv, rv), m)
+
+    def __repr__(self):
+        return f"pmod({self.left!r}, {self.right!r})"
+
+
+class UnaryPositive(Expression):
+    """+x: the value itself."""
+
+    def __init__(self, child: Expression):
+        self.children = [child]
+
+    @property
+    def dtype(self):
+        t = self.children[0].dtype
+        if not isinstance(t, T.NumericType):
+            raise NotImplementedError(f"+ of a {t} is not ported")
+        return t
+
+    def with_children(self, children):
+        return UnaryPositive(children[0])
+
+    def eval(self, ctx):
+        return self.children[0].eval(ctx)
+
+    def __repr__(self):
+        return f"(+ {self.children[0]!r})"
+
+
 class UnaryMinus(Expression):
     """-x of the child's type, a number (int, long, double, decimal);
     integers wrap at their minimum, as Java."""
@@ -346,9 +460,10 @@ class BitwiseNot(Expression):
 
 
 class Shift(Expression):
-    """base SHIFT amount: the result has the base's type (int or long), and
-    the count is masked to the base's width as in Java (``x << 33`` is
-    ``x << 1`` for an int)."""
+    """base SHIFT amount: the result is a long for a long base, else an int
+    (a tinyint or smallint base widens, as Spark's implicit cast), and the
+    count is masked to that width as in Java (``x << 33`` is ``x << 1`` for
+    an int)."""
     symbol = "?"
 
     def __init__(self, base: Expression, amount: Expression):
@@ -357,14 +472,15 @@ class Shift(Expression):
     @property
     def dtype(self):
         _integral(self.children[1].dtype, self.symbol)
-        return _integral(self.children[0].dtype, self.symbol)
+        base = _integral(self.children[0].dtype, self.symbol)
+        return base if isinstance(base, T.LongType) else T.INT
 
     def with_children(self, children):
         return type(self)(children[0], children[1])
 
     def eval(self, ctx):
         out_t = self.dtype
-        b = self.children[0].eval(ctx)
+        b = _cast_col(self.children[0].eval(ctx), out_t)
         a = self.children[1].eval(ctx)
         width = 64 if isinstance(out_t, T.LongType) else 32
         amt = (a.values.to(torch.int64) & (width - 1)).to(b.values.dtype)

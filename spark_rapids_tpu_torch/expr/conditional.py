@@ -30,8 +30,10 @@ def _common_type(types):
 
 
 def _branch_type(types):
-    """The common type of the branches; a string with anything but a
-    string is refused (``promote`` knows no such pair)."""
+    """The common type of the branches (an untyped NULL takes the others');
+    a string with anything but a string is refused (``promote`` knows no
+    such pair)."""
+    types = [t for t in types if not isinstance(t, T.NullType)] or [T.NULL]
     strs = [isinstance(t, T.StringType) for t in types]
     if any(strs):
         if not all(strs):
@@ -66,7 +68,7 @@ class If(Expression):
         b = self.children[2].eval(ctx)
         if isinstance(out_t, T.StringType):
             from spark_rapids_tpu_torch.ops.strings import align_many
-            a, b = align_many([a, b])
+            a, b = align_many([_cast_col(a, out_t), _cast_col(b, out_t)])
             validity = torch.where(take_a, a.validity, b.validity)
             vals = torch.where(take_a, a.values, b.values)
             return Col(torch.where(validity, vals, torch.zeros_like(vals)),

@@ -4,9 +4,8 @@ Counterpart of ``spark_rapids_tpu/expr/core.py``. ``Expression.eval`` runs
 eager torch ops over a ``Col`` (values + validity). Null semantics are
 Spark's: null in, null out for arithmetic and comparisons, Kleene AND.
 
-Only the expressions of the ported slices (the TPC-H ladder and its SQL
-text, the TPC-DS DataFrame queries) exist; the operators that would build any other expression raise
-``NotImplementedError`` where the expression is built.
+An expression the port has not ported raises ``NotImplementedError`` when
+it is typed (``dtype``), so the planner refuses it before anything runs.
 """
 
 from __future__ import annotations
@@ -58,10 +57,6 @@ def valid_and(*validities):
     for v in validities[1:]:
         out = out & v
     return out
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet")
 
 
 class Expression:
@@ -176,6 +171,31 @@ class Expression:
         from spark_rapids_tpu_torch.expr.arithmetic import UnaryMinus
         return UnaryMinus(self)
 
+    def __mod__(self, other):
+        from spark_rapids_tpu_torch.expr.arithmetic import Remainder
+        return self._bin(other, Remainder)
+
+    def __rmod__(self, other):
+        from spark_rapids_tpu_torch.expr.arithmetic import Remainder
+        return self._bin(other, Remainder, swap=True)
+
+    def eqNullSafe(self, other):  # noqa: N802 (pyspark's name)
+        """``self <=> other``: null-safe equality, never null."""
+        from spark_rapids_tpu_torch.expr.predicates import EqualNullSafe
+        return self._bin(other, EqualNullSafe)
+
+    def cast(self, to: T.DataType):
+        from spark_rapids_tpu_torch.expr.cast import Cast
+        return Cast(self, to)
+
+    def is_null(self):
+        from spark_rapids_tpu_torch.expr.nullexprs import IsNull
+        return IsNull(self)
+
+    def is_not_null(self):
+        from spark_rapids_tpu_torch.expr.nullexprs import IsNotNull
+        return IsNotNull(self)
+
     __hash__ = object.__hash__
 
     def alias(self, name: str) -> "Alias":
@@ -262,6 +282,8 @@ class BoundReference(Expression):
 
 
 def _infer_literal_type(v):
+    if v is None:
+        return T.NULL
     if isinstance(v, bool):
         return T.BOOLEAN
     if isinstance(v, int):
@@ -274,14 +296,12 @@ def _infer_literal_type(v):
 
 
 class Literal(Expression):
-    """A constant. A null takes the type it is given (CASE WHEN without ELSE
-    builds one); the untyped null literal (NullType) is not ported. A
+    """A constant. A null takes the type it is given, else NullType (the
+    untyped NULL, which any operator casts to the type it needs). A
     decimal literal given as a non-integer holds its value at the type's
     scale; an int is taken as the unscaled value, as in the reference."""
 
     def __init__(self, value, dtype: T.DataType | None = None):
-        if value is None and dtype is None:
-            _not_ported("an untyped null literal")
         self.value = value
         self._dtype = dtype if dtype is not None else _infer_literal_type(value)
 

@@ -114,7 +114,8 @@ class Coalesce(Expression):
         out_t = self.dtype
         if isinstance(out_t, T.StringType):
             from spark_rapids_tpu_torch.ops.strings import coalesce_strings
-            return coalesce_strings([c.eval(ctx) for c in self.children])
+            return coalesce_strings([_cast_col(c.eval(ctx), out_t)
+                                     for c in self.children])
         cols = [_cast_col(c.eval(ctx), out_t) for c in self.children]
         vals = cols[-1].values
         validity = cols[-1].validity

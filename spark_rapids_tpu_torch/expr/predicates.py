@@ -9,7 +9,8 @@ comparison: NaN is greater than every other value and equal to itself;
 String comparisons run over dictionary codes after both sides are remapped
 onto one sorted union dictionary (order-preserving), so a comparison of
 codes is the comparison of the strings; a string literal is a one-entry
-dictionary. EqualNullSafe is not ported.
+dictionary. EqualNullSafe (``<=>``) is true where both sides are null and
+never null. The untyped NULL compares as the other side's type.
 """
 
 from __future__ import annotations
@@ -25,6 +26,10 @@ from spark_rapids_tpu_torch.ops.strings import align_many
 def _operand_type(ldt: T.DataType, rdt: T.DataType) -> T.DataType:
     """The type both operands compare in; raises on a pair the port cannot
     compare (so planning refuses it)."""
+    if isinstance(ldt, T.NullType):
+        return rdt
+    if isinstance(rdt, T.NullType):
+        return ldt
     l_str, r_str = isinstance(ldt, T.StringType), isinstance(rdt, T.StringType)
     if l_str or r_str:
         if not (l_str and r_str):
@@ -35,6 +40,10 @@ def _operand_type(ldt: T.DataType, rdt: T.DataType) -> T.DataType:
 
 
 def _comparable(l: Col, r: Col, ldt: T.DataType, rdt: T.DataType):
+    if isinstance(ldt, T.NullType) or isinstance(rdt, T.NullType):
+        ct = _operand_type(ldt, rdt)
+        l, r = _cast_col(l, ct), _cast_col(r, ct)
+        ldt = rdt = ct
     if isinstance(ldt, T.StringType):
         # the reference's align_strings: one sorted union dictionary
         return align_many([l, r])
@@ -128,6 +137,26 @@ class GreaterThanOrEqual(BinaryComparison):
 
     def compare(self, lv, rv, is_float):
         return _float_total(rv, lv, "le") if is_float else lv >= rv
+
+
+class EqualNullSafe(BinaryComparison):
+    """``<=>``: null <=> null is true, a null and a value false; never
+    null."""
+    symbol = "<=>"
+
+    @property
+    def nullable(self):
+        return False
+
+    def eval(self, ctx):
+        l, r = self.left.eval(ctx), self.right.eval(ctx)
+        l, r = _comparable(l, r, self.left.dtype, self.right.dtype)
+        both = valid_and(l.validity, r.validity)
+        eq = (_float_total(l.values, r.values, "eq")
+              if isinstance(l.dtype, T.FractionalType)
+              else l.values == r.values)
+        vals = (both & eq) | (~l.validity & ~r.validity)
+        return Col(vals, torch.ones_like(vals), T.BOOLEAN)
 
 
 class NotEqual(BinaryComparison):

@@ -1,9 +1,15 @@
 """Column-function builders — the pyspark.sql.functions facade.
 
-Counterpart of ``spark_rapids_tpu/functions.py``, limited to what the
-ported TPC-H and TPC-DS queries use: ``col``, ``lit``, ``cast``, ``sum``,
-``avg`` and ``count``, ``min``, ``max``, ``first`` and ``last``, ``abs``,
-and the conditionals ``when`` and ``if_``.
+Counterpart of ``spark_rapids_tpu/functions.py``, with its names and
+signatures: the aggregates (``sum`` ... ``var_pop``), the conditionals, the
+string, math and date functions, ``hash`` and ``isin``. Beyond the
+reference it has pyspark's ``quarter``, ``hour``, ``minute``, ``second``,
+``dayofweek``, ``dayofyear``, ``last_day``, ``datediff``, ``date_add``,
+``nullif``, ``ltrim``/``rtrim``, ``reverse``, ``initcap``, ``rlike`` and the
+unary math functions, over expressions the reference has. Not ported:
+``rand``, ``spark_partition_id``, ``monotonically_increasing_id``, the
+input-file functions, the array, struct and map functions, ``split``,
+``collect_list``/``collect_set`` and the UDF factories.
 """
 
 from __future__ import annotations
@@ -12,7 +18,12 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.expr import aggregates as _AG
 from spark_rapids_tpu_torch.expr import arithmetic as _A
 from spark_rapids_tpu_torch.expr import conditional as _C
+from spark_rapids_tpu_torch.expr import datetime as _DT
+from spark_rapids_tpu_torch.expr import mathexprs as _M
+from spark_rapids_tpu_torch.expr import nullexprs as _N
+from spark_rapids_tpu_torch.expr import strings as _S
 from spark_rapids_tpu_torch.expr.cast import Cast
+from spark_rapids_tpu_torch.expr.core import Expression, Literal
 from spark_rapids_tpu_torch.expr.core import col, lit  # noqa: F401
 
 
@@ -65,3 +76,338 @@ def if_(cond, a, b):
 
 def cast(c, to: T.DataType):
     return Cast(_e(c), to)
+
+
+def _v(value):
+    """A value position: a non-expression is a literal (pyspark's
+    convention: only a first argument reads a string as a column name)."""
+    return value if isinstance(value, Expression) else Literal(value)
+
+
+def coalesce(*cs):
+    return _N.Coalesce(*[_e(c) for c in cs])
+
+
+def isnull(c):
+    return _N.IsNull(_e(c))
+
+
+def isnan(c):
+    return _N.IsNaN(_e(c))
+
+
+def nullif(a, b):
+    """nullif(a, b): null where a = b, else a."""
+    from spark_rapids_tpu_torch.expr.predicates import EqualTo
+    x = _e(a)
+    return _C.If(EqualTo(x, _v(b)), Literal(None, None), x)
+
+
+def least(*cs):
+    return _C.Least(*[_e(c) for c in cs])
+
+
+def greatest(*cs):
+    return _C.Greatest(*[_e(c) for c in cs])
+
+
+def isin(c, values):
+    from spark_rapids_tpu_torch.expr.predicates import InSet
+    return InSet(_e(c), list(values))
+
+
+# -- aggregates ----------------------------------------------------------------
+
+def stddev(c):
+    return _AG.StddevSamp(_e(c))
+
+
+stddev_samp = stddev
+
+
+def stddev_pop(c):
+    return _AG.StddevPop(_e(c))
+
+
+def variance(c):
+    return _AG.VarianceSamp(_e(c))
+
+
+var_samp = variance
+
+
+def var_pop(c):
+    return _AG.VariancePop(_e(c))
+
+
+# -- strings -------------------------------------------------------------------
+
+def upper(c):
+    return _S.Upper(_e(c))
+
+
+def lower(c):
+    return _S.Lower(_e(c))
+
+
+def length(c):
+    return _S.Length(_e(c))
+
+
+def trim(c):
+    return _S.Trim(_e(c))
+
+
+def ltrim(c):
+    return _S.LTrim(_e(c))
+
+
+def rtrim(c):
+    return _S.RTrim(_e(c))
+
+
+def reverse(c):
+    return _S.Reverse(_e(c))
+
+
+def initcap(c):
+    return _S.InitCap(_e(c))
+
+
+def substring(c, pos, length_):
+    return _S.Substring(_e(c), _v(pos), _v(length_))
+
+
+def concat(*cs):
+    return _S.Concat(*[_e(c) for c in cs])
+
+
+def like(c, pattern: str):
+    return _S.Like(_e(c), lit(pattern))
+
+
+def rlike(c, pattern: str):
+    return _S.RLike(_e(c), lit(pattern))
+
+
+def concat_ws(sep: str, *cs):
+    return _S.ConcatWs(_v(sep), *[_e(c) for c in cs])
+
+
+def lpad(c, ln: int, pad: str = " "):
+    return _S.StringLPad(_e(c), _v(ln), _v(pad))
+
+
+def rpad(c, ln: int, pad: str = " "):
+    return _S.StringRPad(_e(c), _v(ln), _v(pad))
+
+
+def repeat(c, n: int):
+    return _S.StringRepeat(_e(c), _v(n))
+
+
+def locate(substr: str, c, pos: int = 1):
+    return _S.StringLocate(_v(substr), _e(c), _v(pos))
+
+
+def instr(c, substr: str):
+    return _S.StringLocate(_v(substr), _e(c), _v(1))
+
+
+def substring_index(c, delim: str, count: int):
+    return _S.SubstringIndex(_e(c), _v(delim), _v(count))
+
+
+def translate(c, frm: str, to: str):
+    return _S.StringTranslate(_e(c), _v(frm), _v(to))
+
+
+def find_in_set(c, str_list: str):
+    return _S.FindInSet(_e(c), _v(str_list))
+
+
+def regexp_replace(c, pattern: str, replacement: str):
+    return _S.RegExpReplace(_e(c), _v(pattern), _v(replacement))
+
+
+def regexp_extract(c, pattern: str, idx: int = 1):
+    return _S.RegExpExtract(_e(c), _v(pattern), _v(idx))
+
+
+def md5(c):
+    return _S.Md5(_e(c))
+
+
+def get_json_object(c, path: str):
+    return _S.GetJsonObject(_e(c), lit(path))
+
+
+# -- math ----------------------------------------------------------------------
+
+def sqrt(c):
+    return _M.Sqrt(_e(c))
+
+
+def pow(a, b):  # noqa: A001
+    return _M.Pow(_e(a), _v(b))
+
+
+def round(c, scale: int = 0):  # noqa: A001
+    return _M.Round(_e(c), scale)
+
+
+def bround(c, scale: int = 0):
+    return _M.BRound(_e(c), scale)
+
+
+def floor(c):
+    return _M.Floor(_e(c))
+
+
+def ceil(c):
+    return _M.Ceil(_e(c))
+
+
+def log(base, c=None):
+    """log(x), the natural logarithm, or log(base, x) (pyspark's order)."""
+    if c is None:
+        return _M.Log(_e(base))
+    return _M.Logarithm(_v(base), _e(c))
+
+
+def log10(c):
+    return _M.Log10(_e(c))
+
+
+def log2(c):
+    return _M.Log2(_e(c))
+
+
+def log1p(c):
+    return _M.Log1p(_e(c))
+
+
+def atan2(a, b):
+    return _M.Atan2(_e(a), _v(b))
+
+
+def pmod(a, b):
+    return _A.Pmod(_e(a), _v(b))
+
+
+def bitwise_not(c):
+    return _A.BitwiseNot(_e(c))
+
+
+def shiftleft(c, n):
+    return _A.ShiftLeft(_e(c), _v(n))
+
+
+def shiftright(c, n):
+    return _A.ShiftRight(_e(c), _v(n))
+
+
+def shiftrightunsigned(c, n):
+    return _A.ShiftRightUnsigned(_e(c), _v(n))
+
+
+def _unary_math(name):
+    cls = getattr(_M, name)
+    return lambda c: cls(_e(c))
+
+
+exp = _unary_math("Exp")
+expm1 = _unary_math("Expm1")
+sin = _unary_math("Sin")
+cos = _unary_math("Cos")
+tan = _unary_math("Tan")
+asin = _unary_math("Asin")
+acos = _unary_math("Acos")
+atan = _unary_math("Atan")
+sinh = _unary_math("Sinh")
+cosh = _unary_math("Cosh")
+tanh = _unary_math("Tanh")
+asinh = _unary_math("Asinh")
+acosh = _unary_math("Acosh")
+atanh = _unary_math("Atanh")
+cbrt = _unary_math("Cbrt")
+signum = _unary_math("Signum")
+degrees = _unary_math("ToDegrees")
+radians = _unary_math("ToRadians")
+rint = _unary_math("Rint")
+cot = _unary_math("Cot")
+
+
+# -- dates and times -----------------------------------------------------------
+
+def _date_part(name):
+    cls = getattr(_DT, name)
+    return lambda c: cls(_e(c))
+
+
+year = _date_part("Year")
+quarter = _date_part("Quarter")
+month = _date_part("Month")
+dayofmonth = _date_part("DayOfMonth")
+dayofweek = _date_part("DayOfWeek")
+weekday = _date_part("WeekDay")
+dayofyear = _date_part("DayOfYear")
+hour = _date_part("Hour")
+minute = _date_part("Minute")
+second = _date_part("Second")
+last_day = _date_part("LastDay")
+
+
+def date_add(c, days):
+    return _DT.DateAdd(_e(c), _v(days))
+
+
+def date_sub(c, days):
+    return _DT.DateSub(_e(c), _v(days))
+
+
+def datediff(end, start):
+    return _DT.DateDiff(_e(end), _e(start))
+
+
+def add_months(c, n):
+    return _DT.AddMonths(_e(c), _v(n))
+
+
+def months_between(end, start, round_off: bool = True):
+    return _DT.MonthsBetween(_e(end), _e(start), round_off)
+
+
+def trunc(c, fmt: str):
+    return _DT.TruncDate(_e(c), _v(fmt))
+
+
+def unix_timestamp(c, fmt: str | None = None):
+    return _DT.UnixTimestamp(_e(c), _v(fmt) if fmt is not None else None)
+
+
+def to_unix_timestamp(c, fmt: str | None = None):
+    return _DT.ToUnixTimestamp(_e(c), _v(fmt) if fmt is not None else None)
+
+
+def from_unixtime(c, fmt: str | None = None):
+    return _DT.FromUnixTime(_e(c), _v(fmt) if fmt is not None else None)
+
+
+def date_format(c, fmt: str):
+    return _DT.DateFormatClass(_e(c), _v(fmt))
+
+
+def time_add(ts, interval_us):
+    return _DT.TimeAdd(_e(ts), _v(interval_us))
+
+
+def date_add_interval(d, days):
+    return _DT.DateAddInterval(_e(d), _v(days))
+
+
+# -- hashing -------------------------------------------------------------------
+
+def hash(*cs):  # noqa: A001
+    from spark_rapids_tpu_torch.expr.misc import Murmur3Hash
+    return Murmur3Hash(*[_e(c) for c in cs])

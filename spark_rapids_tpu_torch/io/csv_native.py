@@ -64,9 +64,12 @@ class CsvShape:
 
 
 def column_in_scope(dtype, allow_floats: bool) -> bool:
-    if isinstance(dtype, T.DoubleType):
+    """Integers of every width parse on the device; floats and doubles when
+    the float conf allows them; anything else (a timestamp among them, as
+    in the reference) sends the file to the arrow reader."""
+    if isinstance(dtype, T.FractionalType):
         return allow_floats
-    return isinstance(dtype, (T.IntegerType, T.LongType))
+    return isinstance(dtype, T.IntegralType)
 
 
 def _float_notation(body: np.ndarray, bounds: np.ndarray, n_file_cols: int,
@@ -172,7 +175,7 @@ def try_scan_for_device(path: str, schema, delimiter: str = ",",
         starts = (starts + quoted).astype(np.int32)
         lens = (lens - 2 * quoted).astype(np.int32)
     dbl = [col_of[f.name] for f in schema.fields
-           if isinstance(f.data_type, T.DoubleType)]
+           if isinstance(f.data_type, T.FractionalType)]
     if dbl and _float_notation(body, bounds, n_file_cols, dbl):
         return None
     return CsvShape(data, n_rows, starts, lens, col_of)
@@ -201,12 +204,15 @@ def decode_shape_device(shape: CsvShape, schema, device):
             lens[:n] = shape.lens[:, j]
         s_d = torch.from_numpy(starts).to(device)
         l_d = torch.from_numpy(lens).to(device)
-        if isinstance(f.data_type, T.LongType):
+        dt = f.data_type
+        if isinstance(dt, T.LongType):
             vals, valid = CD.parse_int64(data_d, s_d, l_d, cap)
-        elif isinstance(f.data_type, T.IntegerType):
-            vals, valid = CD.parse_int32(data_d, s_d, l_d, cap)
+        elif isinstance(dt, T.IntegralType):
+            vals, valid = CD.parse_narrow_int(data_d, s_d, l_d, cap,
+                                              dt.torch_dtype)
         else:
             vals, valid = CD.parse_float64(data_d, s_d, l_d, cap)
+            vals = vals.to(dt.torch_dtype)
         vals = torch.where(valid, vals, torch.zeros_like(vals))
         cols.append(TorchColumnVector(f.data_type, vals, valid))
     return ColumnarBatch(cols, n, schema)

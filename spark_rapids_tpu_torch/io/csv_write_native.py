@@ -10,7 +10,9 @@ table.
 Formats (where they differ from pyarrow's CSV writer, they are these):
 - doubles: the shortest round-trip repr (numpy ``astype('U')``);
 - booleans: true/false (Spark's casing);
-- dates: ISO yyyy-mm-dd;
+- floats: the shortest repr that round-trips the float32;
+- dates: ISO yyyy-mm-dd; timestamps: ISO with a 'T' separator and six
+  fraction digits, in UTC without a zone (the reference's format);
 - decimals: fixed scale from the unscaled int64;
 - strings: RFC-4180 quoting (a value with a comma, quote, CR or LF is
   quoted, its quotes doubled);
@@ -67,6 +69,8 @@ def _format_column(col, dt: T.DataType, num_rows: int) -> np.ndarray:
         txt = np.where(vals, "true", "false")
     elif isinstance(dt, T.DateType):
         txt = vals.astype("datetime64[D]").astype("U")
+    elif isinstance(dt, T.TimestampType):
+        txt = vals.astype("datetime64[us]").astype("U")
     elif isinstance(dt, T.DecimalType):
         iv = vals.astype(np.int64)
         s = dt.scale
@@ -95,8 +99,13 @@ def write_batch_file(path: str, batch, schema: T.StructType,
     import pyarrow as pa
     import pyarrow.compute as pc
     n = batch.num_rows
-    cols = [pa.array(_format_column(c, f.data_type, n), pa.string())
-            for f, c in zip(schema.fields, batch.columns)]
+    cols = []
+    for f, c in zip(schema.fields, batch.columns):
+        arr = pa.array(_format_column(c, f.data_type, n), pa.string())
+        # pyarrow cuts a numpy text array of more than its chunk size
+        # (about 64 MB of UCS-4) into a ChunkedArray: one array again
+        cols.append(arr.combine_chunks()
+                    if isinstance(arr, pa.ChunkedArray) else arr)
     parts = []
     if header:
         parts.append(",".join(

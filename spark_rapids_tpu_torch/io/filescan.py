@@ -265,6 +265,11 @@ class FileSourceScanExec(TorchExec):
         part = node.partitions[split]
         if part.partition_values:
             return None
+        # a partition that outputs a timestamp takes the arrow reader whole
+        # (it owns the unit conversion and the datetime rebase; the
+        # reference's rule, io/filescan.py:299-311)
+        if any(isinstance(f.data_type, T.TimestampType) for f in self.output):
+            return None
         date_cols = [f.name for f in self.output
                      if isinstance(f.data_type, T.DateType)]
         files = []

@@ -164,7 +164,7 @@ def _decompress_chunked(buf: bytes, codec: int) -> bytes:
 
 
 K_SHORT, K_INT, K_LONG = 2, 3, 4
-K_DOUBLE = 6
+K_FLOAT, K_DOUBLE = 5, 6
 K_STRING = 7
 # stream kinds
 S_PRESENT, S_DATA = 0, 1
@@ -511,22 +511,29 @@ def intv2_column_to_device(raw: bytes, data_off: int, data_len: int,
 def float_column_to_device(raw: bytes, data_off: int, data_len: int,
                            present: np.ndarray | None, n_rows: int,
                            spark_type, capacity: int, device):
-    """DOUBLE: the DATA stream is raw little-endian IEEE; one host view and
-    one copy, then the null spread on the device."""
+    """FLOAT/DOUBLE: the DATA stream is raw little-endian IEEE (4 or 8
+    bytes); one host view and one copy, then the null spread on the
+    device."""
     from spark_rapids_tpu_torch.columnar.vector import TorchColumnVector
     n_present = n_rows if present is None else int(present.sum())
-    vals_np = np.frombuffer(raw, "<f8", n_present, data_off).astype(
-        np.float64)
-    padded = np.zeros(capacity, np.float64)
+    np_dt = np.float32 if isinstance(spark_type, T.FloatType) else np.float64
+    vals_np = np.frombuffer(raw, np.dtype(np_dt).newbyteorder("<"),
+                            n_present, data_off).astype(np_dt)
+    padded = np.zeros(capacity, np_dt)
     padded[:n_present] = vals_np
     vals, valid = _spread(torch.from_numpy(padded).to(device), capacity,
-                          present, n_rows, capacity, torch.float64, device)
+                          present, n_rows, capacity, spark_type.torch_dtype,
+                          device)
     vals = torch.where(valid, vals, torch.zeros_like(vals))
     return TorchColumnVector(spark_type, vals, valid)
 
 
-_KIND_TO_TYPE = {K_SHORT: T.INT, K_INT: T.INT, K_LONG: T.LONG,
-                 K_DOUBLE: T.DOUBLE, K_STRING: T.STRING}
+# SHORT reads as smallint, as Spark reads it; the reference maps it to INT
+# here (orc_native.py:504), which never matches the smallint its schema
+# gives the column, so it reads every SHORT column through arrow. BYTE
+# (byte RLE) and TIMESTAMP columns take the arrow reader, as there.
+_KIND_TO_TYPE = {K_SHORT: T.SHORT, K_INT: T.INT, K_LONG: T.LONG,
+                 K_FLOAT: T.FLOAT, K_DOUBLE: T.DOUBLE, K_STRING: T.STRING}
 
 
 def read_stripe_device(path: str, meta: OrcMeta, stripe_idx: int, schema,

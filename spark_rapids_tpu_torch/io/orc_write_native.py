@@ -7,8 +7,11 @@ null count, min/max, one copy a column); the host frames the streams, the
 mirror image of ``io/orc_native.py``'s reader:
 
 - PRESENT: bits MSB-first, then byte-RLE;
-- INT/LONG/DATE: RLEv2 DIRECT runs (zigzag, MSB-first bit packing);
-- DOUBLE: raw little-endian IEEE;
+- SHORT/INT/LONG/DATE: RLEv2 DIRECT runs (zigzag, MSB-first bit
+  packing); BYTE: byte-RLE;
+- FLOAT/DOUBLE: raw little-endian IEEE;
+- TIMESTAMP: seconds from 2015-01-01 UTC (RLEv2, signed) in DATA and the
+  nanoseconds (always >= 0, no trailing-zero compression) in SECONDARY;
 - STRING: DICTIONARY_V2, the engine's sorted dictionary as ORC's (codes in
   DATA, lengths in LENGTH, UTF-8 in DICTIONARY_DATA); row bytes never
   materialize on the device;
@@ -37,8 +40,8 @@ from spark_rapids_tpu_torch.io import parquet_write_native as PW
 MAGIC = b"ORC"
 
 # Type.Kind
-K_BOOLEAN, K_INT, K_LONG = 0, 3, 4
-K_DOUBLE, K_STRING = 6, 7
+K_BOOLEAN, K_BYTE, K_SHORT, K_INT, K_LONG = 0, 1, 2, 3, 4
+K_FLOAT, K_DOUBLE, K_STRING, K_TIMESTAMP = 5, 6, 7, 9
 K_STRUCT, K_DECIMAL, K_DATE = 12, 14, 15
 # Stream.Kind
 S_PRESENT, S_DATA, S_LENGTH, S_DICT_DATA, S_SECONDARY = 0, 1, 2, 3, 5
@@ -50,6 +53,8 @@ C_NONE, C_ZLIB, C_SNAPPY = 0, 1, 2
 CODECS = {"none": C_NONE, "uncompressed": C_NONE, "zlib": C_ZLIB,
           "gzip": C_ZLIB, "snappy": C_SNAPPY}
 _BLOCK = 262144
+
+_TS_BASE_MICROS = 1420070400 * 1000000      # 2015-01-01 00:00:00 UTC
 
 
 def _compress_chunked(blob: bytes, codec: int) -> bytes:
@@ -80,12 +85,20 @@ def _compress_chunked(blob: bytes, codec: int) -> bytes:
 def _kind_of(dt: T.DataType) -> int:
     if isinstance(dt, T.BooleanType):
         return K_BOOLEAN
+    if isinstance(dt, T.ByteType):
+        return K_BYTE
+    if isinstance(dt, T.ShortType):
+        return K_SHORT
     if isinstance(dt, T.IntegerType):
         return K_INT
     if isinstance(dt, T.LongType):
         return K_LONG
+    if isinstance(dt, T.FloatType):
+        return K_FLOAT
     if isinstance(dt, T.DoubleType):
         return K_DOUBLE
+    if isinstance(dt, T.TimestampType):
+        return K_TIMESTAMP
     if isinstance(dt, T.StringType):
         return K_STRING
     if isinstance(dt, T.DateType):
@@ -250,12 +263,25 @@ def _encode_column(streams: list, col_id: int, col, dt: T.DataType,
         streams.append((S_LENGTH, col_id, rlev2_direct(
             np.array([len(e) for e in entries], np.int64), signed=False)))
         return E_DICTIONARY_V2, len(entries), n_valid, bool(null_count)
-    if kind in (K_INT, K_LONG, K_DATE):
+    if kind in (K_SHORT, K_INT, K_LONG, K_DATE):
         streams.append((S_DATA, col_id, rlev2_direct(vals, signed=True)))
         return E_DIRECT_V2, 0, n_valid, bool(null_count)
-    if kind == K_DOUBLE:
-        streams.append((S_DATA, col_id, vals.astype("<f8").tobytes()))
+    if kind in (K_FLOAT, K_DOUBLE):
+        streams.append((S_DATA, col_id, vals.astype(
+            "<f4" if kind == K_FLOAT else "<f8").tobytes()))
         return E_DIRECT, 0, n_valid, bool(null_count)
+    if kind == K_BYTE:
+        streams.append((S_DATA, col_id,
+                        byte_rle(vals.astype(np.int8).tobytes())))
+        return E_DIRECT, 0, n_valid, bool(null_count)
+    if kind == K_TIMESTAMP:
+        rel = vals.astype(np.int64) - _TS_BASE_MICROS
+        secs = np.floor_divide(rel, 1_000_000)
+        nanos = (rel - secs * 1_000_000) * 1000
+        streams.append((S_DATA, col_id, rlev2_direct(secs, signed=True)))
+        streams.append((S_SECONDARY, col_id,
+                        rlev2_direct(nanos << 3, signed=False)))
+        return E_DIRECT_V2, 0, n_valid, bool(null_count)
     if kind == K_BOOLEAN:
         streams.append((S_DATA, col_id, bool_rle(vals.astype(np.uint8))))
         return E_DIRECT, 0, n_valid, bool(null_count)

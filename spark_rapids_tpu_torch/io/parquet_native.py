@@ -511,9 +511,15 @@ def _spark_type_of(physical_type: str, spark_type):
     from spark_rapids_tpu_torch import types as T
     if physical_type == "BYTE_ARRAY":
         return T.STRING
+    if isinstance(spark_type, T.TimestampType):
+        # a timestamp's unit and rebase belong to the arrow reader
+        raise NotImplementedError("timestamp chunks take the arrow reader")
     if spark_type is not None:
+        # an INT32 chunk annotated INT(8)/INT(16) decodes to int8/int16:
+        # its dictionary is converted to the column's dtype on the host
         return spark_type
-    np_to_spark = {"INT32": T.INT, "INT64": T.LONG, "DOUBLE": T.DOUBLE}
+    np_to_spark = {"INT32": T.INT, "INT64": T.LONG, "FLOAT": T.FLOAT,
+                   "DOUBLE": T.DOUBLE}
     if physical_type not in np_to_spark:
         raise NotImplementedError(f"parquet {physical_type} is not ported yet")
     return np_to_spark[physical_type]

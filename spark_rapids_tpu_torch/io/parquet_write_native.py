@@ -39,6 +39,7 @@ CREATED_BY = b"spark-rapids-tpu-torch native writer"
 
 # --- thrift compact protocol writer ----------------------------------------
 
+_CT_BOOL_TRUE, _CT_BOOL_FALSE = 1, 2
 _CT_I32, _CT_I64 = 5, 6
 _CT_BINARY, _CT_LIST, _CT_STRUCT = 8, 9, 12
 
@@ -75,6 +76,9 @@ class _CompactWriter:
             self.buf.append(ftype)
             self.buf += _zigzag(fid)
         self._last_fid[-1] = fid
+
+    def field_bool(self, fid: int, v: bool):
+        self._field_header(fid, _CT_BOOL_TRUE if v else _CT_BOOL_FALSE)
 
     def field_i32(self, fid: int, v: int, *, wide: int = _CT_I32):
         self._field_header(fid, wide)
@@ -120,9 +124,10 @@ class _CompactWriter:
 
 # parquet Type enum
 _PT_BOOLEAN, _PT_INT32, _PT_INT64 = 0, 1, 2
-_PT_DOUBLE, _PT_BYTE_ARRAY = 5, 6
+_PT_FLOAT, _PT_DOUBLE, _PT_BYTE_ARRAY = 4, 5, 6
 # ConvertedType enum values used
-_CV_UTF8, _CV_DECIMAL, _CV_DATE = 0, 5, 6
+_CV_UTF8, _CV_DECIMAL, _CV_DATE, _CV_TS_MICROS = 0, 5, 6, 10
+_CV_INT8, _CV_INT16 = 15, 16
 # CompressionCodec enum
 CODECS = {"uncompressed": 0, "none": 0, "snappy": 1, "gzip": 2}
 # Encoding enum
@@ -134,16 +139,24 @@ def _physical(dt: T.DataType):
     image). Raises TypeError for a type the writer cannot frame."""
     if isinstance(dt, T.BooleanType):
         return _PT_BOOLEAN, None, np.bool_
+    if isinstance(dt, T.ByteType):
+        return _PT_INT32, _CV_INT8, np.int32
+    if isinstance(dt, T.ShortType):
+        return _PT_INT32, _CV_INT16, np.int32
     if isinstance(dt, T.IntegerType):
         return _PT_INT32, None, np.int32
     if isinstance(dt, T.LongType):
         return _PT_INT64, None, np.int64
+    if isinstance(dt, T.FloatType):
+        return _PT_FLOAT, None, np.float32
     if isinstance(dt, T.DoubleType):
         return _PT_DOUBLE, None, np.float64
     if isinstance(dt, T.StringType):
         return _PT_BYTE_ARRAY, _CV_UTF8, np.int32
     if isinstance(dt, T.DateType):
         return _PT_INT32, _CV_DATE, np.int32
+    if isinstance(dt, T.TimestampType):
+        return _PT_INT64, _CV_TS_MICROS, np.int64
     if isinstance(dt, T.DecimalType):
         return _PT_INT64, _CV_DECIMAL, np.int64
     raise TypeError(f"native parquet writer: unsupported type {dt}")
@@ -360,6 +373,18 @@ def _schema_elements(w: _CompactWriter, schema: T.StructType):
         if isinstance(f.data_type, T.DecimalType):
             e.field_i32(7, f.data_type.scale)
             e.field_i32(8, f.data_type.precision)
+        if isinstance(f.data_type, T.TimestampType):
+            # LogicalType TIMESTAMP(isAdjustedToUTC=true, MICROS): readers
+            # rebuild timestamp[us, UTC] (the converted type alone is naive)
+            e.begin_struct(10)
+            e.begin_struct(8)
+            e.field_bool(1, True)
+            e.begin_struct(2)
+            e.begin_struct(2)                  # TimeUnit.MICROS (empty)
+            e.end_struct()
+            e.end_struct()
+            e.end_struct()
+            e.end_struct()
         w.buf += e.end_top()
 
 

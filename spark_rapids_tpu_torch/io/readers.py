@@ -172,7 +172,12 @@ class CsvReader:
         parse_opts = pcsv.ParseOptions(delimiter=self.delimiter)
         conv = {}
         if self.schema is not None:
-            conv = {f.name: T.to_arrow_type(f.data_type) for f in self.schema}
+            # a timestamp parses naive and is taken as UTC (the session
+            # zone): arrow refuses a zoned target for text without an offset
+            conv = {f.name: (pa.timestamp("us")
+                             if isinstance(f.data_type, T.TimestampType)
+                             else T.to_arrow_type(f.data_type))
+                    for f in self.schema}
         convert_opts = pcsv.ConvertOptions(
             column_types=conv, null_values=[self.null_value, "null", "NULL"],
             strings_can_be_null=True)

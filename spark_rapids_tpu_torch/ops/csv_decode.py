@@ -111,7 +111,14 @@ def parse_float64(data: torch.Tensor, starts: torch.Tensor,
     return torch.where(valid, val, torch.zeros_like(val)), valid
 
 
-def parse_int32(data, starts, lens, capacity):
+def parse_narrow_int(data, starts, lens, capacity, dtype: torch.dtype):
+    """Parse int8/int16/int32 fields: the int64 parse, and null where the
+    value is outside the type (Spark's CSV reader)."""
     v, m = parse_int64(data, starts, lens, capacity)
-    in_range = (v >= -(2 ** 31)) & (v < 2 ** 31)
-    return v.to(torch.int32), m & in_range
+    info = torch.iinfo(dtype)
+    in_range = (v >= info.min) & (v <= info.max)
+    return v.to(dtype), m & in_range
+
+
+def parse_int32(data, starts, lens, capacity):
+    return parse_narrow_int(data, starts, lens, capacity, torch.int32)

@@ -197,9 +197,11 @@ def pack_utf8_words(strings, max_bytes: int | None = None):
         max_b = max(max_b, max_bytes)
     W = max(1, (max_b + 3) // 4)
     raw = np.zeros((len(bs), W * 4), dtype=np.uint8)
-    lens = np.zeros(len(bs), dtype=np.int32)
-    for i, b in enumerate(bs):
-        raw[i, :len(b)] = np.frombuffer(b, dtype=np.uint8)
-        lens[i] = len(b)
+    lens = np.fromiter((len(b) for b in bs), dtype=np.int32, count=len(bs))
+    # every byte at (its string, its place in the string), in one scatter
+    flat = np.frombuffer(b"".join(bs), dtype=np.uint8)
+    rows = np.repeat(np.arange(len(bs)), lens)
+    starts = np.repeat(np.cumsum(lens) - lens, lens)
+    raw[rows, np.arange(flat.size) - starts] = flat
     words = raw.view("<i4").astype(np.int32)
     return words, lens

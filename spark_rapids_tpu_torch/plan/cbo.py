@@ -62,6 +62,8 @@ def _estimate_rows(node, memo) -> int:
 
     if isinstance(node, FileScanNode):
         return _scan_rows(node)
+    if isinstance(node, NN.ScanNode):
+        return max(1, sum(t.num_rows for t in node.partitions))
     if isinstance(node, NN.FilterNode):
         return max(1, est(node.child) // 2)   # selectivity 0.5
     if isinstance(node, NN.AggregateNode):

@@ -3,7 +3,8 @@ into execs — counterpart of ``spark_rapids_tpu/plan/nodes.py``.
 
 The JAX package's nodes also carry a host interpreter (the CPU-Spark oracle
 path); the port's nodes only carry their schema, because every node of the
-ported slice runs on the device. The scan node lives in ``io/filescan.py``.
+ported slice runs on the device. The file scan node lives in
+``io/filescan.py``.
 """
 
 from __future__ import annotations
@@ -28,6 +29,28 @@ class PlanNode:
     @property
     def num_partitions(self) -> int:
         return self.children[0].num_partitions if self.children else 1
+
+
+class ScanNode(PlanNode):
+    """An in-memory scan over arrow tables, one a partition (Spark's
+    LocalTableScan): ``TorchSession.create_dataframe`` and the one-row
+    relation of a SELECT without FROM build it."""
+
+    def __init__(self, partitions: list, schema: T.StructType | None = None):
+        super().__init__()
+        self.partitions = list(partitions)
+        if not self.partitions:
+            raise ValueError("ScanNode needs at least one partition")
+        self._schema = schema or T.StructType.from_arrow(
+            self.partitions[0].schema)
+
+    @property
+    def output(self):
+        return self._schema
+
+    @property
+    def num_partitions(self):
+        return len(self.partitions)
 
 
 def _expr_name(e: E.Expression, i: int) -> str:

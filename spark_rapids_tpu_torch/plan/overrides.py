@@ -55,21 +55,23 @@ from spark_rapids_tpu_torch.exec.window import (WindowExec,
                                                 supported_window_expr)
 from spark_rapids_tpu_torch.expr import core as E
 from spark_rapids_tpu_torch.expr.aggregates import AggregateFunction
+from spark_rapids_tpu_torch.expr import datetime as _DT
+from spark_rapids_tpu_torch.expr import decimalexprs as _DX
+from spark_rapids_tpu_torch.expr import mathexprs as _MX
+from spark_rapids_tpu_torch.expr import strings as _SX
 from spark_rapids_tpu_torch.expr.arithmetic import (
-    Abs, BinaryArithmetic, BitwiseNot, UnaryMinus, Shift)
+    Abs, BinaryArithmetic, BitwiseNot, UnaryMinus, UnaryPositive, Shift)
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.expr.cast import Cast, supported_cast
 from spark_rapids_tpu_torch.expr.conditional import (CaseWhen, Greatest, If,
                                                      Least)
-from spark_rapids_tpu_torch.expr.datetime import AddMonths, DateAddInterval
-from spark_rapids_tpu_torch.expr.misc import ScalarSubquery
+from spark_rapids_tpu_torch.expr.misc import Murmur3Hash, ScalarSubquery
 from spark_rapids_tpu_torch.expr.nullexprs import (AtLeastNNonNulls, Coalesce,
                                                    IsNaN, IsNotNull, IsNull,
                                                    NaNvl)
 from spark_rapids_tpu_torch.expr.predicates import (
-    And, EqualTo, GreaterThan, GreaterThanOrEqual, In, LessThan,
-    LessThanOrEqual, Not, NotEqual, Or)
-from spark_rapids_tpu_torch.expr.strings import Substring
+    And, EqualNullSafe, EqualTo, GreaterThan, GreaterThanOrEqual, In,
+    LessThan, LessThanOrEqual, Not, NotEqual, Or)
 from spark_rapids_tpu_torch.expr.windows import WindowExpression
 from spark_rapids_tpu_torch.io.filescan import FileScanNode, FileSourceScanExec
 from spark_rapids_tpu_torch.ops import joining as J
@@ -78,13 +80,21 @@ from spark_rapids_tpu_torch.plan import nodes as NN
 from spark_rapids_tpu_torch.plan.cbo import estimate_rows
 from spark_rapids_tpu_torch.shuffle import partitioning as SP
 
+def _module_exprs(*mods) -> tuple:
+    """Every expression class a module defines."""
+    return tuple(v for m in mods for v in vars(m).values()
+                 if isinstance(v, type) and issubclass(v, E.Expression)
+                 and v.__module__ == m.__name__)
+
+
 _PORTED_EXPRS = (E.BoundReference, E.Literal, E.Alias, BinaryArithmetic,
-                 EqualTo, NotEqual, LessThan, LessThanOrEqual, GreaterThan,
-                 GreaterThanOrEqual, And, Or, Not, In, Cast, DateAddInterval,
-                 AddMonths, AggregateFunction, If, CaseWhen, Least, Greatest,
-                 Abs, UnaryMinus, IsNull, IsNotNull, IsNaN, Coalesce, NaNvl,
-                 AtLeastNNonNulls, Substring, BitwiseNot, Shift,
-                 ScalarSubquery)
+                 EqualTo, EqualNullSafe, NotEqual, LessThan, LessThanOrEqual,
+                 GreaterThan, GreaterThanOrEqual, And, Or, Not, In, Cast,
+                 AggregateFunction, If, CaseWhen, Least, Greatest, Abs,
+                 UnaryMinus, UnaryPositive, IsNull, IsNotNull, IsNaN,
+                 Coalesce, NaNvl, AtLeastNNonNulls, BitwiseNot, Shift,
+                 Murmur3Hash, ScalarSubquery) + _module_exprs(
+                     _DT, _DX, _MX, _SX)
 
 
 def _joinable(ldt: T.DataType, rdt: T.DataType) -> bool:
@@ -123,7 +133,8 @@ class TorchOverrides:
 
     def apply(self, plan: NN.PlanNode):
         kids = [self.apply(c) for c in plan.children]
-        conv = {FileScanNode: self._scan, NN.FilterNode: self._filter,
+        conv = {FileScanNode: self._scan, NN.ScanNode: self._local_scan,
+                NN.FilterNode: self._filter,
                 NN.ProjectNode: self._project,
                 NN.AggregateNode: self._aggregate,
                 NN.ExchangeNode: self._exchange,
@@ -150,6 +161,9 @@ class TorchOverrides:
                 f"{CFG.ALLUXIO_PATHS_REPLACE.key} (the Alluxio path rewrite) "
                 "is not ported yet")
         return FileSourceScanExec(n, conf=self.conf, device=self.device)
+
+    def _local_scan(self, n, kids):
+        return XB.LocalTableScanExec(n, conf=self.conf, device=self.device)
 
     def _filter(self, n, kids):
         check_expression(n.condition)

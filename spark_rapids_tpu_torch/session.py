@@ -271,6 +271,16 @@ class TorchSession:
         plan, subquery_plans = lower_sql(text, self._views, self)
         return DataFrame(plan, self, subquery_plans)
 
+    def create_dataframe(self, data, num_partitions: int = 1) -> DataFrame:
+        """A DataFrame over an in-memory arrow table (or a dict of columns),
+        cut into ``num_partitions`` partitions of equal row counts."""
+        if not isinstance(data, pa.Table):
+            data = pa.table(data)
+        per = -(-data.num_rows // max(1, num_partitions))
+        parts = ([data.slice(i * per, per) for i in range(num_partitions)]
+                 if num_partitions > 1 else [data])
+        return DataFrame(NN.ScanNode(parts), self)
+
     def read_parquet(self, path, files_per_partition: int = 1) -> DataFrame:
         from spark_rapids_tpu_torch.io.filescan import FileScanNode
         return DataFrame(FileScanNode(path, "parquet",

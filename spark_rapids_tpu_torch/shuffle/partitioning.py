@@ -45,12 +45,15 @@ def murmur3_row_hash(cols: list, capacity: int, seed: int = SPARK_HASH_SEED,
             words, lens = dict_words[ci]
             codes = c.values.long()
             nh = H.hash_string_words(words[codes], lens[codes], h)
-        elif isinstance(dt, (T.LongType, T.DecimalType)):
+        elif isinstance(dt, (T.LongType, T.DecimalType, T.TimestampType)):
             # a decimal of precision <= 18 hashes its unscaled long (Spark)
             nh = H.hash_long(c.values, h)
         elif isinstance(dt, T.DoubleType):
             nh = H.hash_double(c.values, h)
-        elif isinstance(dt, (T.BooleanType, T.IntegerType, T.DateType)):
+        elif isinstance(dt, T.FloatType):
+            nh = H.hash_float(c.values, h)
+        elif isinstance(dt, (T.BooleanType, T.ByteType, T.ShortType,
+                             T.IntegerType, T.DateType)):
             nh = H.hash_int(c.values.to(torch.int32), h)
         else:
             raise NotImplementedError(f"hashing {dt} is not ported yet")

@@ -45,22 +45,27 @@ conjunct an ``InSet`` of its values, and an uncorrelated EXISTS a constant.
 
 The expressions lowered: column references, literals (``100.0`` is a
 double, as the parser reads it; ``cast(x as decimal(p, s))`` makes a
-decimal), + - * /, negation, comparisons, AND/OR/NOT, BETWEEN, IN over
-literals or a subquery, CASE, IS [NOT] NULL, DATE literals and intervals,
-casts, the aggregates sum/min/max/avg/count/first/last (sum, avg and count
-also DISTINCT), ``grouping``, ``abs``, ``substr``/``substring`` and
-``coalesce``, scalar subqueries, and the window functions (row_number,
-rank, dense_rank, lead, lag and the aggregates over a window). Joins: the
-comma list, and [INNER|LEFT|RIGHT|FULL] [OUTER] JOIN ... ON/USING, semi,
-anti and cross joins.
+decimal; NULL is the untyped null), + - * / %, ``||``, negation,
+comparisons, AND/OR/NOT, BETWEEN, IN over literals, expressions or a
+subquery, [NOT] LIKE, CASE, IS [NOT] NULL, DATE and TIMESTAMP literals and
+intervals, casts to every scalar type, the aggregates
+sum/min/max/avg/count/first/last and stddev/stddev_samp/stddev_pop/
+variance/var_samp/var_pop (sum, avg and count also DISTINCT),
+``grouping``, the functions abs, substr/substring, coalesce, nullif,
+least, greatest, upper/ucase, lower/lcase, length, trim, concat, round,
+sqrt, floor and ceil/ceiling (the reference's list), scalar subqueries,
+and the window functions (row_number, rank, dense_rank, lead, lag and the
+aggregates over a window). A SELECT without FROM reads one row. An ORDER
+BY aggregate or ``grouping()`` that the select list lacks rides as a
+hidden column. Joins: the comma list, and [INNER|LEFT|RIGHT|FULL] [OUTER]
+JOIN ... ON/USING, semi, anti and cross joins.
 
 What the port cannot plan raises ``NotImplementedError`` here, while the
-text is lowered, never at run time: SELECT without FROM, and every
-expression outside the ones above (LIKE, ``%``, ``||``, the other string
-and math functions, stddev/variance, TIMESTAMP literals, the untyped NULL
-outside a CASE branch). Text the grammar or the catalog refuses raises
-``SqlParseError`` or ``SqlAnalysisError``, as in the reference; so do the
-subquery and DISTINCT shapes the reference refuses.
+text is lowered, never at run time (a calendar interval added to a
+timestamp, an ORDER BY aggregate under SELECT DISTINCT). Text the grammar
+or the catalog refuses raises ``SqlParseError`` or ``SqlAnalysisError``,
+as in the reference; so do the subquery and DISTINCT shapes the reference
+refuses.
 """
 
 from __future__ import annotations
@@ -71,7 +76,8 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.expr import core as E
 from spark_rapids_tpu_torch.expr import predicates as PR
 from spark_rapids_tpu_torch.expr.aggregates import (
-    AggregateFunction, Average, Count, First, Last, Max, Min, Sum)
+    AggregateFunction, Average, Count, First, Last, Max, Min, StddevPop,
+    StddevSamp, Sum, VariancePop, VarianceSamp)
 from spark_rapids_tpu_torch.expr.exprkey import expr_key
 from spark_rapids_tpu_torch.plan import nodes as NN
 from spark_rapids_tpu_torch.sql import parser as P
@@ -124,12 +130,12 @@ class Scope:
 
 
 _TYPE_MAP = {
-    "int": T.INT, "integer": T.INT, "bigint": T.LONG, "long": T.LONG,
+    "int": T.INT, "integer": T.INT, "smallint": T.SHORT, "tinyint": T.BYTE,
+    "bigint": T.LONG, "long": T.LONG, "float": T.FLOAT, "real": T.FLOAT,
     "double": T.DOUBLE, "string": T.STRING, "date": T.DATE,
-    "boolean": T.BOOLEAN, "char": T.STRING, "varchar": T.STRING,
+    "timestamp": T.TIMESTAMP, "boolean": T.BOOLEAN, "char": T.STRING,
+    "varchar": T.STRING,
 }
-# types the reference's lowering knows and the port's type system lacks
-_UNPORTED_TYPES = ("smallint", "tinyint", "float", "real", "timestamp")
 
 
 def _sql_type(name: str, args: tuple = ()) -> T.DataType:
@@ -143,20 +149,19 @@ def _sql_type(name: str, args: tuple = ()) -> T.DataType:
             raise _not_ported(f"decimal({p}, {s}) (precision above "
                               f"{T.DecimalType.MAX_PRECISION})")
         return T.DecimalType(p, s)
-    if name in _UNPORTED_TYPES:
-        raise _not_ported(f"the SQL type {name}")
     raise SqlAnalysisError(f"unsupported cast type {name}")
 
 
-_AGG_FUNCS = {"sum": Sum, "min": Min, "max": Max, "avg": Average,
-              "first": First, "last": Last}
-# aggregates the reference lowers and the port has not ported
-_UNPORTED_AGGS = ("stddev_samp", "stddev", "stddev_pop", "var_samp",
-                  "variance", "var_pop")
-# scalar functions the reference lowers and the port has not ported
-_UNPORTED_FUNCS = ("nullif", "least", "greatest", "upper",
-                   "ucase", "lower", "lcase", "length", "trim", "concat",
-                   "round", "sqrt", "floor", "ceil", "ceiling")
+_AGG_FUNCS = {
+    "sum": Sum, "min": Min, "max": Max, "avg": Average,
+    "stddev_samp": StddevSamp, "stddev": StddevSamp, "stddev_pop": StddevPop,
+    "var_samp": VarianceSamp, "variance": VarianceSamp,
+    "var_pop": VariancePop, "first": First, "last": Last,
+}
+# aggregates and scalar functions the reference lowers and the port has not
+# ported: none
+_UNPORTED_AGGS: tuple = ()
+_UNPORTED_FUNCS: tuple = ()
 
 
 class _Grouping(E.Expression):
@@ -227,9 +232,12 @@ class _ExprConverter:
             from spark_rapids_tpu_torch.expr import arithmetic as AR
             if isinstance(a.right, P.IntervalAst) and a.op in ("+", "-"):
                 return _date_interval(c(a.left), a.right, a.op)
+            if a.op == "||":
+                from spark_rapids_tpu_torch.expr.strings import Concat
+                return Concat(c(a.left), c(a.right))
             table = {
                 "+": AR.Add, "-": AR.Subtract, "*": AR.Multiply,
-                "/": AR.Divide,
+                "/": AR.Divide, "%": AR.Remainder,
                 "=": PR.EqualTo, "<": PR.LessThan, "<=": PR.LessThanOrEqual,
                 ">": PR.GreaterThan, ">=": PR.GreaterThanOrEqual,
                 "<>": PR.NotEqual, "!=": PR.NotEqual,
@@ -248,18 +256,23 @@ class _ExprConverter:
         if isinstance(a, P.InAst):
             if isinstance(a.values, (P.Select, P.SetOp)):
                 return self._in_subquery(a)
-            vals = []
-            for v in a.values:
-                ve = c(v)
-                if not isinstance(ve, E.Literal):
-                    raise _not_ported("IN over a non-literal list")
-                vals.append(ve.value)
-            ins = PR.InSet(c(a.expr), vals)
+            vals = [c(v) for v in a.values]
+            if all(isinstance(ve, E.Literal) for ve in vals):
+                ins = PR.InSet(c(a.expr), [ve.value for ve in vals])
+            else:
+                # x IN (e1, e2, ...) is the Kleene OR of x = ei: true on a
+                # match, else null when any side is null, else false
+                x = c(a.expr)
+                ins = PR.EqualTo(x, vals[0])
+                for ve in vals[1:]:
+                    ins = PR.Or(ins, PR.EqualTo(x, ve))
             return PR.Not(ins) if a.negated else ins
         if isinstance(a, P.CaseAst):
             return self._case(a)
         if isinstance(a, P.LikeAst):
-            raise _not_ported("LIKE")
+            from spark_rapids_tpu_torch.expr.strings import Like
+            lk = Like(c(a.expr), E.Literal(a.pattern, T.STRING))
+            return PR.Not(lk) if a.negated else lk
         if isinstance(a, P.IsNullAst):
             from spark_rapids_tpu_torch.expr.nullexprs import IsNotNull, IsNull
             return (IsNotNull if a.negated else IsNull)(c(a.expr))
@@ -341,6 +354,14 @@ class _ExprConverter:
                              "tomorrow"):
                 raise _not_ported(f"the special date string {s!r}")
             try:
+                if isinstance(to, T.TimestampType):
+                    # the session zone is UTC: the literal is read there
+                    ts = _dt.datetime.fromisoformat(s).replace(
+                        tzinfo=_dt.timezone.utc)
+                    epoch = _dt.datetime(1970, 1, 1, tzinfo=_dt.timezone.utc)
+                    return E.Literal(
+                        (ts - epoch) // _dt.timedelta(microseconds=1),
+                        T.TIMESTAMP)
                 d = _dt.date.fromisoformat(s)
             except ValueError as e:
                 raise P.SqlParseError(
@@ -389,11 +410,59 @@ class _ExprConverter:
         if name == "abs":
             from spark_rapids_tpu_torch.expr.arithmetic import Abs
             return Abs(c(a.args[0]))
+        scalar = self._scalar_func(a)
+        if scalar is not None:
+            return scalar
         if name in ("row_number", "rank", "dense_rank", "lead", "lag"):
             raise SqlAnalysisError(f"{name}() requires an OVER clause")
         if name in _UNPORTED_AGGS or name in _UNPORTED_FUNCS:
             raise _not_ported(f"the SQL function {name}")
         raise SqlAnalysisError(f"unknown function {name}")
+
+    def _scalar_func(self, a: P.FuncCall):
+        """The reference's scalar functions beyond abs/substr/coalesce:
+        nullif, least, greatest, upper/ucase, lower/lcase, length, trim,
+        concat, round, sqrt, floor, ceil/ceiling. None for another name."""
+        from spark_rapids_tpu_torch.expr import conditional as CX
+        from spark_rapids_tpu_torch.expr import mathexprs as MX
+        from spark_rapids_tpu_torch.expr import strings as SX
+        name = a.name
+        args = [self.convert(x) for x in a.args]
+
+        def arity(*ns):
+            if len(args) not in ns:
+                raise SqlAnalysisError(
+                    f"{name} takes {' or '.join(map(str, ns))} argument(s)")
+        if name == "nullif":
+            arity(2)
+            x, y = args
+            return CX.If(PR.EqualTo(x, y), E.Literal(None, x.dtype), x)
+        if name in ("least", "greatest"):
+            if len(args) < 2:
+                raise SqlAnalysisError(f"{name} takes two or more arguments")
+            return (CX.Least if name == "least" else CX.Greatest)(*args)
+        unary = {"upper": SX.Upper, "ucase": SX.Upper, "lower": SX.Lower,
+                 "lcase": SX.Lower, "length": SX.Length, "trim": SX.Trim,
+                 "sqrt": MX.Sqrt, "floor": MX.Floor, "ceil": MX.Ceil,
+                 "ceiling": MX.Ceil}
+        if name in unary:
+            arity(1)
+            return unary[name](args[0])
+        if name == "concat":
+            if not args:
+                raise SqlAnalysisError("concat takes one or more arguments")
+            return SX.Concat(*args)
+        if name == "round":
+            arity(1, 2)
+            scale = 0
+            if len(args) > 1:
+                if not (isinstance(args[1], E.Literal)
+                        and isinstance(args[1].value, int)):
+                    raise SqlAnalysisError(
+                        "round's scale must be an integer literal")
+                scale = args[1].value
+            return MX.Round(args[0], scale)
+        return None
 
     def _window(self, a: P.FuncCall) -> E.Expression:
         """fn(...) OVER (PARTITION BY ... ORDER BY ... [frame]) as a
@@ -538,6 +607,16 @@ def _date_interval(date_expr, iv, op: str):
     if op == "-":
         n = -n
     unit = iv.unit
+    if isinstance(date_expr.dtype, T.TimestampType):
+        # a fixed-length interval moves a timestamp by its microseconds
+        # (Spark's TimeAdd); a calendar one is refused, as the reference
+        # refuses it on the device
+        from spark_rapids_tpu_torch.expr.datetime import TimeAdd
+        per = {"day": 86_400, "week": 7 * 86_400, "hour": 3600,
+               "minute": 60, "second": 1}.get(unit)
+        if per is None:
+            raise _not_ported(f"a timestamp ± INTERVAL in {unit}s")
+        return TimeAdd(date_expr, E.Literal(n * per * 1_000_000, T.LONG))
     if unit in ("day", "week"):
         days = n * (7 if unit == "week" else 1)
         return DateAddInterval(date_expr, E.Literal(days, T.INT))
@@ -1077,8 +1156,13 @@ class _Lowerer:
     # -- SELECT block ---------------------------------------------------------
     def _select(self, q: P.Select):
         if not q.from_:
-            raise _not_ported("SELECT without FROM")
-        plan, scope = self._plan_from(q)
+            # SELECT <expressions>: over a one-row relation
+            import pyarrow as pa
+            plan = NN.ScanNode([pa.table({"_one": pa.array([1],
+                                                            pa.int32())})])
+            scope = Scope.for_relation(plan, None)
+        else:
+            plan, scope = self._plan_from(q)
         conv = _ExprConverter(scope, self)
 
         # expand stars, convert select items
@@ -1127,6 +1211,10 @@ class _Lowerer:
 
         plan, wsub = self._windows(plan, items)
         items = [(wsub(e), nm) for e, nm in items]
+        n_items = len(items)
+        if has_agg and order_items and not q.distinct:
+            items = items + self._hidden_order_aggs(order_items, items, conv,
+                                                    lambda e: wsub(sub(e)))
 
         plan = NN.ProjectNode([E.Alias(e, nm) for e, nm in items], plan)
 
@@ -1136,9 +1224,41 @@ class _Lowerer:
         if order_items:
             plan = self._order_by(plan, order_items, items, conv,
                                   lambda e: wsub(sub(e)))
+        if len(items) > n_items:
+            # the ORDER BY's own aggregates ride to the sort and go
+            plan = NN.ProjectNode(
+                [E.Alias(E.BoundReference(i, f.data_type, f.nullable, f.name),
+                         f.name)
+                 for i, f in enumerate(plan.output.fields[:n_items])], plan)
         if q.limit is not None:
             plan = NN.LimitNode(q.limit, plan, global_limit=True)
         return plan
+
+    def _hidden_order_aggs(self, order_items, items, conv, sub) -> list:
+        """ORDER BY expressions over aggregates or ``grouping()`` that the
+        select list does not hold (``select g ... order by sum(x)``): each
+        becomes a hidden column of the projection, as Spark's analyzer adds
+        it below the sort; the caller drops them after the sort."""
+        keys = {expr_key(e) for e, _ in items}
+        names = {nm.lower() for _, nm in items}
+        extra = []
+        for (ast, _, _) in order_items:
+            if isinstance(ast, P.Lit) or (isinstance(ast, P.Ident)
+                                          and ast.parts[-1].lower() in names):
+                continue
+            try:
+                e = conv.convert(ast)
+            except SqlAnalysisError:
+                continue
+            if not e.collect(lambda x: isinstance(
+                    x, (_Grouping, AggregateFunction))):
+                continue
+            se = sub(e)
+            k = expr_key(se)
+            if k not in keys:
+                keys.add(k)
+                extra.append((se, f"_o{len(extra)}"))
+        return extra
 
     @staticmethod
     def _windows(plan, items):

@@ -1,13 +1,17 @@
 """Spark SQL data types with their torch device representations.
 
-Counterpart of ``spark_rapids_tpu/types.py``, limited to the types the
-ported TPC-H and TPC-DS paths touch. The device layout is the JAX package's,
-so buffers compare 1:1:
+Counterpart of ``spark_rapids_tpu/types.py``: every scalar type (the
+nested ArrayType, StructDataType and MapType are not ported yet). The device
+layout is the JAX package's, so buffers compare 1:1:
 
 - fixed-width types: one padded 1-D tensor plus a bool validity tensor;
-- DateType: int32 days since 1970-01-01; DoubleType: float64 (native on the card);
+- ByteType int8, ShortType int16, IntegerType int32, LongType int64,
+  FloatType float32, DoubleType float64 (all native on the card);
+- DateType: int32 days since 1970-01-01; TimestampType: int64 microseconds
+  since the epoch, UTC (Spark's internal representation);
 - DecimalType: precision <= 18, the unscaled value as int64;
-- StringType: int32 codes into a host-side sorted pyarrow dictionary.
+- StringType: int32 codes into a host-side sorted pyarrow dictionary;
+- NullType: an int8 carrier whose every slot is invalid (the untyped NULL).
 """
 
 from __future__ import annotations
@@ -60,6 +64,16 @@ class BooleanType(DataType):
         return False
 
 
+class ByteType(IntegralType):
+    torch_dtype = torch.int8
+    sql_name = "tinyint"
+
+
+class ShortType(IntegralType):
+    torch_dtype = torch.int16
+    sql_name = "smallint"
+
+
 class IntegerType(IntegralType):
     torch_dtype = torch.int32
     sql_name = "int"
@@ -68,6 +82,14 @@ class IntegerType(IntegralType):
 class LongType(IntegralType):
     torch_dtype = torch.int64
     sql_name = "bigint"
+
+
+class FloatType(FractionalType):
+    torch_dtype = torch.float32
+    sql_name = "float"
+
+    def default_value(self):
+        return 0.0
 
 
 class DoubleType(FractionalType):
@@ -122,31 +144,56 @@ class DateType(DataType):
     sql_name = "date"
 
 
+class TimestampType(DataType):
+    """Microseconds since 1970-01-01 00:00 UTC, Spark's internal int64."""
+    torch_dtype = torch.int64
+    sql_name = "timestamp"
+
+
+class NullType(DataType):
+    """The type of the untyped NULL: an int8 carrier, every slot invalid."""
+    torch_dtype = torch.int8
+    sql_name = "void"
+
+
 BOOLEAN = BooleanType()
+BYTE = ByteType()
+SHORT = ShortType()
 INT = IntegerType()
 LONG = LongType()
+FLOAT = FloatType()
 DOUBLE = DoubleType()
 STRING = StringType()
 DATE = DateType()
+TIMESTAMP = TimestampType()
+NULL = NullType()
 
 _ARROW_TO_SPARK = {
     pa.bool_(): BOOLEAN,
+    pa.int8(): BYTE,
+    pa.int16(): SHORT,
     pa.int32(): INT,
     pa.int64(): LONG,
+    pa.float32(): FLOAT,
     pa.float64(): DOUBLE,
     pa.string(): STRING,
     pa.large_string(): STRING,
+    pa.string_view(): STRING,
     pa.date32(): DATE,
+    pa.null(): NULL,
 }
 
-_NUMPY = {torch.bool: np.bool_, torch.int32: np.int32, torch.int64: np.int64,
-          torch.float64: np.float64}
+_NUMPY = {torch.bool: np.bool_, torch.int8: np.int8, torch.int16: np.int16,
+          torch.int32: np.int32, torch.int64: np.int64,
+          torch.float32: np.float32, torch.float64: np.float64}
 
 
 def from_arrow_type(at: pa.DataType) -> DataType:
     """Map an Arrow type to the Spark SQL type the engine executes with."""
     if at in _ARROW_TO_SPARK:
         return _ARROW_TO_SPARK[at]
+    if pa.types.is_timestamp(at):
+        return TIMESTAMP
     if pa.types.is_decimal(at):
         if at.precision > DecimalType.MAX_PRECISION:
             raise NotImplementedError(
@@ -161,8 +208,10 @@ def from_arrow_type(at: pa.DataType) -> DataType:
 def to_arrow_type(dt: DataType) -> pa.DataType:
     if isinstance(dt, DecimalType):
         return pa.decimal128(dt.precision, dt.scale)
+    if isinstance(dt, TimestampType):
+        return pa.timestamp("us", tz="UTC")
     for a, s in _ARROW_TO_SPARK.items():
-        if s == dt and a != pa.large_string():
+        if s == dt and a not in (pa.large_string(), pa.string_view()):
             return a
     raise NotImplementedError(f"spark type {dt} is not ported yet")
 

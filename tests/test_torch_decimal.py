@@ -184,10 +184,14 @@ def test_decimal_casts_match_reference(frm, to):
 
 
 def test_supported_cast_admits_exactly_the_decimal_casts():
+    """The decimal casts: with the numbers, and (since the expression
+    slice ported the cast matrix) with strings and booleans; never with a
+    date, as in Spark."""
     d = T.DecimalType(7, 2)
-    for other in (T.INT, T.LONG, T.DOUBLE, T.DecimalType(9, 4)):
+    for other in (T.INT, T.LONG, T.DOUBLE, T.DecimalType(9, 4), T.BYTE,
+                  T.SHORT, T.FLOAT, T.STRING, T.BOOLEAN):
         assert C.supported_cast(d, other) and C.supported_cast(other, d)
-    for other in (T.STRING, T.DATE, T.BOOLEAN):
+    for other in (T.DATE, T.TIMESTAMP):
         assert not C.supported_cast(d, other)
         assert not C.supported_cast(other, d)
 

@@ -200,14 +200,22 @@ REFUSED = {
 
 
 def test_order_by_grouping_outside_the_select_list_is_refused(views):
-    """Spark sorts by it below the projection; the reference fails at run
-    time (its host evaluation of ``grouping``), the port refuses it while
-    the text is lowered."""
+    """Spark sorts by it below the projection. The port did refuse it while
+    the text was lowered; since the expression slice it carries the sort
+    key as a hidden column and drops it after the sort, Spark's answer: the
+    grand total first, then the (g) subtotals, then the (g, h) rows, each
+    in g, h order. The reference still fails at run time (its host
+    evaluation of ``grouping``)."""
     port, ref = views
     text = ("select g, h, sum(z) s from t group by rollup(g, h) "
             "order by grouping(g) + grouping(h) desc, g, h")
-    with pytest.raises(NotImplementedError):
-        port.sql(text)
+    got = _rows(port.sql(text))
+    levels = _rows(port.sql(
+        "select g, h, sum(z) s, grouping(g) + grouping(h) lv from t "
+        "group by rollup(g, h) order by lv desc, g, h"))
+    assert got == [r[:3] for r in levels]
+    assert [r[3] for r in levels] == sorted((r[3] for r in levels),
+                                            reverse=True)
     with pytest.raises(NotImplementedError):
         ref.sql(text).collect()
 

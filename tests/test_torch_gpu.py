@@ -1663,3 +1663,78 @@ def test_read_write_round_trip_on_card(cuda_device, tmp_path):
     back = spark.read_csv(str(tmp_path / "csv"), schema=num).collect()
     assert CN.routes == {"device_files": 1, "arrow_files": 0}
     assert back.equals(t.select(["i", "l", "d"]))
+
+
+# -- the expression slice: narrow and float chunks, hash() of strings --------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arrow_type,width", [("int8", 1), ("int16", 2),
+                                              ("float32", 4)])
+def test_sweep_chunk_decode_widths_match_plain(cuda_device, tmp_path,
+                                               arrow_type, width):
+    """``chunk_decode`` on pyarrow-written tinyint, smallint and float
+    chunks (the sweep's value widths 1, 2 and 4-float) against its plain
+    version, bit for bit, values and validity."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.io import parquet_native as PN
+    rng = np.random.default_rng(width)
+    n = 200_000
+    vals = (rng.integers(0, 11, n) / 100).astype(np.float32) \
+        if arrow_type == "float32" else rng.integers(
+            -100 if width == 1 else -30_000, 100 if width == 1 else 30_000,
+            n).astype(arrow_type)
+    p = str(tmp_path / "c.parquet")
+    pq.write_table(pa.table({"c": pa.array(vals, mask=rng.random(n) < 0.1)}),
+                   p)
+    st = T.from_arrow_type(getattr(pa, arrow_type)())
+    pages = PN.read_chunk_pages(p, 0, 0)
+    cap = bucket_capacity(pages.num_values)
+    before = CK.launches["bitunpack128"]
+    got = PN.chunk_to_device(pages, st, cap, cuda_device)
+    want = PN.chunk_to_device(pages, st, cap, "cpu")
+    torch.cuda.synchronize()
+    assert CK.launches["bitunpack128"] == before + 1
+    assert got.data.dtype == st.torch_dtype and got.data.element_size() \
+        == width
+    assert torch.equal(got.data.cpu(), want.data)
+    assert torch.equal(got.validity.cpu(), want.validity)
+
+
+def _np_murmur3():
+    import importlib.util
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_for_tests", os.path.join(root, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.gpu
+def test_hash_of_strings_matches_numpy_murmur3(cuda_device):
+    """Spark's hash() of a string column and an int column on the card
+    (the murmur3_words kernel under Murmur3Hash) against a numpy Murmur3
+    written from Spark's Murmur3_x86_32, bit for bit."""
+    import pyarrow as pa
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.session import TorchSession
+    cs = _np_murmur3()
+    rng = np.random.default_rng(42)
+    words = ["", "a", "ab", "abc", "abcd", "déjà vu", "x" * 37,
+             "Customer#000012345", "日本語テキスト"]
+    s = [None if rng.random() < 0.1 else words[k]
+         for k in rng.integers(0, len(words), 5000)]
+    i = rng.integers(-2**31, 2**31, 5000).astype(np.int32)
+    t = pa.table({"s": pa.array(s, pa.string()), "i": pa.array(i)})
+    before = CK.launches["murmur3_words"]
+    got = TorchSession().create_dataframe(t).select(
+        F.hash("s", "i").alias("h")).collect().column("h").to_numpy()
+    assert CK.launches["murmur3_words"] > before
+    h = np.full(len(s), 42, np.uint64)
+    hs = cs.np_murmur3_bytes([x or "" for x in s], 42)
+    valid = np.array([x is not None for x in s])
+    h = np.where(valid, hs, h)
+    h = cs.np_murmur3_int(i, h)
+    np.testing.assert_array_equal(got, cs._signed32(h))

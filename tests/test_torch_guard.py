@@ -128,14 +128,16 @@ def table_path(tmp_path):
 def test_unported_expressions_raise_when_built(table_path):
     import spark_rapids_tpu_torch.functions as F
     # the comparisons, AND, OR, NOT, COUNT(*), /, abs and unary minus over a
-    # number are ported; unary minus over a boolean, the untyped null and
-    # sum(*) are not
+    # number are ported, and the untyped null since the expression slice;
+    # unary minus over a boolean, a list literal and sum(*) are not
     -(F.col("x") / F.lit(2.0))
     with pytest.raises(NotImplementedError):
         _ = (-((F.col("x") <= F.lit(1.0))
                | (F.col("x") <= F.lit(2.0)))).dtype
+    from spark_rapids_tpu_torch import types as T
+    assert F.lit(None).dtype == T.NULL
     with pytest.raises(NotImplementedError):
-        F.lit(None)
+        F.lit([1, 2])
     from spark_rapids_tpu_torch.expr.aggregates import Sum
     with pytest.raises(NotImplementedError):
         Sum(None)    # sum(*)
@@ -155,9 +157,11 @@ def test_unported_plans_raise_at_planning(table_path):
     with pytest.raises(NotImplementedError):
         spark.sql("select k, sum(x) over (partition by k) as s, "
                   "sum(x) over (partition by n) as u from t").physical_plan()
-    # a cast pair outside the slice
+    # a cast pair Spark refuses (double to int is ported since the
+    # expression slice)
+    df.select(F.cast(F.col("x"), T.INT)).physical_plan()
     with pytest.raises(NotImplementedError):
-        df.select(F.cast(F.col("x"), T.INT)).physical_plan()
+        df.select(F.cast(F.col("x"), T.DATE)).physical_plan()
     # several partitions plan an exchange; its serializing fallback and
     # range partitioning are not ported
     no_shuffle = TorchSession({"spark.rapids.tpu.shuffle.enabled": "false"},

@@ -40,7 +40,7 @@ ORACLES = tpcds.sql_suite_oracles()
 # one text over the TPC-DS views for each construct the lowering still
 # refuses
 REFUSED = {
-    "like": "select i_item_id from item where i_item_id like 'A%'",
+    "like": "select i_item_id from item where i_item_id like 'ITEM%1'",
     "remainder": "select ss_quantity % 7 from store_sales",
     "concat": "select i_brand || i_class from item",
     "stddev": "select stddev(ss_quantity) from store_sales",
@@ -55,6 +55,19 @@ REFUSED = {
     "untyped null": "select null from item",
     "in over columns": "select i_item_sk from item "
                        "where i_item_sk in (i_brand_id, i_class_id)",
+}
+# refused texts the reference cannot run, each beside a text of the same
+# answer that it runs: it collects no untyped NULL column (its arrow
+# conversion has no null type), evaluates no IN over columns, and compares
+# no date with a timestamp (its ``promote`` has no such pair; Spark
+# compares the date's midnight)
+REFERENCE_FAILS = {
+    "timestamp literal": "select d_date_sk from date_dim "
+                         "where d_date < date '2000-01-01'",
+    "untyped null": "select i_item_sk from item",
+    "in over columns": "select i_item_sk from item "
+                       "where i_item_sk = i_brand_id "
+                       "or i_item_sk = i_class_id",
 }
 NEW = ["q43", "q97", "q53", "q63", "q89", "q98", "q12", "q20", "q61", "q19",
        "q15"]
@@ -117,9 +130,24 @@ def test_sql_text_matches_the_oracle(data, name):
 
 @pytest.mark.parametrize("name", list(REFUSED))
 def test_unported_texts_raise_while_lowered(data, name):
-    spark, _, _ = data
-    with pytest.raises(NotImplementedError):
-        spark.sql(REFUSED[name])
+    """Each text here was refused while lowered until the expression slice
+    ported its construct; under its old name it now lowers and gives the
+    reference session's rows (floats within 1e-9 relative)."""
+    spark, ref, _ = data
+    got = sorted(rows(spark.sql(REFUSED[name])), key=repr)
+    if name in REFERENCE_FAILS:
+        # the reference fails on the text (ROADMAP Queue 3): Spark's answer
+        # through a text it runs
+        with pytest.raises(Exception):
+            ref.sql(REFUSED[name]).collect()
+        exp = sorted(rows(ref.sql(REFERENCE_FAILS[name])), key=repr)
+        exp = [tuple(None for _ in r) if name == "untyped null" else r
+               for r in exp]
+    else:
+        exp = sorted(rows(ref.sql(REFUSED[name])), key=repr)
+    assert len(got) == len(exp) and exp
+    for g, e in zip(got, exp):
+        assert g == pytest.approx(e, rel=1e-9, nan_ok=True), (name, g, e)
 
 
 def test_sql_equals_the_dataframe_twins(data):
