@@ -194,6 +194,26 @@ It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
    widths 1, 2 and 4-float, ``murmur3_words`` and ``onehot_sums_f32`` on
    the path's own inputs against their plain versions, timed beside their
    bounds (``sweep_sf1`` in their kernels-line entries);
+   then dfapi-sf1 (``dfapi_paths``), on the SF1 TPC-DS files: ds-windows
+   (``store_sales`` read from its 4 files as 4 partitions, joined to
+   ``item``, ``with_column``/``with_column_renamed``/``drop``, one
+   ``window`` of five expressions over four partition/order specs, which
+   plans four chained window execs over three hash exchanges and a
+   gather, then ``filter(rn <= 3)``) and sql-ds-windows (the same query as
+   SQL text), both counted like the TPC-DS paths and held row for row to
+   a numpy oracle; over ``spark.range(0, 2**27, num_slices=8)``:
+   range-count (``count()``), range-group-count (the id modulo 4,000 as a
+   string key, through the dense count kernel and a hash exchange),
+   range-sorted-sample and range-sorted-aggregates
+   (``sort_within_partitions``, then ``monotonically_increasing_id()`` and
+   ``spark_partition_id()``, held to their closed form on a sample and on
+   keyless max/sum/count); input-files and input-files-repartition
+   (``group_by(input_file_name()).count()`` over the 4 files: each file's
+   footer row count, then ``""`` after a repartition). Each path is
+   counted once with every launch predicted (the chunk decode a
+   dictionary chunk, the count kernel an aggregate batch, the radix step
+   a partitioned batch, ``murmur3_words`` a string key of each, no hash
+   build), timed ``--reps`` times and traced once for its idle share;
 6. prints how many traces ``device_ms`` took and found short, one JSON
    line describing every ported kernel (``launches``, its launches summed
    over every path's counted run; each path's, the TPC-DS paths among
@@ -2192,6 +2212,433 @@ def sweep_path(spark, dev, name, li_files, root, counting, agg_batches,
     return results, calls, lines
 
 
+DFAPI_RANGE_ROWS = 1 << 27     # spark.range's throughput-demo size
+DFAPI_RANGE_SLICES = 8
+DFAPI_SAMPLE_MOD = 1_000_003
+# the customer window's order: (ss_item_sk, ss_ticket_number) repeats in the
+# generator's tickets, so the sale's time and demographic break its ties
+DFAPI_CUST_ORDER = ("ss_sold_date_sk", "ss_ticket_number", "ss_item_sk",
+                    "ss_sold_time_sk", "ss_cdemo_sk")
+DFAPI_SS_COLS = ("ss_sold_date_sk", "ss_sold_time_sk", "ss_item_sk",
+                 "ss_customer_sk", "ss_cdemo_sk", "ss_hdemo_sk",
+                 "ss_store_sk", "ss_ticket_number", "ss_quantity",
+                 "ss_net_paid")
+DFAPI_OUT = ("ss_item_sk", "ss_sold_date_sk", "ss_sold_time_sk", "customer",
+             "ss_cdemo_sk", "ss_store_sk", "ss_ticket_number", "ss_quantity",
+             "ss_net_paid", "i_category", "rn", "prev_paid", "cat_rank",
+             "item_qty", "store_rank")
+
+
+def dec_cents(col) -> tuple:
+    """A decimal128 column (p <= 18) as its unscaled int64 values and its
+    validity, from arrow's buffers (the low word of each value)."""
+    import pyarrow as pa
+    arr = col.combine_chunks() if isinstance(col, pa.ChunkedArray) else col
+    words = np.frombuffer(arr.buffers()[1], dtype=np.int64).reshape(-1, 2)
+    vals = words[arr.offset:arr.offset + len(arr), 0].copy()
+    valid = ~np.asarray(arr.is_null().to_numpy(zero_copy_only=False))
+    return vals, valid
+
+
+def ds_windows_oracle(ss_files, item_dir) -> dict:
+    """ds-windows' rows over numpy: the five window columns of every
+    store_sales row joined to its item, then the rows with rn <= 3, as
+    columns sorted by (customer, rn). Refuses an order that is not total
+    within a customer."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    ss = pa.concat_tables([pq.read_table(f, columns=list(DFAPI_SS_COLS))
+                           for f in ss_files])
+    item = pq.read_table(item_dir, columns=["i_item_sk", "i_category"])
+    col = {c: ss.column(c).to_numpy() for c in DFAPI_SS_COLS
+           if c != "ss_net_paid"}
+    paid, paid_ok = dec_cents(ss.column("ss_net_paid"))
+    if not paid_ok.all():
+        raise AssertionError("ds-windows oracle: ss_net_paid has nulls")
+    n = len(paid)
+    cats, item_cat = np.unique(np.asarray(
+        item.column("i_category").to_pylist(), dtype=object),
+        return_inverse=True)
+    item_sk = item.column("i_item_sk").to_numpy()
+    by_sk = np.argsort(item_sk)
+    pos = by_sk[np.searchsorted(item_sk[by_sk], col["ss_item_sk"])]
+    if not np.array_equal(item_sk[pos], col["ss_item_sk"]):
+        raise AssertionError("ds-windows oracle: a sale without its item")
+    cat_idx = item_cat[pos]
+    cust = col["ss_customer_sk"]
+    # row_number and lag over (customer order by DFAPI_CUST_ORDER)
+    keys = [col[c] for c in DFAPI_CUST_ORDER]
+    order = np.lexsort(tuple(reversed([cust] + keys)))
+    skeys = np.stack([cust[order]] + [k[order] for k in keys])
+    if np.all(skeys[:, 1:] == skeys[:, :-1], axis=0).any():
+        raise AssertionError("ds-windows: the customer order is not total")
+    sc = cust[order]
+    start = np.r_[True, sc[1:] != sc[:-1]]
+    grp_start = np.maximum.accumulate(np.where(start, np.arange(n), 0))
+    rn = np.empty(n, np.int64)
+    rn[order] = np.arange(n) - grp_start + 1
+    prev = np.empty(n, np.int64)
+    prev_ok = np.empty(n, bool)
+    sp = paid[order]
+    prev[order] = np.r_[0, sp[:-1]]
+    prev_ok[order] = ~start
+    prev[~prev_ok] = 0
+    # rank over (i_category order by ss_net_paid desc)
+    o2 = np.lexsort((-paid, cat_idx))
+    c2, p2 = cat_idx[o2], paid[o2]
+    cstart = np.r_[True, c2[1:] != c2[:-1]]
+    tie = cstart | np.r_[True, p2[1:] != p2[:-1]]
+    first_of_tie = np.maximum.accumulate(np.where(tie, np.arange(n), 0))
+    first_of_cat = np.maximum.accumulate(np.where(cstart, np.arange(n), 0))
+    cat_rank = np.empty(n, np.int64)
+    cat_rank[o2] = first_of_tie - first_of_cat + 1
+    # sum(ss_quantity) over (ss_item_sk); dense_rank over (ss_store_sk)
+    item_qty = np.bincount(col["ss_item_sk"],
+                           weights=col["ss_quantity"].astype(np.float64))
+    item_qty = np.rint(item_qty).astype(np.int64)[col["ss_item_sk"]]
+    store_rank = np.unique(col["ss_store_sk"], return_inverse=True)[1] + 1
+    keep = np.nonzero(rn <= 3)[0]
+    keep = keep[np.lexsort((rn[keep], cust[keep]))]
+    out = {"ss_item_sk": col["ss_item_sk"], "ss_sold_date_sk":
+           col["ss_sold_date_sk"], "ss_sold_time_sk": col["ss_sold_time_sk"],
+           "customer": cust, "ss_cdemo_sk": col["ss_cdemo_sk"],
+           "ss_store_sk": col["ss_store_sk"],
+           "ss_ticket_number": col["ss_ticket_number"],
+           "ss_quantity": col["ss_quantity"].astype(np.int64),
+           "ss_net_paid": paid, "i_category": cats[cat_idx], "rn": rn,
+           "prev_paid": prev, "cat_rank": cat_rank, "item_qty": item_qty,
+           "store_rank": store_rank}
+    res = {k: v[keep] for k, v in out.items()}
+    res["prev_paid_valid"] = prev_ok[keep]
+    res["n_rows_in"] = n
+    return res
+
+
+def check_ds_windows(res, exp, label: str) -> None:
+    """``res`` (the collected table) equal to the oracle column for column,
+    after sorting by (customer, rn)."""
+    import pyarrow.compute as pc
+    if res.column_names != list(DFAPI_OUT):
+        raise AssertionError(f"{label}: columns {res.column_names}, want "
+                             f"{list(DFAPI_OUT)}")
+    if res.num_rows != len(exp["rn"]):
+        raise AssertionError(f"{label}: {res.num_rows} rows, the oracle "
+                             f"{len(exp['rn'])}")
+    res = res.take(pc.sort_indices(res, [("customer", "ascending"),
+                                         ("rn", "ascending")]))
+    for c in DFAPI_OUT:
+        col = res.column(c)
+        if c in ("ss_net_paid", "prev_paid"):
+            got, ok = dec_cents(col)
+            want_ok = exp.get(c + "_valid", np.ones(len(got), bool))
+            same = np.array_equal(ok, want_ok) and np.array_equal(
+                got[ok], exp[c][ok])
+        elif c == "i_category":
+            same = col.to_pylist() == exp[c].tolist()
+        else:
+            same = (col.null_count == 0 and np.array_equal(
+                col.to_numpy().astype(np.int64), exp[c]))
+        if not same:
+            raise AssertionError(f"{label}: column {c} differs from the "
+                                 f"oracle")
+
+
+def check_launches(label, counts, want, required) -> None:
+    """Each kernel launched as often as ``want`` predicts, and each of
+    ``required`` at least once."""
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, predicted {want}")
+    for k in required:
+        if not counts[k]:
+            raise AssertionError(f"{label}: {k} never launched")
+
+
+def exchange_prediction(plans) -> tuple:
+    """(radix calls, murmur3_words calls) the exchanges of ``plans`` must
+    have launched: one partition step a partitioned batch, one string hash
+    a string key of each."""
+    from spark_rapids_tpu_torch import types as T
+    exs = [e for p in plans for e in exchanges(p)]
+    radix = sum(e.map_batches for e in exs)
+    mm = sum(e.map_batches * sum(
+        isinstance(k.dtype, T.StringType)
+        for k in getattr(e.partitioner, "key_exprs", ())) for e in exs)
+    return radix, mm, exs
+
+
+def dfapi_paths(spark, dev, name, ds_paths, counted_ds_run, counting,
+                agg_batches, scan_chunks, reps: int, counts_by_path: dict,
+                peak_by_path: dict) -> None:
+    """dfapi-sf1: the DataFrame API's remainder and windows over several
+    specs at SF1. ds-windows (store_sales from its 4 files as 4 partitions,
+    joined to item, ``with_column``/``with_column_renamed``/``drop``, one
+    ``window`` of five expressions over four specs, ``filter(rn <= 3)``)
+    and its SQL text; ``spark.range`` of 2^27 rows in 8 slices (count, a
+    4,096-key group-by count, ``sort_within_partitions`` with the row and
+    partition ids, checked on a sample and on keyless aggregates);
+    ``group_by(input_file_name())`` over the 4 files, and after a
+    repartition. Each path is counted once (``counted_ds_run`` for the
+    TPC-DS ones, which checks their scans, routes and exchange launches),
+    timed ``reps`` times and traced once; each path's launches and peak
+    device memory go into ``counts_by_path`` and ``peak_by_path``."""
+    import pyarrow.parquet as pq
+    import spark_rapids_tpu_torch.functions as F
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.ops import cuda_kernels as CK
+    c = F.col
+    ss_dir = ds_paths["store_sales"]
+    ss_files = data_files(ss_dir, ".parquet")
+    t0 = time.perf_counter()
+    exp_w = ds_windows_oracle(ss_files, ds_paths["item"])
+    print(f"dfapi-sf1 oracles: ds-windows over {exp_w['n_rows_in']} "
+          f"store_sales rows in {len(ss_files)} files, "
+          f"{len(exp_w['rn'])} rows with rn <= 3, in "
+          f"{time.perf_counter() - t0:.1f} s (numpy, outside every timed "
+          f"window)")
+
+    def ds_windows():
+        ss = spark.read_parquet(ss_files).select(*DFAPI_SS_COLS)
+        item = spark.read_parquet(ds_paths["item"]).select(
+            c("i_item_sk").alias("ss_item_sk"), c("i_category"))
+        j = (ss.join(item, on="ss_item_sk")
+             .with_column("ss_quantity", c("ss_quantity").cast(T.LONG))
+             .with_column_renamed("ss_customer_sk", "customer")
+             .drop("ss_hdemo_sk"))
+        cust = list(DFAPI_CUST_ORDER)
+        return j.window([
+            F.alias(F.over(F.row_number(), ["customer"], cust), "rn"),
+            F.alias(F.over(F.lag("ss_net_paid"), ["customer"], cust),
+                    "prev_paid"),
+            F.alias(F.over(F.rank(), ["i_category"],
+                           [("ss_net_paid", False, False)]), "cat_rank"),
+            F.alias(F.over(F.sum("ss_quantity"), ["ss_item_sk"]),
+                    "item_qty"),
+            F.alias(F.over(F.dense_rank(), [], ["ss_store_sk"]),
+                    "store_rank")]).filter(c("rn") <= 3)
+    spark.create_or_replace_temp_view("ss_files",
+                                      spark.read_parquet(ss_files))
+    spark.create_or_replace_temp_view("item_dir",
+                                      spark.read_parquet(ds_paths["item"]))
+    cust_sql = ", ".join(DFAPI_CUST_ORDER)
+    text = (
+        "select * from (select ss_item_sk, ss_sold_date_sk, "
+        "ss_sold_time_sk, ss_customer_sk as customer, ss_cdemo_sk, "
+        "ss_store_sk, ss_ticket_number, cast(ss_quantity as bigint) as "
+        "ss_quantity, ss_net_paid, i_category, row_number() over "
+        f"(partition by ss_customer_sk order by {cust_sql}) as rn, "
+        f"lag(ss_net_paid) over (partition by ss_customer_sk order by "
+        f"{cust_sql}) as prev_paid, rank() over (partition by i_category "
+        "order by ss_net_paid desc) as cat_rank, sum(cast(ss_quantity as "
+        "bigint)) over (partition by ss_item_sk) as item_qty, dense_rank() "
+        "over (order by ss_store_sk) as store_rank from ss_files join "
+        "item_dir on ss_item_sk = i_item_sk) w where rn <= 3")
+    named = set(DFAPI_SS_COLS) | {"i_item_sk", "i_category"}
+    windows_kernels = ("bitunpack128", "radix_ranks", "murmur3_words")
+    window_paths = {"dfapi-sf1/ds-windows": ds_windows,
+                    "dfapi-sf1/sql-ds-windows": lambda: spark.sql(text)}
+    from spark_rapids_tpu_torch.exec.window import WindowExec
+    for label, make in window_paths.items():
+        plan, _extra = counted_ds_run(
+            label, make, named, windows_kernels,
+            lambda res, label=label: check_ds_windows(res, exp_w, label))
+        wins = of_type(plan, WindowExec)
+        if len(wins) != 4 or counts_by_path[label]["hash_join_build"]:
+            raise AssertionError(
+                f"{label}: {len(wins)} window execs (want 4, one a spec), "
+                f"{counts_by_path[label]['hash_join_build']} hash builds "
+                f"(want 0: item's keys take the direct table)")
+        shape = [ln.strip().split(" ")[0]
+                 for ln in plan.tree_string().splitlines()]
+        print(f"{label} plan: {' <- '.join(shape)}")
+    for label, make in window_paths.items():
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            res = make().collect()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+            check_ds_windows(res, exp_w, label)
+        idle = sql_idle_share(lambda: make().collect())
+        print(f"{label} sf=1 on {name}: median {statistics.median(ts):.4f} "
+              f"s, min {min(ts):.4f} s, max {max(ts):.4f} s over {len(ts)} "
+              f"runs: {[round(x, 4) for x in ts]}; {res.num_rows} rows "
+              f"equal to the oracle; {idle}; peak device memory "
+              f"{peak_by_path[label]} B; launches "
+              f"{ {k: v for k, v in counts_by_path[label].items() if v} }")
+
+    # -- range ---------------------------------------------------------------
+    # the key as a string: the dense aggregate (and its count kernel) takes
+    # keys of a static domain, a string's dictionary or a boolean, of at
+    # most 4,096 codes with the null one; an integer key takes the segment
+    # group-by
+    n_rng, k_mod = DFAPI_RANGE_ROWS, 4000
+    per_slice = n_rng // DFAPI_RANGE_SLICES
+
+    def rng():
+        return spark.range(0, n_rng, num_slices=DFAPI_RANGE_SLICES)
+
+    def sorted_ids():
+        return rng().sort_within_partitions(
+            c("id") % 1000, "id", ascending=[False, True]).with_column(
+            "mid", F.monotonically_increasing_id()).with_column(
+            "pid", F.spark_partition_id())
+
+    def mid_of(ids):
+        """The row id ``(slice << 33) + position`` of each id in its sorted
+        slice, in closed form: the ids of larger ``id % 1000`` first, then
+        the smaller ids of the same residue."""
+        ids = np.asarray(ids, np.int64)
+        p = ids // per_slice
+        lo, r = p * per_slice, ids % 1000
+        hi = lo + per_slice
+
+        def n_res_below(bound, res):      # ids in [0, bound) with residue
+            return (bound - res + 999) // 1000
+        before = np.zeros(len(ids), np.int64)
+        for q in range(1000):
+            cnt = n_res_below(hi, q) - n_res_below(lo, q)
+            before += np.where(q > r, cnt, 0)
+        same_below = n_res_below(ids, r) - n_res_below(lo, r)
+        return (p << 33) + before + same_below, p
+
+    sample_ids = np.arange(0, n_rng, DFAPI_SAMPLE_MOD, dtype=np.int64)
+    s_mid, s_pid = mid_of(sample_ids)
+    slices = np.arange(DFAPI_RANGE_SLICES, dtype=np.int64)
+    # sum of mid over all rows: each slice's base times its rows, plus
+    # 0 + 1 + ... + per_slice - 1 in each
+    want_sum_mid = int(((slices << 33) * per_slice).sum()
+                       + DFAPI_RANGE_SLICES * per_slice * (per_slice - 1)
+                       // 2)
+    want_agg = {"mx": ((DFAPI_RANGE_SLICES - 1) << 33) + per_slice - 1,
+                "sm": want_sum_mid,
+                "sp": int((slices * per_slice).sum()), "n": n_rng}
+
+    def check_count(res):
+        if res != n_rng:
+            raise AssertionError(f"range count {res}, want {n_rng}")
+
+    def check_groups(res):
+        got = sorted(zip(map(int, res.column("k").to_pylist()),
+                         res.column("count").to_pylist()))
+        want = [(k, n_rng // k_mod + (k < n_rng % k_mod))
+                for k in range(k_mod)]
+        if got != want:
+            raise AssertionError("range group-by count differs")
+
+    def check_sample(res):
+        rows = sorted(zip(*(res.column(x).to_pylist()
+                            for x in ("id", "mid", "pid"))))
+        want = list(zip(sample_ids.tolist(), s_mid.tolist(),
+                        s_pid.tolist()))
+        if rows != want:
+            raise AssertionError(f"range sample: {rows[:3]}..., want "
+                                 f"{want[:3]}...")
+
+    def check_aggs(res):
+        got = res.to_pylist()[0]
+        if got != want_agg:
+            raise AssertionError(f"range keyless aggregates {got}, want "
+                                 f"{want_agg}")
+
+    other = {
+        "dfapi-sf1/range-count": (lambda: rng(), "count", check_count),
+        "dfapi-sf1/range-group-count": (
+            lambda: rng().with_column(
+                "k", (c("id") % k_mod).cast(T.STRING)).group_by(
+                "k").count(), "collect", check_groups),
+        "dfapi-sf1/range-sorted-sample": (
+            lambda: sorted_ids().filter(
+                c("id") % DFAPI_SAMPLE_MOD == 0).select("id", "mid", "pid"),
+            "collect", check_sample),
+        "dfapi-sf1/range-sorted-aggregates": (
+            lambda: sorted_ids().agg(
+                F.max("mid").alias("mx"), F.sum("mid").alias("sm"),
+                F.sum("pid").alias("sp"), F.count().alias("n")),
+            "collect", check_aggs),
+    }
+    # -- the input files -------------------------------------------------------
+    footer_rows = {f: pq.ParquetFile(f).metadata.num_rows for f in ss_files}
+
+    def check_files(res):
+        got = dict(zip(res.column("f").to_pylist(),
+                       res.column("count").to_pylist()))
+        if got != footer_rows:
+            raise AssertionError(f"input files {got}, want {footer_rows}")
+
+    def check_no_file(res):
+        got = res.to_pylist()
+        if got != [{"f": "", "count": sum(footer_rows.values())}]:
+            raise AssertionError(f"input files after a repartition {got}")
+    other["dfapi-sf1/input-files"] = (
+        lambda: spark.read_parquet(ss_files).group_by(
+            F.input_file_name().alias("f")).count(), "collect", check_files)
+    other["dfapi-sf1/input-files-repartition"] = (
+        lambda: spark.read_parquet(ss_files).repartition(4).group_by(
+            F.input_file_name().alias("f")).count(), "collect",
+        check_no_file)
+    kernels = {"dfapi-sf1/range-count": (),
+               "dfapi-sf1/range-group-count": ("onehot_sum_f32",
+                                               "radix_ranks",
+                                               "murmur3_words"),
+               "dfapi-sf1/range-sorted-sample": (),
+               "dfapi-sf1/range-sorted-aggregates": (),
+               "dfapi-sf1/input-files": ("bitunpack128", "onehot_sum_f32",
+                                         "radix_ranks", "murmur3_words"),
+               "dfapi-sf1/input-files-repartition": (
+                   "bitunpack128", "onehot_sum_f32", "radix_ranks",
+                   "murmur3_words")}
+
+    def act(make, how):
+        df = make()
+        return df.count() if how == "count" else df.collect()
+
+    for label, (make, how, check) in other.items():
+        with counting():
+            t0 = time.perf_counter()
+            if how == "count":       # DataFrame.count(): a keyless count
+                plan, res = None, make().count()
+            else:
+                plan = make().physical_plan()
+                res = plan.execute_collect()
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+            counts = dict(CK.launches)
+            peak = torch.cuda.max_memory_allocated(dev)
+            count_batches = [k for k in agg_batches if k]
+        check(res)
+        plans = [plan] if plan is not None else []
+        radix, mm, exs = exchange_prediction(plans)
+        want_chunks = sum(scan_chunks(d, ex.node._data_columns())[0]
+                          for p in plans for d, ex in scans(p))
+        want = {"bitunpack128": want_chunks,
+                "onehot_sum_f32": len(count_batches), "radix_ranks": radix,
+                "murmur3_words": mm, "hash_join_build": 0,
+                "hash_join_probe": 0}
+        check_launches(label, counts, want, kernels[label])
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            r = act(make, how)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+            check(r)
+        idle = sql_idle_share(lambda: act(make, how))
+        counts_by_path[label] = counts
+        peak_by_path[label] = peak
+        ex_line = "; ".join(
+            f"{type(e.partitioner).__name__} {e.child.num_partitions} -> "
+            f"{e.num_partitions}, {e.map_batches} partitioned batches"
+            for e in exs)
+        print(f"{label} on {name}: median {statistics.median(ts):.4f} s, "
+              f"min {min(ts):.4f} s, max {max(ts):.4f} s over {len(ts)} "
+              f"runs: {[round(x, 4) for x in ts]} (first {first:.3f} s); "
+              f"equal to the oracle; {idle}; peak device memory {peak} B; "
+              f"launches { {k: v for k, v in counts.items() if v} } "
+              f"(predicted {want}); {len(count_batches)} aggregate batches "
+              f"with count-like requests; exchanges: {ex_line or 'none'}")
+
+
 def decode_call_bound_ms(words, pages, defs, dictionary, n_rows, capacity,
                          want, default) -> float:
     """Least time for one recorded chunk decode call: read its words, its
@@ -3603,6 +4050,13 @@ def main() -> int:
         peak_by_path[label] = peak
     sweep_kernels = sweep_kernel_times(sweep_calls, name, bincount_calls,
                                        bincount)
+
+    # -- 4f. dfapi-sf1: the DataFrame API's remainder, several window specs
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start, "
+          f"before dfapi-sf1")
+    dfapi_paths(spark, dev, name, ds_paths, counted_ds_run, counting,
+                agg_batches, scan_chunks, args.reps, counts_by_path,
+                peak_by_path)
 
     if args.profile:
         for label, make_df in all_paths.items():

@@ -15,13 +15,21 @@ from spark_rapids_tpu_torch.columnar.vector import (TorchColumnVector,
 
 
 class ColumnarBatch:
-    __slots__ = ("columns", "num_rows", "schema")
+    """``metadata`` is the scan provenance of a batch read from one file
+    (``{"input_file", "block_start", "block_length"}``, which the
+    input-file expressions read), or None; every scan route sets it, the
+    execs that pass a batch through keep it, and every other batch (after
+    an exchange, a concatenation or a coalescing read) has none."""
+
+    __slots__ = ("columns", "num_rows", "schema", "metadata")
 
     def __init__(self, columns, num_rows: int,
-                 schema: T.StructType | None = None):
+                 schema: T.StructType | None = None,
+                 metadata: dict | None = None):
         self.columns = list(columns)
         self.num_rows = int(num_rows)
         self.schema = schema
+        self.metadata = metadata
         if self.columns:
             cap = self.columns[0].capacity
             if any(c.capacity != cap for c in self.columns):

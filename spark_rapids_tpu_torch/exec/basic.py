@@ -1,10 +1,15 @@
-"""Filter, project, limit and union execs — counterpart of
+"""Filter, project, range, limit and union execs — counterpart of
 ``spark_rapids_tpu/exec/basic.py``.
 
 Under an aggregate the planner hoists a filter or project into the
 aggregate (the JAX package's whole-stage hoist), so these run only where a
 filter or project stands elsewhere in a plan, a HAVING filter above an
-aggregate among them.
+aggregate among them. The project and the filter hand their expressions the
+task's partition (``EvalContext.split``), and, where an expression reads the
+row's position (``monotonically_increasing_id``), the rows earlier batches
+of the partition held (the port's row counts are host ints, so this costs
+no device sync). They, the limits and the union pass each batch's scan
+provenance (``ColumnarBatch.metadata``) on.
 """
 
 from __future__ import annotations
@@ -13,10 +18,12 @@ import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
-from spark_rapids_tpu_torch.columnar.vector import TorchColumnVector
+from spark_rapids_tpu_torch.columnar.vector import (TorchColumnVector,
+                                                    bucket_capacity)
 from spark_rapids_tpu_torch.exec.base import TorchExec
 from spark_rapids_tpu_torch.expr.core import (EvalContext, Expression,
                                               bind_references)
+from spark_rapids_tpu_torch.expr.misc import is_positional
 from spark_rapids_tpu_torch.ops.filtering import compact_cols, selection_mask
 
 
@@ -54,11 +61,15 @@ class ProjectExec(TorchExec):
                              for e in self.project_list])
 
     def execute_partition(self, split):
+        positional = is_positional(*self.project_list)
+        offset = 0
         for batch in self.child.execute_partition(split):
-            ctx = EvalContext.from_batch(batch, self.device)
+            ctx = EvalContext.from_batch(batch, self.device, split, offset)
             cols = [e.eval(ctx) for e in self.project_list]
             yield ColumnarBatch([c.to_vector() for c in cols], batch.num_rows,
-                                self.output)
+                                self.output, batch.metadata)
+            if positional:
+                offset += batch.num_rows
 
     def args_string(self):
         return str(self.project_list)
@@ -74,16 +85,66 @@ class FilterExec(TorchExec):
         return self.child.output
 
     def execute_partition(self, split):
+        positional = is_positional(self.condition)
+        offset = 0
         for batch in self.child.execute_partition(split):
-            ctx = EvalContext.from_batch(batch, self.device)
+            ctx = EvalContext.from_batch(batch, self.device, split, offset)
             keep = selection_mask(self.condition.eval(ctx), ctx.num_rows,
                                   ctx.capacity)
             cols, count = compact_cols(ctx.cols, keep)
             yield ColumnarBatch([c.to_vector() for c in cols], count,
-                                self.output)
+                                self.output, batch.metadata)
+            if positional:
+                offset += batch.num_rows
 
     def args_string(self):
         return repr(self.condition)
+
+
+class RangeExec(TorchExec):
+    """``range(start, end, step)`` in ``num_slices`` partitions (reference
+    ``RangeExec``, GpuRangeExec): non-null LONG ``id`` made on the
+    session's device, at most ``max_rows_per_batch`` rows a batch at a
+    power-of-two capacity, each slice ``ceil(total / num_slices)`` rows
+    (the last ones fewer or none), as the reference cuts them. The padding
+    slots hold 0 (the reference's continue the sequence)."""
+
+    def __init__(self, start: int, end: int, step: int = 1,
+                 num_slices: int = 1, conf=None, device=None,
+                 max_rows_per_batch: int = 1 << 20):
+        super().__init__(conf=conf, device=device)
+        if step == 0:
+            raise ValueError("range: step must not be 0")
+        self.start, self.end, self.step = start, end, step
+        self.num_slices = num_slices
+        self.max_rows_per_batch = max_rows_per_batch
+
+    @property
+    def output(self):
+        return T.StructType([T.StructField("id", T.LONG, False)])
+
+    @property
+    def num_partitions(self):
+        return self.num_slices
+
+    def execute_partition(self, split):
+        total = max(0, -(-(self.end - self.start) // self.step))
+        per = -(-total // self.num_slices)
+        i, hi = split * per, min(total, (split + 1) * per)
+        while i < hi:
+            n = min(self.max_rows_per_batch, hi - i)
+            cap = bucket_capacity(n)
+            idx = torch.arange(cap, dtype=torch.int64, device=self.device)
+            live = idx < n
+            vals = torch.where(live, self.start + (idx + i) * self.step,
+                               torch.zeros_like(idx))
+            yield ColumnarBatch([TorchColumnVector(T.LONG, vals, live)], n,
+                                self.output)
+            i += n
+
+    def args_string(self):
+        return (f"({self.start}, {self.end}, {self.step}, "
+                f"{self.num_slices} slices)")
 
 
 class UnionExec(TorchExec):
@@ -111,7 +172,8 @@ class UnionExec(TorchExec):
         for c in self.children:
             if split < c.num_partitions:
                 for batch in c.execute_partition(split):
-                    yield ColumnarBatch(batch.columns, batch.num_rows, out)
+                    yield ColumnarBatch(batch.columns, batch.num_rows, out,
+                                        batch.metadata)
                 return
             split -= c.num_partitions
         raise IndexError(split)
@@ -152,7 +214,8 @@ class LocalLimitExec(TorchExec):
                 cols.append(TorchColumnVector(
                     c.dtype, torch.where(live, c.data, default),
                     c.validity & live, c.dictionary))
-            yield ColumnarBatch(cols, remaining, batch.schema)
+            yield ColumnarBatch(cols, remaining, batch.schema,
+                                batch.metadata)
             remaining = 0
 
     def args_string(self):

@@ -1,6 +1,7 @@
 """Sort exec — counterpart of ``spark_rapids_tpu/exec/sort.py`` (``SortExec``
 and ``_GatherAllExec``). A global sort over several partitions first gathers
-them into one; the batches of a partition are concatenated, then sorted with
+them into one; a local sort (``sort_within_partitions``) keeps its child's
+partitions. The batches of a partition are concatenated, then sorted with
 one permutation and one gather per column (``ops/sorting.py``)."""
 
 from __future__ import annotations
@@ -17,16 +18,17 @@ from spark_rapids_tpu_torch.ops.sorting import sort_permutation
 
 class SortExec(TorchExec):
     def __init__(self, sort_exprs: list, orders: list, child: TorchExec,
-                 conf=None):
-        """A global sort. sort_exprs: expressions producing sort keys;
-        orders: SortOrders. Several input partitions are gathered into one
-        first (a total order)."""
-        if child.num_partitions > 1:
+                 global_sort: bool = True, conf=None):
+        """sort_exprs: expressions producing sort keys; orders: SortOrders.
+        A global sort gathers several input partitions into one first (a
+        total order); a local one sorts each partition on its own."""
+        if global_sort and child.num_partitions > 1:
             child = _GatherAllExec(child, conf=conf)
         super().__init__(child, conf=conf)
         self.sort_exprs = [bind_references(e, child.output)
                            for e in sort_exprs]
         self.orders = list(orders)
+        self.global_sort = global_sort
 
     @property
     def output(self):
@@ -39,7 +41,7 @@ class SortExec(TorchExec):
         batch = concat_batches(batches)
         if batch.num_rows == 0:
             return
-        ctx = EvalContext.from_batch(batch, self.device)
+        ctx = EvalContext.from_batch(batch, self.device, split)
         key_cols = [e.eval(ctx) for e in self.sort_exprs]
         perm = sort_permutation(key_cols, self.orders, ctx.num_rows,
                                 ctx.capacity)
@@ -49,7 +51,8 @@ class SortExec(TorchExec):
                             self.output)
 
     def args_string(self):
-        return str(list(zip(self.sort_exprs, self.orders)))
+        return (f"{list(zip(self.sort_exprs, self.orders))} "
+                f"global={self.global_sort}")
 
 
 class _GatherAllExec(TorchExec):

@@ -211,18 +211,28 @@ class Expression:
 
 class EvalContext:
     """Input columns for bound-reference lookup, the live row count, the
-    batch capacity and the device that literals materialize on."""
+    batch capacity and the device that literals materialize on; and the
+    task's context (reference ``EvalContext``): ``split``, the partition
+    index; ``row_offset``, the rows earlier batches of the partition held
+    (kept by the execs only where a positional expression needs it); and
+    ``scan_meta``, the batch's scan provenance (None away from a scan)."""
 
-    def __init__(self, cols, num_rows: int, capacity: int, device):
+    def __init__(self, cols, num_rows: int, capacity: int, device,
+                 split: int = 0, row_offset: int = 0,
+                 scan_meta: dict | None = None):
         self.cols = list(cols)
         self.num_rows = num_rows
         self.capacity = capacity
         self.device = torch.device(device)
+        self.split = split
+        self.row_offset = row_offset
+        self.scan_meta = scan_meta
 
     @staticmethod
-    def from_batch(batch, device):
+    def from_batch(batch, device, split: int = 0, row_offset: int = 0):
         return EvalContext([Col.from_vector(c) for c in batch.columns],
-                           batch.num_rows, batch.capacity, device)
+                           batch.num_rows, batch.capacity, device, split,
+                           row_offset, batch.metadata)
 
 
 class AttributeReference(Expression):

@@ -20,7 +20,7 @@ rules agree); the few near ties go to the host once each, through
 from __future__ import annotations
 
 import math
-from decimal import ROUND_HALF_EVEN, ROUND_HALF_UP, Decimal
+from decimal import ROUND_HALF_EVEN, ROUND_HALF_UP, Context, Decimal
 
 import torch
 
@@ -238,21 +238,31 @@ class Ceil(Floor):
         return torch.ceil(v)
 
 
+# wide enough for a double's 309 integral digits and any scale Spark takes
+_WIDE = Context(prec=1200, Emax=999_999, Emin=-999_999)
+
+
 def _spark_round_host(x: float, digits: int, mode) -> float:
     """Spark's ``BigDecimal(x).setScale(digits, mode).toDouble``: Scala's
     ``BigDecimal(double)`` reads the double's printed digits (a float is
-    widened to a double first)."""
+    widened to a double first). The quantize runs in a context wide
+    enough for every double (the default 28 digits overflow from ~1e28)."""
     if not math.isfinite(x):
         return x
     return float(Decimal(repr(float(x))).quantize(Decimal(1).scaleb(-digits),
-                                                  rounding=mode))
+                                                  rounding=mode,
+                                                  context=_WIDE))
 
 
 class Round(Expression):
     """round(x, d): HALF_UP. An integer rounds to a multiple of 10**-d
-    (wrapping in its type, as Java's ``intValue``), a decimal at scale d
-    keeps its type, a float or double keeps its type (Spark's printed-digit
-    rule, module docstring)."""
+    (wrapping in its type, as Java's ``intValue``), a float or double keeps
+    its type (Spark's printed-digit rule, module docstring). A decimal
+    takes Spark's type (``RoundBase.dataType``, SPARK-39226): for d >= 0
+    ``decimal(p - s + 1 + min(s, d), min(s, d))``, for d < 0
+    ``decimal(max(p - s + 1, 1 - d), 0)``, the precision capped at the
+    port's 18 as floor/ceil cap theirs; a rounded value that overflows it
+    is NULL, as in Spark. The reference keeps the input's type."""
 
     mode = ROUND_HALF_UP
 
@@ -262,7 +272,17 @@ class Round(Expression):
 
     @property
     def dtype(self):
-        return _numeric(self.children[0], type(self).__name__.lower())
+        ct = _numeric(self.children[0], type(self).__name__.lower())
+        if isinstance(ct, T.DecimalType):
+            p, s, d = ct.precision, ct.scale, self.digits
+            if d < 0:
+                prec, scale = max(p - s + 1, 1 - d), 0
+            else:
+                scale = min(s, d)
+                prec = p - s + 1 + scale
+            return T.DecimalType(min(prec, T.DecimalType.MAX_PRECISION),
+                                 scale)
+        return ct
 
     def with_children(self, children):
         return type(self)(children[0], self.digits)
@@ -283,10 +303,16 @@ class Round(Expression):
             out = self._int_round(c.values.to(torch.int64), 10 ** (-d))
             return Col(out.to(c.values.dtype), c.validity, ct).canonicalized()
         if isinstance(ct, T.DecimalType):
-            ds = ct.scale - d
-            if ds <= 0:
-                return c
-            out = self._int_round(c.values, 10 ** ds)
+            # round the unscaled value to a multiple of 10**(s - d), then
+            # drop the digits below the result's scale
+            s = self.children[0].dtype.scale
+            out = c.values
+            if s - d > 18:       # |value| < 10**18: every value rounds to 0
+                out = torch.zeros_like(out)
+            elif s - d > 0:
+                out = self._int_round(out, 10 ** (s - d))
+                out = torch.div(out, 10 ** (s - ct.scale),
+                                rounding_mode="trunc")
             ok = out.abs() < 10 ** ct.precision
             return Col(out, c.validity & ok, ct).canonicalized()
         return self._round_fractional(c, ct, d)
@@ -297,8 +323,10 @@ class Round(Expression):
         y = x.abs() * scale
         f = torch.floor(y)
         frac = y - f
+        # y >= 2^52 is integral already (and so is an infinite y): x stays
+        big = ~torch.isfinite(y) | (y >= 2.0 ** 52)
         near_tie = ((frac - 0.5).abs() <= 1e-9 * torch.clamp(y, min=1.0)) \
-            & c.validity & torch.isfinite(x)
+            & c.validity & torch.isfinite(x) & ~big
         out = self._device_round(x, y, f, frac, scale)
         n_near = int(near_tie.sum())
         if n_near:
@@ -308,7 +336,6 @@ class Round(Expression):
                 [_spark_round_host(v, d, self.mode) for v in host],
                 dtype=torch.float64, device=x.device)
             out = out.index_put((idx,), fixed)
-        big = ~torch.isfinite(y) | (y >= 2.0 ** 52)    # already integral
         out = torch.where(big, x, out)
         return Col(out.to(c.values.dtype), c.validity, ct).canonicalized()
 

@@ -1,17 +1,28 @@
 """Miscellaneous expressions — counterpart of ``spark_rapids_tpu/expr/misc.py``.
 
-Ported: ``Murmur3Hash`` (Spark's ``hash()``) and ``ScalarSubquery``. The
-SQL lowering runs an uncorrelated scalar subquery once, while the text is
-lowered (Spark runs subquery stages before the query that reads them; the
-reference's GpuScalarSubquery likewise carries the computed value), and the
-expression then behaves as a literal of the subquery's type. ``Rand``,
-``SparkPartitionID``, ``MonotonicallyIncreasingID`` and the input-file
-expressions are not ported.
+Ported: ``Murmur3Hash`` (Spark's ``hash()``), ``ScalarSubquery`` and the
+context expressions. The SQL lowering runs an uncorrelated scalar subquery
+once, while the text is lowered (Spark runs subquery stages before the
+query that reads them; the reference's GpuScalarSubquery likewise carries
+the computed value), and ``functions.scalar_subquery`` runs a DataFrame's
+plan once; the expression then behaves as a literal of the subquery's
+type.
+
+The context expressions read the task's ``EvalContext``:
+``SparkPartitionID`` its partition, ``MonotonicallyIncreasingID`` the
+partition and the row's position in it (Spark's layout), and
+``InputFileName``/``InputFileBlockStart``/``InputFileBlockLength`` the
+batch's scan provenance (``ColumnarBatch.metadata``). Spark, and the
+planner here, allow them in a projection, a filter and an aggregate only
+(``CONTEXT_SENSITIVE``). ``Rand`` is not ported: the reference draws it
+from ``jax.random`` (threefry), so a port equal to it bit for bit needs
+threefry2x32.
 """
 
 from __future__ import annotations
 
 import datetime as _dt
+import os
 
 import torch
 
@@ -125,6 +136,12 @@ class ScalarSubquery(Expression):
         value = tbl.column(0)[0].as_py() if tbl.num_rows else None
         return cls(value, dtype)
 
+    @classmethod
+    def from_dataframe(cls, df) -> "ScalarSubquery":
+        """Run ``df``'s plan once, on its session's device, and take its
+        one value (``functions.scalar_subquery``)."""
+        return cls.from_table(df.collect(), df.schema.fields[0].data_type)
+
     @property
     def dtype(self):
         return self._dtype
@@ -138,3 +155,133 @@ class ScalarSubquery(Expression):
 
     def __repr__(self):
         return f"scalar_subquery(={self.value!r})"
+
+
+def _const(ctx, value, dtype: T.DataType) -> Col:
+    return Col(torch.full((ctx.capacity,), value, dtype=dtype.torch_dtype,
+                          device=ctx.device),
+               torch.ones((ctx.capacity,), dtype=torch.bool,
+                          device=ctx.device), dtype)
+
+
+class _ContextExpr(Expression):
+    """A leaf that reads the task's context; never null."""
+
+    def __init__(self):
+        self.children = []
+
+    @property
+    def nullable(self):
+        return False
+
+    def with_children(self, children):
+        return type(self)()
+
+    def __repr__(self):
+        return self.sql_name + "()"
+
+
+class SparkPartitionID(_ContextExpr):
+    """spark_partition_id(): the task's partition index, an int."""
+
+    sql_name = "spark_partition_id"
+
+    @property
+    def dtype(self):
+        return T.INT
+
+    def eval(self, ctx):
+        return _const(ctx, ctx.split, T.INT)
+
+
+class MonotonicallyIncreasingID(_ContextExpr):
+    """monotonically_increasing_id(): ``(partition << 33) + row``, the row
+    counted from the partition's first (Spark's exact layout: 31 bits of
+    partition, 33 of row). The padding slots hold the default 0."""
+
+    sql_name = "monotonically_increasing_id"
+
+    @property
+    def dtype(self):
+        return T.LONG
+
+    def eval(self, ctx):
+        base = (int(ctx.split) << 33) + int(ctx.row_offset)
+        idx = torch.arange(ctx.capacity, dtype=torch.int64,
+                           device=ctx.device)
+        live = idx < ctx.num_rows
+        return Col(torch.where(live, idx + base, torch.zeros_like(idx)),
+                   torch.ones((ctx.capacity,), dtype=torch.bool,
+                              device=ctx.device), T.LONG)
+
+
+class _ScanMetaExpr(_ContextExpr):
+    """The input-file family (reference GpuInputFileName,
+    GpuInputFileBlockStart/Length): the value comes from the batch's scan
+    provenance; a batch without it (after an exchange, a concatenation or
+    a coalescing read) gives Spark's contract, ``""`` and -1."""
+
+    meta_key = None
+
+    def _meta_value(self, ctx):
+        return (ctx.scan_meta or {}).get(self.meta_key)
+
+
+class InputFileName(_ScanMetaExpr):
+    sql_name = "input_file_name"
+    meta_key = "input_file"
+
+    @property
+    def dtype(self):
+        return T.STRING
+
+    def eval(self, ctx):
+        import pyarrow as pa
+        c = _const(ctx, 0, T.INT)
+        return Col(c.values, c.validity, T.STRING,
+                   pa.array([self._meta_value(ctx) or ""], type=pa.string()))
+
+
+class InputFileBlockStart(_ScanMetaExpr):
+    sql_name = "input_file_block_start"
+    meta_key = "block_start"
+
+    @property
+    def dtype(self):
+        return T.LONG
+
+    def eval(self, ctx):
+        v = self._meta_value(ctx)
+        return _const(ctx, -1 if v is None else int(v), T.LONG)
+
+
+class InputFileBlockLength(InputFileBlockStart):
+    sql_name = "input_file_block_length"
+    meta_key = "block_length"
+
+
+#: the expressions that read the task's context; the planner admits them
+#: in a projection, a filter and an aggregate only, as Spark's analyzer does
+CONTEXT_SENSITIVE = (SparkPartitionID, MonotonicallyIncreasingID,
+                     _ScanMetaExpr)
+
+
+def is_positional(*exprs) -> bool:
+    """Whether an expression reads the row's position in its partition
+    (the execs then keep ``row_offset``)."""
+    return any(e.collect(lambda x: isinstance(x, MonotonicallyIncreasingID))
+               for e in exprs if e is not None)
+
+
+def is_context_sensitive(*exprs) -> bool:
+    """Whether an expression reads the task's context."""
+    return any(e.collect(lambda x: isinstance(x, CONTEXT_SENSITIVE))
+               for e in exprs if e is not None)
+
+
+def scan_meta(path: str) -> dict:
+    """The provenance of a batch read from one whole file (the reference's
+    ``io/filescan._scan_meta``): the path as the scan was given it, block
+    start 0, and the file's size as the block's length."""
+    return {"input_file": path, "block_start": 0,
+            "block_length": os.path.getsize(path)}

@@ -2,14 +2,21 @@
 
 Counterpart of ``spark_rapids_tpu/functions.py``, with its names and
 signatures: the aggregates (``sum`` ... ``var_pop``), the conditionals, the
-string, math and date functions, ``hash`` and ``isin``. Beyond the
+string, math and date functions, ``hash`` and ``isin``, the window builders
+(``row_number``, ``rank``, ``dense_rank``, ``lead``, ``lag`` and ``over``),
+``alias``, ``scalar_subquery``, and the context functions
+(``spark_partition_id``, ``monotonically_increasing_id``,
+``input_file_name``, ``input_file_block_start``/``_length``). Beyond the
 reference it has pyspark's ``quarter``, ``hour``, ``minute``, ``second``,
 ``dayofweek``, ``dayofyear``, ``last_day``, ``datediff``, ``date_add``,
 ``nullif``, ``ltrim``/``rtrim``, ``reverse``, ``initcap``, ``rlike`` and the
 unary math functions, over expressions the reference has. Not ported:
-``rand``, ``spark_partition_id``, ``monotonically_increasing_id``, the
-input-file functions, the array, struct and map functions, ``split``,
+``rand``, the array, struct and map functions, ``split``,
 ``collect_list``/``collect_set`` and the UDF factories.
+
+    w = F.over(F.row_number(), partition_by=["k"],
+               order_by=[("ts", False, False)])
+    df.window([F.alias(w, "rn")])
 """
 
 from __future__ import annotations
@@ -21,9 +28,11 @@ from spark_rapids_tpu_torch.expr import conditional as _C
 from spark_rapids_tpu_torch.expr import datetime as _DT
 from spark_rapids_tpu_torch.expr import mathexprs as _M
 from spark_rapids_tpu_torch.expr import nullexprs as _N
+from spark_rapids_tpu_torch.expr import misc as _MI
 from spark_rapids_tpu_torch.expr import strings as _S
+from spark_rapids_tpu_torch.expr import windows as _W
 from spark_rapids_tpu_torch.expr.cast import Cast
-from spark_rapids_tpu_torch.expr.core import Expression, Literal
+from spark_rapids_tpu_torch.expr.core import Alias, Expression, Literal
 from spark_rapids_tpu_torch.expr.core import col, lit  # noqa: F401
 
 
@@ -409,5 +418,79 @@ def date_add_interval(d, days):
 # -- hashing -------------------------------------------------------------------
 
 def hash(*cs):  # noqa: A001
-    from spark_rapids_tpu_torch.expr.misc import Murmur3Hash
-    return Murmur3Hash(*[_e(c) for c in cs])
+    return _MI.Murmur3Hash(*[_e(c) for c in cs])
+
+
+# -- windows ------------------------------------------------------------------
+
+def row_number():
+    return _W.RowNumber()
+
+
+def rank():
+    return _W.Rank()
+
+
+def dense_rank():
+    return _W.DenseRank()
+
+
+def lead(c, offset: int = 1, default=None):
+    return _W.Lead(_e(c), offset, default)
+
+
+def lag(c, offset: int = 1, default=None):
+    return _W.Lag(_e(c), offset, default)
+
+
+def over(func, partition_by=(), order_by=(), frame=None):
+    """``func OVER (PARTITION BY ... ORDER BY ... frame)``. An ``order_by``
+    item is an expression (ascending, nulls first) or an ``(expr,
+    ascending, nulls_first)`` tuple. Without a frame: Spark's RANGE
+    UNBOUNDED PRECEDING to CURRENT ROW with an ORDER BY, the whole
+    partition without one."""
+    orders = []
+    for o in order_by:
+        if isinstance(o, tuple):
+            e, asc, nf = o
+            orders.append((_e(e), bool(asc), bool(nf)))
+        else:
+            orders.append((_e(o), True, True))
+    if frame is None:
+        frame = _W.DEFAULT_FRAME if orders else _W.FULL_FRAME
+    spec = _W.WindowSpec(tuple(_e(p) for p in partition_by), tuple(orders),
+                         frame)
+    return _W.WindowExpression(func, spec)
+
+
+def alias(e, name: str):
+    return Alias(_e(e), name)
+
+
+def scalar_subquery(df):
+    """The one value of a one-column DataFrame, as an expression: its plan
+    runs once, here, on its session's device. No row gives NULL; more than
+    one raises, as in Spark."""
+    return _MI.ScalarSubquery.from_dataframe(df)
+
+
+# -- the task's context ---------------------------------------------------------
+
+def spark_partition_id():
+    return _MI.SparkPartitionID()
+
+
+def monotonically_increasing_id():
+    return _MI.MonotonicallyIncreasingID()
+
+
+def input_file_name():
+    return _MI.InputFileName()
+
+
+def input_file_block_start():
+    return _MI.InputFileBlockStart()
+
+
+def input_file_block_length():
+    return _MI.InputFileBlockLength()

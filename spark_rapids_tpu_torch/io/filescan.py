@@ -32,7 +32,11 @@ and ``csv_native.routes`` count the way each ORC column and CSV file took.
 The exec reads the columns of the node's schema only: column pruning
 (``plan/pruning.py``) narrows a copy of the node to the columns its plan
 uses, keeping every partition column, so an unread column is never parsed,
-uploaded or decoded. Pushed filters and the Alluxio path rewrite are not
+uploaded or decoded. Every batch carries its file's provenance
+(``ColumnarBatch.metadata``: the path, 0 and the file's size, as the
+reference's ``_scan_meta``) for the input-file expressions; on the arrow
+route only where the partition has one file, as in the reference. Pushed
+filters and the Alluxio path rewrite are not
 ported and raise ``NotImplementedError`` when the plan is built.
 """
 
@@ -48,6 +52,7 @@ import pyarrow as pa
 from spark_rapids_tpu_torch import config as CFG
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.exec.base import TorchExec
+from spark_rapids_tpu_torch.expr.misc import scan_meta
 from spark_rapids_tpu_torch.io import readers as R
 from spark_rapids_tpu_torch.plan.nodes import PlanNode
 
@@ -288,10 +293,13 @@ class FileSourceScanExec(TorchExec):
         def it():
             cols = node._data_columns()
             for path, pf, n_groups in files:
+                meta = scan_meta(path)
                 for rg in range(n_groups):
                     self._count("device_batches")
-                    yield PN.read_row_group_device(
+                    batch = PN.read_row_group_device(
                         path, rg, self.output, self.device, cols, pf=pf)
+                    batch.metadata = meta
+                    yield batch
         return it()
 
     def _orc_device_decode_batches(self, split, batch_rows: int,
@@ -320,10 +328,13 @@ class FileSourceScanExec(TorchExec):
             import pyarrow.orc as orc
             for path, meta in zip(part.paths, metas):
                 pf = orc.ORCFile(path)
+                fmeta = scan_meta(path)
                 for si in range(len(meta.stripes)):
                     self._count("device_batches")
-                    yield ON.read_stripe_device(path, meta, si, self.output,
-                                                self.device, pf=pf)
+                    batch = ON.read_stripe_device(path, meta, si, self.output,
+                                                  self.device, pf=pf)
+                    batch.metadata = fmeta
+                    yield batch
         return it()
 
     def _csv_device_decode_batches(self, split):
@@ -346,10 +357,13 @@ class FileSourceScanExec(TorchExec):
             shapes.append(shape)
 
         def it():
-            for shape in shapes:
+            for path, shape in zip(part.paths, shapes):
                 CN.route("device_files")
                 self._count("device_batches")
-                yield CN.decode_shape_device(shape, self.output, self.device)
+                batch = CN.decode_shape_device(shape, self.output,
+                                               self.device)
+                batch.metadata = scan_meta(path)
+                yield batch
         return it()
 
     def _arrow_batches(self, split, batch_rows: int):
@@ -365,12 +379,19 @@ class FileSourceScanExec(TorchExec):
             from spark_rapids_tpu_torch.io import orc_native as ON
             (CN if fmt == "csv" else ON).route(
                 "arrow_files", len(self.node.partitions[split].paths))
+        # the file of a batch is known only where the partition has one
+        # file (the strategies may stitch files); else "" and -1, as in the
+        # reference
+        paths = self.node.partitions[split].paths
+        meta = scan_meta(paths[0]) if len(paths) == 1 else None
         for tbl in self.node.tables_for(
                 split, batch_rows, strategy,
                 conf.get(CFG.MULTITHREADED_READ_NUM_THREADS),
                 rebase_mode=conf.get(CFG.PARQUET_REBASE_MODE)):
             self._count("arrow_batches")
-            yield table_to_device(tbl, self.device, schema=self.output)
+            batch = table_to_device(tbl, self.device, schema=self.output)
+            batch.metadata = meta
+            yield batch
 
     def _engaged(self, entry) -> bool:
         """Whether a device route is taken (the reference's

@@ -216,12 +216,21 @@ def like_to_regex(pattern: str, escape: str = "\\") -> str:
     return "(?s)^" + "".join(out) + r"\Z"
 
 
+_FLOAT_BITS = {torch.float32: torch.int32, torch.float64: torch.int64}
+
+
 def _unique_values(c: Col):
     """The distinct values of a fixed-width column (invalid slots hold the
     default) on the device, and each row's index among them; only the
-    distinct values cross to the host."""
-    uv, inv = torch.unique(c.values, return_inverse=True)
-    return uv.cpu().numpy(), inv
+    distinct values cross to the host. A float column is made unique by
+    its bit pattern: ``torch.unique`` takes -0.0 and 0.0 as one value,
+    where Spark prints them apart ('-0.0' and '0.0')."""
+    bits = _FLOAT_BITS.get(c.values.dtype)
+    if bits is None:
+        uv, inv = torch.unique(c.values, return_inverse=True)
+        return uv.cpu().numpy(), inv
+    ub, inv = torch.unique(c.values.view(bits), return_inverse=True)
+    return ub.view(c.values.dtype).cpu().numpy(), inv
 
 
 def value_transform_to_string(c: Col, fmt) -> Col:

@@ -5,7 +5,7 @@ smaller estimate. The estimate must be the reference's, so that the same
 side builds in both packages and rows come out in the same order.
 
 A parquet scan counts the rows in its footers (cached on the node, keyed on
-the files' mtimes); a filter halves its child, an aggregate divides it by
+the files' mtimes), a range its rows; a filter halves its child, an aggregate divides it by
 10, a join takes the larger side, a limit the smaller of its ``n`` and its
 child, and any other node its largest child.
 """
@@ -64,6 +64,8 @@ def _estimate_rows(node, memo) -> int:
         return _scan_rows(node)
     if isinstance(node, NN.ScanNode):
         return max(1, sum(t.num_rows for t in node.partitions))
+    if isinstance(node, NN.RangeNode):
+        return max(0, -(-(node.end - node.start) // node.step))
     if isinstance(node, NN.FilterNode):
         return max(1, est(node.child) // 2)   # selectivity 0.5
     if isinstance(node, NN.AggregateNode):

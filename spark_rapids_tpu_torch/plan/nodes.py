@@ -53,6 +53,30 @@ class ScanNode(PlanNode):
         return len(self.partitions)
 
 
+class RangeNode(PlanNode):
+    """``TorchSession.range``: one non-null LONG column ``id`` from
+    ``start`` to ``end`` (exclusive) by ``step``, in ``num_slices``
+    partitions (Spark's Range; ``exec/basic.RangeExec`` makes it)."""
+
+    def __init__(self, start: int, end: int, step: int = 1,
+                 num_slices: int = 1):
+        super().__init__()
+        if step == 0:
+            raise ValueError("range: step must not be 0")
+        if num_slices < 1:
+            raise ValueError("range: num_slices must be at least 1")
+        self.start, self.end, self.step = int(start), int(end), int(step)
+        self.num_slices = int(num_slices)
+
+    @property
+    def output(self):
+        return T.StructType([T.StructField("id", T.LONG, False)])
+
+    @property
+    def num_partitions(self):
+        return self.num_slices
+
+
 def _expr_name(e: E.Expression, i: int) -> str:
     if isinstance(e, (E.Alias, E.AttributeReference, E.BoundReference)):
         return e.name
@@ -127,13 +151,17 @@ class ExchangeNode(PlanNode):
 
 
 class SortNode(PlanNode):
-    """A global sort (the per-partition sortWithinPartitions is not ported)."""
+    """A global sort (one partition, a total order), or with
+    ``global_sort=False`` Spark's sortWithinPartitions: each partition
+    sorted on its own, the partitions kept."""
 
-    def __init__(self, sort_exprs: list, child: PlanNode):
+    def __init__(self, sort_exprs: list, child: PlanNode,
+                 global_sort: bool = True):
         """sort_exprs: list of (expr, ascending, nulls_first)."""
         super().__init__(child)
         self.sort_exprs = [(E.bind_references(e, child.output), asc, nf)
                            for (e, asc, nf) in sort_exprs]
+        self.global_sort = global_sort
 
     @property
     def output(self):
@@ -141,7 +169,7 @@ class SortNode(PlanNode):
 
     @property
     def num_partitions(self):
-        return 1
+        return 1 if self.global_sort else self.child.num_partitions
 
 
 class LimitNode(PlanNode):
@@ -208,8 +236,10 @@ class JoinNode(PlanNode):
 
 
 class WindowNode(PlanNode):
-    """Window functions over one partition/order spec (the GpuWindowExec
-    analog); ``exec/window.py`` evaluates them."""
+    """Window functions over one or more partition/order specs (the
+    GpuWindowExec analog): the planner runs one ``exec/window.py`` exec a
+    spec, chained, as Spark plans them. The output is the child's columns,
+    then one column per window expression, in the given order."""
 
     def __init__(self, window_exprs: list, child: PlanNode):
         """window_exprs: a list of Alias(WindowExpression)."""

@@ -22,9 +22,18 @@ widths meet in the wider one, and decimals of one scale in their raw
 unscaled values, as the reference compares them; every other pair is
 refused (``_joinable``). A HAVING filter above an aggregate
 plans as a FilterExec: the reference folds it into the aggregate
-(``fuse_having``), which keeps the same rows. The window node (``tag_window``/``conv_window``, ``:939-977``) plans a
-``WindowExec`` over a hash exchange on its partition keys, or a gather of
-every partition when it has none. The union node plans a ``UnionExec`` of
+(``fuse_having``), which keeps the same rows. The window node
+(``tag_window``/``conv_window``, ``:939-977``) plans, as Spark plans it, one
+``WindowExec`` for each distinct (partition keys, order keys), chained in
+the order the specs first appear, each over a hash exchange on its
+partition keys or a gather of every partition when it has none, and a
+projection on top that restores the node's column order; a node of one
+spec plans one exec and no projection. The reference refuses several
+specs on the device (``:951-954``) and runs them on its host path, which
+evaluates every expression under the first spec. The range node plans a
+``RangeExec`` (``conv_range``, ``:665``), and a sort node a global sort or,
+for ``sort_within_partitions``, a sort of each partition
+(``conv_sort``, ``:881-899``). The union node plans a ``UnionExec`` of
 its children's partitions (``conv_union``, ``:707-708``), so an aggregate
 above it with keys plans PARTIAL → hash exchange → FINAL; the expand node
 an ``ExpandExec`` (``conv_expand``, ``:970-978``). The rules receive the plan
@@ -32,12 +41,21 @@ after column pruning (``plan/pruning.py``, which ``DataFrame.physical_plan``
 runs once at the root, as the reference runs it first in
 ``TpuOverrides.apply``).
 
+The context expressions (``spark_partition_id``,
+``monotonically_increasing_id``, the input-file family) are admitted in a
+projection, a filter and an aggregate, where Spark's analyzer admits a
+nondeterministic expression. As Spark's ``PullOutNondeterministic``
+does, an aggregate's context expressions are computed by a projection
+below it, on the child's partitions and rows (before a gather or a
+compaction could move them), and a projection or filter that holds one is
+never hoisted into an aggregate.
+
 Every node, expression or shape outside the slices raises
 ``NotImplementedError`` here, while the plan is built, so nothing runs
 wrongly: range partitioning, the join shapes above, join keys of two
-unlike types, several window specs in one node, and a window ``avg`` over
-a decimal column (the reference returns the unscaled mean there) among
-them. The mesh is refused earlier, by the conf, which does not know its
+unlike types, a context expression anywhere else, and a window ``avg``
+over a decimal column (the reference returns the unscaled mean there)
+among them. The mesh is refused earlier, by the conf, which does not know its
 keys. There is no partial CPU fallback: the whole
 plan runs on the device.
 """
@@ -65,7 +83,9 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.expr.cast import Cast, supported_cast
 from spark_rapids_tpu_torch.expr.conditional import (CaseWhen, Greatest, If,
                                                      Least)
-from spark_rapids_tpu_torch.expr.misc import Murmur3Hash, ScalarSubquery
+from spark_rapids_tpu_torch.expr.misc import (CONTEXT_SENSITIVE,
+                                              Murmur3Hash, ScalarSubquery,
+                                              is_context_sensitive)
 from spark_rapids_tpu_torch.expr.nullexprs import (AtLeastNNonNulls, Coalesce,
                                                    IsNaN, IsNotNull, IsNull,
                                                    NaNvl)
@@ -93,8 +113,8 @@ _PORTED_EXPRS = (E.BoundReference, E.Literal, E.Alias, BinaryArithmetic,
                  AggregateFunction, If, CaseWhen, Least, Greatest, Abs,
                  UnaryMinus, UnaryPositive, IsNull, IsNotNull, IsNaN,
                  Coalesce, NaNvl, AtLeastNNonNulls, BitwiseNot, Shift,
-                 Murmur3Hash, ScalarSubquery) + _module_exprs(
-                     _DT, _DX, _MX, _SX)
+                 Murmur3Hash, ScalarSubquery, *CONTEXT_SENSITIVE
+                 ) + _module_exprs(_DT, _DX, _MX, _SX)
 
 
 def _joinable(ldt: T.DataType, rdt: T.DataType) -> bool:
@@ -112,12 +132,18 @@ def _joinable(ldt: T.DataType, rdt: T.DataType) -> bool:
             and ldt.scale == rdt.scale)
 
 
-def check_expression(e: E.Expression) -> None:
-    """Refuse, before anything runs, an expression the port cannot evaluate."""
+def check_expression(e: E.Expression, context_ok: bool = False) -> None:
+    """Refuse, before anything runs, an expression the port cannot evaluate;
+    a context expression only where ``context_ok`` (a projection, a filter
+    or an aggregate)."""
     for node in e.collect(lambda x: True):
         if not isinstance(node, _PORTED_EXPRS):
             raise NotImplementedError(
                 f"expression {type(node).__name__} is not ported yet")
+        if isinstance(node, CONTEXT_SENSITIVE) and not context_ok:
+            raise NotImplementedError(
+                f"{node!r} outside a projection, a filter or an aggregate "
+                "is not ported (select it into a column first)")
         if isinstance(node, Cast) and not supported_cast(
                 node.children[0].dtype, node.to):
             raise NotImplementedError(
@@ -134,6 +160,7 @@ class TorchOverrides:
     def apply(self, plan: NN.PlanNode):
         kids = [self.apply(c) for c in plan.children]
         conv = {FileScanNode: self._scan, NN.ScanNode: self._local_scan,
+                NN.RangeNode: self._range,
                 NN.FilterNode: self._filter,
                 NN.ProjectNode: self._project,
                 NN.AggregateNode: self._aggregate,
@@ -165,56 +192,99 @@ class TorchOverrides:
     def _local_scan(self, n, kids):
         return XB.LocalTableScanExec(n, conf=self.conf, device=self.device)
 
+    def _range(self, n, kids):
+        return XB.RangeExec(n.start, n.end, n.step, n.num_slices,
+                            conf=self.conf, device=self.device)
+
     def _filter(self, n, kids):
-        check_expression(n.condition)
+        check_expression(n.condition, context_ok=True)
         return XB.FilterExec(n.condition, kids[0], conf=self.conf)
 
     def _project(self, n, kids):
         for e in n.project_list:
-            check_expression(e)
+            check_expression(e, context_ok=True)
         return XB.ProjectExec(n.project_list, kids[0], conf=self.conf)
 
     def _aggregate(self, n, kids):
         for e in (*n.group_exprs, *n.agg_exprs):
-            check_expression(e)
+            check_expression(e, context_ok=True)
         child = kids[0]
+        group_exprs, agg_exprs = n.group_exprs, n.agg_exprs
+        if is_context_sensitive(*group_exprs, *agg_exprs):
+            child, group_exprs, agg_exprs = self._pull_out_context(
+                child, group_exprs, agg_exprs)
         # whole-stage hoist of the child Filter/Project into the
         # aggregation: the predicate masks rows there and the projection
-        # re-derives the inputs there (legacy depth-2 patterns)
+        # re-derives the inputs there (legacy depth-2 patterns); one that
+        # reads the task's context stays its own exec
         prefilter = preproject = None
         pre_on_proj = False
-        if isinstance(child, XB.FilterExec):
+
+        def hoistable(x, cls):
+            return isinstance(x, cls) and not is_context_sensitive(
+                *(x.project_list if cls is XB.ProjectExec
+                  else [x.condition]))
+        if hoistable(child, XB.FilterExec):
             prefilter = child.condition           # Agg(Filter(...))
             child = child.children[0]
-            if isinstance(child, XB.ProjectExec):
+            if hoistable(child, XB.ProjectExec):
                 preproject = child.project_list   # Agg(Filter(Project(x)))
                 child = child.children[0]
                 pre_on_proj = True                # condition binds to proj
-        elif isinstance(child, XB.ProjectExec):
+        elif hoistable(child, XB.ProjectExec):
             preproject = child.project_list       # Agg(Project(...))
             child = child.children[0]
-            if isinstance(child, XB.FilterExec):
+            if hoistable(child, XB.FilterExec):
                 prefilter = child.condition       # Agg(Project(Filter(x)))
                 child = child.children[0]
         fused = dict(prefilter=prefilter, preproject=preproject,
                      prefilter_on_projected=pre_on_proj)
-        if child.num_partitions == 1 or not n.group_exprs:
+        if child.num_partitions == 1 or not group_exprs:
             if child.num_partitions > 1:
                 # a keyless aggregation gathers every partition first
                 child = _GatherAllExec(child, conf=self.conf)
-            return XA.HashAggregateExec(n.group_exprs, n.agg_exprs, child,
+            return XA.HashAggregateExec(group_exprs, agg_exprs, child,
                                         mode=XA.COMPLETE, conf=self.conf,
                                         **fused)
         # Spark's two-phase aggregation: partial states per input
         # partition, a hash exchange on the keys, then merge and finalize
-        partial = XA.HashAggregateExec(n.group_exprs, n.agg_exprs, child,
+        partial = XA.HashAggregateExec(group_exprs, agg_exprs, child,
                                        mode=XA.PARTIAL, conf=self.conf,
                                        **fused)
-        key_names = [f.name for f in partial.output][:len(n.group_exprs)]
+        key_names = [f.name for f in partial.output][:len(group_exprs)]
         keys = [E.col(k) for k in key_names]
         exchange = self._hash_exchange(keys, partial, adaptive=True)
-        return XA.HashAggregateExec(keys, n.agg_exprs, exchange,
+        return XA.HashAggregateExec(keys, agg_exprs, exchange,
                                     mode=XA.FINAL, conf=self.conf)
+
+    def _pull_out_context(self, child, group_exprs, agg_exprs):
+        """A projection below the aggregate that appends one column a
+        context expression, and the aggregate's expressions over those
+        columns (Spark's PullOutNondeterministic); each expression keeps
+        its output name."""
+        n_in = len(child.output.fields)
+        cols: dict = {}
+
+        def sub(x):
+            if isinstance(x, CONTEXT_SENSITIVE):
+                i = cols.setdefault(repr(x), (n_in + len(cols), x))[0]
+                return E.BoundReference(i, x.dtype, False, repr(x))
+            return x
+
+        def rewrite(e):
+            out = e.transform(sub)
+            if isinstance(e, (E.Alias, E.BoundReference)):
+                return out
+            return E.Alias(out, e.name)
+        group_exprs = [rewrite(e) for e in group_exprs]
+        agg_exprs = [rewrite(e) for e in agg_exprs]
+        fields = child.output.fields
+        proj = [E.Alias(E.BoundReference(i, f.data_type, f.nullable, f.name),
+                        f.name) for i, f in enumerate(fields)]
+        proj += [E.Alias(x, f"_ctx{j}")
+                 for j, (_i, x) in enumerate(cols.values())]
+        return (XB.ProjectExec(proj, child, conf=self.conf), group_exprs,
+                agg_exprs)
 
     def _hash_exchange(self, keys, child, adaptive: bool = False):
         """A hash exchange into as many partitions as ``child`` has;
@@ -301,20 +371,39 @@ class TorchOverrides:
             if reason:
                 raise NotImplementedError(reason)
             _ = we.dtype    # raises on unported input types
-        if len({repr((we.spec.partition_by, we.spec.order_by))
-                for we in wes}) > 1:
-            raise NotImplementedError(
-                "several window partition/order specs in one node are not "
-                "ported yet")
+        # one exec a distinct (partition keys, order keys), in the order the
+        # specs first appear; the expressions of one spec share an exec,
+        # whatever their frames (Spark's ExtractWindowExpressions)
+        groups: dict = {}
+        for i, we in enumerate(wes):
+            key = repr((we.spec.partition_by, we.spec.order_by))
+            groups.setdefault(key, []).append(i)
         child = kids[0]
-        spec = wes[0].spec
-        if child.num_partitions > 1:
-            if spec.partition_by:
-                child = self._hash_exchange(list(spec.partition_by), child,
-                                            adaptive=True)
-            else:
-                child = _GatherAllExec(child, conf=self.conf)
-        return WindowExec(n.window_exprs, child, conf=self.conf)
+        n_in = len(child.output.fields)
+        for idx in groups.values():
+            spec = wes[idx[0]].spec
+            if child.num_partitions > 1:
+                if spec.partition_by:
+                    child = self._hash_exchange(list(spec.partition_by),
+                                                child, adaptive=True)
+                else:
+                    child = _GatherAllExec(child, conf=self.conf)
+            # the expressions bind to the node's child's columns, which
+            # every exec of the chain keeps in front
+            child = WindowExec([n.window_exprs[i] for i in idx], child,
+                               conf=self.conf)
+        if len(groups) == 1:
+            return child
+        # the node's column order: the child's, then each expression's (the
+        # chain appended them spec by spec)
+        chain = [i for idx in groups.values() for i in idx]
+        out = child.output.fields
+        order = list(range(n_in)) + [n_in + chain.index(i)
+                                     for i in range(len(wes))]
+        return XB.ProjectExec(
+            [E.Alias(E.BoundReference(j, out[j].data_type, out[j].nullable,
+                                      out[j].name), out[j].name)
+             for j in order], child, conf=self.conf)
 
     def _union(self, n, kids):
         return XB.UnionExec(kids, n.output, conf=self.conf)
@@ -331,7 +420,8 @@ class TorchOverrides:
         exprs = [e for (e, _, _) in n.sort_exprs]
         orders = [SortOrder(ascending=asc, nulls_first=nf)
                   for (_, asc, nf) in n.sort_exprs]
-        return SortExec(exprs, orders, kids[0], conf=self.conf)
+        return SortExec(exprs, orders, kids[0], global_sort=n.global_sort,
+                        conf=self.conf)
 
     def _limit(self, n, kids):
         child = kids[0]

@@ -18,7 +18,9 @@ reference, an Expand keeps only its required output columns (each
 projection's expressions at those positions), and a Union asks each child
 for the columns its parent requires, projecting a child whose columns came
 back in another layout: without them a ROLLUP, or a union of SELECT *
-arms, would read every column of the tables below it.
+arms, would read every column of the tables below it. Likewise a window
+node asks its child only for the columns above it and its expressions
+read (the SQL form puts the window over the whole FROM clause).
 
 The rewrite preserves identity: a subtree where nothing narrows comes back
 as the ORIGINAL node objects, and the input plan is never mutated, so a
@@ -116,7 +118,7 @@ def _prune(node: N.PlanNode, required: set | None):
             return node, cmap
         return N.SortNode([(_remap(e, cmap), asc, nf)
                            for (e, asc, nf) in node.sort_exprs],
-                          child), cmap
+                          child, node.global_sort), cmap
     if isinstance(node, N.LimitNode):
         child, cmap = _prune(node.child, required)
         if child is node.child:
@@ -147,6 +149,8 @@ def _prune(node: N.PlanNode, required: set | None):
         return _prune_expand(node, required)
     if isinstance(node, N.UnionNode):
         return _prune_union(node, required)
+    if isinstance(node, N.WindowNode):
+        return _prune_window(node, required)
     # any other node: require ALL columns of every child (children may still
     # narrow deeper inside their own subtrees)
     new_children = [_prune(c, None)[0] for c in node.children]
@@ -228,6 +232,27 @@ def _prune_union(node: N.UnionNode, required: set | None):
     if all(k is c for k, c in zip(kids, node.children)):
         return node, mapping
     return N.UnionNode(*kids), mapping
+
+
+def _prune_window(node: N.WindowNode, required: set | None):
+    """A window node keeps every window expression and asks its child for
+    the columns its parent requires among the child's, and those the
+    window expressions read (their inputs and their partition and order
+    keys)."""
+    n_child = len(node.child.output.fields)
+    req = required if required is not None else _all(node)
+    child_req = {i for i in req if i < n_child}
+    for e in node.window_exprs:
+        child_req |= _refs(e)
+    child, cmap = _prune(node.child, child_req)
+    if child is node.child and _is_ident(cmap):
+        return _identity(node)
+    new = N.WindowNode([_remap(e, cmap) for e in node.window_exprs], child)
+    n_new = len(child.output.fields)
+    mapping = dict(cmap)
+    for i in range(len(node.window_exprs)):
+        mapping[n_child + i] = n_new + i
+    return new, mapping
 
 
 def _prune_scan(node: FileScanNode, required: set | None):

@@ -24,7 +24,10 @@ table. ``spark.rapids.tpu.*`` conf keys keep their names.
 ``read_orc``/``read_csv`` scan ORC and CSV files as ``read_parquet`` scans
 parquet (``io/filescan.py``); ``write_parquet``/``write_orc``/``write_csv``
 run the frame's plan and write its batches through the commit protocol of
-``io/writer.py``.
+``io/writer.py``. ``spark.range(n, num_slices=8)`` makes a LONG ``id``
+column on the device; ``with_column``, ``drop``, ``with_column_renamed``,
+``sort_within_partitions``, ``count()``, ``to_pandas()`` and ``explain()``
+are the reference's, with Spark's column order for ``with_column``.
 """
 
 from __future__ import annotations
@@ -58,9 +61,36 @@ class DataFrame:
         return DataFrame(NN.ProjectNode([_to_expr(c) for c in cols],
                                         self._plan), self.session)
 
+    def with_column(self, name: str, expr) -> "DataFrame":
+        """The frame with column ``name`` set to ``expr``: a column of that
+        name is replaced where it stands, else the new one comes last
+        (Spark's ``Dataset.withColumns``; the reference moves a replaced
+        column to the end)."""
+        out = self._plan.output
+        proj = [E.Alias(_to_expr(expr), name) if f.name == name
+                else E.col(f.name) for f in out]
+        if name not in out.names:
+            proj.append(E.Alias(_to_expr(expr), name))
+        return DataFrame(NN.ProjectNode(proj, self._plan), self.session)
+
+    def drop(self, *names) -> "DataFrame":
+        """The frame without the columns named (unknown names are
+        ignored, as in Spark)."""
+        drop_set = set(names)
+        keep = [E.col(f.name) for f in self._plan.output
+                if f.name not in drop_set]
+        return DataFrame(NN.ProjectNode(keep, self._plan), self.session)
+
+    def with_column_renamed(self, old: str, new: str) -> "DataFrame":
+        proj = [E.Alias(E.col(f.name), new) if f.name == old
+                else E.col(f.name) for f in self._plan.output]
+        return DataFrame(NN.ProjectNode(proj, self._plan), self.session)
+
     def filter(self, condition) -> "DataFrame":
         return DataFrame(NN.FilterNode(_to_expr(condition), self._plan),
                          self.session)
+
+    where = filter
 
     def group_by(self, *keys) -> "GroupedData":
         return GroupedData([_to_expr(k) for k in keys], self)
@@ -86,13 +116,27 @@ class DataFrame:
                 for i, f in enumerate(self._plan.output)]
         return DataFrame(NN.AggregateNode(keys, [], self._plan), self.session)
 
-    def sort(self, *cols, ascending=True) -> "DataFrame":
+    drop_duplicates = distinct
+
+    @staticmethod
+    def _sort_exprs(cols, ascending) -> list:
         ascs = (ascending if isinstance(ascending, (list, tuple))
                 else [ascending] * len(cols))
         # Spark default: nulls first when ascending, last when descending
-        sort_exprs = [(_to_expr(c), bool(a), bool(a))
-                      for c, a in zip(cols, ascs)]
-        return DataFrame(NN.SortNode(sort_exprs, self._plan), self.session)
+        return [(_to_expr(c), bool(a), bool(a)) for c, a in zip(cols, ascs)]
+
+    def sort(self, *cols, ascending=True) -> "DataFrame":
+        return DataFrame(NN.SortNode(self._sort_exprs(cols, ascending),
+                                     self._plan), self.session)
+
+    order_by = sort
+
+    def sort_within_partitions(self, *cols, ascending=True) -> "DataFrame":
+        """Each partition sorted on its own, the partitions kept (Spark's
+        ``sortWithinPartitions``; no exchange)."""
+        return DataFrame(NN.SortNode(self._sort_exprs(cols, ascending),
+                                     self._plan, global_sort=False),
+                         self.session)
 
     def limit(self, n: int) -> "DataFrame":
         """The first ``n`` rows of the whole result (a global limit)."""
@@ -152,9 +196,33 @@ class DataFrame:
                          self.session)
 
     def window(self, window_exprs: list) -> "DataFrame":
-        """Append one column per ``Alias(WindowExpression)`` (all over one
-        partition/order spec) to every row."""
+        """Append one column per ``Alias(WindowExpression)`` to every row
+        (``functions.over`` builds them); expressions over several
+        partition/order specs plan one window exec a spec, chained."""
         return DataFrame(NN.WindowNode(window_exprs, self._plan), self.session)
+
+    @property
+    def schema(self):
+        return self._plan.output
+
+    @property
+    def columns(self) -> list:
+        return [f.name for f in self._plan.output]
+
+    def explain(self, metrics: bool = False, stats: bool = False,
+                fused: bool = False) -> str:
+        """The physical exec tree ``collect()`` would run, one line an exec
+        indented by its depth, with its arguments (the exchanges and
+        gathers the planner inserts among them). A plan the port cannot
+        run raises the ``NotImplementedError`` ``collect()`` would."""
+        for flag, module in ((metrics, "runtime/metrics.py"),
+                             (stats, "runtime/stats.py"),
+                             (fused, "plan/stages.py")):
+            if flag:
+                raise NotImplementedError(
+                    f"explain with metrics, stats or fused needs "
+                    f"{module}, which is not ported yet")
+        return self.physical_plan().tree_string()
 
     def physical_plan(self):
         """The device exec tree ``collect()`` runs (raises on anything not
@@ -167,6 +235,18 @@ class DataFrame:
 
     def collect(self) -> pa.Table:
         return self.physical_plan().execute_collect()
+
+    def count(self) -> int:
+        """The number of rows: a keyless ``count(*)`` (0 over no rows)."""
+        from spark_rapids_tpu_torch.expr.aggregates import Count
+        agg = NN.AggregateNode([], [E.Alias(Count(None), "count")],
+                               self._plan)
+        return DataFrame(agg, self.session).collect().column(
+            "count")[0].as_py()
+
+    def to_pandas(self):
+        """``collect()`` as a pandas DataFrame (pandas is imported here)."""
+        return self.collect().to_pandas()
 
     def write_parquet(self, path: str, partition_by=None, mode="error"):
         """Write the frame as parquet files under ``path`` (SNAPPY; the
@@ -201,6 +281,11 @@ class GroupedData:
             NN.agg_fn(e)   # raises on a non-aggregate
         return DataFrame(NN.AggregateNode(self.keys, named, self.df._plan),
                          self.df.session)
+
+    def count(self) -> DataFrame:
+        """The rows of each group, as a LONG column ``count``."""
+        from spark_rapids_tpu_torch.expr.aggregates import Count
+        return self.agg(E.Alias(Count(None), "count"))
 
 
 class RollupData:
@@ -270,6 +355,15 @@ class TorchSession:
         from spark_rapids_tpu_torch.sql import lower_sql
         plan, subquery_plans = lower_sql(text, self._views, self)
         return DataFrame(plan, self, subquery_plans)
+
+    def range(self, start: int, end: int | None = None, step: int = 1,
+              num_slices: int = 1) -> DataFrame:
+        """A LONG column ``id`` from ``start`` to ``end`` (exclusive) by
+        ``step`` in ``num_slices`` partitions, made on the session's device
+        (``range(n)`` is 0 .. n-1)."""
+        if end is None:
+            start, end = 0, start
+        return DataFrame(NN.RangeNode(start, end, step, num_slices), self)
 
     def create_dataframe(self, data, num_partitions: int = 1) -> DataFrame:
         """A DataFrame over an in-memory arrow table (or a dict of columns),

@@ -53,6 +53,11 @@ ORC stripe decode and the CSV parse on the card: the CPU route's batches
 bit for bit (values, validity, dictionaries); each native writer's file
 from a card batch byte for byte its file from the same CPU batch; a write
 and its read-back through the session on the card: the source's rows.
+``RangeExec``'s batches on the card bit for bit the CPU's; a local sort
+with the row and partition ids and the aggregates over them, windows over
+several specs in the DataFrame and SQL forms, the input-file family over
+the parquet device decode, and the repaired round/bround and signed-zero
+cast: the CPU run's rows (all exact).
 """
 
 import os
@@ -1738,3 +1743,167 @@ def test_hash_of_strings_matches_numpy_murmur3(cuda_device):
     h = np.where(valid, hs, h)
     h = cs.np_murmur3_int(i, h)
     np.testing.assert_array_equal(got, cs._signed32(h))
+
+
+# -- the DataFrame API's remainder, several window specs, context ------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("args,slices", [((0, 3_000_000, 1), 3),
+                                         ((10, -7, -3), 2), ((5, 5), 2),
+                                         ((0, 3), 5)])
+def test_range_exec_on_card_equals_cpu(cuda_device, args, slices):
+    """``RangeExec``'s batches on the card: the CPU's bit for bit (values,
+    validity, the zero padding, row counts and capacities)."""
+    from spark_rapids_tpu_torch.exec.basic import RangeExec
+    card = RangeExec(*args, num_slices=slices, device=cuda_device)
+    cpu = RangeExec(*args, num_slices=slices, device="cpu")
+    for split in range(slices):
+        cbs = list(card.execute_partition(split))
+        pbs = list(cpu.execute_partition(split))
+        assert len(cbs) == len(pbs)
+        for cb, pb in zip(cbs, pbs):
+            assert (cb.num_rows, cb.capacity) == (pb.num_rows, pb.capacity)
+            assert cb.columns[0].data.is_cuda
+            assert torch.equal(cb.columns[0].data.cpu(), pb.columns[0].data)
+            assert torch.equal(cb.columns[0].validity.cpu(),
+                               pb.columns[0].validity)
+
+
+def _dfapi_table(n=20_000, seed=16):
+    import pyarrow as pa
+    r = np.random.default_rng(seed)
+    k = [None if m else int(v) for v, m in zip(r.integers(0, 50, n),
+                                               r.random(n) < 0.05)]
+    return pa.table({"id": pa.array(np.arange(n, dtype=np.int64)),
+                     "k": pa.array(k, pa.int64()),
+                     "g": pa.array([f"g{v}" for v in r.integers(0, 7, n)]),
+                     "v": pa.array(r.integers(-1000, 1000, n)),
+                     "x": pa.array(np.round(r.normal(0, 100, n), 2))})
+
+
+@pytest.mark.gpu
+def test_local_sort_and_context_on_card_equal_cpu(cuda_device):
+    """``sort_within_partitions`` over four partitions, then the partition
+    and row ids, and the keyless aggregates over them: the CPU run's rows,
+    in order."""
+    import spark_rapids_tpu_torch.functions as F
+    from spark_rapids_tpu_torch.session import TorchSession
+
+    def run(spark):
+        df = spark.range(0, 1 << 20, num_slices=4).sort_within_partitions(
+            F.col("id") % 1000, "id", ascending=[False, True]).with_column(
+            "m", F.monotonically_increasing_id()).with_column(
+            "p", F.spark_partition_id())
+        sample = df.filter(F.col("id") % 9973 == 0).collect()
+        aggs = df.agg(F.max("m").alias("mx"), F.sum("m").alias("sm"),
+                      F.sum("p").alias("sp")).collect()
+        counts = df.with_column("k", F.col("id") % 4096).group_by(
+            "k").count().order_by("k").collect()
+        return sample, aggs, counts, df.count()
+    card, cpu = run(TorchSession()), run(TorchSession(device="cpu"))
+    for a, b in zip(card[:3], cpu[:3]):
+        assert a.equals(b)
+    assert card[3] == cpu[3] == 1 << 20
+    assert card[1].column("mx")[0].as_py() == (3 << 33) + (1 << 18) - 1
+
+
+@pytest.mark.gpu
+def test_chained_window_execs_on_card_equal_cpu(cuda_device, tmp_path):
+    """Four specs over three files, in the DataFrame and the SQL form: the
+    card's rows are the CPU's, in order (integers exact)."""
+    import pyarrow.parquet as pq
+    import spark_rapids_tpu_torch.functions as F
+    from spark_rapids_tpu_torch.session import TorchSession
+    t = _dfapi_table()
+    paths = []
+    for i in range(3):
+        p = str(tmp_path / f"w{i}.parquet")
+        pq.write_table(t.slice(i * 7000, 7000), p)
+        paths.append(p)
+    text = ("select id, k, g, v, "
+            "row_number() over (partition by k order by id) rn, "
+            "lag(v) over (partition by k order by id) lg, "
+            "rank() over (partition by g order by v desc) rk, "
+            "sum(v) over (partition by id % 100) s, "
+            "dense_rank() over (order by k) dr from t")
+
+    def run(spark):
+        df = spark.read_parquet(paths)
+        w = df.window([
+            F.alias(F.over(F.row_number(), ["k"], ["id"]), "rn"),
+            F.alias(F.over(F.lag("v"), ["k"], ["id"]), "lg"),
+            F.alias(F.over(F.rank(), ["g"], [("v", False, False)]), "rk"),
+            F.alias(F.over(F.sum("v"), [F.col("id") % 100]), "s"),
+            F.alias(F.over(F.dense_rank(), [], ["k"]), "dr")]).drop("x")
+        spark.create_or_replace_temp_view("t", df)
+        return (sorted(tuple(r.values()) for r in w.collect().to_pylist()),
+                sorted(tuple(r.values())
+                       for r in spark.sql(text).collect().to_pylist()))
+    card, cpu = run(TorchSession()), run(TorchSession(device="cpu"))
+    assert card == cpu
+    assert card[0] == card[1]
+
+
+@pytest.mark.gpu
+def test_input_files_on_card_equal_cpu(cuda_device, tmp_path):
+    """The input-file family and the partition/row ids over the parquet
+    device decode on the card: the CPU run's rows; ``""`` and -1 after a
+    repartition."""
+    import pyarrow.parquet as pq
+    import spark_rapids_tpu_torch.functions as F
+    from spark_rapids_tpu_torch.session import TorchSession
+    t = _dfapi_table()
+    paths = []
+    for i in range(3):
+        p = str(tmp_path / f"f{i}.parquet")
+        pq.write_table(t.slice(i * 7000, 7000), p, row_group_size=3000)
+        paths.append(p)
+
+    def run(spark):
+        df = spark.read_parquet(paths)
+        cols = df.select(F.input_file_name().alias("f"),
+                         F.input_file_block_start().alias("s"),
+                         F.input_file_block_length().alias("l"),
+                         F.spark_partition_id().alias("p"),
+                         F.monotonically_increasing_id().alias("m"),
+                         "id").collect()
+        files = df.group_by(F.input_file_name().alias("f")).count() \
+            .order_by("f").collect()
+        after = df.repartition(2).group_by(
+            F.input_file_name().alias("f")).count().collect()
+        return cols, files, after
+    card, cpu = run(TorchSession()), run(TorchSession(device="cpu"))
+    for a, b in zip(card, cpu):
+        assert a.equals(b)
+    assert card[1].column("count").to_pylist() == [7000, 7000, 6000]
+    assert card[2].to_pylist() == [{"f": "", "count": 20_000}]
+
+
+@pytest.mark.gpu
+def test_round_and_signed_zero_cast_on_card(cuda_device):
+    """The repaired round/bround (large doubles, decimals at Spark's type)
+    and the cast of -0.0 and 0.0 to string on the card: the CPU's."""
+    from decimal import Decimal as D
+
+    import pyarrow as pa
+    import spark_rapids_tpu_torch.functions as F
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.session import TorchSession
+    t = pa.table({"d": pa.array([1e300, -1e27, 0.0, -0.0, 2.5, 1.005, None,
+                                 123456789012.5]),
+                  "m": pa.array([D("1.25"), D("99999.99"), D("-2.35"), None,
+                                 D("0.05"), D("7.00"), D("1.00"),
+                                 D("-0.50")], pa.decimal128(7, 2))})
+
+    def run(spark):
+        return spark.create_dataframe(t, 2).select(
+            F.round("d", 1).alias("r1"), F.round("d", -2).alias("r2"),
+            F.bround("d", 2).alias("b2"), F.round("m", 1).alias("m1"),
+            F.bround("m", -1).alias("m2"),
+            F.col("d").cast(T.STRING).alias("s")).collect()
+    card, cpu = run(TorchSession()), run(TorchSession(device="cpu"))
+    assert card.equals(cpu)
+    assert card.column("s").to_pylist()[2:4] == ["0.0", "-0.0"]
+    assert card.column("r1").to_pylist()[:2] == [1e300, -1e27]
+    assert card.schema.field("m1").type == pa.decimal128(7, 1)
+    assert card.column("m1").to_pylist()[:2] == [D("1.3"), D("100000.0")]

@@ -149,14 +149,18 @@ def test_unported_plans_raise_at_planning(table_path):
     from spark_rapids_tpu_torch.session import TorchSession
     df = TorchSession(device="cpu").read_parquet(table_path)
     # window functions in SQL text lower since (one spec plans); two specs
-    # in one select are one WindowNode the window exec does not run
+    # in one select plan too since the window-spec slice (one window exec
+    # a spec, chained); a window over a context expression does not
     spark = df.session
     spark.create_or_replace_temp_view("t", df)
     spark.sql("select k, sum(x) over (partition by k) as s from t"
               ).physical_plan()
+    spark.sql("select k, sum(x) over (partition by k) as s, "
+              "sum(x) over (partition by n) as u from t").physical_plan()
     with pytest.raises(NotImplementedError):
-        spark.sql("select k, sum(x) over (partition by k) as s, "
-                  "sum(x) over (partition by n) as u from t").physical_plan()
+        df.window([F.alias(F.over(F.row_number(),
+                                  [F.spark_partition_id()]), "r")]
+                  ).physical_plan()
     # a cast pair Spark refuses (double to int is ported since the
     # expression slice)
     df.select(F.cast(F.col("x"), T.INT)).physical_plan()

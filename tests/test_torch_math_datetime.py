@@ -86,11 +86,24 @@ def _close(a, b):
     return a == b
 
 
-def _check(frames, build):
+# round/bround of a decimal: the port takes Spark's type (decimal(12,2) at
+# one digit is decimal(12,1), SPARK-39226), the reference keeps the input's;
+# the values are equal as numbers (test_gap_round_of_a_decimal_has_sparks_type)
+SPARK_TYPED = {"round decimal 1": (pa.decimal128(12, 1),
+                                   pa.decimal128(12, 2)),
+               "bround decimal 1": (pa.decimal128(12, 1),
+                                    pa.decimal128(12, 2))}
+
+
+def _check(frames, build, types=None):
     port_df, ref_df = frames
     got = port_df.select(build(PORT).alias("v")).collect()
     exp = ref_df.select(build(REF).alias("v")).collect()
-    assert got.schema.field("v").type == exp.schema.field("v").type
+    if types is not None:
+        assert (got.schema.field("v").type,
+                exp.schema.field("v").type) == types
+    else:
+        assert got.schema.field("v").type == exp.schema.field("v").type
     g, e = got.column("v").to_pylist(), exp.column("v").to_pylist()
     assert len(g) == len(e)
     bad = [(i, x, y) for i, (x, y) in enumerate(zip(g, e))
@@ -244,7 +257,7 @@ ORACLES = {
 
 def _check_or_oracle(frames, name, build):
     if name not in ORACLES:
-        _check(frames, build)
+        _check(frames, build, SPARK_TYPED.get(name))
         return
     port_df, ref_df = frames
     cols, fn = ORACLES[name]
@@ -420,3 +433,98 @@ def test_gap_double_to_decimal_rounds_the_printed_digits():
     got, ref = _both(t, E.col("d").cast(to), JE.col("d").cast(jto))
     assert [str(x) for x in got] == ["1.01", "-1.01", "0.25", "7.00"]
     assert [str(x) for x in ref[:2]] == ["1.00", "-1.00"]
+
+
+# -- round/bround of large doubles and of decimals (ROADMAP Queue 3) -----------
+
+@pytest.mark.parametrize("fn,digits,ref_gives", [
+    ("round", 1, "spark"), ("round", 0, "spark"), ("round", -2, "scaled"),
+    ("bround", 1, "raises"), ("bround", -2, "raises")])
+def test_gap_round_of_a_large_double_keeps_it(fn, digits, ref_gives):
+    """A double of 1e16 and above is integral: Spark's round returns it as
+    it is (1e300 stays 1e300). The port sent every row with |x| * 10^d >=
+    5e8 to the host as a near tie, where a 28-digit ``Decimal.quantize``
+    raised ``InvalidOperation``; now the integral rows stay on the device
+    and the host call runs wide enough for any double. The reference gives
+    Spark's answer for round at d >= 0, scales the double at d < 0
+    (1e27 comes back as 1.0000000000000002e27), and raises the same
+    ``InvalidOperation`` for bround."""
+    vals = [1e300, -1e300, 1e27, 123456789012.5, 2.5, None,
+            float("inf"), 1.7976931348623157e308]
+    t = pa.table({"d": pa.array(vals)})
+    pe = (M.Round if fn == "round" else M.BRound)(E.col("d"), digits)
+    re_ = (JM.Round if fn == "round" else JM.BRound)(JE.col("d"), digits)
+    got = TorchSession(device="cpu").create_dataframe(t).select(
+        pe.alias("v")).collect().column("v").to_pylist()
+    assert got[:3] == [1e300, -1e300, 1e27]
+    ref_df = TpuSession().create_dataframe(t).select(re_.alias("v"))
+    if ref_gives == "raises":
+        with pytest.raises(Exception):
+            ref_df.collect()
+    else:
+        ref = ref_df.collect().column("v").to_pylist()
+        assert ref[:2] == got[:2]
+        assert (ref[2] == got[2]) == (ref_gives == "spark")
+    assert got[5] is None and got[6] == float("inf")
+    assert got[7] == 1.7976931348623157e308
+    if digits == 1:
+        assert got[3] == 123456789012.5
+    if digits == 0:
+        assert got[4] == 3.0 and got[3] == 123456789013.0   # HALF_UP
+    # a double at the near-tie edge still rounds its printed digits
+    from decimal import ROUND_HALF_UP
+    assert M._spark_round_host(1e300, -290, ROUND_HALF_UP) == 1e300
+
+
+def test_round_of_large_doubles_makes_no_host_call(monkeypatch):
+    """Rows whose scaled magnitude is 2^52 or more never reach the host."""
+    calls = []
+    real = M._spark_round_host
+
+    def counting(*a):
+        calls.append(a)
+        return real(*a)
+    monkeypatch.setattr(M, "_spark_round_host", counting)
+    vals = [float(10 ** k) + 0.5 for k in range(16, 300, 7)]
+    t = pa.table({"d": pa.array(vals)})
+    got = TorchSession(device="cpu").create_dataframe(t).select(
+        F.round("d", 1).alias("v")).collect().column("v").to_pylist()
+    assert got == vals and not calls
+
+
+def test_gap_round_of_a_decimal_has_sparks_type():
+    """Spark types round(decimal(p,s), d) as decimal(p-s+1+min(s,d),
+    min(s,d)), and decimal(max(p-s+1, 1-d), 0) for d < 0 (SPARK-39226):
+    round(1.25, 1) over decimal(7,2) is 1.3 and round(99999.99, 1) is
+    100000.0, both decimal(7,1). The reference keeps decimal(7,2): it
+    gives 1.30, and its collect of 100000.00 fails (precision 8 > 7)."""
+    from decimal import Decimal as D
+    t = pa.table({"m": pa.array([D("1.25"), D("99999.99"), D("-2.35"),
+                                 None, D("0.05")], pa.decimal128(7, 2))})
+    cases = [(1, pa.decimal128(7, 1),
+              [D("1.3"), D("100000.0"), D("-2.4"), None, D("0.1")]),
+             (-2, pa.decimal128(6, 0),
+              [D("0"), D("100000"), D("0"), None, D("0")]),
+             (3, pa.decimal128(8, 2),
+              [D("1.25"), D("99999.99"), D("-2.35"), None, D("0.05")])]
+    port = TorchSession(device="cpu").create_dataframe(t)
+    for digits, at, want in cases:
+        out = port.select(F.round("m", digits).alias("v")).collect()
+        assert out.schema.field("v").type == at
+        assert out.column("v").to_pylist() == want
+        assert [str(x) for x in want if x is not None] == [
+            str(x) for x in out.column("v").to_pylist() if x is not None]
+    b = port.select(F.bround("m", 1).alias("v")).collect()
+    assert b.schema.field("v").type == pa.decimal128(7, 1)
+    assert b.column("v").to_pylist() == [D("1.2"), D("100000.0"),
+                                         D("-2.4"), None, D("0.0")]
+    small = pa.table({"m": pa.array([D("1.25")], pa.decimal128(7, 2))})
+    ref = TpuSession().create_dataframe(small).select(
+        JF.round("m", 1).alias("v")).collect()
+    assert ref.schema.field("v").type == pa.decimal128(7, 2)
+    assert str(ref.column("v")[0].as_py()) == "1.30"
+    with pytest.raises(Exception):
+        TpuSession().create_dataframe(t).select(
+            JF.round("m", 1).alias("v")).collect()
+    assert M.Round(E.BoundReference(0, T.DecimalType(18, 0)),
+                   0).dtype == T.DecimalType(18, 0)        # capped at 18

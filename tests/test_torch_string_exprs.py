@@ -185,3 +185,50 @@ def test_gap_pad_to_a_negative_length(gap_frames):
     got, ref = _one(*gap_frames, F.lpad("s", -1, "*"), JF.lpad("s", -1, "*"))
     assert got == ["", "", "", ""]
     assert ref == ["ab", "abc", "a\\", ""]
+
+
+# -- signed zeros through the value -> string transforms -----------------------
+
+@pytest.mark.parametrize("arrow_type", [pa.float64(), pa.float32()])
+def test_gap_cast_of_signed_zeros_to_string(arrow_type):
+    """Spark prints -0.0 and 0.0 apart (Java's ``Double.toString`` and
+    ``Float.toString``): '-0.0' and '0.0'. The reference's (and before, the
+    port's) dictionary transform takes the unique values with one compare,
+    under which -0.0 == 0.0, so every zero printed as the zero that sorts
+    first. The port makes a float column unique by its bit pattern."""
+    from spark_rapids_tpu import types as JT
+    from spark_rapids_tpu_torch import types as T
+    vals = [0.0, -0.0, 1.5, -0.0, None, 0.0]
+    t = pa.table({"d": pa.array(vals, arrow_type)})
+    got = TorchSession(device="cpu").create_dataframe(t).select(
+        E.col("d").cast(T.STRING).alias("v")).collect().column("v")
+    ref = TpuSession().create_dataframe(t).select(
+        JE.col("d").cast(JT.STRING).alias("v")).collect().column("v")
+    spark = ["0.0", "-0.0", "1.5", "-0.0", None, "0.0"]
+    assert got.to_pylist() == spark
+    zeros = {ref[i].as_py() for i in (0, 1, 3, 5)}
+    assert len(zeros) == 1            # the reference merges the two zeros
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_value_transforms_keep_signed_zeros(dtype):
+    """Both dictionary transforms see -0.0 and 0.0 as two values (their
+    callers: the cast to string, ``from_unixtime``, ``date_format``)."""
+    import math
+
+    import torch
+
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.expr.core import Col
+    from spark_rapids_tpu_torch.ops import strings as OS
+    tdt = getattr(torch, dtype)
+    col = Col(torch.tensor([0.0, -0.0, 2.0, -0.0, 0.0, 0.0, 0.0, 0.0],
+                           dtype=tdt),
+              torch.tensor([True] * 5 + [False] * 3), T.DOUBLE)
+    s = OS.value_transform_to_string(col, lambda v: repr(float(v)))
+    words = [s.dictionary[int(c)].as_py() if ok else None
+             for c, ok in zip(s.values.tolist(), s.validity.tolist())]
+    assert words == ["0.0", "-0.0", "2.0", "-0.0", "0.0", None, None, None]
+    v = OS.value_transform_to_values(col, lambda x: math.copysign(1.0, x),
+                                     T.DOUBLE)
+    assert v.values.tolist()[:5] == [1.0, -1.0, 1.0, -1.0, 1.0]

@@ -433,13 +433,26 @@ def test_lead_string_default_refused(tmp_path):
 
 
 def test_several_specs_in_one_node_refused(tmp_path):
+    """Refused until the window-spec slice; since, two specs in one node
+    plan two chained window execs (tests/test_torch_window_specs.py holds
+    their answers to a Spark-semantics oracle). The test keeps its name."""
     path = _write(tmp_path, win_table(40), 1)[0]
     m = PORT
     df = TorchSession(device="cpu").read_parquet(path).window(
         [_w(m, m.RowNumber(), _spec(m), "a"),
          _w(m, m.RowNumber(), _spec(m, order=False), "b")])
-    with pytest.raises(NotImplementedError, match="several window"):
-        df.physical_plan()
+    plan = df.physical_plan()
+    assert type(plan).__name__ == "ProjectExec"
+    assert [type(x).__name__ for x in plan.children] == ["WindowExec"]
+    assert type(plan.child.child).__name__ == "WindowExec"
+    out = df.collect()
+    assert out.column_names == ["g", "o", "v", "a", "b"]
+    # a: row_number ordered by o within g; b: a row number within g
+    rows = sorted(out.to_pylist(), key=lambda r: (r["g"], r["o"]))
+    for g in {r["g"] for r in rows}:
+        part = [r for r in rows if r["g"] == g]
+        assert [r["a"] for r in part] == list(range(1, len(part) + 1))
+        assert sorted(r["b"] for r in part) == list(range(1, len(part) + 1))
 
 
 def test_lead_default_past_the_last_partition(tmp_path):
