@@ -214,6 +214,25 @@ It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
    dictionary chunk, the count kernel an aggregate batch, the radix step
    a partitioned batch, ``murmur3_words`` a string key of each, no hash
    build), timed ``--reps`` times and traced once for its idle share;
+   then nested-sf1 (``nested_paths``), arrays, structs and maps as device
+   columns on the same SF1 files: collect-orders (lineitem's 6.0M rows →
+   ``collect_list(l_suppkey)``, ``collect_set(l_returnflag)``,
+   ``collect_list(l_shipdate)`` and ``count(*)`` per order, 1.5M groups,
+   then ``size``, ``element_at(.., 1)``, ``element_at(.., -1)``,
+   ``array_contains(flags, 'R')`` and a struct over them), its
+   ``repartition(8, l_orderkey)`` then ``explode``/``posexplode`` and a
+   group-by count (6.0M exploded rows), split-words (``store_sales`` ⋈
+   ``item``, ``split(i_item_desc, ' ')``, ``size`` and an item) and its
+   explode counted by word (8.64M rows), struct-map (a struct, a map and
+   an array over ``store_sales``, extracted fused and from the
+   materialized columns), nested-write (the collected frame to parquet
+   through the arrow writer, read back into list columns and exploded),
+   pivot (``group_by(l_returnflag).pivot(l_linestatus, ['F', 'O'])``) and
+   pivot-first (``PivotFirst`` over the same keys), and row-buffer
+   (lineitem's fixed-width columns and q1's columns through the packed
+   row format both ways, then q1 over the rows); each held against a
+   numpy/pyarrow oracle from the source files, counted once with every
+   launch predicted, timed ``NESTED_REPS`` more times and traced once;
 6. prints how many traces ``device_ms`` took and found short, one JSON
    line describing every ported kernel (``launches``, its launches summed
    over every path's counted run; each path's, the TPC-DS paths among
@@ -2639,6 +2658,507 @@ def dfapi_paths(spark, dev, name, ds_paths, counted_ds_run, counting,
               f"with count-like requests; exchanges: {ex_line or 'none'}")
 
 
+NESTED_REPS = 1   # timed runs of each nested-sf1 path after its counted run
+NESTED_WORD = " "
+
+
+def nested_oracle(li_dir: str) -> dict:
+    """numpy/pyarrow answers of the collect paths from the lineitem files
+    (sorted by l_orderkey, read in file order as the scan reads them)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    cols = ["l_orderkey", "l_suppkey", "l_returnflag", "l_linestatus",
+            "l_shipdate", "l_quantity"]
+    t = pq.read_table(li_dir, columns=cols)
+    key = t.column("l_orderkey").to_numpy()
+    if np.any(key[1:] < key[:-1]):
+        raise AssertionError("lineitem is not sorted by l_orderkey")
+    keys, start, counts = np.unique(key, return_index=True,
+                                    return_counts=True)
+    def codes(name, values):
+        """The column as indices into ``values`` (sorted), via arrow."""
+        enc = t.column(name).combine_chunks().dictionary_encode()
+        d = enc.dictionary.to_pylist()
+        if not set(d) <= set(values):
+            raise AssertionError(f"{name}: values {d}")
+        remap = np.array([values.index(v) for v in d], np.int64)
+        return remap[enc.indices.to_numpy(zero_copy_only=False)]
+    fcode = codes("l_returnflag", ["A", "N", "R"])
+    ship = t.column("l_shipdate").cast(pa.int32()).to_numpy()
+    supp = t.column("l_suppkey").to_numpy()
+    # the distinct (order, flag) pairs in (order, flag) order
+    pair = np.unique(key.astype(np.int64) * 4 + fcode)
+    set_counts = np.bincount(np.searchsorted(keys, pair >> 2),
+                             minlength=len(keys))
+    scode = codes("l_linestatus", ["F", "O"])
+    return {"keys": keys, "counts": counts, "start": start, "supp": supp,
+            "ship": ship, "set_key": pair >> 2,
+            "set_flag": np.array(["A", "N", "R"], dtype=object)[pair & 3],
+            "set_counts": set_counts,
+            "has_r": np.bincount(np.searchsorted(keys, key[fcode == 2]),
+                                 minlength=len(keys)) > 0,
+            "fcode": fcode, "scode": scode,
+            "qty": t.column("l_quantity").to_numpy(), "n_rows": len(key)}
+
+
+def _flat(col):
+    """A list column's (lengths, flattened values) as numpy."""
+    import pyarrow.compute as pc
+    col = col.combine_chunks() if hasattr(col, "combine_chunks") else col
+    return (pc.list_value_length(col).fill_null(-1).to_numpy(
+        zero_copy_only=False), pc.list_flatten(col))
+
+
+def check_orders(res, exp, label, extractions: bool = True) -> None:
+    """The collect-orders frame against the oracle: lists element for
+    element, sets sorted, and the extractions."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    res = res.take(pc.sort_indices(res.column("l_orderkey")))
+    keys = res.column("l_orderkey").to_numpy()
+    if not np.array_equal(keys, exp["keys"]):
+        raise AssertionError(f"{label}: the order keys differ")
+    if not np.array_equal(res.column("n").to_numpy(), exp["counts"]):
+        raise AssertionError(f"{label}: count(*) differs")
+    for name, want in (("supps", exp["supp"]), ("ships", exp["ship"])):
+        lens, flat = _flat(res.column(name))
+        vals = (flat.cast(pa.int32()) if name == "ships" else flat).to_numpy(
+            zero_copy_only=False)
+        if not (np.array_equal(lens, exp["counts"])
+                and np.array_equal(vals, want)):
+            raise AssertionError(f"{label}: collect_list({name}) differs")
+    lens, flat = _flat(res.column("flags"))
+    row = np.repeat(keys, lens)
+    vals = np.asarray(flat.to_pylist(), dtype=object)
+    order = np.lexsort((vals, row))
+    if not (np.array_equal(lens, exp["set_counts"])
+            and np.array_equal(row[order], exp["set_key"])
+            and np.array_equal(vals[order], exp["set_flag"])):
+        raise AssertionError(f"{label}: collect_set(l_returnflag) differs")
+    if not extractions:
+        return
+    start, cnt = exp["start"], exp["counts"]
+    want = {"n_supps": cnt, "first_supp": exp["supp"][start],
+            "last_ship": exp["ship"][start + cnt - 1],
+            "has_r": exp["has_r"]}
+    for name, w in want.items():
+        col = res.column(name)
+        if name == "last_ship":
+            col = col.cast(pa.int32())
+        if col.null_count or not np.array_equal(col.to_numpy(), w):
+            raise AssertionError(f"{label}: {name} differs")
+    st = res.column("st").combine_chunks()
+    if not (np.array_equal(st.field("n").to_numpy(), cnt)
+            and np.array_equal(st.field("k").to_numpy(), keys)):
+        raise AssertionError(f"{label}: struct(n, l_orderkey) differs")
+
+
+def nested_paths(spark, dev, name, li_dir, ds_paths, root, counting,
+                 agg_batches, scan_chunks, exp_q1, reps: int,
+                 counts_by_path: dict, peak_by_path: dict) -> None:
+    """nested-sf1: arrays, structs and maps as device columns at SF1.
+    collect-orders (lineitem's 6.0M rows → a collect_list, a collect_set,
+    a collect_list of dates and a count per order, 1.5M groups, then
+    size, element_at, array_contains and a struct over them);
+    collect-repartition-explode and -posexplode (that frame through
+    ``repartition(8, l_orderkey)``, then explode and a group-by count);
+    split-words (store_sales ⋈ item, ``split(i_item_desc, ' ')``, size,
+    an item, explode and a string group-by count); struct-map (a struct, a
+    map and an array over store_sales, extracted fused and from the
+    materialized columns); nested-write (the collect-orders frame to
+    parquet through the arrow writer, read back and exploded); pivot and
+    pivot-first (lineitem by l_returnflag pivoted on l_linestatus); and
+    row-buffer (lineitem through the packed row format both ways, then
+    q1). Each path: one counted run (launches predicted), ``reps`` more
+    timed runs, one traced run; each is held to a numpy/pyarrow oracle
+    computed from the source files."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+    import spark_rapids_tpu_torch.functions as F
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    from spark_rapids_tpu_torch.exec.generate import GenerateExec
+    from spark_rapids_tpu_torch.expr.aggregates import PivotFirst
+    from spark_rapids_tpu_torch.expr.strings import java_split
+    from spark_rapids_tpu_torch.io import writer as W
+    from spark_rapids_tpu_torch.ops import cuda_kernels as CK
+    c = F.col
+    t0 = time.perf_counter()
+    exp = nested_oracle(li_dir)
+    ss_files = data_files(ds_paths["store_sales"], ".parquet")
+    ss = pq.read_table(ss_files, columns=["ss_item_sk", "ss_customer_sk",
+                                          "ss_store_sk", "ss_quantity"])
+    item = pq.read_table(ds_paths["item"], columns=["i_item_sk",
+                                                    "i_item_desc"])
+    words = [java_split(d, NESTED_WORD, -1)
+             for d in item.column("i_item_desc").to_pylist()]
+    isk = item.column("i_item_sk").to_numpy()
+    ss_item = ss.column("ss_item_sk").to_numpy()
+    sales = np.bincount(np.searchsorted(isk, ss_item), minlength=len(isk))
+    word_counts: dict = {}
+    for ws, n in zip(words, sales.tolist()):
+        for w in ws:
+            word_counts[w] = word_counts.get(w, 0) + n
+    n_words = int(sum(len(ws) * n for ws, n in zip(words, sales.tolist())))
+    item_size = np.array([len(ws) for ws in words], np.int32)
+    item_w1 = np.array([ws[1] if len(ws) > 1 else None for ws in words],
+                       dtype=object)
+    supp_counts = np.bincount(exp["supp"])
+    pos_counts = np.array([(exp["counts"] > p).sum()
+                           for p in range(int(exp["counts"].max()))])
+    print(f"nested-sf1 oracles: {exp['n_rows']} lineitem rows in "
+          f"{len(exp['keys'])} orders, {ss.num_rows} store_sales rows, "
+          f"{n_words} words of {len(words)} item descriptions, in "
+          f"{time.perf_counter() - t0:.1f} s (numpy and pyarrow, outside "
+          "every timed window)")
+
+    def orders():
+        return spark.read_parquet(li_dir).group_by("l_orderkey").agg(
+            F.collect_list("l_suppkey").alias("supps"),
+            F.collect_set("l_returnflag").alias("flags"),
+            F.collect_list("l_shipdate").alias("ships"),
+            F.count().alias("n"))
+
+    def collect_orders():
+        return orders().select(
+            "l_orderkey", "supps", "flags", "ships", "n",
+            F.size("supps").alias("n_supps"),
+            F.element_at("supps", 1).alias("first_supp"),
+            F.element_at("ships", -1).alias("last_ship"),
+            F.array_contains("flags", "R").alias("has_r"),
+            F.struct("n", "n", "k", "l_orderkey").alias("st"))
+
+    def check_counts(res, key, want, label):
+        k = res.column(key).to_numpy()
+        got = np.zeros(len(want), np.int64)
+        got[k] = res.column("count").to_numpy()
+        if len(k) != int((want > 0).sum()) or not np.array_equal(got, want):
+            raise AssertionError(f"{label}: group counts differ")
+
+    def exploded(pos):
+        return orders().repartition(8, "l_orderkey").explode(
+            "supps", pos=pos).group_by("pos" if pos else "col").count()
+
+    def ss_items():
+        s = spark.read_parquet(ss_files).select("ss_item_sk")
+        it = spark.read_parquet(ds_paths["item"]).select(
+            c("i_item_sk").alias("ss_item_sk"), c("i_item_desc"))
+        return s.join(it, on="ss_item_sk").select(
+            "ss_item_sk", F.split("i_item_desc", NESTED_WORD).alias("w"))
+
+    def check_words(res, label):
+        got = dict(zip(res.column("col").to_pylist(),
+                       res.column("count").to_pylist()))
+        if got != word_counts:
+            raise AssertionError(f"{label}: word counts differ")
+
+    def check_split(res, label):
+        k = np.searchsorted(isk, res.column("ss_item_sk").to_numpy())
+        if not (np.array_equal(res.column("n").to_numpy(), item_size[k])
+                and res.column("w1").to_pylist() == item_w1[k].tolist()):
+            raise AssertionError(f"{label}: size or element_at0 differs")
+
+    def struct_map():
+        s = spark.read_parquet(ss_files).select(
+            "ss_item_sk", "ss_customer_sk", "ss_store_sk", "ss_quantity")
+        st = F.struct("q", "ss_quantity", "c", "ss_customer_sk")
+        mp = F.create_map(F.lit("item"), c("ss_item_sk"), F.lit("cust"),
+                          c("ss_customer_sk"))
+        ar = F.array("ss_item_sk", "ss_customer_sk", "ss_store_sk")
+        m = s.select(st.alias("st"), mp.alias("m"), ar.alias("a"),
+                     F.get_field(st, "q").alias("fq"),
+                     F.map_value(mp, F.lit("cust")).alias("fc"),
+                     F.element_at0(ar, 2).alias("fs"),
+                     F.size(ar).alias("fn"))
+        return m.select("st", "m", "a", "fq", "fc", "fs", "fn",
+                        F.get_field("st", "c").alias("mc"),
+                        F.map_value("m", F.lit("item")).alias("mi"),
+                        F.element_at("a", -1).alias("ms"),
+                        F.size("a").alias("mn"),
+                        F.array_contains("a", c("fs")).alias("mhas"))
+    q = ss.column("ss_quantity").combine_chunks()
+    cu = ss.column("ss_customer_sk").combine_chunks()
+    it_ = ss.column("ss_item_sk").combine_chunks()
+    st_ = ss.column("ss_store_sk").combine_chunks()
+    n_ss = ss.num_rows
+    off3 = pa.array(np.arange(0, 3 * n_ss + 1, 3, dtype=np.int32))
+    off2 = pa.array(np.arange(0, 2 * n_ss + 1, 2, dtype=np.int32))
+
+    def interleave(*arrs):
+        idx = np.arange(len(arrs) * n_ss)
+        return pa.concat_arrays(list(arrs)).take(
+            pa.array((idx % len(arrs)) * n_ss + idx // len(arrs)))
+    want_sm = {
+        "st": pa.StructArray.from_arrays([q, cu], names=["q", "c"]),
+        "m": pa.MapArray.from_arrays(
+            off2, pa.array(["item", "cust"] * n_ss), interleave(it_, cu)),
+        "a": pa.ListArray.from_arrays(off3, interleave(it_, cu, st_)),
+        "fq": q, "fc": cu, "fs": st_, "mc": cu, "mi": it_, "ms": st_,
+        "fn": pa.array(np.full(n_ss, 3, np.int32)),
+        "mn": pa.array(np.full(n_ss, 3, np.int32)),
+        "mhas": pa.array(np.ones(n_ss, bool), mask=np.asarray(
+            st_.is_null()))}
+
+    def check_struct_map(res, label):
+        for k, w in want_sm.items():
+            got = res.column(k).combine_chunks()
+            if k == "st":
+                same = all(got.field(i).equals(w.field(i)) for i in range(2))
+                same = same and got.null_count == 0
+            elif k == "m":
+                same = (got.keys.equals(w.keys) and got.items.equals(w.items)
+                        and got.offsets.equals(w.offsets)
+                        and got.null_count == 0)
+            elif k == "a":
+                same = (pc.list_flatten(got).equals(pc.list_flatten(w))
+                        and got.offsets.equals(w.offsets)
+                        and got.null_count == 0)
+            else:
+                same = got.cast(w.type).equals(w)
+            if not same:
+                raise AssertionError(f"{label}: column {k} differs")
+
+    out_dir = os.path.join(root, "orders_parquet")
+
+    def write_orders():
+        W.reset_routes()
+        orders().select("l_orderkey", "supps", "flags", "ships", "n",
+                        F.struct("n", "n", "k", "l_orderkey").alias("st")
+                        ).write_parquet(out_dir, mode="overwrite")
+        back = spark.read_parquet(out_dir)
+        return (dict(W.routes), back.explode("supps").collect(),
+                pq.read_table(out_dir))
+
+    def check_write(res, label):
+        routes, ex, written = res
+        if routes != {"native_files": 0, "arrow_files": 1}:
+            raise AssertionError(f"{label}: writer routes {routes}")
+        check_orders(written, exp, label, extractions=False)
+        if not (np.array_equal(ex.column("col").to_numpy(), exp["supp"])
+                and np.array_equal(ex.column("l_orderkey").to_numpy(),
+                                   np.repeat(exp["keys"], exp["counts"]))):
+            raise AssertionError(f"{label}: the explode of the read-back "
+                                 "files differs from lineitem")
+
+    def rows_of(f, s):
+        """lineitem rows with returnflag ``f`` and linestatus ``s``."""
+        return (exp["fcode"] == "ANR".index(f)) & (exp["scode"] == "FO".index(s))
+
+    def check_pivot(res, label):
+        rows = {r["l_returnflag"]: r for r in res.to_pylist()}
+        for f in ("A", "N", "R"):
+            for s in ("F", "O"):
+                m = rows_of(f, s)
+                r = rows.get(f)
+                want_n, want_q = int(m.sum()), float(exp["qty"][m].sum())
+                got_n = r[f"{s}_count"] if r else 0
+                got_q = r[f"{s}_sum"] if r else None
+                if got_n != want_n or (want_n and abs(got_q - want_q)
+                                       > 1e-9 * abs(want_q)):
+                    raise AssertionError(f"{label}: {f}/{s} differs")
+
+    def check_pivot_first(res, label):
+        got = {r["l_returnflag"]: r["pf"] for r in res.to_pylist()}
+        import datetime
+        for f in ("A", "N", "R"):
+            want = []
+            for s in ("F", "O"):
+                hit = np.flatnonzero(rows_of(f, s))
+                want.append(None if not len(hit) else datetime.date(
+                    1970, 1, 1) + datetime.timedelta(
+                        int(exp["ship"][hit[0]])))
+            if got.get(f) != want:
+                raise AssertionError(f"{label}: {f}: {got.get(f)} != {want}")
+
+    fixed_cols = ["l_orderkey", "l_suppkey", "l_quantity", "l_extendedprice",
+                  "l_discount", "l_tax", "l_shipdate"]
+    q1_cols = ["l_returnflag", "l_linestatus", "l_quantity",
+               "l_extendedprice", "l_discount", "l_tax", "l_shipdate"]
+
+    # host seconds of each step of the last row-buffer run
+    row_steps: dict = {}
+
+    def row_buffer():
+        li = spark.read_parquet(li_dir)
+        t0 = time.perf_counter()
+        rows, schema = li.select(*fixed_cols).collect_row_buffer()
+        t1 = time.perf_counter()
+        back = spark.create_dataframe_from_rows(rows, schema).collect()
+        t2 = time.perf_counter()
+        (words_, offs), schema2 = li.select(*q1_cols).collect_row_buffer()
+        t3 = time.perf_counter()
+        q1 = tpch.q1({"lineitem": spark.create_dataframe_from_rows(
+            (words_, offs), schema2)}).collect()
+        t4 = time.perf_counter()
+        row_steps.update({"fixed_pack_s": round(t1 - t0, 4),
+                          "fixed_unpack_s": round(t2 - t1, 4),
+                          "var_pack_s": round(t3 - t2, 4),
+                          "var_unpack_q1_s": round(t4 - t3, 4)})
+        return rows.shape, back, q1
+
+    src_fixed = pq.read_table(li_dir, columns=fixed_cols)
+
+    def check_rows(res, label):
+        shape, back, q1 = res
+        if shape != (exp["n_rows"], 8):
+            raise AssertionError(f"{label}: row buffer {shape}")
+        for k in fixed_cols:
+            if not back.column(k).combine_chunks().equals(
+                    src_fixed.column(k).combine_chunks()):
+                raise AssertionError(f"{label}: the fixed-width round trip "
+                                     f"of {k} differs from lineitem")
+        check_q1(q1.to_pylist(), exp_q1)
+
+    paths = {
+        "nested-sf1/collect-orders": (
+            collect_orders, "collect",
+            lambda r, lb: check_orders(r, exp, lb)),
+        "nested-sf1/collect-repartition-explode": (
+            lambda: exploded(False), "collect",
+            lambda r, lb: check_counts(r, "col", supp_counts, lb)),
+        "nested-sf1/collect-repartition-posexplode": (
+            lambda: exploded(True), "collect",
+            lambda r, lb: check_counts(r, "pos", pos_counts, lb)),
+        "nested-sf1/split-words": (
+            lambda: ss_items().select(
+                "ss_item_sk", F.size("w").alias("n"),
+                F.element_at0("w", 1).alias("w1")), "collect", check_split),
+        "nested-sf1/split-words-explode": (
+            lambda: ss_items().explode("w").group_by("col").count(),
+            "collect", check_words),
+        "nested-sf1/struct-map": (struct_map, "collect", check_struct_map),
+        "nested-sf1/nested-write": (None, write_orders, check_write),
+        "nested-sf1/pivot": (
+            lambda: spark.read_parquet(li_dir).group_by(
+                "l_returnflag").pivot("l_linestatus", ["F", "O"]).agg(
+                F.sum("l_quantity"), F.count()), "collect", check_pivot),
+        "nested-sf1/pivot-first": (
+            lambda: spark.read_parquet(li_dir).group_by("l_returnflag").agg(
+                F.alias(PivotFirst(c("l_shipdate"), c("l_linestatus"),
+                                   ["F", "O"]), "pf")),
+            "collect", check_pivot_first),
+        "nested-sf1/row-buffer": (None, row_buffer, check_rows),
+    }
+    # the kernels each path must launch (the rest predicted, maybe 0)
+    required = {
+        "nested-sf1/collect-orders": ("bitunpack128",),
+        "nested-sf1/collect-repartition-explode": ("bitunpack128",
+                                                   "radix_ranks"),
+        "nested-sf1/collect-repartition-posexplode": ("bitunpack128",
+                                                      "radix_ranks"),
+        "nested-sf1/split-words": ("bitunpack128",),
+        # 18,002 distinct words: past the dense domain, the segment path
+        "nested-sf1/split-words-explode": ("bitunpack128", "radix_ranks",
+                                           "murmur3_words"),
+        "nested-sf1/struct-map": ("bitunpack128",),
+        "nested-sf1/nested-write": ("bitunpack128",),
+        "nested-sf1/pivot": ("bitunpack128", "onehot_sum_f32"),
+        "nested-sf1/pivot-first": ("bitunpack128",),
+        "nested-sf1/row-buffer": ("bitunpack128", "onehot_sum_f32"),
+    }
+    several_scans = {
+        "nested-sf1/nested-write": [["l_orderkey", "l_suppkey",
+                                     "l_returnflag", "l_shipdate"]],
+        "nested-sf1/row-buffer": [fixed_cols, q1_cols]}
+    rows_out = {"nested-sf1/collect-repartition-explode": exp["n_rows"],
+                "nested-sf1/collect-repartition-posexplode": exp["n_rows"],
+                "nested-sf1/split-words-explode": n_words}
+    # the rows each path reads (row-buffer scans lineitem twice)
+    rows_in = {label: exp["n_rows"] for label in paths}
+    for label in ("split-words", "split-words-explode", "struct-map"):
+        rows_in[f"nested-sf1/{label}"] = n_ss
+    rows_in["nested-sf1/row-buffer"] = 2 * exp["n_rows"]
+
+    def volume(res) -> tuple:
+        """(rows, list and map elements) of a path's result tables."""
+        tables = [x for x in (res if isinstance(res, tuple) else (res,))
+                  if isinstance(x, pa.Table)]
+        elems = 0
+        for t in tables:
+            for col in t.columns:
+                if pa.types.is_list(col.type) or pa.types.is_map(col.type):
+                    arr = col.combine_chunks()
+                    lens = np.diff(arr.offsets.to_numpy(zero_copy_only=False))
+                    elems += int(lens[arr.is_valid().to_numpy(
+                        zero_copy_only=False)].sum())
+        return sum(t.num_rows for t in tables), elems
+    os.makedirs(root, exist_ok=True)
+    for label, (make, how, check) in paths.items():
+        if make is None:          # a run of several plans: ``how`` runs it
+            def act(how=how):
+                return how()
+        else:
+            def act(make=make):
+                return make().collect()
+        plans = []
+        with counting():
+            t0 = time.perf_counter()
+            if make is None:
+                res = act()
+            else:
+                plan = make().physical_plan()
+                plans.append(plan)
+                res = plan.execute_collect()
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+            counts = dict(CK.launches)
+            peak = torch.cuda.max_memory_allocated(dev)
+            count_batches = [k for k in agg_batches if k]
+        check(res, label)
+        radix, mm, exs = exchange_prediction(plans)
+        if make is None:
+            # a run of several plans: its lineitem scans' columns (the
+            # read-back of the nested files takes the arrow reader, which
+            # launches no chunk decode)
+            want_chunks = sum(scan_chunks(li_dir, cols)[0]
+                              for cols in several_scans[label])
+        else:
+            want_chunks = sum(scan_chunks(d, ex.node._data_columns())[0]
+                              for p in plans for d, ex in scans(p))
+        gens = [g for p in plans for g in of_type(p, GenerateExec)]
+        gen_line = "; ".join(
+            f"{g.args_string()}: {g.stats['rows_in']} rows and "
+            f"{g.stats['elements_in']} elements in, {g.stats['rows_out']} "
+            "rows out" for g in gens)
+        want = {"bitunpack128": want_chunks,
+                "onehot_sum_f32": len(count_batches), "radix_ranks": radix,
+                "murmur3_words": mm, "hash_join_build": 0,
+                "hash_join_probe": 0}
+        check_launches(label, counts, want, required[label])
+        if label in rows_out and sum(g.stats["rows_out"]
+                                     for g in gens) != rows_out[label]:
+            raise AssertionError(f"{label}: {gen_line}; want "
+                                 f"{rows_out[label]} rows out")
+        ts = [first]
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            r = act()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+            check(r, label)
+        idle = sql_idle_share(act)
+        counts_by_path[label] = counts
+        peak_by_path[label] = peak
+        ex_line = "; ".join(
+            f"{type(e.partitioner).__name__} {e.child.num_partitions} -> "
+            f"{e.num_partitions}, {e.map_batches} partitioned batches"
+            for e in exs)
+        n_out, e_out = volume(res)
+        print(f"{label} on {name}: median {statistics.median(ts):.4f} s, "
+              f"min {min(ts):.4f} s, max {max(ts):.4f} s over {len(ts)} "
+              f"runs: {[round(x, 4) for x in ts]}; equal to the oracle; "
+              f"rows in {rows_in[label]}, rows out {n_out}, list elements "
+              f"out {e_out}; {idle}; peak device memory {peak} B; launches "
+              f"{ {k: v for k, v in counts.items() if v} } (predicted "
+              f"{want}); {len(count_batches)} aggregate batches with "
+              f"count-like requests; explodes: {gen_line or 'none'}; "
+              f"exchanges: {ex_line or 'none'}"
+              + (f"; steps of the last run {row_steps}"
+                 if label.endswith("row-buffer") else ""))
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def decode_call_bound_ms(words, pages, defs, dictionary, n_rows, capacity,
                          want, default) -> float:
     """Least time for one recorded chunk decode call: read its words, its
@@ -4057,6 +4577,14 @@ def main() -> int:
     dfapi_paths(spark, dev, name, ds_paths, counted_ds_run, counting,
                 agg_batches, scan_chunks, args.reps, counts_by_path,
                 peak_by_path)
+
+    # -- 4g. nested-sf1: arrays, structs and maps as device columns ---------
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start, "
+          f"before nested-sf1")
+    nested_paths(spark, dev, name, li_dir, ds_paths,
+                 os.path.join(repo, "build", f"nested_sf{args.sf:g}"),
+                 counting, agg_batches, scan_chunks, exp_q1,
+                 min(args.reps, NESTED_REPS), counts_by_path, peak_by_path)
 
     if args.profile:
         for label, make_df in all_paths.items():

@@ -3,7 +3,9 @@
 Fixed-width buffers go to the device as padded tensors; strings are
 dictionary-encoded with an order-preserving (sorted) dictionary so code
 comparisons equal string comparisons; decimals (p <= 18) travel as the low
-64 bits of their decimal128 storage, the scaled int64.
+64 bits of their decimal128 storage, the scaled int64. A list, map or
+struct column becomes a ``ListVector``, ``MapVector`` or ``StructVector``
+(``list_array_to_device``, the JAX package's layout).
 """
 
 from __future__ import annotations
@@ -14,7 +16,9 @@ import pyarrow.compute as pc
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
-from spark_rapids_tpu_torch.columnar.vector import (TorchColumnVector,
+from spark_rapids_tpu_torch.columnar.vector import (ListVector, MapVector,
+                                                    StructVector,
+                                                    TorchColumnVector,
                                                     bucket_capacity)
 
 
@@ -59,12 +63,63 @@ def string_array_to_device(arr, device, capacity: int | None = None):
                                         device, dictionary=sorted_dict)
 
 
+def list_array_to_device(arr: pa.Array, dtype, capacity: int | None,
+                         device) -> ListVector:
+    """A list (or map) column → ``ListVector`` (``MapVector``): the
+    elements of the non-null lists, in row order, into one padded flat
+    column; the row lengths and validity to the device; the offsets kept
+    on the host (the JAX package's ``list_array_to_device``)."""
+    n = len(arr)
+    cap = capacity or bucket_capacity(n)
+    validity = _validity_of(arr)
+    raw = arr.offsets.to_numpy(zero_copy_only=False).astype(np.int64)
+    lengths = np.where(validity, np.diff(raw), 0)
+    offsets = np.zeros(cap + 1, dtype=np.int64)
+    offsets[1:n + 1] = np.cumsum(lengths)
+    offsets[n + 1:] = offsets[n]
+    total = int(offsets[n])
+    rows = TorchColumnVector.from_numpy(T.INT, lengths.astype(np.int32),
+                                        validity, cap, device)
+    # the elements of the non-null rows (a null row may point at some)
+    take = pa.array(np.repeat(raw[:-1] - offsets[:n], lengths)
+                    + np.arange(total, dtype=np.int64), type=pa.int64())
+    fcap = bucket_capacity(total)
+    if isinstance(dtype, T.MapType):
+        keys = array_to_device(arr.keys.take(take), dtype.key_type, fcap,
+                               device)
+        values = array_to_device(arr.items.take(take), dtype.value_type,
+                                 fcap, device)
+        return MapVector(dtype, rows.data, rows.validity, keys, values,
+                         total, offsets)
+    elems = array_to_device(arr.values.take(take), dtype.element_type, fcap,
+                            device)
+    return ListVector(dtype, rows.data, rows.validity, elems, total, offsets)
+
+
+def struct_array_to_device(arr: pa.Array, dtype: T.StructDataType,
+                           capacity: int | None, device) -> StructVector:
+    """A struct column → ``StructVector``: one device column a field, a
+    null row's fields null."""
+    cap = capacity or bucket_capacity(len(arr))
+    validity = _validity_of(arr)
+    rows = TorchColumnVector.from_numpy(T.BOOLEAN, validity, validity, cap,
+                                        device)
+    fields = [array_to_device(f, t, cap, device)
+              for f, t in zip(arr.flatten(), dtype.types)]
+    return StructVector(dtype, fields, rows.validity)
+
+
 def array_to_device(arr, dtype: T.DataType | None, capacity: int | None,
                     device) -> TorchColumnVector:
     """One arrow column → device column (the per-column scan fallback)."""
     if isinstance(arr, pa.ChunkedArray):
-        arr = arr.combine_chunks()
+        arr = (arr.combine_chunks() if arr.num_chunks != 1
+               else arr.chunk(0))
     dtype = dtype or T.from_arrow_type(arr.type)
+    if isinstance(dtype, (T.ArrayType, T.MapType)):
+        return list_array_to_device(arr, dtype, capacity, device)
+    if isinstance(dtype, T.StructDataType):
+        return struct_array_to_device(arr, dtype, capacity, device)
     if isinstance(dtype, T.StringType):
         return string_array_to_device(arr, device, capacity)
     validity = _validity_of(arr)

@@ -14,6 +14,15 @@ from spark_rapids_tpu_torch.columnar.vector import (TorchColumnVector,
                                                     bucket_capacity)
 
 
+def empty_vector(dtype: T.DataType, capacity: int, device):
+    """A column of ``capacity`` padding slots and no row: every slot null and
+    at its default; a string column has an empty dictionary, a nested one
+    no element."""
+    from spark_rapids_tpu_torch.columnar import arrow as ai
+    return ai.array_to_device(pa.nulls(0, T.to_arrow_type(dtype)), dtype,
+                              capacity, device)
+
+
 class ColumnarBatch:
     """``metadata`` is the scan provenance of a batch read from one file
     (``{"input_file", "block_start", "block_length"}``, which the
@@ -62,14 +71,8 @@ class ColumnarBatch:
     def empty(schema: T.StructType, device) -> "ColumnarBatch":
         """A batch of no rows (the smallest capacity) with ``schema``'s
         columns; a string column has an empty dictionary."""
-        cols = []
-        for f in schema:
-            d = (pa.array([], type=pa.string())
-                 if isinstance(f.data_type, T.StringType) else None)
-            cols.append(TorchColumnVector.from_numpy(
-                f.data_type, np.zeros(0, T.to_numpy_dtype(f.data_type)),
-                None, bucket_capacity(0), device, dictionary=d))
-        return ColumnarBatch(cols, 0, schema)
+        return ColumnarBatch([empty_vector(f.data_type, bucket_capacity(0),
+                                           device) for f in schema], 0, schema)
 
     @staticmethod
     def from_arrow(table, device, schema: T.StructType | None = None):

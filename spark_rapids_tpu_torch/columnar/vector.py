@@ -11,6 +11,12 @@ A column is:
   dictionary, so code order is string order. ``dictionary_words()`` packs
   that dictionary's UTF-8 bytes onto the device once, for byte-level
   kernels such as the murmur3 string hash.
+- nested columns (``ListVector``, ``MapVector``, ``StructVector``) keep the
+  JAX package's list layout: per-row lengths as ``data`` (int32 on the
+  device, 0 for a null row and for padding), row validity, a flat padded
+  element column (the elements of the non-null lists in row order, with
+  its own dictionary for strings) and the row offsets on the host. The
+  device ops over them are in ``ops/nested.py``.
 """
 
 from __future__ import annotations
@@ -158,3 +164,105 @@ class TorchColumnVector:
         d = (f", dict={len(self.dictionary)}" if self.dictionary is not None
              else "")
         return f"TorchColumnVector({self.dtype}, cap={self.capacity}{d})"
+
+
+class ListVector(TorchColumnVector):
+    """An ``array<e>`` column: ``data`` holds the int32 row lengths, ``flat``
+    the elements. ``total`` is the element count (a host int). The host
+    offsets (``offsets``, ``capacity + 1`` entries, the JAX package's
+    ``ListVector.offsets`` in their first ``num_rows + 1``) are given by
+    the arrow bridge, or read back from the lengths on first use."""
+
+    __slots__ = ("flat", "total", "_offsets")
+
+    def __init__(self, dtype: T.DataType, lengths: torch.Tensor,
+                 validity: torch.Tensor, flat: TorchColumnVector,
+                 total: int, offsets: np.ndarray | None = None):
+        super().__init__(dtype, lengths, validity)
+        self.flat = flat
+        self.total = int(total)
+        self._offsets = offsets
+
+    @property
+    def element_dtype(self) -> T.DataType:
+        return self.dtype.element_type
+
+    @property
+    def offsets(self) -> np.ndarray:
+        if self._offsets is None:
+            lengths = self.data.cpu().numpy().astype(np.int64)
+            self._offsets = np.concatenate([[0], np.cumsum(lengths)])
+        return self._offsets
+
+    def device_memory_size(self) -> int:
+        return super().device_memory_size() + self.flat.device_memory_size()
+
+    def _list_offsets(self, num_rows: int) -> pa.Array:
+        """The arrow offsets of the first ``num_rows`` rows: a null slot
+        marks a null list (pyarrow's convention)."""
+        off = self.offsets[:num_rows + 1].astype(np.int32)
+        valid = self.validity[:num_rows].cpu().numpy()
+        mask = np.concatenate([~valid, [False]])
+        return pa.array(off, type=pa.int32(), mask=mask)
+
+    def to_arrow(self, num_rows: int) -> pa.Array:
+        flat = self.flat.to_arrow(int(self.offsets[num_rows]))
+        return pa.ListArray.from_arrays(self._list_offsets(num_rows), flat)
+
+    def __repr__(self):
+        return (f"ListVector({self.dtype!r}, cap={self.capacity}, "
+                f"elems={self.total})")
+
+
+class MapVector(ListVector):
+    """A ``map<k, v>`` column: the keys are ``flat``, the values
+    ``values``, two flat columns over one set of offsets."""
+
+    __slots__ = ("values",)
+
+    def __init__(self, dtype: T.DataType, lengths: torch.Tensor,
+                 validity: torch.Tensor, keys: TorchColumnVector,
+                 values: TorchColumnVector, total: int,
+                 offsets: np.ndarray | None = None):
+        super().__init__(dtype, lengths, validity, keys, total, offsets)
+        self.values = values
+
+    def device_memory_size(self) -> int:
+        return super().device_memory_size() + self.values.device_memory_size()
+
+    def to_arrow(self, num_rows: int) -> pa.Array:
+        n = int(self.offsets[num_rows])
+        return pa.MapArray.from_arrays(self._list_offsets(num_rows),
+                                       self.flat.to_arrow(n),
+                                       self.values.to_arrow(n))
+
+    def __repr__(self):
+        return (f"MapVector({self.dtype!r}, cap={self.capacity}, "
+                f"entries={self.total})")
+
+
+class StructVector(TorchColumnVector):
+    """A ``struct<...>`` column: one column a field (each of the struct's
+    capacity) and the row validity; ``data`` is the validity too, so the
+    column has a capacity like any other. A null row's fields are null."""
+
+    __slots__ = ("fields",)
+
+    def __init__(self, dtype: T.DataType, fields: list,
+                 validity: torch.Tensor):
+        super().__init__(dtype, validity, validity)
+        self.fields = list(fields)
+
+    def device_memory_size(self) -> int:
+        return (self.validity.numel()
+                + sum(f.device_memory_size() for f in self.fields))
+
+    def to_arrow(self, num_rows: int) -> pa.Array:
+        valid = self.validity[:num_rows].cpu().numpy()
+        children = [f.to_arrow(num_rows) for f in self.fields]
+        return pa.StructArray.from_arrays(
+            children, fields=list(T.to_arrow_type(self.dtype)),
+            mask=pa.array(~valid))
+
+    def __repr__(self):
+        return f"StructVector({self.dtype!r}, cap={self.capacity})"

@@ -21,6 +21,13 @@ Filter/Project into the aggregation), over two group-by paths:
   (``_presorted``): live rows that arrive sorted with no null skip the
   sort and the gathers (TPC-H lineitem is ordered by ``l_orderkey``).
 
+The collects (``collect_list``, ``collect_set``) and ``PivotFirst`` have
+a list state (``ops/nested.py``) and always take the segment path, where
+the keys would take the dense one; the stable sort keeps each group's rows
+in input order, and each update → concat → merge step puts the earlier
+batches' partial lists before the later batch's, so ``collect_list`` keeps
+the input order across batches.
+
 A keyless aggregate (``df.agg(...)``, no grouping keys) reduces the live
 rows as one segment, in place of the sort (``_agg_keyless``), and yields
 one row even over empty input (COUNT 0, the other aggregates null), as
@@ -217,7 +224,9 @@ class HashAggregateExec(TorchExec):
 
         def in_order(cols):
             if presorted:
-                return [Col(c.values, c.validity & live, c.dtype,
+                # a nested state's padding rows are already null and empty
+                return [c if c.nested is not None else
+                        Col(c.values, c.validity & live, c.dtype,
                             c.dictionary) for c in cols]
             return gather_cols(cols, perm, live)
         sorted_keys = in_order(key_cols)
@@ -254,7 +263,8 @@ class HashAggregateExec(TorchExec):
         segctx = G.segment_structure(seg_ids, cap)
 
         def masked(cols):
-            return [Col(c.values, c.validity & live, c.dtype, c.dictionary)
+            return [c if c.nested is not None else
+                    Col(c.values, c.validity & live, c.dtype, c.dictionary)
                     for c in cols]
         state_cols = []
         off = 0

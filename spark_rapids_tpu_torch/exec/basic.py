@@ -209,6 +209,10 @@ class LocalLimitExec(TorchExec):
             live = torch.arange(batch.capacity, device=self.device) < remaining
             cols = []
             for c in batch.columns:
+                if T.is_nested(c.dtype):
+                    from spark_rapids_tpu_torch.ops import nested as N
+                    cols.append(N.take_rows(c, 0, remaining, batch.capacity))
+                    continue
                 default = torch.tensor(c.dtype.default_value(),
                                        dtype=c.data.dtype, device=self.device)
                 cols.append(TorchColumnVector(

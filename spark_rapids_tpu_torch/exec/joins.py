@@ -147,7 +147,10 @@ def _null_cols(schema, cap: int, device):
     """All-null columns of ``schema`` (an outer join's missing side); a
     string column gets an empty dictionary."""
     import pyarrow as pa
-    return [Col(torch.full((cap,), f.data_type.default_value(),
+    from spark_rapids_tpu_torch.columnar.batch import empty_vector
+    return [Col.from_vector(empty_vector(f.data_type, cap, device))
+            if T.is_nested(f.data_type) else
+            Col(torch.full((cap,), f.data_type.default_value(),
                            dtype=f.data_type.torch_dtype, device=device),
                 torch.zeros((cap,), dtype=torch.bool, device=device),
                 f.data_type,

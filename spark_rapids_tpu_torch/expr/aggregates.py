@@ -20,6 +20,15 @@ reference's buffers (count, sum, sum of squares, as doubles) and finish as
 ``m2 = max(s2 - s * mean, 0)`` over n or n - 1; a sample moment of one row
 is null (Spark's legacy statistical aggregate gives NaN; the reference and
 Spark 3.1+ give null).
+
+CollectList, CollectSet and PivotFirst have an array state (a list column,
+``ops/nested.py``) and run on the segment path only, with the reference's
+host semantics (``plan/nodes.py`` ``AggregateNode._agg_one``):
+``collect_list`` keeps each group's non-null values in input order (the
+segment sort is stable), ``collect_set`` keeps one of each (in value order;
+Spark leaves the order unspecified), an all-null group gives an empty
+array, never null; ``PivotFirst`` gives each group one slot a pivot value,
+holding the first non-null value of the rows with that pivot value.
 """
 
 from __future__ import annotations
@@ -341,3 +350,151 @@ class StddevPop(VariancePop):
 class StddevSamp(VarianceSamp):
     def finish(self, var):
         return torch.sqrt(var)
+
+
+def _list_state(elems: Col, rows, total: int, capacity: int,
+                dtype: T.DataType, dedupe: bool) -> Col:
+    from spark_rapids_tpu_torch.ops import nested as N
+    return Col.from_vector(N.from_tagged_elements(elems, rows, total,
+                                                  capacity, dtype, dedupe))
+
+
+class CollectList(AggregateFunction):
+    """collect_list(x): each group's non-null values, in input order. The
+    state is the list itself: an update tags each sorted row's value with
+    its segment's first row; a merge concatenates the partial lists of a
+    segment in row order. The aggregate exec concatenates earlier partials
+    before later ones and its sort is stable, so the order holds across
+    batches."""
+
+    dedupe = False
+
+    @property
+    def dtype(self):
+        return T.ArrayType(self.child.dtype)
+
+    @property
+    def nullable(self):
+        return False
+
+    @property
+    def state_types(self):
+        return [self.dtype]
+
+    def update(self, in_col, segctx):
+        from spark_rapids_tpu_torch.ops.filtering import gather_cols
+        from spark_rapids_tpu_torch.columnar.vector import bucket_capacity
+        keep = torch.nonzero(in_col.validity).squeeze(1)
+        total = int(keep.shape[0])
+        ecap = bucket_capacity(total)
+        dev = keep.device
+        idx = torch.zeros((ecap,), dtype=torch.int64, device=dev)
+        idx[:total] = keep
+        elems = gather_cols([in_col], idx,
+                            torch.arange(ecap, device=dev) < total)[0]
+        rows = segctx.seg_start.long()[keep]
+        return [_list_state(elems, rows, total, segctx.capacity, self.dtype,
+                            self.dedupe)]
+
+    def merge(self, state_cols, segctx):
+        from spark_rapids_tpu_torch.ops import nested as N
+        vec = state_cols[0].nested
+        rows = segctx.seg_start.long()[N.element_rows(vec.data, vec.total)]
+        return [_list_state(Col.from_vector(vec.flat), rows, vec.total,
+                            segctx.capacity, self.dtype, self.dedupe)]
+
+    def evaluate(self, state_cols):
+        return state_cols[0]
+
+
+class CollectSet(CollectList):
+    """collect_set(x): each group's distinct non-null values (in value
+    order; Spark leaves it unspecified, the reference keeps first-seen)."""
+
+    dedupe = True
+
+
+class PivotFirst(AggregateFunction):
+    """PivotFirst(value, pivot, pivot_values): per group an array with one
+    slot a pivot value, holding the first non-null value among the rows
+    whose pivot equals it (the reference's host semantics; Spark plans it
+    over one row per group and pivot value, where first and last agree).
+    Its input is ``struct(value, pivot)``, so it rides the exec's one input
+    column; the state is the array."""
+
+    def __init__(self, value, pivot, pivot_values: list):
+        self.children = [value, pivot]
+        self.pivot_values = list(pivot_values)
+
+    def with_children(self, children):
+        return PivotFirst(children[0], children[1], self.pivot_values)
+
+    @property
+    def child(self):
+        from spark_rapids_tpu_torch.expr.complexexprs import CreateNamedStruct
+        from spark_rapids_tpu_torch.expr.core import Literal
+        return CreateNamedStruct(Literal("value"), self.children[0],
+                                 Literal("pivot"), self.children[1])
+
+    @property
+    def dtype(self):
+        return T.ArrayType(self.children[0].dtype)
+
+    @property
+    def nullable(self):
+        return False
+
+    @property
+    def state_types(self):
+        return [self.dtype]
+
+    def _slots(self, picks: list, segctx) -> Col:
+        from spark_rapids_tpu_torch.ops import nested as N
+        cap = segctx.capacity
+        return Col.from_vector(N.from_columns(self.dtype, picks, cap, cap))
+
+    def update(self, in_col, segctx):
+        value, pivot = (Col.from_vector(f) for f in in_col.nested.fields)
+        picks = []
+        for pv in self.pivot_values:
+            match = _equals_value(pivot, pv) & value.validity
+            v, ok = G.segment_first(value.values, match, segctx, True)
+            picks.append(Col(v, ok, value.dtype, value.dictionary))
+        return [self._slots(picks, segctx)]
+
+    def merge(self, state_cols, segctx):
+        from spark_rapids_tpu_torch.expr.complexexprs import list_item
+        vec = state_cols[0].nested
+        cap = segctx.capacity
+        dev = vec.data.device
+        every = torch.ones((cap,), dtype=torch.bool, device=dev)
+        picks = []
+        for j in range(len(self.pivot_values)):
+            slot = list_item(vec, Col(torch.full((cap,), j, dtype=torch.int64,
+                                                 device=dev), every, T.LONG),
+                             every)
+            v, ok = G.segment_first(slot.values, slot.validity, segctx, True)
+            picks.append(Col(v, ok, slot.dtype, slot.dictionary))
+        return [self._slots(picks, segctx)]
+
+    def evaluate(self, state_cols):
+        return state_cols[0]
+
+    def __repr__(self):
+        return (f"pivotfirst({self.children[0]!r}, {self.children[1]!r}, "
+                f"{self.pivot_values!r})")
+
+
+def _equals_value(c: Col, v) -> torch.Tensor:
+    """Rows of ``c`` equal to the host value ``v`` (a string by its code in
+    ``c``'s dictionary; none when it is not there)."""
+    if v is None:
+        return torch.zeros_like(c.validity)
+    if c.is_string:
+        import pyarrow.compute as pc
+        d = c.dictionary
+        code = (pc.index(d, v).as_py() if d is not None and len(d) else -1)
+        if code < 0:
+            return torch.zeros_like(c.validity)
+        return c.validity & (c.values == code)
+    return c.validity & (c.values == v)

@@ -19,22 +19,30 @@ from spark_rapids_tpu_torch import types as T
 
 class Col:
     """A column value during evaluation: padded values + validity, the dtype,
-    and (for strings) the host dictionary."""
+    and (for strings) the host dictionary. A nested column (array, map,
+    struct) carries its vector as ``nested``; ``values`` and ``validity``
+    are then the vector's own (the row lengths, or a struct's validity),
+    and the nested ops (``ops/nested.py``) work on the vector."""
 
-    __slots__ = ("values", "validity", "dtype", "dictionary")
+    __slots__ = ("values", "validity", "dtype", "dictionary", "nested")
 
     def __init__(self, values: torch.Tensor, validity: torch.Tensor,
-                 dtype: T.DataType, dictionary=None):
+                 dtype: T.DataType, dictionary=None, nested=None):
         self.values = values
         self.validity = validity
         self.dtype = dtype
         self.dictionary = dictionary
+        self.nested = nested
 
     @staticmethod
     def from_vector(cv):
+        if T.is_nested(cv.dtype):
+            return Col(cv.data, cv.validity, cv.dtype, None, cv)
         return Col(cv.data, cv.validity, cv.dtype, cv.dictionary)
 
     def to_vector(self):
+        if self.nested is not None:
+            return self.nested
         from spark_rapids_tpu_torch.columnar.vector import TorchColumnVector
         return TorchColumnVector(self.dtype, self.values, self.validity,
                                  self.dictionary)

@@ -4,8 +4,11 @@ GpuStringTrim, GpuSubstring, GpuStartsWith, GpuEndsWith, GpuContains,
 GpuLike, GpuRLike, GpuConcat, GpuConcatWs, GpuStringReplace, GpuStringLPad,
 GpuStringRPad, GpuStringRepeat, GpuStringLocate, GpuSubstringIndex,
 GpuStringTranslate, GpuFindInSet, GpuRegExpReplace, GpuRegExpExtract,
-GpuMd5, GpuGetJsonObject). ``StringSplit``, which returns an array, is not
-ported.
+GpuMd5, GpuGetJsonObject) and ``StringSplit`` (GpuStringSplit), whose
+array is a list column (``ops/nested.from_dictionary``: each dictionary
+entry is split once on the host, and the rows gather the entries' lists
+by code); ``split(..)[i]`` and ``size(split(..))`` stay dictionary
+transforms (``expr/complexexprs.py``).
 
 A string function is a dictionary transform (``ops/strings.py``): it runs
 once per distinct value on the host and reaches the rows as one device
@@ -558,3 +561,92 @@ class GetJsonObject(_LiteralArgsStringFn):
 
     def fn(self, s, path):
         return json_path_get(s, path)
+
+
+def java_split(s: str, pattern: str, limit: int) -> list:
+    """Java's ``String.split(regex, limit)`` (``Pattern.split``): limit > 0
+    caps the part count (limit 1 returns the input unsplit); limit 0 drops
+    trailing empty strings; limit < 0 keeps every part; no match gives the
+    input itself (so ``""`` splits to ``[""]``); a zero-width match at the
+    start makes no leading empty part; capture groups add nothing. The
+    reference's copy (``re.split``) adds a capture group's text as parts."""
+    if s is None:
+        return []
+    out = []
+    index = 0
+    limited = limit > 0
+    for m in re.finditer(pattern, s):
+        if limited and len(out) >= limit - 1:
+            break
+        if index == 0 and m.start() == 0 and m.end() == 0:
+            continue
+        out.append(s[index:m.start()])
+        index = m.end()
+    if index == 0 and not out:
+        return [s]
+    out.append(s[index:])
+    if limit == 0:
+        while out and out[-1] == "":
+            out.pop()
+    return out
+
+
+def spark_split(s: str, pattern: str, limit: int) -> list:
+    """Spark's ``split`` (``UTF8String.split``): an empty pattern over a
+    non-empty string gives its characters (at most ``limit`` parts when
+    limit > 0, the last holding the rest); otherwise limit 0 means -1, so
+    trailing empty strings stay (the reference's java_split drops them),
+    then Java's ``String.split``."""
+    if s is None:
+        return []
+    if s and pattern == "":
+        n = len(s)
+        k = n if limit <= 0 or limit > n else limit
+        return list(s[:k - 1]) + [s[k - 1:]]
+    return java_split(s, pattern, -1 if limit == 0 else limit)
+
+
+class StringSplit(Expression):
+    """split(str, regex[, limit]) → array<string> with a literal pattern and
+    limit (the reference's limit too), Spark's semantics (``spark_split``).
+    Materialized, the array is a list column: each dictionary entry is
+    split once on the host; fused under ``[i]`` or ``size`` it stays a
+    dictionary transform (``expr/complexexprs.py``)."""
+
+    def __init__(self, child, pattern, limit=None):
+        self.children = ([child, pattern]
+                         + ([limit] if limit is not None else []))
+
+    @property
+    def dtype(self):
+        _string_child(self.children[0], "split")
+        self.pattern_limit()
+        return T.ArrayType(T.STRING)
+
+    def with_children(self, children):
+        return StringSplit(children[0], children[1],
+                           children[2] if len(children) > 2 else None)
+
+    def pattern_limit(self):
+        pat = self.children[1]
+        lim = self.children[2] if len(self.children) > 2 else None
+        if not isinstance(pat, Literal) or not (lim is None or isinstance(
+                lim, Literal)):
+            raise NotImplementedError(
+                "split with a non-literal pattern or limit is not ported")
+        return pat.value, (-1 if lim is None else lim.value)
+
+    def split_one(self, s):
+        pat, lim = self.pattern_limit()
+        return spark_split(s, pat, lim)
+
+    def eval(self, ctx):
+        from spark_rapids_tpu_torch.ops import nested as N
+        c = self.children[0].eval(ctx)
+        entries = c.dictionary.to_pylist() if c.dictionary is not None else []
+        return Col.from_vector(N.from_dictionary(
+            c, [self.split_one(e) for e in entries], ctx.num_rows,
+            self.dtype))
+
+    def __repr__(self):
+        return f"split({', '.join(map(repr, self.children))})"

@@ -4,15 +4,17 @@ Counterpart of ``spark_rapids_tpu/functions.py``, with its names and
 signatures: the aggregates (``sum`` ... ``var_pop``), the conditionals, the
 string, math and date functions, ``hash`` and ``isin``, the window builders
 (``row_number``, ``rank``, ``dense_rank``, ``lead``, ``lag`` and ``over``),
-``alias``, ``scalar_subquery``, and the context functions
+``alias``, ``scalar_subquery``, the context functions
 (``spark_partition_id``, ``monotonically_increasing_id``,
-``input_file_name``, ``input_file_block_start``/``_length``). Beyond the
+``input_file_name``, ``input_file_block_start``/``_length``), and the
+array, struct and map functions (``struct``, ``get_field``, ``array``,
+``element_at0``, ``size``, ``element_at``, ``array_contains``, ``split``,
+``collect_list``, ``collect_set``, ``create_map``, ``map_value``). Beyond the
 reference it has pyspark's ``quarter``, ``hour``, ``minute``, ``second``,
 ``dayofweek``, ``dayofyear``, ``last_day``, ``datediff``, ``date_add``,
 ``nullif``, ``ltrim``/``rtrim``, ``reverse``, ``initcap``, ``rlike`` and the
 unary math functions, over expressions the reference has. Not ported:
-``rand``, the array, struct and map functions, ``split``,
-``collect_list``/``collect_set`` and the UDF factories.
+``rand`` and the UDF factories.
 
     w = F.over(F.row_number(), partition_by=["k"],
                order_by=[("ts", False, False)])
@@ -494,3 +496,68 @@ def input_file_block_start():
 
 def input_file_block_length():
     return _MI.InputFileBlockLength()
+
+
+# -- arrays, structs and maps ---------------------------------------------------
+
+def struct(*name_value_pairs):
+    """named_struct('a', col, 'b', col): alternating names and values."""
+    from spark_rapids_tpu_torch.expr.complexexprs import CreateNamedStruct
+    return CreateNamedStruct(*[
+        _v(x) if i % 2 == 0 else _e(x)
+        for i, x in enumerate(name_value_pairs)])
+
+
+def get_field(struct_expr, name: str):
+    from spark_rapids_tpu_torch.expr.complexexprs import GetStructField
+    return GetStructField(_e(struct_expr), name)
+
+
+def array(*cs):
+    from spark_rapids_tpu_torch.expr.complexexprs import CreateArray
+    return CreateArray(*[_e(c) for c in cs])
+
+
+def element_at0(arr, idx):
+    """0-based array element (Spark's GetArrayItem; element_at is
+    1-based)."""
+    from spark_rapids_tpu_torch.expr.complexexprs import GetArrayItem
+    return GetArrayItem(_e(arr), _v(idx))
+
+
+def size(c):
+    from spark_rapids_tpu_torch.expr.complexexprs import Size
+    return Size(_e(c))
+
+
+def element_at(arr, i):
+    from spark_rapids_tpu_torch.expr.complexexprs import ElementAt
+    return ElementAt(_e(arr), _v(i))
+
+
+def array_contains(arr, value):
+    from spark_rapids_tpu_torch.expr.complexexprs import ArrayContains
+    return ArrayContains(_e(arr), _v(value))
+
+
+def split(c, pattern: str, limit: int = -1):
+    return _S.StringSplit(_e(c), Literal(pattern),
+                          Literal(limit) if limit != -1 else None)
+
+
+def collect_list(c):
+    return _AG.CollectList(_e(c))
+
+
+def collect_set(c):
+    return _AG.CollectSet(_e(c))
+
+
+def create_map(*kvs):
+    from spark_rapids_tpu_torch.expr.complexexprs import CreateMap
+    return CreateMap(*[_e(x) for x in kvs])
+
+
+def map_value(m, key):
+    from spark_rapids_tpu_torch.expr.complexexprs import GetMapValue
+    return GetMapValue(_e(m), _e(key))

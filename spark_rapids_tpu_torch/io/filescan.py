@@ -57,6 +57,12 @@ from spark_rapids_tpu_torch.io import readers as R
 from spark_rapids_tpu_torch.plan.nodes import PlanNode
 
 
+def _arrow_only(dt) -> bool:
+    """A column type only the arrow reader reads: a timestamp or a nested
+    type."""
+    return isinstance(dt, T.TimestampType) or T.is_nested(dt)
+
+
 @dataclasses.dataclass(frozen=True)
 class FilePartition:
     """Files + constant partition-column values (from dir names a/b=1/...)."""
@@ -270,10 +276,11 @@ class FileSourceScanExec(TorchExec):
         part = node.partitions[split]
         if part.partition_values:
             return None
-        # a partition that outputs a timestamp takes the arrow reader whole
-        # (it owns the unit conversion and the datetime rebase; the
-        # reference's rule, io/filescan.py:299-311)
-        if any(isinstance(f.data_type, T.TimestampType) for f in self.output):
+        # a partition that outputs a timestamp or a nested column takes the
+        # arrow reader whole (it owns the unit conversion, the datetime
+        # rebase and the list/struct/map conversion; the reference's rule,
+        # io/filescan.py:299-311)
+        if any(_arrow_only(f.data_type) for f in self.output):
             return None
         date_cols = [f.name for f in self.output
                      if isinstance(f.data_type, T.DateType)]
@@ -311,7 +318,8 @@ class FileSourceScanExec(TorchExec):
         read."""
         from spark_rapids_tpu_torch.io import orc_native as ON
         part = self.node.partitions[split]
-        if part.partition_values:
+        if part.partition_values or any(T.is_nested(f.data_type)
+                                        for f in self.output):
             return None
         metas = []
         for path in part.paths:
@@ -344,7 +352,8 @@ class FileSourceScanExec(TorchExec):
         from spark_rapids_tpu_torch.io import csv_native as CN
         node = self.node
         part = node.partitions[split]
-        if part.partition_values:
+        if part.partition_values or any(T.is_nested(f.data_type)
+                                        for f in self.output):
             return None
         allow_f = self.conf.get(CFG.CSV_READ_FLOATS)
         rdr = node.reader

@@ -19,7 +19,11 @@ exchange's map stage does. A task writes one file per batch:
   partitioned: the device prepares each column, the host frames the bytes;
 - the arrow writer (``pyarrow``) for a partitioned write (dynamic
   partitioning: one ``key=value`` directory per combination, rows kept in
-  their order) and for ``writer.type`` ARROW.
+  their order), for ``writer.type`` ARROW, and for a schema with a nested
+  (array, map, struct) column, which the native encoders do not frame
+  (``native_supports``, the reference's ``supports_schema``). The route
+  is chosen from the schema before any file is written; a CSV write of a
+  nested column is refused there (Spark's CSV source refuses it too).
 
 ``routes`` counts the files each way wrote. Unlike the reference, a native
 encoder that fails raises: the task aborts, its temporary files go, and
@@ -49,6 +53,12 @@ _EXT = {"parquet": "parquet", "orc": "orc", "csv": "csv"}
 _WRITER_TYPE = {"parquet": CFG.PARQUET_WRITER_TYPE,
                 "orc": CFG.ORC_WRITER_TYPE, "csv": CFG.CSV_WRITER_TYPE}
 MODES = ("error", "overwrite", "append", "ignore")
+
+
+def native_supports(schema) -> bool:
+    """Whether the native encoders frame every column: not a nested one."""
+    from spark_rapids_tpu_torch import types as T
+    return not any(T.is_nested(f.data_type) for f in schema)
 
 
 def reset_routes() -> None:
@@ -237,7 +247,8 @@ def write_columnar(exec_, path: str, fmt: str = "parquet",
     schema = exec_.output
     for c in partition_by:
         schema.index_of(c)            # raises KeyError on an unknown column
-    native = str(conf.get(_WRITER_TYPE[fmt])).upper() == "NATIVE"
+    native = (str(conf.get(_WRITER_TYPE[fmt])).upper() == "NATIVE"
+              and native_supports(schema))
     total = WriteStats()
     lock = threading.Lock()
 
@@ -287,6 +298,10 @@ class FileWriteNode(PlanNode):
     def run(self, conf, device) -> WriteStats:
         from spark_rapids_tpu_torch.plan.overrides import TorchOverrides
         from spark_rapids_tpu_torch.plan.pruning import prune_columns
+        if self.fmt == "csv" and not native_supports(self.child.output):
+            raise NotImplementedError(
+                f"a CSV write of {self.child.output} is not ported: CSV has "
+                "no nested types (Spark's CSV source refuses them too)")
         exec_ = TorchOverrides(conf, device).apply(prune_columns(self.child))
         return write_columnar(exec_, self.path, self.fmt,
                               partition_by=self.partition_by, mode=self.mode,

@@ -1,44 +1,52 @@
 """Batch concatenation on the device — counterpart of
 ``spark_rapids_tpu/ops/concat.py``. String columns are first remapped onto
 one sorted union dictionary; the output lands in the capacity bucket of the
-total row count with canonical defaults in the padding."""
+total row count with canonical defaults in the padding. Nested columns go
+to ``ops/nested.concat``, which concatenates their flat element columns
+here."""
 
 from __future__ import annotations
 
-import pyarrow as pa
 import torch
 
-from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
-from spark_rapids_tpu_torch.columnar.vector import (TorchColumnVector,
-                                                    bucket_capacity)
+from spark_rapids_tpu_torch.columnar.vector import bucket_capacity
 from spark_rapids_tpu_torch.expr.core import Col
+
+
+def concat_cols(cols, counts, cap) -> Col:
+    """The first ``counts[i]`` rows of each Col, one after another, in a Col
+    of ``cap`` slots."""
+    from spark_rapids_tpu_torch.ops.strings import align_many
+    if cols[0].nested is not None:
+        from spark_rapids_tpu_torch.ops import nested as N
+        return Col.from_vector(N.concat([c.nested for c in cols], counts,
+                                        cap))
+    if cols[0].is_string:
+        cols = align_many(cols)
+    first = cols[0]
+    v = torch.full((cap,), first.dtype.default_value(),
+                   dtype=first.values.dtype, device=first.values.device)
+    m = torch.zeros((cap,), dtype=torch.bool, device=first.values.device)
+    off = 0
+    for c, n in zip(cols, counts):
+        v[off:off + n] = c.values[:n]
+        m[off:off + n] = c.validity[:n]
+        off += n
+    return Col(v, m, first.dtype, first.dictionary)
 
 
 def concat_batches(batches) -> ColumnarBatch:
     batches = list(batches)
     if len(batches) == 1:
         return batches[0]
-    from spark_rapids_tpu_torch.ops.strings import align_many
     schema = batches[0].schema
     counts = [b.num_rows for b in batches]
     total = sum(counts)
     cap = bucket_capacity(total)
-    out = []
-    for ci in range(batches[0].num_cols):
-        cols = [Col.from_vector(b.column(ci)) for b in batches]
-        if cols[0].is_string:
-            cols = align_many(cols)
-        first = cols[0]
-        v = torch.full((cap,), first.dtype.default_value(),
-                       dtype=first.values.dtype, device=first.values.device)
-        m = torch.zeros((cap,), dtype=torch.bool, device=first.values.device)
-        off = 0
-        for c, n in zip(cols, counts):
-            v[off:off + n] = c.values[:n]
-            m[off:off + n] = c.validity[:n]
-            off += n
-        out.append(Col(v, m, first.dtype, first.dictionary).to_vector())
+    out = [concat_cols([Col.from_vector(b.column(ci)) for b in batches],
+                       counts, cap).to_vector()
+           for ci in range(batches[0].num_cols)]
     return ColumnarBatch(out, total, schema)
 
 
@@ -50,12 +58,4 @@ def concat_all(batches, schema, device) -> ColumnarBatch:
     batches = [b for b in batches if b.num_rows > 0]
     if batches:
         return concat_batches(batches)
-    cap = bucket_capacity(0)
-    cols = [TorchColumnVector(
-        f.data_type,
-        torch.full((cap,), f.data_type.default_value(),
-                   dtype=f.data_type.torch_dtype, device=device),
-        torch.zeros((cap,), dtype=torch.bool, device=device),
-        pa.array([], type=pa.string())
-        if isinstance(f.data_type, T.StringType) else None) for f in schema]
-    return ColumnarBatch(cols, 0, schema)
+    return ColumnarBatch.empty(schema, device)

@@ -38,9 +38,15 @@ def compact_cols(cols, keep_mask):
 
 def gather_cols(cols, indices, valid_out):
     """Gather rows by index; ``valid_out`` masks output slots, which then
-    hold the canonical default."""
+    hold the canonical default. A nested column goes to
+    ``ops/nested.gather``."""
     out = []
     for c in cols:
+        if c.nested is not None:
+            from spark_rapids_tpu_torch.ops import nested as N
+            out.append(Col.from_vector(N.gather(c.nested, indices,
+                                                valid_out)))
+            continue
         vals = c.values[indices]
         validity = c.validity[indices] & valid_out
         default = torch.tensor(c.dtype.default_value(), dtype=vals.dtype,

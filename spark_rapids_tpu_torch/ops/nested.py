@@ -1,0 +1,273 @@
+"""Device ops over nested columns (``ListVector``, ``MapVector``,
+``StructVector``; ``columnar/vector.py``).
+
+The JAX package keeps a list column only between its arrow bridge and its
+explode (``exec/generate.py``) and runs everything else over nested values
+on its host path. The port keeps them as device columns through every
+operator, so these ops carry them:
+
+- ``gather``: rows by index. The new lengths are gathered, their exclusive
+  cumsum gives the new starts, and the elements are gathered by a
+  segmented index (each output element's row, from ``repeat_interleave``
+  of the new lengths, plus its place in the row). One host sync: the new
+  element count, which sizes the flat column.
+- ``concat``: the rows of several columns one after another (each flat
+  column's elements after the last one's).
+- ``explode_mapping``: for each output row of an explode, its source row
+  and element index, from a searchsorted over the length prefix (the JAX
+  package's ``GenerateExec._generate``).
+- list building: from elements tagged with their row (the collects, over
+  rows sorted into segments; ``from_tagged_elements``), from a fixed arity
+  (``array(...)``, ``map(...)``; ``from_columns``), and from one list per
+  dictionary entry (``split``; ``from_dictionary``).
+
+Elements are scalar columns (a nested element type is refused when its
+type is built), and ride ``ops/filtering.gather_cols`` and
+``ops/concat.concat_cols``. Plain torch ops; no kernel.
+"""
+
+from __future__ import annotations
+
+import pyarrow as pa
+import torch
+
+from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar.vector import (ListVector, MapVector,
+                                                    StructVector,
+                                                    TorchColumnVector,
+                                                    bucket_capacity)
+from spark_rapids_tpu_torch.expr.core import Col
+
+
+def _gather_flat(flat: TorchColumnVector, src: torch.Tensor, total: int,
+                 fcap: int) -> TorchColumnVector:
+    """``flat``'s elements at ``src`` (``total`` of them) into a column of
+    ``fcap`` slots."""
+    from spark_rapids_tpu_torch.ops.filtering import gather_cols
+    dev = flat.data.device
+    idx = torch.zeros((fcap,), dtype=torch.int64, device=dev)
+    idx[:total] = src
+    live = torch.arange(fcap, device=dev) < total
+    return gather_cols([Col.from_vector(flat)], idx, live)[0].to_vector()
+
+
+def starts_of(lengths: torch.Tensor) -> torch.Tensor:
+    """Each row's first element in the flat column (int64)."""
+    cs = torch.cumsum(lengths, 0, dtype=torch.int64)
+    return cs - lengths.to(torch.int64)
+
+
+def element_rows(lengths: torch.Tensor, total: int) -> torch.Tensor:
+    """The row of each of the ``total`` elements (int64)."""
+    rows = torch.arange(lengths.shape[0], dtype=torch.int64,
+                        device=lengths.device)
+    return torch.repeat_interleave(rows, lengths.to(torch.int64),
+                                   output_size=total)
+
+
+def _rebuild(vec: ListVector, lengths, validity, elem_src, total):
+    """A list or map column like ``vec`` with new rows whose elements are
+    ``vec``'s flat elements at ``elem_src``."""
+    fcap = bucket_capacity(total)
+    flat = _gather_flat(vec.flat, elem_src, total, fcap)
+    if isinstance(vec, MapVector):
+        values = _gather_flat(vec.values, elem_src, total, fcap)
+        return MapVector(vec.dtype, lengths, validity, flat, values, total)
+    return ListVector(vec.dtype, lengths, validity, flat, total)
+
+
+def gather(vec, indices: torch.Tensor, valid_out: torch.Tensor):
+    """Rows of a nested column by index (``ops/filtering.gather_cols``'s
+    nested case): a slot where ``valid_out`` is false is null and empty."""
+    valid = vec.validity[indices] & valid_out
+    if isinstance(vec, StructVector):
+        from spark_rapids_tpu_torch.ops.filtering import gather_cols
+        fields = gather_cols([Col.from_vector(f) for f in vec.fields],
+                             indices, valid)
+        return StructVector(vec.dtype, [f.to_vector() for f in fields], valid)
+    lengths = torch.where(valid, vec.data[indices],
+                          torch.zeros((), dtype=vec.data.dtype,
+                                      device=vec.data.device))
+    total = int(lengths.sum())          # the gather's one host sync
+    rows = element_rows(lengths, total)
+    within = (torch.arange(total, dtype=torch.int64, device=lengths.device)
+              - starts_of(lengths)[rows])
+    src = starts_of(vec.data)[indices][rows] + within
+    return _rebuild(vec, lengths, valid, src, total)
+
+
+def take_rows(vec, lo: int, count: int, capacity: int):
+    """Rows ``lo .. lo + count`` of a nested column, into ``capacity``
+    slots (a partition's slice, a limit's cut)."""
+    dev = vec.data.device
+    idx = torch.arange(capacity, dtype=torch.int64, device=dev) + lo
+    live = torch.arange(capacity, device=dev) < count
+    idx = torch.where(live, idx, torch.zeros_like(idx)).clamp_(
+        max=vec.capacity - 1)
+    return gather(vec, idx, live)
+
+
+def concat(vecs: list, counts: list, capacity: int):
+    """The first ``counts[i]`` rows of each nested column, one after
+    another, into ``capacity`` slots (``ops/concat.concat_cols``'s nested
+    case)."""
+    from spark_rapids_tpu_torch.ops.concat import concat_cols
+    first = vecs[0]
+    dev = first.data.device
+    valid = torch.zeros((capacity,), dtype=torch.bool, device=dev)
+    off = 0
+    for v, n in zip(vecs, counts):
+        valid[off:off + n] = v.validity[:n]
+        off += n
+    if isinstance(first, StructVector):
+        fields = [concat_cols([Col.from_vector(v.fields[i]) for v in vecs],
+                              counts, capacity).to_vector()
+                  for i in range(len(first.fields))]
+        return StructVector(first.dtype, fields, valid)
+    lengths = torch.zeros((capacity,), dtype=torch.int32, device=dev)
+    off = 0
+    for v, n in zip(vecs, counts):
+        lengths[off:off + n] = v.data[:n]
+        off += n
+    # each column's elements of its first counts[i] rows
+    ecounts = [int(v.data[:n].sum()) for v, n in zip(vecs, counts)]
+    total = sum(ecounts)
+    fcap = bucket_capacity(total)
+    flat = concat_cols([Col.from_vector(v.flat) for v in vecs], ecounts,
+                       fcap).to_vector()
+    if isinstance(first, MapVector):
+        values = concat_cols([Col.from_vector(v.values) for v in vecs],
+                             ecounts, fcap).to_vector()
+        return MapVector(first.dtype, lengths, valid, flat, values, total)
+    return ListVector(first.dtype, lengths, valid, flat, total)
+
+
+def explode_mapping(lengths: torch.Tensor, num_rows: int, outer: bool):
+    """The explode of the first ``num_rows`` rows whose element counts are
+    ``lengths``: ``(src, elem_idx, real, live, total, out_cap)``. Output row
+    ``p`` comes from row ``src[p]``'s element ``elem_idx[p]``; ``real`` is
+    false where an outer explode pads a null or empty list with one row of
+    a null element; ``live`` marks the ``total`` output rows."""
+    dev = lengths.device
+    cap = lengths.shape[0]
+    row_live = torch.arange(cap, device=dev) < num_rows
+    eff = lengths.to(torch.int64)
+    if outer:
+        eff = torch.clamp(eff, min=1)
+    eff = torch.where(row_live, eff, torch.zeros_like(eff))
+    cum = torch.cumsum(eff, 0)
+    total = int(cum[-1]) if cap else 0      # the one host sync
+    out_cap = bucket_capacity(total)
+    pos = torch.arange(out_cap, dtype=torch.int64, device=dev)
+    src = torch.searchsorted(cum, pos, right=True).clamp_(max=cap - 1)
+    base = torch.where(src > 0, cum[(src - 1).clamp(min=0)],
+                       torch.zeros_like(src))
+    elem_idx = pos - base
+    live = pos < total
+    real = (elem_idx < lengths[src].to(torch.int64)) & live
+    return src, elem_idx, real, live, total, out_cap
+
+
+def from_tagged_elements(elems: Col, rows: torch.Tensor, total: int,
+                         capacity: int, dtype: T.DataType,
+                         dedupe: bool = False) -> ListVector:
+    """A non-null list in every one of ``capacity`` rows, row ``r`` holding
+    the elements tagged ``r`` in their order (``rows`` nondecreasing over
+    the ``total`` elements of ``elems``; untagged rows hold an empty list).
+    ``dedupe`` keeps the first of equal elements of a row, after a stable
+    sort by (row, value), so a row's elements come out in value order
+    (``collect_set``; Spark leaves its order unspecified)."""
+    from spark_rapids_tpu_torch.ops.filtering import gather_cols
+    from spark_rapids_tpu_torch.ops.sorting import SortOrder, sort_permutation
+    dev = rows.device
+    ecap = elems.values.shape[0]
+    if dedupe and total:
+        live = torch.arange(ecap, device=dev) < total
+        row_col = Col(torch.zeros((ecap,), dtype=torch.int64, device=dev),
+                      live, T.LONG)
+        row_col.values[:total] = rows
+        perm = sort_permutation([row_col, elems], [SortOrder(), SortOrder()],
+                                total, ecap)
+        srt = gather_cols([row_col, elems], perm, live)
+        r, e = srt[0].values[:total], srt[1]
+        same = torch.zeros((total,), dtype=torch.bool, device=dev)
+        if total > 1:
+            ev = e.values[:total]
+            eq = ev[1:] == ev[:-1]
+            if isinstance(e.dtype, T.FractionalType):
+                eq = eq | (torch.isnan(ev[1:]) & torch.isnan(ev[:-1]))
+            same[1:] = (r[1:] == r[:-1]) & eq
+        keep = torch.nonzero(~same).squeeze(1)
+        total = int(keep.shape[0])
+        rows = r[keep]
+        ncap = bucket_capacity(total)
+        idx = torch.zeros((ncap,), dtype=torch.int64, device=dev)
+        idx[:total] = keep
+        elems = gather_cols([e], idx, torch.arange(ncap, device=dev) < total
+                            )[0]
+    lengths = torch.bincount(rows, minlength=capacity)[:capacity].to(
+        torch.int32) if total else torch.zeros((capacity,), dtype=torch.int32,
+                                               device=dev)
+    flat = elems.to_vector()
+    fcap = bucket_capacity(total)
+    if flat.capacity != fcap:
+        flat = _gather_flat(flat, torch.arange(total, device=dev), total,
+                            fcap)
+    valid = torch.ones((capacity,), dtype=torch.bool, device=dev)
+    return ListVector(dtype, lengths, valid, flat, total)
+
+
+def _interleave(cols: list, num_rows: int):
+    """The first ``num_rows`` rows of ``k`` scalar Cols as one flat Col of
+    ``num_rows * k`` elements, row by row (strings onto one dictionary)."""
+    from spark_rapids_tpu_torch.ops.strings import align_many
+    if cols[0].is_string:
+        cols = align_many(cols)
+    k = len(cols)
+    total = num_rows * k
+    fcap = bucket_capacity(total)
+    dev = cols[0].values.device
+    vals = torch.stack([c.values[:num_rows] for c in cols], 1).reshape(-1)
+    valid = torch.stack([c.validity[:num_rows] for c in cols], 1).reshape(-1)
+    v = torch.full((fcap,), cols[0].dtype.default_value(),
+                   dtype=vals.dtype, device=dev)
+    m = torch.zeros((fcap,), dtype=torch.bool, device=dev)
+    v[:total] = vals
+    m[:total] = valid
+    return Col(v, m, cols[0].dtype, cols[0].dictionary), total
+
+
+def from_columns(dtype: T.DataType, cols: list, num_rows: int,
+                 capacity: int, values: list | None = None):
+    """``array(c0, ..., ck-1)`` (or, with ``values``, ``map(k0, v0, ...)``)
+    in each of the first ``num_rows`` rows: a non-null list of ``k``
+    elements, the padding rows empty."""
+    dev = cols[0].values.device
+    k = len(cols)
+    flat, total = _interleave(cols, num_rows)
+    live = torch.arange(capacity, device=dev) < num_rows
+    lengths = torch.where(live, torch.full((capacity,), k, dtype=torch.int32,
+                                           device=dev),
+                          torch.zeros((capacity,), dtype=torch.int32,
+                                      device=dev))
+    if values is None:
+        return ListVector(dtype, lengths, live, flat.to_vector(), total)
+    vflat, _ = _interleave(values, num_rows)
+    return MapVector(dtype, lengths, live, flat.to_vector(),
+                     vflat.to_vector(), total)
+
+
+def from_dictionary(codes: Col, entry_lists: list, num_rows: int,
+                    dtype: T.DataType) -> ListVector:
+    """Each row's list from its dictionary entry's: ``entry_lists[d]`` is
+    the (host) list of dictionary entry ``d``, or None for a null list. The
+    entries' lists cross to the device once, as a list column of one row
+    an entry, and the rows gather it by code; a null row is null."""
+    from spark_rapids_tpu_torch.columnar.arrow import list_array_to_device
+    dev = codes.values.device
+    entries = list_array_to_device(
+        pa.array(entry_lists or [None], type=T.to_arrow_type(dtype)),
+        dtype, None, dev)
+    cap = codes.values.shape[0]
+    live = torch.arange(cap, device=dev) < num_rows
+    return gather(entries, codes.values.long(), codes.validity & live)

@@ -260,6 +260,34 @@ class WindowNode(PlanNode):
         return 1
 
 
+class GenerateNode(PlanNode):
+    """explode/posexplode of an array column, ``outer`` or not (the
+    GpuGenerateExec analog; ``exec/generate.py`` runs it). The output is the
+    child's columns but the generator, then ``pos`` (posexplode) and
+    ``col``."""
+
+    def __init__(self, generator_col: str, child: PlanNode,
+                 outer: bool = False, element_type: T.DataType = None,
+                 pos: bool = False):
+        super().__init__(child)
+        self.generator_col = generator_col
+        self.outer = outer
+        self.pos = pos
+        self.element_type = element_type or T.LONG
+        taken = {f.name for f in child.output if f.name != generator_col}
+        for out_name in (("pos", "col") if pos else ("col",)):
+            if out_name in taken:   # Spark allows duplicate names; the port not
+                raise ValueError(
+                    f"explode output column '{out_name}' collides with an "
+                    "input column: rename the input first")
+
+    @property
+    def output(self):
+        from spark_rapids_tpu_torch.exec.generate import generate_output
+        return generate_output(self.child.output, self.generator_col,
+                               self.element_type, self.pos, self.outer)
+
+
 def union_output(outputs: list) -> T.StructType:
     """The schema of a union of children with these outputs: equal column
     types (the SQL lowering casts the arms first), the first child's names,

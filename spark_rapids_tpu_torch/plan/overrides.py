@@ -41,6 +41,16 @@ after column pruning (``plan/pruning.py``, which ``DataFrame.physical_plan``
 runs once at the root, as the reference runs it first in
 ``TpuOverrides.apply``).
 
+A generate node (explode, posexplode, ``outer`` or not) plans a
+``GenerateExec`` over an array column (``conv_generate``,
+``:990-1027``). Nested columns (arrays, maps, structs of scalar values)
+are admitted as payload everywhere, and as input only to the extractions
+(``expr/complexexprs.py``), the null tests, ``count`` and the collects;
+as a key (grouping, join, sort, window partition or order, hash
+partitioning, ``IN``) they are refused, the message naming the exec that
+refuses (``refuse_nested_keys``), and so is a nested column under
+``ExpandExec``.
+
 The context expressions (``spark_partition_id``,
 ``monotonically_increasing_id``, the input-file family) are admitted in a
 projection, a filter and an aggregate, where Spark's analyzer admits a
@@ -68,11 +78,15 @@ from spark_rapids_tpu_torch.exec import basic as XB
 from spark_rapids_tpu_torch.exec import exchange as XE
 from spark_rapids_tpu_torch.exec import joins as XJ
 from spark_rapids_tpu_torch.exec.expand import ExpandExec
+from spark_rapids_tpu_torch.exec.generate import GenerateExec
 from spark_rapids_tpu_torch.exec.sort import SortExec, _GatherAllExec
 from spark_rapids_tpu_torch.exec.window import (WindowExec,
                                                 supported_window_expr)
 from spark_rapids_tpu_torch.expr import core as E
-from spark_rapids_tpu_torch.expr.aggregates import AggregateFunction
+from spark_rapids_tpu_torch.expr import complexexprs as _CX
+from spark_rapids_tpu_torch.expr.aggregates import (AggregateFunction,
+                                                     CollectList, Count,
+                                                     PivotFirst)
 from spark_rapids_tpu_torch.expr import datetime as _DT
 from spark_rapids_tpu_torch.expr import decimalexprs as _DX
 from spark_rapids_tpu_torch.expr import mathexprs as _MX
@@ -90,7 +104,7 @@ from spark_rapids_tpu_torch.expr.nullexprs import (AtLeastNNonNulls, Coalesce,
                                                    IsNaN, IsNotNull, IsNull,
                                                    NaNvl)
 from spark_rapids_tpu_torch.expr.predicates import (
-    And, EqualNullSafe, EqualTo, GreaterThan, GreaterThanOrEqual, In,
+    And, EqualNullSafe, EqualTo, GreaterThan, GreaterThanOrEqual, In, InSet,
     LessThan, LessThanOrEqual, Not, NotEqual, Or)
 from spark_rapids_tpu_torch.expr.windows import WindowExpression
 from spark_rapids_tpu_torch.io.filescan import FileScanNode, FileSourceScanExec
@@ -114,7 +128,24 @@ _PORTED_EXPRS = (E.BoundReference, E.Literal, E.Alias, BinaryArithmetic,
                  UnaryMinus, UnaryPositive, IsNull, IsNotNull, IsNaN,
                  Coalesce, NaNvl, AtLeastNNonNulls, BitwiseNot, Shift,
                  Murmur3Hash, ScalarSubquery, *CONTEXT_SENSITIVE
-                 ) + _module_exprs(_DT, _DX, _MX, _SX)
+                 ) + _module_exprs(_CX, _DT, _DX, _MX, _SX)
+
+# the expressions that take a nested (array, map, struct) input: the
+# extractions, the null tests, count, and the column itself
+_NESTED_INPUT_OK = (E.BoundReference, E.Alias, IsNull, IsNotNull, Count,
+                    CollectList, PivotFirst, _CX.GetStructField,
+                    _CX.GetArrayItem, _CX.Size, _CX.ElementAt,
+                    _CX.ArrayContains, _CX.GetMapValue)
+
+
+def refuse_nested_keys(exprs, operator: str, role: str = "key") -> None:
+    """A nested value cannot be a key: ``operator`` names the exec that
+    refuses it (grouping, join, sort, window, hash partitioning, IN)."""
+    for e in exprs:
+        if T.is_nested(e.dtype):
+            raise NotImplementedError(
+                f"{operator}: a {role} of type {e.dtype!r} is not ported "
+                "(a nested value can be a payload column, not a key)")
 
 
 def _joinable(ldt: T.DataType, rdt: T.DataType) -> bool:
@@ -150,6 +181,14 @@ def check_expression(e: E.Expression, context_ok: bool = False) -> None:
                 f"cast {node.children[0].dtype} -> {node.to} is not ported yet")
         # resolves the result type, which raises on unported operand types
         _ = node.dtype
+        if isinstance(node, (In, InSet)):
+            refuse_nested_keys(node.children, "IN")
+        if not isinstance(node, _NESTED_INPUT_OK):
+            for c in node.children:
+                if T.is_nested(c.dtype):
+                    raise NotImplementedError(
+                        f"{type(node).__name__} over a {c.dtype!r} value is "
+                        "not ported yet")
 
 
 class TorchOverrides:
@@ -170,7 +209,8 @@ class TorchOverrides:
                 NN.LimitNode: self._limit,
                 NN.WindowNode: self._window,
                 NN.UnionNode: self._union,
-                NN.ExpandNode: self._expand}.get(type(plan))
+                NN.ExpandNode: self._expand,
+                NN.GenerateNode: self._generate}.get(type(plan))
         if conv is None:
             raise NotImplementedError(
                 f"plan node {type(plan).__name__} is not ported yet")
@@ -208,6 +248,8 @@ class TorchOverrides:
     def _aggregate(self, n, kids):
         for e in (*n.group_exprs, *n.agg_exprs):
             check_expression(e, context_ok=True)
+        refuse_nested_keys(n.group_exprs, "HashAggregateExec",
+                           "grouping key")
         child = kids[0]
         group_exprs, agg_exprs = n.group_exprs, n.agg_exprs
         if is_context_sensitive(*group_exprs, *agg_exprs):
@@ -300,6 +342,8 @@ class TorchOverrides:
     def _exchange(self, n, kids):
         for e in n.keys:
             check_expression(e)
+        refuse_nested_keys(n.keys, "ShuffleExchangeExec",
+                           "hash partitioning key")
         if n.partitioning == "hash":
             p = SP.HashPartitioner(n.keys, n.num_out)
         elif n.partitioning == "single":
@@ -319,6 +363,8 @@ class TorchOverrides:
             raise NotImplementedError(
                 f"a residual condition on a {n.join_type} equi-join is not "
                 "ported (the reference runs it on the host)")
+        refuse_nested_keys(n.left_keys + n.right_keys,
+                           "BroadcastHashJoinExec", "join key")
         for lk, rk in zip(n.left_keys, n.right_keys):
             check_expression(lk)
             check_expression(rk)
@@ -367,6 +413,9 @@ class TorchOverrides:
                     f"not a window expression: {we!r}")
             for c in we.children:
                 check_expression(c)
+            refuse_nested_keys([*we.spec.partition_by,
+                                *[o[0] for o in we.spec.order_by]],
+                               "WindowExec", "partition or order key")
             reason = supported_window_expr(we)
             if reason:
                 raise NotImplementedError(reason)
@@ -412,11 +461,33 @@ class TorchOverrides:
         for proj in n.projections:
             for e in proj:
                 check_expression(e)
+        for f in n.output:
+            if T.is_nested(f.data_type):
+                raise NotImplementedError(
+                    f"ExpandExec: a column of type {f.data_type!r} is not "
+                    "ported")
         return ExpandExec(n.projections, n.output, kids[0], conf=self.conf)
+
+    def _generate(self, n, kids):
+        f = n.child.output[n.generator_col]
+        if not isinstance(f.data_type, T.ArrayType):
+            raise NotImplementedError(
+                f"GenerateExec: explode of {n.generator_col} "
+                f"({f.data_type!r}) is not ported (arrays only; maps are "
+                "not)")
+        if f.data_type.element_type != n.element_type:
+            raise ValueError(
+                f"explode: declared element type {n.element_type!r} is not "
+                f"the column's {f.data_type.element_type!r}")
+        return GenerateExec(n.generator_col, kids[0], outer=n.outer,
+                            element_type=n.element_type, pos=n.pos,
+                            conf=self.conf)
 
     def _sort(self, n, kids):
         for e, _, _ in n.sort_exprs:
             check_expression(e)
+        refuse_nested_keys([e for e, _, _ in n.sort_exprs], "SortExec",
+                           "sort key")
         exprs = [e for (e, _, _) in n.sort_exprs]
         orders = [SortOrder(ascending=asc, nulls_first=nf)
                   for (_, asc, nf) in n.sort_exprs]

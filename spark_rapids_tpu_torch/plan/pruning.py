@@ -31,6 +31,13 @@ column, after the kept data columns, as the reference's does. The port has
 no cache node and no pushed scan filters, so the reference's barrier and the
 rule that keeps a filter's columns have nothing to act on here.
 
+Beyond the reference, a generate node (explode) asks its child for the
+columns its parent requires and the generator column; and a struct or map
+built and then extracted in a projection or a filter
+(``struct(..).f``, ``map(lit, x, lit, y)[lit]``) is first replaced by the
+extracted value (``complexexprs.simplify_extract``), so the other fields'
+columns are not read.
+
 Parquet and ORC scans narrow as the reference's do. A CSV scan with a header
 narrows too, where the reference keeps every field: its arrow reader and
 its device parse both match the narrowed schema's fields to the header by
@@ -44,6 +51,7 @@ import copy
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.expr import core as E
+from spark_rapids_tpu_torch.expr.complexexprs import simplify_extract
 from spark_rapids_tpu_torch.io.filescan import FileScanNode
 from spark_rapids_tpu_torch.plan import nodes as N
 
@@ -92,23 +100,26 @@ def _prune(node: N.PlanNode, required: set | None):
                 else list(range(len(node.project_list))))
         if not keep:                       # count(*)-style: keep one column
             keep = [0]
-        kept_exprs = [node.project_list[i] for i in keep]
+        kept_exprs = [simplify_extract(node.project_list[i]) for i in keep]
         child_req = set()
         for e in kept_exprs:
             child_req |= _refs(e)
         child, cmap = _prune(node.child, child_req)
         mapping = {o: i for i, o in enumerate(keep)}
         if child is node.child and _is_ident(cmap) and _is_ident(mapping) \
-                and len(keep) == len(node.project_list):
+                and len(keep) == len(node.project_list) and all(
+                    k is node.project_list[i]
+                    for k, i in zip(kept_exprs, keep)):
             return node, mapping
         return N.ProjectNode([_remap(e, cmap) for e in kept_exprs],
                              child), mapping
     if isinstance(node, N.FilterNode):
         req = required if required is not None else _all(node)
-        child, cmap = _prune(node.child, req | _refs(node.condition))
-        if child is node.child and _is_ident(cmap):
+        cond = simplify_extract(node.condition)
+        child, cmap = _prune(node.child, req | _refs(cond))
+        if child is node.child and _is_ident(cmap) and cond is node.condition:
             return node, cmap
-        return N.FilterNode(_remap(node.condition, cmap), child), cmap
+        return N.FilterNode(_remap(cond, cmap), child), cmap
     if isinstance(node, N.SortNode):
         need = set(required if required is not None else _all(node))
         for e, _, _ in node.sort_exprs:
@@ -151,6 +162,8 @@ def _prune(node: N.PlanNode, required: set | None):
         return _prune_union(node, required)
     if isinstance(node, N.WindowNode):
         return _prune_window(node, required)
+    if isinstance(node, N.GenerateNode):
+        return _prune_generate(node, required)
     # any other node: require ALL columns of every child (children may still
     # narrow deeper inside their own subtrees)
     new_children = [_prune(c, None)[0] for c in node.children]
@@ -252,6 +265,30 @@ def _prune_window(node: N.WindowNode, required: set | None):
     mapping = dict(cmap)
     for i in range(len(node.window_exprs)):
         mapping[n_child + i] = n_new + i
+    return new, mapping
+
+
+def _prune_generate(node: N.GenerateNode, required: set | None):
+    """An explode asks its child for the generator column and the columns
+    its parent requires among the child's (the output is the child's
+    columns but the generator, then pos and col)."""
+    fields = node.child.output.fields
+    g = node.child.output.index_of(node.generator_col)
+    others = [j for j in range(len(fields)) if j != g]
+    n_out = len(node.output.fields)
+    req = required if required is not None else set(range(n_out))
+    child_req = {others[o] for o in req if o < len(others)} | {g}
+    child, cmap = _prune(node.child, child_req)
+    if child is node.child and _is_ident(cmap):
+        return _identity(node)
+    new = N.GenerateNode(node.generator_col, child, node.outer,
+                         node.element_type, node.pos)
+    new_others = sorted(cmap[j] for j in others if j in cmap)
+    mapping = {o: new_others.index(cmap[j])
+               for o, j in enumerate(others) if j in cmap}
+    extra = n_out - len(others)         # pos and col
+    for k in range(extra):
+        mapping[len(others) + k] = len(new_others) + k
     return new, mapping
 
 

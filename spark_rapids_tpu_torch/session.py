@@ -28,6 +28,14 @@ run the frame's plan and write its batches through the commit protocol of
 column on the device; ``with_column``, ``drop``, ``with_column_renamed``,
 ``sort_within_partitions``, ``count()``, ``to_pandas()`` and ``explain()``
 are the reference's, with Spark's column order for ``with_column``.
+
+Nested columns (arrays, maps, structs of scalar values) are device columns:
+``F.collect_list``/``F.collect_set``, ``F.split``, ``F.array``,
+``F.struct`` and ``F.create_map`` build them, files and arrow tables bring
+them, ``df.explode(col, outer, pos)`` flattens an array, and
+``group_by(k).pivot(p, values).agg(...)`` pivots.
+``collect_row_buffer()`` and ``spark.create_dataframe_from_rows(...)``
+move a frame through the packed row format (``columnar/rows.py``).
 """
 
 from __future__ import annotations
@@ -201,6 +209,21 @@ class DataFrame:
         partition/order specs plan one window exec a spec, chained."""
         return DataFrame(NN.WindowNode(window_exprs, self._plan), self.session)
 
+    def explode(self, column: str, outer: bool = False,
+                pos: bool = False) -> "DataFrame":
+        """One row per element of the array column ``column`` (Spark's
+        explode, posexplode with ``pos``, ``_outer`` with ``outer``): the
+        other columns, then ``pos`` and ``col``."""
+        from spark_rapids_tpu_torch import types as T
+        f = self._plan.output[column]
+        if not isinstance(f.data_type, T.ArrayType):
+            raise TypeError(
+                f"explode: column '{column}' is {f.data_type!r}, not an "
+                "array")
+        return DataFrame(NN.GenerateNode(
+            column, self._plan, outer=outer,
+            element_type=f.data_type.element_type, pos=pos), self.session)
+
     @property
     def schema(self):
         return self._plan.output
@@ -235,6 +258,21 @@ class DataFrame:
 
     def collect(self) -> pa.Table:
         return self.physical_plan().execute_collect()
+
+    def collect_row_buffer(self):
+        """The collected rows in the packed row format (the reference's
+        GpuColumnarToRowExec + CudfUnsafeRow): ``(rows int64[n, words],
+        schema)`` for a fixed-width schema, ``((words, row_offsets),
+        schema)`` (the UnsafeRow-style variable layout) for one with
+        strings; nested columns raise."""
+        from spark_rapids_tpu_torch.columnar import rows as R
+        schema = self._plan.output
+        if R.is_fixed_width(schema):
+            return R.pack_arrow(self.collect(), schema), schema
+        if R.is_packable(schema):
+            return R.pack_arrow_var(self.collect(), schema), schema
+        raise NotImplementedError(
+            f"the row format of {schema} is not ported: use collect()")
 
     def count(self) -> int:
         """The number of rows: a keyless ``count(*)`` (0 over no rows)."""
@@ -286,6 +324,55 @@ class GroupedData:
         """The rows of each group, as a LONG column ``count``."""
         from spark_rapids_tpu_torch.expr.aggregates import Count
         return self.agg(E.Alias(Count(None), "count"))
+
+    def pivot(self, pivot_col, values: list) -> "PivotedGroupedData":
+        """``group_by(k).pivot(p, values).agg(f(v))``, Spark's pivot,
+        lowered by If-guards: one guarded aggregate a pivot value and
+        aggregate, so every aggregate keeps its own device route."""
+        return PivotedGroupedData(self.keys, self.df, _to_expr(pivot_col),
+                                  list(values))
+
+
+class PivotedGroupedData:
+    """The reference's pivot: ``agg(f(x))`` becomes, for each pivot value
+    ``pv``, ``f(if(pv = p, x, null))`` (``count(*)`` counts the value's
+    rows; first/last ignore the guard's nulls), named ``pv`` for a single
+    unnamed aggregate and ``{pv}_{name}`` otherwise (the name an alias
+    gives, else the function's class name in lower case)."""
+
+    def __init__(self, keys: list, df: DataFrame, pivot_expr, values: list):
+        self.keys = keys
+        self.df = df
+        self.pivot_expr = pivot_expr
+        self.values = values
+
+    def agg(self, *aggs) -> DataFrame:
+        from spark_rapids_tpu_torch import types as T
+        from spark_rapids_tpu_torch.expr.aggregates import Count, First, Last
+        from spark_rapids_tpu_torch.expr.conditional import If
+        named = []
+        for a in aggs:
+            e = _to_expr(a)
+            inner = NN.agg_fn(e)
+            base_name = e.name if isinstance(e, E.Alias) else None
+            for pv in self.values:
+                child = inner.children[0] if inner.children else None
+                if child is None:
+                    guarded = Count(If(E.Literal(pv) == self.pivot_expr,
+                                       E.Literal(1), E.Literal(None, T.INT)))
+                else:
+                    guard = If(E.Literal(pv) == self.pivot_expr, child,
+                               E.Literal(None, child.dtype))
+                    if isinstance(inner, (First, Last)):
+                        # a guarded-out row is null; it must not win
+                        guarded = type(inner)(guard, ignore_nulls=True)
+                    else:
+                        guarded = inner.with_children([guard])
+                col_name = (f"{pv}" if len(aggs) == 1 and base_name is None
+                            else f"{pv}_{base_name or type(inner).__name__.lower()}")
+                named.append(E.Alias(guarded, col_name))
+        return DataFrame(NN.AggregateNode(self.keys, named, self.df._plan),
+                         self.df.session)
 
 
 class RollupData:
@@ -364,6 +451,33 @@ class TorchSession:
         if end is None:
             start, end = 0, start
         return DataFrame(NN.RangeNode(start, end, step, num_slices), self)
+
+    def create_dataframe_from_rows(self, rows, schema,
+                                   num_partitions: int = 1,
+                                   offsets=None) -> DataFrame:
+        """A DataFrame over a packed row buffer (the reference's
+        GpuRowToColumnarExec fast path): a fixed-width ``rows`` matrix cut
+        into ``num_partitions`` partitions, or the variable layout with
+        ``offsets`` (or a ``(words, offsets)`` tuple in ``rows``), one
+        partition as in the reference."""
+        import numpy as np
+        from spark_rapids_tpu_torch.columnar import rows as R
+        if offsets is None and isinstance(rows, tuple) and len(rows) == 2:
+            rows, offsets = rows
+        if offsets is not None:
+            tbl = R.unpack_rows_arrow_var(np.asarray(rows),
+                                          np.asarray(offsets), schema)
+            return self.create_dataframe(tbl, num_partitions)
+        rows = np.asarray(rows)
+        n = rows.shape[0]
+        per = -(-n // max(1, num_partitions)) if n else 1
+        parts = []
+        for i in range(max(1, num_partitions)):
+            chunk = rows[i * per:(i + 1) * per]
+            if chunk.shape[0] == 0 and i > 0:
+                break
+            parts.append(R.unpack_rows_arrow(chunk, schema))
+        return DataFrame(NN.ScanNode(parts, schema), self)
 
     def create_dataframe(self, data, num_partitions: int = 1) -> DataFrame:
         """A DataFrame over an in-memory arrow table (or a dict of columns),

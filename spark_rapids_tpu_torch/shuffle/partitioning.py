@@ -90,6 +90,10 @@ def slice_into_partitions(batch: ColumnarBatch, part_ids: torch.Tensor,
         idx = torch.arange(pcap, device=dev) < cnt
         pcols = []
         for c in sorted_cols:
+            if c.nested is not None:
+                from spark_rapids_tpu_torch.ops import nested as N
+                pcols.append(N.take_rows(c.nested, lo, cnt, pcap))
+                continue
             vals = c.values[lo:lo + pcap]
             valid = c.validity[lo:lo + pcap]
             if vals.shape[0] < pcap:   # the slice ran past the capacity

@@ -1,8 +1,10 @@
 """Spark SQL data types with their torch device representations.
 
-Counterpart of ``spark_rapids_tpu/types.py``: every scalar type (the
-nested ArrayType, StructDataType and MapType are not ported yet). The device
-layout is the JAX package's, so buffers compare 1:1:
+Counterpart of ``spark_rapids_tpu/types.py``: every scalar type and the
+nested ArrayType, StructDataType and MapType over scalar elements (a nested
+element, ``array<array<..>>`` or ``array<struct<..>>``, is refused when the
+type is built, so at planning). The device layout is the JAX package's, so
+buffers compare 1:1:
 
 - fixed-width types: one padded 1-D tensor plus a bool validity tensor;
 - ByteType int8, ShortType int16, IntegerType int32, LongType int64,
@@ -11,7 +13,11 @@ layout is the JAX package's, so buffers compare 1:1:
   since the epoch, UTC (Spark's internal representation);
 - DecimalType: precision <= 18, the unscaled value as int64;
 - StringType: int32 codes into a host-side sorted pyarrow dictionary;
-- NullType: an int8 carrier whose every slot is invalid (the untyped NULL).
+- NullType: an int8 carrier whose every slot is invalid (the untyped NULL);
+- ArrayType: ``columnar/vector.ListVector`` (int32 row lengths as ``data``,
+  a flat padded element column, host row offsets); MapType: ``MapVector``
+  (keys and values as two flat columns over one set of offsets);
+  StructDataType: ``StructVector`` (one column a field, row validity).
 """
 
 from __future__ import annotations
@@ -156,6 +162,93 @@ class NullType(DataType):
     sql_name = "void"
 
 
+def is_nested(dt: DataType) -> bool:
+    return isinstance(dt, (ArrayType, StructDataType, MapType))
+
+
+def _scalar_element(dt: DataType, where: str) -> DataType:
+    if is_nested(dt):
+        raise NotImplementedError(
+            f"a nested {where} ({dt!r}) is not ported yet: only scalar "
+            "elements, fields, keys and values")
+    return dt
+
+
+class ArrayType(DataType):
+    """Spark ArrayType over a scalar element type."""
+
+    sql_name = "array"
+
+    def __init__(self, element_type: DataType, contains_null: bool = True):
+        self.element_type = _scalar_element(element_type, "array element")
+        self.contains_null = contains_null
+
+    def default_value(self):
+        return None
+
+    def __eq__(self, other):
+        return (isinstance(other, ArrayType)
+                and other.element_type == self.element_type)
+
+    def __hash__(self):
+        return hash(("array", self.element_type))
+
+    def __repr__(self):
+        return f"ArrayType({self.element_type!r})"
+
+
+class StructDataType(DataType):
+    """Spark's StructType used as a column type (``struct<...>`` values),
+    with scalar fields."""
+
+    sql_name = "struct"
+
+    def __init__(self, names: list, types: list):
+        self.names = list(names)
+        self.types = [_scalar_element(t, "struct field") for t in types]
+
+    def default_value(self):
+        return None
+
+    def __eq__(self, other):
+        return (isinstance(other, StructDataType)
+                and other.names == self.names and other.types == self.types)
+
+    def __hash__(self):
+        return hash(("struct", tuple(self.names)))
+
+    def __repr__(self):
+        inner = ", ".join(f"{n}: {t!r}" for n, t in
+                          zip(self.names, self.types))
+        return f"StructDataType({inner})"
+
+
+class MapType(DataType):
+    """Spark MapType with scalar keys and values."""
+
+    sql_name = "map"
+
+    def __init__(self, key_type: DataType, value_type: DataType,
+                 value_contains_null: bool = True):
+        self.key_type = _scalar_element(key_type, "map key")
+        self.value_type = _scalar_element(value_type, "map value")
+        self.value_contains_null = value_contains_null
+
+    def default_value(self):
+        return None
+
+    def __eq__(self, other):
+        return (isinstance(other, MapType)
+                and other.key_type == self.key_type
+                and other.value_type == self.value_type)
+
+    def __hash__(self):
+        return hash(("map", self.key_type, self.value_type))
+
+    def __repr__(self):
+        return f"map<{self.key_type!r},{self.value_type!r}>"
+
+
 BOOLEAN = BooleanType()
 BYTE = ByteType()
 SHORT = ShortType()
@@ -202,10 +295,29 @@ def from_arrow_type(at: pa.DataType) -> DataType:
         return DecimalType(at.precision, at.scale)
     if pa.types.is_dictionary(at):
         return from_arrow_type(at.value_type)
-    raise NotImplementedError(f"arrow type {at} is not ported yet")
+    if pa.types.is_list(at) or pa.types.is_large_list(at):
+        return ArrayType(from_arrow_type(at.value_type))
+    if pa.types.is_map(at):
+        return MapType(from_arrow_type(at.key_type),
+                       from_arrow_type(at.item_type))
+    if pa.types.is_struct(at):
+        return StructDataType([at.field(i).name for i in range(at.num_fields)],
+                              [from_arrow_type(at.field(i).type)
+                               for i in range(at.num_fields)])
+    raise NotImplementedError(
+        f"arrow type {at} is not ported yet (the port reads the scalar "
+        "types, and lists, maps and structs of them)")
 
 
 def to_arrow_type(dt: DataType) -> pa.DataType:
+    if isinstance(dt, ArrayType):
+        return pa.list_(to_arrow_type(dt.element_type))
+    if isinstance(dt, MapType):
+        return pa.map_(to_arrow_type(dt.key_type),
+                       to_arrow_type(dt.value_type))
+    if isinstance(dt, StructDataType):
+        return pa.struct([pa.field(n, to_arrow_type(t))
+                          for n, t in zip(dt.names, dt.types)])
     if isinstance(dt, DecimalType):
         return pa.decimal128(dt.precision, dt.scale)
     if isinstance(dt, TimestampType):
@@ -213,7 +325,7 @@ def to_arrow_type(dt: DataType) -> pa.DataType:
     for a, s in _ARROW_TO_SPARK.items():
         if s == dt and a not in (pa.large_string(), pa.string_view()):
             return a
-    raise NotImplementedError(f"spark type {dt} is not ported yet")
+    raise NotImplementedError(f"spark type {dt!r} has no arrow type")
 
 
 def to_numpy_dtype(dt: DataType):

@@ -57,7 +57,12 @@ and its read-back through the session on the card: the source's rows.
 with the row and partition ids and the aggregates over them, windows over
 several specs in the DataFrame and SQL forms, the input-file family over
 the parquet device decode, and the repaired round/bround and signed-zero
-cast: the CPU run's rows (all exact).
+cast: the CPU run's rows (all exact). Every nested op of
+``ops/nested.py`` (gather, concat, a row slice, the explode mapping, the
+three ways to make a list column) on the card bit for bit the same call
+on the CPU (lengths, validity, flat values and validity); the collects, PivotFirst, explode,
+split, the struct/map/array expressions, pivot and the row buffer through
+the session on the card: the CPU run's rows (exact).
 """
 
 import os
@@ -1907,3 +1912,157 @@ def test_round_and_signed_zero_cast_on_card(cuda_device):
     assert card.column("r1").to_pylist()[:2] == [1e300, -1e27]
     assert card.schema.field("m1").type == pa.decimal128(7, 1)
     assert card.column("m1").to_pylist()[:2] == [D("1.3"), D("100000.0")]
+
+
+# -- nested columns (plain torch ops) -----------------------------------------
+
+def _nested_table(seed: int, n: int):
+    import pyarrow as pa
+    rng = np.random.default_rng(seed)
+    words = ["alpha", "beta", "gamma", "", "déjà vu", "x y"]
+
+    def lst(pool):
+        r = rng.random()
+        if r < 0.1:
+            return None
+        if r < 0.2:
+            return []
+        return [None if rng.random() < 0.1 else pool()
+                for _ in range(int(rng.integers(1, 5)))]
+    return pa.table({
+        "k": pa.array(rng.integers(0, 40, n), pa.int64()),
+        "i": pa.array([None if rng.random() < 0.1 else int(x)
+                       for x in rng.integers(-5, 40, n)], pa.int64()),
+        "s": pa.array([None if rng.random() < 0.1 else words[int(x)]
+                       for x in rng.integers(0, 6, n)]),
+        "w": pa.array([None if rng.random() < 0.1 else " ".join(
+            words[int(x)] for x in rng.integers(0, 6, 3)) for _ in range(n)]),
+        "a": pa.array([lst(lambda: int(rng.integers(0, 9)))
+                       for _ in range(n)], pa.list_(pa.int64())),
+        "b": pa.array([lst(lambda: words[int(rng.integers(0, 6))])
+                       for _ in range(n)], pa.list_(pa.string())),
+    })
+
+
+def _same_vec(a, b):
+    """Two nested (or flat) vectors, one on the card, bit for bit."""
+    assert type(a) is type(b)
+    assert torch.equal(a.data.cpu(), b.data.cpu())
+    assert torch.equal(a.validity.cpu(), b.validity.cpu())
+    for name in ("flat", "values"):
+        if hasattr(a, name):
+            _same_vec(getattr(a, name), getattr(b, name))
+    for fa, fb in zip(getattr(a, "fields", ()), getattr(b, "fields", ())):
+        _same_vec(fa, fb)
+    if getattr(a, "dictionary", None) is not None:
+        assert a.dictionary.equals(b.dictionary)
+
+
+@pytest.mark.gpu
+def test_nested_ops_on_card_equal_cpu(cuda_device):
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.arrow import array_to_device
+    from spark_rapids_tpu_torch.expr.core import Col
+    from spark_rapids_tpu_torch.ops import nested as N
+    t = _nested_table(7, 5000)
+    cap = bucket_capacity(t.num_rows)
+    rng = np.random.default_rng(8)
+    idx = torch.from_numpy(rng.integers(0, t.num_rows, cap))
+    live = torch.from_numpy(rng.random(cap) < 0.8)
+    for name, dt in (("a", T.ArrayType(T.LONG)),
+                     ("b", T.ArrayType(T.STRING))):
+        on = {d: array_to_device(t.column(name), dt, cap, d)
+              for d in ("cpu", cuda_device)}
+        outs = {d: N.gather(v, idx.to(v.data.device),
+                            live.to(v.data.device)) for d, v in on.items()}
+        _same_vec(outs[cuda_device], outs["cpu"])
+        cat = {d: N.concat([v, outs[d]], [t.num_rows, 3000], 1 << 14)
+               for d, v in on.items()}
+        _same_vec(cat[cuda_device], cat["cpu"])
+        sl = {d: N.take_rows(v, 100, 900, 1024) for d, v in on.items()}
+        _same_vec(sl[cuda_device], sl["cpu"])
+        for outer in (False, True):
+            m = {d: N.explode_mapping(v.data, t.num_rows, outer)
+                 for d, v in on.items()}
+            for x, y in zip(m[cuda_device], m["cpu"]):
+                if isinstance(x, torch.Tensor):
+                    assert torch.equal(x.cpu(), y)
+                else:
+                    assert x == y
+    vals = Col.from_vector(array_to_device(t.column("i"), T.LONG, cap, "cpu"))
+    rows = torch.from_numpy(np.sort(rng.integers(0, 64, t.num_rows)))
+    for dedupe in (False, True):
+        b = {d: N.from_tagged_elements(
+            Col(vals.values.to(d), vals.validity.to(d), T.LONG),
+            rows.to(d), t.num_rows, 64, T.ArrayType(T.LONG), dedupe)
+            for d in ("cpu", cuda_device)}
+        _same_vec(b[cuda_device], b["cpu"])
+    cols = {d: [Col.from_vector(array_to_device(t.column(c), T.LONG, cap, d))
+                for c in ("k", "i")] for d in ("cpu", cuda_device)}
+    fc = {d: N.from_columns(T.ArrayType(T.LONG), c, t.num_rows, cap)
+          for d, c in cols.items()}
+    _same_vec(fc[cuda_device], fc["cpu"])
+    mp = {d: N.from_columns(T.MapType(T.LONG, T.LONG), c[:1], t.num_rows,
+                            cap, values=c[1:]) for d, c in cols.items()}
+    _same_vec(mp[cuda_device], mp["cpu"])
+    s = {d: Col.from_vector(array_to_device(t.column("w"), T.STRING, cap, d))
+         for d in ("cpu", cuda_device)}
+    lists = [e.split(" ") for e in s["cpu"].dictionary.to_pylist()]
+    sp = {d: N.from_dictionary(c, lists, t.num_rows, T.ArrayType(T.STRING))
+          for d, c in s.items()}
+    _same_vec(sp[cuda_device], sp["cpu"])
+
+
+NESTED_JOBS = {
+    "collect": lambda df, F, E: df.group_by("k").agg(
+        F.collect_list("i").alias("l"), F.collect_set("s").alias("st"),
+        F.count().alias("n")).sort("k"),
+    "pivot-first": lambda df, F, E: df.group_by("k").agg(E.Alias(
+        __import__("spark_rapids_tpu_torch.expr.aggregates", fromlist=["x"])
+        .PivotFirst(E.col("i"), E.col("s"), ["alpha", "beta"]), "pf")
+    ).sort("k"),
+    "explode": lambda df, F, E: df.explode("a", outer=True, pos=True),
+    "explode-str": lambda df, F, E: df.explode("b"),
+    "split": lambda df, F, E: df.select(
+        "k", F.split("w", " ").alias("ws"),
+        F.size(F.split("w", " ")).alias("n"),
+        F.element_at0(F.split("w", " "), 1).alias("w1")),
+    "struct-map-array": lambda df, F, E: df.select(
+        F.struct("p", "i", "q", "s").alias("st"),
+        F.create_map(E.lit("x"), E.col("i")).alias("m"),
+        F.array("k", "i").alias("ar"), F.size("a").alias("na"),
+        F.element_at("b", -1).alias("lb"),
+        F.array_contains("a", 3).alias("c3")),
+    "repartition": lambda df, F, E: df.repartition(3, "k").sort(
+        "k", "i", "s", "w"),
+    "pivot": lambda df, F, E: df.group_by("s").pivot(
+        "k", [1, 2, 3]).agg(F.sum("i"), F.count()).sort("s"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("job", sorted(NESTED_JOBS))
+def test_nested_jobs_on_card_equal_cpu(cuda_device, job):
+    import spark_rapids_tpu_torch.functions as F
+    from spark_rapids_tpu_torch.expr import core as E
+    from spark_rapids_tpu_torch.session import TorchSession
+    t = _nested_table(11, 3000)
+    out = [NESTED_JOBS[job](TorchSession(device=d).create_dataframe(t, 3),
+                            F, E).collect()
+           for d in ("cpu", "cuda")]
+    assert out[0].to_pylist() == out[1].to_pylist()
+
+
+@pytest.mark.gpu
+def test_row_buffer_on_card_equals_cpu(cuda_device):
+    from spark_rapids_tpu_torch.session import TorchSession
+    t = _nested_table(13, 2000).select(["k", "i", "s"])
+    res = []
+    for d in ("cpu", "cuda"):
+        spark = TorchSession(device=d)
+        (w, off), schema = spark.create_dataframe(t, 2).collect_row_buffer()
+        res.append((w, off, spark.create_dataframe_from_rows(
+            (w, off), schema).collect()))
+    assert np.array_equal(res[0][0], res[1][0])
+    assert np.array_equal(res[0][1], res[1][1])
+    assert res[0][2].equals(res[1][2]) and res[1][2].equals(t)
