@@ -2,7 +2,7 @@
 
 Run from the root of a checkout:
 
-    python3 chip_smoke.py [--sf 1.0] [--tpcds-sf 1.0] [--reps 2]
+    python3 chip_smoke.py [--sf 1.0] [--tpcds-sf 1.0] [--reps 1]
                           [--profile] [--parent-tree DIR]
 
 It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
@@ -233,6 +233,22 @@ It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
    row format both ways, then q1 over the rows); each held against a
    numpy/pyarrow oracle from the source files, counted once with every
    launch predicted, timed ``NESTED_REPS`` more times and traced once;
+   then deep-nested-sf1 (``deep_nested_paths``), nested elements and
+   fields and ``rand()`` on the same files: nested-orders (lineitem by
+   order: ``first`` of the flag and status and ``collect_list`` of a
+   five-field struct, 1.5M orders of 6.0M structs, through
+   ``repartition(4, l_orderkey)`` into parquet by the arrow writer and read
+   back), nested-orders-explode (the four read-back files, ``explode`` of
+   the ``array<struct>``, a sum by ``l_suppkey % 1000``),
+   nested-orders-extract (``lines[0].l_suppkey``, ``size``, ``when``,
+   ``coalesce`` and ``=`` over the arrays of structs), nested-orders-rollup
+   (ROLLUP over (flag, status) carrying the arrays into ``collect_list``:
+   an ``array<array<struct>>``), ds-word-lists (store_sales ⋈ item by
+   customer, ``collect_list(split(i_item_desc, ' '))``, exploded twice)
+   and sample-rand (``rand(42)`` over lineitem, and a ``rand(7) < 0.01``
+   sample counted, bit for bit a CPU session's on the same files); each
+   held to a numpy/pyarrow oracle, counted once with every launch
+   predicted, timed ``DEEP_REPS`` more times and traced once;
 6. prints how many traces ``device_ms`` took and found short, one JSON
    line describing every ported kernel (``launches``, its launches summed
    over every path's counted run; each path's, the TPC-DS paths among
@@ -1544,7 +1560,9 @@ def etl_paths(spark, dev, name, li_files, ss_files, exp_q1, root, counting,
 QA_STRINGS = ["alpha", "Beta", "gamma", "", "déjà vu", "x" * 20]
 QA_NAMES = 150_000
 SWEEP_SEED = 15
-SWEEP_REPS = 2
+# timed runs of each sweep-sf1 statement after its counted run: 1 since
+# deep-nested-sf1 took the script past 850 s on a slower host
+SWEEP_REPS = 1
 
 
 def _u32(x):
@@ -2753,6 +2771,25 @@ def check_orders(res, exp, label, extractions: bool = True) -> None:
         raise AssertionError(f"{label}: struct(n, l_orderkey) differs")
 
 
+def volume(res) -> tuple:
+    """(rows, list and map elements at every level) of a path's result
+    tables (``res`` a table or a tuple holding some)."""
+    import pyarrow as pa
+    tables = [x for x in (res if isinstance(res, tuple) else (res,))
+              if isinstance(x, pa.Table)]
+    elems = 0
+    for t in tables:
+        for col in t.columns:
+            arr = col.combine_chunks()
+            while pa.types.is_list(arr.type) or pa.types.is_map(arr.type):
+                if pa.types.is_map(arr.type):     # its values, as a list
+                    arr = pa.ListArray.from_arrays(arr.offsets, arr.items,
+                                                   mask=arr.is_null())
+                arr = arr.flatten()     # the elements of the non-null lists
+                elems += len(arr)
+    return sum(t.num_rows for t in tables), elems
+
+
 def nested_paths(spark, dev, name, li_dir, ds_paths, root, counting,
                  agg_batches, scan_chunks, exp_q1, reps: int,
                  counts_by_path: dict, peak_by_path: dict) -> None:
@@ -3070,19 +3107,6 @@ def nested_paths(spark, dev, name, li_dir, ds_paths, root, counting,
         rows_in[f"nested-sf1/{label}"] = n_ss
     rows_in["nested-sf1/row-buffer"] = 2 * exp["n_rows"]
 
-    def volume(res) -> tuple:
-        """(rows, list and map elements) of a path's result tables."""
-        tables = [x for x in (res if isinstance(res, tuple) else (res,))
-                  if isinstance(x, pa.Table)]
-        elems = 0
-        for t in tables:
-            for col in t.columns:
-                if pa.types.is_list(col.type) or pa.types.is_map(col.type):
-                    arr = col.combine_chunks()
-                    lens = np.diff(arr.offsets.to_numpy(zero_copy_only=False))
-                    elems += int(lens[arr.is_valid().to_numpy(
-                        zero_copy_only=False)].sum())
-        return sum(t.num_rows for t in tables), elems
     os.makedirs(root, exist_ok=True)
     for label, (make, how, check) in paths.items():
         if make is None:          # a run of several plans: ``how`` runs it
@@ -3156,6 +3180,382 @@ def nested_paths(spark, dev, name, li_dir, ds_paths, root, counting,
               f"exchanges: {ex_line or 'none'}"
               + (f"; steps of the last run {row_steps}"
                  if label.endswith("row-buffer") else ""))
+    shutil.rmtree(root, ignore_errors=True)
+
+
+DEEP_REPS = 1   # timed runs of each deep-nested-sf1 path after its counted run
+DEEP_LINE_FIELDS = ("l_suppkey", "l_quantity", "l_extendedprice",
+                    "l_shipdate", "l_returnflag")
+DEEP_SUPP_MOD = 1000
+DEEP_BIG = 4      # when(size(lines) > DEEP_BIG, lines)
+
+
+def _lines_equal(col, exp, rows, label, what) -> None:
+    """A list<struct> column (the orders in key order) against lineitem:
+    each order's lines element for element in file order; ``rows`` (a
+    mask over the orders) says which orders hold a list, the others must
+    be null."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    col = col.combine_chunks() if hasattr(col, "combine_chunks") else col
+    valid = col.is_valid().to_numpy(zero_copy_only=False)
+    if not np.array_equal(valid, rows):
+        raise AssertionError(f"{label}: {what}: null lists differ")
+    lens = pc.list_value_length(col).to_numpy(zero_copy_only=False)
+    if not np.array_equal(lens[rows], exp["counts"][rows]):
+        raise AssertionError(f"{label}: {what}: list lengths differ")
+    flat = pc.list_flatten(col)
+    keep = np.repeat(rows, exp["counts"])
+    want = {"l_suppkey": exp["supp"], "l_quantity": exp["qty"],
+            "l_extendedprice": exp["price"], "l_shipdate": exp["ship"]}
+    for f, w in want.items():
+        got = flat.field(f)
+        if f == "l_shipdate":
+            got = got.cast(pa.int32())
+        if got.null_count or not np.array_equal(
+                got.to_numpy(zero_copy_only=False), w[keep]):
+            raise AssertionError(f"{label}: {what}: field {f} differs")
+    flags = pa.array(np.array(["A", "N", "R"])[exp["fcode"][keep]])
+    if not flat.field("l_returnflag").equals(flags):
+        raise AssertionError(f"{label}: {what}: field l_returnflag differs")
+
+
+def deep_nested_paths(spark, dev, name, li_dir, ds_paths, root, counting,
+                      agg_batches, scan_chunks, reps: int,
+                      counts_by_path: dict, peak_by_path: dict) -> None:
+    """deep-nested-sf1: nested elements and fields at SF1, and rand().
+    nested-orders (lineitem grouped by l_orderkey: ``first`` of the flag and
+    the status and ``collect_list(struct(l_suppkey, l_quantity,
+    l_extendedprice, l_shipdate, l_returnflag))`` as ``lines``, 1.5M
+    orders and 6.0M structs, through ``repartition(4, l_orderkey)`` into
+    parquet by the arrow writer and read back); nested-orders-explode (the
+    four read-back files as four partitions, ``explode(lines)``,
+    ``col.l_extendedprice`` summed by
+    ``col.l_suppkey % 1000``); nested-orders-extract (``lines[0].l_suppkey``,
+    ``size(lines)``, ``when(size(lines) > 4, lines)``, its ``coalesce``
+    with ``lines`` and its equality with ``lines``, under a filter of
+    ``lines == lines``); nested-orders-rollup (ROLLUP over (flag, status)
+    of ``count(*)`` and ``collect_list(lines)``: ``lines`` crosses the
+    ExpandExec); ds-word-lists (store_sales ⋈ item grouped by customer,
+    ``collect_list(split(i_item_desc, ' '))``, exploded twice, words
+    counted per customer); sample-rand (lineitem with ``rand(42)``, and
+    ``filter(rand(7) < 0.01)`` counted, bit for bit a CPU session's on
+    the same files). Each path: one counted run (launches predicted),
+    ``reps`` more timed runs, one traced run; each held to a numpy/pyarrow
+    oracle computed from the source files."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+    import spark_rapids_tpu_torch.functions as F
+    from spark_rapids_tpu_torch.exec.generate import GenerateExec
+    from spark_rapids_tpu_torch.expr.strings import java_split
+    from spark_rapids_tpu_torch.io import writer as W
+    from spark_rapids_tpu_torch.ops import cuda_kernels as CK
+    from spark_rapids_tpu_torch.session import TorchSession
+    c = F.col
+    t0 = time.perf_counter()
+    exp = nested_oracle(li_dir)
+    exp["price"] = pq.read_table(
+        li_dir, columns=["l_extendedprice"]).column(0).to_numpy()
+    start, counts = exp["start"], exp["counts"]
+    n_orders = len(exp["keys"])
+    supp_sums = np.bincount(exp["supp"] % DEEP_SUPP_MOD, weights=exp["price"],
+                            minlength=DEEP_SUPP_MOD)
+    supp_n = np.bincount(exp["supp"] % DEEP_SUPP_MOD, minlength=DEEP_SUPP_MOD)
+    # the rollup's groups: (flag, status) of each order's first line
+    of, os_ = exp["fcode"][start], exp["scode"][start]
+    order_qty = np.add.reduceat(exp["qty"], start)
+    rollup_want = {}
+    for f in range(3):
+        for s in range(2):
+            m = (of == f) & (os_ == s)
+            if m.any():
+                rollup_want[("ANR"[f], "FO"[s])] = m
+        m = of == f
+        if m.any():
+            rollup_want[("ANR"[f], None)] = m
+    rollup_want[(None, None)] = np.ones(n_orders, bool)
+    rollup_want = {k: (int(m.sum()), int(counts[m].sum()),
+                       float(order_qty[m].sum()))
+                   for k, m in rollup_want.items()}
+    # the word lists: words a sale, summed by customer (nulls as -1)
+    ss_files = data_files(ds_paths["store_sales"], ".parquet")
+    ss = pq.read_table(ss_files, columns=["ss_item_sk", "ss_customer_sk"])
+    item = pq.read_table(ds_paths["item"], columns=["i_item_sk",
+                                                    "i_item_desc"])
+    descs = item.column("i_item_desc").to_pylist()
+    n_words_item = np.array([len(java_split(d, NESTED_WORD, -1))
+                             if d is not None else 0 for d in descs],
+                            np.int64)
+    isk = item.column("i_item_sk").to_numpy()
+    ss_item = ss.column("ss_item_sk").fill_null(-1).to_numpy()
+    pos = np.searchsorted(isk, ss_item).clip(0, len(isk) - 1)
+    hit = isk[pos] == ss_item
+    cust = ss.column("ss_customer_sk").fill_null(-1).to_numpy()
+    cust_k, cust_i = np.unique(cust[hit], return_inverse=True)
+    cust_words = np.bincount(cust_i, weights=n_words_item[pos[hit]],
+                             minlength=len(cust_k)).astype(np.int64)
+    words_want = {int(k): int(w) for k, w in zip(cust_k, cust_words) if w}
+    n_words = int(cust_words.sum())
+    # rand: the CPU session's columns on the same files (bit for bit)
+    cpu = TorchSession(device="cpu")
+
+    def rand_frames(s):
+        li = s.read_parquet(li_dir)
+        return (li.select("l_orderkey", F.alias(F.rand(42), "r")),
+                li.select("l_orderkey").filter(F.rand(7) < 0.01).agg(
+                    F.alias(F.count(), "n")))
+    cpu_r, cpu_n = (f.collect() for f in rand_frames(cpu))
+    cpu_r = cpu_r.column("r").to_numpy()
+    cpu_n = cpu_n.column("n")[0].as_py()
+    print(f"deep-nested-sf1 oracles: {exp['n_rows']} lineitem rows in "
+          f"{n_orders} orders, {ss.num_rows} store_sales rows, {n_words} "
+          f"words in {len(words_want)} customers' lists, the CPU session's "
+          f"rand columns ({len(cpu_r)} rows, {cpu_n} sampled), in "
+          f"{time.perf_counter() - t0:.1f} s (numpy, pyarrow and a CPU "
+          "session, outside every timed window)")
+
+    out_dir = os.path.join(root, "orders_parquet")
+
+    def run(df, plans):
+        plan = df.physical_plan()
+        plans.append(plan)
+        return plan.execute_collect()
+
+    def orders():
+        line = F.struct(*[x for f in DEEP_LINE_FIELDS for x in (f, c(f))])
+        return spark.read_parquet(li_dir).group_by("l_orderkey").agg(
+            F.alias(F.first("l_returnflag"), "flag"),
+            F.alias(F.first("l_linestatus"), "status"),
+            F.alias(F.collect_list(line), "lines"))
+
+    def nested_orders(plans):
+        W.reset_routes()
+        plan = orders().repartition(4, "l_orderkey").physical_plan()
+        plans.append(plan)
+        W.write_columnar(plan, out_dir, "parquet", mode="overwrite",
+                         conf=spark.conf)
+        back = run(spark.read_parquet(data_files(out_dir, ".parquet")),
+                   plans)
+        return dict(W.routes), back
+
+    def by_key(t):
+        return t.take(pc.sort_indices(t.column("l_orderkey")))
+
+    def check_orders(res, label):
+        routes, back = res
+        if routes != {"native_files": 0, "arrow_files": 4}:
+            raise AssertionError(f"{label}: writer routes {routes}")
+        back = by_key(back)
+        if not np.array_equal(back.column("l_orderkey").to_numpy(),
+                              exp["keys"]):
+            raise AssertionError(f"{label}: the order keys differ")
+        for k, codes, vals in (("flag", exp["fcode"], "ANR"),
+                               ("status", exp["scode"], "FO")):
+            want = pa.array(np.array(list(vals))[codes[start]])
+            if not back.column(k).combine_chunks().equals(want):
+                raise AssertionError(f"{label}: first(...) as {k} differs")
+        _lines_equal(back.column("lines"), exp, np.ones(n_orders, bool),
+                     label, "lines")
+
+    def exploded(plans):
+        line = c("col")
+        return run(spark.read_parquet(data_files(
+            out_dir, ".parquet")).explode("lines").group_by(
+            F.alias(F.get_field(line, "l_suppkey") % DEEP_SUPP_MOD, "k")).agg(
+            F.alias(F.sum(F.get_field(line, "l_extendedprice")), "s"),
+            F.alias(F.count(), "n")), plans)
+
+    def check_exploded(res, label):
+        k = res.column("k").to_numpy()
+        got_s = np.zeros(DEEP_SUPP_MOD)
+        got_n = np.zeros(DEEP_SUPP_MOD, np.int64)
+        got_s[k] = res.column("s").to_numpy()
+        got_n[k] = res.column("n").to_numpy()
+        if (len(k) != int((supp_n > 0).sum())
+                or not np.array_equal(got_n, supp_n)
+                or np.max(np.abs(got_s - supp_sums)
+                          / np.maximum(np.abs(supp_sums), 1e-300)) > 1e-9):
+            raise AssertionError(f"{label}: sums by l_suppkey % "
+                                 f"{DEEP_SUPP_MOD} differ")
+
+    def extract(plans):
+        lines = c("lines")
+        big = F.when(F.size(lines) > DEEP_BIG, lines)
+        return run(orders().filter(lines == lines).select(
+            "l_orderkey",
+            F.alias(F.get_field(F.element_at0(lines, 0), "l_suppkey"),
+                    "first_supp"),
+            F.alias(F.size(lines), "n"), F.alias(big, "big"),
+            F.alias(F.coalesce(big, lines), "co"),
+            F.alias(big == lines, "same")), plans)
+
+    def check_extract(res, label):
+        res = by_key(res)
+        if not np.array_equal(res.column("l_orderkey").to_numpy(),
+                              exp["keys"]):
+            raise AssertionError(f"{label}: the filter of lines == lines "
+                                 "dropped or kept wrong rows")
+        if not (np.array_equal(res.column("first_supp").to_numpy(),
+                               exp["supp"][start])
+                and np.array_equal(res.column("n").to_numpy(), counts)):
+            raise AssertionError(f"{label}: lines[0].l_suppkey or size "
+                                 "differs")
+        many = counts > DEEP_BIG
+        _lines_equal(res.column("big"), exp, many, label, "when(...)")
+        _lines_equal(res.column("co"), exp, np.ones(n_orders, bool), label,
+                     "coalesce(...)")
+        same = res.column("same").combine_chunks()
+        if not (np.array_equal(same.is_valid().to_numpy(
+                zero_copy_only=False), many)
+                and pc.all(same.drop_null()).as_py() in (True, None)):
+            raise AssertionError(f"{label}: when(...) == lines differs")
+
+    def rollup(plans):
+        return run(orders().rollup("flag", "status").agg(
+            F.alias(F.count(), "n"),
+            F.alias(F.collect_list("lines"), "ll")), plans)
+
+    def check_rollup(res, label):
+        got = {}
+        for i in range(res.num_rows):
+            ll = res.column("ll")[i].values        # the group's lists
+            inner = pc.list_flatten(ll)
+            got[(res.column("flag")[i].as_py(),
+                 res.column("status")[i].as_py())] = (
+                res.column("n")[i].as_py(), len(ll), len(inner),
+                float(pc.sum(inner.field("l_quantity")).as_py() or 0.0))
+        want = {k: (n, n, e, q) for k, (n, e, q) in rollup_want.items()}
+        if got.keys() != want.keys():
+            raise AssertionError(f"{label}: groups {sorted(got, key=str)}")
+        for k, w in want.items():
+            g = got[k]
+            if g[:3] != w[:3] or abs(g[3] - w[3]) > 1e-9 * abs(w[3]):
+                raise AssertionError(f"{label}: group {k}: {g} != {w}")
+
+    def word_lists(plans):
+        s = spark.read_parquet(ss_files).select("ss_item_sk",
+                                                "ss_customer_sk")
+        it = spark.read_parquet(ds_paths["item"]).select(
+            c("i_item_sk").alias("ss_item_sk"), c("i_item_desc"))
+        wl = s.join(it, on="ss_item_sk").select(
+            "ss_customer_sk", F.split("i_item_desc", NESTED_WORD).alias(
+                "w")).group_by("ss_customer_sk").agg(
+            F.alias(F.collect_list("w"), "wl"))
+        return run(wl.explode("wl").explode("col").group_by(
+            "ss_customer_sk").count(), plans)
+
+    def check_words(res, label):
+        k = res.column("ss_customer_sk").fill_null(-1).to_pylist()
+        got = dict(zip(k, res.column("count").to_pylist()))
+        if got != words_want:
+            raise AssertionError(f"{label}: words per customer differ")
+
+    def sample(plans):
+        r, n = rand_frames(spark)
+        return run(r, plans), run(n, plans)
+
+    def check_sample(res, label):
+        r, n = res
+        got = r.column("r").to_numpy()
+        if not np.array_equal(got.view(np.int64), cpu_r.view(np.int64)):
+            raise AssertionError(f"{label}: rand(42) differs from the CPU "
+                                 "session's")
+        if abs(float(got.mean()) - 0.5) > 1e-3:
+            raise AssertionError(f"{label}: rand(42)'s mean {got.mean()}")
+        got_n = n.column("n")[0].as_py()
+        if got_n != cpu_n or abs(got_n / len(got) - 0.01) > 1e-3:
+            raise AssertionError(f"{label}: {got_n} rows sampled, the CPU "
+                                 f"session {cpu_n}")
+
+    paths = {
+        "deep-nested-sf1/nested-orders": (nested_orders, check_orders),
+        "deep-nested-sf1/nested-orders-explode": (exploded, check_exploded),
+        "deep-nested-sf1/nested-orders-extract": (extract, check_extract),
+        "deep-nested-sf1/nested-orders-rollup": (rollup, check_rollup),
+        "deep-nested-sf1/ds-word-lists": (word_lists, check_words),
+        "deep-nested-sf1/sample-rand": (sample, check_sample),
+    }
+    # the kernels each path must launch (the rest predicted, maybe 0)
+    required = {
+        "deep-nested-sf1/nested-orders": ("bitunpack128", "radix_ranks"),
+        "deep-nested-sf1/nested-orders-explode": ("radix_ranks",),
+        "deep-nested-sf1/nested-orders-extract": ("bitunpack128",),
+        "deep-nested-sf1/nested-orders-rollup": ("bitunpack128",),
+        "deep-nested-sf1/ds-word-lists": ("bitunpack128", "radix_ranks"),
+        "deep-nested-sf1/sample-rand": ("bitunpack128",),
+    }
+    rows_in = {label: exp["n_rows"] for label in paths}
+    rows_in["deep-nested-sf1/nested-orders-explode"] = n_orders
+    rows_in["deep-nested-sf1/ds-word-lists"] = ss.num_rows
+    rows_in["deep-nested-sf1/sample-rand"] = 2 * exp["n_rows"]
+    # the list elements the path reads (the read-back files' structs; the
+    # other paths read flat columns)
+    elems_in = {label: 0 for label in paths}
+    elems_in["deep-nested-sf1/nested-orders-explode"] = exp["n_rows"]
+    # the rows out of each path's outermost explode
+    explode_rows = {"deep-nested-sf1/nested-orders-explode": exp["n_rows"],
+                    "deep-nested-sf1/ds-word-lists": n_words}
+
+    os.makedirs(root, exist_ok=True)
+    t_phase = time.perf_counter()
+    for label, (act, check) in paths.items():
+        plans = []
+        with counting():
+            t0 = time.perf_counter()
+            res = act(plans)
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+            counts_now = dict(CK.launches)
+            peak = torch.cuda.max_memory_allocated(dev)
+            count_batches = [k for k in agg_batches if k]
+        check(res, label)
+        radix, mm, exs = exchange_prediction(plans)
+        # the read-back of the nested files takes the arrow reader, which
+        # launches no chunk decode
+        want_chunks = sum(scan_chunks(d, ex.node._data_columns())[0]
+                          for p in plans for d, ex in scans(p)
+                          if os.path.normpath(d) != os.path.normpath(out_dir))
+        gens = [g for p in plans for g in of_type(p, GenerateExec)]
+        gen_line = "; ".join(
+            f"{g.args_string()}: {g.stats['rows_in']} rows and "
+            f"{g.stats['elements_in']} elements in, {g.stats['rows_out']} "
+            "rows out" for g in gens)
+        want = {"bitunpack128": want_chunks,
+                "onehot_sum_f32": len(count_batches), "radix_ranks": radix,
+                "murmur3_words": mm, "hash_join_build": 0,
+                "hash_join_probe": 0}
+        check_launches(label, counts_now, want, required[label])
+        if label in explode_rows and (
+                not gens or gens[0].stats["rows_out"] != explode_rows[label]):
+            raise AssertionError(f"{label}: {gen_line}; want "
+                                 f"{explode_rows[label]} rows out")
+        ts = [first]
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            r = act([])
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+            check(r, label)
+        idle = sql_idle_share(lambda: act([]))
+        counts_by_path[label] = counts_now
+        peak_by_path[label] = peak
+        ex_line = "; ".join(
+            f"{type(e.partitioner).__name__} {e.child.num_partitions} -> "
+            f"{e.num_partitions}, {e.map_batches} partitioned batches"
+            for e in exs)
+        n_out, e_out = volume(res)
+        print(f"{label} on {name}: median {statistics.median(ts):.4f} s, "
+              f"min {min(ts):.4f} s, max {max(ts):.4f} s over {len(ts)} "
+              f"runs: {[round(x, 4) for x in ts]}; equal to the oracle; "
+              f"rows in {rows_in[label]}, rows out {n_out}, list elements "
+              f"in {elems_in[label]}, out {e_out}; {idle}; peak device "
+              f"memory {peak} B; launches "
+              f"{ {k: v for k, v in counts_now.items() if v} } (predicted "
+              f"{want}); {len(count_batches)} aggregate batches with "
+              f"count-like requests; explodes: {gen_line or 'none'}; "
+              f"exchanges: {ex_line or 'none'}")
+    print(f"deep-nested-sf1: {time.perf_counter() - t_phase:.1f} s")
     shutil.rmtree(root, ignore_errors=True)
 
 
@@ -3251,9 +3651,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=1.0,
                     help="TPC-H scale factor of the q1 run (default 1.0)")
-    ap.add_argument("--reps", type=int, default=2,
+    ap.add_argument("--reps", type=int, default=1,
                     help="timed runs of each path after the first (default "
-                         "2; at most Q1_REPS for the q1 paths)")
+                         "1 since deep-nested-sf1, 2 before; at most "
+                         "Q1_REPS for the q1 paths)")
     ap.add_argument("--tpcds-sf", type=float, default=1.0,
                     help="TPC-DS scale factor of the 22 TPC-DS paths "
                          "(default 1.0: 2.88M store_sales rows)")
@@ -4585,6 +4986,14 @@ def main() -> int:
                  os.path.join(repo, "build", f"nested_sf{args.sf:g}"),
                  counting, agg_batches, scan_chunks, exp_q1,
                  min(args.reps, NESTED_REPS), counts_by_path, peak_by_path)
+
+    # -- 4h. deep-nested-sf1: nested elements and fields, and rand() --------
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start, "
+          f"before deep-nested-sf1")
+    deep_nested_paths(spark, dev, name, li_dir, ds_paths,
+                      os.path.join(repo, "build", f"deep_nested_sf{args.sf:g}"),
+                      counting, agg_batches, scan_chunks,
+                      min(args.reps, DEEP_REPS), counts_by_path, peak_by_path)
 
     if args.profile:
         for label, make_df in all_paths.items():

@@ -5,7 +5,10 @@ dictionary-encoded with an order-preserving (sorted) dictionary so code
 comparisons equal string comparisons; decimals (p <= 18) travel as the low
 64 bits of their decimal128 storage, the scaled int64. A list, map or
 struct column becomes a ``ListVector``, ``MapVector`` or ``StructVector``
-(``list_array_to_device``, the JAX package's layout).
+(``list_array_to_device``, the JAX package's layout); their elements,
+values and fields convert through ``array_to_device`` again, so a nested
+type of any depth crosses level by level, each list level's buffers 1:1
+the JAX package's ``ListVector``.
 """
 
 from __future__ import annotations

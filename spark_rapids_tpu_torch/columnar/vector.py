@@ -16,7 +16,11 @@ A column is:
   device, 0 for a null row and for padding), row validity, a flat padded
   element column (the elements of the non-null lists in row order, with
   its own dictionary for strings) and the row offsets on the host. The
-  device ops over them are in ``ops/nested.py``.
+  device ops over them are in ``ops/nested.py``. A flat element column, a
+  map's values and a struct's fields may themselves be nested vectors, to
+  any depth; ``device_memory_size`` and ``to_arrow`` recurse, and an inner
+  list's offsets are read back from its lengths only when ``to_arrow``
+  needs them.
 """
 
 from __future__ import annotations

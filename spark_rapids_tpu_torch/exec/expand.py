@@ -11,6 +11,10 @@ Spark's order. A string column's k results first move onto one shared
 dictionary (``ops/strings.align_many``): a projection that nulls the column
 carries an empty one. The output is re-landed at the power-of-two capacity
 of its row count, with canonical defaults in the invalid and padding slots.
+A nested column (an array, a struct, a map, such as a payload that a
+ROLLUP carries into ``collect_list``) takes the same order through
+``ops/nested.interleave``: its k results concatenated, then one gather;
+a projection that nulls it gives null lists.
 """
 
 from __future__ import annotations
@@ -71,6 +75,12 @@ class ExpandExec(TorchExec):
         out_cols = []
         for ci, field in enumerate(self._out):
             cols = [per_proj[p][ci] for p in range(k)]
+            if T.is_nested(field.data_type):
+                from spark_rapids_tpu_torch.expr.arithmetic import _cast_col
+                from spark_rapids_tpu_torch.ops.nested import interleave
+                cols = [_cast_col(c, field.data_type) for c in cols]
+                out_cols.append(interleave(cols, ctx.num_rows)[0].to_vector())
+                continue
             if isinstance(field.data_type, T.StringType):
                 cols = align_many(cols)
             vals = torch.stack([c.values for c in cols], dim=1).reshape(-1)

@@ -7,7 +7,13 @@ The generator column is a ``ListVector``. Each batch's explode mapping
 element index, from a searchsorted over the length prefix, the
 reference's) drives one gather of the other columns (``gather_cols``, so a
 nested payload column rides it too) and one gather of the flat elements.
-The one host sync is the output row count, which sizes the batch.
+The one host sync is the output row count, which sizes the batch. The
+elements may be nested: an ``array<struct>`` explodes into a
+``StructVector`` column and an ``array<array>`` into a ``ListVector``
+column, both gathered by the same mapping (``ops/nested.gather``, one more
+host sync a list level). The reference's device rule refuses a nested
+element (``spark_rapids_tpu/plan/overrides.py:1005-1008``); its host path
+answers, and the port is held to that answer.
 
 An outer explode keeps a null or empty list as one row with a null
 element (and, for posexplode, a null position); a plain one drops it. A

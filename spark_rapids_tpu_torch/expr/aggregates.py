@@ -21,6 +21,11 @@ reference's buffers (count, sum, sum of squares, as doubles) and finish as
 is null (Spark's legacy statistical aggregate gives NaN; the reference and
 Spark 3.1+ give null).
 
+First and Last take a nested value too (its row gathered), and
+``collect_list`` of a nested value gives an ``array<array<..>>`` or an
+``array<struct<..>>``. Min, Max and ``collect_set`` need an order or a
+hash over whole nested values and refuse them when typed.
+
 CollectList, CollectSet and PivotFirst have an array state (a list column,
 ``ops/nested.py``) and run on the segment path only, with the reference's
 host semantics (``plan/nodes.py`` ``AggregateNode._agg_one``):
@@ -156,7 +161,13 @@ class _Extreme(AggregateFunction):
 
     @property
     def dtype(self):
-        return self.child.dtype
+        t = self.child.dtype
+        if T.is_nested(t):
+            raise NotImplementedError(
+                f"HashAggregateExec: {type(self).__name__.lower()} of a "
+                f"{t!r} value is not ported (it needs an order over whole "
+                "nested values)")
+        return t
 
     @property
     def state_types(self):
@@ -240,7 +251,9 @@ class _Positional(AggregateFunction):
     """FIRST/LAST(ignoreNulls): the value at the group's first or last row
     in sorted order (reference GpuFirst, GpuLast); merge takes the first or
     last of the partial states. ``_pick`` is ``G.segment_first`` or
-    ``G.segment_last``."""
+    ``G.segment_last``; a nested value (an array, a struct, a map) is
+    gathered from the row ``_index`` picks (``G.segment_first_index`` or
+    ``G.segment_last_index``)."""
 
     def __init__(self, child, ignore_nulls: bool = False):
         super().__init__(child)
@@ -258,6 +271,11 @@ class _Positional(AggregateFunction):
         return [self.dtype]
 
     def update(self, in_col, segctx):
+        if in_col.nested is not None:
+            from spark_rapids_tpu_torch.ops.filtering import gather_cols
+            pos, found = self._index(in_col.validity, segctx,
+                                     self.ignore_nulls)
+            return gather_cols([in_col], pos.long(), found)
         vals, valid = self._pick(in_col.values, in_col.validity, segctx,
                                  self.ignore_nulls)
         return [Col(vals, valid, self.dtype, in_col.dictionary)]
@@ -266,15 +284,18 @@ class _Positional(AggregateFunction):
         return self.update(state_cols[0], segctx)
 
     def evaluate(self, state_cols):
-        return state_cols[0].canonicalized()
+        st = state_cols[0]
+        return st if st.nested is not None else st.canonicalized()
 
 
 class First(_Positional):
     _pick = staticmethod(G.segment_first)
+    _index = staticmethod(G.segment_first_index)
 
 
 class Last(_Positional):
     _pick = staticmethod(G.segment_last)
+    _index = staticmethod(G.segment_last_index)
 
 
 class CentralMoment(AggregateFunction):
@@ -413,6 +434,16 @@ class CollectSet(CollectList):
 
     dedupe = True
 
+    @property
+    def dtype(self):
+        t = self.child.dtype
+        if T.is_nested(t):
+            raise NotImplementedError(
+                f"HashAggregateExec: collect_set of a {t!r} value is not "
+                "ported (it needs a hash and an equality over whole nested "
+                "values)")
+        return T.ArrayType(t)
+
 
 class PivotFirst(AggregateFunction):
     """PivotFirst(value, pivot, pivot_values): per group an array with one
@@ -438,7 +469,11 @@ class PivotFirst(AggregateFunction):
 
     @property
     def dtype(self):
-        return T.ArrayType(self.children[0].dtype)
+        t = self.children[0].dtype
+        if T.is_nested(t):
+            raise NotImplementedError(
+                f"HashAggregateExec: a pivot of a {t!r} value is not ported")
+        return T.ArrayType(t)
 
     @property
     def nullable(self):

@@ -110,6 +110,11 @@ def decimal_div_type(lt, rt):
 def _cast_col(c: Col, to: T.DataType) -> Col:
     if c.dtype == to:
         return c
+    if isinstance(c.dtype, T.NullType) and T.is_nested(to):
+        # the untyped NULL as a nested value: every row null and empty
+        from spark_rapids_tpu_torch.columnar.batch import empty_vector
+        return Col.from_vector(empty_vector(to, c.values.shape[0],
+                                            c.values.device))
     from spark_rapids_tpu_torch.expr.cast import cast_col
     return cast_col(c, to)
 

@@ -14,6 +14,11 @@ Counterpart of ``spark_rapids_tpu/expr/complexexprs.py``: ``CreateNamedStruct``,
   rows' element ranges come from the lengths' prefix, and the per-row
   answers from one gather or one ``index_add_``/``scatter_reduce_`` over
   the elements. The reference answers these on its host path.
+- Elements, fields and map values may be nested: an item of an
+  ``array<struct>`` is a struct column, a field of a struct may be an
+  array, and chains such as ``lines[0].l_suppkey`` or ``size(aa[0])``
+  read through the levels (the item by a nested gather, ``ops/nested.py``).
+  ``array_contains`` takes a scalar element type only.
 
 Spark, not the reference, where they differ: ``element_at(arr, 0)`` raises
 (Spark's ``INVALID_INDEX_OF_ZERO``; the reference's default shim answers
@@ -74,15 +79,11 @@ def _row_any(flags: torch.Tensor, rows: torch.Tensor, cap: int):
 def _gather_element(vec, src: torch.Tensor, ok: torch.Tensor,
                     values: bool = False) -> Col:
     """The flat element (or, for a map's ``values``, the value) at ``src``
-    where ``ok``, else null."""
+    where ``ok``, else null; a nested element by a nested gather."""
+    from spark_rapids_tpu_torch.ops.filtering import gather_cols
     flat = vec.values if values else vec.flat
-    src = src.clamp(0, flat.capacity - 1)
-    valid = ok & flat.validity[src]
-    dt = flat.dtype
-    default = torch.tensor(dt.default_value(), dtype=flat.data.dtype,
-                           device=src.device)
-    return Col(torch.where(valid, flat.data[src], default), valid, dt,
-               flat.dictionary)
+    return gather_cols([Col.from_vector(flat)],
+                       src.clamp(0, flat.capacity - 1), ok)[0]
 
 
 class CreateNamedStruct(Expression):
@@ -123,6 +124,10 @@ class CreateNamedStruct(Expression):
         fields = []
         for v in self.field_values:
             c = v.eval(ctx)
+            if c.nested is not None:
+                # its padding rows are already null and empty
+                fields.append(c)
+                continue
             valid = c.validity & live
             default = torch.tensor(c.dtype.default_value(),
                                    dtype=c.values.dtype, device=ctx.device)
@@ -249,7 +254,7 @@ class GetArrayItem(Expression):
                 return (parts[int(i)] if i is not None
                         and 0 <= int(i) < len(parts) else None)
             return S.dict_transform_to_string(c, fn)
-        if not isinstance(src, CreateArray):
+        if not isinstance(src, CreateArray) or T.is_nested(self.dtype):
             return list_item(src.eval(ctx).nested,
                              _cast_col(idx.eval(ctx), T.INT), _live(ctx))
         elem_t = self.dtype
@@ -348,7 +353,7 @@ class ElementAt(Expression):
     def eval(self, ctx):
         from spark_rapids_tpu_torch.expr.arithmetic import _cast_col
         src, idx = self.children
-        if isinstance(src, CreateArray):
+        if isinstance(src, CreateArray) and not T.is_nested(self.dtype):
             n = len(src.children)
             if isinstance(idx, Literal):
                 i = idx.value
@@ -404,8 +409,10 @@ class ArrayContains(Expression):
     @property
     def dtype(self):
         ct = self.children[0].dtype
-        if not isinstance(ct, T.ArrayType):
-            raise NotImplementedError(f"array_contains over a {ct!r}")
+        if not isinstance(ct, T.ArrayType) or T.is_nested(ct.element_type):
+            raise NotImplementedError(
+                f"array_contains over a {ct!r} is not ported (scalar "
+                "elements only)")
         return T.BOOLEAN
 
     def with_children(self, children):

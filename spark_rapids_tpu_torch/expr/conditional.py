@@ -8,9 +8,12 @@ or false predicate takes the else branch, as in Spark.
 
 String branches meet on one sorted union dictionary (``ops/strings.
 align_many``, the reference's ``union_dictionaries``), so codes from two
-dictionaries never mix. ``Least``/``Greatest`` over strings are refused
-when the expression is typed, so at planning: the reference would order
-codes of two unaligned dictionaries.
+dictionaries never mix. Branches that are arrays, structs or maps must
+share one type; each row is then gathered from its branch's column
+(``ops/nested.select_rows``, one gather over the branches'
+concatenation). ``Least``/``Greatest`` over strings are refused when the
+expression is typed, so at planning: the reference would order codes of
+two unaligned dictionaries.
 """
 
 from __future__ import annotations
@@ -34,6 +37,12 @@ def _branch_type(types):
     a string with anything but a string is refused (``promote`` knows no
     such pair)."""
     types = [t for t in types if not isinstance(t, T.NullType)] or [T.NULL]
+    if any(T.is_nested(t) for t in types):
+        if any(t != types[0] for t in types):
+            raise NotImplementedError(
+                f"conditional over {types} is not ported (nested branches "
+                "share one type)")
+        return types[0]
     strs = [isinstance(t, T.StringType) for t in types]
     if any(strs):
         if not all(strs):
@@ -66,6 +75,12 @@ class If(Expression):
         take_a = p.values & p.validity   # a null predicate takes the else
         a = self.children[1].eval(ctx)
         b = self.children[2].eval(ctx)
+        if T.is_nested(out_t):
+            from spark_rapids_tpu_torch.ops import nested as N
+            a, b = _cast_col(a, out_t), _cast_col(b, out_t)
+            choice = torch.where(take_a, 0, 1)
+            return Col.from_vector(N.select_rows(
+                [a.nested, b.nested], choice, ctx.num_rows, ctx.capacity))
         if isinstance(out_t, T.StringType):
             from spark_rapids_tpu_torch.ops.strings import align_many
             a, b = align_many([_cast_col(a, out_t), _cast_col(b, out_t)])

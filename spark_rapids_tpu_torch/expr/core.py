@@ -334,6 +334,9 @@ class Literal(Expression):
     def eval(self, ctx):
         cap = ctx.capacity
         dev = ctx.device
+        if self.value is None and T.is_nested(self._dtype):
+            from spark_rapids_tpu_torch.columnar.batch import empty_vector
+            return Col.from_vector(empty_vector(self._dtype, cap, dev))
         if self.value is None:
             import pyarrow as pa
             d = (pa.array([], type=pa.string())

@@ -14,9 +14,9 @@ partition and the row's position in it (Spark's layout), and
 ``InputFileName``/``InputFileBlockStart``/``InputFileBlockLength`` the
 batch's scan provenance (``ColumnarBatch.metadata``). Spark, and the
 planner here, allow them in a projection, a filter and an aggregate only
-(``CONTEXT_SENSITIVE``). ``Rand`` is not ported: the reference draws it
-from ``jax.random`` (threefry), so a port equal to it bit for bit needs
-threefry2x32.
+(``CONTEXT_SENSITIVE``). ``Rand`` draws the reference's stream bit for
+bit (``ops/random.py``, threefry2x32 in torch), keyed by the seed, the
+partition and the row offset.
 """
 
 from __future__ import annotations
@@ -215,6 +215,37 @@ class MonotonicallyIncreasingID(_ContextExpr):
                               device=ctx.device), T.LONG)
 
 
+class Rand(_ContextExpr):
+    """rand(seed): uniform doubles in [0, 1), the reference's stream
+    (``uniform(fold_in(PRNGKey(seed ^ (split * 0x9E3779B9)),
+    row_offset), (capacity,), float64)``) bit for bit. Like the
+    reference's GpuRand, not Spark's XORShiftRandom values."""
+
+    sql_name = "rand"
+
+    def __init__(self, seed: int = 0):
+        self.children = []
+        self.seed = int(seed)
+
+    @property
+    def dtype(self):
+        return T.DOUBLE
+
+    def with_children(self, children):
+        return Rand(self.seed)
+
+    def eval(self, ctx):
+        from spark_rapids_tpu_torch.ops import random as R
+        key = R.fold_in(R.prng_key(self.seed ^ (int(ctx.split) * 0x9E3779B9)),
+                        int(ctx.row_offset))
+        return Col(R.uniform(key, ctx.capacity, ctx.device),
+                   torch.ones((ctx.capacity,), dtype=torch.bool,
+                              device=ctx.device), T.DOUBLE)
+
+    def __repr__(self):
+        return f"rand({self.seed})"
+
+
 class _ScanMetaExpr(_ContextExpr):
     """The input-file family (reference GpuInputFileName,
     GpuInputFileBlockStart/Length): the value comes from the batch's scan
@@ -262,15 +293,15 @@ class InputFileBlockLength(InputFileBlockStart):
 
 #: the expressions that read the task's context; the planner admits them
 #: in a projection, a filter and an aggregate only, as Spark's analyzer does
-CONTEXT_SENSITIVE = (SparkPartitionID, MonotonicallyIncreasingID,
+CONTEXT_SENSITIVE = (Rand, SparkPartitionID, MonotonicallyIncreasingID,
                      _ScanMetaExpr)
 
 
 def is_positional(*exprs) -> bool:
     """Whether an expression reads the row's position in its partition
     (the execs then keep ``row_offset``)."""
-    return any(e.collect(lambda x: isinstance(x, MonotonicallyIncreasingID))
-               for e in exprs if e is not None)
+    return any(e.collect(lambda x: isinstance(
+        x, (MonotonicallyIncreasingID, Rand))) for e in exprs if e is not None)
 
 
 def is_context_sensitive(*exprs) -> bool:

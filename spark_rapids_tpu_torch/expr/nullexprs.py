@@ -93,7 +93,9 @@ class IsNaN(Expression):
 
 
 class Coalesce(Expression):
-    """The first non-null child value of each row."""
+    """The first non-null child value of each row. Arrays, structs and maps
+    (of one type) are gathered row by row from the chosen child's column
+    (``ops/nested.select_rows``)."""
 
     def __init__(self, *children):
         self.children = list(children)
@@ -117,6 +119,14 @@ class Coalesce(Expression):
             return coalesce_strings([_cast_col(c.eval(ctx), out_t)
                                      for c in self.children])
         cols = [_cast_col(c.eval(ctx), out_t) for c in self.children]
+        if T.is_nested(out_t):
+            from spark_rapids_tpu_torch.ops import nested as N
+            choice = torch.full((ctx.capacity,), len(cols) - 1,
+                                dtype=torch.int64, device=ctx.device)
+            for i in range(len(cols) - 2, -1, -1):
+                choice = torch.where(cols[i].validity, i, choice)
+            return Col.from_vector(N.select_rows(
+                [c.nested for c in cols], choice, ctx.num_rows, ctx.capacity))
         vals = cols[-1].values
         validity = cols[-1].validity
         for c in reversed(cols[:-1]):

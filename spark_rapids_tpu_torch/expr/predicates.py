@@ -11,6 +11,13 @@ onto one sorted union dictionary (order-preserving), so a comparison of
 codes is the comparison of the strings; a string literal is a one-entry
 dictionary. EqualNullSafe (``<=>``) is true where both sides are null and
 never null. The untyped NULL compares as the other side's type.
+
+Arrays and structs of one type compare for equality (``=``, ``!=``,
+``<=>``) as Spark's ``ordering.equiv`` does (``ops/nested.equiv``): a null
+row gives null (``<=>``: false, or true beside another null), and inside
+the value two nulls, two NaNs, or -0.0 and 0.0 are equal. Spark orders no
+map, and the port orders no nested value: a map comparison, and ``<``,
+``<=``, ``>``, ``>=`` over a nested value, are refused when typed.
 """
 
 from __future__ import annotations
@@ -29,6 +36,12 @@ def _operand_type(ldt: T.DataType, rdt: T.DataType) -> T.DataType:
     if isinstance(ldt, T.NullType):
         return rdt
     if isinstance(rdt, T.NullType):
+        return ldt
+    if T.is_nested(ldt) or T.is_nested(rdt):
+        if ldt != rdt:
+            raise NotImplementedError(
+                f"comparison of {ldt!r} with {rdt!r} is not ported (nested "
+                "values compare within one type)")
         return ldt
     l_str, r_str = isinstance(ldt, T.StringType), isinstance(rdt, T.StringType)
     if l_str or r_str:
@@ -67,8 +80,20 @@ def _float_total(lv, rv, op):
     raise AssertionError(op)
 
 
+def _has_map(dt: T.DataType) -> bool:
+    if isinstance(dt, T.MapType):
+        return True
+    if isinstance(dt, T.ArrayType):
+        return _has_map(dt.element_type)
+    if isinstance(dt, T.StructDataType):
+        return any(_has_map(t) for t in dt.types)
+    return False
+
+
 class BinaryComparison(Expression):
     symbol = "?"
+    #: whether the comparison takes arrays and structs (equality only)
+    nested_ok = False
 
     def __init__(self, left, right):
         self.children = [left, right]
@@ -83,7 +108,12 @@ class BinaryComparison(Expression):
 
     @property
     def dtype(self):
-        _operand_type(self.left.dtype, self.right.dtype)
+        ct = _operand_type(self.left.dtype, self.right.dtype)
+        if T.is_nested(ct) and (not self.nested_ok or _has_map(ct)):
+            raise NotImplementedError(
+                f"{self.symbol} over a {ct!r} value is not ported (arrays "
+                "and structs compare for equality only; Spark orders no "
+                "map)")
         return T.BOOLEAN
 
     def with_children(self, children):
@@ -93,6 +123,11 @@ class BinaryComparison(Expression):
         l, r = self.left.eval(ctx), self.right.eval(ctx)
         l, r = _comparable(l, r, self.left.dtype, self.right.dtype)
         validity = valid_and(l.validity, r.validity)
+        if l.nested is not None:
+            from spark_rapids_tpu_torch.ops.nested import equiv
+            eq = equiv(l, r)
+            vals = ~eq if isinstance(self, NotEqual) else eq
+            return Col(vals & validity, validity, T.BOOLEAN)
         vals = self.compare(l.values, r.values,
                             isinstance(l.dtype, T.FractionalType))
         return Col(vals & validity, validity, T.BOOLEAN)
@@ -106,6 +141,7 @@ class BinaryComparison(Expression):
 
 class EqualTo(BinaryComparison):
     symbol = "="
+    nested_ok = True
 
     def compare(self, lv, rv, is_float):
         return _float_total(lv, rv, "eq") if is_float else lv == rv
@@ -143,6 +179,7 @@ class EqualNullSafe(BinaryComparison):
     """``<=>``: null <=> null is true, a null and a value false; never
     null."""
     symbol = "<=>"
+    nested_ok = True
 
     @property
     def nullable(self):
@@ -151,6 +188,10 @@ class EqualNullSafe(BinaryComparison):
     def eval(self, ctx):
         l, r = self.left.eval(ctx), self.right.eval(ctx)
         l, r = _comparable(l, r, self.left.dtype, self.right.dtype)
+        if l.nested is not None:
+            from spark_rapids_tpu_torch.ops.nested import equiv
+            vals = equiv(l, r)
+            return Col(vals, torch.ones_like(vals), T.BOOLEAN)
         both = valid_and(l.validity, r.validity)
         eq = (_float_total(l.values, r.values, "eq")
               if isinstance(l.dtype, T.FractionalType)
@@ -161,6 +202,7 @@ class EqualNullSafe(BinaryComparison):
 
 class NotEqual(BinaryComparison):
     symbol = "!="
+    nested_ok = True
 
     def compare(self, lv, rv, is_float):
         eq = _float_total(lv, rv, "eq") if is_float else lv == rv

@@ -423,6 +423,11 @@ def hash(*cs):  # noqa: A001
     return _MI.Murmur3Hash(*[_e(c) for c in cs])
 
 
+def rand(seed: int = 0):
+    """Uniform doubles in [0, 1), the reference's stream for ``seed``."""
+    return _MI.Rand(seed)
+
+
 # -- windows ------------------------------------------------------------------
 
 def row_number():

@@ -341,23 +341,32 @@ def segment_max(values, validity, ctx: SegCtx, dtype: T.DataType):
     return _seg_extreme(data, ctx, largest=True)
 
 
-def segment_first(values, validity, ctx: SegCtx, ignore_nulls: bool):
-    """First value of each group in sorted order; Spark First(ignoreNulls)."""
-    idx = torch.arange(ctx.capacity, dtype=torch.int32, device=values.device)
+def segment_first_index(validity, ctx: SegCtx, ignore_nulls: bool):
+    """(the row of each group's first value in sorted order, clamped into
+    the batch; whether the group has one); Spark First(ignoreNulls)."""
+    idx = torch.arange(ctx.capacity, dtype=torch.int32, device=validity.device)
     eligible = validity if ignore_nulls else torch.ones_like(validity)
     cand = torch.where(eligible, idx, torch.full_like(idx, ctx.capacity))
     pos = _seg_extreme(cand, ctx, largest=False)
-    pos_clamped = pos.clamp(0, ctx.capacity - 1)
-    return (_take(values, pos_clamped),
-            (pos < ctx.capacity) & _take(validity, pos_clamped))
+    return pos.clamp(0, ctx.capacity - 1), pos < ctx.capacity
+
+
+def segment_last_index(validity, ctx: SegCtx, ignore_nulls: bool):
+    """As ``segment_first_index``, for the group's last value (Last)."""
+    idx = torch.arange(ctx.capacity, dtype=torch.int32, device=validity.device)
+    eligible = validity if ignore_nulls else torch.ones_like(validity)
+    cand = torch.where(eligible, idx, torch.full_like(idx, -1))
+    pos = _seg_extreme(cand, ctx, largest=True)
+    return pos.clamp(0, ctx.capacity - 1), pos > -1
+
+
+def segment_first(values, validity, ctx: SegCtx, ignore_nulls: bool):
+    """First value of each group in sorted order; Spark First(ignoreNulls)."""
+    pos, found = segment_first_index(validity, ctx, ignore_nulls)
+    return _take(values, pos), found & _take(validity, pos)
 
 
 def segment_last(values, validity, ctx: SegCtx, ignore_nulls: bool):
     """Last value of each group in sorted order; Spark Last(ignoreNulls)."""
-    idx = torch.arange(ctx.capacity, dtype=torch.int32, device=values.device)
-    eligible = validity if ignore_nulls else torch.ones_like(validity)
-    cand = torch.where(eligible, idx, torch.full_like(idx, -1))
-    pos = _seg_extreme(cand, ctx, largest=True)
-    pos_clamped = pos.clamp(0, ctx.capacity - 1)
-    return (_take(values, pos_clamped),
-            (pos > -1) & _take(validity, pos_clamped))
+    pos, found = segment_last_index(validity, ctx, ignore_nulls)
+    return _take(values, pos), found & _take(validity, pos)

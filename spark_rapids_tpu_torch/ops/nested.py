@@ -4,26 +4,39 @@
 The JAX package keeps a list column only between its arrow bridge and its
 explode (``exec/generate.py``) and runs everything else over nested values
 on its host path. The port keeps them as device columns through every
-operator, so these ops carry them:
+operator, so these ops carry them. An element, a map value or a struct
+field may itself be a list, map or struct: each op recurses through
+``ops/filtering.gather_cols`` and ``ops/concat.concat_cols``, which send a
+nested column back here.
 
 - ``gather``: rows by index. The new lengths are gathered, their exclusive
   cumsum gives the new starts, and the elements are gathered by a
   segmented index (each output element's row, from ``repeat_interleave``
-  of the new lengths, plus its place in the row). One host sync: the new
-  element count, which sizes the flat column.
+  of the new lengths, plus its place in the row); a list of lists gathers
+  its inner lists the same way, by those element indices. One host sync a
+  list level: its new element count, which sizes its flat column.
 - ``concat``: the rows of several columns one after another (each flat
-  column's elements after the last one's).
+  column's elements after the last one's); one host sync a column and
+  list level, its element count.
+- ``select_rows``: each row from one of several columns of one type (``If``,
+  ``CaseWhen``, ``Coalesce``), as one ``gather`` over their ``concat``.
+- ``equiv``: per row, whether two columns of one type hold the same value
+  under Spark's ordering equivalence (two nulls, two NaNs, -0.0 and 0.0
+  are equal at every level): the lengths compared, then the elements of
+  the rows of equal length, recursively, and a segmented all-reduce of
+  the elements' answers into their rows. One host sync a list level.
 - ``explode_mapping``: for each output row of an explode, its source row
   and element index, from a searchsorted over the length prefix (the JAX
   package's ``GenerateExec._generate``).
+- ``interleave``: ``k`` columns' rows taken row by row (``array(...)``'s
+  elements, ``ExpandExec``'s ``k`` projections of a nested column).
 - list building: from elements tagged with their row (the collects, over
   rows sorted into segments; ``from_tagged_elements``), from a fixed arity
   (``array(...)``, ``map(...)``; ``from_columns``), and from one list per
   dictionary entry (``split``; ``from_dictionary``).
 
-Elements are scalar columns (a nested element type is refused when its
-type is built), and ride ``ops/filtering.gather_cols`` and
-``ops/concat.concat_cols``. Plain torch ops; no kernel.
+Plain torch ops; no kernel. A CUDA column stays on the card: nothing here
+copies to the host but the counts named above.
 """
 
 from __future__ import annotations
@@ -142,6 +155,58 @@ def concat(vecs: list, counts: list, capacity: int):
     return ListVector(first.dtype, lengths, valid, flat, total)
 
 
+def select_rows(vecs: list, choice: torch.Tensor, num_rows: int,
+                capacity: int):
+    """Row ``r`` of ``vecs[choice[r]]`` for each of the first ``num_rows``
+    rows, in ``capacity`` slots: the columns' first ``num_rows`` rows
+    concatenated, then one ``gather`` (the columns share one type)."""
+    k = len(vecs)
+    every = concat(vecs, [num_rows] * k, bucket_capacity(k * num_rows))
+    r = torch.arange(capacity, dtype=torch.int64, device=choice.device)
+    live = r < num_rows
+    idx = torch.where(live, choice.to(torch.int64) * num_rows + r,
+                      torch.zeros_like(r))
+    return gather(every, idx, live)
+
+
+def equiv(a: Col, b: Col) -> torch.Tensor:
+    """Per row, whether ``a`` and ``b`` (one type, one capacity) are equal
+    under Spark's ordering equivalence (``ordering.equiv``, which EqualTo
+    uses for arrays and structs): two nulls are equal, a null and a value
+    are not, at every level; doubles by ``compareDoubles`` (NaN equals NaN,
+    -0.0 equals 0.0). Lists: equal lengths and every element equal. Maps
+    have no equality in Spark; the planner refuses them."""
+    from spark_rapids_tpu_torch.ops.strings import align_many
+    both = a.validity & b.validity
+    neither = ~a.validity & ~b.validity
+    if a.nested is None:
+        if a.is_string:
+            a, b = align_many([a, b])
+        eq = a.values == b.values
+        if a.values.is_floating_point():
+            eq = eq | (torch.isnan(a.values) & torch.isnan(b.values))
+        return torch.where(both, eq, neither)
+    va, vb = a.nested, b.nested
+    if isinstance(va, StructVector):
+        eq = both
+        for fa, fb in zip(va.fields, vb.fields):
+            eq = eq & equiv(Col.from_vector(fa), Col.from_vector(fb))
+        return torch.where(both, eq, neither)
+    same = both & (va.data == vb.data)
+    lengths = torch.where(same, va.data, torch.zeros_like(va.data))
+    total = int(lengths.sum())          # the level's one host sync
+    rows = element_rows(lengths, total)
+    within = (torch.arange(total, dtype=torch.int64, device=rows.device)
+              - starts_of(lengths)[rows])
+    fcap = bucket_capacity(total)
+    ea = _gather_flat(va.flat, starts_of(va.data)[rows] + within, total, fcap)
+    eb = _gather_flat(vb.flat, starts_of(vb.data)[rows] + within, total, fcap)
+    ok = equiv(Col.from_vector(ea), Col.from_vector(eb))[:total]
+    bad = torch.zeros((va.capacity,), dtype=torch.int32, device=rows.device)
+    bad.index_add_(0, rows, (~ok).to(torch.int32))
+    return torch.where(both, same & (bad == 0), neither)
+
+
 def explode_mapping(lengths: torch.Tensor, num_rows: int, outer: bool):
     """The explode of the first ``num_rows`` rows whose element counts are
     ``lengths``: ``(src, elem_idx, real, live, total, out_cap)``. Output row
@@ -217,16 +282,24 @@ def from_tagged_elements(elems: Col, rows: torch.Tensor, total: int,
     return ListVector(dtype, lengths, valid, flat, total)
 
 
-def _interleave(cols: list, num_rows: int):
-    """The first ``num_rows`` rows of ``k`` scalar Cols as one flat Col of
+def interleave(cols: list, num_rows: int):
+    """The first ``num_rows`` rows of ``k`` Cols as one flat Col of
     ``num_rows * k`` elements, row by row (strings onto one dictionary)."""
     from spark_rapids_tpu_torch.ops.strings import align_many
-    if cols[0].is_string:
-        cols = align_many(cols)
     k = len(cols)
     total = num_rows * k
     fcap = bucket_capacity(total)
     dev = cols[0].values.device
+    if cols[0].nested is not None:
+        # nested elements: the columns one after another, then row by row
+        j = torch.arange(fcap, dtype=torch.int64, device=dev)
+        live = j < total
+        idx = torch.where(live, (j % k) * num_rows + j // k,
+                          torch.zeros_like(j))
+        every = concat([c.nested for c in cols], [num_rows] * k, fcap)
+        return Col.from_vector(gather(every, idx, live)), total
+    if cols[0].is_string:
+        cols = align_many(cols)
     vals = torch.stack([c.values[:num_rows] for c in cols], 1).reshape(-1)
     valid = torch.stack([c.validity[:num_rows] for c in cols], 1).reshape(-1)
     v = torch.full((fcap,), cols[0].dtype.default_value(),
@@ -244,7 +317,7 @@ def from_columns(dtype: T.DataType, cols: list, num_rows: int,
     elements, the padding rows empty."""
     dev = cols[0].values.device
     k = len(cols)
-    flat, total = _interleave(cols, num_rows)
+    flat, total = interleave(cols, num_rows)
     live = torch.arange(capacity, device=dev) < num_rows
     lengths = torch.where(live, torch.full((capacity,), k, dtype=torch.int32,
                                            device=dev),
@@ -252,7 +325,7 @@ def from_columns(dtype: T.DataType, cols: list, num_rows: int,
                                       device=dev))
     if values is None:
         return ListVector(dtype, lengths, live, flat.to_vector(), total)
-    vflat, _ = _interleave(values, num_rows)
+    vflat, _ = interleave(values, num_rows)
     return MapVector(dtype, lengths, live, flat.to_vector(),
                      vflat.to_vector(), total)
 

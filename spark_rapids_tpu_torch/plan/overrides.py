@@ -42,14 +42,25 @@ runs once at the root, as the reference runs it first in
 ``TpuOverrides.apply``).
 
 A generate node (explode, posexplode, ``outer`` or not) plans a
-``GenerateExec`` over an array column (``conv_generate``,
-``:990-1027``). Nested columns (arrays, maps, structs of scalar values)
-are admitted as payload everywhere, and as input only to the extractions
-(``expr/complexexprs.py``), the null tests, ``count`` and the collects;
-as a key (grouping, join, sort, window partition or order, hash
-partitioning, ``IN``) they are refused, the message naming the exec that
-refuses (``refuse_nested_keys``), and so is a nested column under
-``ExpandExec``.
+``GenerateExec`` over an array column of any element type, an
+``array<struct>`` or an ``array<array>`` too (``conv_generate``,
+``:990-1027``; the reference's device rule refuses a nested element,
+``:1005-1008``, and its host path answers); a map generator is refused.
+Nested columns (arrays, maps and structs, nested to any depth) are
+admitted as payload everywhere, ``ExpandExec`` included (so ROLLUP, CUBE
+and GROUPING SETS carry them), and as input only to the extractions
+(``expr/complexexprs.py``), ``struct(..)`` and ``array(..)``, the null
+tests, ``count``, ``collect_list``, ``first`` and ``last``, ``If``,
+``CaseWhen`` and ``Coalesce`` over one nested type, and equality (``=``,
+``!=``, ``<=>``) over arrays and structs of one type (``_NESTED_INPUT_OK``).
+Refused, each raising ``NotImplementedError`` here: a nested key
+(grouping, join, sort, window partition or order, hash partitioning,
+``IN``; the message names the exec, ``refuse_nested_keys``; the reference
+crashes on such keys on its host path), ``min``, ``max`` and
+``collect_set`` of a nested value and ``<``, ``<=``, ``>``, ``>=`` over one
+(each needs an order or a hash over whole nested values), a map in a
+comparison, a map generator, the packed row format of a nested column
+(``columnar/rows.py``) and a CSV write of one (``io/writer.py``).
 
 The context expressions (``spark_partition_id``,
 ``monotonically_increasing_id``, the input-file family) are admitted in a
@@ -86,7 +97,7 @@ from spark_rapids_tpu_torch.expr import core as E
 from spark_rapids_tpu_torch.expr import complexexprs as _CX
 from spark_rapids_tpu_torch.expr.aggregates import (AggregateFunction,
                                                      CollectList, Count,
-                                                     PivotFirst)
+                                                     First, Last, PivotFirst)
 from spark_rapids_tpu_torch.expr import datetime as _DT
 from spark_rapids_tpu_torch.expr import decimalexprs as _DX
 from spark_rapids_tpu_torch.expr import mathexprs as _MX
@@ -131,11 +142,16 @@ _PORTED_EXPRS = (E.BoundReference, E.Literal, E.Alias, BinaryArithmetic,
                  ) + _module_exprs(_CX, _DT, _DX, _MX, _SX)
 
 # the expressions that take a nested (array, map, struct) input: the
-# extractions, the null tests, count, and the column itself
+# extractions, the builders, the null tests, count, the collects, first
+# and last, the conditionals, equality, and the column itself (min, max
+# and collect_set refuse one when typed, and so do a map comparison and
+# the order comparisons)
 _NESTED_INPUT_OK = (E.BoundReference, E.Alias, IsNull, IsNotNull, Count,
-                    CollectList, PivotFirst, _CX.GetStructField,
-                    _CX.GetArrayItem, _CX.Size, _CX.ElementAt,
-                    _CX.ArrayContains, _CX.GetMapValue)
+                    CollectList, PivotFirst, First, Last, If, CaseWhen,
+                    Coalesce, EqualTo, EqualNullSafe, NotEqual,
+                    _CX.GetStructField, _CX.GetArrayItem, _CX.Size,
+                    _CX.ElementAt, _CX.ArrayContains, _CX.GetMapValue,
+                    _CX.CreateNamedStruct, _CX.CreateArray)
 
 
 def refuse_nested_keys(exprs, operator: str, role: str = "key") -> None:
@@ -461,11 +477,6 @@ class TorchOverrides:
         for proj in n.projections:
             for e in proj:
                 check_expression(e)
-        for f in n.output:
-            if T.is_nested(f.data_type):
-                raise NotImplementedError(
-                    f"ExpandExec: a column of type {f.data_type!r} is not "
-                    "ported")
         return ExpandExec(n.projections, n.output, kids[0], conf=self.conf)
 
     def _generate(self, n, kids):

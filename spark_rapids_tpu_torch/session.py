@@ -29,11 +29,12 @@ column on the device; ``with_column``, ``drop``, ``with_column_renamed``,
 ``sort_within_partitions``, ``count()``, ``to_pandas()`` and ``explain()``
 are the reference's, with Spark's column order for ``with_column``.
 
-Nested columns (arrays, maps, structs of scalar values) are device columns:
-``F.collect_list``/``F.collect_set``, ``F.split``, ``F.array``,
+Nested columns (arrays, maps and structs, nested to any depth) are device
+columns: ``F.collect_list``/``F.collect_set``, ``F.split``, ``F.array``,
 ``F.struct`` and ``F.create_map`` build them, files and arrow tables bring
-them, ``df.explode(col, outer, pos)`` flattens an array, and
-``group_by(k).pivot(p, values).agg(...)`` pivots.
+them, ``df.explode(col, outer, pos)`` flattens an array (of structs or of
+arrays too), and ``group_by(k).pivot(p, values).agg(...)`` pivots.
+``F.rand(seed)`` draws the reference's stream (``ops/random.py``).
 ``collect_row_buffer()`` and ``spark.create_dataframe_from_rows(...)``
 move a frame through the packed row format (``columnar/rows.py``).
 """

@@ -1,10 +1,11 @@
 """Spark SQL data types with their torch device representations.
 
 Counterpart of ``spark_rapids_tpu/types.py``: every scalar type and the
-nested ArrayType, StructDataType and MapType over scalar elements (a nested
-element, ``array<array<..>>`` or ``array<struct<..>>``, is refused when the
-type is built, so at planning). The device layout is the JAX package's, so
-buffers compare 1:1:
+nested ArrayType, StructDataType and MapType, nested to any depth
+(``array<struct<..>>``, ``array<array<..>>``, a struct of arrays, a map of
+any value type); a map key stays scalar, and a nested one is refused when
+the type is built, so at planning. The device layout is the JAX package's,
+so buffers compare 1:1:
 
 - fixed-width types: one padded 1-D tensor plus a bool validity tensor;
 - ByteType int8, ShortType int16, IntegerType int32, LongType int64,
@@ -17,7 +18,8 @@ buffers compare 1:1:
 - ArrayType: ``columnar/vector.ListVector`` (int32 row lengths as ``data``,
   a flat padded element column, host row offsets); MapType: ``MapVector``
   (keys and values as two flat columns over one set of offsets);
-  StructDataType: ``StructVector`` (one column a field, row validity).
+  StructDataType: ``StructVector`` (one column a field, row validity); a
+  nested element, value or field is itself such a vector.
 """
 
 from __future__ import annotations
@@ -166,21 +168,21 @@ def is_nested(dt: DataType) -> bool:
     return isinstance(dt, (ArrayType, StructDataType, MapType))
 
 
-def _scalar_element(dt: DataType, where: str) -> DataType:
+def _scalar_key(dt: DataType) -> DataType:
     if is_nested(dt):
         raise NotImplementedError(
-            f"a nested {where} ({dt!r}) is not ported yet: only scalar "
-            "elements, fields, keys and values")
+            f"a map key of type {dt!r} is not ported: map keys are scalar "
+            "(the reference cannot read a map column at all)")
     return dt
 
 
 class ArrayType(DataType):
-    """Spark ArrayType over a scalar element type."""
+    """Spark ArrayType over any element type."""
 
     sql_name = "array"
 
     def __init__(self, element_type: DataType, contains_null: bool = True):
-        self.element_type = _scalar_element(element_type, "array element")
+        self.element_type = element_type
         self.contains_null = contains_null
 
     def default_value(self):
@@ -199,13 +201,13 @@ class ArrayType(DataType):
 
 class StructDataType(DataType):
     """Spark's StructType used as a column type (``struct<...>`` values),
-    with scalar fields."""
+    fields of any type."""
 
     sql_name = "struct"
 
     def __init__(self, names: list, types: list):
         self.names = list(names)
-        self.types = [_scalar_element(t, "struct field") for t in types]
+        self.types = list(types)
 
     def default_value(self):
         return None
@@ -224,14 +226,14 @@ class StructDataType(DataType):
 
 
 class MapType(DataType):
-    """Spark MapType with scalar keys and values."""
+    """Spark MapType with scalar keys and values of any type."""
 
     sql_name = "map"
 
     def __init__(self, key_type: DataType, value_type: DataType,
                  value_contains_null: bool = True):
-        self.key_type = _scalar_element(key_type, "map key")
-        self.value_type = _scalar_element(value_type, "map value")
+        self.key_type = _scalar_key(key_type)
+        self.value_type = value_type
         self.value_contains_null = value_contains_null
 
     def default_value(self):
@@ -306,7 +308,7 @@ def from_arrow_type(at: pa.DataType) -> DataType:
                                for i in range(at.num_fields)])
     raise NotImplementedError(
         f"arrow type {at} is not ported yet (the port reads the scalar "
-        "types, and lists, maps and structs of them)")
+        "types, and lists, maps and structs of them at any depth)")
 
 
 def to_arrow_type(dt: DataType) -> pa.DataType:

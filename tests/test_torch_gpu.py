@@ -62,7 +62,15 @@ cast: the CPU run's rows (all exact). Every nested op of
 three ways to make a list column) on the card bit for bit the same call
 on the CPU (lengths, validity, flat values and validity); the collects, PivotFirst, explode,
 split, the struct/map/array expressions, pivot and the row buffer through
-the session on the card: the CPU run's rows (exact).
+the session on the card: the CPU run's rows (exact). The threefry stream
+of ``rand()`` on the card bit for bit the CPU's, and ``F.rand`` through
+the session the CPU run's rows; the nested ops over nested elements and
+fields (gather, concat, a slice, ``select_rows``, ``equiv``,
+``interleave``) bit for bit the CPU's, every tensor on the card; explode,
+the collects, ``first``/``last``, the conditionals, equality, the
+extractions, ROLLUP and a hash exchange over arrays of structs, arrays of
+arrays and structs of arrays: the CPU run's rows; their parquet and ORC
+files written on the card: the source's rows (all exact).
 """
 
 import os
@@ -2066,3 +2074,219 @@ def test_row_buffer_on_card_equals_cpu(cuda_device):
     assert np.array_equal(res[0][0], res[1][0])
     assert np.array_equal(res[0][1], res[1][1])
     assert res[0][2].equals(res[1][2]) and res[1][2].equals(t)
+
+
+def deep_nested_table(seed: int, n: int, maps: bool = True):
+    """Nested elements and fields: ``as_`` (array<struct<x, y, z>>),
+    ``aa`` (array<array<bigint>>), ``sa`` (struct<f: array<bigint>, g,
+    h: struct<u: string>>), ``ss`` (array<array<string>>) and, with
+    ``maps``, ``ms`` (map<string, array<bigint>>); ``as2``, ``aa2`` and
+    ``sa2`` equal their twin in about half the rows. Null rows, empty
+    lists, null elements and null fields throughout; ``k`` a small key and
+    ``i`` an int with nulls. No NaN (Python's list equality would not
+    hold NaN equal in the comparisons)."""
+    import pyarrow as pa
+    rng = np.random.default_rng(seed)
+    words = ["alpha", "beta", "", "déjà vu", "x y"]
+
+    def maybe(f, p=0.1):
+        return None if rng.random() < p else f()
+
+    def lst(f, hi=4):
+        r = rng.random()
+        if r < 0.1:
+            return None
+        if r < 0.2:
+            return []
+        return [f() for _ in range(int(rng.integers(1, hi)))]
+
+    def st():
+        return maybe(lambda: {
+            "x": maybe(lambda: int(rng.integers(0, 6))),
+            "y": maybe(lambda: words[int(rng.integers(0, 5))]),
+            "z": maybe(lambda: float(rng.choice([0.5, -0.0, 0.0, 2.25])))})
+
+    def ints():
+        return maybe(lambda: lst(lambda: maybe(
+            lambda: int(rng.integers(0, 5)))))
+
+    def strs():
+        return maybe(lambda: lst(lambda: maybe(
+            lambda: words[int(rng.integers(0, 5))])))
+
+    def sa():
+        return maybe(lambda: {"f": ints(), "g": maybe(
+            lambda: int(rng.integers(0, 9))), "h": maybe(
+            lambda: {"u": maybe(lambda: words[int(rng.integers(0, 5))])})})
+    make = {"as_": lambda: lst(st), "aa": lambda: lst(ints),
+            "sa": sa, "ss": lambda: lst(strs)}
+    cols = {k: [f() for _ in range(n)] for k, f in make.items()}
+    for k in ("as_", "aa", "sa"):
+        cols[k.rstrip("_") + "2"] = [v if rng.random() < 0.5 else make[k]()
+                                     for v in cols[k]]
+    st_t = pa.struct([("x", pa.int64()), ("y", pa.string()),
+                      ("z", pa.float64())])
+    types = {"as_": pa.list_(st_t), "as2": pa.list_(st_t),
+             "aa": pa.list_(pa.list_(pa.int64())),
+             "aa2": pa.list_(pa.list_(pa.int64())),
+             "sa": pa.struct([("f", pa.list_(pa.int64())),
+                              ("g", pa.int64()),
+                              ("h", pa.struct([("u", pa.string())]))]),
+             "ss": pa.list_(pa.list_(pa.string()))}
+    types["sa2"] = types["sa"]
+    out = {"k": pa.array(rng.integers(0, 6, n), pa.int64()),
+           "i": pa.array([maybe(lambda: int(rng.integers(-3, 20)))
+                          for _ in range(n)], pa.int64())}
+    out.update({k: pa.array(cols[k], types[k]) for k in types})
+    if maps:
+        out["ms"] = pa.array([maybe(lambda: [
+            (w, ints()) for w in sorted(set(
+                words[int(rng.integers(0, 5))]
+                for _ in range(int(rng.integers(0, 3)))))])
+            for _ in range(n)], pa.map_(pa.string(), pa.list_(pa.int64())))
+    return pa.table(out)
+
+
+@pytest.mark.gpu
+def test_rand_on_card_equals_cpu(cuda_device):
+    """The threefry stream on the card bit for bit the CPU's, and
+    ``F.rand`` through the session (two partitions, a filter and an
+    aggregate above a projection) the CPU run's rows."""
+    import pyarrow as pa
+    import spark_rapids_tpu_torch.functions as F
+    from spark_rapids_tpu_torch.ops import random as R
+    from spark_rapids_tpu_torch.session import TorchSession
+    for seed in (0, 42, -3):
+        key = R.fold_in(R.prng_key(seed), 777)
+        on = R.uniform(key, 1 << 20, cuda_device)
+        assert on.device.type == "cuda"
+        assert torch.equal(on.cpu().view(torch.int64),
+                           R.uniform(key, 1 << 20, "cpu").view(torch.int64))
+    rng = np.random.default_rng(4)
+    t = pa.table({"k": pa.array(rng.integers(0, 5, 5000), pa.int64())})
+    outs = []
+    for d in ("cpu", "cuda"):
+        df = TorchSession(device=d).create_dataframe(t, 2)
+        outs.append((df.select("k", F.rand(7).alias("r")).collect(),
+                     df.filter(F.rand(3) < 0.2).collect(),
+                     df.select("k", F.rand(1).alias("r")).group_by("k").agg(
+                         F.count().alias("n")).order_by("k").collect()))
+    for a, b in zip(*outs):
+        assert a.equals(b)
+
+
+@pytest.mark.gpu
+def test_deep_nested_ops_on_card_equal_cpu(cuda_device):
+    """``ops/nested.py`` over nested elements and fields on the card bit
+    for bit the CPU: gather, concat, a row slice, ``select_rows``,
+    ``equiv``, ``interleave``; every tensor stays on the card."""
+    from spark_rapids_tpu_torch.columnar.arrow import array_to_device
+    from spark_rapids_tpu_torch.expr.core import Col
+    from spark_rapids_tpu_torch.ops import nested as N
+    t = deep_nested_table(5, 4000)
+    n = t.num_rows
+    cap = bucket_capacity(n)
+    rng = np.random.default_rng(9)
+    idx = torch.from_numpy(rng.integers(0, n, cap))
+    live = torch.from_numpy(rng.random(cap) < 0.8)
+    choice = torch.from_numpy(rng.integers(0, 2, cap))
+
+    def on_card(v):
+        assert v.data.device.type == "cuda"
+        for name in ("flat", "values"):
+            if hasattr(v, name):
+                on_card(getattr(v, name))
+        for f in getattr(v, "fields", ()):
+            on_card(f)
+    for a, b in (("as_", "as2"), ("aa", "aa2"), ("sa", "sa2"),
+                 ("ss", "ss"), ("ms", "ms")):
+        on = {d: (array_to_device(t.column(a), None, cap, d),
+                  array_to_device(t.column(b), None, cap, d))
+              for d in ("cpu", cuda_device)}
+        outs = {}
+        for d, (va, vb) in on.items():
+            dev = va.data.device
+            g = N.gather(va, idx.to(dev), live.to(dev))
+            outs[d] = [g, N.concat([va, g], [n, 3000], 1 << 13),
+                       N.take_rows(va, 100, 900, 1024),
+                       N.select_rows([va, vb], choice.to(dev), n, cap),
+                       N.interleave([Col.from_vector(va),
+                                     Col.from_vector(vb)], n)[0].to_vector()]
+            if a != "ms":
+                outs[d].append(N.equiv(Col.from_vector(va),
+                                       Col.from_vector(vb)))
+        for x, y in zip(outs[cuda_device], outs["cpu"]):
+            if isinstance(x, torch.Tensor):
+                assert x.device.type == "cuda"
+                assert torch.equal(x.cpu(), y)
+            else:
+                on_card(x)
+                _same_vec(x, y)
+
+
+DEEP_JOBS = {
+    "explode-structs": lambda df, F, E: df.explode("as_", outer=True,
+                                                   pos=True),
+    "explode-arrays": lambda df, F, E: df.explode("aa").explode("col"),
+    "collect-nested": lambda df, F, E: df.group_by("k").agg(
+        F.collect_list("as_").alias("l1"), F.collect_list("sa").alias("l2"),
+        F.collect_list(F.struct("a", "aa", "i", "i")).alias("l3"),
+        F.first("aa").alias("f"), F.last("sa", True).alias("l")).sort("k"),
+    "conditional": lambda df, F, E: df.select(
+        "k", F.when(E.col("k") > 2, E.col("as_")).alias("w"),
+        F.if_(E.col("i") > 5, E.col("aa"), E.col("aa2")).alias("f"),
+        F.coalesce("sa", "sa2").alias("c")),
+    "equality": lambda df, F, E: df.select(
+        (E.col("as_") == E.col("as2")).alias("e1"),
+        (E.col("aa") != E.col("aa2")).alias("e2"),
+        E.col("sa").eqNullSafe(E.col("sa2")).alias("e3")).filter(
+        E.col("e1").is_not_null()),
+    "extract": lambda df, F, E: df.select(
+        F.get_field(F.element_at0("as_", 0), "y").alias("y"),
+        F.size(F.element_at("aa", -1)).alias("n"),
+        F.element_at0(F.get_field("sa", "f"), 1).alias("f1"),
+        F.get_field(F.get_field("sa", "h"), "u").alias("u"),
+        F.element_at0(F.element_at0("ss", 0), 0).alias("w")),
+    "rollup": lambda df, F, E: df.rollup("k").agg(
+        F.count().alias("n"), F.collect_list("aa").alias("l")).sort("k"),
+    "payload": lambda df, F, E: df.repartition(3, "k").sort("k", "i").limit(
+        1500),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("job", sorted(DEEP_JOBS))
+def test_deep_nested_jobs_on_card_equal_cpu(cuda_device, job):
+    import spark_rapids_tpu_torch.functions as F
+    from spark_rapids_tpu_torch.expr import core as E
+    from spark_rapids_tpu_torch.session import TorchSession
+    t = deep_nested_table(12, 3000)
+    out = [DEEP_JOBS[job](TorchSession(device=d).create_dataframe(t, 3),
+                          F, E).collect()
+           for d in ("cpu", "cuda")]
+    assert out[0].to_pylist() == out[1].to_pylist()
+
+
+@pytest.mark.gpu
+def test_deep_nested_files_on_card(cuda_device, tmp_path):
+    """Nested-of-nested columns written by the arrow writer on the card
+    (parquet and ORC) and read back: the source's rows."""
+    import pyarrow.orc as porc
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch.session import TorchSession
+    t = deep_nested_table(14, 2000)
+    spark = TorchSession(device="cuda")
+    df = spark.create_dataframe(t, 2)
+    df.write_parquet(str(tmp_path / "p"), mode="overwrite")
+    df.drop("ms").write_orc(str(tmp_path / "o"), mode="overwrite")
+    key = lambda r: repr(sorted(r.items()))
+    want = sorted(t.to_pylist(), key=key)
+    assert sorted(pq.read_table(str(tmp_path / "p")).to_pylist(),
+                  key=key) == want
+    back = spark.read_parquet(str(tmp_path / "p")).collect()
+    assert sorted(back.to_pylist(), key=key) == want
+    orc = [porc.read_table(str(p)) for p in sorted((tmp_path / "o").glob(
+        "*.orc"))]
+    got = [r for o in orc for r in o.to_pylist()]
+    assert sorted(got, key=key) == sorted(t.drop(["ms"]).to_pylist(),
+                                          key=key)
