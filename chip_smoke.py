@@ -51,9 +51,10 @@ It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
    whose build takes the hash table: hash_join_build once,
    hash_join_probe once per stream batch), q3 (two joins, the sort-based
    group-by on three integer keys, the sort and ``limit(10)``) and q18 (the
-   sort-based group-by of all of lineitem on ``l_orderkey``, whose batches
-   arrive sorted and skip the sort, a HAVING filter, two joins, the sort
-   and ``limit(100)``), and the official q1, q3 and q5 SQL text through
+   sort-based group-by of all of lineitem on ``l_orderkey``, whose first
+   batch arrives sorted and skips the sort and whose later batches take
+   the group-by chain, a HAVING folded into its finalize, two joins, the
+   sort and ``limit(100)``), and the official q1, q3 and q5 SQL text through
    ``spark.sql`` over the tables' temp views (sql-q1, sql-q3, sql-q5; q5's
    ``c_nationkey = s_nationkey`` is a second key of the customer join,
    which takes the rank path), q1 over the lineitem files rewritten
@@ -249,6 +250,23 @@ It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
    sample counted, bit for bit a CPU session's on the same files); each
    held to a numpy/pyarrow oracle, counted once with every launch
    predicted, timed ``DEEP_REPS`` more times and traced once;
+   then ordered-nested-sf1 (``ordered_nested_paths``), the order over
+   whole nested values on the same files: nested-max-min (1.5M supplier
+   lists ``collect_list(l_suppkey)`` by order, then ``max`` and ``min`` of
+   them by ``l_orderkey % 10000``), nested-sort (the lists as a global
+   ``order_by(desc(supps), l_orderkey)``, the whole order held to numpy's
+   lexicographic sort), nested-collect-set (by supplier,
+   ``collect_set`` of a struct of the flag, the status and the ship year,
+   and of a two-string array)
+   and nested-set-of-lines (the read-back nested-orders files,
+   ``collect_set(lines)`` by ``size(lines)``: 1.5M distinct
+   ``array<struct>``); each with its rank passes, counted, timed
+   ``ORDERED_REPS`` more times and traced once; and last the group-by
+   remainder (the packed key with its range hint, the right-sizing, the
+   chain and the fused HAVING) beside ``stageFusion.enabled=false`` on q3,
+   q18, ds-windows and sql-ds-q14 (``groupby_rest_compare``): walls in
+   turns, aggregate host syncs and the sorts' device time, recorded beside
+   the card and held to the same rows;
 6. prints how many traces ``device_ms`` took and found short, one JSON
    line describing every ported kernel (``launches``, its launches summed
    over every path's counted run; each path's, the TPC-DS paths among
@@ -922,8 +940,9 @@ def aggregates(plan) -> list:
 
 def ladder_shape(label: str, plan) -> str:
     """q3's and q18's plan shape, checked: GlobalLimitExec over SortExec,
-    one aggregate (COMPLETE, on the sort-based path), under a FilterExec
-    (the HAVING) on q18. Returns a line that names it."""
+    one aggregate (COMPLETE, on the sort-based path), and no FilterExec
+    above it: q18's HAVING is folded into the aggregate's finalize
+    (``fuse_having``). Returns a line that names it."""
     from spark_rapids_tpu_torch.exec import basic as XB
     from spark_rapids_tpu_torch.exec.sort import SortExec
 
@@ -937,12 +956,15 @@ def ladder_shape(label: str, plan) -> str:
     if not (isinstance(plan, XB.GlobalLimitExec)
             and isinstance(plan.child, SortExec) and len(aggs) == 1
             and aggs[0].mode == "complete" and aggs[0].stats["segment"] > 0
-            and len(having) == (label == "q18")):
+            and not having
+            and (aggs[0].postfilter is not None) == (label == "q18")):
         raise AssertionError(f"{label}: unexpected plan\n{plan}")
     return (f"GlobalLimitExec({plan.limit}) > SortExec > "
-            + ("FilterExec (HAVING) > " if having else "... > ")
-            + f"HashAggregateExec mode={aggs[0].mode} (segment path); the "
-            "limit reads no count back (row counts are host ints)")
+            + ("... > HashAggregateExec (HAVING fused) "
+               if aggs[0].postfilter is not None else
+               "... > HashAggregateExec ")
+            + f"mode={aggs[0].mode} (segment path); the limit reads no "
+            "count back (row counts are host ints)")
 
 
 def probe_bound_ms(n: int, num_buckets: int) -> float:
@@ -2404,9 +2426,36 @@ def exchange_prediction(plans) -> tuple:
     return radix, mm, exs
 
 
+def ds_windows_frame(spark, ss_files, item_dir):
+    """ds-windows: store_sales joined to item, ``with_column`` /
+    ``with_column_renamed`` / ``drop``, one ``window`` of five expressions
+    over four specs, ``filter(rn <= 3)``."""
+    import spark_rapids_tpu_torch.functions as F
+    from spark_rapids_tpu_torch import types as T
+    c = F.col
+    ss = spark.read_parquet(ss_files).select(*DFAPI_SS_COLS)
+    item = spark.read_parquet(item_dir).select(
+        c("i_item_sk").alias("ss_item_sk"), c("i_category"))
+    j = (ss.join(item, on="ss_item_sk")
+         .with_column("ss_quantity", c("ss_quantity").cast(T.LONG))
+         .with_column_renamed("ss_customer_sk", "customer")
+         .drop("ss_hdemo_sk"))
+    cust = list(DFAPI_CUST_ORDER)
+    return j.window([
+        F.alias(F.over(F.row_number(), ["customer"], cust), "rn"),
+        F.alias(F.over(F.lag("ss_net_paid"), ["customer"], cust),
+                "prev_paid"),
+        F.alias(F.over(F.rank(), ["i_category"],
+                       [("ss_net_paid", False, False)]), "cat_rank"),
+        F.alias(F.over(F.sum("ss_quantity"), ["ss_item_sk"]),
+                "item_qty"),
+        F.alias(F.over(F.dense_rank(), [], ["ss_store_sk"]),
+                "store_rank")]).filter(c("rn") <= 3)
+
+
 def dfapi_paths(spark, dev, name, ds_paths, counted_ds_run, counting,
                 agg_batches, scan_chunks, reps: int, counts_by_path: dict,
-                peak_by_path: dict) -> None:
+                peak_by_path: dict) -> dict:
     """dfapi-sf1: the DataFrame API's remainder and windows over several
     specs at SF1. ds-windows (store_sales from its 4 files as 4 partitions,
     joined to item, ``with_column``/``with_column_renamed``/``drop``, one
@@ -2418,7 +2467,8 @@ def dfapi_paths(spark, dev, name, ds_paths, counted_ds_run, counting,
     repartition. Each path is counted once (``counted_ds_run`` for the
     TPC-DS ones, which checks their scans, routes and exchange launches),
     timed ``reps`` times and traced once; each path's launches and peak
-    device memory go into ``counts_by_path`` and ``peak_by_path``."""
+    device memory go into ``counts_by_path`` and ``peak_by_path``. Returns
+    ds-windows' oracle."""
     import pyarrow.parquet as pq
     import spark_rapids_tpu_torch.functions as F
     from spark_rapids_tpu_torch import types as T
@@ -2435,24 +2485,7 @@ def dfapi_paths(spark, dev, name, ds_paths, counted_ds_run, counting,
           f"window)")
 
     def ds_windows():
-        ss = spark.read_parquet(ss_files).select(*DFAPI_SS_COLS)
-        item = spark.read_parquet(ds_paths["item"]).select(
-            c("i_item_sk").alias("ss_item_sk"), c("i_category"))
-        j = (ss.join(item, on="ss_item_sk")
-             .with_column("ss_quantity", c("ss_quantity").cast(T.LONG))
-             .with_column_renamed("ss_customer_sk", "customer")
-             .drop("ss_hdemo_sk"))
-        cust = list(DFAPI_CUST_ORDER)
-        return j.window([
-            F.alias(F.over(F.row_number(), ["customer"], cust), "rn"),
-            F.alias(F.over(F.lag("ss_net_paid"), ["customer"], cust),
-                    "prev_paid"),
-            F.alias(F.over(F.rank(), ["i_category"],
-                           [("ss_net_paid", False, False)]), "cat_rank"),
-            F.alias(F.over(F.sum("ss_quantity"), ["ss_item_sk"]),
-                    "item_qty"),
-            F.alias(F.over(F.dense_rank(), [], ["ss_store_sk"]),
-                    "store_rank")]).filter(c("rn") <= 3)
+        return ds_windows_frame(spark, ss_files, ds_paths["item"])
     spark.create_or_replace_temp_view("ss_files",
                                       spark.read_parquet(ss_files))
     spark.create_or_replace_temp_view("item_dir",
@@ -2674,6 +2707,7 @@ def dfapi_paths(spark, dev, name, ds_paths, counted_ds_run, counting,
               f"launches { {k: v for k, v in counts.items() if v} } "
               f"(predicted {want}); {len(count_batches)} aggregate batches "
               f"with count-like requests; exchanges: {ex_line or 'none'}")
+    return exp_w
 
 
 NESTED_REPS = 1   # timed runs of each nested-sf1 path after its counted run
@@ -3222,7 +3256,7 @@ def _lines_equal(col, exp, rows, label, what) -> None:
 
 def deep_nested_paths(spark, dev, name, li_dir, ds_paths, root, counting,
                       agg_batches, scan_chunks, reps: int,
-                      counts_by_path: dict, peak_by_path: dict) -> None:
+                      counts_by_path: dict, peak_by_path: dict) -> str:
     """deep-nested-sf1: nested elements and fields at SF1, and rand().
     nested-orders (lineitem grouped by l_orderkey: ``first`` of the flag and
     the status and ``collect_list(struct(l_suppkey, l_quantity,
@@ -3242,7 +3276,8 @@ def deep_nested_paths(spark, dev, name, li_dir, ds_paths, root, counting,
     ``filter(rand(7) < 0.01)`` counted, bit for bit a CPU session's on
     the same files). Each path: one counted run (launches predicted),
     ``reps`` more timed runs, one traced run; each held to a numpy/pyarrow
-    oracle computed from the source files."""
+    oracle computed from the source files. Returns the directory of the
+    read-back nested-orders files, which ordered-nested-sf1 reads."""
     import pyarrow as pa
     import pyarrow.compute as pc
     import pyarrow.parquet as pq
@@ -3556,7 +3591,368 @@ def deep_nested_paths(spark, dev, name, li_dir, ds_paths, root, counting,
               f"count-like requests; explodes: {gen_line or 'none'}; "
               f"exchanges: {ex_line or 'none'}")
     print(f"deep-nested-sf1: {time.perf_counter() - t_phase:.1f} s")
-    shutil.rmtree(root, ignore_errors=True)
+    # the read-back files feed ordered-nested-sf1; main removes root after
+    return out_dir
+
+
+ORDERED_REPS = 1   # timed runs of each ordered-nested-sf1 path after its counted run
+ORDERED_GROUPS = 10_000     # max/min of the supplier lists by l_orderkey % 10000
+
+
+def ship_years(days: np.ndarray) -> np.ndarray:
+    """The calendar year of each day number since 1970-01-01."""
+    return days.astype("datetime64[D]").astype("datetime64[Y]").astype(
+        np.int64) + 1970
+
+
+def _padded(lists_start, counts, values, width: int, pad) -> np.ndarray:
+    """Each list (``counts[i]`` values from ``lists_start[i]``) as a row of
+    ``width`` slots, ``pad`` after its end."""
+    out = np.full((len(counts), width), pad, dtype=values.dtype)
+    within = np.arange(len(values)) - np.repeat(lists_start, counts)
+    out[np.repeat(np.arange(len(counts)), counts), within] = values
+    return out
+
+
+def _lex_increasing(rows: np.ndarray) -> bool:
+    """Whether each row of ``rows`` is lexicographically greater than the
+    one before it."""
+    if len(rows) < 2:
+        return True
+    diff = rows[1:] != rows[:-1]
+    first = diff.argmax(axis=1)
+    i = np.arange(len(first))
+    return bool(diff.any(axis=1).all()
+                and (rows[1:][i, first] > rows[:-1][i, first]).all())
+
+
+def aggregate_line(label: str, a) -> str:
+    """One aggregate's batches, sort tiers, probes, chain and host syncs."""
+    st = a.stats
+    tiers = ", ".join(f"{k} {v}" for k, v in st["tiers"].items())
+    return (f"{label} aggregate mode={a.mode} keys={len(a.group_exprs)}: "
+            f"{st['updates']} update and {st['merges']} merge batches, "
+            f"{st['segment']} on the segment path, {st['presorted']} "
+            f"presorted ({st['probes']} probes, {st['hinted']} with a range "
+            f"hint); sort tiers {tiers}; {st['chained']} chained, "
+            f"{st['mispredicted']} mispredicted; host syncs {st['syncs']}; "
+            f"groups {st['groups'][-8:]}; {st['seconds']:.4f} s host"
+            + ("; HAVING fused" if a.postfilter is not None else ""))
+
+
+def ordered_nested_paths(spark, dev, name, li_dir, orders_dir, counting,
+                         agg_batches, scan_chunks, reps: int,
+                         counts_by_path: dict, peak_by_path: dict) -> None:
+    """ordered-nested-sf1: the order over whole nested values at SF1.
+    nested-max-min (lineitem grouped by l_orderkey into ``supps =
+    collect_list(l_suppkey)``, 1.5M ``array<int>`` of 6.0M elements, then
+    ``max(supps)`` and ``min(supps)`` by ``l_orderkey % 10000``, 10,000
+    groups of about 150 arrays); nested-sort (the same 1.5M rows as a global
+    ``order_by(desc(supps), l_orderkey)``); nested-collect-set (lineitem by
+    l_suppkey, 10,000 groups of about 600 rows: ``collect_set(struct(
+    l_returnflag, l_linestatus, year(l_shipdate)))`` and
+    ``collect_set(array(l_returnflag, l_linestatus))``; the generator's
+    lineitem has no l_shipmode, so the ship year, seven values, stands in
+    for it: at most 42 and 6 distinct values a group); nested-set-of-lines (deep-nested-sf1's
+    four read-back nested-orders files, ``collect_set(lines)`` by
+    ``size(lines)``: 7 groups, 1.5M distinct ``array<struct>`` of five
+    fields). Each path: one counted run (launches predicted), ``reps`` more
+    timed runs, one traced run; each held to a numpy/pyarrow oracle from
+    the source files. Its line gives the rank passes of
+    ``ops/nested.order_ranks`` in the counted run."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+    import spark_rapids_tpu_torch.functions as F
+    from spark_rapids_tpu_torch.ops import cuda_kernels as CK
+    from spark_rapids_tpu_torch.ops import nested as NO
+    c = F.col
+    t0 = time.perf_counter()
+    exp = nested_oracle(li_dir)
+    exp["price"] = pq.read_table(
+        li_dir, columns=["l_extendedprice"]).column(0).to_numpy()
+    keys, start, counts = exp["keys"], exp["start"], exp["counts"]
+    n_orders, width = len(keys), int(counts.max())
+    # nested-max-min: supplier lists padded with -1 (below every key, so a
+    # prefix sorts first), the first and last of each group in lex order
+    pad = _padded(start, counts, exp["supp"].astype(np.int64), width, -1)
+    grp = keys % ORDERED_GROUPS
+    order = np.lexsort(tuple(pad[:, j] for j in range(width - 1, -1, -1))
+                       + (grp,))
+    g_sorted = grp[order]
+    first = np.r_[0, np.flatnonzero(np.diff(g_sorted)) + 1]
+    last = np.r_[first[1:] - 1, len(order) - 1]
+    mm_want = {"g": g_sorted[first], "lo": pad[order[first]],
+               "hi": pad[order[last]]}
+    # nested-sort: descending lists (negated, the padding then above every
+    # element, so the longer list first), ties by ascending l_orderkey
+    sort_want = keys[np.lexsort((keys,) + tuple(
+        -pad[:, j] for j in range(width - 1, -1, -1)))]
+    # nested-collect-set: (flag, status, ship year) codes by supplier
+    supp = exp["supp"].astype(np.int64)
+    years = ship_years(exp["ship"])
+    year_set = np.unique(years)
+    n_years = len(year_set)
+    fs = exp["fcode"] * 2 + exp["scode"]
+    triple = np.unique((supp * 6 + fs) * n_years
+                       + np.searchsorted(year_set, years))
+    pair = np.unique(supp * 8 + fs)
+    supps = np.unique(supp)
+    # nested-set-of-lines: each order's lines as one row (its five fields
+    # a line), grouped by length; every group's rows distinct
+    fields = [exp["supp"].astype(np.float64), exp["qty"], exp["price"],
+              exp["ship"].astype(np.float64), exp["fcode"].astype(np.float64)]
+    flat = np.stack(fields, axis=1).reshape(-1)
+    lines = _padded(start * 5, counts * 5, flat, width * 5, np.nan)
+    lines_want = {}
+    for n in np.unique(counts):
+        rows = lines[counts == n][:, :5 * n]
+        rows = rows[np.lexsort(rows.T[::-1])]
+        if not _lex_increasing(rows):
+            raise AssertionError(f"nested-set-of-lines oracle: orders of "
+                                 f"{n} lines hold equal lists")
+        lines_want[int(n)] = rows
+    del lines
+    print(f"ordered-nested-sf1 oracles: {n_orders} supplier lists of at "
+          f"most {width}, {len(mm_want['g'])} max/min groups, "
+          f"{len(supps)} suppliers with {len(triple)} distinct (flag, "
+          f"status, ship year) and {len(pair)} (flag, status), "
+          f"{len(lines_want)} list lengths, in "
+          f"{time.perf_counter() - t0:.1f} s (numpy and pyarrow, outside "
+          "every timed window)")
+
+    orders_files = data_files(orders_dir, ".parquet")
+
+    def run(df, plans):
+        plan = df.physical_plan()
+        plans.append(plan)
+        return plan.execute_collect()
+
+    def supp_lists():
+        return spark.read_parquet(li_dir).group_by("l_orderkey").agg(
+            F.alias(F.collect_list("l_suppkey"), "supps"))
+
+    def max_min(plans):
+        return run(supp_lists().group_by(F.alias(
+            c("l_orderkey") % ORDERED_GROUPS, "g")).agg(
+            F.alias(F.max("supps"), "hi"), F.alias(F.min("supps"), "lo")),
+            plans)
+
+    def as_padded(col):
+        lens, fl = _flat(col)
+        vals = fl.to_numpy(zero_copy_only=False).astype(np.int64)
+        st = np.r_[0, np.cumsum(lens)[:-1]]
+        return _padded(st, lens, vals, width, -1)
+
+    def check_max_min(res, label):
+        res = res.take(pc.sort_indices(res.column("g")))
+        if not np.array_equal(res.column("g").to_numpy(), mm_want["g"]):
+            raise AssertionError(f"{label}: the groups differ")
+        for k in ("hi", "lo"):
+            if not np.array_equal(as_padded(res.column(k)), mm_want[k]):
+                raise AssertionError(f"{label}: {k} differs")
+
+    def nested_sort(plans):
+        return run(supp_lists().order_by("supps", "l_orderkey",
+                                         ascending=[False, True]), plans)
+
+    def check_sort(res, label):
+        if not np.array_equal(res.column("l_orderkey").to_numpy(),
+                              sort_want):
+            raise AssertionError(f"{label}: the order differs")
+        got = as_padded(res.column("supps"))
+        if not np.array_equal(got, pad[np.searchsorted(keys, sort_want)]):
+            raise AssertionError(f"{label}: the lists differ")
+
+    def collect_set(plans):
+        return run(spark.read_parquet(li_dir).group_by("l_suppkey").agg(
+            F.alias(F.collect_set(F.struct(
+                "f", c("l_returnflag"), "s", c("l_linestatus"), "y",
+                F.year("l_shipdate"))), "fsy"),
+            F.alias(F.collect_set(F.array("l_returnflag", "l_linestatus")),
+                    "fs")), plans)
+
+    def codes_of(arr, values):
+        enc = arr.dictionary_encode()
+        m = np.array([values.index(v) for v in enc.dictionary.to_pylist()]
+                     or [0])
+        return m[enc.indices.to_numpy(zero_copy_only=False)]
+
+    def check_set(res, label):
+        res = res.take(pc.sort_indices(res.column("l_suppkey")))
+        k = res.column("l_suppkey").to_numpy().astype(np.int64)
+        if not np.array_equal(k, supps):
+            raise AssertionError(f"{label}: the suppliers differ")
+        lens, fl = _flat(res.column("fsy"))
+        got = ((np.repeat(k, lens) * 6
+                + codes_of(fl.field("f"), ["A", "N", "R"]) * 2
+                + codes_of(fl.field("s"), ["F", "O"])) * n_years
+               + np.searchsorted(year_set, fl.field("y").to_numpy(
+                   zero_copy_only=False)))
+        if not np.array_equal(got, triple):
+            raise AssertionError(f"{label}: collect_set(struct) differs")
+        lens, fl = _flat(res.column("fs"))
+        inner_lens, inner = _flat(fl)
+        if not (inner_lens == 2).all():
+            raise AssertionError(f"{label}: collect_set(array): lengths")
+        fl_codes = codes_of(inner, ["A", "N", "R", "F", "O"]).reshape(-1, 2)
+        got = np.repeat(k, lens) * 8 + fl_codes[:, 0] * 2 + fl_codes[:, 1] - 3
+        if not np.array_equal(got, pair):
+            raise AssertionError(f"{label}: collect_set(array) differs")
+
+    def set_of_lines(plans):
+        return run(spark.read_parquet(orders_files).group_by(F.alias(
+            F.size("lines"), "n")).agg(F.alias(F.collect_set("lines"),
+                                               "ls")), plans)
+
+    def check_lines(res, label):
+        got_n = sorted(res.column("n").to_pylist())
+        if got_n != sorted(lines_want):
+            raise AssertionError(f"{label}: sizes {got_n}")
+        for i in range(res.num_rows):
+            n = res.column("n")[i].as_py()
+            ls = pa.array(res.column("ls")[i].values)     # n-line lists
+            fl = pc.list_flatten(ls)
+            cols = [fl.field(f).cast(pa.float64()).to_numpy(
+                zero_copy_only=False) if f != "l_shipdate" else
+                fl.field(f).cast(pa.int32()).to_numpy(
+                    zero_copy_only=False).astype(np.float64)
+                for f in DEEP_LINE_FIELDS[:4]]
+            cols.append(codes_of(fl.field("l_returnflag"),
+                                 ["A", "N", "R"]).astype(np.float64))
+            rows = np.stack(cols, axis=1).reshape(len(ls), 5 * n)
+            if not np.array_equal(rows, lines_want[n]):
+                raise AssertionError(f"{label}: the set of {n}-line lists "
+                                     "differs (or is not in Spark's order)")
+
+    paths = {
+        "ordered-nested-sf1/nested-max-min": (max_min, check_max_min),
+        "ordered-nested-sf1/nested-sort": (nested_sort, check_sort),
+        "ordered-nested-sf1/nested-collect-set": (collect_set, check_set),
+        "ordered-nested-sf1/nested-set-of-lines": (set_of_lines,
+                                                   check_lines),
+    }
+    required = {
+        "ordered-nested-sf1/nested-max-min": ("bitunpack128",),
+        "ordered-nested-sf1/nested-sort": ("bitunpack128",),
+        "ordered-nested-sf1/nested-collect-set": ("bitunpack128",),
+        "ordered-nested-sf1/nested-set-of-lines": ("radix_ranks",),
+    }
+    elems = len(exp["supp"])
+    rows_in = {label: exp["n_rows"] for label in paths}
+    rows_in["ordered-nested-sf1/nested-set-of-lines"] = n_orders
+    elems_in = {label: 0 for label in paths}
+    elems_in["ordered-nested-sf1/nested-set-of-lines"] = elems
+    t_phase = time.perf_counter()
+    for label, (act, check) in paths.items():
+        plans = []
+        with counting():
+            NO.rank_stats.update(calls=0, passes=0)
+            t0 = time.perf_counter()
+            res = act(plans)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            counts_now = dict(CK.launches)
+            peak = torch.cuda.max_memory_allocated(dev)
+            count_batches = [k for k in agg_batches if k]
+            ranks = dict(NO.rank_stats)
+        check(res, label)
+        radix, mm, exs = exchange_prediction(plans)
+        want_chunks = sum(scan_chunks(d, ex.node._data_columns())[0]
+                          for p in plans for d, ex in scans(p)
+                          if os.path.normpath(d) != os.path.normpath(
+                              orders_dir))
+        want = {"bitunpack128": want_chunks,
+                "onehot_sum_f32": len(count_batches), "radix_ranks": radix,
+                "murmur3_words": mm, "hash_join_build": 0,
+                "hash_join_probe": 0}
+        check_launches(label, counts_now, want, required[label])
+        for p in plans:
+            for a in aggregates(p):
+                print(aggregate_line(label, a))
+        ts = [first_s]
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            r = act([])
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+            check(r, label)
+        idle = sql_idle_share(lambda: act([]))
+        counts_by_path[label] = counts_now
+        peak_by_path[label] = peak
+        n_out, e_out = volume(res)
+        print(f"{label} on {name}: median {statistics.median(ts):.4f} s, "
+              f"min {min(ts):.4f} s, max {max(ts):.4f} s over {len(ts)} "
+              f"runs: {[round(x, 4) for x in ts]}; equal to the oracle; "
+              f"rows in {rows_in[label]}, rows out {n_out}, list elements "
+              f"in {elems_in[label]}, out {e_out}; rank passes "
+              f"{ranks['passes']} in {ranks['calls']} order_ranks calls; "
+              f"{idle}; peak device memory {peak} B; launches "
+              f"{ {k: v for k, v in counts_now.items() if v} } (predicted "
+              f"{want}); {len(count_batches)} aggregate batches with "
+              f"count-like requests")
+    print(f"ordered-nested-sf1: {time.perf_counter() - t_phase:.1f} s")
+
+
+def sort_device_ms(run) -> tuple:
+    """(device ms of the sort kernels, device ms of every record, traced
+    wall s) of one run(), from a whole trace (taken again when short, at
+    most three times; a short one is marked)."""
+    for _ in range(3):
+        census, device, wall = traced(run)
+        why = trace_check(census)[3]
+        if not why:
+            break
+    sort_us = sum(us for n, us in device if "sort" in n.lower())
+    all_us = sum(us for _n, us in device)
+    return sort_us / 1e3, all_us / 1e3, wall, why
+
+
+def groupby_rest_compare(name, card, frames_on: dict, frames_off: dict,
+                         checks: dict) -> None:
+    """The group-by remainder (the packed key with its range hint, the
+    right-sizing, the chain and the fused HAVING) against the unchained,
+    unpacked route of ``stageFusion.enabled=false``, in turns (on, off, off,
+    on) on the same card: each path's walls, its aggregates' host syncs and
+    tiers, and the device time of its sorts from one trace each. The
+    results of both are held equal. Recorded; nothing is claimed from it."""
+    for label in frames_on:
+        walls = {"on": [], "off": []}
+        syncs, shape = {}, {}
+        res = {}
+        for route in ("on", "off", "off", "on"):
+            make = (frames_on if route == "on" else frames_off)[label]
+            t0 = time.perf_counter()
+            plan = make().physical_plan()
+            out = plan.execute_collect()
+            torch.cuda.synchronize()
+            walls[route].append(time.perf_counter() - t0)
+            aggs = aggregates(plan)
+            syncs[route] = sum(a.stats["syncs"] for a in aggs)
+            shape[route] = "; ".join(
+                f"{a.mode} chained {a.stats['chained']} mispredicted "
+                f"{a.stats['mispredicted']} tiers "
+                f"{ {k: v for k, v in a.stats['tiers'].items() if v} } "
+                f"presorted {a.stats['presorted']} hinted "
+                f"{a.stats['hinted']}" for a in aggs)
+            res[route] = out
+        checks[label](res["on"])
+        if (sorted(map(repr, res["on"].to_pylist()))
+                != sorted(map(repr, res["off"].to_pylist()))):
+            raise AssertionError(f"group-by remainder {label}: "
+                                 "stageFusion.enabled=false gives other rows")
+        dev = {r: sort_device_ms(lambda r=r: (
+            frames_on if r == "on" else frames_off)[label]().collect())
+               for r in ("on", "off")}
+        print(f"group-by remainder {label} on {card}: stageFusion on: walls "
+              f"{[round(x, 4) for x in walls['on']]} s, aggregate host "
+              f"syncs {syncs['on']}, sort device {dev['on'][0]:.4f} ms of "
+              f"{dev['on'][1]:.4f} ms device{' SHORT ' + dev['on'][3] if dev['on'][3] else ''} "
+              f"[{shape['on']}]; off (unchained, unpacked): walls "
+              f"{[round(x, 4) for x in walls['off']]} s, aggregate host "
+              f"syncs {syncs['off']}, sort device {dev['off'][0]:.4f} ms of "
+              f"{dev['off'][1]:.4f} ms device{' SHORT ' + dev['off'][3] if dev['off'][3] else ''} "
+              f"[{shape['off']}]; same rows")
 
 
 def decode_call_bound_ms(words, pages, defs, dictionary, n_rows, capacity,
@@ -4279,19 +4675,10 @@ def main() -> int:
                   + ("" if all(m == "dense" for m in modes) else
                      " (not all dense: see the join lines)"))
         for a in aggregates(plan):
-            st = a.stats
-            calls = st["updates"] + st["merges"]
-            # host syncs: one group count a call, one per probe, and one
-            # per compaction of prefiltered rows on the segment path
-            pre = (st["updates"] if a.prefilter is not None
-                   and st["segment"] else 0)
-            print(f"{label} aggregate mode={a.mode}: {st['updates']} update "
-                  f"and {st['merges']} merge batches, {st['segment']} on "
-                  f"the segment path, {st['presorted']} presorted "
-                  f"({st['probes']} probes); groups {st['groups']}; "
-                  f"{st['seconds']:.4f} s host; host syncs "
-                  f"{calls + st['probes'] + pre} ({calls} group counts, "
-                  f"{st['probes']} probes, {pre} prefilter compactions)")
+            # host syncs: a group count a call, one a probe, one a
+            # compaction of prefiltered rows on the segment path, one a
+            # chained step
+            print(aggregate_line(label, a))
         counts_by_path[label] = counts
         peak_by_path[label] = peak
         print(f"{label} first run: {first_s:.3f} s; launches {counts}; "
@@ -4728,12 +5115,7 @@ def main() -> int:
         peak_by_path[label] = peak
         batches_by_path[label] = count_batches
         for a in aggregates(plan):
-            st = a.stats
-            print(f"{label} aggregate mode={a.mode} keys="
-                  f"{len(a.group_exprs)}: {st['updates']} update and "
-                  f"{st['merges']} merge batches, {st['segment']} on the "
-                  f"segment path; groups {st['groups']}; "
-                  f"{st['seconds']:.4f} s host")
+            print(aggregate_line(label, a))
         for w in of_type(plan, WindowExec):
             print(f"{label} window exec: {w.stats['input_rows']} rows in "
                   f"{w.stats['partitions']} partitions, "
@@ -4975,9 +5357,9 @@ def main() -> int:
     # -- 4f. dfapi-sf1: the DataFrame API's remainder, several window specs
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start, "
           f"before dfapi-sf1")
-    dfapi_paths(spark, dev, name, ds_paths, counted_ds_run, counting,
-                agg_batches, scan_chunks, args.reps, counts_by_path,
-                peak_by_path)
+    exp_w = dfapi_paths(spark, dev, name, ds_paths, counted_ds_run,
+                        counting, agg_batches, scan_chunks, args.reps,
+                        counts_by_path, peak_by_path)
 
     # -- 4g. nested-sf1: arrays, structs and maps as device columns ---------
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start, "
@@ -4990,10 +5372,39 @@ def main() -> int:
     # -- 4h. deep-nested-sf1: nested elements and fields, and rand() --------
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start, "
           f"before deep-nested-sf1")
-    deep_nested_paths(spark, dev, name, li_dir, ds_paths,
-                      os.path.join(repo, "build", f"deep_nested_sf{args.sf:g}"),
-                      counting, agg_batches, scan_chunks,
-                      min(args.reps, DEEP_REPS), counts_by_path, peak_by_path)
+    deep_root = os.path.join(repo, "build", f"deep_nested_sf{args.sf:g}")
+    orders_dir = deep_nested_paths(
+        spark, dev, name, li_dir, ds_paths, deep_root, counting, agg_batches,
+        scan_chunks, min(args.reps, DEEP_REPS), counts_by_path, peak_by_path)
+
+    # -- 4i. ordered-nested-sf1: the order over whole nested values ---------
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start, "
+          f"before ordered-nested-sf1")
+    ordered_nested_paths(spark, dev, name, li_dir, orders_dir, counting,
+                         agg_batches, scan_chunks,
+                         min(args.reps, ORDERED_REPS), counts_by_path,
+                         peak_by_path)
+    shutil.rmtree(deep_root, ignore_errors=True)
+
+    # -- 4j. the group-by remainder against stageFusion.enabled=false ------
+    off = TorchSession({**threads, "spark.rapids.tpu.sql.stageFusion."
+                        "enabled": "false"})
+    tpcds.load(off, ds_paths)          # registers the temp views
+    ss_files = data_files(ds_paths["store_sales"], ".parquet")
+
+    def rest_frames(s):
+        return {"q3": lambda: tpch.q3(tpch.load(s, paths)),
+                "q18": lambda: tpch.q18(tpch.load(s, paths)),
+                "ds-windows": lambda: ds_windows_frame(s, ss_files,
+                                                       ds_paths["item"]),
+                "sql-ds-q14": lambda: s.sql(DS_SQL["q14"])}
+    groupby_rest_compare(name, card, rest_frames(spark), rest_frames(off), {
+        "q3": lambda res: check("q3", res),
+        "q18": lambda res: check("q18", res),
+        "ds-windows": lambda res: check_ds_windows(res, exp_w, "ds-windows"),
+        "sql-ds-q14": lambda res: sql_check("q14", res)})
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start, "
+          f"after the group-by remainder")
 
     if args.profile:
         for label, make_df in all_paths.items():

@@ -213,9 +213,21 @@ CSV_READ_FLOATS = conf("spark.rapids.tpu.sql.csv.read.float.enabled").doc(
 
 STAGE_FUSION_ENABLED = conf("spark.rapids.tpu.sql.stageFusion.enabled").doc(
     "Whole-stage fusion switch. The port fuses no programs; of what the key "
-    "governs it reads one thing: the sort-based group-by skips its sort "
-    "when a per-batch probe proves the live rows arrive sorted by their one "
-    "64-bit key with no null. False turns that skip off").boolean_conf(True)
+    "governs it reads these: the sort-based group-by's per-batch key probe "
+    "(skip the sort when the live rows arrive sorted by their one 64-bit "
+    "key with no null, else pack the key as value - min when its range "
+    "fits), the right-sizing of an aggregate's partial at its group count, "
+    "the HAVING filter folded into the aggregate's finalize, and the "
+    "group-by chain below. False turns all of them off").boolean_conf(True)
+
+GROUPBY_CHAIN_ENABLED = conf(
+    "spark.rapids.tpu.sql.stageFusion.groupBy.chain.enabled").doc(
+    "Chain the aggregation's per-batch update -> concat -> merge step with "
+    "a predicted output capacity: one host sync per batch in place of the "
+    "unchained loop's group counts and probes. A mispredicted capacity "
+    "discards the chained result and reruns the batch unchained. Batches "
+    "below a capacity of 1024 go unchained. Requires stageFusion.enabled"
+).boolean_conf(True)
 
 
 class RapidsConf:

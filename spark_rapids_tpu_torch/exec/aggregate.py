@@ -16,10 +16,10 @@ Filter/Project into the aggregation), over two group-by paths:
 - the sort-based segment path (the rest of ``_agg_kernel``): compact the
   prefiltered rows, sort them by key (``G.group_segments``), gather the
   keys and inputs, segment-reduce each aggregate's update or merge, and
-  compact one row per group at the boundaries. A single 64-bit integer key
-  at a capacity of 2^17 or more is probed once per batch
-  (``_presorted``): live rows that arrive sorted with no null skip the
-  sort and the gathers (TPC-H lineitem is ordered by ``l_orderkey``).
+  compact one row per group at the boundaries. A single 64-bit integer or
+  timestamp key at a capacity of 2^17 or more is probed once per batch
+  (``_key_stats``, below): live rows that arrive sorted with no null skip
+  the sort and the gathers (TPC-H lineitem is ordered by ``l_orderkey``).
 
 The collects (``collect_list``, ``collect_set``) and ``PivotFirst`` have
 a list state (``ops/nested.py``) and always take the segment path, where
@@ -34,17 +34,33 @@ one row even over empty input (COUNT 0, the other aggregates null), as
 Spark does; the planner gathers several input partitions into one first.
 
 Batches aggregate incrementally: update (FINAL: merge) per batch, then
-concat the partials and merge (the reference's unchained update → concat →
-merge loop); only COMPLETE and FINAL finalize. Each call costs one host
-sync for its group count (none for a keyless call, whose count is one), and
-the probe one more.
+concat the partials and merge (the reference's update → concat → merge
+loop); only COMPLETE and FINAL finalize. Each call costs one host sync for
+its group count (none for a keyless call, whose count is one), and the
+probe one more. Ported with it, under ``stageFusion.enabled``:
 
-Not ported yet: HAVING fusion
-(``fuse_having``: the port plans a FilterExec above the aggregate, which
-keeps the same rows), the chained update step (``_chain_step``, which the
-reference holds bit-identical to the unchained loop) and the packed
-single-operand sort key with its range hint (every sort ends in the row
-order, so the result is the same).
+- the per-batch key probe (the reference's ``_key_range_hint``): a single
+  64-bit integer or timestamp key at a capacity of 2^17 or more reads its
+  minimum, maximum and sortedness in one host sync; presorted input skips
+  the sort, else a range that fits ``62 - log2(capacity) - 1`` bits packs
+  the key as ``value - min`` into the one-operand sort
+  (``ops/sorting.py``'s packed tier, ``G.group_segments``' ``range_hint``);
+- the stage-boundary right-sizing after each update and merge
+  (``ops/filtering.maybe_host_resize``);
+- the group-by chain (``_chain_step``, under
+  ``stageFusion.groupBy.chain.enabled``): an update, a concat at the
+  predicted bucket and a merge with their counts left on the device, and
+  one status readback; the step is kept only when its bucket is the one
+  the unchained loop would take, else the batch is redone unchained;
+- HAVING fusion (``fuse_having``): a context-free filter directly above a
+  COMPLETE or FINAL aggregate becomes its ``postfilter``, evaluated on the
+  finalized rows, which are compacted and right-sized in the finalize.
+
+Every sort tier and the chain give the unchained, unpacked results bit for
+bit: each sort ends in the row order, and the chain's merge runs at the
+capacity the unchained merge would. The reference's retry around the chain
+(``runtime/retry.py``, its ``DeviceOomError`` branch) is not ported: an
+out-of-memory error propagates.
 """
 
 from __future__ import annotations
@@ -62,9 +78,12 @@ from spark_rapids_tpu_torch.exec.base import TorchExec
 from spark_rapids_tpu_torch.expr.aggregates import (Average, CentralMoment,
                                                      Count, Sum)
 from spark_rapids_tpu_torch.expr.core import Col, EvalContext, bind_references
+from spark_rapids_tpu_torch.expr.misc import is_context_sensitive
 from spark_rapids_tpu_torch.ops import grouping as G
-from spark_rapids_tpu_torch.ops.concat import concat_batches
+from spark_rapids_tpu_torch.ops import sorting as S
+from spark_rapids_tpu_torch.ops.concat import concat_at, concat_batches
 from spark_rapids_tpu_torch.ops.filtering import (compact_cols, gather_cols,
+                                                  maybe_host_resize,
                                                   selection_mask)
 from spark_rapids_tpu_torch.plan.nodes import agg_fn
 
@@ -74,8 +93,11 @@ COMPLETE = "complete"
 
 # off-TPU domain bound of the dense path (JAX package: max_dom = 4096)
 _MAX_DENSE_DOMAIN = 4096
-# smallest capacity whose single 64-bit key is probed for sorted input
+# smallest capacity whose single 64-bit key is probed (sortedness, range)
 _PRESORTED_MIN_CAPACITY = 1 << 17
+# smallest batch capacity the group-by chain takes (reference: the fused
+# program's compile could not amortize below it; kept for parity)
+_CHAIN_MIN_CAPACITY = 1024
 
 
 class HashAggregateExec(TorchExec):
@@ -110,13 +132,22 @@ class HashAggregateExec(TorchExec):
                           or prefilter_on_projected
                           else bind_references(prefilter, child.output))
         self.fns = [agg_fn(e) for e in self.agg_exprs]
+        #: a HAVING predicate folded into the finalize (``fuse_having``),
+        #: bound to this exec's output
+        self.postfilter = None
         #: per-run record of the aggregation calls: update and merge calls,
         #: those that took the segment path and those of them that skipped
-        #: the sort, the key-stats probes (one host sync each), the group
-        #: count of every call, and host seconds inside the calls
+        #: the sort, the key-stats probes (one host sync each) and those
+        #: that gave a range hint, the sort tier of each sorted call, the
+        #: chained steps and the mispredicted ones (redone unchained), the
+        #: host syncs (group counts, probes, prefilter compactions, chain
+        #: readbacks), the group count of every call, and host seconds
+        #: inside the calls
         self.stats = {"updates": 0, "merges": 0, "segment": 0,
-                      "presorted": 0, "probes": 0, "groups": [],
-                      "seconds": 0.0}
+                      "presorted": 0, "probes": 0, "hinted": 0,
+                      "tiers": {"packed": 0, "wide": 0, "multi": 0},
+                      "chained": 0, "mispredicted": 0, "syncs": 0,
+                      "groups": [], "seconds": 0.0}
         self._lock = threading.Lock()
 
     @property
@@ -129,6 +160,18 @@ class HashAggregateExec(TorchExec):
             fields.append(T.StructField(e.name, f.dtype, True))
         return T.StructType(fields)
 
+    def fuse_having(self, condition) -> None:
+        """Fold a HAVING predicate over this aggregate's output columns into
+        its finalize (reference ``fuse_having``; COMPLETE and FINAL only: a
+        PARTIAL output holds states, not the aggregates)."""
+        if self.mode == PARTIAL:
+            raise ValueError("a PARTIAL aggregate has no finalize to fuse "
+                             "a HAVING into")
+        from spark_rapids_tpu_torch.expr.predicates import And
+        cond = bind_references(condition, self.output)
+        self.postfilter = (cond if self.postfilter is None
+                           else And(self.postfilter, cond))
+
     def _partial_schema(self):
         fields = [T.StructField(e.name, e.dtype, True)
                   for e in self.group_exprs]
@@ -138,56 +181,99 @@ class HashAggregateExec(TorchExec):
         return T.StructType(fields)
 
     # ------------------------------------------------------------------
+    def _fusible(self) -> bool:
+        """No expression reads the task's context (the reference fuses, and
+        right-sizes, only such aggregates)."""
+        return not is_context_sensitive(
+            *self.group_exprs, *self.agg_exprs, self.prefilter,
+            *(self.preproject or []))
+
+    def _record(self, merge: bool, path: str, n_groups: int, syncs: int,
+                t0: float, probed: bool = False, hinted: bool = False,
+                chained: bool = False) -> None:
+        with self._lock:
+            st = self.stats
+            st["merges" if merge else "updates"] += 1
+            st["segment"] += int(path != "dense")
+            st["presorted"] += int(path == "presorted")
+            if path in st["tiers"]:
+                st["tiers"][path] += 1
+            st["probes"] += int(probed)
+            st["hinted"] += int(hinted)
+            st["chained"] += int(chained)
+            st["syncs"] += syncs
+            st["groups"].append(n_groups)
+            st["seconds"] += time.perf_counter() - t0
+
     def _aggregate_batch(self, batch: ColumnarBatch,
                          merge: bool) -> ColumnarBatch:
         """One update (raw child rows) or merge (keys+state rows)
         aggregation; returns keys+state layout, one row per group."""
         t0 = time.perf_counter()
         ctx = EvalContext.from_batch(batch, self.device)
-        presorted = self._presorted(ctx, merge)
-        cols, n_groups, segment = self._agg_kernel(ctx, merge,
-                                                   presorted=presorted)
-        with self._lock:
-            st = self.stats
-            st["merges" if merge else "updates"] += 1
-            st["segment"] += int(segment)
-            st["presorted"] += int(segment and bool(presorted))
-            st["probes"] += int(presorted is not None)
-            st["groups"].append(n_groups)
-            st["seconds"] += time.perf_counter() - t0
+        probe = self._key_stats(ctx, merge)
+        presorted, hint = probe if probe is not None else (None, None)
+        cols, n_groups, path = self._agg_kernel(
+            ctx, merge, presorted=presorted, range_hint=hint)
+        if self.conf.get(CFG.STAGE_FUSION_ENABLED) and self._fusible():
+            resized = maybe_host_resize(cols, n_groups)
+            if resized is not None:
+                cols, n_groups = resized
+        pre = int(not merge and self.prefilter is not None
+                  and path != "dense")
+        self._record(merge, path, n_groups,
+                     int(path != "keyless") + int(probe is not None) + pre,
+                     t0, probed=probe is not None, hinted=hint is not None)
         return ColumnarBatch([c.to_vector() for c in cols], n_groups,
                              self._partial_schema())
 
-    def _presorted(self, ctx: EvalContext, merge: bool):
-        """Whether the batch's live rows arrive sorted by their one 64-bit
-        integer key with no null (the reference's key-stats probe,
-        ``_key_range_hint``): one reduction and one host sync. None when the
-        batch is not probed: several keys, a capacity below 2^17, a hoisted
-        projection (the probe reads the raw batch), a key of 32 bits or
-        fewer, or ``stageFusion.enabled`` false (the port reads the probe
-        for nothing else)."""
+    def _key_stats(self, ctx: EvalContext, merge: bool):
+        """The per-batch key probe (the reference's ``_key_range_hint``):
+        ``(presorted, range_hint)`` from one reduction and ONE host sync,
+        or None when the batch is not probed: several keys, a capacity
+        below 2^17, a hoisted projection (the probe reads the raw batch), a
+        key narrow enough to pack statically, or ``stageFusion.enabled``
+        false. ``presorted`` says the live rows arrive sorted by the key
+        with no null (the sort and the gathers are skipped; it wins over
+        the hint); else ``range_hint=(vmin, True)`` when ``vmax - vmin``
+        fits the bits the packed sort key leaves beside its ranks."""
         if (len(self.group_exprs) != 1
                 or ctx.capacity < _PRESORTED_MIN_CAPACITY
                 or (not merge and self.preproject is not None)
                 or not self.conf.get(CFG.STAGE_FUSION_ENABLED)):
             return None
         e = self.group_exprs[0]
-        if (not isinstance(e.dtype, T.IntegralType)
+        if (not isinstance(e.dtype, (T.IntegralType, T.TimestampType))
                 or e.dtype.torch_dtype != torch.int64):
             return None
         k = ctx.cols[0] if merge else e.eval(ctx)
-        live = torch.arange(ctx.capacity, device=ctx.device) < ctx.num_rows
+        cap = ctx.capacity
+        live = torch.arange(cap, device=ctx.device) < ctx.num_rows
+        eligible = k.validity & live
+        big = torch.iinfo(torch.int64).max
+        vmin = torch.where(eligible, k.values, big).min()
+        vmax = torch.where(eligible, k.values, ~big).max()
         all_valid = (k.validity | ~live).all()
         nondec = torch.where(live[1:], k.values[1:] >= k.values[:-1],
                              True).all()
-        return bool(all_valid & nondec)   # the probe's one host sync
+        vmin, vmax, ordered = torch.stack(
+            [vmin, vmax, (all_valid & nondec).to(torch.int64)]).tolist()
+        presorted = bool(ordered)      # the probe's one host sync, above
+        w = 62 - max((cap - 1).bit_length(), 1) - 1
+        fits = vmax >= vmin and (vmax - vmin) < (1 << w) and not presorted
+        return presorted, ((vmin, True) if fits else None)
 
     def _agg_kernel(self, ctx: EvalContext, merge: bool,
-                    presorted: bool | None = None):
-        """One batch's update or merge: ``(cols, n_groups, segment)``, where
-        ``segment`` says the sort-based path ran. ``presorted`` asserts
-        that the probe proved the single key sorted and null-free: the sort
-        and every row gather become the identity."""
+                    presorted: bool | None = None, range_hint=None,
+                    sync: bool = True):
+        """One batch's update or merge: ``(cols, n_groups, path)``, where
+        ``path`` is ``dense``, ``keyless``, ``presorted`` or the sort tier
+        (``packed``, ``wide``, ``multi``). ``presorted`` asserts that the
+        probe proved the single key sorted and null-free: the sort and
+        every row gather become the identity; ``range_hint`` goes to the
+        packed sort of a single key. With ``sync`` false the compactions
+        leave their counts on the device and ``n_groups`` is a 0-d
+        tensor (the chain)."""
         cap = ctx.capacity
         keep = None
 
@@ -204,23 +290,28 @@ class HashAggregateExec(TorchExec):
                 keep = eval_keep(ctx)
         nkeys = len(self.group_exprs)
         if not nkeys:
-            return (*self._agg_keyless(ctx, merge, keep), True)
+            return (*self._agg_keyless(ctx, merge, keep), "keyless")
         key_cols = ([ctx.cols[i] for i in range(nkeys)] if merge
                     else [e.eval(ctx) for e in self.group_exprs])
-        dense = self._agg_dense(ctx, merge, key_cols, live_mask=keep)
+        dense = self._agg_dense(ctx, merge, key_cols, live_mask=keep,
+                                sync=sync)
         if dense is not None:
-            return (*dense, False)
+            return (*dense, "dense")
         if keep is not None:
             # the segment path sorts by key: masked rows must become
             # padding, so compact them out first
-            new_cols, cnt = compact_cols(ctx.cols, keep)
+            new_cols, cnt = compact_cols(ctx.cols, keep, sync=sync)
             ctx = EvalContext(new_cols, cnt, cap, ctx.device)
             key_cols = [e.eval(ctx) for e in self.group_exprs]
         combined = G.combine_compact_keys(key_cols)
         presorted = bool(presorted) and combined is None
+        sort_keys = [combined] if combined is not None else key_cols
+        hint = range_hint if combined is None else None
         perm, seg_ids, boundary, live = G.group_segments(
-            [combined] if combined is not None else key_cols,
-            ctx.num_rows, cap, presorted=presorted)
+            sort_keys, ctx.num_rows, cap, presorted=presorted,
+            range_hint=hint)
+        path = ("presorted" if presorted
+                else S.sort_tier(sort_keys, cap, hint))
 
         def in_order(cols):
             if presorted:
@@ -244,7 +335,8 @@ class HashAggregateExec(TorchExec):
                 outs = f.update(in_order([self._input(f, ctx)])[0], segctx)
             off += nstates
             state_cols.extend(outs)
-        return (*compact_cols(sorted_keys + state_cols, boundary), True)
+        return (*compact_cols(sorted_keys + state_cols, boundary, sync=sync),
+                path)
 
     def _agg_keyless(self, ctx: EvalContext, merge: bool, keep):
         """One batch's update or merge with no grouping keys: the live rows
@@ -293,7 +385,7 @@ class HashAggregateExec(TorchExec):
         return f.child.eval(ctx)
 
     def _agg_dense(self, ctx: EvalContext, merge: bool, key_cols,
-                   live_mask=None):
+                   live_mask=None, sync: bool = True):
         """Sort-free small-domain aggregation: every bucket sum of the batch
         is recorded, resolved together by ``G.resolve_dense_group_sums``,
         then replayed into the state columns. Returns (cols, n_groups) or
@@ -434,7 +526,8 @@ class HashAggregateExec(TorchExec):
             m[:D] = col.validity
             return Col(v, m & present, col.dtype, col.dictionary)
 
-        return compact_cols(key_out + [pad(c) for c in state_cols], present)
+        return compact_cols(key_out + [pad(c) for c in state_cols], present,
+                            sync=sync)
 
     def _finalize(self, partial: ColumnarBatch) -> ColumnarBatch:
         ctx = EvalContext.from_batch(partial, self.device)
@@ -445,19 +538,109 @@ class HashAggregateExec(TorchExec):
             n = len(f.state_types)
             out.append(f.evaluate(ctx.cols[off:off + n]))
             off += n
-        return ColumnarBatch([c.to_vector() for c in out], partial.num_rows,
+        num_rows = partial.num_rows
+        if self.postfilter is not None:
+            # the fused HAVING sees the finalized columns; its survivors are
+            # compacted and right-sized here (the reference's host-indexed
+            # compaction lands them at their bucket when it shrinks 4x)
+            octx = EvalContext(out, num_rows, ctx.capacity, self.device)
+            keep = selection_mask(self.postfilter.eval(octx), num_rows,
+                                  ctx.capacity)
+            out, num_rows = compact_cols(out, keep)
+            resized = maybe_host_resize(out, num_rows, min_capacity=0)
+            if resized is not None:
+                out, num_rows = resized
+        return ColumnarBatch([c.to_vector() for c in out], num_rows,
                              self.output)
+
+    def _chainable(self) -> bool:
+        """The chain runs only where its counts can stay on the device: an
+        update (not FINAL's merge input) with keys and no context-reading
+        expression, over flat columns (a nested column's gather and concat
+        sync once a list level)."""
+        return (self.mode != FINAL and bool(self.group_exprs)
+                and self.conf.get(CFG.STAGE_FUSION_ENABLED)
+                and self.conf.get(CFG.GROUPBY_CHAIN_ENABLED)
+                and self._fusible()
+                and not any(T.is_nested(f.data_type) for f in (
+                    *self.child.output.fields,
+                    *self._partial_schema().fields)))
+
+    def _chain_step(self, acc: ColumnarBatch, batch: ColumnarBatch, A: int,
+                    pred_P: int):
+        """One update → concat → merge step of the group-by chain (reference
+        ``_chain_step``): aggregate the batch, concat its partial after the
+        accumulated one at the PREDICTED bucket ``bucket_capacity(A +
+        pred_P)``, and merge, with every count left on the device, then
+        ONE status readback (the merged and the update group counts). The
+        update and merge are the unchained loop's own ``_agg_kernel``; the
+        concat is ``ops/concat.concat_at``, ``concat_cols`` with the second
+        count on the device. The step is accepted only when the predicted
+        bucket is the one the unchained loop's concat would take, so its
+        merge runs at the same capacity and the result is the unchained
+        one bit for bit (no probe runs: every sort tier gives the same
+        permutation). Returns ``(accepted, merged, mg_n, upd_n)``, or None
+        when the batch is below the chain's capacity floor. The reference
+        retries the step under its OOM ladder (``runtime/retry.py``,
+        ``DeviceOomError``), which is not ported."""
+        if (batch.capacity < _CHAIN_MIN_CAPACITY or not batch.columns
+                or not acc.columns):
+            return None
+        t0 = time.perf_counter()
+        cap = bucket_capacity(max(A + pred_P, 1))
+        uctx = EvalContext.from_batch(batch, self.device)
+        upd_cols, upd_n, upd_path = self._agg_kernel(uctx, merge=False,
+                                                     sync=False)
+        acc_cols = [Col.from_vector(c) for c in acc.columns]
+        cat = [concat_at(a, u, A, upd_n, cap)
+               for a, u in zip(acc_cols, upd_cols)]
+        mctx = EvalContext(cat, A + upd_n, cap, self.device)
+        mg_cols, mg_n, mg_path = self._agg_kernel(mctx, merge=True,
+                                                  sync=False)
+        # the ONE host sync of the chained step
+        mg_n, upd_n = torch.stack([mg_n.to(torch.int64),
+                                   upd_n.to(torch.int64)]).tolist()
+        accepted = bucket_capacity(max(A + upd_n, 1)) == cap
+        self._record(False, upd_path, upd_n, 1, t0, chained=True)
+        self._record(True, mg_path, mg_n, 0, time.perf_counter())
+        if not accepted:
+            with self._lock:
+                self.stats["mispredicted"] += 1
+            return False, None, mg_n, upd_n
+        resized = maybe_host_resize(mg_cols, mg_n)
+        if resized is not None:
+            mg_cols, mg_n = resized
+        return True, ColumnarBatch([c.to_vector() for c in mg_cols], mg_n,
+                                   self._partial_schema()), mg_n, upd_n
 
     def execute_partition(self, split):
         merge_input = self.mode == FINAL
         acc = None
+        # the chain's host-side predictors: A, the accumulated group count,
+        # and pred_P, the next batch's update group count (the last seen)
+        chain_ok = self._chainable()
+        A = pred_P = 0
         for batch in self.child.execute_partition(split):
+            if acc is not None and chain_ok:
+                res = self._chain_step(acc, batch, A, pred_P)
+                if res is not None:
+                    accepted, merged, mg_n, upd_n = res
+                    if accepted:
+                        acc, A, pred_P = merged, mg_n, upd_n
+                        continue
+                    # a capacity mispredict: the chained result is dropped
+                    # and the batch redone unchained; the observed update
+                    # count still improves the next prediction
+                    pred_P = upd_n
             partial = self._aggregate_batch(batch, merge=merge_input)
             if acc is None:
                 acc = partial
             else:
                 both = concat_batches([acc, partial])
                 acc = self._aggregate_batch(both, merge=True)
+            if chain_ok:
+                A = acc.num_rows
+                pred_P = pred_P or A
         if acc is None:
             if self.group_exprs:
                 return  # grouped aggregation over empty input → no rows
@@ -468,5 +651,7 @@ class HashAggregateExec(TorchExec):
         yield acc if self.mode == PARTIAL else self._finalize(acc)
 
     def args_string(self):
+        having = (f" having={self.postfilter!r}"
+                  if self.postfilter is not None else "")
         return (f"keys={self.group_exprs} aggs={self.agg_exprs} "
-                f"mode={self.mode}")
+                f"mode={self.mode}{having}")

@@ -23,8 +23,11 @@ Spark 3.1+ give null).
 
 First and Last take a nested value too (its row gathered), and
 ``collect_list`` of a nested value gives an ``array<array<..>>`` or an
-``array<struct<..>>``. Min, Max and ``collect_set`` need an order or a
-hash over whole nested values and refuse them when typed.
+``array<struct<..>>``. Min and Max take an array of scalars or of such
+arrays, and ``collect_set`` any nested value without a map, through the
+order over whole nested values (``ops/nested.order_ranks``); a struct or
+map in a Min or Max, and a map in a ``collect_set``, are refused when
+typed.
 
 CollectList, CollectSet and PivotFirst have an array state (a list column,
 ``ops/nested.py``) and run on the segment path only, with the reference's
@@ -157,16 +160,22 @@ class Count(AggregateFunction):
 class _Extreme(AggregateFunction):
     """MIN/MAX: one state of the child's type; merge is update over the
     states (the extreme of extremes). ``_reduce`` is the segment reduction
-    (``G.segment_min`` or ``G.segment_max``)."""
+    (``G.segment_min`` or ``G.segment_max``), ``_largest`` says which. An
+    array of scalars (or of
+    such arrays) is ranked under Spark's ordering (``ops/nested.
+    order_ranks``), and each group's first row of the least or greatest
+    rank is gathered whole; a type that holds a struct or a map is refused
+    (the reference's host comparator raises on a struct, Spark orders no
+    map)."""
 
     @property
     def dtype(self):
         t = self.child.dtype
-        if T.is_nested(t):
+        if T.is_nested(t) and not T.ordered_array(t):
             raise NotImplementedError(
                 f"HashAggregateExec: {type(self).__name__.lower()} of a "
-                f"{t!r} value is not ported (it needs an order over whole "
-                "nested values)")
+                f"{t!r} value is not ported (arrays of scalars or of such "
+                "arrays only: a struct or a map has no order here)")
         return t
 
     @property
@@ -174,6 +183,12 @@ class _Extreme(AggregateFunction):
         return [self.dtype]
 
     def update(self, in_col, segctx):
+        if in_col.nested is not None:
+            from spark_rapids_tpu_torch.ops.filtering import gather_cols
+            from spark_rapids_tpu_torch.ops.nested import order_ranks
+            pos, found = G.segment_arg_extreme(
+                order_ranks(in_col), in_col.validity, segctx, self._largest)
+            return gather_cols([in_col], pos.long(), found)
         m = self._reduce(in_col.values, in_col.validity, segctx, self.dtype)
         cnt = G.segment_count(in_col.validity, segctx)
         return [Col(m, cnt > 0, self.dtype, in_col.dictionary)]
@@ -182,15 +197,18 @@ class _Extreme(AggregateFunction):
         return self.update(state_cols[0], segctx)
 
     def evaluate(self, state_cols):
-        return state_cols[0].canonicalized()
+        st = state_cols[0]
+        return st if st.nested is not None else st.canonicalized()
 
 
 class Min(_Extreme):
     _reduce = staticmethod(G.segment_min)
+    _largest = False
 
 
 class Max(_Extreme):
     _reduce = staticmethod(G.segment_max)
+    _largest = True
 
 
 class Average(AggregateFunction):
@@ -429,19 +447,21 @@ class CollectList(AggregateFunction):
 
 
 class CollectSet(CollectList):
-    """collect_set(x): each group's distinct non-null values (in value
-    order; Spark leaves it unspecified, the reference keeps first-seen)."""
+    """collect_set(x): each group's distinct non-null values, in value
+    order (Spark leaves the order unspecified, the reference keeps the
+    first seen). A nested value dedupes on its rank (``ops/nested.
+    order_ranks``), so the values ``equiv`` calls equal are one; a type
+    that holds a map is refused, as Spark's ``CollectSet`` refuses it."""
 
     dedupe = True
 
     @property
     def dtype(self):
         t = self.child.dtype
-        if T.is_nested(t):
+        if T.holds_map(t):
             raise NotImplementedError(
                 f"HashAggregateExec: collect_set of a {t!r} value is not "
-                "ported (it needs a hash and an equality over whole nested "
-                "values)")
+                "ported (Spark's collect_set refuses a map)")
         return T.ArrayType(t)
 
 

@@ -36,6 +36,30 @@ def concat_cols(cols, counts, cap) -> Col:
     return Col(v, m, first.dtype, first.dictionary)
 
 
+def concat_at(a: Col, b: Col, n_a: int, n_b: torch.Tensor, cap: int) -> Col:
+    """The first ``n_a`` rows of ``a`` (a host count) and then the first
+    ``n_b`` rows of ``b`` (a 0-d device count) in a Col of ``cap`` slots,
+    with no host sync: ``concat_cols`` of two flat columns where the second
+    count is still on the device (the group-by chain's concat at its
+    predicted bucket). Rows past ``cap`` are dropped."""
+    from spark_rapids_tpu_torch.ops.strings import align_many
+    if a.is_string:
+        a, b = align_many([a, b])
+    dev = a.values.device
+    j = torch.arange(cap, dtype=torch.int64, device=dev)
+    from_a = j < n_a
+    jb = j - n_a
+    from_b = (jb >= 0) & (jb < n_b)
+    ia = j.clamp(max=a.values.shape[0] - 1)
+    ib = jb.clamp(0, b.values.shape[0] - 1)
+    default = torch.full((), a.dtype.default_value(), dtype=a.values.dtype,
+                         device=dev)
+    v = torch.where(from_a, a.values[ia],
+                    torch.where(from_b, b.values[ib], default))
+    m = torch.where(from_a, a.validity[ia], from_b & b.validity[ib])
+    return Col(v, m, a.dtype, a.dictionary)
+
+
 def concat_batches(batches) -> ColumnarBatch:
     batches = list(batches)
     if len(batches) == 1:

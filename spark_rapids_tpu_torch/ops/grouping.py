@@ -174,15 +174,18 @@ def combine_compact_keys(key_cols):
     return Col(combined, torch.ones_like(combined, dtype=torch.bool), T.INT)
 
 
-def group_segments(key_cols, num_rows: int, capacity: int,
-                   presorted: bool = False):
+def group_segments(key_cols, num_rows, capacity: int,
+                   presorted: bool = False, range_hint=None):
     """Sort by keys and flag the groups: ``(perm, seg_ids, boundary, live)``.
     ``perm`` sorts the rows; ``seg_ids[i]`` is the group of sorted row i,
     and padding rows go to segment ``capacity - 1``; ``boundary`` marks the
     first row of each group. NaN groups with NaN, -0.0 with 0.0, and nulls
     form their own group. ``presorted=True`` asserts that the caller proved
     the live rows arrive key-sorted with no null (the aggregate exec's
-    per-batch probe): the sort and the key gather are skipped."""
+    per-batch probe): the sort and the key gather are skipped.
+    ``range_hint`` forwards the probe's key range to the packed sort
+    (``ops/sorting._packed_key``) of a single 64-bit key. ``num_rows`` may
+    be a 0-d device tensor."""
     dev = key_cols[0].values.device
     live = torch.arange(capacity, dtype=torch.int32, device=dev) < num_rows
     if presorted:
@@ -191,7 +194,7 @@ def group_segments(key_cols, num_rows: int, capacity: int,
                        for c in key_cols]
     else:
         perm = sort_permutation(key_cols, [SortOrder() for _ in key_cols],
-                                num_rows, capacity)
+                                num_rows, capacity, range_hint=range_hint)
         sorted_keys = gather_cols(key_cols, perm, live)
 
     neq = torch.zeros((capacity,), dtype=torch.bool, device=dev)
@@ -358,6 +361,25 @@ def segment_last_index(validity, ctx: SegCtx, ignore_nulls: bool):
     cand = torch.where(eligible, idx, torch.full_like(idx, -1))
     pos = _seg_extreme(cand, ctx, largest=True)
     return pos.clamp(0, ctx.capacity - 1), pos > -1
+
+
+def segment_arg_extreme(ranks, validity, ctx: SegCtx, largest: bool):
+    """(the row of each group's greatest or least rank among its valid rows,
+    the first such row in sorted order, clamped into the batch; whether the
+    group has a valid row): Min and Max of a nested value, whose ranks
+    (``ops/nested.order_ranks``) lie in ``[0, capacity]``."""
+    cap = ctx.capacity
+    idx = torch.arange(cap, dtype=torch.int64, device=validity.device)
+    r = ranks.to(torch.int64)
+    if largest:
+        key = torch.where(validity, r * cap + (cap - 1 - idx),
+                          torch.full_like(idx, -1))
+        pos = (cap - 1) - _seg_extreme(key, ctx, largest=True) % cap
+    else:
+        key = torch.where(validity, r * cap + idx,
+                          torch.full_like(idx, (cap + 1) * cap))
+        pos = _seg_extreme(key, ctx, largest=False) % cap
+    return pos.clamp(0, cap - 1), segment_count(validity, ctx) > 0
 
 
 def segment_first(values, validity, ctx: SegCtx, ignore_nulls: bool):

@@ -25,6 +25,13 @@ nested column back here.
   are equal at every level): the lengths compared, then the elements of
   the rows of equal length, recursively, and a segmented all-reduce of
   the elements' answers into their rows. One host sync a list level.
+- ``order_ranks``: per row, an int64 rank under Spark's interpreted
+  ordering of whole values (arrays element by element, a null element
+  first and a prefix before the longer array; structs field by field, a
+  null field first; the scalars by the sort's rules), equal ranks for the
+  values ``equiv`` calls equal. A list level takes prefix doubling: about
+  log2 of its longest list in dense-rank passes (one ``torch.unique``
+  each), and one host sync, that length.
 - ``explode_mapping``: for each output row of an explode, its source row
   and element index, from a searchsorted over the length prefix (the JAX
   package's ``GenerateExec._generate``).
@@ -207,6 +214,111 @@ def equiv(a: Col, b: Col) -> torch.Tensor:
     return torch.where(both, same & (bad == 0), neither)
 
 
+#: the dense-rank passes of ``order_ranks`` (one ``torch.unique``, a sort,
+#: each) and its calls; a caller that reports them sets both to 0 first
+rank_stats = {"calls": 0, "passes": 0}
+
+
+def _dense(key: torch.Tensor) -> torch.Tensor:
+    """Each entry's place among the distinct values of ``key`` (int64)."""
+    rank_stats["passes"] += 1
+    return torch.unique(key, sorted=True, return_inverse=True)[1]
+
+
+def _finish(key: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Ranks 1.. of the valid rows by ``key``, 0 for the null rows."""
+    return torch.where(valid, _dense(key) + 1, torch.zeros_like(key))
+
+
+def _scalar_image(c: Col) -> torch.Tensor:
+    """An order-preserving int64 image of a scalar column: NaN above every
+    double and equal to itself, -0.0 equal to 0.0, strings by their code
+    in the sorted dictionary."""
+    v = c.values
+    if v.is_floating_point():
+        v = v.to(torch.float64)
+        v = torch.where(torch.isnan(v), torch.full_like(v, float("nan")), v)
+        v = torch.where(v == 0, torch.zeros_like(v), v)
+        b = v.view(torch.int64)
+        # negative doubles: their bits run backwards, so flip the low 63
+        return torch.where(b < 0, b ^ torch.iinfo(torch.int64).max, b)
+    return v.to(torch.int64)
+
+
+def order_ranks(col: Col, order=None) -> torch.Tensor:
+    """Per row of ``col`` an int64 rank in ``[0, capacity]`` under Spark's
+    interpreted ordering of whole values: null rows (and padding) rank 0,
+    below every value; equal values (``equiv``: two nulls, two NaNs, -0.0
+    and 0.0, at every level) rank equal; the ranks of other values are
+    ordered as the values are. ``order`` (a ``SortOrder``), when it is
+    descending, reverses the ranks of the values.
+
+    - scalars: one dense rank of an order-preserving int64 image;
+    - structs: the fields' ranks folded from the first field, a dense rank
+      of (ranks so far, next field's rank) a field;
+    - arrays: the elements ranked first (recursively), then prefix doubling
+      over the positions: ``h`` ranks each element's run of ``2^k``
+      elements, the end of the list padding it with 0, below every element
+      (a null element ranks 1, a value 2..), so a prefix comes before the
+      longer array. ``h`` of ``2^(k+1)`` is the dense rank of the pair (the
+      run's ``h``, ``h`` of the run ``2^k`` further on). After
+      ``ceil(log2(longest))`` rounds ``h`` at a list's first element ranks
+      the whole list. A pass a position (least significant first) would
+      take ``longest`` stable sorts; doubling takes about log2 of it, which
+      holds for long lists too.
+
+    Every level ends in one more dense rank of its rows, so the ranks stay
+    below the capacity and compose at the next level up. A map has no
+    order in Spark and raises."""
+    rank_stats["calls"] += 1
+    r = _ranks(col)
+    if order is not None and not order.ascending:
+        r = torch.where(col.validity, (col.validity.shape[0] + 1) - r, r)
+    return r
+
+
+def _ranks(col: Col) -> torch.Tensor:
+    valid = col.validity
+    vec = col.nested
+    if vec is None:
+        return _finish(_scalar_image(col), valid)
+    if isinstance(vec, MapVector):
+        raise NotImplementedError("a map has no order (Spark orders no map)")
+    if isinstance(vec, StructVector):
+        acc = None
+        cap = vec.capacity
+        for f in vec.fields:
+            rf = _ranks(Col.from_vector(f))
+            acc = rf if acc is None else _dense(acc * (cap + 1) + rf)
+        if acc is None:
+            return valid.to(torch.int64)
+        return _finish(acc, valid)
+    lengths = vec.data.to(torch.int64)
+    total = int(vec.total)
+    if total == 0:
+        return valid.to(torch.int64)
+    longest = int(lengths.max())            # the level's one host sync
+    rows = element_rows(lengths, total)
+    starts = starts_of(lengths)
+    within = (torch.arange(total, dtype=torch.int64, device=rows.device)
+              - starts[rows])
+    lens = lengths[rows]
+    # element ranks: a null element 1, values 2.., the end of a list 0
+    h = _ranks(Col.from_vector(vec.flat))[:total] + 1
+    bound = h.new_tensor(vec.flat.capacity + 2)
+    idx = torch.arange(total, dtype=torch.int64, device=rows.device)
+    step = 1
+    while step < longest:
+        has = within + step < lens
+        nxt = torch.where(has, h[(idx + step).clamp(max=total - 1)],
+                          torch.zeros_like(h))
+        h = _dense(h * bound + nxt) + 1
+        step <<= 1
+    first = h[starts.clamp(max=total - 1)]
+    key = torch.where(lengths > 0, first + 1, torch.ones_like(first))
+    return _finish(key, valid)
+
+
 def explode_mapping(lengths: torch.Tensor, num_rows: int, outer: bool):
     """The explode of the first ``num_rows`` rows whose element counts are
     ``lengths``: ``(src, elem_idx, real, live, total, out_cap)``. Output row
@@ -241,9 +353,11 @@ def from_tagged_elements(elems: Col, rows: torch.Tensor, total: int,
     the ``total`` elements of ``elems``; untagged rows hold an empty list).
     ``dedupe`` keeps the first of equal elements of a row, after a stable
     sort by (row, value), so a row's elements come out in value order
-    (``collect_set``; Spark leaves its order unspecified)."""
+    (``collect_set``; Spark leaves its order unspecified); a nested element
+    sorts and compares by its ``order_ranks``."""
     from spark_rapids_tpu_torch.ops.filtering import gather_cols
-    from spark_rapids_tpu_torch.ops.sorting import SortOrder, sort_permutation
+    from spark_rapids_tpu_torch.ops.sorting import (SortOrder, rank_key,
+                                                    sort_permutation)
     dev = rows.device
     ecap = elems.values.shape[0]
     if dedupe and total:
@@ -251,9 +365,11 @@ def from_tagged_elements(elems: Col, rows: torch.Tensor, total: int,
         row_col = Col(torch.zeros((ecap,), dtype=torch.int64, device=dev),
                       live, T.LONG)
         row_col.values[:total] = rows
-        perm = sort_permutation([row_col, elems], [SortOrder(), SortOrder()],
+        # a nested element sorts and compares by its rank
+        key = rank_key(elems) if elems.nested is not None else elems
+        perm = sort_permutation([row_col, key], [SortOrder(), SortOrder()],
                                 total, ecap)
-        srt = gather_cols([row_col, elems], perm, live)
+        srt = gather_cols([row_col, key], perm, live)
         r, e = srt[0].values[:total], srt[1]
         same = torch.zeros((total,), dtype=torch.bool, device=dev)
         if total > 1:
@@ -267,9 +383,9 @@ def from_tagged_elements(elems: Col, rows: torch.Tensor, total: int,
         rows = r[keep]
         ncap = bucket_capacity(total)
         idx = torch.zeros((ncap,), dtype=torch.int64, device=dev)
-        idx[:total] = keep
-        elems = gather_cols([e], idx, torch.arange(ncap, device=dev) < total
-                            )[0]
+        idx[:total] = perm[keep]
+        elems = gather_cols([elems], idx,
+                            torch.arange(ncap, device=dev) < total)[0]
     lengths = torch.bincount(rows, minlength=capacity)[:capacity].to(
         torch.int32) if total else torch.zeros((capacity,), dtype=torch.int32,
                                                device=dev)

@@ -20,9 +20,11 @@ several keys, or one string or double key, take the rank path
 (``ops/joining.join_ranks``). Key pairs of two types: integers of two
 widths meet in the wider one, and decimals of one scale in their raw
 unscaled values, as the reference compares them; every other pair is
-refused (``_joinable``). A HAVING filter above an aggregate
-plans as a FilterExec: the reference folds it into the aggregate
-(``fuse_having``), which keeps the same rows. The window node
+refused (``_joinable``). A context-free filter directly above a COMPLETE
+or FINAL aggregate (a HAVING) folds into the aggregate's finalize under
+``stageFusion.enabled`` (``conv_filter``, ``:682-695``;
+``HashAggregateExec.fuse_having``): no ``FilterExec`` is planned, and the
+rows are the same. The window node
 (``tag_window``/``conv_window``, ``:939-977``) plans, as Spark plans it, one
 ``WindowExec`` for each distinct (partition keys, order keys), chained in
 the order the specs first appear, each over a hash exchange on its
@@ -50,15 +52,20 @@ Nested columns (arrays, maps and structs, nested to any depth) are
 admitted as payload everywhere, ``ExpandExec`` included (so ROLLUP, CUBE
 and GROUPING SETS carry them), and as input only to the extractions
 (``expr/complexexprs.py``), ``struct(..)`` and ``array(..)``, the null
-tests, ``count``, ``collect_list``, ``first`` and ``last``, ``If``,
-``CaseWhen`` and ``Coalesce`` over one nested type, and equality (``=``,
-``!=``, ``<=>``) over arrays and structs of one type (``_NESTED_INPUT_OK``).
-Refused, each raising ``NotImplementedError`` here: a nested key
-(grouping, join, sort, window partition or order, hash partitioning,
-``IN``; the message names the exec, ``refuse_nested_keys``; the reference
-crashes on such keys on its host path), ``min``, ``max`` and
-``collect_set`` of a nested value and ``<``, ``<=``, ``>``, ``>=`` over one
-(each needs an order or a hash over whole nested values), a map in a
+tests, ``count``, ``collect_list``, ``collect_set`` (of a type without a
+map), ``first`` and ``last``, ``min`` and ``max`` of an array of scalars or
+of such arrays, ``If``, ``CaseWhen`` and ``Coalesce`` over one nested type,
+and equality (``=``, ``!=``, ``<=>``) over arrays and structs of one type
+(``_NESTED_INPUT_OK``); a sort key may be an array of scalars or of such
+arrays, in every direction and null order (``_sort``; the order over whole
+values is ``ops/nested.order_ranks``). Refused, each raising
+``NotImplementedError`` here: any other nested key (grouping, join, a sort
+key that holds a struct or a map, window partition or order, hash
+partitioning, ``IN``; the message names the exec, ``refuse_nested_keys``;
+the reference crashes on such keys on its host path), ``min`` and ``max``
+of a type that holds a struct or a map (the reference's host comparator
+raises on a struct, Spark orders no map), ``collect_set`` of a map (Spark
+refuses it), ``<``, ``<=``, ``>``, ``>=`` over a nested value, a map in a
 comparison, a map generator, the packed row format of a nested column
 (``columnar/rows.py``) and a CSV write of one (``io/writer.py``).
 
@@ -97,7 +104,8 @@ from spark_rapids_tpu_torch.expr import core as E
 from spark_rapids_tpu_torch.expr import complexexprs as _CX
 from spark_rapids_tpu_torch.expr.aggregates import (AggregateFunction,
                                                      CollectList, Count,
-                                                     First, Last, PivotFirst)
+                                                     First, Last, Max, Min,
+                                                     PivotFirst)
 from spark_rapids_tpu_torch.expr import datetime as _DT
 from spark_rapids_tpu_torch.expr import decimalexprs as _DX
 from spark_rapids_tpu_torch.expr import mathexprs as _MX
@@ -142,13 +150,14 @@ _PORTED_EXPRS = (E.BoundReference, E.Literal, E.Alias, BinaryArithmetic,
                  ) + _module_exprs(_CX, _DT, _DX, _MX, _SX)
 
 # the expressions that take a nested (array, map, struct) input: the
-# extractions, the builders, the null tests, count, the collects, first
-# and last, the conditionals, equality, and the column itself (min, max
-# and collect_set refuse one when typed, and so do a map comparison and
-# the order comparisons)
+# extractions, the builders, the null tests, count, the collects
+# (collect_set is a CollectList), first and last, min and max, the
+# conditionals, equality, and the column itself (min and max refuse a
+# struct or a map when typed, collect_set a map, and so do a map
+# comparison and the order comparisons)
 _NESTED_INPUT_OK = (E.BoundReference, E.Alias, IsNull, IsNotNull, Count,
-                    CollectList, PivotFirst, First, Last, If, CaseWhen,
-                    Coalesce, EqualTo, EqualNullSafe, NotEqual,
+                    CollectList, PivotFirst, First, Last, Min, Max, If,
+                    CaseWhen, Coalesce, EqualTo, EqualNullSafe, NotEqual,
                     _CX.GetStructField, _CX.GetArrayItem, _CX.Size,
                     _CX.ElementAt, _CX.ArrayContains, _CX.GetMapValue,
                     _CX.CreateNamedStruct, _CX.CreateArray)
@@ -254,7 +263,16 @@ class TorchOverrides:
 
     def _filter(self, n, kids):
         check_expression(n.condition, context_ok=True)
-        return XB.FilterExec(n.condition, kids[0], conf=self.conf)
+        child = kids[0]
+        # HAVING fusion (reference conv_filter): a context-free filter
+        # directly above a finalizing aggregate folds into its finalize
+        if (self.conf.get(CFG.STAGE_FUSION_ENABLED)
+                and isinstance(child, XA.HashAggregateExec)
+                and child.mode != XA.PARTIAL
+                and not is_context_sensitive(n.condition)):
+            child.fuse_having(n.condition)
+            return child
+        return XB.FilterExec(n.condition, child, conf=self.conf)
 
     def _project(self, n, kids):
         for e in n.project_list:
@@ -497,7 +515,11 @@ class TorchOverrides:
     def _sort(self, n, kids):
         for e, _, _ in n.sort_exprs:
             check_expression(e)
-        refuse_nested_keys([e for e, _, _ in n.sort_exprs], "SortExec",
+        # an array key sorts by its rank under Spark's ordering; a key that
+        # holds a struct or a map stays refused (the reference's comparator
+        # raises on a struct; Spark orders no map)
+        refuse_nested_keys([e for e, _, _ in n.sort_exprs
+                            if not T.ordered_array(e.dtype)], "SortExec",
                            "sort key")
         exprs = [e for (e, _, _) in n.sort_exprs]
         orders = [SortOrder(ascending=asc, nulls_first=nf)

@@ -168,6 +168,29 @@ def is_nested(dt: DataType) -> bool:
     return isinstance(dt, (ArrayType, StructDataType, MapType))
 
 
+def ordered_array(dt: DataType) -> bool:
+    """An array of scalars or of such arrays, to any depth: the nested
+    types whose order the port computes for ``min``/``max`` and a sort key
+    (the reference's host comparator raises on a struct, and Spark orders
+    no map)."""
+    while isinstance(dt, ArrayType):
+        dt = dt.element_type
+        if not is_nested(dt):
+            return True
+    return False
+
+
+def holds_map(dt: DataType) -> bool:
+    """A map anywhere in the type (Spark's ``collect_set`` refuses one)."""
+    if isinstance(dt, MapType):
+        return True
+    if isinstance(dt, ArrayType):
+        return holds_map(dt.element_type)
+    if isinstance(dt, StructDataType):
+        return any(holds_map(t) for t in dt.types)
+    return False
+
+
 def _scalar_key(dt: DataType) -> DataType:
     if is_nested(dt):
         raise NotImplementedError(

@@ -344,9 +344,18 @@ def test_nested_keys_still_refused(frames):
 @pytest.mark.parametrize("agg", ["min", "max", "collect_set"])
 @pytest.mark.parametrize("c", ["as_", "aa", "sa"])
 def test_order_and_hash_aggregates_of_nested_refused(frames, agg, c):
+    """min/max of a type that holds a struct stays refused at planning;
+    min/max of an array of arrays and collect_set of every one of these
+    types plan (their values are held to the reference in
+    ``tests/test_torch_nested_order.py``)."""
     port, _ = frames
-    with pytest.raises(NotImplementedError, match="HashAggregateExec"):
-        port.group_by("k").agg(getattr(F, agg)(c)).physical_plan()
+    make = lambda: port.group_by("k").agg(  # noqa: E731
+        getattr(F, agg)(c)).physical_plan()
+    if agg in ("min", "max") and c in ("as_", "sa"):
+        with pytest.raises(NotImplementedError, match="HashAggregateExec"):
+            make()
+    else:
+        make()
 
 
 def test_order_comparisons_and_map_equality_refused(frames):

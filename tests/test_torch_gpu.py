@@ -2290,3 +2290,129 @@ def test_deep_nested_files_on_card(cuda_device, tmp_path):
     got = [r for o in orc for r in o.to_pylist()]
     assert sorted(got, key=key) == sorted(t.drop(["ms"]).to_pylist(),
                                           key=key)
+
+
+# -- the order over whole nested values and the group-by's remainder ---------
+
+ORDER_JOBS = {
+    "max-min": lambda df, F, E: df.group_by("k").agg(
+        F.max("aa").alias("hi"), F.min("aa").alias("lo"),
+        F.max(F.get_field("sa", "f")).alias("hf")).sort("k"),
+    "collect-set": lambda df, F, E: df.group_by("k").agg(
+        F.collect_set("as_").alias("s1"), F.collect_set("sa").alias("s2"),
+        F.collect_set("aa").alias("s3")).sort("k"),
+    "sort-array": lambda df, F, E: df.sort("aa", "k", "i"),
+    "sort-array-desc": lambda df, F, E: df.order_by(
+        "ss", "k", "i", ascending=[False, True, True]),
+    "having": lambda df, F, E: df.group_by("k").agg(
+        F.count().alias("n"), F.sum("i").alias("s")).filter(
+        E.col("n") > 400).sort("k"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("job", sorted(ORDER_JOBS))
+def test_nested_order_jobs_on_card_equal_cpu(cuda_device, job):
+    """max/min of arrays, collect_set of nested values, a sort by an array
+    key and a fused HAVING on the card, bit for bit the CPU session's."""
+    import spark_rapids_tpu_torch.functions as F
+    from spark_rapids_tpu_torch.expr import core as E
+    from spark_rapids_tpu_torch.session import TorchSession
+    t = deep_nested_table(21, 3000, maps=False)
+    out = [ORDER_JOBS[job](TorchSession(device=d).create_dataframe(t, 3),
+                           F, E).collect()
+           for d in ("cpu", "cuda")]
+    assert out[0].to_pylist() == out[1].to_pylist()
+
+
+@pytest.mark.gpu
+def test_order_ranks_on_card_equal_cpu(cuda_device):
+    import pyarrow as pa
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.arrow import array_to_device
+    from spark_rapids_tpu_torch.expr.core import Col
+    from spark_rapids_tpu_torch.ops import nested as N
+    t = deep_nested_table(22, 5000, maps=False)
+    for name in ("as_", "aa", "sa", "ss"):
+        arr = t.column(name).combine_chunks()
+        dt = T.from_arrow_type(arr.type)
+        r = [N.order_ranks(Col.from_vector(array_to_device(arr, dt, None,
+                                                            d))).cpu()
+             for d in ("cpu", "cuda")]
+        assert torch.equal(r[0], r[1]), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["int", "long", "long-hint", "double",
+                                  "dict"])
+def test_sort_tiers_on_card_equal_cpu(cuda_device, kind):
+    """Every tier's permutation on the card is the CPU's (and the multi-pass
+    one's)."""
+    import pyarrow as pa
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.expr.core import Col
+    from spark_rapids_tpu_torch.ops import sorting as S
+    rng = np.random.default_rng(7)
+    cap, n = 1 << 20, 1_000_003
+    valid = rng.random(cap) > 0.1
+    valid[n:] = False
+    hint = None
+    dictionary = None
+    if kind == "int":
+        v, dt = rng.integers(-50, 50, cap).astype(np.int32), T.INT
+    elif kind == "double":
+        v, dt = rng.choice([np.nan, -0.0, 0.0, 1.0, -3.5], cap), T.DOUBLE
+    elif kind == "dict":
+        v, dt = rng.integers(0, 700, cap).astype(np.int32), T.STRING
+        dictionary = pa.array([f"w{i:04d}" for i in range(700)])
+    else:
+        v, dt = rng.integers(-(1 << 50), 1 << 50, cap), T.LONG
+        if kind == "long-hint":
+            v = v % 100_000 + 12345
+            hint = (12345, True)
+    v = np.where(valid, v, np.zeros((), v.dtype))
+    perms = []
+    for d in ("cpu", "cuda"):
+        c = Col(torch.from_numpy(v).to(d), torch.from_numpy(valid).to(d), dt,
+                dictionary)
+        for asc in (True, False):
+            o = [S.SortOrder(asc)]
+            perms.append(S.sort_permutation([c], o, n, cap,
+                                            range_hint=hint).cpu())
+            perms.append(S.multi_permutation([c], o, n, cap).cpu())
+    assert all(torch.equal(perms[i], perms[i % 4]) for i in range(8))
+    assert torch.equal(perms[0], perms[1]) and torch.equal(perms[2],
+                                                           perms[3])
+
+
+@pytest.mark.gpu
+def test_chained_group_by_on_card_equals_cpu(cuda_device, tmp_path):
+    """The chained group-by with the range hint and the right-sizing on the
+    card, bit for bit the CPU session's and the unchained route's."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    import spark_rapids_tpu_torch.functions as F
+    from spark_rapids_tpu_torch.session import TorchSession
+    rng = np.random.default_rng(8)
+    n = 600_000
+    t = pa.table({"k": pa.array(rng.integers(0, 200_000, n) * 7 - (1 << 40),
+                                pa.int64()),
+                  "x": pa.array(rng.normal(size=n)),
+                  "y": pa.array(rng.integers(0, 9, n), pa.int64())})
+    path = str(tmp_path / "t.parquet")
+    pq.write_table(t, path, row_group_size=150_000)
+    res = []
+    for d, chain in (("cpu", "true"), ("cuda", "true"), ("cuda", "false")):
+        spark = TorchSession({
+            "spark.rapids.tpu.sql.reader.batchSizeRows": "150000",
+            "spark.rapids.tpu.sql.stageFusion.groupBy.chain.enabled":
+                chain}, device=d)
+        df = spark.read_parquet(path).group_by("k").agg(
+            F.sum("x").alias("s"), F.max("y").alias("m"),
+            F.count().alias("c")).filter(F.col("c") > 3).sort("k")
+        res.append(df.collect())
+    x = [np.asarray(r.column("s")).view(np.int64) for r in res]
+    assert res[0].num_rows > 0
+    assert all(np.array_equal(x[0], xi) for xi in x[1:])
+    assert res[0].drop(["s"]).equals(res[1].drop(["s"]))
+    assert res[0].drop(["s"]).equals(res[2].drop(["s"]))

@@ -342,7 +342,8 @@ def test_nested_keys_refused_at_planning(frames):
         pa.table({"a": pa.array([[1]], pa.list_(pa.int64()))}))
     cases = {
         "HashAggregateExec": lambda: port.group_by("a").count(),
-        "SortExec": lambda: port.sort("a"),
+        # an array sort key is ported; a struct holding one is not
+        "SortExec": lambda: port.sort(F.struct("x", "k", "y", "a")),
         "ShuffleExchangeExec": lambda: port.repartition(2, "a"),
         "BroadcastHashJoinExec": lambda: port.join(dim, on="a"),
         "WindowExec": lambda: port.window([F.alias(F.over(
@@ -356,8 +357,9 @@ def test_nested_keys_refused_at_planning(frames):
 
 def test_nested_elements_refused_when_built():
     """Nested elements, fields and values are ported (they were refused
-    here before); a nested map key, an order over a nested value and
-    min/max/collect_set of one are still refused at planning."""
+    here before), and so are min/max/collect_set of an array; a nested map
+    key, an order comparison over a nested value and min/max of a struct
+    are still refused at planning."""
     assert T.from_arrow_type(pa.list_(pa.list_(pa.int64()))) == T.ArrayType(
         T.ArrayType(T.LONG))
     assert T.from_arrow_type(pa.list_(pa.struct([("a", pa.int64())]))) == \
@@ -382,9 +384,15 @@ def test_nested_elements_refused_when_built():
     # an operator that needs an order over a nested value
     with pytest.raises(NotImplementedError):
         df.select((E.col("a") < E.col("a")).alias("x")).physical_plan()
-    for agg in (F.min, F.max, F.collect_set):
+    got = df.group_by("k").agg(F.min("a").alias("lo"),
+                               F.max("a").alias("hi"),
+                               F.collect_set("a").alias("s")).sort(
+        "k").collect()
+    assert got.to_pylist() == [{"k": 1, "lo": [1], "hi": [1], "s": [[1]]},
+                               {"k": 2, "lo": [1], "hi": [1], "s": [[1]]}]
+    for agg in (F.min, F.max):
         with pytest.raises(NotImplementedError, match="HashAggregateExec"):
-            df.group_by("k").agg(agg("a")).physical_plan()
+            df.group_by("k").agg(agg(F.struct("x", "k", "y", "a"))).physical_plan()
 
 
 # -- where Spark and the reference differ ----------------------------------------
