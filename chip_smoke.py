@@ -261,12 +261,26 @@ It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
    and nested-set-of-lines (the read-back nested-orders files,
    ``collect_set(lines)`` by ``size(lines)``: 1.5M distinct
    ``array<struct>``); each with its rank passes, counted, timed
-   ``ORDERED_REPS`` more times and traced once; and last the group-by
+   ``ORDERED_REPS`` more times and traced once; then the group-by
    remainder (the packed key with its range hint, the right-sizing, the
    chain and the fused HAVING) beside ``stageFusion.enabled=false`` on q3,
    q18, ds-windows and sql-ds-q14 (``groupby_rest_compare``): walls in
    turns, aggregate host syncs and the sorts' device time, recorded beside
-   the card and held to the same rows;
+   the card and held to the same rows; and last join-fusion-sf1
+   (``join_fusion_paths``): ladder-fusion (q3, q5, q5-sparse and q18
+   beside ``stageFusion.enabled=false``, on/off/off/on, each turn counted:
+   the chains and hoists, the joins' host syncs and device time, the same
+   rows), chain-3hop (lineitem filtered and projected through orders,
+   customer and nation, one chain of three hops), chain-dup-build (a chain
+   over a duplicate-keyed partsupp build, every batch degraded to the
+   hops one after another), q1-encoded and q1-dense (each chunk decoded
+   at its first read, and every chunk decoded as the scan yields it, bit
+   for bit, every chunk decoded once) and scan-pushed-filter
+   (TPC-H q6's predicate pushed into the scan, its double conjuncts the
+   residual on the card); each held to a numpy/pyarrow oracle, counted
+   with its launches predicted, timed ``JOIN_FUSION_REPS`` more times and
+   traced once. The TPC-H paths' chains and hoists are checked against
+   ``FUSION_SHAPES``;
 6. prints how many traces ``device_ms`` took and found short, one JSON
    line describing every ported kernel (``launches``, its launches summed
    over every path's counted run; each path's, the TPC-DS paths among
@@ -296,6 +310,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import datetime
 import json
 import math
 import os
@@ -424,7 +439,7 @@ def trace_check(events, match: str | None = None,
     return device, host, matched, why
 
 
-def traced(run) -> tuple:
+def traced(run, raw: bool = False) -> tuple:
     """Trace run() with torch.profiler. A trace can lose the device records
     of its first launches, however long they run (3 or 4 after the card sat
     idle or the paths had run, up to about 18 right after the SF1 paths),
@@ -432,7 +447,8 @@ def traced(run) -> tuple:
     and the census covers only the host calls inside run's region and the
     device records that the warm-up did not enqueue. Returns (the census's
     (name, on_device, correlation id) tuples for trace_check, [(name, us)]
-    of its device records, run's wall seconds)."""
+    of its device records, run's wall seconds); with ``raw`` also (the host
+    events inside run's region, the device records) as kineto events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     with profile(activities=[ProfilerActivity.CPU,
@@ -458,7 +474,43 @@ def traced(run) -> tuple:
               and not e.name().startswith(TRACE_MARK)]
     census = ([(e.name(), False, e.correlation_id()) for e in inside]
               + [(e.name(), True, e.correlation_id()) for e in device])
-    return census, [(e.name(), e.duration_ns() / 1e3) for e in device], wall
+    out = (census, [(e.name(), e.duration_ns() / 1e3) for e in device], wall)
+    return out + ((inside, device),) if raw else out
+
+
+def join_device_ms(run) -> tuple:
+    """(device ms of the work the hash joins enqueued, device ms of every
+    record, traced wall s, why the trace is short or "") of one run(): a
+    device record counts for the joins when the host call that enqueued it
+    started inside a ``HashJoin.probe`` range (``exec/joins.PROBE_RANGE``,
+    around each build, probe, emit and chain pass, entered only while
+    ``exec/joins.TRACE_RANGES`` is set, as it is for this trace) on the same
+    thread. A short trace is taken again, at most three times."""
+    from spark_rapids_tpu_torch.exec import joins as JX
+    JX.TRACE_RANGES = True
+    try:
+        for _ in range(3):
+            census, device, wall, (host, dev_ev) = traced(run, raw=True)
+            why = trace_check(census)[3]
+            if not why:
+                break
+    finally:
+        JX.TRACE_RANGES = False
+    PROBE_RANGE = JX.PROBE_RANGE
+    ranges = {}
+    for e in host:
+        if e.name() == PROBE_RANGE:
+            ranges.setdefault(e.start_thread_id(), []).append(
+                (e.start_ns(), e.start_ns() + e.duration_ns()))
+    joined = set()
+    for e in host:
+        if e.name().startswith(ENQUEUE_CALLS) and any(
+                lo <= e.start_ns() <= hi
+                for lo, hi in ranges.get(e.start_thread_id(), ())):
+            joined.add(e.correlation_id())
+    join_us = sum(e.duration_ns() for e in dev_ev
+                  if e.correlation_id() in joined) / 1e3
+    return (join_us / 1e3, sum(us for _n, us in device) / 1e3, wall, why)
 
 
 def device_ms(fn, reps: int, match: str | None = None,
@@ -1068,12 +1120,84 @@ def one_mode_probe(sorted_keys, rows, stream):
 
 
 def joins(plan) -> list:
-    """The hash joins of an exec tree, top down."""
-    from spark_rapids_tpu_torch.exec.joins import HashJoinExec
+    """The hash joins of an exec tree, top down; a probe chain's hops count
+    as its joins, the top hop first (each keeps its own stats)."""
+    from spark_rapids_tpu_torch.exec.joins import (BroadcastHashJoinChainExec,
+                                                   HashJoinExec)
     out = [plan] if isinstance(plan, HashJoinExec) else []
+    if isinstance(plan, BroadcastHashJoinChainExec):
+        out = plan.hops[::-1]
     for c in plan.children:
         out += joins(c)
     return out
+
+
+def join_execs(plan) -> list:
+    """The probe chains and the unchained hash joins of an exec tree, top
+    down: the execs whose ``stats["syncs"]`` sum to the joins' host syncs."""
+    from spark_rapids_tpu_torch.exec.joins import (BroadcastHashJoinChainExec,
+                                                   HashJoinExec)
+    out = ([plan] if isinstance(plan, (HashJoinExec,
+                                       BroadcastHashJoinChainExec)) else [])
+    for c in plan.children:
+        out += join_execs(c)
+    return out
+
+
+def fusion_shape(plan) -> str:
+    """Each chain's hops with their probe modes and each join's hoisted
+    prefilter and preproject, top down, as text."""
+    from spark_rapids_tpu_torch.exec.joins import BroadcastHashJoinChainExec
+
+    def one(j):
+        keys = " and ".join(f"{lk.name} = {rk.name}"
+                            for lk, rk in zip(j.left_keys, j.right_keys))
+        return (f"{keys} [{j.stats['probe_mode']}"
+                + (", prefilter" if j.stream_prefilter is not None else "")
+                + (", preproject" if j.stream_preproject is not None
+                   else "") + "]")
+    parts = []
+    for x in join_execs(plan):
+        if isinstance(x, BroadcastHashJoinChainExec):
+            parts.append(f"chain of {len(x.hops)} hops (" + " -> ".join(
+                one(h) for h in x.hops) + ")")
+        else:
+            parts.append(f"join {one(x)}")
+    return "; ".join(parts) or "no hash join"
+
+
+def fusion_signature(plan) -> tuple:
+    """Top down: ("chain", each hop's (prefilter?, preproject?)) for a
+    chain, ("join", (prefilter?, preproject?)) for an unchained hash
+    join."""
+    from spark_rapids_tpu_torch.exec.joins import BroadcastHashJoinChainExec
+
+    def hoists(j):
+        return (j.stream_prefilter is not None,
+                j.stream_preproject is not None)
+    return tuple(
+        ("chain", tuple(hoists(h) for h in x.hops))
+        if isinstance(x, BroadcastHashJoinChainExec) else ("join", hoists(x))
+        for x in join_execs(plan))
+
+
+# the chains and hoists the planner forms on the TPC-H paths (the
+# reference's planner forms the same on q3, q5 and q18,
+# tests/test_torch_join_fusion.py): TPC-H q5 and q18 chain two hops, q3's
+# two joins take their stream's filter and projection
+_PP, _PF_PP, _PF, _NONE = (False, True), (True, True), (True, False), \
+    (False, False)
+FUSION_SHAPES = {
+    "q3": (("join", _PF_PP), ("join", _PF_PP)),
+    "sql-q3": (("join", _PF), ("join", _PF)),
+    "q5": (("chain", (_PP, _PP)), ("join", _PF_PP), ("join", _PP),
+           ("join", _NONE)),
+    "q5-sparse": (("join", _PF), ("chain", (_PP, _PP)), ("join", _PF_PP),
+                  ("join", _NONE)),
+    "sql-q5": (("chain", (_NONE, _NONE)), ("join", _NONE),
+               ("chain", (_NONE, _NONE))),
+    "q18": (("chain", (_PP, _PP)),),
+}
 
 
 def of_type(plan, cls) -> list:
@@ -3955,6 +4079,428 @@ def groupby_rest_compare(name, card, frames_on: dict, frames_off: dict,
               f"[{shape['off']}]; same rows")
 
 
+JOIN_FUSION_REPS = 1   # timed runs of each join-fusion-sf1 path after its counted run
+CHAIN_PARTS = 200_000      # TPC-H part rows at SF1
+CHAIN_PS_PER_PART = 4      # TPC-H partsupp rows a part
+CHAIN_SHIP_CUTOFF = datetime.date(1998, 9, 2)
+Q6_FROM, Q6_TO = datetime.date(1994, 1, 1), datetime.date(1995, 1, 1)
+
+
+def write_part_tables(root: str, sf: float) -> dict:
+    """TPC-H's part (``p_partkey`` 1..200,000 x sf, unique; ``p_brand``
+    'Brand#MN', M and N in 1..5) and partsupp (four rows a part:
+    ``ps_partkey``, ``ps_suppkey``, ``ps_supplycost`` in [1.00, 1000.00])
+    from a seed, as parquet under ``root``: the generator's TPC-H subset has
+    neither table."""
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.benchmarks.common import write_partitioned
+    rng = np.random.default_rng(20261018)
+    n = max(int(CHAIN_PARTS * sf), 1)
+    brands = np.array([f"Brand#{m}{k}" for m in range(1, 6)
+                       for k in range(1, 6)])
+    out = {}
+    write_partitioned(root, "part", pa.table({
+        "p_partkey": pa.array(np.arange(1, n + 1, dtype=np.int64)),
+        "p_brand": pa.array(brands[rng.integers(0, 25, n)])}), 1, out)
+    pk = np.repeat(np.arange(1, n + 1, dtype=np.int64), CHAIN_PS_PER_PART)
+    write_partitioned(root, "partsupp", pa.table({
+        "ps_partkey": pa.array(pk),
+        "ps_suppkey": pa.array(rng.integers(1, max(int(10_000 * sf), 1) + 1,
+                                            len(pk)).astype(np.int64)),
+        "ps_supplycost": pa.array(np.round(rng.uniform(1.0, 1000.0,
+                                                       len(pk)), 2))}),
+        1, out)
+    return out
+
+
+def _days(d) -> int:
+    return (d - datetime.date(1970, 1, 1)).days
+
+
+@contextlib.contextmanager
+def decoded_at_scan():
+    """Every parquet chunk decoded as the scan yields its batch: the dense
+    route that the lazy ``EncodedColumnVector`` replaces, for a
+    comparison."""
+    from spark_rapids_tpu_torch.columnar.encoded import EncodedColumnVector
+    from spark_rapids_tpu_torch.io import parquet_native as PN
+    read = PN.read_row_group_device
+
+    def at_scan(*args, **kw):
+        batch = read(*args, **kw)
+        for c in batch.columns:
+            if isinstance(c, EncodedColumnVector):
+                c.decode()
+        return batch
+    PN.read_row_group_device = at_scan
+    try:
+        yield
+    finally:
+        PN.read_row_group_device = read
+
+
+def join_fusion_paths(spark, off, dev, name, card, paths, root,
+                      sf, check, exp_q1, counting, agg_batches, scan_chunks,
+                      reps: int, counts_by_path: dict,
+                      peak_by_path: dict) -> None:
+    """join-fusion-sf1: the joins' stream hoist and probe chain, encoded
+    upload and the pushed scan filter, on the SF1 files.
+
+    - ladder-fusion: q3, q5, q5-sparse and q18 beside ``stageFusion.enabled
+      =false`` (``off``), in turns on, off, off, on, each turn a counted run
+      with launches predicted; the rows the same (both routes also held to
+      the oracle); each query's chains with their hops' probe modes, the
+      hoisted prefilters and preprojects, the joins' host syncs, the joins'
+      device time (one trace a route, ``join_device_ms``) and the walls;
+    - chain-3hop: lineitem where ``l_shipdate <= 1998-09-02`` (a
+      prefilter), ``l_orderkey`` and ``l_extendedprice * (1 - l_discount)
+      AS rev`` (a preproject), joined to orders, customer and nation (one
+      chain of three unique-keyed hops), then by ``n_name``: ``sum(rev)``,
+      ``count(*)``;
+    - chain-dup-build: ``l_partkey`` (computed: TPC-H's lineitem column is
+      not generated) joined to part (unique), then to partsupp (four rows a
+      key: probe mode two), so every batch runs the hops one after another;
+      then by ``p_brand``: ``count(*)``, ``sum(ps_supplycost)``;
+    - q1-encoded and q1-dense: q1 with each chunk decoded at its first read
+      (the port's one route), and with every chunk decoded as the scan
+      yields it (``decoded_at_scan``), the rows bit for bit, 48 chunk
+      decodes a scan either way, each of an encoded vector decoded once;
+    - scan-pushed-filter: TPC-H q6's predicate pushed into the lineitem
+      scan (the date conjuncts to arrow, the double ones the residual, on
+      the device), then ``sum(l_extendedprice * l_discount)``.
+
+    Each path: a counted run (launches predicted), ``reps`` more timed runs
+    and one traced run, held to numpy/pyarrow oracles (floats within 1e-6
+    relative, as the ladder's oracles hold them)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    import spark_rapids_tpu_torch.functions as F
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    from spark_rapids_tpu_torch.columnar import encoded as EN
+    from spark_rapids_tpu_torch.exec.joins import \
+        BroadcastHashJoinChainExec as Chain
+    from spark_rapids_tpu_torch.ops import cuda_kernels as CK
+    c = F.col
+    t_phase = time.perf_counter()
+    li_dir = paths["lineitem"]
+    parts = write_part_tables(root, sf)
+
+    def col(d, name_, cast=None):
+        a = pq.read_table(d, columns=[name_]).column(0)
+        return (a.cast(cast) if cast is not None else a).to_numpy()
+
+    def close(got, want) -> bool:
+        return abs(got - want) <= 1e-6 * max(1.0, abs(want))
+
+    # -- the oracles, from the files, outside every timed window ----------
+    t0 = time.perf_counter()
+    l_ok = col(li_dir, "l_orderkey")
+    l_price = col(li_dir, "l_extendedprice")
+    l_disc = col(li_dir, "l_discount")
+    l_ship = col(li_dir, "l_shipdate", pa.int32())
+    o_key, o_cust = col(paths["orders"], "o_orderkey"), \
+        col(paths["orders"], "o_custkey")
+    c_key = col(paths["customer"], "c_custkey")
+    c_nat = col(paths["customer"], "c_nationkey")
+    n_names = col(paths["nation"], "n_name")
+    n_keys = col(paths["nation"], "n_nationkey")
+    cust_of = np.zeros(o_key.max() + 1, np.int64)
+    cust_of[o_key] = o_cust
+    nat_of = np.zeros(c_key.max() + 1, np.int64)
+    nat_of[c_key] = c_nat
+    keep = l_ship <= _days(CHAIN_SHIP_CUTOFF)
+    nk = nat_of[cust_of[l_ok[keep]]]
+    rev = l_price[keep] * (1.0 - l_disc[keep])
+    three_want = {str(n_names[list(n_keys).index(k)]): (
+        float(np.bincount(nk, weights=rev, minlength=25)[k]),
+        int(np.bincount(nk, minlength=25)[k]))
+        for k in np.unique(nk)}
+    n_parts = max(int(CHAIN_PARTS * sf), 1)
+    l_supp = col(li_dir, "l_suppkey")
+    l_part = (l_ok * 7 + l_supp) % n_parts + 1
+    p_key, p_brand = col(parts["part"], "p_partkey"), \
+        col(parts["part"], "p_brand")
+    ps_key = col(parts["partsupp"], "ps_partkey")
+    ps_cost = col(parts["partsupp"], "ps_supplycost")
+    brands, brand_code = np.unique(p_brand, return_inverse=True)
+    brand_of = np.zeros(n_parts + 1, np.int64)
+    brand_of[p_key] = brand_code
+    cost_of = np.bincount(ps_key, weights=ps_cost, minlength=n_parts + 1)
+    per_of = np.bincount(ps_key, minlength=n_parts + 1)
+    lb = brand_of[l_part]
+    dup_want = {str(brands[b]): (
+        int(np.bincount(lb, weights=per_of[l_part],
+                        minlength=len(brands))[b]),
+        float(np.bincount(lb, weights=cost_of[l_part],
+                          minlength=len(brands))[b]))
+        for b in np.unique(lb)}
+    dup_pairs = int(per_of[l_part].sum())
+    l_qty = col(li_dir, "l_quantity")
+    in_year = (l_ship >= _days(Q6_FROM)) & (l_ship < _days(Q6_TO))
+    q6 = in_year & (l_qty < 24) & (l_disc >= 0.05) & (l_disc <= 0.07)
+    q6_want = float((l_price[q6] * l_disc[q6]).sum())
+    q6_rows = (int(in_year.sum()), int(q6.sum()))
+    n_li = len(l_ok)
+    del l_ok, l_price, l_disc, l_ship, l_supp, l_part, l_qty
+    print(f"join-fusion-sf1 oracles: chain-3hop {len(three_want)} nations "
+          f"over {int(keep.sum())} lineitem rows; chain-dup-build "
+          f"{len(dup_want)} brands over {dup_pairs} pairs ({n_parts} parts, "
+          f"{len(ps_key)} partsupp rows); q6 {q6_rows[1]} of "
+          f"{q6_rows[0]} rows in 1994; in "
+          f"{time.perf_counter() - t0:.1f} s (numpy and pyarrow)")
+
+    # -- the frames --------------------------------------------------------
+    def three_hop(s):
+        li = (s.read_parquet(li_dir)
+              .filter(c("l_shipdate") <= F.lit(_days(CHAIN_SHIP_CUTOFF),
+                                               T.DATE))
+              .select(c("l_orderkey"), F.alias(
+                  c("l_extendedprice") * (F.lit(1.0) - c("l_discount")),
+                  "rev")))
+        orders = s.read_parquet(paths["orders"]).select(
+            F.alias(c("o_orderkey"), "l_orderkey"), c("o_custkey"))
+        cust = s.read_parquet(paths["customer"]).select(
+            F.alias(c("c_custkey"), "o_custkey"), c("c_nationkey"))
+        nation = s.read_parquet(paths["nation"]).select(
+            F.alias(c("n_nationkey"), "c_nationkey"), c("n_name"))
+        return (li.join(orders, on="l_orderkey").join(cust, on="o_custkey")
+                .join(nation, on="c_nationkey").group_by("n_name")
+                .agg(F.alias(F.sum("rev"), "rev"), F.alias(F.count(), "n")))
+
+    def dup_build(s):
+        li = s.read_parquet(li_dir).select(F.alias(
+            (c("l_orderkey") * F.lit(7) + c("l_suppkey")) % F.lit(n_parts)
+            + F.lit(1), "l_partkey"))
+        part = s.read_parquet(parts["part"]).select(
+            F.alias(c("p_partkey"), "l_partkey"), c("p_brand"))
+        ps = s.read_parquet(parts["partsupp"]).select(
+            F.alias(c("ps_partkey"), "l_partkey"), c("ps_supplycost"))
+        return (li.join(part, on="l_partkey").join(ps, on="l_partkey")
+                .group_by("p_brand").agg(F.alias(F.count(), "n"),
+                                         F.alias(F.sum("ps_supplycost"),
+                                                 "cost")))
+
+    def pushed(s):
+        pred = ((c("l_shipdate") >= F.lit(Q6_FROM, T.DATE))
+                & (c("l_shipdate") < F.lit(Q6_TO, T.DATE))
+                & (c("l_quantity") < F.lit(24.0))
+                & (c("l_discount") >= F.lit(0.05))
+                & (c("l_discount") <= F.lit(0.07)))
+        return s.read_parquet(li_dir, pushed_filter=pred).agg(F.alias(
+            F.sum(c("l_extendedprice") * c("l_discount")), "revenue"))
+
+    def check_three(res, label):
+        got = {r["n_name"]: (r["rev"], r["n"]) for r in res.to_pylist()}
+        if got.keys() != three_want.keys() or any(
+                got[k][1] != n or not close(got[k][0], v)
+                for k, (v, n) in three_want.items()):
+            raise AssertionError(f"{label}: {got} != oracle {three_want}")
+
+    def check_dup(res, label):
+        got = {r["p_brand"]: (r["n"], r["cost"]) for r in res.to_pylist()}
+        if got.keys() != dup_want.keys() or any(
+                got[k][0] != n or not close(got[k][1], v)
+                for k, (n, v) in dup_want.items()):
+            raise AssertionError(f"{label}: {got} != oracle {dup_want}")
+
+    def check_q6(res, label):
+        got = res.column("revenue")[0].as_py()
+        if not close(got, q6_want):
+            raise AssertionError(f"{label}: revenue {got} != {q6_want}")
+
+    def rows_in(plan) -> int:
+        return sum(pq.ParquetFile(f).metadata.num_rows
+                   for _d, ex in scans(plan)
+                   for part in ex.node.partitions for f in part.paths)
+
+    def predicted(plan, count_batches, decoded: bool = True) -> dict:
+        js = joins(plan)
+        hashed = [j for j in js if j.stats["probe_mode"] == "hash"]
+        return {
+            "bitunpack128": sum(scan_chunks(d, ex.node._data_columns())[0]
+                                for d, ex in scans(plan)
+                                if ex.node.pushed_filter is None)
+            if decoded else 0,
+            "onehot_sum_f32": len(count_batches), "radix_ranks": 0,
+            "murmur3_words": 0,
+            "hash_join_build": len(hashed) + sum(j.stats["hash_refused"]
+                                                 for j in js),
+            "hash_join_probe": sum(j.stats["stream_batches"]
+                                   for j in hashed)}
+
+    def counted(label, make, chk, required=("bitunpack128",)):
+        """One counted run: (plan, result, wall s, launches, peak B)."""
+        with counting():
+            t0 = time.perf_counter()
+            plan = make().physical_plan()
+            res = plan.execute_collect()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = dict(CK.launches)
+            peak = torch.cuda.max_memory_allocated(dev)
+            batches = [k for k in agg_batches if k]
+        chk(res, label)
+        check_launches(label, got, predicted(plan, batches), required)
+        return plan, res, wall, got, peak
+
+    def syncs(plan) -> int:
+        return sum(x.stats["syncs"] for x in join_execs(plan))
+
+    def chain_counts(plan) -> tuple:
+        chains = of_type(plan, Chain)
+        return (sum(x.stats["chained_batches"] for x in chains),
+                sum(x.stats["degraded_batches"] for x in chains))
+
+    # -- ladder-fusion -----------------------------------------------------
+    ladder = {"q3": tpch.q3, "q5": tpch.q5, "q5-sparse": tpch.q5_sparse,
+              "q18": tpch.q18}
+    for q, frame in ladder.items():
+        label = f"join-fusion-sf1/ladder-fusion/{q}"
+        sessions = {"on": spark, "off": off}
+        walls, sy, shape, res, plans = {"on": [], "off": []}, {}, {}, {}, {}
+        for route in ("on", "off", "off", "on"):
+            plan, out, wall, got, peak = counted(
+                f"{label} ({route})",
+                lambda r=route: frame(tpch.load(sessions[r], paths)),
+                lambda r_, _l: check(q, r_),
+                ("bitunpack128",) + (("hash_join_probe",)
+                                     if q == "q5-sparse" else ()))
+            walls[route].append(wall)
+            sy[route], shape[route] = syncs(plan), fusion_shape(plan)
+            res[route], plans[route] = out, plan
+            if route == "on":
+                counts_by_path[label] = got
+                peak_by_path[label] = peak
+        # both routes held to the oracle (counted); the rows bit for bit,
+        # or else within the oracle's tolerance
+        exact = res["on"].equals(res["off"])
+        if res["on"].num_rows != res["off"].num_rows:
+            raise AssertionError(f"{label}: the routes give other row counts")
+        if of_type(plans["off"], Chain):
+            raise AssertionError(f"{label}: a chain with fusion off")
+        dev_ms = {r: join_device_ms(lambda r=r: frame(
+            tpch.load(sessions[r], paths)).collect()) for r in ("on", "off")}
+        cb, db = chain_counts(plans["on"])
+        print(f"{label} on {card}: on: {shape['on']}; joins' host syncs "
+              f"{sy['on']}, joins' device {dev_ms['on'][0]:.4f} ms of "
+              f"{dev_ms['on'][1]:.4f} ms device"
+              f"{' SHORT ' + dev_ms['on'][3] if dev_ms['on'][3] else ''}, "
+              f"walls {[round(x, 4) for x in walls['on']]} s, chained "
+              f"batches {cb}, degraded {db}; off: {shape['off']}; joins' "
+              f"host syncs {sy['off']}, joins' device "
+              f"{dev_ms['off'][0]:.4f} ms of {dev_ms['off'][1]:.4f} ms "
+              f"device{' SHORT ' + dev_ms['off'][3] if dev_ms['off'][3] else ''}"
+              f", walls {[round(x, 4) for x in walls['off']]} s; rows in "
+              f"{rows_in(plans['on'])}, out {res['on'].num_rows}, "
+              + ("bit for bit the same" if exact else
+                 "the same within the oracle's tolerance")
+              + f"; idle share on "
+              f"{1 - dev_ms['on'][1] / 1e3 / dev_ms['on'][2]:.4f}, off "
+              f"{1 - dev_ms['off'][1] / 1e3 / dev_ms['off'][2]:.4f}; peak "
+              f"device memory {peak_by_path[label]} B; launches "
+              f"{ {k: v for k, v in counts_by_path[label].items() if v} }")
+
+    # -- chain-3hop, chain-dup-build, q1-encoded, scan-pushed-filter -------
+    def q1_frame(s):
+        return tpch.q1(tpch.load(s, {"lineitem": li_dir}))
+
+    def q1_check(res, label):
+        check_q1(res.to_pylist(), exp_q1)
+
+    paths_ = {
+        "join-fusion-sf1/chain-3hop": (lambda: three_hop(spark), check_three,
+                                       ("bitunpack128",)),
+        "join-fusion-sf1/chain-dup-build": (lambda: dup_build(spark),
+                                            check_dup, ("bitunpack128",)),
+        "join-fusion-sf1/q1-encoded": (lambda: q1_frame(spark), q1_check,
+                                       ("bitunpack128", "onehot_sum_f32")),
+        "join-fusion-sf1/q1-dense": (lambda: q1_frame(spark), q1_check,
+                                     ("bitunpack128", "onehot_sum_f32")),
+        "join-fusion-sf1/scan-pushed-filter": (lambda: pushed(spark),
+                                               check_q6, ()),
+    }
+    results = {}
+    for label, (make, chk, required) in paths_.items():
+        scope = (decoded_at_scan() if label.endswith("q1-dense")
+                 else contextlib.nullcontext())
+        with scope:
+            EN.reset_counts()
+            plan, res, first_s, got, peak = counted(label, make, chk, required)
+            vectors = dict(EN.counts)
+            results[label] = res
+            counts_by_path[label] = got
+            peak_by_path[label] = peak
+            ts = [first_s]
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                r = make().collect()
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t0)
+                chk(r, label)
+            jd = join_device_ms(lambda: make().collect())
+            cb, db = chain_counts(plan)
+            extra = ""
+            if label.endswith("chain-3hop") and (cb == 0 or db):
+                raise AssertionError(f"{label}: {cb} chained and {db} degraded "
+                                     f"batches (want every batch chained)")
+            if label.endswith("chain-dup-build") and (db == 0 or cb):
+                raise AssertionError(f"{label}: {cb} chained and {db} degraded "
+                                     f"batches (want every batch degraded)")
+            if "q1-" in label:
+                # the chunk decodes are the census's either way (counted: 48
+                # a q1 scan at SF1), each of an encoded vector the scan
+                # yielded, decoded once: at its first read (q1's aggregate
+                # reads the scan) or as the scan yields it
+                made = sum(ex.stats["encoded_vectors"]
+                           for _d, ex in scans(plan))
+                chunks = predicted(plan, [])["bitunpack128"]
+                if made != chunks or vectors != {"made": chunks,
+                                                 "decoded": chunks}:
+                    raise AssertionError(
+                        f"{label}: the scan yielded {made} encoded vectors, "
+                        f"{vectors} made and decoded, {chunks} dictionary "
+                        f"chunks")
+                extra = (f"; encoded vectors the scan yielded {made}, "
+                         f"decoded {vectors['decoded']} "
+                         + ("as the scan yielded them"
+                            if label.endswith("dense")
+                            else "at their first read"))
+            if label.endswith("scan-pushed-filter"):
+                (ex,) = [ex for _d, ex in scans(plan)]
+                st = ex.stats
+                if ((st["residual_rows_in"], st["residual_rows_out"]) != q6_rows
+                        or st["device_batches"] or got["bitunpack128"]):
+                    raise AssertionError(f"{label}: scan {st}, want the arrow "
+                                         f"reader and residual rows {q6_rows}")
+                extra = (f"; arrow reader {st['strategy']} {st['arrow_batches']} "
+                         f"batches, the date conjuncts in arrow "
+                         f"({st['residual_rows_in']} rows), the double residual "
+                         f"on the device ({st['residual_rows_out']} rows kept, "
+                         f"{st['syncs']} host syncs)")
+            print(f"{label} on {card}: median {statistics.median(ts):.4f} s, "
+                  f"min {min(ts):.4f} s, max {max(ts):.4f} s over {len(ts)} "
+                  f"runs: {[round(x, 4) for x in ts]}; equal to the oracle; "
+                  f"rows in {rows_in(plan)}, out {res.num_rows}; "
+                  f"{fusion_shape(plan)}; joins' host syncs {syncs(plan)}, "
+                  f"joins' device {jd[0]:.4f} ms of {jd[1]:.4f} ms device"
+                  f"{' SHORT ' + jd[3] if jd[3] else ''}; device idle share "
+                  f"{1 - jd[1] / 1e3 / jd[2]:.4f} (traced wall {jd[2]:.4f} s); "
+                  f"chained batches {cb}, degraded {db}; peak device memory "
+                  f"{peak} B; launches { {k: v for k, v in got.items() if v} }"
+                  + extra)
+    if not results["join-fusion-sf1/q1-encoded"].equals(
+            results["join-fusion-sf1/q1-dense"]):
+        raise AssertionError("q1-encoded: the decode at first read gives "
+                             "other rows than every chunk decoded at the "
+                             "scan")
+    print("join-fusion-sf1/q1-encoded: bit for bit the rows of every chunk "
+          "decoded at the scan")
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"join-fusion-sf1: {time.perf_counter() - t_phase:.1f} s "
+          f"({n_li} lineitem rows)")
+
+
 def decode_call_bound_ms(words, pages, defs, dictionary, n_rows, capacity,
                          want, default) -> float:
     """Least time for one recorded chunk decode call: read its words, its
@@ -4398,8 +4944,9 @@ def main() -> int:
     chunk_plain_ms = device_ms(all_chunks(CK.chunk_decode_plain), 2)
     chunk_call_ms = call_ms(all_chunks(CK.chunk_decode), 5, 1)
     chunk_bound = sum(c[-1] for c in dev_chunks)
+    # the column's first read launches its decode
     fused = routes(lambda chunk, cap: PN.chunk_to_device(chunk, None, cap,
-                                                         dev))
+                                                         dev).data)
     per_page = routes(lambda chunk, cap: per_page_route(chunk, cap, dev))
     fused_ms, per_page_ms = device_ms(fused, 2), device_ms(per_page, 2)
     fused_s, per_page_s = wall_s(fused), wall_s(per_page)
@@ -4631,6 +5178,12 @@ def main() -> int:
                     f"keys each) but murmur3_words launched "
                     f"{counts['murmur3_words']} and radix_ranks "
                     f"{counts['radix_ranks']} times")
+        if label in FUSION_SHAPES:
+            if fusion_signature(plan) != FUSION_SHAPES[label]:
+                raise AssertionError(
+                    f"{label}: chains and hoists {fusion_signature(plan)}, "
+                    f"want {FUSION_SHAPES[label]}\n{plan}")
+            print(f"{label} chains and hoists: {fusion_shape(plan)}")
         js = joins(plan)
         hashed = [j for j in js if j.stats["probe_mode"] == "hash"]
         hash_builds = len(hashed) + sum(j.stats["hash_refused"] for j in js)
@@ -4769,6 +5322,23 @@ def main() -> int:
                 raise AssertionError(
                     f"recorded {got} {k} calls on {label}, the counted run "
                     f"launched {counted}")
+
+    # the keys the unchained route hands hash_join_probe in one q5-sparse
+    # run: the compacted output of the hop before it (the chain hands the
+    # kernel every slot of its stream batch, dead rows included)
+    unchained_keys = []
+    probe = launchers["hash_join_probe"]
+
+    def count_keys(tk, tr, stream, nb):
+        unchained_keys.append((stream.numel(), nb))
+        return probe(tk, tr, stream, nb)
+    CK.hash_join_probe = count_keys
+    try:
+        check("q5-sparse", tpch.q5_sparse(tpch.load(TorchSession(
+            {**threads, "spark.rapids.tpu.sql.stageFusion.enabled":
+             "false"}), paths)).collect())
+    finally:
+        CK.hash_join_probe = probe
 
     oh_calls = recorded["onehot_sums_f32"]
     # every batch the two runs counted, bit for bit; then q1's alone
@@ -4912,6 +5482,7 @@ def main() -> int:
     hj_call_ms = call_ms(each_call(CK.hash_join_probe, hj_calls), 5, 1)
     hj_bound_ms = sum(probe_bound_ms(stream.numel(), nb)
                       for _tk, _tr, stream, nb in hj_calls)
+    hj_live_bound_ms = sum(probe_bound_ms(n, nb) for n, nb in unchained_keys)
     hj_found = sum(int(CK.hash_join_probe(*a)[1].sum()) for a in hj_calls)
     shapes = sorted({(stream.numel(), nb) for _k, _r, stream, nb in hj_calls})
     parent = ("not measured" if hj_parent_ms is None
@@ -4923,8 +5494,14 @@ def main() -> int:
           f"back), parent tree's kernel {parent}, plain {hj_plain_ms:.4f} "
           f"ms, the one-mode formulation "
           f"(searchsorted, compare, gather) {hj_one_ms:.4f} ms, bound "
-          f"{hj_bound_ms:.6f} ms (bytes); no single PyTorch call probes a "
-          f"hash table")
+          f"{hj_bound_ms:.6f} ms (bytes) over the slots the chain hands it "
+          f"(the kernel at {hj_bound_ms / hj_ms:.1%} of it), "
+          f"{hj_live_bound_ms:.6f} ms over the "
+          f"{sum(n for n, _nb in unchained_keys)} keys that the unchained "
+          f"route hands it in {len(unchained_keys)} launches, the compacted "
+          f"rows of the hop before (the kernel at "
+          f"{hj_live_bound_ms / hj_ms:.1%} of it); no single PyTorch call "
+          f"probes a hash table")
 
     # hash_join_build: the kernel (memset, insert, finalize) against its
     # plain version, and beside them the one mode's build, one sort of the
@@ -5405,6 +5982,15 @@ def main() -> int:
         "sql-ds-q14": lambda res: sql_check("q14", res)})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start, "
           f"after the group-by remainder")
+
+    # -- 4k. join-fusion-sf1: the joins' hoist and chain, the scan's rest --
+    join_fusion_paths(spark, off, dev, name, card, paths,
+                      os.path.join(repo, "build", f"join_fusion_sf{args.sf:g}"),
+                      args.sf, check, exp_q1, counting, agg_batches,
+                      scan_chunks, min(args.reps, JOIN_FUSION_REPS),
+                      counts_by_path, peak_by_path)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start, "
+          f"after join-fusion-sf1")
 
     if args.profile:
         for label, make_df in all_paths.items():

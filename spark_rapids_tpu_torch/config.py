@@ -125,15 +125,19 @@ PARQUET_REBASE_MODE = conf(
 
 ALLUXIO_PATHS_REPLACE = conf(
     "spark.rapids.tpu.alluxio.pathsToReplace").doc(
-    "Path-prefix rewrites of every file scan (reference "
-    "spark.rapids.alluxio.pathsToReplace). Not ported yet: planning a scan "
-    "with it set raises NotImplementedError").string_conf(None)
+    "Path-prefix rewrites of every file scan, 'from->to' rules separated "
+    "by ';', the first matching prefix rewritten (reference "
+    "spark.rapids.alluxio.pathsToReplace, io/filescan.rewrite_scan_path). "
+    "A rule without '->' raises ValueError").string_conf(None)
 
 PARQUET_ENCODED_UPLOAD = conf(
     "spark.rapids.tpu.sql.parquet.encodedUpload.enabled").doc(
-    "Upload parquet pages encoded and expand them inside the consuming "
-    "kernel. Not ported yet: setting it to true raises "
-    "NotImplementedError").boolean_conf(False)
+    "Upload parquet dictionary chunks encoded and decode them on the "
+    "device at their first consumer. Accepted for the reference's "
+    "configurations and satisfied either way: the port's device decode "
+    "always uploads a chunk packed and decodes it with one chunk_decode "
+    "launch at its first read (columnar/encoded.py), so true and false take "
+    "the same route").boolean_conf(True)
 
 BATCH_SIZE_BYTES = conf("spark.rapids.tpu.sql.batchSizeBytes").doc(
     "Target size of output batches from coalescing, such as the batches a "
@@ -217,8 +221,19 @@ STAGE_FUSION_ENABLED = conf("spark.rapids.tpu.sql.stageFusion.enabled").doc(
     "(skip the sort when the live rows arrive sorted by their one 64-bit "
     "key with no null, else pack the key as value - min when its range "
     "fits), the right-sizing of an aggregate's partial at its group count, "
-    "the HAVING filter folded into the aggregate's finalize, and the "
-    "group-by chain below. False turns all of them off").boolean_conf(True)
+    "the HAVING filter folded into the aggregate's finalize, the hoist of "
+    "a bare stream-side projection into an inner broadcast hash join (a "
+    "stream-side filter, or a projection over one, is hoisted either way), "
+    "the probe chain of stacked inner single-key broadcast hash joins and "
+    "the group-by chain below. False turns all of them "
+    "off").boolean_conf(True)
+
+SCAN_FUSION_ENABLED = conf("spark.rapids.tpu.sql.stageFusion.scan.enabled").doc(
+    "Fuse the parquet decode into the consuming aggregate's update. "
+    "Accepted for the reference's configurations and satisfied either way: "
+    "an encoded chunk is decoded at its first read by whichever consumer "
+    "reads it first, the aggregate's update included "
+    "(columnar/encoded.py)").boolean_conf(True)
 
 GROUPBY_CHAIN_ENABLED = conf(
     "spark.rapids.tpu.sql.stageFusion.groupBy.chain.enabled").doc(
@@ -240,9 +255,6 @@ class RapidsConf:
         if unknown:
             raise NotImplementedError(
                 f"spark.rapids.tpu confs not ported yet: {unknown}")
-        if self.get(PARQUET_ENCODED_UPLOAD):
-            raise NotImplementedError(
-                f"{PARQUET_ENCODED_UPLOAD.key}=true is not ported yet")
 
     def get(self, entry: ConfEntry):
         return entry.get(self.settings)

@@ -56,15 +56,24 @@ of the kept pairs per chunk) and read once per stream batch, where the
 unmatched rows are compacted; a full outer join keeps the build rows'
 flags the same way, merged across stream partitions like the hash join's.
 
+The planner hoists the stream side's filter and projection into an inner
+join on one fixed-point key (``HashJoinExec``'s ``stream_prefilter`` and
+``stream_preproject``; ``plan/overrides._stream_hoist``), and, under
+``stageFusion.enabled``, collapses stacked inner single-key broadcast joins
+into one ``BroadcastHashJoinChainExec`` (``maybe_chain``), which probes a
+stream batch through every hop with one host sync. Neither changes a
+result. The port's ``_int_backed`` leaves timestamps and decimals out, so a
+join on such a key, which the reference hoists and chains, stays unhoisted
+and unchained here, on the rank path, with the same rows.
+
 Not ported (the planner refuses them, ``plan/overrides.py``, as the
 reference's ``tag_join`` does): a residual condition on an outer, semi or
 anti equi-join, a keyless right outer join, and the shuffled/mesh route.
-The reference's probe chain fusion and its stream prefilter/preproject
-hoist change no result and are not ported either.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
@@ -75,14 +84,30 @@ from spark_rapids_tpu_torch.columnar.vector import bucket_capacity
 from spark_rapids_tpu_torch.exec.base import TorchExec
 from spark_rapids_tpu_torch.expr.core import (Col, EvalContext,
                                               bind_references)
+from spark_rapids_tpu_torch.expr.misc import is_context_free
 from spark_rapids_tpu_torch.ops import cuda_kernels as CK
 from spark_rapids_tpu_torch.ops import joining as J
 from spark_rapids_tpu_torch.ops.filtering import (compact_cols, gather_cols,
-                                                  selection_mask)
+                                                  selection_mask,
+                                                  slice_to_capacity)
 from spark_rapids_tpu_torch.ops.strings import align_many
 
 # max pairs expanded per output chunk (the JoinGatherer row-target analog)
 _MAX_CHUNK_ROWS = 1 << 20
+
+#: the profiler range around a hash join's device work (its build's core,
+#: each batch's probe, emit and chain pass; never across a yield), so that
+#: a trace can tell the joins' device time from the rest
+PROBE_RANGE = "HashJoin.probe"
+
+#: whether the joins enter ``PROBE_RANGE``; a tracer sets it for the run it
+#: traces, and with it off the hot path enters no range
+TRACE_RANGES = False
+
+
+def _probe_range():
+    return (torch.profiler.record_function(PROBE_RANGE) if TRACE_RANGES
+            else contextlib.nullcontext())
 
 
 def _int_backed(dtype) -> bool:
@@ -109,15 +134,22 @@ def _key_values(k: Col) -> torch.Tensor:
         else k.values
 
 
-def _emit_pairs(join_type, stream_is_left, condition, stream_batch,
-                build_batch, build_perm, lo, hi, counts, total, out_schema):
+def _emit_pairs(join_type, stream_is_left, condition, preproject,
+                stream_batch, build_batch, build_perm, lo, hi, counts, total,
+                out_schema, on_sync=None):
     """Expand the probe's pairs in chunks of at most ``_MAX_CHUNK_ROWS`` and
     yield output batches: stream columns, then build columns (swapped when
     the build side is the left one), null-extended where an outer join found
-    no match; semi and anti joins emit the stream columns only. A residual
-    ``condition`` (inner joins only, bound to the output schema) keeps the
-    pairs it holds for, compacted (one more host sync a chunk)."""
-    total = int(total)  # one host sync per stream batch
+    no match; semi and anti joins emit the stream columns only. A hoisted
+    ``preproject`` (reference ``:63``) re-derives the stream side's
+    projection on the gathered stream rows of each chunk, so the projected
+    stream batch never exists. A residual ``condition`` (inner joins only,
+    bound to the output schema) keeps the pairs it holds for, compacted (one
+    more host sync a chunk). ``on_sync()`` is called at each host sync."""
+    with _probe_range():
+        total = int(total)  # one host sync per stream batch
+    if on_sync is not None:
+        on_sync()
     semi_anti = join_type in (J.LEFT_SEMI, J.LEFT_ANTI)
     s_in = [Col.from_vector(c) for c in stream_batch.columns]
     b_in = ([] if semi_anti else
@@ -126,21 +158,28 @@ def _emit_pairs(join_type, stream_is_left, condition, stream_batch,
     while pos < total:
         out_cap = bucket_capacity(min(total - pos, _MAX_CHUNK_ROWS))
         n_out = min(total - pos, out_cap)
-        s_idx, b_idx, b_matched, live = J.expand_pairs(
-            build_perm, lo, hi, counts, pos, out_cap)
+        with _probe_range():
+            s_idx, b_idx, b_matched, live = J.expand_pairs(
+                build_perm, lo, hi, counts, pos, out_cap)
+            cols = gather_cols(s_in, s_idx, live)
+            if preproject is not None:
+                pctx = EvalContext(cols, n_out, out_cap, live.device)
+                cols = [e.eval(pctx) for e in preproject]
+            if not semi_anti:
+                b_cols = gather_cols(b_in, b_idx.long(), b_matched)
+                cols = (cols + b_cols) if stream_is_left else (b_cols + cols)
+            if condition is not None:
+                pred = condition.eval(EvalContext(cols, n_out, out_cap,
+                                                  live.device))
+                cols, n_out = compact_cols(cols, selection_mask(
+                    pred, n_out, out_cap))
+            out = ColumnarBatch([c.to_vector() for c in cols], n_out,
+                                out_schema)
         pos += out_cap
-        cols = gather_cols(s_in, s_idx, live)
-        if not semi_anti:
-            b_cols = gather_cols(b_in, b_idx.long(), b_matched)
-            cols = (cols + b_cols) if stream_is_left else (b_cols + cols)
-        if condition is not None:
-            pred = condition.eval(EvalContext(cols, n_out, out_cap,
-                                              live.device))
-            cols, n_out = compact_cols(cols, selection_mask(pred, n_out,
-                                                            out_cap))
-            if not n_out:
-                continue
-        yield ColumnarBatch([c.to_vector() for c in cols], n_out, out_schema)
+        if condition is not None and on_sync is not None:
+            on_sync()
+        if n_out:
+            yield out
 
 
 def _null_cols(schema, cap: int, device):
@@ -238,13 +277,20 @@ class _SharedBroadcast:
 
 class _JoinCore:
     """Probe machinery over one materialized build batch (module docstring:
-    the build order and the modes)."""
+    the build order and the modes). ``stream_prefilter``, a hoisted stream
+    filter, masks the probe's live rows on the single fixed-point key path,
+    so filtered rows emit no pairs; the planner hoists one only there
+    (reference ``:134-168``), and any other path refuses it. ``syncs``
+    counts the build's host syncs."""
 
     def __init__(self, build_batch: ColumnarBatch, build_key_exprs,
-                 stream_key_exprs, join_type: str, device):
+                 stream_key_exprs, join_type: str, device,
+                 stream_prefilter=None):
         self.device = torch.device(device)
         self.stream_key_exprs = stream_key_exprs
+        self.stream_prefilter = stream_prefilter
         self.join_type = join_type
+        self.syncs = 0
         bctx = EvalContext.from_batch(build_batch, self.device)
         self.build_keys_raw = [e.eval(bctx) for e in build_key_exprs]
         self.n_build = build_batch.num_rows
@@ -264,6 +310,14 @@ class _JoinCore:
             if join_type == J.FULL_OUTER else None)
         self.fast = (len(self.build_keys_raw) == 1
                      and _int_backed(self.build_keys_raw[0].dtype))
+        if stream_prefilter is not None and not (
+                self.fast and join_type == J.INNER
+                and is_context_free(stream_prefilter, *stream_key_exprs)):
+            # the planner's hoist rule guarantees this (the reference
+            # asserts it); the rank path does not evaluate a prefilter
+            raise ValueError("a hoisted stream filter needs an inner join "
+                             "on one fixed-point key with context-free "
+                             "terms")
         if self.fast:
             self._prep_fast_build()
 
@@ -281,6 +335,7 @@ class _JoinCore:
         # one host sync per build
         vmin, vmax, n_valid = torch.stack(
             [vmin_t.long(), vmax_t.long(), eligible.sum()]).tolist()
+        self.syncs += 1
         rng = max(vmax - vmin, 0)
         # vmax + 1 (the ineligible rows' sentinel) must stay representable
         packable = (self.n_build > 0 and rng < (1 << (62 - idx_bits))
@@ -300,6 +355,7 @@ class _JoinCore:
                               torch.full_like(rows, dsize))
             hits = torch.zeros((dsize + 1,), dtype=torch.int32, device=dev)
             hits.scatter_add_(0, rel, torch.ones_like(rel, dtype=torch.int32))
+            self.syncs += 1
             if bool((hits[:dsize] <= 1).all()):   # a duplicate key sorts
                 self._dense_table = _direct_table(rel, dsize, cap)
                 self._dense_size = dsize
@@ -308,6 +364,7 @@ class _JoinCore:
         nb = CK.hash_join_buckets(self.n_build)
         if nb and self.n_build > 0 and vmin > CK.HJ_EMPTY and not tracking:
             tk, tr, ok = CK.hash_join_build(vals.long(), eligible, nb)
+            self.syncs += 1
             if bool(ok):    # one host sync per hash build
                 self._hash_keys, self._hash_rows = tk, tr
                 self.hash_buckets = nb
@@ -338,6 +395,7 @@ class _JoinCore:
         self._build_perm = perm.to(torch.int32)
         unique = (bool(~(same & in_valid).any()) if self.n_build > 0
                   else True)
+        self.syncs += int(self.n_build > 0)
         self.probe_mode = "two"
         if unique and not tracking:
             self.probe_mode = "one"
@@ -376,45 +434,33 @@ class _JoinCore:
         svals = _key_values(k)
         scap = svals.shape[0]
         n_stream = stream_batch.num_rows
-        live = torch.arange(scap, device=svals.device) < n_stream
-        mode = self.probe_mode
-        if mode == "hash":
-            # equality over int64 images is equality over any narrower key
-            pos, found = CK.hash_join_probe(
-                self._hash_keys, self._hash_rows,
-                svals.to(torch.int64).contiguous(), self.hash_buckets)
-            hit = found & k.validity & live
-            lo = torch.where(hit, pos, 0)
-            hi = torch.where(hit, pos + 1, lo)
-        elif mode == "dense":
-            dsize = self._dense_size
-            slot = svals.long() - self._vmin
-            in_dom = (slot >= 0) & (slot < dsize - 1)
-            r = self._dense_table[torch.clamp(slot, 0, dsize - 1)]
-            hit = in_dom & (r >= 0) & k.validity & live
-            lo = torch.where(hit, r, 0)
-            hi = torch.where(hit, r + 1, lo)
+        if self.stream_prefilter is not None:
+            live = selection_mask(self.stream_prefilter.eval(sctx), n_stream,
+                                  scap)
         else:
-            # mixed-width keys: promote both sides (casting the stream down
-            # would wrap values and fabricate matches)
+            live = torch.arange(scap, device=svals.device) < n_stream
+        if self.probe_mode == "two":
+            # the general case: two searchsorted over the sorted build, with
+            # both sides promoted to a common type
             common = torch.promote_types(svals.dtype,
                                          self._sorted_build.dtype)
             sc = self._sorted_build.to(common).contiguous()
             sv = svals.to(common).contiguous()
             n_valid = self._n_valid
             lo = torch.clamp(torch.searchsorted(sc, sv), max=n_valid)
-            if mode == "one":
-                found = ((sc[torch.clamp(lo, 0, sc.shape[0] - 1)] == sv)
-                         & (lo < n_valid) & k.validity & live)
-                hi = torch.where(found, lo + 1, lo)
-            else:
-                hi = torch.clamp(torch.searchsorted(sc, sv, right=True),
-                                 max=n_valid)
-                hi = torch.where(k.validity & live, hi, lo)
+            hi = torch.clamp(torch.searchsorted(sc, sv, right=True),
+                             max=n_valid)
+            hi = torch.where(k.validity & live, hi, lo)
+        else:
+            pos, found = self._unique_lookup(svals)
+            hit = found & k.validity & live
+            # "one" keeps its searchsorted position on a miss, as the
+            # reference's probe does
+            lo = pos if self.probe_mode == "one" else torch.where(hit, pos, 0)
+            hi = torch.where(hit, lo + 1, lo)
         counts = J.pair_counts(lo, hi, n_stream, scap,
                                self._stream_join_type)
         return self._build_perm, lo, hi, counts, J.total_pairs(counts)
-
 
     def _probe_batch_ranks(self, stream_batch: ColumnarBatch):
         """The rank path (reference ``_probe_batch_eager``): the build's and
@@ -432,6 +478,55 @@ class _JoinCore:
         counts = J.pair_counts(lo, hi, n_stream, stream_batch.capacity,
                                self._stream_join_type)
         return build_perm, lo, hi, counts, J.total_pairs(counts)
+
+    # -- the probe chain's surface (BroadcastHashJoinChainExec) -------------
+
+    def chain_capable(self) -> bool:
+        """True when a stream row matches at most one build row (reference
+        ``chain_capable``): the single fixed-point key path over a
+        unique-keyed build (probe mode ``dense``, ``one`` or ``hash``), no
+        matched-rows accumulator, and context-free stream terms. Decided
+        from the build's contents."""
+        return (self.fast and self.build_matched_acc is None
+                and self.probe_mode in ("dense", "one", "hash")
+                and is_context_free(*self.stream_key_exprs,
+                                    self.stream_prefilter))
+
+    def _unique_lookup(self, svals: torch.Tensor):
+        """``(position, found)`` of each stream key in a unique-keyed build
+        (probe mode ``dense``, ``one`` or ``hash``); a position indexes
+        ``_build_perm``. Validity and liveness are the caller's to mask. In
+        ``hash`` mode this is one ``hash_join_probe`` launch."""
+        mode = self.probe_mode
+        if mode == "hash":
+            # equality over int64 images is equality over any narrower key
+            return CK.hash_join_probe(
+                self._hash_keys, self._hash_rows,
+                svals.to(torch.int64).contiguous(), self.hash_buckets)
+        if mode == "dense":
+            dsize = self._dense_size
+            slot = svals.long() - self._vmin
+            r = self._dense_table[torch.clamp(slot, 0, dsize - 1)]
+            return r, (slot >= 0) & (slot < dsize - 1) & (r >= 0)
+        # "one": mixed-width keys promote both sides (casting the stream down
+        # would wrap values and fabricate matches)
+        common = torch.promote_types(svals.dtype, self._sorted_build.dtype)
+        sc = self._sorted_build.to(common).contiguous()
+        sv = svals.to(common).contiguous()
+        pos = torch.clamp(torch.searchsorted(sc, sv), max=self._n_valid)
+        found = ((sc[torch.clamp(pos, 0, sc.shape[0] - 1)] == sv)
+                 & (pos < self._n_valid))
+        return pos, found
+
+    def chain_lookup(self, k: Col):
+        """``(build_row int64, hit bool)`` for each stream key of ``k``
+        (reference ``chain_lookup``, ``:608-650``): ``_unique_lookup`` with
+        the position mapped to its build row through ``_build_perm``.
+        Validity and liveness are the caller's to mask."""
+        pos, hit = self._unique_lookup(_key_values(k))
+        perm = self._build_perm
+        row = perm[torch.clamp(pos, 0, perm.shape[0] - 1)].long()
+        return torch.where(hit, row, 0), hit
 
 
 def _direct_table(rel, dsize: int, cap: int):
@@ -460,12 +555,24 @@ class HashJoinExec(TorchExec):
     """What every equi-join with a materialized build side shares (reference
     GpuShuffledHashJoinBase): keys, build side, output schema, the build's
     core and the probe loop. The co-partitioned (shuffled) route is not
-    ported, so only the broadcast subclass executes."""
+    ported, so only the broadcast subclass executes.
+
+    The planner may hoist the stream side's filter and projection into an
+    inner join on one fixed-point key (reference ``:676-688``):
+    ``stream_prefilter`` masks the probe rows of the raw stream child,
+    ``stream_preproject`` re-derives the projection on each chunk's
+    gathered stream rows, and ``stream_schema`` is that projection's
+    schema, the stream side's part of ``output``."""
 
     def __init__(self, join_type: str, left_keys, right_keys,
                  left: TorchExec, right: TorchExec, condition=None,
-                 build_side: str = "right", conf=None):
+                 build_side: str = "right", conf=None, stream_prefilter=None,
+                 stream_preproject=None, stream_schema=None):
         super().__init__(left, right, conf=conf)
+        self.stream_prefilter = stream_prefilter
+        self.stream_preproject = (list(stream_preproject)
+                                  if stream_preproject is not None else None)
+        self._stream_schema = stream_schema
         jt = join_type.lower().replace("_", "")
         if jt not in (J.INNER, J.LEFT_OUTER, J.RIGHT_OUTER, J.FULL_OUTER,
                       J.LEFT_SEMI, J.LEFT_ANTI):
@@ -486,12 +593,13 @@ class HashJoinExec(TorchExec):
         self.condition = (bind_references(condition, self.output)
                           if condition is not None else None)
         #: what the last build chose, how many stream partitions and batches
-        #: it probed, and how many unmatched build rows a full outer join
-        #: emitted; partitions may run on an exchange's map threads, hence
-        #: the lock
+        #: it probed, how many unmatched build rows a full outer join
+        #: emitted, and the host syncs of the builds and the probes;
+        #: partitions may run on an exchange's map threads, hence the lock
         self.stats = {"build_rows": 0, "probe_mode": None, "hash_buckets": 0,
                       "hash_refused": 0, "stream_batches": 0,
-                      "stream_partitions": 0, "unmatched_build_rows": 0}
+                      "stream_partitions": 0, "unmatched_build_rows": 0,
+                      "syncs": 0}
         self._lock = threading.Lock()
 
     @property
@@ -500,8 +608,13 @@ class HashJoinExec(TorchExec):
 
     @property
     def output(self) -> T.StructType:
-        return _join_output(self.join_type, self.children[0].output,
-                            self.children[1].output)
+        lo, ro = self.children[0].output, self.children[1].output
+        if self._stream_schema is not None:
+            if self.stream_is_left:
+                lo = self._stream_schema
+            else:
+                ro = self._stream_schema
+        return _join_output(self.join_type, lo, ro)
 
     @property
     def num_partitions(self):
@@ -514,28 +627,44 @@ class HashJoinExec(TorchExec):
     def _core(self, build_batch) -> _JoinCore:
         bk, sk = ((self.right_keys, self.left_keys) if self.stream_is_left
                   else (self.left_keys, self.right_keys))
-        core = _JoinCore(build_batch, bk, sk, self.join_type, self.device)
+        with _probe_range():
+            core = _JoinCore(build_batch, bk, sk, self.join_type,
+                             self.device,
+                             stream_prefilter=self.stream_prefilter)
         with self._lock:
             self.stats.update(build_rows=core.n_build,
                               probe_mode=core.probe_mode,
                               hash_buckets=core.hash_buckets)
             self.stats["hash_refused"] += int(core.hash_refused)
+            self.stats["syncs"] += core.syncs
         return core
 
-    def _probe_stream(self, core, build_batch, split):
-        out_schema = self.output
+    def _count(self, key: str, n: int = 1) -> None:
         with self._lock:
-            self.stats["stream_partitions"] += 1
-        for stream_batch in self._stream_child.execute_partition(split):
-            with self._lock:
-                self.stats["stream_batches"] += 1
-            build_perm, lo, hi, counts, total = core.probe_batch(stream_batch)
+            self.stats[key] += n
+
+    def _probe_batches(self, core, build_batch, batches, on_sync):
+        """Probe and emit each of ``batches`` (one host sync a batch, the
+        pair count, counted through ``on_sync``)."""
+        out_schema = self.output
+        for stream_batch in batches:
+            self._count("stream_batches")
+            with _probe_range():
+                build_perm, lo, hi, counts, total = core.probe_batch(
+                    stream_batch)
             yield from _emit_pairs(
                 self.join_type, self.stream_is_left, self.condition,
-                stream_batch, build_batch, build_perm, lo, hi, counts, total,
-                out_schema)
+                self.stream_preproject, stream_batch, build_batch, build_perm,
+                lo, hi, counts, total, out_schema, on_sync)
+
+    def _probe_stream(self, core, build_batch, split):
+        self._count("stream_partitions")
+        yield from self._probe_batches(
+            core, build_batch, self._stream_child.execute_partition(split),
+            lambda: self._count("syncs"))
 
     def _unmatched_build(self, matched, build_batch):
+        self._count("syncs")
         for out in _emit_unmatched_build(
                 matched, build_batch, self._stream_child.output,
                 self.stream_is_left, self.output):
@@ -547,7 +676,11 @@ class HashJoinExec(TorchExec):
         return (f"{self.join_type} lk={self.left_keys} rk={self.right_keys} "
                 f"build={self.build_side}"
                 + (f" cond={self.condition}" if self.condition is not None
-                   else ""))
+                   else "")
+                + (f" prefilter={self.stream_prefilter}"
+                   if self.stream_prefilter is not None else "")
+                + (f" preproject={self.stream_preproject}"
+                   if self.stream_preproject is not None else ""))
 
 
 class BroadcastHashJoinExec(HashJoinExec):
@@ -583,6 +716,186 @@ class BroadcastHashJoinExec(HashJoinExec):
         finally:
             if reader.finish_once():
                 self._shared.close()
+
+
+def _chainable(node) -> bool:
+    """A broadcast hash join the chain may absorb (reference ``_chainable``):
+    inner, one key, both sides fixed-point (the port's ``_int_backed``: a
+    timestamp or decimal key stays on the rank path, unchained), no
+    residual condition, and every hoisted term context-free. Whether the
+    build is unique-keyed is decided from its contents when it runs
+    (``_JoinCore.chain_capable``)."""
+    return (type(node) is BroadcastHashJoinExec
+            and node.join_type == J.INNER and node.condition is None
+            and len(node.left_keys) == 1
+            and _int_backed(node.left_keys[0].dtype)
+            and _int_backed(node.right_keys[0].dtype)
+            and is_context_free(*node.left_keys, *node.right_keys,
+                                node.stream_prefilter,
+                                *(node.stream_preproject or ())))
+
+
+def maybe_chain(join, conf=None):
+    """Collapse a broadcast hash join whose stream child is another one (or
+    a chain already formed below it) into one ``BroadcastHashJoinChainExec``
+    (reference ``maybe_chain``; the planner calls it bottom-up under
+    ``stageFusion.enabled``). Returns ``join`` itself when the stack does not
+    qualify."""
+    if not _chainable(join):
+        return join
+    stream = join._stream_child
+    if isinstance(stream, BroadcastHashJoinChainExec):
+        return BroadcastHashJoinChainExec(stream.children[0],
+                                          stream.hops + [join], conf=conf)
+    if _chainable(stream):
+        return BroadcastHashJoinChainExec(stream._stream_child,
+                                          [stream, join], conf=conf)
+    return join
+
+
+class BroadcastHashJoinChainExec(TorchExec):
+    """A stack of inner single-key broadcast hash joins ("hops") probed one
+    stream batch at a time in one pass (reference
+    ``BroadcastHashJoinChainExec``, ``:939-1166``). Each hop keeps its
+    ``BroadcastExchangeExec`` as a child of this exec; the chain takes over
+    the probe side and owns each hop's broadcast reader.
+
+    When every hop's build is unique-keyed (``_JoinCore.chain_capable``),
+    a stream row matches at most one build row a hop, so one batch runs as
+    eager torch on the device: for each hop in order, its prefilter into
+    ``live``, its key, the lookup (``chain_lookup``; one
+    ``hash_join_probe`` launch in ``hash`` mode), ``hit & validity &
+    live``, a gather of the build columns, the hop's preproject over the
+    current columns, and the columns in that hop's stream/build order;
+    then one ``compact_cols`` with the batch's one host sync. The output
+    batches are cut as the unfused emit cuts them: at most
+    ``_MAX_CHUNK_ROWS`` rows each, at ``bucket_capacity`` of their rows. The
+    reference predicts that capacity and reruns on a miss because its XLA
+    program has a static shape; eager torch needs no prediction, so there
+    is no predictor and no rerun. A batch with no survivor yields nothing.
+    Nothing is compacted between hops, so every hop's lookup reads every
+    slot of the stream batch, dead rows included, where an unchained hop
+    reads the compacted output of the hop before it: the chain saves host
+    syncs and intermediate batches, and a later hop (a ``hash_join_probe``
+    launch in ``hash`` mode) does more device work than unchained.
+
+    When some hop's build has duplicate keys (mode ``two``), every batch
+    runs the hops one after another, probe and emit each (reference
+    ``_fallback``): the reference's own contract, decided from the build's
+    contents, and both routes run torch on the device. ``stats`` counts the
+    ``chained_batches`` and ``degraded_batches``, the host syncs (builds
+    and batches; a nested column's gather syncs its own element counts,
+    which are not counted), and the rows in and out. Each hop's own
+    ``stats`` is kept as its unchained exec would keep it."""
+
+    def __init__(self, stream: TorchExec, hops, conf=None):
+        super().__init__(stream, *[h.exchange for h in hops], conf=conf)
+        self.hops = list(hops)
+        self.stats = {"chained_batches": 0, "degraded_batches": 0,
+                      "stream_batches": 0, "stream_partitions": 0,
+                      "stream_rows": 0, "output_rows": 0, "syncs": 0}
+        self._lock = threading.Lock()
+
+    @property
+    def output(self) -> T.StructType:
+        return self.hops[-1].output
+
+    @property
+    def num_partitions(self):
+        return self.children[0].num_partitions
+
+    def _count(self, key: str, n: int = 1) -> None:
+        with self._lock:
+            self.stats[key] += n
+
+    def execute_partition(self, split):
+        readers = [(h, h._shared.reader()) for h in self.hops]
+        try:
+            # the outermost hop's build first, as the nested unchained
+            # iterators would materialize them
+            builds = [None] * len(self.hops)
+            for i in reversed(range(len(self.hops))):
+                builds[i] = self.hops[i].exchange.broadcast()
+            cores = [h._core(b) for h, b in zip(self.hops, builds)]
+            self._count("syncs", sum(c.syncs for c in cores))
+            self._count("stream_partitions")
+            for h in self.hops:
+                h._count("stream_partitions")
+            chained = all(c.chain_capable() for c in cores)
+            build_cols = [[Col.from_vector(c) for c in b.columns]
+                          for b in builds]
+            for stream_batch in self.children[0].execute_partition(split):
+                self._count("stream_batches")
+                self._count("stream_rows", stream_batch.num_rows)
+                if chained:
+                    self._count("chained_batches")
+                    outs = self._chained(stream_batch, cores, build_cols)
+                else:
+                    self._count("degraded_batches")
+                    outs = self._sequential(stream_batch, cores, builds)
+                for out in outs:
+                    self._count("output_rows", out.num_rows)
+                    yield out
+        finally:
+            # also when abandoned midway (a limit above, an error): each
+            # reader counts down, and the last one out releases its build
+            for h, r in readers:
+                if r.finish_once():
+                    h._shared.close()
+
+    def _chained(self, stream_batch, cores, build_cols):
+        with _probe_range():
+            chunks = self._chain_pass(stream_batch, cores, build_cols)
+        yield from chunks
+
+    def _chain_pass(self, stream_batch, cores, build_cols) -> list:
+        """One stream batch through every hop; the output batches."""
+        dev = self.device
+        scap, n = stream_batch.capacity, stream_batch.num_rows
+        cur = [Col.from_vector(c) for c in stream_batch.columns]
+        live = torch.arange(scap, device=dev) < n
+        for h, core, b_cols in zip(self.hops, cores, build_cols):
+            h._count("stream_batches")
+            ctx = EvalContext(cur, n, scap, dev)
+            if core.stream_prefilter is not None:
+                live = live & selection_mask(
+                    core.stream_prefilter.eval(ctx), n, scap)
+            k = core.stream_key_exprs[0].eval(ctx)
+            row, hit = core.chain_lookup(k)
+            hit = hit & k.validity & live
+            b_out = gather_cols(b_cols, row, hit)
+            s_out = ([e.eval(ctx) for e in h.stream_preproject]
+                     if h.stream_preproject is not None else cur)
+            cur = (s_out + b_out) if h.stream_is_left else (b_out + s_out)
+            live = hit
+        cols, count = compact_cols(cur, live)   # the batch's one host sync
+        self._count("syncs")
+        out, pos = [], 0
+        while pos < count:
+            n_out = min(count - pos, _MAX_CHUNK_ROWS)
+            cap = bucket_capacity(n_out)
+            if pos == 0:
+                chunk = slice_to_capacity(cols, n_out, cap)
+            else:
+                j = torch.arange(cap, device=dev)
+                chunk = gather_cols(cols, torch.clamp(j + pos, max=scap - 1),
+                                    j < n_out)
+            pos += n_out
+            out.append(ColumnarBatch([c.to_vector() for c in chunk], n_out,
+                                     self.output))
+        return out
+
+    def _sequential(self, stream_batch, cores, builds):
+        """Each hop probes and emits the batches of the hop before it, as
+        the unchained joins would."""
+        batches = iter([stream_batch])
+        for h, core, build in zip(self.hops, cores, builds):
+            batches = h._probe_batches(core, build, batches,
+                                       lambda: self._count("syncs"))
+        return batches
+
+    def args_string(self):
+        return " -> ".join(h.args_string() for h in self.hops)
 
 
 class NestedLoopJoinExec(TorchExec):

@@ -310,6 +310,15 @@ def is_context_sensitive(*exprs) -> bool:
                for e in exprs if e is not None)
 
 
+def is_context_free(*exprs) -> bool:
+    """True when no expression reads the task's context (reference
+    ``is_context_free``): the planner's test for a term it may move into
+    another exec, such as a join's hoisted stream filter or projection,
+    where the batch's partition, row offset and provenance are not the
+    ones the term was written against."""
+    return not is_context_sensitive(*exprs)
+
+
 def scan_meta(path: str) -> dict:
     """The provenance of a batch read from one whole file (the reference's
     ``io/filescan._scan_meta``): the path as the scan was given it, block

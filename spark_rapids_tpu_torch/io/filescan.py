@@ -35,9 +35,18 @@ uses, keeping every partition column, so an unread column is never parsed,
 uploaded or decoded. Every batch carries its file's provenance
 (``ColumnarBatch.metadata``: the path, 0 and the file's size, as the
 reference's ``_scan_meta``) for the input-file expressions; on the arrow
-route only where the partition has one file, as in the reference. Pushed
-filters and the Alluxio path rewrite are not
-ported and raise ``NotImplementedError`` when the plan is built.
+route only where the partition has one file, as in the reference.
+
+A pushed filter (``read_parquet(path, pushed_filter=...)``, ``read_orc``
+likewise; reference ``:195-248``) sends every partition to the arrow reader,
+as in the reference. Its top-level conjuncts that ``readers.
+spark_filter_to_arrow`` translates exactly, over data columns, are applied
+by arrow as it reads; the rest (a float comparison among them: Spark orders
+NaN above every value and holds NaN = NaN, arrow does not) is the residual,
+which the reference evaluates on its host path (``plan/host_eval``, not
+ported) and the port on the device, over each staged batch, with one
+``compact_cols`` (one host sync a batch). ``rewrite_scan_path`` is the
+Alluxio path rewrite the session applies to every scan path.
 """
 
 from __future__ import annotations
@@ -129,6 +138,42 @@ def _dates_post_cutover(md, date_cols: list) -> bool:
     return True
 
 
+def rewrite_scan_path(path, conf):
+    """The Alluxio path rewrite (reference ``rewrite_scan_path``,
+    spark.rapids.alluxio.pathsToReplace): each ``from->to`` rule of the
+    conf, separated by ``;``, rewrites a path that starts with ``from``; the
+    first rule that matches applies. A rule without ``->`` raises
+    ``ValueError``."""
+    spec = conf.get(CFG.ALLUXIO_PATHS_REPLACE) if conf is not None else None
+    if not spec or not isinstance(path, (str, list, tuple)):
+        return path
+    rules = []
+    for rule in spec.split(";"):
+        rule = rule.strip()
+        if not rule:
+            continue
+        if "->" not in rule:
+            raise ValueError(
+                f"bad {CFG.ALLUXIO_PATHS_REPLACE.key} rule {rule!r}: "
+                "expected 'from->to'")
+        frm, to = rule.split("->", 1)
+        rules.append((frm.strip(), to.strip()))
+
+    def one(p):
+        for frm, to in rules:
+            if p.startswith(frm):
+                return to + p[len(frm):]
+        return p
+    return one(path) if isinstance(path, str) else [one(p) for p in path]
+
+
+def _conjuncts(e) -> list:
+    from spark_rapids_tpu_torch.expr.predicates import And
+    if isinstance(e, And):
+        return _conjuncts(e.children[0]) + _conjuncts(e.children[1])
+    return [e]
+
+
 def _infer_partition_type(values: list) -> T.DataType:
     try:
         for v in values:
@@ -151,8 +196,7 @@ class FileScanNode(PlanNode):
                  pushed_filter=None, files_per_partition: int = 1,
                  options: dict | None = None):
         super().__init__()
-        if pushed_filter is not None:
-            raise NotImplementedError("pushed scan filters are not ported yet")
+        self.pushed_filter = pushed_filter
         self.fmt = fmt
         self.options = dict(options or {})
         self.reader = R.reader_for(fmt, **self.options)
@@ -197,6 +241,29 @@ class FileScanNode(PlanNode):
         n = len(self._schema.fields) - self._n_partition_cols
         return [f.name for f in self._schema.fields[:n]]
 
+    def split_filter(self):
+        """``(arrow expression or None, residual or None)`` of the pushed
+        filter: the AND of its top-level conjuncts that translate exactly
+        and read data columns only, and the AND of the rest, bound to this
+        node's schema."""
+        if self.pushed_filter is None:
+            return None, None
+        from spark_rapids_tpu_torch.expr.core import (BoundReference,
+                                                      bind_references)
+        from spark_rapids_tpu_torch.expr.predicates import And
+        data = set(self._data_columns())
+        arrow, rest = None, None
+        for c in _conjuncts(bind_references(self.pushed_filter,
+                                            self._schema)):
+            names = {r.name for r in c.collect(
+                lambda x: isinstance(x, BoundReference))}
+            a = R.spark_filter_to_arrow(c) if names <= data else None
+            if a is None:
+                rest = c if rest is None else And(rest, c)
+            else:
+                arrow = a if arrow is None else arrow & a
+        return arrow, rest
+
     def _append_partition_values(self, tbl: pa.Table, part: FilePartition):
         """Constant partition columns for every row (reference
         ColumnarPartitionReaderWithPartitionValues)."""
@@ -213,9 +280,10 @@ class FileScanNode(PlanNode):
     def tables_for(self, split: int, batch_rows: int,
                    strategy: str = "PERFILE", num_threads: int = 4,
                    target_rows: int = 1 << 20,
-                   rebase_mode: str | None = None):
+                   rebase_mode: str | None = None, filt=None):
         """The arrow tables of partition ``split`` by the named strategy,
-        each with its partition columns appended."""
+        each with its partition columns appended; ``filt``, an arrow
+        expression over data columns, filters the rows as they are read."""
         reader = self.reader
         if rebase_mode is not None and self.fmt == "parquet" and \
                 reader.rebase_mode != rebase_mode.upper():
@@ -225,18 +293,20 @@ class FileScanNode(PlanNode):
         cols = self._data_columns()
         if strategy == "MULTITHREADED":
             gen = R.multithreaded_tables(reader, list(part.paths), cols,
-                                         batch_rows, num_threads)
+                                         batch_rows, num_threads, filt=filt)
         elif strategy == "COALESCING":
             gen = R.coalescing_tables(reader, list(part.paths), cols,
-                                      batch_rows, target_rows)
+                                      batch_rows, target_rows, filt=filt)
         else:
             gen = R.perfile_tables(reader, list(part.paths), cols,
-                                   batch_rows)
+                                   batch_rows, filt=filt)
         for tbl in gen:
             yield self._append_partition_values(tbl, part)
 
     def args_string(self):
-        return f"{self.fmt} {len(self.partitions)} partitions"
+        return (f"{self.fmt} {len(self.partitions)} partitions"
+                + (f" filter={self.pushed_filter!r}"
+                   if self.pushed_filter is not None else ""))
 
 
 class FileSourceScanExec(TorchExec):
@@ -249,12 +319,14 @@ class FileSourceScanExec(TorchExec):
         super().__init__(conf=conf, device=device)
         self.node = node
         self.stats = {"device_batches": 0, "arrow_batches": 0,
-                      "strategy": None}
+                      "strategy": None, "encoded_vectors": 0,
+                      "residual_rows_in": 0, "residual_rows_out": 0,
+                      "syncs": 0}
         self._lock = threading.Lock()
 
-    def _count(self, key: str) -> None:
+    def _count(self, key: str, n: int = 1) -> None:
         with self._lock:
-            self.stats[key] += 1
+            self.stats[key] += n
 
     @property
     def output(self):
@@ -298,6 +370,8 @@ class FileSourceScanExec(TorchExec):
             files.append((path, pf, md.num_row_groups))
 
         def it():
+            from spark_rapids_tpu_torch.columnar.encoded import \
+                EncodedColumnVector
             cols = node._data_columns()
             for path, pf, n_groups in files:
                 meta = scan_meta(path)
@@ -305,6 +379,9 @@ class FileSourceScanExec(TorchExec):
                     self._count("device_batches")
                     batch = PN.read_row_group_device(
                         path, rg, self.output, self.device, cols, pf=pf)
+                    self._count("encoded_vectors", sum(
+                        isinstance(c, EncodedColumnVector)
+                        for c in batch.columns))
                     batch.metadata = meta
                     yield batch
         return it()
@@ -393,14 +470,32 @@ class FileSourceScanExec(TorchExec):
         # reference
         paths = self.node.partitions[split].paths
         meta = scan_meta(paths[0]) if len(paths) == 1 else None
+        filt, residual = self.node.split_filter()
         for tbl in self.node.tables_for(
                 split, batch_rows, strategy,
                 conf.get(CFG.MULTITHREADED_READ_NUM_THREADS),
-                rebase_mode=conf.get(CFG.PARQUET_REBASE_MODE)):
+                rebase_mode=conf.get(CFG.PARQUET_REBASE_MODE), filt=filt):
             self._count("arrow_batches")
             batch = table_to_device(tbl, self.device, schema=self.output)
+            if residual is not None:
+                batch = self._residual(batch, residual)
             batch.metadata = meta
             yield batch
+
+    def _residual(self, batch, residual):
+        """The rows of ``batch`` the residual predicate keeps, evaluated on
+        the device with Spark's semantics (one host sync, the count)."""
+        from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+        from spark_rapids_tpu_torch.expr.core import EvalContext
+        from spark_rapids_tpu_torch.ops.filtering import (compact_cols,
+                                                          selection_mask)
+        ctx = EvalContext.from_batch(batch, self.device)
+        keep = selection_mask(residual.eval(ctx), ctx.num_rows, ctx.capacity)
+        cols, n = compact_cols(ctx.cols, keep)
+        self._count("residual_rows_in", batch.num_rows)
+        self._count("residual_rows_out", n)
+        self._count("syncs")
+        return ColumnarBatch([c.to_vector() for c in cols], n, self.output)
 
     def _engaged(self, entry) -> bool:
         """Whether a device route is taken (the reference's
@@ -416,7 +511,10 @@ class FileSourceScanExec(TorchExec):
         batch_bytes = conf.get(CFG.MAX_READER_BATCH_SIZE_BYTES)
         fmt = self.node.fmt
         dev_it = None
-        if fmt == "parquet" and conf.get(CFG.PARQUET_DEVICE_DECODE):
+        if self.node.pushed_filter is not None:
+            # a pushed filter takes the arrow reader, as in the reference
+            pass
+        elif fmt == "parquet" and conf.get(CFG.PARQUET_DEVICE_DECODE):
             dev_it = self._device_decode_batches(split, batch_rows,
                                                  batch_bytes)
         elif fmt == "csv" and self._engaged(CFG.CSV_DEVICE_DECODE):

@@ -685,13 +685,13 @@ def chunk_column(pages: ChunkPages, spark_type):
 
 
 def chunk_to_device(pages: ChunkPages, spark_type, capacity: int, device):
-    """Decode a parsed chunk into a device column in one ``chunk_decode``
-    launch (the kernel for a CUDA device): the packed chunk crosses in one
-    asynchronous copy from pinned memory, and the kernel unpacks, gathers
-    from the dictionary and spreads over the null layout at the output
-    capacity. Bit for bit the reference's page-by-page decode."""
-    from spark_rapids_tpu_torch.columnar.vector import TorchColumnVector
-    from spark_rapids_tpu_torch.ops import cuda_kernels as CK
+    """A parsed chunk as an ``EncodedColumnVector`` on the device: the packed
+    chunk crosses in one asynchronous copy from pinned memory, and one
+    ``chunk_decode`` launch (the kernel for a CUDA device) at the column's
+    first read unpacks, gathers from the dictionary and spreads over the
+    null layout at the output capacity. Bit for bit the reference's
+    page-by-page decode."""
+    from spark_rapids_tpu_torch.columnar import encoded as EN
 
     device = torch.device(device)
     st, want, default, dictionary, sorted_dict = chunk_column(pages,
@@ -700,16 +700,18 @@ def chunk_to_device(pages: ChunkPages, spark_type, capacity: int, device):
                         pin=device.type == "cuda")
     buf = packed.buf.to(device, non_blocking=True)
     words, table, defs, dict_d = chunk_views(buf, packed, want)
-    v, m = CK.chunk_decode(words, table, defs, dict_d, packed.n_rows,
-                           capacity, want, default)
-    return TorchColumnVector(st, v, m, sorted_dict)
+    return EN.EncodedColumnVector(st, EN.EncodedChunk(
+        buf, words, table, defs, dict_d, packed.n_rows, capacity, want,
+        default), sorted_dict)
 
 
 def read_row_group_device(path: str, row_group: int, schema, device,
                           columns: list[str] | None = None, pf=None):
     """Read one row group through the device decode; out-of-scope column
     chunks (non-dictionary, nested, unported codec) fall back to arrow PER
-    COLUMN. Pass ``pf`` to reuse one parsed footer across row groups."""
+    COLUMN. Pass ``pf`` to reuse one parsed footer across row groups. The
+    dictionary chunks stay encoded on the device until their first read
+    (``columnar/encoded.py``); the others are dense."""
     from spark_rapids_tpu_torch import types as T
     from spark_rapids_tpu_torch.columnar.arrow import array_to_device
     from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch

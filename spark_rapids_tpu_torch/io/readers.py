@@ -14,7 +14,9 @@ GpuParquetScan.scala): PERFILE (ParquetPartitionReader:1603, one file at a
 time), MULTITHREADED (MultiFileCloudParquetPartitionReader:1377, background
 threads decode files ahead of the consumer) and COALESCING
 (MultiFileParquetPartitionReader:958, many small files stitched into few
-large tables). Pushed filters are not ported, so no strategy takes one.
+large tables). A pushed scan filter, translated by
+``spark_filter_to_arrow``, is applied by arrow as it reads: row groups
+pruned from the footers' statistics and the rows filtered exactly.
 """
 
 from __future__ import annotations
@@ -24,6 +26,82 @@ import typing
 
 import numpy as np
 import pyarrow as pa
+
+def spark_filter_to_arrow(expr):
+    """A pyarrow dataset expression for a predicate bound to the scan's
+    schema, or None when it cannot be translated exactly with Spark's
+    semantics (reference ``io/readers.spark_filter_to_arrow``); the caller
+    then evaluates it itself. A comparison is translated only between
+    columns and literals of one integral, string, date or boolean type:
+    arrow orders NaN as IEEE does, while Spark orders NaN above every value
+    and holds NaN = NaN, so no float comparison is translated, and neither
+    is a decimal or a timestamp one (the port's literals of those hold
+    unscaled values and microseconds, which arrow would compare as
+    numbers)."""
+    import datetime
+    import pyarrow.dataset as ds
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.expr import core as E
+    from spark_rapids_tpu_torch.expr import nullexprs as N
+    from spark_rapids_tpu_torch.expr import predicates as P
+
+    kinds = ((T.IntegralType, int), (T.StringType, str),
+             (T.DateType, datetime.date), (T.BooleanType, bool))
+
+    def kind(e):
+        for i, (cls, py) in enumerate(kinds):
+            if isinstance(e.dtype, cls):
+                if isinstance(e, E.Literal) and not (
+                        e.value is None or isinstance(e.value, py)):
+                    break
+                return i
+        raise NotImplementedError(f"{e.dtype} comparison")
+
+    def operand(e):
+        if isinstance(e, (E.AttributeReference, E.BoundReference)):
+            return ds.field(e.name)
+        if isinstance(e, E.Literal):
+            return pa.scalar(e.value, T.to_arrow_type(e.dtype))
+        raise NotImplementedError(type(e).__name__)
+
+    ops = {P.EqualTo: "__eq__", P.NotEqual: "__ne__", P.LessThan: "__lt__",
+           P.LessThanOrEqual: "__le__", P.GreaterThan: "__gt__",
+           P.GreaterThanOrEqual: "__ge__"}
+
+    def conv(e):
+        if isinstance(e, P.And):
+            return conv(e.children[0]) & conv(e.children[1])
+        if isinstance(e, P.Or):
+            return conv(e.children[0]) | conv(e.children[1])
+        if isinstance(e, P.Not):
+            return ~conv(e.children[0])
+        if isinstance(e, N.IsNull):
+            return operand(e.children[0]).is_null()
+        if isinstance(e, N.IsNotNull):
+            return ~operand(e.children[0]).is_null()
+        m = ops.get(type(e))
+        if m is None:
+            raise NotImplementedError(type(e).__name__)
+        a, b = e.children
+        if kind(a) != kind(b):
+            raise NotImplementedError("a comparison across types")
+        return getattr(operand(a), m)(operand(b))
+
+    try:
+        out = conv(expr)
+    except NotImplementedError:
+        return None
+    return out if isinstance(out, ds.Expression) else None
+
+
+def _filtered(tbl: pa.Table, filt) -> pa.Table:
+    """``tbl``'s rows that ``filt`` (an arrow expression) keeps."""
+    if filt is None or not tbl.num_rows:
+        return tbl
+    import pyarrow.dataset as ds
+    return pa.Table.from_batches(ds.dataset(tbl).to_batches(filter=filt),
+                                 schema=tbl.schema)
+
 
 # -- legacy (hybrid-calendar) datetime rebase --------------------------------
 # Spark RebaseDateTime: files written by Spark 2.x / Hive used the hybrid
@@ -111,11 +189,12 @@ class ParquetReader:
             tbl = tbl.set_column(i, f.name, arr)
         return tbl
 
-    def read_file(self, path: str, columns: list | None,
-                  batch_rows: int) -> typing.Iterator[pa.Table]:
+    def read_file(self, path: str, columns: list | None, batch_rows: int,
+                  filt=None) -> typing.Iterator[pa.Table]:
         import pyarrow.dataset as ds
         dset = ds.dataset(path, format="parquet")
-        for batch in dset.to_batches(columns=columns, batch_size=batch_rows,
+        for batch in dset.to_batches(columns=columns, filter=filt,
+                                     batch_size=batch_rows,
                                      use_threads=False):
             if batch.num_rows:
                 yield self._rebase(pa.Table.from_batches([batch]))
@@ -131,13 +210,14 @@ class OrcReader:
 
     format_name = "orc"
 
-    def read_file(self, path, columns, batch_rows):
+    def read_file(self, path, columns, batch_rows, filt=None):
         import pyarrow.orc as orc
         f = orc.ORCFile(path)
         for stripe in range(f.nstripes):
             tbl = f.read_stripe(stripe, columns=columns)
             if isinstance(tbl, pa.RecordBatch):
                 tbl = pa.Table.from_batches([tbl])
+            tbl = _filtered(tbl, filt)
             for off in range(0, tbl.num_rows, batch_rows):
                 yield tbl.slice(off, batch_rows)
 
@@ -183,13 +263,14 @@ class CsvReader:
             strings_can_be_null=True)
         return read_opts, parse_opts, convert_opts
 
-    def read_file(self, path, columns, batch_rows):
+    def read_file(self, path, columns, batch_rows, filt=None):
         import pyarrow.csv as pcsv
         ro, po, co = self._options()
         tbl = pcsv.read_csv(path, read_options=ro, parse_options=po,
                             convert_options=co)
         if columns is not None:
             tbl = tbl.select(columns)
+        tbl = _filtered(tbl, filt)
         for off in range(0, tbl.num_rows, batch_rows):
             yield tbl.slice(off, batch_rows)
 
@@ -216,14 +297,14 @@ def reader_for(fmt: str, rebase_mode: str = "EXCEPTION", **kw):
 
 # -- multi-file strategies ---------------------------------------------------
 
-def perfile_tables(reader, paths, columns, batch_rows):
+def perfile_tables(reader, paths, columns, batch_rows, filt=None):
     """PERFILE: sequential, lowest memory (reference ParquetPartitionReader:1603)."""
     for p in paths:
-        yield from reader.read_file(p, columns, batch_rows)
+        yield from reader.read_file(p, columns, batch_rows, filt)
 
 
 def multithreaded_tables(reader, paths, columns, batch_rows, num_threads,
-                         prefetch: int = 4):
+                         prefetch: int = 4, filt=None):
     """MULTITHREADED: background futures decode files ahead of the consumer so
     host decode overlaps device compute (reference
     MultiFileCloudParquetPartitionReader:1377 + its thread pool)."""
@@ -232,7 +313,7 @@ def multithreaded_tables(reader, paths, columns, batch_rows, num_threads,
     pool = futures.ThreadPoolExecutor(max_workers=max(1, num_threads))
     try:
         def read_whole(p):
-            return list(reader.read_file(p, columns, batch_rows))
+            return list(reader.read_file(p, columns, batch_rows, filt))
         pending = [pool.submit(read_whole, p) for p in paths[:prefetch]]
         consumed = min(prefetch, len(paths))
         while pending:
@@ -245,7 +326,8 @@ def multithreaded_tables(reader, paths, columns, batch_rows, num_threads,
         pool.shutdown(wait=False, cancel_futures=True)
 
 
-def coalescing_tables(reader, paths, columns, batch_rows, target_rows):
+def coalescing_tables(reader, paths, columns, batch_rows, target_rows,
+                      filt=None):
     """COALESCING: stitch many files into few big tables so each device batch is
     large (reference MultiFileParquetPartitionReader:958 stitches row groups into
     one host buffer + one decode). `batch_rows` (the configured reader cap) still
@@ -263,7 +345,7 @@ def coalescing_tables(reader, paths, columns, batch_rows, target_rows):
     # sequential streaming accumulate-and-flush: peak host memory stays
     # ~target_rows regardless of file sizes. Decode/compute overlap is the
     # MULTITHREADED strategy's job (it pays whole-file buffering for it).
-    for tbl in perfile_tables(reader, paths, columns, cap):
+    for tbl in perfile_tables(reader, paths, columns, cap, filt):
         acc.append(tbl)
         acc_rows += tbl.num_rows
         if acc_rows >= target_rows:  # flush() re-slices to cap-row batches

@@ -117,6 +117,7 @@ from spark_rapids_tpu_torch.expr.cast import Cast, supported_cast
 from spark_rapids_tpu_torch.expr.conditional import (CaseWhen, Greatest, If,
                                                      Least)
 from spark_rapids_tpu_torch.expr.misc import (CONTEXT_SENSITIVE,
+                                              is_context_free,
                                               Murmur3Hash, ScalarSubquery,
                                               is_context_sensitive)
 from spark_rapids_tpu_torch.expr.nullexprs import (AtLeastNNonNulls, Coalesce,
@@ -248,10 +249,11 @@ class TorchOverrides:
             if n.fmt == fmt and not self.conf.get(entry):
                 raise NotImplementedError(
                     f"{entry.key}=false: the port has no host {fmt} scan")
-        if self.conf.get(CFG.ALLUXIO_PATHS_REPLACE):
-            raise NotImplementedError(
-                f"{CFG.ALLUXIO_PATHS_REPLACE.key} (the Alluxio path rewrite) "
-                "is not ported yet")
+        # a pushed filter's residual runs on the device: refuse it here if
+        # an expression of it is not ported
+        residual = n.split_filter()[1]
+        if residual is not None:
+            check_expression(residual)
         return FileSourceScanExec(n, conf=self.conf, device=self.device)
 
     def _local_scan(self, n, kids):
@@ -413,12 +415,68 @@ class TorchOverrides:
         build_side = "right"
         if jt == J.INNER and estimate_rows(n.left) < estimate_rows(n.right):
             build_side = "left"
+        kids = list(kids)
+        keys = [list(n.left_keys), list(n.right_keys)]
+        hoist = self._stream_hoist(jt, build_side, kids, keys)
         exec_ = XJ.BroadcastHashJoinExec(
-            jt, n.left_keys, n.right_keys, kids[0], kids[1],
-            condition=n.condition, build_side=build_side, conf=self.conf)
+            jt, keys[0], keys[1], kids[0], kids[1],
+            condition=n.condition, build_side=build_side, conf=self.conf,
+            **hoist)
         if exec_.condition is not None:
             check_expression(exec_.condition)
+        if self.conf.get(CFG.STAGE_FUSION_ENABLED):
+            # the probe chain: a join whose stream child is another join
+            # (or a chain formed below it) becomes one chain
+            return XJ.maybe_chain(exec_, conf=self.conf)
         return exec_
+
+    def _stream_hoist(self, jt, build_side, kids, keys) -> dict:
+        """The stream side's ``FilterExec``, a ``ProjectExec`` over one, or
+        (under ``stageFusion.enabled``) a bare ``ProjectExec``, hoisted into
+        an inner join on one fixed-point key with context-free terms
+        (reference ``conv_join``, ``:813-868``). Filtered rows emit no pairs
+        and the projection is re-derived on the emitted rows, so no result
+        changes. With a project, the stream key is rewritten to read the
+        raw child: each ``BoundReference`` becomes the project expression it
+        names, its ``Alias`` unwrapped. Outer, semi and anti joins keep their
+        ``FilterExec``; a timestamp or decimal key, which the reference
+        hoists, stays unhoisted here (the port's ``_int_backed``). Updates
+        ``kids`` and ``keys`` in place; returns the join's hoist kwargs."""
+        if jt != J.INNER or len(keys[0]) != 1:
+            return {}
+        si = 0 if build_side == "right" else 1
+        skid = kids[si]
+        proj = fkid = None
+        if (isinstance(skid, XB.ProjectExec)
+                and isinstance(skid.child, XB.FilterExec)
+                and is_context_free(*skid.project_list)):
+            proj, fkid = skid, skid.child
+        elif isinstance(skid, XB.FilterExec):
+            fkid = skid
+        elif (self.conf.get(CFG.STAGE_FUSION_ENABLED)
+              and isinstance(skid, XB.ProjectExec)
+              and is_context_free(*skid.project_list)):
+            proj = skid
+        if ((proj is None and fkid is None)
+                or not XJ._int_backed(keys[0][0].dtype)
+                or not XJ._int_backed(keys[1][0].dtype)
+                or not is_context_free(keys[0][0], keys[1][0])
+                or (fkid is not None
+                    and not is_context_free(fkid.condition))):
+            return {}
+        hoist = {"stream_prefilter": (fkid.condition if fkid is not None
+                                      else None)}
+        if proj is not None:
+            plist = [e.child if isinstance(e, E.Alias) else e
+                     for e in proj.project_list]
+            keys[si] = [k.transform(
+                lambda x: plist[x.ordinal]
+                if isinstance(x, E.BoundReference) else x)
+                for k in keys[si]]
+            hoist.update(stream_preproject=proj.project_list,
+                         stream_schema=proj.output)
+        kids[si] = (fkid if fkid is not None else proj).child
+        return hoist
 
     def _nested_loop_join(self, n, kids):
         """A keyless or cross join: the nested-loop join over a broadcast

@@ -27,9 +27,9 @@ as the ORIGINAL node objects, and the input plan is never mutated, so a
 DataFrame can be collected again. ``DataFrame.physical_plan`` runs the pass
 once, at the root, before the override rules (the reference runs it first
 in ``TpuOverrides.apply``). A narrowed scan keeps every hive partition
-column, after the kept data columns, as the reference's does. The port has
-no cache node and no pushed scan filters, so the reference's barrier and the
-rule that keeps a filter's columns have nothing to act on here.
+column, after the kept data columns, and every column its pushed filter
+names, as the reference's does. The port has no cache node, so the
+reference's barrier has nothing to act on here.
 
 Beyond the reference, a generate node (explode) asks its child for the
 columns its parent requires and the generator column; and a struct or map
@@ -305,6 +305,14 @@ def _prune_scan(node: FileScanNode, required: set | None):
     # columns; keep them all so _append_partition_values stays aligned
     kept = ([i for i in sorted(required) if i < n_data] or [0]) \
         + list(range(n_data, len(fields)))
+    if node.pushed_filter is not None:
+        # a pushed filter resolves by name against the scan's schema: its
+        # columns survive the narrowing (reference rule)
+        names = {a.name for a in node.pushed_filter.collect(
+            lambda x: isinstance(x, (E.AttributeReference,
+                                     E.BoundReference)))}
+        kept = sorted(set(kept) | {i for i, f in enumerate(fields[:n_data])
+                                   if f.name in names})
     if len(kept) == len(fields):
         return _identity(node)
     new = copy.copy(node)

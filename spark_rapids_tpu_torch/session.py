@@ -490,15 +490,25 @@ class TorchSession:
                  if num_partitions > 1 else [data])
         return DataFrame(NN.ScanNode(parts), self)
 
-    def read_parquet(self, path, files_per_partition: int = 1) -> DataFrame:
-        from spark_rapids_tpu_torch.io.filescan import FileScanNode
-        return DataFrame(FileScanNode(path, "parquet",
+    def read_parquet(self, path, pushed_filter=None,
+                     files_per_partition: int = 1) -> DataFrame:
+        """A parquet scan of a directory or files; ``pushed_filter``, a
+        predicate over the files' columns by name, filters the rows as they
+        are read (``io/filescan.py``). The Alluxio path rewrite applies to
+        ``path``."""
+        from spark_rapids_tpu_torch.io.filescan import (FileScanNode,
+                                                         rewrite_scan_path)
+        return DataFrame(FileScanNode(rewrite_scan_path(path, self.conf),
+                                      "parquet", pushed_filter=pushed_filter,
                                       files_per_partition=files_per_partition),
                          self)
 
-    def read_orc(self, path, files_per_partition: int = 1) -> DataFrame:
-        from spark_rapids_tpu_torch.io.filescan import FileScanNode
-        return DataFrame(FileScanNode(path, "orc",
+    def read_orc(self, path, pushed_filter=None,
+                 files_per_partition: int = 1) -> DataFrame:
+        from spark_rapids_tpu_torch.io.filescan import (FileScanNode,
+                                                         rewrite_scan_path)
+        return DataFrame(FileScanNode(rewrite_scan_path(path, self.conf),
+                                      "orc", pushed_filter=pushed_filter,
                                       files_per_partition=files_per_partition),
                          self)
 
@@ -508,8 +518,9 @@ class TorchSession:
         columns read, matched to the header by name (or naming the file's
         columns in order when there is no header); without one, arrow infers
         the types from the first file."""
-        from spark_rapids_tpu_torch.io.filescan import FileScanNode
+        from spark_rapids_tpu_torch.io.filescan import (FileScanNode,
+                                                         rewrite_scan_path)
         return DataFrame(FileScanNode(
-            path, "csv", schema=schema,
+            rewrite_scan_path(path, self.conf), "csv", schema=schema,
             options={"header": header, "delimiter": delimiter,
                      "schema": schema}), self)

@@ -70,7 +70,13 @@ fields (gather, concat, a slice, ``select_rows``, ``equiv``,
 the collects, ``first``/``last``, the conditionals, equality, the
 extractions, ROLLUP and a hash exchange over arrays of structs, arrays of
 arrays and structs of arrays: the CPU run's rows; their parquet and ORC
-files written on the card: the source's rows (all exact).
+files written on the card: the source's rows (all exact). A probe
+chain of a dense and a hash hop under a hoisted filter and projection on
+the card: the CPU run's rows and the unchained route's, in order, bit for
+bit, with one ``hash_join_probe`` a stream batch; q1 on the card with
+each chunk decoded at its first read bit for bit every chunk decoded at
+the scan, one decode a vector; a pushed
+filter's residual over NaN, -0.0 and 0.0 on the card: the CPU run's rows.
 """
 
 import os
@@ -491,7 +497,9 @@ def test_q5_sparse_on_card_matches_numpy(cuda_device, tmp_path):
             assert a == pytest.approx(b, rel=1e-9)
 
         def joins(p):
-            own = [p] if isinstance(p, HashJoinExec) else []
+            # a probe chain's hops are its joins
+            own = ([p] if isinstance(p, HashJoinExec) else
+                   list(getattr(p, "hops", [])))
             return own + [j for c in p.children for j in joins(c)]
         hashed = [j for j in joins(plan) if j.stats["probe_mode"] == "hash"]
         if query is tpch.q5:
@@ -644,12 +652,13 @@ def test_scan_on_card_equals_cpu(cuda_device, tmp_path):
                     pass
             CK.reset_launches()
             card = PN.read_row_group_device(path, rg, None, cuda_device)
-            torch.cuda.synchronize()
-            assert CK.launches["bitunpack128"] == chunks > 0
             cpu = PN.read_row_group_device(path, rg, None, "cpu")
+            # a chunk decodes at its column's first read
             for a, b in zip(card.columns, cpu.columns):
                 assert torch.equal(a.data.cpu(), b.data)
                 assert torch.equal(a.validity.cpu(), b.validity)
+            torch.cuda.synchronize()
+            assert CK.launches["bitunpack128"] == chunks > 0
 
 
 # -- the redesigned radix kernels ------------------------------------------
@@ -1009,12 +1018,13 @@ def test_chunk_decode_of_native_packed_chunks(cuda_device, tmp_path, codec,
             assert torch.equal(got[1].cpu(), cpu[1])
         CK.reset_launches()
         card = PN.read_row_group_device(path, rg, None, cuda_device)
-        torch.cuda.synchronize()
-        assert CK.launches["bitunpack128"] == md.num_columns
         host = PN.read_row_group_device(path, rg, None, "cpu")
+        # a chunk decodes at its column's first read
         for a, b in zip(card.columns, host.columns):
             assert torch.equal(a.data.cpu(), b.data)
             assert torch.equal(a.validity.cpu(), b.validity)
+        torch.cuda.synchronize()
+        assert CK.launches["bitunpack128"] == md.num_columns
     native = "native_chunk" if codec == "NONE" else "native_pages"
     assert PN.routes[native] == 3 * md.num_row_groups * md.num_columns
     assert PN.routes["python"] == PN.routes["arrow"] == 0
@@ -1712,6 +1722,8 @@ def test_sweep_chunk_decode_widths_match_plain(cuda_device, tmp_path,
     before = CK.launches["bitunpack128"]
     got = PN.chunk_to_device(pages, st, cap, cuda_device)
     want = PN.chunk_to_device(pages, st, cap, "cpu")
+    assert CK.launches["bitunpack128"] == before     # decoded at first read
+    assert got.decode()
     torch.cuda.synchronize()
     assert CK.launches["bitunpack128"] == before + 1
     assert got.data.dtype == st.torch_dtype and got.data.element_size() \
@@ -2416,3 +2428,140 @@ def test_chained_group_by_on_card_equals_cpu(cuda_device, tmp_path):
     assert all(np.array_equal(x[0], xi) for xi in x[1:])
     assert res[0].drop(["s"]).equals(res[1].drop(["s"]))
     assert res[0].drop(["s"]).equals(res[2].drop(["s"]))
+
+
+def _chain_files(tmp_path):
+    """A three-file stream with null keys, a dense unique build on ``k``
+    and a hash-mode build on sparse int64 ``sp`` (3,000 unique keys about
+    10^10 apart: the direct table refuses the range)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    rng = np.random.default_rng(21)
+    n = 300_000
+    sparse = (rng.permutation(3000).astype(np.int64) + 1) * 9_999_991_337
+    sparse[::3] *= -1
+    sp = np.where(rng.random(n) < 0.7, rng.choice(sparse, n),
+                  rng.integers(-2**60, 2**60, n))
+    stream = pa.table({
+        "k": pa.array(rng.integers(0, 5000, n), pa.int64(),
+                      mask=rng.random(n) < 0.05),
+        "g": pa.array(rng.integers(0, 10, n), pa.int64()),
+        "sp": pa.array(sp, pa.int64()),
+        "v": pa.array(rng.normal(size=n)),
+        "s": pa.array([f"s{i % 37}" for i in range(n)])})
+    files = []
+    for i in range(3):
+        files.append(str(tmp_path / f"stream{i}.parquet"))
+        pq.write_table(stream.slice(i * 100_000, 100_000), files[-1],
+                       row_group_size=40_000)
+    keys = np.arange(4000, dtype=np.int64)
+    pq.write_table(pa.table({"k": pa.array(keys), "w": pa.array(keys / 3)}),
+                   str(tmp_path / "dense.parquet"))
+    pq.write_table(pa.table({"sp": pa.array(sparse),
+                             "t": pa.array(np.arange(3000) % 11,
+                                           pa.int64())}),
+                   str(tmp_path / "sparse.parquet"))
+    return files, str(tmp_path / "dense.parquet"), \
+        str(tmp_path / "sparse.parquet")
+
+
+@pytest.mark.gpu
+def test_join_chain_on_card_equals_cpu(cuda_device, tmp_path):
+    """A chain of a dense hop and a hash hop under a hoisted filter and
+    projection, on the card: the CPU session's rows in order, bit for bit,
+    and the unchained route's; the hash hop launches hash_join_probe once a
+    stream batch."""
+    import spark_rapids_tpu_torch.functions as F
+    from spark_rapids_tpu_torch.exec import joins as XJ
+    from spark_rapids_tpu_torch.session import TorchSession
+    files, dense, sparse = _chain_files(tmp_path)
+    c = F.col
+    res = []
+    for d, fusion in (("cpu", "true"), ("cuda", "true"), ("cuda", "false")):
+        spark = TorchSession({"spark.rapids.tpu.sql.stageFusion.enabled":
+                              fusion}, device=d)
+        df = (spark.read_parquet(files, files_per_partition=1)
+              .filter(c("g") != F.lit(3))
+              .select(c("k"), c("sp"), (c("v") * F.lit(2.0)).alias("v2"),
+                      c("s"))
+              .join(spark.read_parquet(dense), on="k")
+              .join(spark.read_parquet(sparse), on="sp"))
+        plan = df.physical_plan()
+        before = CK.launches["hash_join_probe"]
+        res.append(plan.execute_collect())
+        if d == "cuda" and fusion == "true":
+            (chain,) = [p for p in _walk(plan)
+                        if isinstance(p, XJ.BroadcastHashJoinChainExec)]
+            modes = [h.stats["probe_mode"] for h in chain.hops]
+            assert modes == ["dense", "hash"]
+            assert chain.stats["chained_batches"] == \
+                chain.stats["stream_batches"] > 3
+            assert CK.launches["hash_join_probe"] - before == \
+                chain.stats["stream_batches"]
+    assert res[0].num_rows > 0
+    assert res[0].equals(res[1]) and res[0].equals(res[2])
+
+
+def _walk(plan):
+    yield plan
+    for ch in plan.children:
+        yield from _walk(ch)
+
+
+@pytest.mark.gpu
+def test_encoded_q1_on_card_equals_dense(cuda_device, tmp_path, monkeypatch):
+    """q1 on the card with each chunk decoded at its first read: the rows of
+    every chunk decoded at the scan, bit for bit, with one chunk decode
+    launch per encoded vector either way."""
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    from spark_rapids_tpu_torch.columnar import encoded as EN
+    from spark_rapids_tpu_torch.io import parquet_native as PN
+    from spark_rapids_tpu_torch.session import TorchSession
+    paths = tpch.generate(0.05, str(tmp_path))
+    read = PN.read_row_group_device
+
+    def at_scan(*args, **kw):
+        batch = read(*args, **kw)
+        for c in batch.columns:
+            if isinstance(c, EN.EncodedColumnVector):
+                c.decode()
+        return batch
+    out = {}
+    for route in ("first read", "at the scan"):
+        if route == "at the scan":
+            monkeypatch.setattr(PN, "read_row_group_device", at_scan)
+        plan = tpch.q1(tpch.load(TorchSession(), paths)).physical_plan()
+        EN.reset_counts()
+        before = CK.launches["bitunpack128"]
+        out[route] = plan.execute_collect()
+        torch.cuda.synchronize()
+        decodes = CK.launches["bitunpack128"] - before
+        assert decodes > 0
+        assert EN.counts == {"made": decodes, "decoded": decodes}
+    assert out["first read"].equals(out["at the scan"])
+
+
+@pytest.mark.gpu
+def test_pushed_filter_residual_on_card_equals_cpu(cuda_device, tmp_path):
+    """A pushed filter whose double conjuncts are the residual (NaN, -0.0,
+    0.0 and nulls among the values) on the card: the CPU run's rows."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    import spark_rapids_tpu_torch.functions as F
+    from spark_rapids_tpu_torch.session import TorchSession
+    rng = np.random.default_rng(9)
+    n = 50_000
+    xs = rng.choice([1.0, float("nan"), -0.0, 0.0, 3.5, -2.0, None], n)
+    path = str(tmp_path / "t.parquet")
+    pq.write_table(pa.table({
+        "k": pa.array(rng.integers(-50, 50, n), pa.int64()),
+        "x": pa.array(xs.tolist(), pa.float64()),
+        "s": pa.array([f"s{i % 13}" for i in range(n)])}), path,
+        row_group_size=10_000)
+    c = F.col
+    pred = ((c("k") > F.lit(0)) & (c("x") >= F.lit(-0.0))
+            & (c("s") != F.lit("s3")))
+    got = [TorchSession(device=d).read_parquet(path, pushed_filter=pred)
+           .collect() for d in ("cpu", "cuda")]
+    assert got[0].num_rows > 0
+    assert repr(got[0].to_pylist()) == repr(got[1].to_pylist())

@@ -36,7 +36,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "plan.pruning", "expr.exprkey", "expr.datetime", "native",
             "io.readers", "expr.conditional", "benchmarks.tpcds",
             "exec.window", "expr.windows", "ops.nested", "exec.generate",
-            "expr.complexexprs", "columnar.rows", "ops.random")} <= set(
+            "expr.complexexprs", "columnar.rows", "ops.random",
+            "columnar.encoded")} <= set(
                 names)
         for name in names:
             importlib.import_module(name)
@@ -109,10 +110,15 @@ def test_session_without_a_card_raises(monkeypatch):
 
 
 def test_encoded_upload_raises():
+    """Encoded upload is ported (on by default, as in the reference): the
+    conf is accepted either way. An unregistered conf still raises."""
+    from spark_rapids_tpu_torch import config as CFG
     from spark_rapids_tpu_torch.session import TorchSession
-    with pytest.raises(NotImplementedError):
-        TorchSession({"spark.rapids.tpu.sql.parquet.encodedUpload.enabled":
-                      "true"}, device="cpu")
+    for v in ("true", "false"):
+        s = TorchSession({"spark.rapids.tpu.sql.parquet.encodedUpload."
+                          "enabled": v}, device="cpu")
+        assert s.conf.get(CFG.PARQUET_ENCODED_UPLOAD) == (v == "true")
+    assert TorchSession(device="cpu").conf.get(CFG.PARQUET_ENCODED_UPLOAD)
     with pytest.raises(NotImplementedError):
         TorchSession({"spark.rapids.tpu.sql.pallas.enabled": "false"},
                      device="cpu")
@@ -206,17 +212,23 @@ def test_unported_plans_raise_at_planning(table_path):
     with pytest.raises(NotImplementedError):
         dec.window([E.Alias(WX.WindowExpression(Average(F.col("d")), spec),
                             "a")]).physical_plan()
-    # the arrow reader path and the ORC and CSV scans are ported; what the
-    # scan still refuses is the pushed filter, the Alluxio path rewrite, and
-    # an ORC or CSV scan its format's conf disables (the port has no host
-    # plan to hand it to)
+    # the arrow reader path, the ORC and CSV scans, the pushed filter and
+    # the Alluxio path rewrite are ported; what the scan still refuses is an
+    # ORC or CSV scan its format's conf disables (the port has no host plan
+    # to hand it to)
     from spark_rapids_tpu_torch.io.filescan import FileScanNode
-    with pytest.raises(NotImplementedError):
-        FileScanNode(table_path, "parquet", pushed_filter=F.col("x") <= 1.0)
+    node = FileScanNode(table_path, "parquet",
+                        pushed_filter=F.col("x") <= 1.0)
+    assert node.pushed_filter is not None
+    pushed = TorchSession(device="cpu").read_parquet(
+        table_path, pushed_filter=F.col("x") <= 1.0).collect()
+    assert pushed.column("x").to_pylist() == [1.0]
+    d = os.path.dirname(table_path)
     alluxio = TorchSession({"spark.rapids.tpu.alluxio.pathsToReplace":
-                            "/a->/b"}, device="cpu").read_parquet(table_path)
-    with pytest.raises(NotImplementedError):
-        alluxio.physical_plan()
+                            f"/nowhere/alluxio->{d}"}, device="cpu")
+    got = alluxio.read_parquet(os.path.join(
+        "/nowhere/alluxio", os.path.basename(table_path))).collect()
+    assert got.column("n").to_pylist() == [1, 2, 3]
     import pyarrow.csv as pcsv
     import pyarrow.orc as orc
     src = pq.read_table(table_path)

@@ -505,7 +505,11 @@ def _assert_q5_equal(got, exp):
 
 
 def _joins(plan):
+    """The hash joins of an exec tree, top down; a probe chain's hops count
+    as its joins, the top hop first."""
     out = [plan] if isinstance(plan, XJ.HashJoinExec) else []
+    if isinstance(plan, XJ.BroadcastHashJoinChainExec):
+        out = plan.hops[::-1]
     for c in plan.children:
         out += _joins(c)
     return out

@@ -119,7 +119,11 @@ def test_lowered_plans_match_the_reference(env, q):
 
 
 def _joins(plan):
+    """The hash joins of an exec tree, top down; a probe chain's hops count
+    as its joins, the top hop first."""
     out = [plan] if isinstance(plan, XJ.HashJoinExec) else []
+    if isinstance(plan, XJ.BroadcastHashJoinChainExec):
+        out = plan.hops[::-1]
     for c in plan.children:
         out += _joins(c)
     return out
