@@ -280,7 +280,15 @@ It imports the port (``spark_rapids_tpu_torch``) and nothing of JAX, then:
    residual on the card); each held to a numpy/pyarrow oracle, counted
    with its launches predicted, timed ``JOIN_FUSION_REPS`` more times and
    traced once. The TPC-H paths' chains and hoists are checked against
-   ``FUSION_SHAPES``;
+   ``FUSION_SHAPES``. Every phase runs under the session's default conf,
+   the pipelined stages on. Then runtime-sf1
+   (``runtime_paths``): the ladder under ``bench.py``'s session confs with
+   the pipeline on and off in turns, q1-repartition under a device budget
+   of half its shuffle blocks (the spill tiers and the direct store),
+   q1-files through the serializing shuffle, q1-files and q5 under
+   injected OOMs, a corrupted spill payload recomputed, and a range
+   exchange with a local sort against numpy's sort; each counted with its
+   launches predicted (``runtime_prediction``) and traced once;
 6. prints how many traces ``device_ms`` took and found short, one JSON
    line describing every ported kernel (``launches``, its launches summed
    over every path's counted run; each path's, the TPC-DS paths among
@@ -311,6 +319,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import datetime
+import faulthandler
 import json
 import math
 import os
@@ -330,6 +339,10 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # the chunk decode kernel's symbol, as the profiler names its launches
 KERNEL_NAME = "chunk_decode_kernel"
+# seconds after which a run that has not finished dumps every thread's stack
+# and exits 1: a hang (a deadlock among the pipelined stages, say) fails
+# inside the 1,200 s the script has and shows where it stood
+WATCHDOG_S = 1140
 # timed runs of each q1 path, at most (``--reps`` may ask fewer)
 Q1_REPS = 2
 # timed runs of each official TPC-DS SQL text (the sql-ds paths): 1 since
@@ -4501,6 +4514,476 @@ def join_fusion_paths(spark, off, dev, name, card, paths, root,
           f"({n_li} lineitem rows)")
 
 
+#: bench.py:172-175's session confs (the pipeline set per run)
+BENCH_CONF = {"spark.rapids.tpu.sql.format.parquet.reader.type": "COALESCING",
+              "spark.rapids.tpu.sql.stageFusion.enabled": True}
+#: two split-OOMs at the exchange's map side and one OOM at the
+#: aggregate's merge; with the group-by chain on (the default) one more at
+#: the chain's step, since at SF1 the chain takes every merge of q5's and
+#: q1's aggregates (the merge site is reached only by a batch the chain
+#: leaves, or with the chain off)
+MERGE_FAULTS = "splitoom:exchange.map:2,oom:agg.merge:1"
+RUNTIME_FAULTS = MERGE_FAULTS + ",oom:agg.chain:1"
+#: turns of q1-repartition unspilled and under the spill budget: the whole
+#: card's peak moves with the map threads' timing from run to run
+SPILL_TURNS = 3
+RANGE_PARTS = 8
+
+
+def reorder_distance(label, got, clean, terms) -> tuple:
+    """Two runs whose float sums may add their terms in other orders (an
+    atomic ``index_add_`` on the card, a retry's split): every other column
+    equal, and each float within ``2 n u |clean|`` of the clean run's, ``n``
+    the row's summed terms and ``u`` = 2^-53 (a sum of ``n`` terms of one
+    sign, added in any order, is off by at most ``(n - 1) u`` of the exact
+    sum; a mean by one rounding more). Returns the largest distance and
+    the largest bound, in units in the last place of the clean value."""
+    import numpy as np
+    import pyarrow as pa
+    if got.num_rows != clean.num_rows or got.schema != clean.schema:
+        raise AssertionError(f"{label}: rows or schema differ from the "
+                             "clean run")
+    n = np.asarray(terms, dtype=np.float64)
+    worst = bound = 0.0
+    for name in clean.column_names:
+        a, b = got.column(name), clean.column(name)
+        if not pa.types.is_floating(b.type):
+            if not a.equals(b):
+                raise AssertionError(f"{label}: {name} differs from the "
+                                     "clean run")
+            continue
+        x = a.to_numpy(zero_copy_only=False).astype(np.float64)
+        y = b.to_numpy(zero_copy_only=False).astype(np.float64)
+        ulp = np.spacing(np.abs(y))
+        tol = 2.0 * n * 2.0 ** -53 * np.abs(y)
+        if (np.abs(x - y) > tol).any():
+            raise AssertionError(f"{label}: {name} {x.tolist()} is beyond "
+                                 f"the reordering bound of {y.tolist()}")
+        worst = max(worst, float((np.abs(x - y) / ulp).max()))
+        bound = max(bound, float((tol / ulp).max()))
+    return worst, bound
+
+
+def first_chunk_decodes(files, column: str) -> int:
+    """Chunk decodes of the range exchange's sample pass: the first batch
+    (row group 0) of each file's partition is read, and its key column's
+    chunk decoded once if the decode takes it (a dictionary chunk)."""
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch.io import parquet_native as PN
+    n = 0
+    for f in files:
+        md = pq.ParquetFile(f).metadata
+        ci = [md.schema.column(i).path
+              for i in range(md.num_columns)].index(column)
+        try:
+            PN.read_chunk_pages(f, 0, ci, md=md)
+        except NotImplementedError:
+            continue
+        n += 1
+    return n
+
+
+def scan_decodes(plan, scan_chunks, runs: int = 1) -> int:
+    """The chunk decodes the scans under ``plan`` launch: each scan's
+    dictionary chunks (the pruned census), once for every time the map
+    stage above it ran (a recompute runs it again)."""
+    from spark_rapids_tpu_torch.exec.exchange import ShuffleExchangeExec
+    from spark_rapids_tpu_torch.io.filescan import FileSourceScanExec
+    if isinstance(plan, FileSourceScanExec):
+        if plan.node.pushed_filter is not None:
+            return 0
+        (d, _), = scans(plan)
+        return runs * scan_chunks(d, plan.node._data_columns())[0]
+    if isinstance(plan, ShuffleExchangeExec):
+        runs *= max(plan.map_runs, 1)
+    return sum(scan_decodes(c, scan_chunks, runs) for c in plan.children)
+
+
+def runtime_prediction(plan, count_batches, scan_chunks,
+                       sampled: int = 0) -> dict:
+    """Every kernel's launches on one run of ``plan``: the chunk decodes of
+    its scans (and of a range exchange's sample), one count launch an
+    aggregate batch with count-like requests, one partition step (radix) a
+    partitioned batch or split piece, one string hash a string key of each,
+    and the hash joins' builds and probes."""
+    js = joins(plan)
+    hashed = [j for j in js if j.stats["probe_mode"] == "hash"]
+    radix, mm, _exs = exchange_prediction([plan])
+    return {"bitunpack128": scan_decodes(plan, scan_chunks) + sampled,
+            "onehot_sum_f32": len(count_batches), "radix_ranks": radix,
+            "murmur3_words": mm,
+            "hash_join_build": len(hashed) + sum(j.stats["hash_refused"]
+                                                 for j in js),
+            "hash_join_probe": sum(j.stats["stream_batches"]
+                                   for j in hashed)}
+
+
+def runtime_paths(dev, name, card, paths, li_files, root, check_query,
+                  counting, agg_batches, scan_chunks, counts_by_path: dict,
+                  peak_by_path: dict, threads: dict,
+                  q5_terms: dict) -> None:
+    """runtime-sf1: the memory runtime, the pipelined stages and the
+    exchange's remainder, on the SF1 files; each path once (its counted
+    run), then one traced run for its device idle share.
+
+    - ladder-bench-conf: q1/q3/q5/q18 through ``TorchSession`` with
+      ``bench.py``'s own confs (COALESCING, stage fusion, and the pipeline
+      on and off in turns: on, off, off, on), loaded as ``bench.py`` loads
+      them; q3 and q18 bit for bit across the routes, q1 and q5 within the
+      oracle's tolerance, all four held to the oracle;
+    - q1-repartition-spill: q1-repartition with ``memory.hbm.limitBytes``
+      half of its shuffle blocks' bytes (``partition_sizes`` of an unspilled
+      run) and ``host.spillStorageSize`` a quarter, the disk tier through
+      the direct store, in ``SPILL_TURNS`` turns with the unspilled run;
+      the buffers and bytes that moved device → host, host → disk and back,
+      ``direct_active``, the catalog's registered device high-water (held
+      to the budget spilled, to at least the block bytes unspilled), the
+      whole card's peaks of every turn beside it, and the rows bit for bit
+      the unspilled run's;
+    - q1-serialized: q1-files with ``shuffle.enabled=false``, bit for bit
+      q1-files;
+    - q1-retry: q1-files and q5 under ``RUNTIME_FAULTS``, and q5 with the
+      group-by chain off under ``MERGE_FAULTS`` (its merge site fires),
+      bit for bit their clean runs where two clean runs are (q5's one
+      float sum is an atomic ``index_add_`` on the card; then its keys
+      exactly and its sums within ``reorder_distance``'s bound), with
+      ``faults.injected_log()``;
+    - q1-recompute: q1-repartition-spill with the spill checksum on and one
+      spill payload corrupted after its CRC: the exchange recomputes its
+      map outputs, bit for bit;
+    - range-sort: ``l_extendedprice`` of lineitem (one partition per file)
+      through a range exchange of ``RANGE_PARTS`` partitions, then a local
+      sort; read in partition order it equals numpy's sort.
+
+    Each path's launches are held to ``runtime_prediction``, and
+    murmur3_words, the radix partition step, the chunk decode and the
+    count kernel must each launch somewhere in the phase."""
+    import numpy as np
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    from spark_rapids_tpu_torch.ops import cuda_kernels as CK
+    from spark_rapids_tpu_torch.plan import nodes as NN
+    from spark_rapids_tpu_torch.runtime import faults as FI
+    from spark_rapids_tpu_torch.runtime import memory as MEM
+    from spark_rapids_tpu_torch.runtime import retry as RT
+    from spark_rapids_tpu_torch.session import DataFrame, TorchSession
+    import spark_rapids_tpu_torch.functions as F
+    t_phase = time.perf_counter()
+    li_dir = paths["lineitem"]
+    phase_counts = {}
+    walls = {}
+    #: each counted run's peak above what was allocated when it started
+    own_peaks = {}
+
+    def counted(label, make, chk, sampled=0):
+        """One counted run: (plan, result, wall s, launches, peak B)."""
+        with counting():
+            before = torch.cuda.memory_allocated(dev)
+            t0 = time.perf_counter()
+            plan = make().physical_plan()
+            res = plan.execute_collect()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = dict(CK.launches)
+            peak = torch.cuda.max_memory_allocated(dev)
+            batches = [k for k in agg_batches if k]
+        chk(res)
+        want = runtime_prediction(plan, batches, scan_chunks, sampled)
+        check_launches(label, got, want, ())
+        counts_by_path[label] = got
+        peak_by_path[label] = peak
+        own_peaks[label] = peak - before
+        for k, v in got.items():
+            phase_counts[k] = phase_counts.get(k, 0) + v
+        walls[label] = wall
+        return plan, res, wall, got, peak
+
+    def line(label, plan, wall, got, peak, extra="", run=None):
+        idle = sql_idle_share(run) if run is not None else "not traced"
+        print(f"{label} on {card}: wall {wall:.4f} s, {idle}, peak device "
+              f"memory {peak} B; launches "
+              f"{ {k: v for k, v in got.items() if v} } as predicted"
+              f"{'; ' + extra if extra else ''}")
+
+    def bit_for_bit(label, a, b, what):
+        if not a.equals(b):
+            raise AssertionError(f"{label}: rows differ from {what}")
+
+    # -- ladder-bench-conf ---------------------------------------------------
+    sessions = {pipe: TorchSession({**threads, **BENCH_CONF,
+                                    "spark.rapids.tpu.pipeline.enabled":
+                                    pipe}) for pipe in (True, False)}
+    for q in ("q1", "q3", "q5", "q18"):
+        label = f"runtime-sf1/ladder-bench-conf/{q}"
+        frame = tpch.QUERIES[q]
+        res, tw = {}, {True: [], False: []}
+        for pipe in (True, False, False, True):
+            s = sessions[pipe]
+            plan, out, wall, got, peak = counted(
+                f"{label} (pipeline {'on' if pipe else 'off'})",
+                lambda s=s: frame(tpch.load(s, paths, files_per_partition=4)),
+                lambda r, q=q: check_query(q, r))
+            tw[pipe].append(wall)
+            if pipe in res and q in ("q3", "q18"):
+                bit_for_bit(label, out, res[pipe], "the same route's")
+            res[pipe] = out
+        if q in ("q3", "q18"):
+            bit_for_bit(label, res[True], res[False], "the pipeline off")
+        s = sessions[True]
+        line(label + " (pipeline on)", plan, min(tw[True]), got, peak,
+             f"walls pipeline on {[round(x, 4) for x in tw[True]]} s, off "
+             f"{[round(x, 4) for x in tw[False]]} s in this call; "
+             + ("bit for bit across the routes" if q in ("q3", "q18")
+                else "both routes within the oracle's tolerance"),
+             run=lambda s=s, frame=frame: frame(tpch.load(
+                 s, paths, files_per_partition=4)).collect())
+
+    # -- q1-repartition, unspilled, then under a budget of half its blocks,
+    # in turns ----------------------------------------------------------------
+    def q1_rep(s):
+        return tpch.q1({"lineitem": s.read_parquet(li_dir).repartition(
+            8, "l_returnflag", "l_linestatus")})
+
+    def q1_files(s):
+        return tpch.q1({"lineitem": s.read_parquet(li_files)})
+
+    def fresh(conf):
+        """A session and the fresh catalog it set up under its budget."""
+        s = TorchSession(conf)
+        return s, MEM.DeviceManager.get().catalog
+
+    rep, spl = "runtime-sf1/q1-repartition", "runtime-sf1/q1-repartition-spill"
+    turns = {"unspilled": [], "spilled": []}
+    for turn in range(SPILL_TURNS):
+        base, cat = fresh(threads)
+        u = f"{rep} (unspilled{'' if turn == 0 else f', turn {turn + 1}'})"
+        plan, res, wall, got, peak = counted(
+            u, lambda: q1_rep(base), lambda r: check_query("q1", r))
+        if turn == 0:
+            clean_rep, w_rep, peak_rep = res, wall, peak
+            rep_ex = [e for e in exchanges(plan)
+                      if e.child.num_partitions == 1][0]
+            block_bytes = sum(rep_ex.partition_sizes)
+            budget = block_bytes // 2
+            spill_dir = os.path.join(root, "spill")
+            spill_conf = {
+                **threads,
+                "spark.rapids.tpu.memory.hbm.limitBytes": str(budget),
+                "spark.rapids.tpu.memory.host.spillStorageSize":
+                str(block_bytes // 4),
+                "spark.rapids.tpu.memory.spill.dirs": spill_dir,
+                "spark.rapids.tpu.memory.direct.storage.spill.enabled":
+                "true"}
+        # unspilled, the catalog holds every block on the device until the
+        # last reduce partition is read
+        wm = cat.spill_counts()["device_watermark_bytes"]
+        if wm < block_bytes:
+            raise AssertionError(f"{u} registered {wm} B on the device, "
+                                 f"below its blocks' {block_bytes} B")
+        turns["unspilled"].append((peak, own_peaks[u], wm))
+        spilled, cat = fresh(spill_conf)
+        s_ = spl if turn == 0 else f"{spl} (turn {turn + 1})"
+        plan, res, wall, got, peak = counted(
+            s_, lambda: q1_rep(spilled), lambda r: check_query("q1", r))
+        bit_for_bit(s_, res, clean_rep, "the unspilled run")
+        sc = cat.spill_counts()
+        if not (sc["to_host_buffers"] and sc["to_disk_buffers"]):
+            raise AssertionError(f"{s_} spilled {sc}: want buffers to the "
+                                 "host and to disk")
+        # the deterministic peak: what the catalog held on the device
+        if sc["device_watermark_bytes"] > budget:
+            raise AssertionError(
+                f"{s_} registered {sc['device_watermark_bytes']} B on the "
+                f"device, over its {budget} B budget")
+        if cat.num_buffers:
+            raise AssertionError(f"{s_} left {cat.num_buffers} buffers "
+                                 "registered")
+        turns["spilled"].append((peak, own_peaks[s_],
+                                 sc["device_watermark_bytes"]))
+        if turn == 0:
+            first = (plan, wall, got, peak, sc, cat.direct_active)
+        shutil.rmtree(spill_dir, ignore_errors=True)
+    plan, wall, got, peak, sc, direct = first
+
+    def peaks(kind):
+        whole, own, wms = zip(*turns[kind])
+        return (f"whole-card peaks {list(whole)} B (above the run's start "
+                f"{list(own)} B), registered device high-water "
+                f"{list(wms)} B")
+    line(spl, plan, wall, got, peak,
+         f"unspilled q1-repartition: wall {w_rep:.4f} s, peak {peak_rep} B, "
+         f"shuffle blocks {block_bytes} B; budget {budget} B "
+         f"device, {block_bytes // 4} B host; moved device->host "
+         f"{sc['to_host_buffers']} buffers / {sc['to_host_bytes']} B, "
+         f"host->disk {sc['to_disk_buffers']} buffers / "
+         f"{sc['to_disk_bytes']} B, back from host {sc['from_host_buffers']}"
+         f" and from disk {sc['from_disk_buffers']} buffers; direct_active "
+         f"{direct}; {SPILL_TURNS} turns in this call, unspilled: "
+         f"{peaks('unspilled')}; spilled: {peaks('spilled')}; rows bit for "
+         f"bit the unspilled run",
+         run=lambda: q1_rep(TorchSession(spill_conf)).collect())
+    shutil.rmtree(spill_dir, ignore_errors=True)
+    base, cat = fresh(threads)
+
+    # -- q1-serialized -------------------------------------------------------
+    plan, clean_files, w_files, got, peak_files = counted(
+        "runtime-sf1/q1-files", lambda: q1_files(base),
+        lambda r: check_query("q1", r))
+    ser = TorchSession({**threads, "spark.rapids.tpu.shuffle.enabled":
+                        "false"})
+    plan, res, wall, got, peak = counted(
+        "runtime-sf1/q1-serialized", lambda: q1_files(ser),
+        lambda r: check_query("q1", r))
+    bit_for_bit("q1-serialized", res, clean_files, "q1-files")
+    line("runtime-sf1/q1-serialized", plan, wall, got, peak,
+         f"q1-files (device blocks): wall {w_files:.4f} s, peak "
+         f"{peak_files} B; frames {sum(exchanges(plan)[0].partition_sizes)} B"
+         f"; rows bit for bit q1-files", run=lambda: q1_files(ser).collect())
+
+    # -- q1-retry: q1-files and q5 under the fault spec ----------------------
+    def q5(s):
+        return tpch.q5(tpch.load(s, paths))
+
+    plan, clean_q5, w_q5, _g, _p = counted(
+        "runtime-sf1/q5 (clean)", lambda: q5(base),
+        lambda r: check_query("q5", r))
+    unchained = {**threads, "spark.rapids.tpu.sql.stageFusion.groupBy."
+                 "chain.enabled": "false"}
+    q5u = "runtime-sf1/q1-retry/q5-unchained"
+    plan, clean_q5u, w_q5u, _g, _p = counted(
+        q5u + " (clean)", lambda: q5(TorchSession(unchained)),
+        lambda r: check_query("q5", r))
+    for label, make, clean, w_clean, conf, spec in (
+            ("runtime-sf1/q1-retry/q1-files", q1_files, clean_files,
+             w_files, threads, RUNTIME_FAULTS),
+            ("runtime-sf1/q1-retry/q5", q5, clean_q5, w_q5, threads,
+             RUNTIME_FAULTS),
+            # the chain off, so that the aggregate's merge site fires
+            (q5u, q5, clean_q5u, w_q5u, unchained, MERGE_FAULTS)):
+        q = "q1" if "q1-files" in label else "q5"
+        # a float sum the card adds with atomics (q5's one revenue sum is an
+        # index_add_) need not come out bit for bit in two clean runs: then
+        # the run under the faults is held to the clean run's keys exactly
+        # and to its sums within the reordering bound
+        again = make(TorchSession(conf)).collect()
+        exact = again.equals(clean)
+        chaos = TorchSession({**conf, "spark.rapids.tpu.test.faults": spec,
+                              "spark.rapids.tpu.memory.retry."
+                              "splitFloorBytes": "1b"})   # arms it afresh
+        RT.reset_counts()
+        plan, res, wall, got, peak = counted(
+            label, lambda: make(chaos), lambda r, q=q: check_query(q, r))
+        log = FI.injected_log()
+        if exact:
+            bit_for_bit(label, res, clean, "the clean run")
+            how = "rows bit for bit the clean run"
+        else:
+            terms = (clean.column("count_order").to_pylist() if q == "q1"
+                     else [q5_terms[n] for n in
+                           clean.column("n_name").to_pylist()])
+            noise, _b = reorder_distance(label + " (clean)", again, clean,
+                                         terms)
+            worst, bound = reorder_distance(label, res, clean, terms)
+            how = (f"two clean runs differ in their float sums (atomic adds "
+                   f"on the card), by up to {noise:.0f} ulp; every other "
+                   f"column bit for bit the clean run, the sums up to "
+                   f"{worst:.0f} ulp from it, within the reordering bound "
+                   f"of {bound:.0f} ulp")
+        # the exchange's two split-OOMs on q1-files; on q5 an OOM in the
+        # aggregate's chained step or its merge (q1-files' partial
+        # aggregates may have a single batch each, which neither chains
+        # nor merges); with the chain off, in the merge
+        want_maps = 2 if q == "q1" else 0
+        agg = [e for e in log if e[1] in ("agg.chain", "agg.merge")]
+        if (log.count(("splitoom", "exchange.map")) != want_maps
+                or (q == "q5" and not agg)
+                or (label == q5u and ("oom", "agg.merge") not in log)
+                or len(log) != want_maps + len(agg)):
+            raise AssertionError(f"{label}: injected {log}")
+        FI.reset()
+        line(label, plan, wall, got, peak,
+             f"spec {spec}; clean run wall {w_clean:.4f} s; injected {log}; "
+             f"retry counts {dict(RT.counts)}; {how}",
+             run=lambda make=make, conf=conf: make(
+                 TorchSession(conf)).collect())
+
+    # -- q1-recompute --------------------------------------------------------
+    shutil.rmtree(spill_dir, ignore_errors=True)
+    # one map thread: a reader racing the recompute could have emitted rows
+    # of the lost generation, which the ladder cannot take back
+    recomp = TorchSession({**spill_conf,
+                           "spark.rapids.tpu.sql.localScheduler.numThreads":
+                           "1",
+                           "spark.rapids.tpu.memory.spill.checksum.enabled":
+                           "true",
+                           "spark.rapids.tpu.test.faults":
+                           "corrupt:spill.write:1"})
+    cat = MEM.DeviceManager.get().catalog
+    plan, res, wall, got, peak = counted(
+        "runtime-sf1/q1-recompute", lambda: q1_rep(recomp),
+        lambda r: check_query("q1", r))
+    log = FI.injected_log()
+    FI.reset()
+    bit_for_bit("q1-recompute", res, clean_rep, "the unspilled run")
+    recomputes = sum(e.recomputes for e in exchanges(plan))
+    if log != [("corrupt", "spill.write")] or recomputes < 1:
+        raise AssertionError(f"q1-recompute: injected {log}, recomputes "
+                             f"{recomputes}: want one corruption caught")
+    counts_ = cat.spill_counts()
+    shutil.rmtree(spill_dir, ignore_errors=True)
+    again = TorchSession(recomp.conf)      # arms the corruption afresh
+    w_spill = walls[spl]
+    line("runtime-sf1/q1-recompute", plan, wall, got, peak,
+         f"q1-repartition-spill's wall {w_spill:.4f} s; injected {log}; "
+         f"fetch failures recomputed "
+         f"{recomputes}, map stage runs {[e.map_runs for e in exchanges(plan)]}"
+         f"; spill {counts_}; rows bit for bit the unspilled run",
+         run=lambda: q1_rep(again).collect())
+    FI.reset()
+
+    # -- range-sort ----------------------------------------------------------
+    prices = np.sort(pq.read_table(li_dir, columns=["l_extendedprice"])
+                     .column(0).to_numpy())
+
+    def ranged(s):
+        df = s.read_parquet(li_files).select("l_extendedprice")
+        ex = DataFrame(NN.ExchangeNode(df._plan, "range", RANGE_PARTS,
+                                       keys=[F.col("l_extendedprice")]), s)
+        return ex.sort_within_partitions("l_extendedprice")
+
+    def check_sorted(r):
+        got_ = r.column("l_extendedprice").to_numpy()
+        if not np.array_equal(got_, prices):
+            raise AssertionError("range-sort: not numpy's sort")
+
+    sampled = first_chunk_decodes(li_files, "l_extendedprice")
+    plan, res, wall, got, peak = counted(
+        "runtime-sf1/range-sort", lambda: ranged(base), check_sorted,
+        sampled)
+    (rex,) = exchanges(plan)
+    sizes = [int(x) for x in rex.partition_sizes]
+    t0 = time.perf_counter()
+    whole = base.read_parquet(li_files).select("l_extendedprice").sort(
+        "l_extendedprice").collect()
+    torch.cuda.synchronize()
+    w_global = time.perf_counter() - t0
+    check_sorted(whole)
+    line("runtime-sf1/range-sort", plan, wall, got, peak,
+         f"{RANGE_PARTS} partitions of {sizes} B; sample pass decoded "
+         f"{sampled} chunks; a global sort of the same column: wall "
+         f"{w_global:.4f} s; equal to numpy's sort",
+         run=lambda: ranged(base).collect())
+
+    for k in ("murmur3_words", "radix_ranks", "bitunpack128",
+              "onehot_sum_f32"):
+        if not phase_counts.get(k):
+            raise AssertionError(f"runtime-sf1: {k} never launched")
+    shutil.rmtree(root, ignore_errors=True)
+    MEM.DeviceManager.initialize(base.conf, dev)
+    print(f"runtime-sf1 on {card}: {time.perf_counter() - t_phase:.1f} s; "
+          f"launches over the phase {phase_counts}")
+
+
 def decode_call_bound_ms(words, pages, defs, dictionary, n_rows, capacity,
                          want, default) -> float:
     """Least time for one recorded chunk decode call: read its words, its
@@ -4618,6 +5101,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     repo = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, repo)
     from spark_rapids_tpu_torch.ops import cuda_kernels as CK
@@ -4975,6 +5459,7 @@ def main() -> int:
     exp_q1 = tpch.np_q1(tpch.load_np({"lineitem": paths["lineitem"]}))
     tb = tpch.load_np(paths)
     exp_q5 = tpch.np_q5(tb)
+    q5_terms = tpch.np_q5_terms(tb)
     tpch_columns = {t: list(cols) for t, cols in tb.items()}
     li_dir = paths["lineitem"]
 
@@ -5992,6 +6477,23 @@ def main() -> int:
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start, "
           f"after join-fusion-sf1")
 
+    # -- 4l. runtime-sf1: the memory runtime, the pipeline, the exchange's
+    # remainder
+    def check_query(q, res):
+        if q == "q1":
+            check_q1(res.to_pylist(), exp_q1)
+        elif q == "q5":
+            check_q5(res.to_pylist(), exp_q5)
+        else:
+            (check_q3 if q == "q3" else check_q18)(res.to_pylist(),
+                                                    exp_ladder[q])
+    runtime_paths(dev, name, card, paths, li_files,
+                  os.path.join(repo, "build", f"runtime_sf{args.sf:g}"),
+                  check_query, counting, agg_batches, scan_chunks,
+                  counts_by_path, peak_by_path, threads, q5_terms)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start, "
+          f"after runtime-sf1")
+
     if args.profile:
         for label, make_df in all_paths.items():
             profile_run(label, lambda: make_df().collect(), repo)
@@ -6099,6 +6601,8 @@ def main() -> int:
     print(f"traces: device_ms took {TRACES['taken']}, {TRACES['short']} short "
           f"(taken again), {TRACES['fallbacks']} timed with CUDA events "
           f"after five short ones")
+    faulthandler.cancel_dump_traceback_later()
+    print(json.dumps({"peak_device_bytes_by_path": peak_by_path}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

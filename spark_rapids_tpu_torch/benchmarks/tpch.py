@@ -374,7 +374,9 @@ def np_q18(tb):
             for c, o, d, t, s in rows]
 
 
-def np_q5(tb):
+def _np_q5_lines(tb):
+    """q5's lineitem rows in numpy: (their revenue terms, their supplier's
+    nation key, nation key → name)."""
     date0, date1 = _days(1994, 1, 1), _days(1995, 1, 1)
     region = tb["region"]
     nation = tb["nation"]
@@ -400,8 +402,18 @@ def np_q5(tb):
     lcn = o_cnation[li["l_orderkey"]]
     keep = (lsn >= 0) & (lsn == lcn)
     vol = li["l_extendedprice"][keep] * (1.0 - li["l_discount"][keep])
-    nat = lsn[keep]
-    name_of = {int(k): n for k, n in zip(nkeys, nnames)}
+    return vol, lsn[keep], {int(k): n for k, n in zip(nkeys, nnames)}
+
+
+def np_q5_terms(tb) -> dict:
+    """The number of revenue terms q5 sums for each nation name."""
+    _vol, nat, name_of = _np_q5_lines(tb)
+    keys, n = np.unique(nat, return_counts=True)
+    return {name_of[int(k)]: int(c) for k, c in zip(keys, n)}
+
+
+def np_q5(tb):
+    vol, nat, name_of = _np_q5_lines(tb)
     out = {}
     for k in np.unique(nat):
         out[name_of[int(k)]] = float(vol[nat == k].sum())

@@ -76,11 +76,14 @@ class ConfBuilder:
     def integer_conf(self, default: int) -> ConfEntry:
         return self._register(default, int)
 
+    def double_conf(self, default: float) -> ConfEntry:
+        return self._register(default, float)
+
     def bytes_conf(self, default) -> ConfEntry:
         return self._register(parse_bytes(default), parse_bytes)
 
     def string_conf(self, default) -> ConfEntry:
-        return self._register(default, str)
+        return self._register(default, lambda v: v if v is None else str(v))
 
 
 def conf(key: str) -> ConfBuilder:
@@ -145,9 +148,132 @@ BATCH_SIZE_BYTES = conf("spark.rapids.tpu.sql.batchSizeBytes").doc(
 ).bytes_conf("512m")
 
 SHUFFLE_MANAGER_ENABLED = conf("spark.rapids.tpu.shuffle.enabled").doc(
-    "Keep shuffle blocks on the device in the in-process block store. The "
-    "serializing fallback is not ported yet: planning an exchange with this "
-    "set to false raises NotImplementedError").boolean_conf(True)
+    "Keep shuffle blocks on the device as spillable catalog buffers "
+    "(shuffle/manager.py). False takes the serializing shuffle: each block "
+    "is written to the host as a serialized frame "
+    "(shuffle/serialization.py) and read back to the device").boolean_conf(
+    True)
+
+SHUFFLE_FETCH_MAX_RETRIES = conf("spark.rapids.tpu.shuffle.fetch.maxRetries").doc(
+    "Fetch failures tolerated per reduce partition before the query fails; "
+    "each failure invalidates the map outputs and recomputes them (reference "
+    "TransferError -> FetchFailedException -> stage retry, "
+    "RapidsShuffleIterator.scala:82)").integer_conf(2)
+
+CONCURRENT_TPU_TASKS = conf("spark.rapids.tpu.sql.concurrentTpuTasks").doc(
+    "Tasks admitted to the device concurrently via the semaphore "
+    "(reference spark.rapids.sql.concurrentGpuTasks, RapidsConf.scala:398)"
+).integer_conf(2)
+
+DEVICE_MEMORY_FRACTION = conf("spark.rapids.tpu.memory.hbm.allocFraction").doc(
+    "Fraction of device memory the pool budget may use "
+    "(reference spark.rapids.memory.gpu.allocFraction)").double_conf(0.9)
+
+DEVICE_MEMORY_LIMIT = conf("spark.rapids.tpu.memory.hbm.limitBytes").doc(
+    "Absolute device memory budget override; 0 = derive from allocFraction"
+).bytes_conf(0)
+
+HOST_SPILL_STORAGE_SIZE = conf(
+    "spark.rapids.tpu.memory.host.spillStorageSize").doc(
+    "Bytes of host memory used for spilled device buffers before disk "
+    "(reference spark.rapids.memory.host.spillStorageSize)").bytes_conf("1g")
+
+SPILL_DIRS = conf("spark.rapids.tpu.memory.spill.dirs").doc(
+    "Comma-separated local dirs for the disk spill tier "
+    "(reference uses Spark local dirs, RapidsDiskStore.scala)").string_conf(
+    None)
+
+DIRECT_SPILL_ENABLED = conf(
+    "spark.rapids.tpu.memory.direct.storage.spill.enabled").doc(
+    "Spill the disk tier through the batched aligned direct-I/O store "
+    "(O_DIRECT; the GDS analog — reference "
+    "spark.rapids.memory.gpu.direct.storage.spill.enabled, RapidsGdsStore)"
+).boolean_conf(False)
+
+DIRECT_SPILL_BATCH_BYTES = conf(
+    "spark.rapids.tpu.memory.direct.storage.spill.batchWriteBufferSize").doc(
+    "Size at which a direct-spill batch file rotates (reference GDS "
+    "batchWriteBufferSize)").bytes_conf("64m")
+
+STRICT_DEVICE_BUDGET = conf("spark.rapids.tpu.memory.hbm.strictBudget").doc(
+    "When a registration cannot spill the device tier back under the "
+    "budget, raise a retryable DeviceOomError (the DeviceMemoryEventHandler "
+    "OOM analog) so the task-scoped retry framework (runtime/retry.py) can "
+    "spill, split the input batch and re-run. false restores the lenient "
+    "accounting that silently leaves the device tier over budget"
+).boolean_conf(True)
+
+RETRY_MAX_SPLITS = conf("spark.rapids.tpu.memory.retry.maxSplits").doc(
+    "Times one input batch may be split in half by OOM split-and-retry "
+    "before the error is re-raised (reference RmmRapidsRetryIterator's "
+    "splitSpillableInHalfByRows ladder)").integer_conf(8)
+
+RETRY_SPLIT_FLOOR_BYTES = conf(
+    "spark.rapids.tpu.memory.retry.splitFloorBytes").doc(
+    "Split-and-retry never produces a batch smaller than this (nor below 2 "
+    "rows); at the floor one spill-only retry runs and then the OOM "
+    "propagates").bytes_conf("64k")
+
+TEST_FAULTS = conf("spark.rapids.tpu.test.faults").doc(
+    "Deterministic fault-injection spec 'kind:site:trigger,...' — kinds "
+    "oom / splitoom / error / slow / corrupt / leak / disk_full (the "
+    "reference's transport / exec_kill / hang / cancel raise "
+    "NotImplementedError); trigger COUNT, COUNT@SKIP or pPROB; e.g. "
+    "'splitoom:exchange.map:2,oom:agg.merge:1' (grammar + site list in "
+    "runtime/faults.py). Chaos testing only — never set in production; "
+    "empty disables").string_conf(None)
+
+TEST_FAULTS_SEED = conf("spark.rapids.tpu.test.faults.seed").doc(
+    "Seed for probabilistic (pPROB) fault triggers; each (kind, site) "
+    "entry draws from its own stream seeded by (seed, kind, site), so one "
+    "seed yields one deterministic schedule per site even under the "
+    "pipeline's worker-thread interleavings").integer_conf(0)
+
+UNSPILL_ENABLED = conf("spark.rapids.tpu.memory.hbm.unspill.enabled").doc(
+    "Re-promote spilled buffers back to device memory on access "
+    "(reference spark.rapids.memory.gpu.unspill.enabled)").boolean_conf(False)
+
+SPILL_CHECKSUM = conf("spark.rapids.tpu.memory.spill.checksum.enabled").doc(
+    "Stamp disk-tier spill payloads with a CRC32C checksum and verify on "
+    "unspill; a mismatch raises SpillCorruptionError, which shuffle readers "
+    "treat as a fetch failure (map-stage recompute) instead of decoding "
+    "silently corrupt rows").boolean_conf(True)
+
+OOM_DUMP_DIR = conf("spark.rapids.tpu.memory.hbm.oomDumpDir").doc(
+    "Directory to write allocator state on device OOM "
+    "(reference spark.rapids.memory.gpu.oomDumpDir)").string_conf(None)
+
+MEMORY_LEAK_CHECK = conf("spark.rapids.tpu.memory.leak.check").doc(
+    "End-of-query leak detection: after an action drains, any catalog "
+    "buffer still registered by the finished query is reported and "
+    "reclaimed (runtime/memory.BufferCatalog.finish_query). false disables "
+    "(the buffers then linger until process exit)").boolean_conf(True)
+
+MEMORY_LEAK_STRICT = conf("spark.rapids.tpu.memory.leak.strict").doc(
+    "Escalate a detected end-of-query leak into a MemoryLeakError after "
+    "the reclaim, so test suites fail loudly on any leak instead of "
+    "logging it (chaos specs use the 'leak' fault kind to prove the "
+    "detector end to end)").boolean_conf(False)
+
+PIPELINE_ENABLED = conf("spark.rapids.tpu.pipeline.enabled").doc(
+    "Run each plan segment's batch loop on its own worker thread at the "
+    "pipeline breakers (scan, exchange map/reduce, join build, sort, final "
+    "collect), connected by bounded byte-budgeted queues, so host decode, "
+    "device compute and exchange I/O overlap (runtime/pipeline.py). Every "
+    "producer enqueues on the consumer's CUDA stream. Results are "
+    "bit-identical either way").boolean_conf(True)
+
+PIPELINE_QUEUE_DEPTH = conf("spark.rapids.tpu.pipeline.queueDepth").doc(
+    "Batches one pipeline queue edge may hold ahead of its consumer; 2 is "
+    "classic double buffering (batch N resident while N+1 decodes/uploads)"
+).integer_conf(2)
+
+PIPELINE_MAX_QUEUE_BYTES = conf("spark.rapids.tpu.pipeline.maxQueueBytes").doc(
+    "Byte cap per pipeline queue edge; the effective budget also shrinks "
+    "to the spill catalog's free host headroom "
+    "(runtime/memory.host_prefetch_budget) and queued device batches are "
+    "registered as spillable so the OOM-retry ladder can steal them"
+).bytes_conf("256m")
 
 NUM_LOCAL_TASKS = conf("spark.rapids.tpu.sql.localScheduler.numThreads").doc(
     "Threads that run an exchange's map tasks, one input partition each "

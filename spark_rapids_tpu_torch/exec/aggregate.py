@@ -58,9 +58,14 @@ probe one more. Ported with it, under ``stageFusion.enabled``:
 
 Every sort tier and the chain give the unchained, unpacked results bit for
 bit: each sort ends in the row order, and the chain's merge runs at the
-capacity the unchained merge would. The reference's retry around the chain
-(``runtime/retry.py``, its ``DeviceOomError`` branch) is not ported: an
-out-of-memory error propagates.
+capacity the unchained merge would.
+
+The OOM ladder (``runtime/retry.py``) runs where the reference's does: each
+batch's update under ``with_retry`` (scope "agg.update"; a split batch
+gives two partials that the merge folds), each merge and each chained step
+under spill-only ``call_with_retry`` ("agg.merge", "agg.chain"; an OOM the
+chain cannot absorb sends the batch to the update loop). A batch acquires
+the device semaphore before its device work.
 """
 
 from __future__ import annotations
@@ -86,6 +91,8 @@ from spark_rapids_tpu_torch.ops.filtering import (compact_cols, gather_cols,
                                                   maybe_host_resize,
                                                   selection_mask)
 from spark_rapids_tpu_torch.plan.nodes import agg_fn
+from spark_rapids_tpu_torch.runtime import retry as R
+from spark_rapids_tpu_torch.runtime.semaphore import DeviceSemaphore
 
 PARTIAL = "partial"
 FINAL = "final"
@@ -98,6 +105,17 @@ _PRESORTED_MIN_CAPACITY = 1 << 17
 # smallest batch capacity the group-by chain takes (reference: the fused
 # program's compile could not amortize below it; kept for parity)
 _CHAIN_MIN_CAPACITY = 1024
+
+
+def _normalize_float_key(c: Col) -> Col:
+    """``c`` with -0.0 as 0.0 and every NaN as the canonical NaN (Java's
+    ``Double.NaN``/``Float.NaN`` bits); other types as they are."""
+    if c.nested is not None or not isinstance(c.dtype, T.FractionalType):
+        return c
+    v = c.values
+    v = torch.where(v == 0, torch.zeros_like(v), v)
+    v = torch.where(torch.isnan(v), torch.full_like(v, float("nan")), v)
+    return Col(v, c.validity, c.dtype, c.dictionary)
 
 
 class HashAggregateExec(TorchExec):
@@ -263,6 +281,13 @@ class HashAggregateExec(TorchExec):
         fits = vmax >= vmin and (vmax - vmin) < (1 << w) and not presorted
         return presorted, ((vmin, True) if fits else None)
 
+    def _eval_keys(self, ctx: EvalContext) -> list:
+        """The update's grouping keys, a float or double key normalized as
+        Spark's NormalizeFloatingNumbers does: -0.0 becomes 0.0 and every
+        NaN the canonical NaN, so a group's output key does not depend on
+        which of its rows came first (the reference outputs the first)."""
+        return [_normalize_float_key(e.eval(ctx)) for e in self.group_exprs]
+
     def _agg_kernel(self, ctx: EvalContext, merge: bool,
                     presorted: bool | None = None, range_hint=None,
                     sync: bool = True):
@@ -292,7 +317,7 @@ class HashAggregateExec(TorchExec):
         if not nkeys:
             return (*self._agg_keyless(ctx, merge, keep), "keyless")
         key_cols = ([ctx.cols[i] for i in range(nkeys)] if merge
-                    else [e.eval(ctx) for e in self.group_exprs])
+                    else self._eval_keys(ctx))
         dense = self._agg_dense(ctx, merge, key_cols, live_mask=keep,
                                 sync=sync)
         if dense is not None:
@@ -302,7 +327,7 @@ class HashAggregateExec(TorchExec):
             # padding, so compact them out first
             new_cols, cnt = compact_cols(ctx.cols, keep, sync=sync)
             ctx = EvalContext(new_cols, cnt, cap, ctx.device)
-            key_cols = [e.eval(ctx) for e in self.group_exprs]
+            key_cols = self._eval_keys(ctx)
         combined = G.combine_compact_keys(key_cols)
         presorted = bool(presorted) and combined is None
         sort_keys = [combined] if combined is not None else key_cols
@@ -580,9 +605,9 @@ class HashAggregateExec(TorchExec):
         merge runs at the same capacity and the result is the unchained
         one bit for bit (no probe runs: every sort tier gives the same
         permutation). Returns ``(accepted, merged, mg_n, upd_n)``, or None
-        when the batch is below the chain's capacity floor. The reference
-        retries the step under its OOM ladder (``runtime/retry.py``,
-        ``DeviceOomError``), which is not ported."""
+        when the batch is below the chain's capacity floor. The step runs
+        under spill-only retry (scope "agg.chain"); an OOM it cannot absorb
+        sends the batch to the splittable update loop."""
         if (batch.capacity < _CHAIN_MIN_CAPACITY or not batch.columns
                 or not acc.columns):
             return None
@@ -620,9 +645,23 @@ class HashAggregateExec(TorchExec):
         # and pred_P, the next batch's update group count (the last seen)
         chain_ok = self._chainable()
         A = pred_P = 0
+        sem = DeviceSemaphore.get()
+
+        def agg_one(b):
+            return self._aggregate_batch(b, merge=merge_input)
+
         for batch in self.child.execute_partition(split):
+            # acquire once the data is here: a permit held while the child
+            # blocks on a map stage would starve it
+            sem.acquire_if_necessary()
             if acc is not None and chain_ok:
-                res = self._chain_step(acc, batch, A, pred_P)
+                try:
+                    res = R.call_with_retry(
+                        lambda a=acc, b=batch, A=A, P=pred_P:
+                            self._chain_step(a, b, A, P),
+                        scope="agg.chain")
+                except R.DeviceOomError:
+                    res = None   # the splittable update loop below
                 if res is not None:
                     accepted, merged, mg_n, upd_n = res
                     if accepted:
@@ -632,12 +671,21 @@ class HashAggregateExec(TorchExec):
                     # and the batch redone unchained; the observed update
                     # count still improves the next prediction
                     pred_P = upd_n
-            partial = self._aggregate_batch(batch, merge=merge_input)
-            if acc is None:
-                acc = partial
-            else:
-                both = concat_batches([acc, partial])
-                acc = self._aggregate_batch(both, merge=True)
+            # the update under the OOM ladder: a split aggregates the halves
+            # into two partials, which the merge below folds together, as if
+            # the batch had come split
+            for partial in R.with_retry([batch], agg_one, conf=self.conf,
+                                        scope="agg.update"):
+                if acc is None:
+                    acc = partial
+                    continue
+
+                def merge_acc(a=acc, p=partial):
+                    return self._aggregate_batch(concat_batches([a, p]),
+                                                 merge=True)
+
+                # the merge needs both partials at once: spill-only retry
+                acc = R.call_with_retry(merge_acc, scope="agg.merge")
             if chain_ok:
                 A = acc.num_rows
                 pred_P = pred_P or A
@@ -645,6 +693,7 @@ class HashAggregateExec(TorchExec):
             if self.group_exprs:
                 return  # grouped aggregation over empty input → no rows
             # a keyless aggregation: one row even over empty input (Spark)
+            sem.acquire_if_necessary()
             acc = self._aggregate_batch(ColumnarBatch.empty(
                 self._partial_schema() if merge_input
                 else self.child.output, self.device), merge=merge_input)

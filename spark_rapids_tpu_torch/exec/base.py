@@ -1,12 +1,21 @@
 """Physical operator base — counterpart of ``spark_rapids_tpu/exec/base.py``.
 
 An exec produces, per partition, an iterator of device ColumnarBatches on an
-explicit ``device``. Metrics, the device semaphore and the pipelined executor
-are not ported yet; partitions run one after another on the calling thread.
+explicit ``device``. ``execute_collect`` runs the partitions one after
+another on the calling thread, each as a task of the device semaphore
+(``runtime/semaphore.TaskContext``); under
+``spark.rapids.tpu.pipeline.enabled`` each partition's plan produces on a
+pipelined stage ("collect") while this thread converts the previous batch
+to arrow. The action's catalog registrations carry its query id, and a
+buffer still registered when it ends is a leak: reported and reclaimed
+(``BufferCatalog.finish_query``, ``spark.rapids.tpu.memory.leak.check``), and
+raised under ``spark.rapids.tpu.memory.leak.strict``. Metrics are not ported
+yet.
 """
 
 from __future__ import annotations
 
+import itertools
 import typing
 
 import pyarrow as pa
@@ -15,6 +24,8 @@ import torch
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.config import RapidsConf
+
+_query_ids = itertools.count(1)
 
 
 class TorchExec:
@@ -45,8 +56,24 @@ class TorchExec:
 
     def execute_collect(self) -> pa.Table:
         """Run every partition and collect to one arrow table (Spark collect())."""
-        tables = [b.to_arrow() for split in range(self.num_partitions)
-                  for b in self.execute_partition(split)]
+        from spark_rapids_tpu_torch import config as C
+        from spark_rapids_tpu_torch.runtime import memory as mem
+        from spark_rapids_tpu_torch.runtime import pipeline as P
+        from spark_rapids_tpu_torch.runtime.semaphore import TaskContext
+        query = f"q{next(_query_ids)}"
+        tables = []
+        with mem.query_context(query):
+            for split in range(self.num_partitions):
+                with TaskContext():
+                    it = self.execute_partition(split)
+                    it = P.maybe_stage(it, "collect", self.conf)
+                    tables.extend(b.to_arrow() for b in it)
+        if self.conf.get(C.MEMORY_LEAK_CHECK):
+            leak = mem.DeviceManager.get().catalog.finish_query(query)
+            if leak is not None and self.conf.get(C.MEMORY_LEAK_STRICT):
+                raise mem.MemoryLeakError(
+                    f"query {query} leaked {leak['bytes']}B in "
+                    f"{leak['buffers']} buffer(s): {leak['sites']}")
         if not tables:
             return self.output.to_arrow().empty_table()
         return pa.concat_tables(tables)

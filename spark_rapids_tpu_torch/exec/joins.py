@@ -66,6 +66,13 @@ result. The port's ``_int_backed`` leaves timestamps and decimals out, so a
 join on such a key, which the reference hoists and chains, stays unhoisted
 and unchained here, on the rank path, with the same rows.
 
+Each stream batch's probe runs under the OOM ladder
+(``R.with_retry(..., scope="joins.gather")``: an OOM spills, splits the
+batch and probes the halves, the matched-build flags rolled back for each
+attempt by ``_JoinCore.checkpoint``/``restore``); a chained batch retries
+its whole pass through the hops the same way. The build is registered
+spillable by ``exec/broadcast.py`` (scope "joins.build").
+
 Not ported (the planner refuses them, ``plan/overrides.py``, as the
 reference's ``tag_join`` does): a residual condition on an outer, semi or
 anti equi-join, a keyless right outer join, and the shuffled/mesh route.
@@ -91,6 +98,8 @@ from spark_rapids_tpu_torch.ops.filtering import (compact_cols, gather_cols,
                                                   selection_mask,
                                                   slice_to_capacity)
 from spark_rapids_tpu_torch.ops.strings import align_many
+from spark_rapids_tpu_torch.runtime import retry as R
+from spark_rapids_tpu_torch.runtime.semaphore import DeviceSemaphore
 
 # max pairs expanded per output chunk (the JoinGatherer row-target analog)
 _MAX_CHUNK_ROWS = 1 << 20
@@ -428,6 +437,16 @@ class _JoinCore:
                                                       self.build_cap)
         return out
 
+    def checkpoint(self):
+        """Snapshot the matched-build flags before a retried probe."""
+        self._matched_ckpt = (None if self.build_matched_acc is None
+                              else self.build_matched_acc.clone())
+
+    def restore(self):
+        """Roll the flags back after a probe that ran out of memory."""
+        if getattr(self, "_matched_ckpt", None) is not None:
+            self.build_matched_acc = self._matched_ckpt.clone()
+
     def _probe_batch_fast(self, stream_batch: ColumnarBatch):
         sctx = EvalContext.from_batch(stream_batch, self.device)
         k = self.stream_key_exprs[0].eval(sctx)
@@ -647,15 +666,23 @@ class HashJoinExec(TorchExec):
         """Probe and emit each of ``batches`` (one host sync a batch, the
         pair count, counted through ``on_sync``)."""
         out_schema = self.output
+
+        def probe(b):
+            with _probe_range(), R.with_restore_on_retry(core):
+                return b, core.probe_batch(b)
+
         for stream_batch in batches:
             self._count("stream_batches")
-            with _probe_range():
-                build_perm, lo, hi, counts, total = core.probe_batch(
-                    stream_batch)
-            yield from _emit_pairs(
-                self.join_type, self.stream_is_left, self.condition,
-                self.stream_preproject, stream_batch, build_batch, build_perm,
-                lo, hi, counts, total, out_schema, on_sync)
+            DeviceSemaphore.get().acquire_if_necessary()
+            # an OOM spills, splits the stream batch and probes the halves,
+            # with the matched-build flags rolled back for each attempt
+            for piece, (build_perm, lo, hi, counts, total) in R.with_retry(
+                    [stream_batch], probe, conf=self.conf,
+                    scope="joins.gather"):
+                yield from _emit_pairs(
+                    self.join_type, self.stream_is_left, self.condition,
+                    self.stream_preproject, piece, build_batch, build_perm,
+                    lo, hi, counts, total, out_schema, on_sync)
 
     def _probe_stream(self, core, build_batch, split):
         self._count("stream_partitions")
@@ -827,9 +854,14 @@ class BroadcastHashJoinChainExec(TorchExec):
             for stream_batch in self.children[0].execute_partition(split):
                 self._count("stream_batches")
                 self._count("stream_rows", stream_batch.num_rows)
+                DeviceSemaphore.get().acquire_if_necessary()
                 if chained:
                     self._count("chained_batches")
-                    outs = self._chained(stream_batch, cores, build_cols)
+                    outs = [out for chunks in R.with_retry(
+                        [stream_batch],
+                        lambda b: self._chained(b, cores, build_cols),
+                        conf=self.conf, scope="joins.gather")
+                        for out in chunks]
                 else:
                     self._count("degraded_batches")
                     outs = self._sequential(stream_batch, cores, builds)
@@ -843,10 +875,9 @@ class BroadcastHashJoinChainExec(TorchExec):
                 if r.finish_once():
                     h._shared.close()
 
-    def _chained(self, stream_batch, cores, build_cols):
+    def _chained(self, stream_batch, cores, build_cols) -> list:
         with _probe_range():
-            chunks = self._chain_pass(stream_batch, cores, build_cols)
-        yield from chunks
+            return self._chain_pass(stream_batch, cores, build_cols)
 
     def _chain_pass(self, stream_batch, cores, build_cols) -> list:
         """One stream batch through every hop; the output batches."""

@@ -2,7 +2,12 @@
 and ``_GatherAllExec``). A global sort over several partitions first gathers
 them into one; a local sort (``sort_within_partitions``) keeps its child's
 partitions. The batches of a partition are concatenated, then sorted with
-one permutation and one gather per column (``ops/sorting.py``)."""
+one permutation and one gather per column (``ops/sorting.py``). The input
+batches wait in the spill catalog while they accumulate
+(``exec/coalesce.concat_all_spillable``), under
+``spark.rapids.tpu.pipeline.enabled`` the child produces them on a
+pipelined stage ("sort.input"), and the whole-batch sort runs under
+spill-only OOM retry (``R.call_with_retry(scope="sort.sort")``)."""
 
 from __future__ import annotations
 
@@ -11,9 +16,12 @@ import torch
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.exec.base import TorchExec
 from spark_rapids_tpu_torch.expr.core import EvalContext, bind_references
-from spark_rapids_tpu_torch.ops.concat import concat_batches
+from spark_rapids_tpu_torch.exec.coalesce import concat_all_spillable
 from spark_rapids_tpu_torch.ops.filtering import gather_cols
 from spark_rapids_tpu_torch.ops.sorting import sort_permutation
+from spark_rapids_tpu_torch.runtime import pipeline as P
+from spark_rapids_tpu_torch.runtime import retry as R
+from spark_rapids_tpu_torch.runtime.semaphore import DeviceSemaphore
 
 
 class SortExec(TorchExec):
@@ -35,18 +43,24 @@ class SortExec(TorchExec):
         return self.child.output
 
     def execute_partition(self, split):
-        batches = list(self.child.execute_partition(split))
-        if not batches:
+        src = self.child.execute_partition(split)
+        src = P.maybe_stage(src, "sort.input", self.conf)
+        batch = concat_all_spillable(src, conf=self.conf)
+        if batch is None:
             return
-        batch = concat_batches(batches)
-        if batch.num_rows == 0:
-            return
-        ctx = EvalContext.from_batch(batch, self.device, split)
-        key_cols = [e.eval(ctx) for e in self.sort_exprs]
-        perm = sort_permutation(key_cols, self.orders, ctx.num_rows,
-                                ctx.capacity)
-        live = torch.arange(ctx.capacity, device=self.device) < ctx.num_rows
-        cols = gather_cols(ctx.cols, perm, live)
+        DeviceSemaphore.get().acquire_if_necessary()
+
+        def run_sort():
+            ctx = EvalContext.from_batch(batch, self.device, split)
+            key_cols = [e.eval(ctx) for e in self.sort_exprs]
+            perm = sort_permutation(key_cols, self.orders, ctx.num_rows,
+                                    ctx.capacity)
+            live = (torch.arange(ctx.capacity, device=self.device)
+                    < ctx.num_rows)
+            return gather_cols(ctx.cols, perm, live)
+
+        # the total sort needs the whole batch: spill-only retry
+        cols = R.call_with_retry(run_sort, scope="sort.sort")
         yield ColumnarBatch([c.to_vector() for c in cols], batch.num_rows,
                             self.output)
 

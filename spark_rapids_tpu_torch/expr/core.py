@@ -300,8 +300,13 @@ class BoundReference(Expression):
 
 
 def _infer_literal_type(v):
+    import datetime
     if v is None:
         return T.NULL
+    if isinstance(v, datetime.datetime):
+        return T.TIMESTAMP
+    if isinstance(v, datetime.date):
+        return T.DATE
     if isinstance(v, bool):
         return T.BOOLEAN
     if isinstance(v, int):
@@ -313,15 +318,36 @@ def _infer_literal_type(v):
     raise NotImplementedError(f"literal {v!r} is not ported yet")
 
 
+def _held_value(v):
+    """What a literal holds of a Python value: a ``datetime.date`` as int32
+    days since 1970-01-01 (proleptic Gregorian, which Python's dates are),
+    a ``datetime.datetime`` as int64 microseconds since the epoch in UTC
+    (a naive one is taken as UTC, as the port's TIMESTAMP is); anything
+    else as given."""
+    import datetime
+    if isinstance(v, datetime.datetime):
+        if v.tzinfo is None:
+            v = v.replace(tzinfo=datetime.timezone.utc)
+        d = v - datetime.datetime(1970, 1, 1, tzinfo=datetime.timezone.utc)
+        return (d.days * 86400 + d.seconds) * 1_000_000 + d.microseconds
+    if isinstance(v, datetime.date):
+        return (v - datetime.date(1970, 1, 1)).days
+    return v
+
+
 class Literal(Expression):
     """A constant. A null takes the type it is given, else NullType (the
     untyped NULL, which any operator casts to the type it needs). A
     decimal literal given as a non-integer holds its value at the type's
-    scale; an int is taken as the unscaled value, as in the reference."""
+    scale; an int is taken as the unscaled value, as in the reference. A
+    ``datetime.date`` is a DATE literal and a ``datetime.datetime`` a
+    TIMESTAMP one, held as the port holds those types (``_held_value``);
+    Spark takes them so, where the reference hands the object to the device
+    and fails at run time."""
 
     def __init__(self, value, dtype: T.DataType | None = None):
-        self.value = value
         self._dtype = dtype if dtype is not None else _infer_literal_type(value)
+        self.value = _held_value(value)
 
     @property
     def dtype(self):

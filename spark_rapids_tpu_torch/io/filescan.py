@@ -241,23 +241,31 @@ class FileScanNode(PlanNode):
         n = len(self._schema.fields) - self._n_partition_cols
         return [f.name for f in self._schema.fields[:n]]
 
-    def split_filter(self):
+    def split_filter(self, rebase_mode: str | None = None):
         """``(arrow expression or None, residual or None)`` of the pushed
         filter: the AND of its top-level conjuncts that translate exactly
         and read data columns only, and the AND of the rest, bound to this
-        node's schema."""
+        node's schema. Under ``datetimeRebaseModeInRead=LEGACY`` a parquet
+        conjunct that reads a DATE column stays in the residual: arrow would
+        compare the file's hybrid-calendar days, and the residual runs after
+        the rebase (Spark rebases the pushed literal instead; the reference
+        pushes it and drops matching rows)."""
         if self.pushed_filter is None:
             return None, None
         from spark_rapids_tpu_torch.expr.core import (BoundReference,
                                                       bind_references)
         from spark_rapids_tpu_torch.expr.predicates import And
         data = set(self._data_columns())
+        legacy = (self.fmt == "parquet"
+                  and (rebase_mode or "").upper() == "LEGACY")
         arrow, rest = None, None
         for c in _conjuncts(bind_references(self.pushed_filter,
                                             self._schema)):
-            names = {r.name for r in c.collect(
-                lambda x: isinstance(x, BoundReference))}
-            a = R.spark_filter_to_arrow(c) if names <= data else None
+            refs = c.collect(lambda x: isinstance(x, BoundReference))
+            names = {r.name for r in refs}
+            pushable = names <= data and not (legacy and any(
+                isinstance(r.dtype, T.DateType) for r in refs))
+            a = R.spark_filter_to_arrow(c) if pushable else None
             if a is None:
                 rest = c if rest is None else And(rest, c)
             else:
@@ -470,11 +478,17 @@ class FileSourceScanExec(TorchExec):
         # reference
         paths = self.node.partitions[split].paths
         meta = scan_meta(paths[0]) if len(paths) == 1 else None
-        filt, residual = self.node.split_filter()
-        for tbl in self.node.tables_for(
-                split, batch_rows, strategy,
-                conf.get(CFG.MULTITHREADED_READ_NUM_THREADS),
-                rebase_mode=conf.get(CFG.PARQUET_REBASE_MODE), filt=filt):
+        filt, residual = self.node.split_filter(
+            conf.get(CFG.PARQUET_REBASE_MODE))
+        tables = self.node.tables_for(
+            split, batch_rows, strategy,
+            conf.get(CFG.MULTITHREADED_READ_NUM_THREADS),
+            rebase_mode=conf.get(CFG.PARQUET_REBASE_MODE), filt=filt)
+        from spark_rapids_tpu_torch.runtime import pipeline as P
+        # the decode edge buffers host arrow tables only, ahead of the
+        # device upload below (reference filescan.py:494)
+        tables = P.maybe_stage(tables, "scan.decode", conf, spillable=False)
+        for tbl in tables:
             self._count("arrow_batches")
             batch = table_to_device(tbl, self.device, schema=self.output)
             if residual is not None:
@@ -523,7 +537,11 @@ class FileSourceScanExec(TorchExec):
             dev_it = self._orc_device_decode_batches(split, batch_rows,
                                                      batch_bytes)
         if dev_it is not None:
-            return dev_it
+            # a device route's batches on their own pipelined stage
+            # (reference filescan.py:426): the host parse and the upload run
+            # on the stage's thread, and the queued batches wait spillable
+            from spark_rapids_tpu_torch.runtime import pipeline as P
+            return P.maybe_stage(dev_it, "scan.device", conf)
         return self._arrow_batches(split, batch_rows)
 
     def args_string(self):

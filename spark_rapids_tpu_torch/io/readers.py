@@ -45,8 +45,10 @@ def spark_filter_to_arrow(expr):
     from spark_rapids_tpu_torch.expr import nullexprs as N
     from spark_rapids_tpu_torch.expr import predicates as P
 
+    # a date literal holds its day number (expr/core._held_value); a
+    # ``datetime.date`` is taken too
     kinds = ((T.IntegralType, int), (T.StringType, str),
-             (T.DateType, datetime.date), (T.BooleanType, bool))
+             (T.DateType, (datetime.date, int)), (T.BooleanType, bool))
 
     def kind(e):
         for i, (cls, py) in enumerate(kinds):

@@ -252,12 +252,19 @@ def write_columnar(exec_, path: str, fmt: str = "parquet",
     total = WriteStats()
     lock = threading.Lock()
 
+    from spark_rapids_tpu_torch.runtime.memory import (current_query,
+                                                       query_context)
+    from spark_rapids_tpu_torch.runtime.semaphore import TaskContext
+    query = current_query()
+
     def run_split(split):
         writer = _TaskWriter(temp_dir, split, fmt, compression, partition_by,
                              schema, job_uuid, native=native)
         try:
-            for batch in exec_.execute_partition(split):
-                writer.write_batch(batch)
+            # one task of the device semaphore a partition
+            with query_context(query), TaskContext():
+                for batch in exec_.execute_partition(split):
+                    writer.write_batch(batch)
             writer.commit(path)
         except BaseException:
             writer.abort()

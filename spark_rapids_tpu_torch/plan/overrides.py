@@ -251,7 +251,7 @@ class TorchOverrides:
                     f"{entry.key}=false: the port has no host {fmt} scan")
         # a pushed filter's residual runs on the device: refuse it here if
         # an expression of it is not ported
-        residual = n.split_filter()[1]
+        residual = n.split_filter(self.conf.get(CFG.PARQUET_REBASE_MODE))[1]
         if residual is not None:
             check_expression(residual)
         return FileSourceScanExec(n, conf=self.conf, device=self.device)

@@ -428,6 +428,20 @@ class TorchSession:
             device = torch.device("cuda", torch.cuda.current_device())
         self.device = device
         self._views: dict = {}
+        # the memory runtime of the session's device: its budget, spill
+        # tiers and device semaphore (the reference's executor init,
+        # GpuDeviceManager.initializeGpuAndMemory)
+        from spark_rapids_tpu_torch import config as CFG
+        from spark_rapids_tpu_torch.runtime.memory import DeviceManager
+        from spark_rapids_tpu_torch.runtime.semaphore import DeviceSemaphore
+        DeviceManager.initialize(self.conf, device)
+        DeviceSemaphore.initialize(self.conf.get(CFG.CONCURRENT_TPU_TASKS))
+        # fault injection is process-wide: only an explicit setting arms,
+        # re-seeds or (set empty) disarms it
+        if CFG.TEST_FAULTS.key in self.conf.settings:
+            from spark_rapids_tpu_torch.runtime import faults
+            faults.configure(self.conf.get(CFG.TEST_FAULTS),
+                             self.conf.get(CFG.TEST_FAULTS_SEED))
 
     def create_or_replace_temp_view(self, name: str, df: DataFrame) -> None:
         """Register ``df`` under ``name`` for ``sql()`` (SparkSession's

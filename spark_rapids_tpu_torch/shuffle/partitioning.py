@@ -1,4 +1,4 @@
-"""Device-side partitioning: hash, round-robin and single — counterpart of
+"""Device-side partitioning: hash, range, round-robin and single — counterpart of
 ``spark_rapids_tpu/shuffle/partitioning.py``.
 
 Partition ids are computed on the device, rows are grouped by partition id
@@ -12,12 +12,13 @@ the one sync the reference also needs to cut its slices
 The hash partitioner is bit-exact with Spark's ``HashPartitioning``:
 ``pmod(murmur3(keys, 42), n)``. A string key hashes its UTF-8 bytes, never
 its dictionary code, so equal strings land in the same partition whatever
-dictionary their batch carries. Range partitioning is not ported yet and
-raises when it is planned.
+dictionary their batch carries. The range partitioner places rows by
+bounds sampled from its input (``RangePartitioner``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
@@ -185,10 +186,90 @@ class RoundRobinPartitioner(Partitioner):
 
 
 class RangePartitioner(Partitioner):
-    """Reference GpuRangePartitioner: not ported yet, so planning one
-    raises."""
+    """Reference GpuRangePartitioner + GpuRangePartitioning: sample rows,
+    sort the sample to choose ``n - 1`` bounds, then place each row by a
+    lexicographic comparison against the bounds on the device. The
+    reference computes both in jnp outside any Pallas kernel, so here they
+    are plain torch; the exchange takes the sample (the first batch of
+    every input partition, ``exec/exchange.py``). The partition step slices
+    by these ids as the hash partitioner's does, so the radix kernels run
+    under it."""
 
     def __init__(self, sort_exprs: list, orders: list, num_partitions: int):
-        raise NotImplementedError(
-            "range partitioning (the sampled-bounds exchange) is not ported "
-            "yet")
+        self.sort_exprs = list(sort_exprs)
+        self.orders = list(orders)
+        self.num_partitions = num_partitions
+        self._bounds: list | None = None
+
+    def bind(self, schema):
+        self.sort_exprs = [bind_references(e, schema)
+                           for e in self.sort_exprs]
+        return self
+
+    def set_bounds_from_sample(self, sample_batches: list):
+        """Compute the bounds from the sampled batches (reference
+        GpuRangePartitioner.createRangeBounds)."""
+        from spark_rapids_tpu_torch.ops.concat import concat_batches
+        from spark_rapids_tpu_torch.ops.sorting import sort_permutation
+        sample = concat_batches(sample_batches)
+        dev = sample.columns[0].data.device
+        ctx = EvalContext.from_batch(sample, dev)
+        keys = [e.eval(ctx) for e in self.sort_exprs]
+        perm = sort_permutation(keys, self.orders, sample.num_rows,
+                                sample.capacity)
+        n = sample.num_rows
+        live = torch.arange(sample.capacity, device=dev) < n
+        skeys = gather_cols(keys, perm, live[perm])
+        nb = self.num_partitions - 1
+        if n == 0 or nb == 0:
+            self._bounds = None
+            return
+        # n - 1 evenly spaced bound rows
+        pos = torch.as_tensor(np.minimum(
+            (np.arange(1, nb + 1) * n) // self.num_partitions,
+            max(n - 1, 0)).astype(np.int64), device=dev)
+        self._bounds = [Col(c.values[pos], c.validity[pos], c.dtype,
+                            c.dictionary) for c in skeys]
+
+    def part_ids(self, batch: ColumnarBatch) -> torch.Tensor:
+        dev = batch.columns[0].data.device
+        if self._bounds is None:
+            return torch.zeros((batch.capacity,), dtype=torch.int32,
+                               device=dev)
+        ctx = EvalContext.from_batch(batch, dev)
+        keys = [e.eval(ctx) for e in self.sort_exprs]
+        return range_part_ids(keys, self._bounds, self.orders,
+                              batch.capacity)
+
+    def partition(self, batch, split=0):
+        return slice_into_partitions(batch, self.part_ids(batch),
+                                     self.num_partitions)
+
+
+def range_part_ids(keys: list, bounds: list, orders, capacity: int):
+    """Partition id per row given ``n - 1`` sorted bound rows: the number
+    of bounds the row compares strictly greater than (lexicographic, with
+    Spark's null and NaN order through ``ops/sorting._key_arrays``)."""
+    from spark_rapids_tpu_torch.ops.sorting import _key_arrays
+    keys = list(keys)
+    bounds = list(bounds)
+    # string keys and bounds compare as codes of one dictionary
+    for i, (k, b) in enumerate(zip(keys, bounds)):
+        if k.is_string and k.dictionary is not b.dictionary:
+            from spark_rapids_tpu_torch.ops.strings import union_dictionaries
+            keys[i], bounds[i] = union_dictionaries(k, b)
+    dev = keys[0].values.device
+    nb = bounds[0].values.shape[0]
+    row_keys = [ka for k, o in zip(keys, orders) for ka in _key_arrays(k, o)]
+    bound_keys = [ka for b, o in zip(bounds, orders)
+                  for ka in _key_arrays(b, o)]
+    ids = torch.zeros((capacity,), dtype=torch.int32, device=dev)
+    for j in range(nb):
+        gt = torch.zeros((capacity,), dtype=torch.bool, device=dev)
+        tie = torch.ones((capacity,), dtype=torch.bool, device=dev)
+        for rk, bk in zip(row_keys, bound_keys):
+            bj = bk[j]
+            gt = gt | (tie & (rk > bj))
+            tie = tie & (rk == bj)
+        ids = ids + gt.to(torch.int32)
+    return ids

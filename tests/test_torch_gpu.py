@@ -2565,3 +2565,175 @@ def test_pushed_filter_residual_on_card_equals_cpu(cuda_device, tmp_path):
            .collect() for d in ("cpu", "cuda")]
     assert got[0].num_rows > 0
     assert repr(got[0].to_pylist()) == repr(got[1].to_pylist())
+
+
+# -- the memory runtime on the card -------------------------------------------
+
+def _kinds_on(device, seed=3, n=5000):
+    """A batch of every column kind the port has, on ``device``."""
+    import decimal
+
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+    r = np.random.default_rng(seed)
+    t = pa.table({
+        "i8": pa.array(r.integers(-100, 100, n), pa.int8()),
+        "i16": pa.array(r.integers(-3000, 3000, n), pa.int16()),
+        "f32": pa.array(r.normal(size=n).astype(np.float32)),
+        "f64": pa.array(r.normal(size=n), mask=r.random(n) < 0.1),
+        "dec": pa.array([decimal.Decimal(int(v)).scaleb(-2) for v in
+                         r.integers(-10**12, 10**12, n)],
+                        pa.decimal128(18, 2)),
+        "ts": pa.array(r.integers(0, 10**15, n),
+                       pa.timestamp("us", tz="UTC")),
+        "s": pa.array([None if i % 5 == 0 else f"w{i % 17}"
+                       for i in range(n)]),
+        "arr": pa.array([None if i % 11 == 0 else list(range(i % 4))
+                         for i in range(n)], pa.list_(pa.int64())),
+        "st": pa.array([{"x": i, "y": f"v{i % 3}"} if i % 6 else None
+                        for i in range(n)],
+                       pa.struct([("x", pa.int64()), ("y", pa.string())])),
+        "m": pa.array([[("k", i)] if i % 4 else None for i in range(n)],
+                      pa.map_(pa.string(), pa.int64())),
+    })
+    return t, ColumnarBatch.from_arrow(t, device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("direct", [False, True])
+def test_spill_round_trip_of_every_kind_on_card(cuda_device, tmp_path,
+                                                direct):
+    """Every column kind spilled from the card to the host and to disk and
+    back: every tensor bit for bit the registered one, on the card."""
+    from spark_rapids_tpu_torch.runtime import memory as M
+    t, b = _kinds_on(cuda_device)
+    cat = M.BufferCatalog(device_budget=1 << 40, host_budget=0,
+                          spill_dir=str(tmp_path), direct_spill=direct)
+    bid = cat.add_batch(b)
+    assert cat.synchronous_spill(0) == b.device_memory_size()
+    assert cat.get_tier(bid) == "DISK"
+    back = cat.acquire_batch(bid)
+
+    def tensors(v):
+        out = [v.data, v.validity]
+        for f in ("flat", "values"):
+            if getattr(v, f, None) is not None:
+                out += tensors(getattr(v, f))
+        for f in getattr(v, "fields", ()):
+            out += tensors(f)
+        return out
+
+    for c, d in zip(b.columns, back.columns):
+        for x, y in zip(tensors(c), tensors(d)):
+            assert y.device.type == "cuda"
+            assert torch.equal(x, y)
+    assert back.to_arrow().equals(t)
+    cat.remove(bid)
+
+
+@pytest.mark.gpu
+def test_encoded_spill_on_card_decodes_once(cuda_device, tmp_path):
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch.columnar import encoded as EN
+    from spark_rapids_tpu_torch.ops import cuda_kernels as CK
+    from spark_rapids_tpu_torch.runtime import memory as M
+    from spark_rapids_tpu_torch.session import TorchSession
+    r = np.random.default_rng(5)
+    path = str(tmp_path / "e.parquet")
+    pq.write_table(pa.table({"k": pa.array(r.integers(0, 40, 20_000)),
+                             "s": pa.array([f"n{i % 23}"
+                                            for i in range(20_000)])}),
+                   path, row_group_size=5000)
+    plan = TorchSession().read_parquet(path).physical_plan()
+    batches = list(plan.execute_partition(0))
+    cat = M.BufferCatalog(device_budget=1 << 40, host_budget=0,
+                          spill_dir=str(tmp_path / "sp"))
+    ids = [cat.add_batch(b) for b in batches]
+    cat.synchronous_spill(0)
+    want = [b.to_arrow() for b in batches]
+    CK.reset_launches()
+    back = [cat.acquire_batch(i) for i in ids]
+    n_enc = sum(isinstance(c, EN.EncodedColumnVector) and c._mat is None
+                for b in back for c in b.columns)
+    assert n_enc > 0 and CK.launches["bitunpack128"] == 0
+    assert all(b.to_arrow().equals(w) for b, w in zip(back, want))
+    assert CK.launches["bitunpack128"] == n_enc
+
+
+@pytest.mark.gpu
+def test_card_oom_inside_with_retry_is_a_split(cuda_device):
+    """An allocation the card cannot hold raises torch.cuda.OutOfMemoryError
+    inside the attempt; the ladder takes it as a DeviceOomError, splits the
+    batch and gives the clean result."""
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+    from spark_rapids_tpu_torch.runtime import retry as R
+    t = pa.table({"v": pa.array(np.arange(4096, dtype=np.int64))})
+    b = ColumnarBatch.from_arrow(t, cuda_device)
+    total = torch.cuda.mem_get_info(cuda_device)[1]
+    tried = []
+
+    def fn(x):
+        if not tried:
+            tried.append(x.num_rows)
+            torch.empty(2 * total, dtype=torch.uint8, device=cuda_device)
+        return ColumnarBatch([type(c)(c.dtype, c.data * 2, c.validity)
+                              for c in x.columns], x.num_rows, x.schema)
+
+    R.reset_counts()
+    pieces = list(R.with_retry([b], fn, split_floor_bytes=1))
+    assert tried == [4096] and [p.num_rows for p in pieces] == [2048, 2048]
+    got = pa.concat_tables([p.to_arrow() for p in pieces])
+    assert got.column("v").to_pylist() == [2 * i for i in range(4096)]
+    assert R.counts["oom_retries"] == 1 and R.counts["split_retries"] == 1
+
+
+@pytest.mark.gpu
+def test_device_budget_reads_mem_get_info(cuda_device):
+    from spark_rapids_tpu_torch.config import RapidsConf
+    from spark_rapids_tpu_torch.runtime import memory as M
+    from spark_rapids_tpu_torch.session import TorchSession
+    total = torch.cuda.mem_get_info(cuda_device)[1]
+    TorchSession()
+    assert M.DeviceManager.get().catalog.device_budget == int(total * 0.9)
+    TorchSession({"spark.rapids.tpu.memory.hbm.allocFraction": "0.5"})
+    assert M.DeviceManager.get().catalog.device_budget == int(total * 0.5)
+    assert M.device_budget_bytes(RapidsConf(
+        {"spark.rapids.tpu.memory.hbm.limitBytes": "1g"}), cuda_device) == (
+        1 << 30)
+    TorchSession()
+
+
+@pytest.mark.gpu
+def test_runtime_paths_on_card_equal_cpu(cuda_device, tmp_path):
+    """The serializing shuffle, a range exchange and a spilling exchange on
+    the card: the CPU run's rows, in order."""
+    import pyarrow as pa
+    import spark_rapids_tpu_torch.functions as F
+    from spark_rapids_tpu_torch.plan import nodes as NN
+    from spark_rapids_tpu_torch.session import DataFrame, TorchSession
+    r = np.random.default_rng(12)
+    n = 200_000
+    t = pa.table({"k": pa.array(r.integers(0, 500, n)),
+                  "x": pa.array(np.round(r.normal(size=n), 3)),
+                  "s": pa.array([f"g{i % 7}" for i in range(n)])})
+
+    def frames(spark):
+        df = spark.create_dataframe(t, num_partitions=4)
+        ranged = DataFrame(NN.ExchangeNode(df._plan, "range", 8,
+                                           keys=[F.col("x")]), spark)
+        return [df.repartition(6, "s").group_by("s").agg(
+                    F.sum(F.col("k")).alias("sk")).sort("s"),
+                ranged.sort_within_partitions("x", "k")]
+
+    confs = [{}, {"spark.rapids.tpu.shuffle.enabled": "false"},
+             {"spark.rapids.tpu.memory.hbm.limitBytes": "2m",
+              "spark.rapids.tpu.memory.host.spillStorageSize": "1m",
+              "spark.rapids.tpu.memory.spill.dirs": str(tmp_path)}]
+    for conf in confs:
+        cpu = [f.collect() for f in frames(TorchSession(conf, device="cpu"))]
+        card = [f.collect() for f in frames(TorchSession(conf))]
+        for a, b in zip(cpu, card):
+            assert repr(a.to_pylist()) == repr(b.to_pylist())
+    TorchSession()

@@ -489,3 +489,46 @@ def test_having_on_sql_text(chain_files):
             if c > 18}
     assert dict(zip(got.column("k").to_pylist(),
                     got.column("c").to_pylist())) == want
+
+
+# -- float grouping keys (ROADMAP Queue 3) -----------------------------------
+
+@pytest.mark.parametrize("dtype", [pa.float64(), pa.float32()])
+@pytest.mark.parametrize("first", [0.0, -0.0])
+def test_gap_float_group_keys_are_normalized(dtype, first):
+    """Spark's NormalizeFloatingNumbers: -0.0 and 0.0 group together and the
+    key comes out 0.0, and every NaN comes out as the canonical NaN,
+    whichever row comes first; in ``group_by`` and in ``distinct()``. The
+    reference outputs the first row's key."""
+    import struct
+    import spark_rapids_tpu.functions as JF_
+    from spark_rapids_tpu.session import TpuSession
+    import spark_rapids_tpu_torch.functions as F_
+    from spark_rapids_tpu_torch.session import TorchSession
+    other = 0.0 if first == -0.0 else -0.0
+    # two NaN payloads: the quiet one and one with its sign bit set
+    nan2 = struct.unpack("<d", struct.pack("<Q", 0xFFF8000000000001))[0]
+    vals = [first, other, other, first, float("nan"), nan2, 1.5]
+    t = pa.table({"x": pa.array(vals, dtype),
+                  "v": pa.array(range(len(vals)), pa.int64())})
+
+    def bits(xs):
+        fmt, code = ("<d", "<Q") if dtype == pa.float64() else ("<f", "<I")
+        return [struct.unpack(code, struct.pack(fmt, x))[0] for x in xs]
+
+    spark = TorchSession(device="cpu")
+    df = spark.create_dataframe(t, num_partitions=2)
+    grouped = df.group_by("x").agg(F_.sum(F_.col("v")).alias("s")).collect()
+    distinct = df.select("x").distinct().collect()
+    canon = sorted(bits([0.0, float("nan"), 1.5]))
+    assert sorted(bits(grouped.column("x").to_pylist())) == canon
+    assert sorted(bits(distinct.column("x").to_pylist())) == canon
+    # by key bits: 0.0 (rows 0-3), 1.5 (row 6), NaN (rows 4-5)
+    by_key = sorted(zip(bits(grouped.column("x").to_pylist()),
+                        grouped.column("s").to_pylist()))
+    assert [s for _, s in by_key] == [6, 6, 9]
+    ref = TpuSession().create_dataframe(t).group_by("x").agg(
+        JF_.sum(JF_.col("v")).alias("s")).collect()
+    zero = [x for x in ref.column("x").to_pylist() if x == 0.0]
+    # the reference keeps the sign of the first row's zero
+    assert struct.pack("<d", zero[0]) == struct.pack("<d", first)

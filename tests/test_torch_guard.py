@@ -37,7 +37,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "io.readers", "expr.conditional", "benchmarks.tpcds",
             "exec.window", "expr.windows", "ops.nested", "exec.generate",
             "expr.complexexprs", "columnar.rows", "ops.random",
-            "columnar.encoded")} <= set(
+            "columnar.encoded", "runtime", "runtime.arm", "runtime.checksum",
+            "runtime.faults", "runtime.retry", "runtime.memory",
+            "runtime.direct_spill", "runtime.semaphore", "runtime.pipeline",
+            "shuffle.serialization", "shuffle.manager", "shuffle.transport",
+            "shuffle.partitioning")} <= set(
                 names)
         for name in names:
             importlib.import_module(name)
@@ -174,20 +178,22 @@ def test_unported_plans_raise_at_planning(table_path):
     with pytest.raises(NotImplementedError):
         df.select(F.cast(F.col("x"), T.DATE)).physical_plan()
     # several partitions plan an exchange; its serializing fallback and
-    # range partitioning are not ported
+    # range partitioning plan since the memory-runtime slice, and the
+    # serializing shuffle refuses a nested column (it has no frame)
     no_shuffle = TorchSession({"spark.rapids.tpu.shuffle.enabled": "false"},
                               device="cpu")
     two = no_shuffle.read_parquet([table_path, table_path])
+    two.group_by(F.col("k")).agg(F.sum(F.col("x"))).physical_plan()
+    no_shuffle.read_parquet(table_path).repartition(2, "k").physical_plan()
+    nested = no_shuffle.create_dataframe(
+        pa.table({"k": [1, 2], "a": pa.array([[1], [2, 3]])}))
     with pytest.raises(NotImplementedError):
-        two.group_by(F.col("k")).agg(F.sum(F.col("x"))).physical_plan()
-    with pytest.raises(NotImplementedError):
-        no_shuffle.read_parquet(table_path).repartition(2, "k").physical_plan()
+        nested.repartition(2, "k").physical_plan()
     from spark_rapids_tpu_torch.plan import nodes as NN
     from spark_rapids_tpu_torch.session import DataFrame
     ranged = DataFrame(NN.ExchangeNode(df._plan, "range", 2,
                                        keys=[F.col("k")]), df.session)
-    with pytest.raises(NotImplementedError):
-        ranged.physical_plan()
+    ranged.physical_plan()
     # joins of two keyless aggregates over several partitions: their cross
     # join (TPC-DS q88's shape) plans
     many = TorchSession(device="cpu").read_parquet([table_path, table_path])

@@ -528,3 +528,40 @@ def test_gap_round_of_a_decimal_has_sparks_type():
             JF.round("m", 1).alias("v")).collect()
     assert M.Round(E.BoundReference(0, T.DecimalType(18, 0)),
                    0).dtype == T.DecimalType(18, 0)        # capped at 18
+
+
+# -- date and timestamp literals from Python objects (ROADMAP Queue 3) --------
+
+def test_gap_date_and_timestamp_literals_are_values():
+    """``F.lit(datetime.date(...))`` is a DATE literal and
+    ``F.lit(datetime.datetime(...))`` a TIMESTAMP one (naive taken as UTC),
+    in a projection and in a filter, as Spark takes them. The reference
+    plans them and then hands the object to the device, which raises."""
+    import datetime
+    d0 = datetime.date(1600, 1, 2)
+    ts = datetime.datetime(2001, 2, 3, 4, 5, 6, 789012)
+    aware = datetime.datetime(2001, 2, 3, 6, 5, 6, 789012,
+                              tzinfo=datetime.timezone(
+                                  datetime.timedelta(hours=2)))
+    t = pa.table({"dt": pa.array([datetime.date(1599, 12, 31), d0,
+                                  datetime.date(2020, 5, 5), None],
+                                 pa.date32())})
+    spark = TorchSession(device="cpu")
+    df = spark.create_dataframe(t)
+    out = df.select(F.lit(d0).alias("d"), F.lit(ts).alias("t"),
+                    F.lit(aware, T.TIMESTAMP).alias("a"),
+                    F.date_add(F.lit(d0, T.DATE), F.lit(1)).alias("n")
+                    ).collect()
+    utc = datetime.timezone.utc
+    assert out.column("d").to_pylist() == [d0] * 4
+    assert out.column("t").to_pylist() == [ts.replace(tzinfo=utc)] * 4
+    assert out.column("a").to_pylist() == [ts.replace(tzinfo=utc)] * 4
+    assert out.column("n").to_pylist() == [datetime.date(1600, 1, 3)] * 4
+    assert out.schema.field("d").type == pa.date32()
+    got = df.filter(F.col("dt") >= F.lit(d0)).collect()
+    assert got.column("dt").to_pylist() == [d0, datetime.date(2020, 5, 5)]
+    assert E.lit(d0).value == (d0 - datetime.date(1970, 1, 1)).days
+    assert E.lit(ts).dtype == T.TIMESTAMP
+    with pytest.raises(Exception):
+        TpuSession().create_dataframe(t).filter(
+            JF.col("dt") >= JF.lit(d0, JT.DATE)).collect()

@@ -339,3 +339,72 @@ def test_alluxio_bad_rule_raises(table):
     ref = TpuSession({ALLUXIO: "/x->/y; /x/z->/w"})
     for p in ("/x/z/f", "/q/f", ["/x/1", "/x/z/2"]):
         assert rewrite_scan_path(p, spark.conf) == jrewrite(p, ref.conf)
+
+
+# -- Queue 3: date literals in pushed filters, and LEGACY dates ---------------
+
+def test_residual_date_literal_runs_on_the_device(table):
+    """A pushed filter whose date conjunct does not translate (an OR with a
+    double comparison) runs as the residual on the device with a
+    ``datetime.date`` literal: the rows of the same filter above the scan.
+    The reference hands the date object to the device and raises."""
+    def pred(Fm, Tm):
+        return ((Fm.col("dt") < Fm.lit(D94, Tm.DATE))
+                | (Fm.col("x") > Fm.lit(0.5)))
+
+    spark = TorchSession(device="cpu")
+    got = _rows(spark.read_parquet(table["parquet"],
+                                   pushed_filter=pred(F, T)).collect())
+    plain = _rows(spark.read_parquet(table["parquet"])
+                  .filter(pred(F, T)).collect())
+    assert got and _same(got, plain)
+    days = (D94 - datetime.date(1970, 1, 1)).days
+    want = _rows(spark.read_parquet(table["parquet"]).filter(
+        (F.col("dt") < F.lit(days, T.DATE)) | (F.col("x") > F.lit(0.5)))
+        .collect())
+    assert _same(got, want)
+    with pytest.raises(Exception):
+        TpuSession().read_parquet(table["parquet"],
+                                  pushed_filter=pred(JF, JT)).collect()
+
+
+@pytest.fixture(scope="module")
+def legacy_file(tmp_path_factory):
+    """1500-03-01 as the file's raw (hybrid-calendar) day, which LEGACY
+    reads as 1500-02-20, and a later date."""
+    path = str(tmp_path_factory.mktemp("legacy") / "d.parquet")
+    pq.write_table(pa.table({
+        "dt": pa.array([datetime.date(1500, 3, 1), datetime.date(1600, 6, 1)],
+                       pa.date32()),
+        "v": pa.array([1, 2])}), path)
+    return path
+
+
+@pytest.mark.parametrize("mode", ["LEGACY", "CORRECTED"])
+def test_pushed_date_filter_under_rebase_modes(legacy_file, mode):
+    """Under LEGACY a pushed DATE conjunct stays in the residual, which runs
+    after the rebase, so the pushed filter keeps what the same filter above
+    the scan keeps (Spark rebases the pushed literal and keeps 1500-02-20 <
+    1500-02-25). The reference pushes it to arrow over the raw days and
+    drops the row. CORRECTED pushes it, as before."""
+    conf = {"spark.rapids.tpu.sql.parquet.datetimeRebaseModeInRead": mode}
+    cut = datetime.date(1500, 2, 25)
+    spark = TorchSession(conf, device="cpu")
+    df = spark.read_parquet(legacy_file,
+                            pushed_filter=F.col("dt") < F.lit(cut, T.DATE))
+    plan = df.physical_plan()
+    got = plan.execute_collect().to_pylist()
+    above = (spark.read_parquet(legacy_file)
+             .filter(F.col("dt") < F.lit(cut, T.DATE)).collect().to_pylist())
+    assert got == above
+    (scan,) = [p for p in _walk(plan) if isinstance(p, FileSourceScanExec)]
+    ref = TpuSession(conf).read_parquet(
+        legacy_file, pushed_filter=JF.col("dt") < JF.lit(cut, JT.DATE))
+    if mode == "LEGACY":
+        assert got == [{"dt": datetime.date(1500, 2, 20), "v": 1}]
+        assert scan.stats["residual_rows_in"] == 2
+        assert ref.collect().to_pylist() == []          # the reference gap
+    else:
+        assert got == []
+        assert scan.stats["residual_rows_in"] == 0
+        assert ref.collect().to_pylist() == got
